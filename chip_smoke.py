@@ -6,19 +6,28 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 1. builds the attention kernels from ``deepspeed_tpu_torch/ops/csrc`` with
    ``nvcc`` for sm_90a (one compiler process per source, started together);
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes OPT-1.3B's serving path gives it (bf16 at atol = rtol = 2e-2,
-   the output's bf16 rounding; fp32 at 1e-4, summation order), and times
-   kernel, plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick the port never calls) by their device time in
-   ``torch.profiler``'s kernel records, beside the card's bound;
-3. drives the port's main path — ``init_inference(opt_model("opt-1.3b"))``
+   shapes OPT-1.3B's serving and training paths give it (bf16 at atol =
+   rtol = 2e-2, the output's bf16 rounding, except the backward kernels,
+   see ``BWD_BF16_REL``; fp32 at 1e-4, summation order), and times
+   kernel, plain version and ``F.scaled_dot_product_attention`` (forward,
+   or its backward for K4 / K5: a yardstick the port never calls) by
+   their device time in ``torch.profiler``'s kernel records, beside the
+   card's bound;
+3. drives the port's serving path — ``init_inference(opt_model("opt-1.3b"))``
    with seeded random weights, then ``generate`` — once with one-pass
-   prefill and once with chunked prefill, counting each kernel's launches
-   in each run, and checks the outputs against the plain path on the card;
-   the one-pass run goes once more under ``torch.profiler``, and a
+   prefill (a) and once with chunked prefill (b), counting each kernel's
+   launches in each run, and checks the outputs against the plain path on
+   the card; run (a) goes once more under ``torch.profiler``, and a
    ``profile`` line gives its device busy time, idle share and device time
    by kernel group (trace in ``build/profiles/generate_trace.json``);
-4. prints the card, a ``kernels`` JSON line and, last, the result line.
+4. drives the port's training path (c) — ``initialize(opt_model(
+   "opt-1.3b", max_seq_len=2048))`` with bf16, AdamW and clipping, then
+   ``train_batch`` on one seeded [2, 2048] batch, 2 warm-up and 5 timed
+   steps — counting 24 K1, 24 K4 and 24 K5 launches per step, checking that
+   the loss is finite and falls, and profiling one more step; then holds
+   the kernel path's loss and gradients against the dense attention's on a
+   2-layer cut of the same widths (cosine per parameter);
+5. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 It exits non-zero, with no result line, when there is no CUDA device, when
 the package is missing, or when any phase fails.
@@ -35,6 +44,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # fp32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the LSE is an fp32 result on both sides (summation order apart), and
+# every gradient of K4 / K5 goes through exp(s - lse)
+LSE_TOL = TOL["float32"]
 DEV = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MODEL = "opt-1.3b"
@@ -48,6 +60,25 @@ K3_SHAPE = dict(L=24, B=16, C=128, S_max=512, H=32, D=64,
 # the two main-path runs: one-pass prefill (a) and chunked prefill (b)
 RUN_A = dict(batch=16, prompt=256, new=64)
 RUN_B = dict(batch=16, prompt=512, new=16, chunk=128)
+# the training path (c): OPT-1.3B at seq 2048, micro batch 2, and the
+# shapes its attention kernels (K1 with LSE, K4, K5) see in every layer
+RUN_C = dict(micro=2, seq=2048, loss_chunks=8, warmup=2, steps=5)
+KB_SHAPE = dict(B=2, S=2048, H=32, D=64)
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": RUN_C["micro"],
+                "gradient_accumulation_steps": 1,
+                "optimizer": {"type": "AdamW",
+                              "params": {"lr": 9.65e-6, "weight_decay": 0.0}},
+                "bf16": {"enabled": True},
+                "gradient_clipping": 1.0,
+                "zero_optimization": {"stage": 0},
+                "seed": 0}
+# K4 / K5 in bf16 against the fp32 plain backward of the same bf16 inputs:
+# both sum in fp32, then the kernel rounds each gradient to bf16, which is
+# off by at most half an ulp (2^-8 of the value, <= 2^-8 of the largest
+# |gradient|); the bar is twice that, for the fp32 summation order
+BWD_BF16_REL = 2.0 ** -7
+# gradient check, kernel path vs dense attention, on a 2-layer cut
+GRAD_CHECK = dict(layers=2, batch=2, seq=2048, loss_rel=1e-2, cosine=0.99)
 
 
 def fail(msg):
@@ -102,9 +133,9 @@ def max_err(got, want):
     return float((got.float() - want.float()).abs().max())
 
 
-def check_close(name, got, want, dtype):
+def check_close(name, got, want, dtype, tol=None):
     import torch
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     ok = bool(torch.isfinite(got).all()) and torch.allclose(
         got.float(), want.float(), atol=tol, rtol=tol)
     err = max_err(got, want)
@@ -112,6 +143,12 @@ def check_close(name, got, want, dtype):
         fail(f"{name} ({dtype}) disagrees with its plain version: "
              f"max_abs_err={err} (atol=rtol={tol})")
     return err
+
+
+def check_lse(name, got, want, dtype):
+    """K1's LSE is fp32 on both sides, from the same inputs, whatever the
+    inputs' dtype: it is held to the fp32 bar in every dtype."""
+    return check_close(name, got, want, dtype, tol=LSE_TOL)
 
 
 # --------------------------------------------------------------------- #
@@ -131,10 +168,10 @@ def check_flash(dtype, timed):
     want, want_lse = fa.flash_attention_plain(q, k, v, causal=True,
                                               scale=1 / math.sqrt(D))
     err = check_close("K1 flash_attention", out, want, dtype)
-    check_close("K1 flash_attention lse", lse, want_lse, dtype)
+    lse_err = check_lse("K1 flash_attention lse", lse, want_lse, dtype)
     rec = {"kernel": "K1 flash_attention", "dtype": dtype,
            "shape": [B, S, H, D], "causal": True, "max_abs_err": err,
-           "tol": TOL[dtype]}
+           "tol": TOL[dtype], "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL}
     if timed:
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         rec.update(time_all(
@@ -276,6 +313,111 @@ def check_chunk(dtype, timed):
     return rec
 
 
+def check_rel(name, got, want, rel):
+    """max |got - want| <= rel * max |want| (a bar scaled by the output's
+    magnitude); returns the max abs error."""
+    import torch
+    err = max_err(got, want)
+    top = float(want.float().abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= rel * top):
+        fail(f"{name} disagrees with its plain version: max_abs_err={err}, "
+             f"bar {rel} * max|want| = {rel * top}")
+    return err
+
+
+def check_flash_bwd(dtype, timed):
+    """K1 (with the LSE, as the training forward launches it), K4 and K5 at
+    the training path's shapes: causal, q/k/v/dO [2, 2048, 32, 64], the
+    power-of-two scale folded into q as the autograd wrapper folds it."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    B, S, H, D = (KB_SHAPE[x] for x in "BSHD")
+    g = torch.Generator(device=DEV).manual_seed(5)
+    dt = getattr(torch, dtype)
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=g, device=DEV,
+                                 dtype=dt) for _ in range(4))
+    q = q * torch.tensor(1 / math.sqrt(D), dtype=dt)
+    out, lse = fa.launch_attention_kernel(q, k, v, True, 1.0, None, True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout, True, 1.0)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=True, scale=1.0)
+    k1_err = check_close("K1 flash_attention (training shape)", out, want,
+                         dtype)
+    lse_err = check_lse("K1 flash_attention lse (training shape)", lse,
+                        want_lse, dtype)
+    # the plain backward in fp32 from the same (16-bit) inputs
+    ref = fa.flash_attention_bwd_plain(
+        *(t.float() for t in (q, k, v, out)), lse, dout.float(), True, 1.0)
+    errs = {}
+    for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        tag = f"K{4 if name == 'dq' else 5} {name} ({dtype})"
+        errs[name] = (check_close(tag, got, r, dtype) if dtype == "float32"
+                      else check_rel(tag, got, r, BWD_BF16_REL))
+    del ref, want
+    tol = TOL[dtype] if dtype == "float32" else f"{BWD_BF16_REL} * max|want|"
+    recs = {
+        "K1": {"kernel": "K1 flash_attention (training, with lse)",
+               "dtype": dtype, "max_abs_err": k1_err, "tol": TOL[dtype],
+               "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL},
+        "K4": {"kernel": "K4 flash_attention_dq", "dtype": dtype,
+               "max_abs_err": errs["dq"], "tol": tol},
+        "K5": {"kernel": "K5 flash_attention_dkv", "dtype": dtype,
+               "max_abs_err": max(errs["dk"], errs["dv"]),
+               "max_abs_err_dk": errs["dk"], "max_abs_err_dv": errs["dv"],
+               "tol": tol},
+    }
+    for rec in recs.values():
+        rec.update(shape=[B, S, H, D], causal=True)
+    if timed:
+        delta = fa._delta(out, dout)
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                            scale=1.0)
+        doh = dout.transpose(1, 2).contiguous()
+
+        def sdpa_backward():       # dq, dk and dv in one library call
+            torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
+
+        def plain_backward():      # the plain version of K4 and K5 together
+            fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, True, 1.0)
+
+        with torch.no_grad():
+            recs["K1"].update(time_all(
+                "k1_train", "flash_fwd_kernel",
+                lambda: fa.launch_attention_kernel(q, k, v, True, 1.0, None,
+                                                   True),
+                lambda: fa.flash_attention_plain(q, k, v, True, 1.0),
+                lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, scale=1.0), 20))
+        recs["K4"].update(time_all(
+            "k4", "flash_bwd_dq_kernel",
+            lambda: fa.flash_attention_dq(q, k, v, dout, lse, delta, True,
+                                          1.0),
+            plain_backward, sdpa_backward, 20))
+        recs["K5"].update(time_all(
+            "k5", "flash_bwd_dkv_kernel",
+            lambda: fa.flash_attention_dkv(q, k, v, dout, lse, delta, True,
+                                           1.0),
+            plain_backward, sdpa_backward, 20))
+        pairs = B * H * S * (S + 1) // 2        # causal (q, k) pairs
+        tensor = q.numel() * q.element_size()   # one [B, S, H, D] tensor
+        rows = B * H * S * 4                    # one fp32 [B, H, S] row set
+        # K1: q, k, v read, out and lse written; 2 products of 2D flops
+        recs["K1"]["bound_ms"], recs["K1"]["bound_by"] = bound(
+            4 * D * pairs, 4 * tensor + rows, dtype)
+        # K4: q, k, v, dO, lse, delta read, dq written; S, dP, dQ
+        recs["K4"]["bound_ms"], recs["K4"]["bound_by"] = bound(
+            6 * D * pairs, 5 * tensor + 2 * rows, dtype)
+        # K5: the same reads, dk and dv written; S, dP, dV, dK
+        recs["K5"]["bound_ms"], recs["K5"]["bound_by"] = bound(
+            8 * D * pairs, 6 * tensor + 2 * rows, dtype)
+    for rec in recs.values():
+        emit(rec)
+    return recs
+
+
 # --------------------------------------------------------------------- #
 # The main path: init_inference -> generate for OPT-1.3B
 # --------------------------------------------------------------------- #
@@ -284,7 +426,9 @@ def counters():
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     return {"flash_attention": fa.flash_attention,
             "decode_attention": da.decode_attention,
-            "chunk_prefill_attention": da.chunk_prefill_attention}
+            "chunk_prefill_attention": da.chunk_prefill_attention,
+            "flash_attention_dq": fa.flash_attention_dq,
+            "flash_attention_dkv": fa.flash_attention_dkv}
 
 
 def reset_counts():
@@ -387,7 +531,8 @@ def main_path():
     eng.generate(ids_a, max_new_tokens=4)     # warm-up (cuBLAS, allocator)
     _, dt, cnt, peak = run_generate(eng, ids_a, new, {
         "flash_attention": L, "decode_attention": L * (new - 1),
-        "chunk_prefill_attention": 0})
+        "chunk_prefill_attention": 0, "flash_attention_dq": 0,
+        "flash_attention_dkv": 0})
     runs["a"] = {"run": "a", "route": "one_pass", "batch": B, "prompt": P,
                  "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
@@ -407,7 +552,8 @@ def main_path():
     eng_b.generate(ids_b, max_new_tokens=2)   # warm-up
     _, dt, cnt, peak = run_generate(eng_b, ids_b, new, {
         "flash_attention": 0, "decode_attention": L * (new - 1),
-        "chunk_prefill_attention": L * (-(-P // C))})
+        "chunk_prefill_attention": L * (-(-P // C)),
+        "flash_attention_dq": 0, "flash_attention_dkv": 0})
     runs["b"] = {"run": "b", "route": "chunked", "chunk": C, "batch": B,
                  "prompt": P, "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
@@ -443,6 +589,126 @@ def main_path():
         compare_logits("(b) chunked prefill logits, K3 vs plain", got, want)
         del cache
     return runs
+
+
+# --------------------------------------------------------------------- #
+# The training path: initialize -> train_batch for OPT-1.3B
+# --------------------------------------------------------------------- #
+def train_path():
+    """Run (c): warm-up steps, timed steps with launch counts, one profiled
+    step.  Returns the run's record."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.opt import opt_model
+    from deepspeed_tpu_torch.profiling.trace import breakdown, kernel_events
+    micro, S, steps = RUN_C["micro"], RUN_C["seq"], RUN_C["steps"]
+    t0 = time.perf_counter()
+    engine, *_ = initialize(
+        model=opt_model(MODEL, max_seq_len=S, loss_seq_chunks=RUN_C[
+            "loss_chunks"], remat=False, dtype="bfloat16"),
+        config=TRAIN_CONFIG, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    L, V = engine.module.config.num_layers, engine.module.config.vocab_size
+    n_params = sum(p.numel() for p in engine.params)
+    g = torch.Generator(device=DEV).manual_seed(6)
+    batch = {"input_ids": torch.randint(0, V, (1, micro, S), generator=g,
+                                        device=DEV)}
+    losses = [engine.train_batch(batch=batch)
+              for _ in range(RUN_C["warmup"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(engine.train_batch(batch=batch))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    peak = engine.max_memory_allocated()
+    losses = torch.stack(losses).float().tolist()
+    per_step = {name: n / steps for name, n in counts.items()}
+    want = {"flash_attention": L, "flash_attention_dq": L,
+            "flash_attention_dkv": L, "decode_attention": 0,
+            "chunk_prefill_attention": 0}
+    if per_step != want:
+        fail(f"run (c): launches per step {per_step}, the path needs {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"run (c): non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"run (c): the loss did not fall on a repeated batch: {losses}")
+    tok_s = steps * micro * S / dt
+    rec = {"run": "c", "route": "train_batch", "micro_batch": micro,
+           "seq": S, "layers": L, "params": n_params, "steps": steps,
+           "step_ms": dt / steps * 1e3, "tokens_per_s": tok_s,
+           "mfu": 6 * n_params * tok_s / PEAK_FLOPS["bfloat16"],
+           "peak_device_bytes": peak, "losses": losses,
+           "launches": counts, "launches_per_step": per_step,
+           "init_seconds": init_s}
+    emit(rec)
+
+    wall = {}
+
+    def one_step():
+        t = time.perf_counter()
+        engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        wall["s"] = time.perf_counter() - t
+
+    trace = os.path.join(ROOT, "build", "profiles", "train_trace.json")
+    emit({"profile": "c", **breakdown(kernel_events(one_step, trace),
+                                      wall["s"]),
+          "trace": os.path.relpath(trace, ROOT)})
+    del engine, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def grad_check():
+    """Loss and every parameter's gradient through K1 / K4 / K5 against
+    the dense reference attention, on OPT-1.3B's widths cut to 2 layers,
+    bf16, the same weights and batch."""
+    import torch
+    from deepspeed_tpu_torch.models.opt import opt_model
+    n, B, S = (GRAD_CHECK[x] for x in ("layers", "batch", "seq"))
+    kw = dict(device=DEV, num_layers=n, max_seq_len=S, remat=False,
+              loss_seq_chunks=RUN_C["loss_chunks"], dtype="bfloat16")
+    flash = opt_model(MODEL, use_flash_attention=True, **kw)
+    flash.init_weights(torch.Generator(device=DEV).manual_seed(7))
+    dense = opt_model(MODEL, use_flash_attention=False, **kw)
+    dense.load_state_dict(flash.state_dict())
+    g = torch.Generator(device=DEV).manual_seed(8)
+    ids = torch.randint(0, flash.config.vocab_size, (B, S), generator=g,
+                        device=DEV)
+    losses = []
+    for m in (flash, dense):
+        loss = m({"input_ids": ids})
+        loss.backward()
+        losses.append(float(loss.detach()))
+    # a key bias shifts every score of a row alike, which the softmax
+    # ignores: its true gradient is 0 and both paths give roundoff
+    cos = {name: float(torch.nn.functional.cosine_similarity(
+        p.grad.flatten().float(), q.grad.flatten().float(), dim=0))
+        for (name, p), (_, q) in zip(flash.named_parameters(),
+                                     dense.named_parameters())
+        if not name.endswith("attn.k_proj.bias")}
+    worst = min(cos, key=cos.get)
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    rec = {"check": "grad: K1/K4/K5 vs dense attention", "layers": n,
+           "batch": B, "seq": S, "loss_flash": losses[0],
+           "loss_dense": losses[1], "loss_rel_diff": rel,
+           "min_grad_cosine": cos[worst], "min_grad_cosine_param": worst,
+           "params": len(cos)}
+    emit(rec)
+    if not rel <= GRAD_CHECK["loss_rel"]:
+        fail(f"grad check: losses differ by {rel} relative "
+             f"(bar {GRAD_CHECK['loss_rel']})")
+    if not cos[worst] >= GRAD_CHECK["cosine"]:
+        fail(f"grad check: gradient cosine {cos[worst]} for {worst} "
+             f"(bar {GRAD_CHECK['cosine']})")
+    del flash, dense
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main():
@@ -483,20 +749,30 @@ def main():
         torch.cuda.empty_cache()
         checks[("K3", dtype)] = check_chunk(dtype, timed)
         torch.cuda.empty_cache()
+        bwd = check_flash_bwd(dtype, timed)
+        for key in ("K4", "K5"):
+            checks[(key, dtype)] = bwd[key]
+        checks[("K1 train", dtype)] = bwd["K1"]
+        torch.cuda.empty_cache()
 
     runs = main_path()
+    runs["c"] = train_path()
+    grad_check()
+
+    def timing(c):
+        return {"max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
+                "call_ms": c["call_ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": c["library_ms"]}
 
     def row(key, name, source, replaces, launches):
-        c = checks[(key, "bfloat16")]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
-                "call_ms": c["call_ms"],
-                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+                **timing(checks[(key, "bfloat16")])}
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/transformer/"
+    train = runs["c"]["launches"]
     kernels = [
         row("K1", "flash_attention", csrc + "flash_attention.cu",
             pallas + "flash_attention.py:175",
@@ -507,8 +783,17 @@ def main():
         row("K3", "chunk_prefill_attention", csrc + "flash_attention.cu",
             pallas + "decode_attention.py:448",
             runs["b"]["launches"]["chunk_prefill_attention"]),
+        row("K4", "flash_attention_dq", csrc + "flash_attention_bwd.cu",
+            pallas + "flash_attention.py:388", train["flash_attention_dq"]),
+        row("K5", "flash_attention_dkv", csrc + "flash_attention_bwd.cu",
+            pallas + "flash_attention.py:421", train["flash_attention_dkv"]),
     ]
     kernels[1]["launches_run_b"] = runs["b"]["launches"]["decode_attention"]
+    # K1 also runs in every layer of run (c), with the LSE, at [2, 2048]
+    kernels[0]["launches_run_c"] = train["flash_attention"]
+    kernels[0]["run_c_shape"] = timing(checks[("K1 train", "bfloat16")])
+    for k in kernels[3:]:
+        k["launches_per_step"] = runs["c"]["launches_per_step"][k["name"]]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

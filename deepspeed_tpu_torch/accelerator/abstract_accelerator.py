@@ -1,9 +1,9 @@
 """Accelerator abstraction (port of ``deepspeed_tpu/accelerator/
 abstract_accelerator.py``).
 
-Only the surface the inference slice uses is ported: identity (name,
-count, availability), synchronisation, the RNG seed and the device-memory
-snapshot.  Every method takes its device explicitly: the port never
+Only the surface the inference and training slices use is ported:
+identity (name, count, availability), synchronisation, the RNG seed, the
+device-memory snapshot and the peak allocation.  Every method takes its device explicitly: the port never
 consults a process-wide "current" accelerator.
 """
 
@@ -46,4 +46,10 @@ class Accelerator(abc.ABC):
         """``{"device", "bytes_in_use", "peak_bytes_in_use", "bytes_limit"}``
         for ``device`` — the one device-memory read of the port (the JAX
         package's ``memory_snapshot``)."""
+        ...
+
+    @abc.abstractmethod
+    def max_memory_allocated(self, device):
+        """Peak bytes allocated on ``device`` by this process (0 where the
+        device reports none)."""
         ...

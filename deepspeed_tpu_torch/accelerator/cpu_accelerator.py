@@ -29,3 +29,6 @@ class CPU_Accelerator(Accelerator):
     def memory_snapshot(self, device):
         return {"device": str(device), "bytes_in_use": 0,
                 "peak_bytes_in_use": 0, "bytes_limit": 0, "bytes_free": 0}
+
+    def max_memory_allocated(self, device):
+        return 0

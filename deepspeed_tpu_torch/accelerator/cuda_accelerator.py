@@ -30,3 +30,6 @@ class CUDA_Accelerator(Accelerator):
                 "peak_bytes_in_use": torch.cuda.max_memory_allocated(device),
                 "bytes_limit": total,
                 "bytes_free": free}
+
+    def max_memory_allocated(self, device):
+        return torch.cuda.max_memory_allocated(device)

@@ -14,9 +14,16 @@ inference engine places it on its device and initialises or loads its
 parameters.  Weights from the JAX package convert with
 :func:`params_from_flax`.
 
+``forward(batch)`` returns the causal-LM loss, as the JAX
+``Transformer.__call__`` does; :meth:`Transformer.logits` gives logits.
+With ``remat=True`` each block runs under ``torch.utils.checkpoint``
+(the JAX ``nothing_saveable`` policy), and ``loss_seq_chunks`` computes
+the head and the loss one sequence chunk at a time.
+
 Config features that OPT-1.3B does not use raise ``NotImplementedError``
 when a model is built (rope, alibi, GQA, post-LN, gated MLP,
-``embed_proj_dim``, windows, MoE, int8 KV, ...); ROADMAP.md lists them.
+``embed_proj_dim``, windows, MoE, int8 KV, remat policies other than
+``nothing_saveable``, ...); ROADMAP.md lists them.
 """
 
 import math
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -153,6 +161,8 @@ _NOT_PORTED = (
     (lambda c: c.sparse_attention is not None, "sparse_attention"),
     (lambda c: c.sequence_parallel_impl is not None,
      "sequence_parallel_impl"),
+    (lambda c: c.remat and c.remat_policy != "nothing_saveable",
+     "remat_policy other than 'nothing_saveable'"),
 )
 
 _ACTIVATIONS = {"relu": F.relu,
@@ -323,8 +333,8 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Decoder-only LM.  ``forward(input_ids, mask=None)`` returns logits
-    (the training loss belongs to the training slice)."""
+    """Decoder-only LM.  ``forward(batch)`` returns the causal-LM loss
+    (the JAX ``__call__``); ``logits(input_ids, mask=None)`` the logits."""
 
     def __init__(self, config, device="meta"):
         super().__init__()
@@ -383,20 +393,57 @@ class Transformer(nn.Module):
         x = F.embedding(input_ids, self.embed_tokens.weight).to(cfg.torch_dtype)
         x = x + F.embedding(positions, self.embed_positions.weight).to(
             cfg.torch_dtype)
+        # remat (JAX nn.remat with nothing_saveable): each block keeps only
+        # its input and recomputes itself in the backward
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(self.layers):
-            x = blk(x, positions, mask, cache, i, start, prefill)
+            if remat:
+                x = checkpoint(blk, x, positions, mask, use_reentrant=False)
+            else:
+                x = blk(x, positions, mask, cache, i, start, prefill)
         return _layer_norm(x, self.final_norm, cfg.layernorm_epsilon)
 
-    def _head(self, x):
+    def _head_fn(self):
+        """The LM head as a closure over weights cast once to the model
+        dtype (the JAX ``_head_pure``), so a chunked loss does not cast the
+        [V, h] table per chunk."""
         dt = self.config.torch_dtype
         if self.lm_head is None:
-            return x @ self.embed_tokens.weight.to(dt).T
-        return _linear(x, self.lm_head, dt)
+            w = self.embed_tokens.weight.to(dt)
+            return lambda x: x @ w.T
+        w = self.lm_head.weight.to(dt)
+        b = None if self.lm_head.bias is None else self.lm_head.bias.to(dt)
+        return lambda x: F.linear(x.to(dt), w, b)
+
+    def _head(self, x):
+        return self._head_fn()(x)
 
     def logits(self, input_ids, mask=None):
         return self._head(self.hidden_states(input_ids, mask))
 
-    forward = logits
+    def forward(self, batch):
+        """Causal-LM loss of ``batch``: a dict with ``input_ids`` and
+        optional ``labels`` / ``attention_mask``, or a bare id tensor.
+        Labels default to :func:`derive_causal_labels`."""
+        if isinstance(batch, dict):
+            input_ids = batch["input_ids"]
+            labels = batch.get("labels")
+            mask = batch.get("attention_mask")
+        else:
+            input_ids, labels, mask = batch, None, None
+        if labels is None:
+            labels = derive_causal_labels(input_ids, mask)
+        C = self.config.loss_seq_chunks
+        if C > 1 and input_ids.shape[1] % C != 0:
+            logger.warning(
+                f"loss_seq_chunks={C} does not divide seq_len="
+                f"{input_ids.shape[1]} — falling back to full-logits loss "
+                f"(materializes the [B,S,V] tensor)")
+            C = 0
+        h = self.hidden_states(input_ids, mask)
+        if C > 1:
+            return chunked_cross_entropy_loss(h, labels, self._head_fn(), C)
+        return cross_entropy_loss(self._head(h), labels)
 
     def decode(self, input_ids, cache, start_pos, logits_at=None,
                prefill=False):
@@ -419,6 +466,60 @@ class Transformer(nn.Module):
                  cfg.kv_heads * cfg.head_dim)
         kw = dict(dtype=dtype or cfg.torch_dtype, device=device or self.device)
         return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+
+def derive_causal_labels(input_ids, attention_mask=None, ignore_index=-100):
+    """Next-token labels from inputs; padded positions (mask == 0) are
+    excluded so pad ids are never trained as targets."""
+    labels = F.pad(input_ids[..., 1:], (0, 1), value=ignore_index)
+    if attention_mask is not None:
+        next_mask = F.pad(attention_mask[..., 1:], (0, 1), value=0)
+        labels = torch.where(next_mask.bool(), labels,
+                             torch.full_like(labels, ignore_index))
+    return labels
+
+
+def _nll_sum(logits, labels, ignore_index):
+    """(sum of token NLLs, number of counted tokens, per-token logZ) in
+    fp32."""
+    logits = logits.float()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((logz - gold) * valid).sum(), valid.sum(), logz * valid
+
+
+def cross_entropy_loss(logits, labels, ignore_index=-100, z_loss=0.0):
+    """Causal-LM loss with ignore-index masking, computed in fp32."""
+    total, count, logz = _nll_sum(logits, labels, ignore_index)
+    loss = total / count.clamp(min=1)
+    if z_loss > 0.0:
+        loss = loss + z_loss * (logz ** 2).mean()
+    return loss
+
+
+def chunked_cross_entropy_loss(h, labels, head_fn, n_chunks,
+                               ignore_index=-100):
+    """Sequence-chunked causal-LM loss: the head matmul and the loss run
+    per chunk under ``torch.utils.checkpoint``, so only one chunk's
+    [B, S/C, V] logits is live (forward or backward); the backward
+    recomputes each chunk's logits.  Equals :func:`cross_entropy_loss`
+    (sum of NLLs over the count)."""
+    S = h.shape[1]
+    if S % n_chunks:
+        raise ValueError(f"seq_len {S} not divisible by n_chunks {n_chunks}")
+    csz = S // n_chunks
+
+    def one(hb, lb):
+        total, count, _ = _nll_sum(head_fn(hb), lb, ignore_index)
+        return total, count
+
+    sums, counts = zip(*(checkpoint(one, h[:, i * csz:(i + 1) * csz],
+                                    labels[:, i * csz:(i + 1) * csz],
+                                    use_reentrant=False)
+                         for i in range(n_chunks)))
+    return torch.stack(sums).sum() / torch.stack(counts).sum().clamp(min=1)
 
 
 # --------------------------------------------------------------------- #

@@ -119,13 +119,26 @@ FLASH = KernelLibrary("flash_attention", "flash_attention.cu", {
         [P, P, P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + [I, F, P],
 })
 
+FLASH_BWD = KernelLibrary("flash_attention_bwd", "flash_attention_bwd.cu", {
+    # q, k, v, dout, lse, delta, dq, dtype, B, Sq, H, KVH, D, Sk,
+    # 15 strides (b, s, h for q, k, v, dout, dq), causal, scale, stream
+    "dstt_flash_attention_bwd_dq":
+        [P, P, P, P, P, P, P, I, I, I, I, I, I, I] + [L] * 15 + [I, F, P],
+    # q, k, v, dout, lse, delta, dk, dv, dtype, B, Sq, H, KVH, D, Sk,
+    # 15 strides (b, s, h for q, k, v, dout, and dk = dv), causal, scale,
+    # stream
+    "dstt_flash_attention_bwd_dkv":
+        [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I] + [L] * 15
+        + [I, F, P],
+})
+
 DECODE = KernelLibrary("decode_attention", "decode_attention.cu", {
     # q, k_cache, v_cache, lengths, new_k, new_v, out,
     # dtype, B, H, KVH, D, S_max, scale, stream
     "dstt_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
 })
 
-LIBRARIES = (FLASH, DECODE)
+LIBRARIES = (FLASH, FLASH_BWD, DECODE)
 
 
 def build_all():

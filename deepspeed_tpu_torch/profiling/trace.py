@@ -8,20 +8,27 @@ written as Chrome JSON (``path``) and its kernel events are returned;
 """
 
 import json
+import sys
 from pathlib import Path
 
 import torch
 
 # kernel-name patterns -> group (first match wins)
 GROUPS = (("K1 flash_fwd_kernel", ("flash_fwd_kernel",)),
+          ("K4 flash_bwd_dq_kernel", ("flash_bwd_dq_kernel",)),
+          ("K5 flash_bwd_dkv_kernel", ("flash_bwd_dkv_kernel",)),
           ("K2 decode_kernel", ("decode_kernel",)),
           ("GEMM (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                              "splitKreduce")),
           ("layer norm", ("layer_norm", "LayerNorm")),
+          ("optimizer / grad norm (foreach)", ("multi_tensor_apply",)),
+          ("embedding", ("embedding", "indexing_backward")),
           ("softmax / sampling", ("softmax", "argmax", "reduce")),
           ("copy / cast / index", ("copy", "Copy", "index", "cat", "fill",
                                    "Fill")),
           ("elementwise", ("elementwise", "vectorized")))
+# profiler windows tried before an empty trace is an error
+PROFILE_ATTEMPTS = 3
 
 
 def _group(name):
@@ -68,23 +75,32 @@ def breakdown(kernels, wall_s, top=12):
 def kernel_events(fn, path):
     """Run ``fn()`` under ``torch.profiler`` (CUDA activity), write the
     Chrome trace to ``path`` and return its kernel events as dicts with
-    ``name``, ``ts`` and ``dur`` (microseconds).  Raises if the profiler
-    recorded no kernel."""
+    ``name``, ``ts`` and ``dur`` (microseconds).  A trace with no kernel
+    at all is a profiler miss (seen once on an H100, in a window of 50
+    short launches that an identical run had traced): each miss is
+    printed to stderr and ``fn`` runs again under a fresh profiler, so
+    ``fn`` must be safe to repeat; after ``PROFILE_ATTEMPTS`` empty
+    traces this raises."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())
-    events = events.get("traceEvents", events) \
-        if isinstance(events, dict) else events
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device kernels")
-    return kernels
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())
+        events = events.get("traceEvents", events) \
+            if isinstance(events, dict) else events
+        kernels = [e for e in events
+                   if e.get("cat") == "kernel" and "dur" in e]
+        if kernels:
+            return kernels
+        print(f"profiler recorded no device kernels (attempt "
+              f"{attempt + 1} of {PROFILE_ATTEMPTS})", file=sys.stderr,
+              flush=True)
+    raise RuntimeError("the profiler recorded no device kernels")
 
 
 def device_ms_per_call(fn, iters, path, name=None):

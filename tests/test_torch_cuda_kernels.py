@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions on the card, at small
 shapes with ragged edges (K1: ragged S, GQA, D = 128, both causal modes;
-K2: GQA, zero-length rows, fused and unfused; K3: ragged chunks), plus the
-port's model on the card against the same model on the CPU.
+K2: GQA, zero-length rows, fused and unfused; K3: ragged chunks; K4 / K5:
+ragged S, GQA, D = 128, both causal modes, a strided dO), the autograd
+flash attention on the card against the CPU's gradients, plus the port's
+model on the card against the same model on the CPU.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run on the card's machine without the repo's conftest:
@@ -100,10 +102,59 @@ def test_chunk_kernel_matches_plain(cuda, dtype, D):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("kvh", [4, 2])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_kernels_match_plain(cuda, dtype, D, kvh, causal):
+    """K4 (dq) and K5 (dk / dv) against the plain backward on the same
+    residuals; the in-kernel scale is D^-0.5 (the dS scale path), and a
+    strided dO (a slice of a wider tensor) is read through its strides."""
+    g = torch.Generator(device=cuda).manual_seed(3 * D + kvh)
+    B, S, H = 2, 100, 4
+    q = _randn(g, B, S, H, D, dtype=dtype, device=cuda)
+    k = _randn(g, B, S, kvh, D, dtype=dtype, device=cuda)
+    v = _randn(g, B, S, kvh, D, dtype=dtype, device=cuda)
+    dout = _randn(g, B, S, 2 * H, D, dtype=dtype, device=cuda)[:, :, ::2]
+    scale = D ** -0.5
+    out, lse = fa.launch_attention_kernel(q, k, v, causal, scale, None, True)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal, scale)
+    assert (fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
+                                        scale)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("kvh", [4, 2])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_on_card_matches_cpu(cuda, D, kvh, causal):
+    """The autograd Function (K1 with LSE, then K4 / K5) on the card gives
+    the CPU's gradients (plain forward and backward), fp32: D = 64 folds
+    its scale into q, D = 128 keeps it in the kernels."""
+    gen = torch.Generator().manual_seed(D + kvh)
+    B, S, H = 2, 77, 4
+    cpu = [torch.randn(B, S, n, D, generator=gen) for n in (H, kvh, kvh, H)]
+    grads = []
+    for dev in ("cpu", cuda):
+        q, k, v = (t.to(dev).requires_grad_(True) for t in cpu[:3])
+        out = fa.flash_attention(q, k, v, causal=causal)
+        grads.append(torch.autograd.grad(out, (q, k, v), cpu[3].to(dev)))
+    for a, b in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
 def test_unsupported_head_dim_raises(cuda):
     x = torch.zeros(1, 8, 4, 16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(x, x, x)
+    lse = torch.zeros(1, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bwd(x, x, x, x, lse, x, True, 0.25)
 
 
 def test_model_on_card_matches_cpu(cuda):
@@ -143,3 +194,45 @@ def test_model_on_card_matches_cpu(cuda):
             want, _ = cpu.decode(ids[:, t:t + 1], caches[0], t)
             got, _ = gpu.decode(ids[:, t:t + 1].cuda(), caches[1], t)
             torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("over", [{}, dict(remat=True, loss_seq_chunks=4)],
+                         ids=["plain", "remat-chunked"])
+def test_model_training_on_card_matches_cpu(cuda, over):
+    """The loss and every gradient of the port's model, through K1 / K4 /
+    K5 on the card, against the same model on the CPU (plain attention
+    forward and backward), fp32, same weights and a ragged S = 40.
+    Gradients at rtol 1e-4 / atol 1e-6 (the largest gradients are ~1e-1):
+    the GEMMs sum in another order in cuBLAS than in the CPU BLAS.  The key biases are left out: their true
+    gradient is 0 (a key bias shifts a row's scores alike), so both sides
+    give roundoff."""
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        TransformerConfig)
+    cfg = TransformerConfig(vocab_size=97, hidden_size=256, num_layers=2,
+                            num_heads=4, max_seq_len=64, dtype="float32",
+                            tie_word_embeddings=True,
+                            **{"remat": False, **over})
+    cpu = Transformer(cfg, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    gpu = Transformer(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, 97, (2, 40), generator=torch.Generator()
+                        .manual_seed(1))
+    counters = (fa.flash_attention, fa.flash_attention_dq,
+                fa.flash_attention_dkv)
+    losses = []
+    for m, dev in ((cpu, "cpu"), (gpu, cuda)):
+        before = [c.launches for c in counters]
+        loss = m({"input_ids": ids.to(dev)})
+        loss.backward()
+        losses.append(loss.detach().cpu())
+    # remat runs each block's forward again in the backward
+    k1 = 4 if cfg.remat else 2
+    assert [c.launches - b for c, b in zip(counters, before)] == [k1, 2, 2]
+    torch.testing.assert_close(losses[1], losses[0], atol=1e-5, rtol=1e-5)
+    for (name, p), (_, g) in zip(cpu.named_parameters(),
+                                 gpu.named_parameters()):
+        if name.endswith("attn.k_proj.bias"):
+            continue
+        torch.testing.assert_close(g.grad.cpu(), p.grad, atol=1e-6,
+                                   rtol=1e-4, msg=name)

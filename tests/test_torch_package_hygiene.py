@@ -43,7 +43,9 @@ def test_import_leaves_jax_unloaded():
     # port's doing: compare against what was loaded before the import
     code = ("import sys; before = set(sys.modules); "
             "import deepspeed_tpu_torch, deepspeed_tpu_torch.inference.engine, "
-            "deepspeed_tpu_torch.ops.transformer.registry; "
+            "deepspeed_tpu_torch.ops.transformer.registry, "
+            "deepspeed_tpu_torch.runtime.engine, "
+            "deepspeed_tpu_torch.runtime.dataloader; "
             "bad = [m for m in ('jax', 'flax', 'pydantic', 'deepspeed_tpu') "
             "if m in sys.modules and m not in before]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -74,6 +76,19 @@ def test_default_device_is_cuda_and_never_silently_cpu(monkeypatch):
         init_inference(_tiny_model(), dtype="float32")
     eng = init_inference(_tiny_model(), dtype="float32", device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_training_default_device_is_cuda(monkeypatch):
+    from deepspeed_tpu_torch import initialize
+    monkeypatch.setenv("DSTPU_ACCELERATOR", "cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    config = {"train_micro_batch_size_per_gpu": 1}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize(model=_tiny_model(), config=config)
+    engine, *_ = initialize(model=_tiny_model(), config=config, device="cpu")
+    assert engine.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in engine.module.parameters())
 
 
 def test_unported_config_knobs_raise():

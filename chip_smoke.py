@@ -20,14 +20,31 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    the card; run (a) goes once more under ``torch.profiler``, and a
    ``profile`` line gives its device busy time, idle share and device time
    by kernel group (trace in ``build/profiles/generate_trace.json``);
-4. drives the port's training path (c) — ``initialize(opt_model(
+4. drives the port's continuous-batching server on the same weights:
+   run (d), ``engine.serve(paged=True)`` — 96 slots over a page pool at
+   0.75 of the worst case — answers 192 mixed requests through K7
+   (admission prefill) and K6 (decode), with exact launch counts, then the
+   same requests on monolithic slot lanes (K3 / K2) must give every
+   request the same tokens, and the pair runs again monolithic first, so
+   an order effect shows apart from paging's own cost in the wall times;
+   a decode window with all 96 slots live goes
+   once more under ``torch.profiler`` (a ``profile`` line, trace in
+   ``build/profiles/serving_trace.json``); run (e) serves 24 requests
+   behind one 512-token system prompt and must reuse its pages 23 times
+   with outputs equal to the same requests without prefix sharing;
+5. drives the port's training path (c) — ``initialize(opt_model(
    "opt-1.3b", max_seq_len=2048))`` with bf16, AdamW and clipping, then
    ``train_batch`` on one seeded [2, 2048] batch, 2 warm-up and 5 timed
    steps — counting 24 K1, 24 K4 and 24 K5 launches per step, checking that
    the loss is finite and falls, and profiling one more step; then holds
    the kernel path's loss and gradients against the dense attention's on a
    2-layer cut of the same widths (cosine per parameter);
-5. prints the card, a ``kernels`` JSON line and, last, the result line.
+6. prints the card, a ``kernels`` JSON line and, last, the result line.
+
+K6 and K7 are also held bitwise against K2 / K3 over the gathered view
+``pool[layer][pages]`` (the same schedules over other addresses), and
+their ``library_ms`` is ``F.scaled_dot_product_attention`` over that view
+gathered beforehand: no one PyTorch call reads through a block table.
 
 It exits non-zero, with no result line, when there is no CUDA device, when
 the package is missing, or when any phase fails.
@@ -57,9 +74,35 @@ K2_SHAPE = dict(L=24, B=16, S_max=320, H=32, D=64,
                          300, 150, 2, 77])
 K3_SHAPE = dict(L=24, B=16, C=128, S_max=512, H=32, D=64,
                 starts=[0, 128, 256, 384] * 4)
+# K6 at run (d)'s pool [L, pages, page, H*D] with 96 slots over 6 virtual
+# pages each: lengths 0 (a dead lane on the trash page) to 384, a
+# shuffled block table; K7 at the admission shape (B = 1) and B = 8, page
+# sizes 64 and 16 over a pool of the same bytes, starts 0 to 256
+K6_SHAPE = dict(L=24, pages=433, page=64, B=96, H=32, D=64, n_virt=6)
+K7_SHAPE = dict(L=24, C=128, H=32, D=64, virt=384,
+                cases=((64, [128]), (64, [0, 37, 73, 110, 146, 183, 219, 256]),
+                       (16, [128]), (16, [0, 37, 73, 110, 146, 183, 219, 256])))
+LIBRARY_NOTE = ("F.scaled_dot_product_attention over the view gathered "
+                "through the block table beforehand (gather excluded)")
 # the two main-path runs: one-pass prefill (a) and chunked prefill (b)
 RUN_A = dict(batch=16, prompt=256, new=64)
 RUN_B = dict(batch=16, prompt=512, new=16, chunk=128)
+# continuous-batching serving (d): the JAX bench's serving_paged point
+# (bench.py serving_paged, bf16: its int8 weights and int8 KV are not
+# ported) — 192 greedy requests, numpy seed 0, prompts and new tokens
+# drawn from these sets, 96 slots over a pool of 0.75 x the worst case
+RUN_D = dict(requests=192, seed=0, prompts=(64, 96, 128, 192, 256),
+             new=(16, 32, 64, 128))
+SERVE_D = dict(paged=True, page_size=64, max_cache_len=384,
+               prefill_chunk=128, prefill_token_budget=256, decode_block=8,
+               num_slots=96, num_pages=int(0.75 * 96 * 6) + 1)
+# decode blocks traced with all 96 slots live (profile line "d")
+PROFILE_D_STEPS = 3
+# shared prefix (e): bench.py's 24 requests behind one 512-token prompt
+RUN_E = dict(system=512, tails=24, tail=16, new=32, seed=1)
+SERVE_E = dict(paged=True, page_size=64, max_cache_len=768,
+               prefill_chunk=128, prefill_token_budget=256, decode_block=8,
+               num_slots=8)
 # the training path (c): OPT-1.3B at seq 2048, micro batch 2, and the
 # shapes its attention kernels (K1 with LSE, K4, K5) see in every layer
 RUN_C = dict(micro=2, seq=2048, loss_chunks=8, warmup=2, steps=5)
@@ -313,6 +356,217 @@ def check_chunk(dtype, timed):
     return rec
 
 
+def paged_table(B, n_virt, n_pages, spans, page, seed):
+    """A shuffled block table [B, n_virt] int32 on the card: row b maps
+    ceil(spans[b] / page) distinct pool pages in random order, the rest of
+    its entries (all of a 0-span row's) the trash page 0."""
+    import torch
+    perm = (1 + torch.randperm(n_pages - 1, generator=torch.Generator()
+                               .manual_seed(seed))).tolist()
+    table = torch.zeros(B, n_virt, dtype=torch.int32)
+    for b, n in enumerate(spans):
+        k = -(-n // page)
+        table[b, :k] = torch.tensor(perm[:k], dtype=torch.int32)
+        perm = perm[k:]
+    return table.to(DEV)
+
+
+def heads_view(x, H, D):
+    """[B, S, H*D] -> the [B, H, S, D] copy SDPA reads."""
+    B, S, _ = x.shape
+    return x.view(B, S, H, D).transpose(1, 2).contiguous()
+
+
+def check_paged_decode(dtype, timed):
+    """K6 at run (d)'s pool with the fused write: against its plain
+    version, and bitwise against K2 over the gathered view."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+    L, NP, page, B, H, D, nv = (K6_SHAPE[x] for x in (
+        "L", "pages", "page", "B", "H", "D", "n_virt"))
+    layer = L // 4
+    g = torch.Generator(device=DEV).manual_seed(9)
+    dt = getattr(torch, dtype)
+    kp = torch.randn(L, NP, page, H * D, generator=g, device=DEV, dtype=dt)
+    vp = torch.randn(L, NP, page, H * D, generator=g, device=DEV, dtype=dt)
+    q, nk, nw = (torch.randn(B, H, D, generator=g, device=DEV, dtype=dt)
+                 for _ in range(3))
+    spans = [nv * page * i // (B - 1) for i in range(B)]     # 0 .. 384
+    lengths = torch.tensor(spans, dtype=torch.int32, device=DEV)
+    table = paged_table(B, nv, NP, spans, page, seed=10)
+    gk, gv = pa.gather_pages(kp[layer], table), pa.gather_pages(vp[layer],
+                                                                 table)
+    k1, v1 = kp.clone(), vp.clone()
+    out, _, _ = pa.paged_decode_attention(q, k1, v1, lengths, table,
+                                          layer=layer, new_k=nk, new_v=nw)
+    torch.cuda.synchronize()
+    k2, v2 = kp.clone(), vp.clone()
+    want = pa.paged_decode_attention_plain(q, k2[layer], v2[layer], lengths,
+                                           table, new_k=nk, new_v=nw)
+    err = check_close("K6 paged_decode_attention", out, want, dtype)
+    if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+        fail(f"K6 paged_decode_attention ({dtype}): written pools differ "
+             f"from the plain write")
+    del k2, v2, want
+    mono, _, _ = da.decode_attention(q, gk.clone(), gv.clone(), lengths,
+                                     new_k=nk, new_v=nw)
+    if not torch.equal(out, mono):
+        fail(f"K6 ({dtype}) is not bitwise equal to K2 over the gathered "
+             f"view: max diff {max_err(out, mono)}")
+    unfused = pa.paged_decode_attention(q, k1, v1, lengths, table,
+                                        layer=layer)
+    check_close("K6 paged_decode_attention (unfused)", unfused,
+                da.decode_attention_plain(q, pa.gather_pages(k1[layer], table),
+                                          pa.gather_pages(v1[layer], table),
+                                          lengths), dtype)
+    rec = {"kernel": "K6 paged_decode_attention", "dtype": dtype,
+           "pool": [L, NP, page, H * D], "table": [B, nv],
+           "lengths": [min(spans), max(spans)], "fused_write": True,
+           "max_abs_err": err, "tol": TOL[dtype],
+           "bitwise_equal_to_k2_over_gathered_view": True,
+           "pool_rows_bitwise_equal": True}
+    if timed:
+        it = iter(range(10 ** 9))
+
+        def run_kernel():       # one layer per call, as decode walks them
+            pa.paged_decode_attention(q, k1, v1, lengths, table,
+                                      layer=next(it) % L, new_k=nk, new_v=nw)
+
+        def run_plain():
+            li = next(it) % L
+            pa.paged_decode_attention_plain(q, k1[li], v1[li], lengths, table,
+                                            new_k=nk, new_v=nw)
+
+        heads = [(heads_view(pa.gather_pages(k1[li], table), H, D),
+                  heads_view(pa.gather_pages(v1[li], table), H, D))
+                 for li in range(L)]
+        live = (torch.arange(nv * page, device=DEV)[None]
+                < lengths[:, None].long())[:, None, None, :]
+        qh = q[:, :, None, :]
+
+        def run_library():
+            kh, vh = heads[next(it) % L]
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=live)
+
+        rec.update(time_all("k6", "decode_kernel", run_kernel, run_plain,
+                            run_library, 240))
+        rec["library"] = LIBRARY_NOTE
+        del heads
+        n_live = sum(spans)
+        fresh = sum(1 for n in spans if n > 0)
+        es = q.element_size()
+        # each live row's last position is this step's fresh row; every
+        # row (the dead lane's into the trash page) writes one
+        nbytes = (2 * (n_live - fresh) * H * D * es  # older K and V rows
+                  + 2 * 2 * nk.numel() * es           # new rows read + written
+                  + 2 * q.numel() * es                # q read, out written
+                  + lengths.numel() * 4 + table.numel() * 4)
+        rec["bound_ms"], rec["bound_by"] = bound(4 * H * D * n_live, nbytes,
+                                                 dtype)
+    emit(rec)
+    del kp, vp, k1, v1, gk, gv
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_paged_chunk(dtype, timed):
+    """K7 at the admission shape (B = 1) and B = 8, page sizes 64 and 16:
+    against its plain version, and bitwise against K3 over the gathered
+    view; timed at the admission shape with 64-row pages (run (d))."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+    L, C, H, D, virt = (K7_SHAPE[x] for x in ("L", "C", "H", "D", "virt"))
+    layer = L // 3
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    cases, timed_rec = [], None
+    for page in sorted({pg for pg, _ in K7_SHAPE["cases"]}, reverse=True):
+        NP = K6_SHAPE["pages"] * K6_SHAPE["page"] // page   # run (d)'s bytes
+        kp = torch.randn(L, NP, page, H * D, generator=g, device=DEV,
+                         dtype=dt)
+        vp = torch.randn(L, NP, page, H * D, generator=g, device=DEV,
+                         dtype=dt)
+        for pg, starts in K7_SHAPE["cases"]:
+            if pg != page:
+                continue
+            B = len(starts)
+            q = torch.randn(B, C, H, D, generator=g, device=DEV, dtype=dt)
+            st = torch.tensor(starts, dtype=torch.int32, device=DEV)
+            table = paged_table(B, virt // page, NP, [s + C for s in starts],
+                                page, seed=page + B)
+            out = pa.paged_chunk_prefill_attention(q, kp, vp, st, table,
+                                                   layer=layer)
+            torch.cuda.synchronize()
+            want = pa.paged_chunk_prefill_attention_plain(
+                q, kp[layer], vp[layer], st, table)
+            tag = f"K7 paged_chunk_prefill_attention (page {page}, B {B})"
+            err = check_close(tag, out, want, dtype)
+            mono = da.chunk_prefill_attention(
+                q, pa.gather_pages(kp[layer], table),
+                pa.gather_pages(vp[layer], table), st)
+            if not torch.equal(out, mono):
+                fail(f"{tag} ({dtype}) is not bitwise equal to K3 over the "
+                     f"gathered view: max diff {max_err(out, mono)}")
+            cases.append({"page": page, "q": [B, C, H, D], "starts": starts,
+                          "max_abs_err": err})
+            if not (timed and B == 1 and page == 64):
+                continue
+            rec = {"max_abs_err": err}
+            it = iter(range(10 ** 9))
+
+            def run_kernel():
+                pa.paged_chunk_prefill_attention(q, kp, vp, st, table,
+                                                 layer=next(it) % L)
+
+            def run_plain():
+                li = next(it) % L
+                pa.paged_chunk_prefill_attention_plain(q, kp[li], vp[li], st,
+                                                       table)
+
+            heads = [(heads_view(pa.gather_pages(kp[li], table), H, D),
+                      heads_view(pa.gather_pages(vp[li], table), H, D))
+                     for li in range(L)]
+            qpos = st[:, None].long() + torch.arange(C, device=DEV)[None]
+            live = (torch.arange(virt, device=DEV)[None, None]
+                    <= qpos[..., None])[:, None]
+            qh = q.transpose(1, 2).contiguous()
+
+            def run_library():
+                kh, vh = heads[next(it) % L]
+                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=live)
+
+            rec.update(time_all("k7", "flash_fwd_kernel", run_kernel,
+                                run_plain, run_library, 96))
+            del heads
+            pairs = int(qpos.sum()) + B * C
+            es = q.element_size()
+            nbytes = (2 * int((st.long() + C).sum()) * H * D * es
+                      + 2 * q.numel() * es + st.numel() * 4
+                      + table.numel() * 4)
+            rec["bound_ms"], rec["bound_by"] = bound(4 * H * D * pairs,
+                                                     nbytes, dtype)
+            timed_rec = rec
+        del kp, vp
+        torch.cuda.empty_cache()
+    rec = {"kernel": "K7 paged_chunk_prefill_attention", "dtype": dtype,
+           "pool_bytes_like": [K7_SHAPE["L"], K6_SHAPE["pages"],
+                               K6_SHAPE["page"], H * D],
+           "cases": cases, "max_abs_err": max(c["max_abs_err"]
+                                              for c in cases),
+           "tol": TOL[dtype], "bitwise_equal_to_k3_over_gathered_view": True}
+    if timed_rec is not None:
+        rec.update({k: v for k, v in timed_rec.items()
+                    if k != "max_abs_err"})
+        rec.update(timed_shape=[1, C, H, D], timed_page=64,
+                   library=LIBRARY_NOTE)
+    emit(rec)
+    return rec
+
+
 def check_rel(name, got, want, rel):
     """max |got - want| <= rel * max |want| (a bar scaled by the output's
     magnitude); returns the max abs error."""
@@ -424,11 +678,15 @@ def check_flash_bwd(dtype, timed):
 def counters():
     from deepspeed_tpu_torch.ops.transformer import decode_attention as da
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
     return {"flash_attention": fa.flash_attention,
             "decode_attention": da.decode_attention,
             "chunk_prefill_attention": da.chunk_prefill_attention,
             "flash_attention_dq": fa.flash_attention_dq,
-            "flash_attention_dkv": fa.flash_attention_dkv}
+            "flash_attention_dkv": fa.flash_attention_dkv,
+            "paged_decode_attention": pa.paged_decode_attention,
+            "paged_chunk_prefill_attention":
+                pa.paged_chunk_prefill_attention}
 
 
 def reset_counts():
@@ -532,7 +790,8 @@ def main_path():
     _, dt, cnt, peak = run_generate(eng, ids_a, new, {
         "flash_attention": L, "decode_attention": L * (new - 1),
         "chunk_prefill_attention": 0, "flash_attention_dq": 0,
-        "flash_attention_dkv": 0})
+        "flash_attention_dkv": 0, "paged_decode_attention": 0,
+        "paged_chunk_prefill_attention": 0})
     runs["a"] = {"run": "a", "route": "one_pass", "batch": B, "prompt": P,
                  "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
@@ -553,7 +812,8 @@ def main_path():
     _, dt, cnt, peak = run_generate(eng_b, ids_b, new, {
         "flash_attention": 0, "decode_attention": L * (new - 1),
         "chunk_prefill_attention": L * (-(-P // C)),
-        "flash_attention_dq": 0, "flash_attention_dkv": 0})
+        "flash_attention_dq": 0, "flash_attention_dkv": 0,
+        "paged_decode_attention": 0, "paged_chunk_prefill_attention": 0})
     runs["b"] = {"run": "b", "route": "chunked", "chunk": C, "batch": B,
                  "prompt": P, "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
@@ -588,7 +848,222 @@ def main_path():
         want = m.logits(ids_b, torch.ones_like(ids_b))[:, -1:]
         compare_logits("(b) chunked prefill logits, K3 vs plain", got, want)
         del cache
+    del eng_b
+    return runs, eng
+
+
+# --------------------------------------------------------------------- #
+# Continuous-batching serving: engine.serve -> submit / drain, (d) and (e)
+# --------------------------------------------------------------------- #
+def serving_traffic(V):
+    """Run (d)'s requests: numpy seed 0, prompt lengths and new tokens
+    drawn from RUN_D's sets, prompt ids uniform over the vocabulary."""
+    import numpy as np
+    rng = np.random.default_rng(RUN_D["seed"])
+    reqs = []
+    for _ in range(RUN_D["requests"]):
+        P = int(rng.choice(RUN_D["prompts"]))
+        new = int(rng.choice(RUN_D["new"]))
+        reqs.append((rng.integers(0, V, P).astype(np.int32), new))
+    return reqs
+
+
+def drive(srv, reqs):
+    """Submit every request, step the server to the end; returns the
+    outputs in submission order, the wall seconds (ending in a device
+    sync) and the peak page-pool utilization seen between steps."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+    outs, peak = {}, 0.0
+    while srv.work_pending():
+        outs.update(srv.step())
+        peak = max(peak, srv.page_pool_utilization)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if sorted(outs) != sorted(rids):
+        fail(f"the server finished {len(outs)} of {len(rids)} requests")
+    return [outs[r] for r in rids], secs, peak
+
+
+def check_outputs(tag, outs, reqs, V):
+    for (p, n), out in zip(reqs, outs):
+        if out.shape != (len(p) + n,) or (out[:len(p)] != p).any():
+            fail(f"{tag}: an output is not [prompt, {n} new tokens]")
+        if int(out.min()) < 0 or int(out.max()) >= V:
+            fail(f"{tag}: token ids outside the vocabulary")
+
+
+def serve_record(run, srv, secs, peak, counts, reqs):
+    st = srv.stats
+    useful = sum(n for _, n in reqs)
+    return {"run": run, "paged": srv.paged, "requests": len(reqs),
+            "slots": srv.num_slots, "cache_len": srv.cache_len,
+            **({"page_size": srv.page, "num_pages": srv.num_pages}
+               if srv.paged else {}),
+            "seconds": secs, "useful_tokens": useful,
+            "tokens_per_s": useful / secs,
+            "decode_calls": st["decode_calls"],
+            "decode_tokens": st["decode_tokens"],
+            "prefill_tokens": st["prefill_tokens"],
+            "admission_stalls": st["admission_stalls"],
+            "page_evictions": st["page_evictions"],
+            "peak_page_pool_utilization": peak,
+            "sync_secs": st["sync_secs"], "wall_secs": st["wall_secs"],
+            "sync_share": st["sync_secs"] / st["wall_secs"],
+            "iterations": st["iterations"],
+            "paged_attention_fallback": st["paged_attention_fallback"],
+            "prefix_hits": st["prefix_hits"],
+            "prefix_tokens_reused": st["prefix_tokens_reused"],
+            "kernel_modes": srv.kernel_modes, "launches": counts}
+
+
+def serve_expect(srv, paged):
+    """The launches a serving run needs: one per layer per decode step
+    (K6 paged, K2 monolithic) and per prefill chunk (K7 / K3)."""
+    L, st = srv.module.config.num_layers, srv.stats
+    decode = L * srv.block * st["decode_calls"]
+    chunks = L * st["prefill_tokens"] // srv.chunk
+    return {"flash_attention": 0, "flash_attention_dq": 0,
+            "flash_attention_dkv": 0,
+            "decode_attention": 0 if paged else decode,
+            "chunk_prefill_attention": 0 if paged else chunks,
+            "paged_decode_attention": decode if paged else 0,
+            "paged_chunk_prefill_attention": chunks if paged else 0}
+
+
+def serve_counted(eng, reqs, tag, **overrides):
+    """One server over ``reqs`` with every launch count set to 0 just
+    before and read just after; the counts must be exactly the path's."""
+    import torch
+    srv = eng.serve(**overrides)
+    reset_counts()
+    outs, secs, peak = drive(srv, reqs)
+    counts = read_counts()
+    want = serve_expect(srv, srv.paged)
+    if counts != want:
+        fail(f"{tag}: launches {counts}, the path needs {want}")
+    for name in ("paged_decode_attention", "paged_chunk_prefill_attention")\
+            if srv.paged else ("decode_attention", "chunk_prefill_attention"):
+        if counts[name] == 0:
+            fail(f"{tag}: {name} was never launched")
+    if srv.stats["completed"] != len(reqs):
+        fail(f"{tag}: {srv.stats['completed']} of {len(reqs)} completed")
+    check_outputs(tag, outs, reqs, srv.module.config.vocab_size)
+    srv.close()
+    torch.cuda.empty_cache()
+    return srv, outs, secs, peak, counts
+
+
+def serving_path(eng):
+    """Run (d) paged, its monolithic twin, the same pair again in the
+    other order (so an order effect shows apart from the paged path's own
+    cost), the decode-window profile and run (e)."""
+    import numpy as np
+    V = eng.module.config.vocab_size
+    reqs = serving_traffic(V)
+    warm = eng.serve(**SERVE_D)               # warm-up (allocator, cuBLAS)
+    drive(warm, reqs[:4])
+    warm.close()
+    runs = {}
+    srv, outs, secs, peak, counts = serve_counted(eng, reqs, "run (d)",
+                                                  **SERVE_D)
+    runs["d"] = serve_record("d", srv, secs, peak, counts, reqs)
+    runs["d"]["prefill_plan"] = eng.prefill_plan(1, max(RUN_D["prompts"]),
+                                                 paged=True)[2]
+    emit(runs["d"])
+    mono, outs_m, secs_m, peak_m, counts_m = serve_counted(
+        eng, reqs, "run (d) monolithic", **{**SERVE_D, "paged": False})
+    differ = sum(not np.array_equal(a, b) for a, b in zip(outs, outs_m))
+    runs["d_mono"] = serve_record("d_mono", mono, secs_m, peak_m, counts_m,
+                                  reqs)
+    runs["d_mono"]["requests_differing_from_paged"] = differ
+    emit(runs["d_mono"])
+    if differ:
+        fail(f"run (d): {differ} of {len(reqs)} requests' tokens differ "
+             f"between the paged pool and the monolithic lanes")
+    # the pair again, monolithic first
+    for tag, over in (("d_mono_2", {"paged": False}), ("d_2", {})):
+        s2, o2, secs2, peak2, counts2 = serve_counted(
+            eng, reqs, f"run ({tag})", **{**SERVE_D, **over})
+        runs[tag] = serve_record(tag, s2, secs2, peak2, counts2, reqs)
+        emit(runs[tag])
+        if any(not np.array_equal(a, b) for a, b in zip(outs, o2)):
+            fail(f"run ({tag}): tokens differ from run (d)'s")
+    runs["d_profile"] = profile_serving(eng, reqs)
+    runs["e"] = prefix_path(eng)
     return runs
+
+
+def profile_serving(eng, reqs):
+    """A decode window with all 96 slots live under ``torch.profiler``:
+    run (d)'s first 96 prompts with 128 new tokens each, admitted in one
+    iteration (no prefill budget) on a worst-case pool, then
+    ``PROFILE_D_STEPS`` decode-only scheduler steps traced."""
+    import torch
+    from deepspeed_tpu_torch.profiling.trace import breakdown, kernel_events
+    srv = eng.serve(**{**SERVE_D, "prefill_token_budget": 0, "num_pages": 0})
+    for p, _ in reqs[:srv.num_slots]:
+        srv.submit(p, max_new_tokens=max(RUN_D["new"]))
+    srv.step()                              # admits all, first decode block
+    srv.step()
+    if srv.active_slots != srv.num_slots:
+        fail(f"profile window: {srv.active_slots} live slots, expected "
+             f"{srv.num_slots}")
+    wall = {}
+
+    def window():
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_D_STEPS):
+            srv.step()
+        torch.cuda.synchronize()
+        wall["s"] = time.perf_counter() - t0
+
+    trace = os.path.join(ROOT, "build", "profiles", "serving_trace.json")
+    rec = {"profile": "d", "live_slots": srv.active_slots,
+           "decode_steps": PROFILE_D_STEPS * srv.block,
+           **breakdown(kernel_events(window, trace), wall["s"]),
+           "trace": os.path.relpath(trace, ROOT)}
+    emit(rec)
+    srv.close()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def prefix_path(eng):
+    """Run (e): 24 requests behind one 512-token system prompt on 8 slots;
+    23 must reuse its 8 pages, and the outputs must equal the same
+    requests served without prefix sharing."""
+    import numpy as np
+    V = eng.module.config.vocab_size
+    rng = np.random.default_rng(RUN_E["seed"])
+    system = rng.integers(0, V, RUN_E["system"]).astype(np.int32)
+    reqs = [(np.concatenate([system, rng.integers(0, V, RUN_E["tail"])
+                             .astype(np.int32)]), RUN_E["new"])
+            for _ in range(RUN_E["tails"])]
+    srv, outs, secs, peak, counts = serve_counted(eng, reqs, "run (e)",
+                                                  **SERVE_E)
+    rec = serve_record("e", srv, secs, peak, counts, reqs)
+    hits = RUN_E["tails"] - 1
+    reused = hits * RUN_E["system"]
+    if (srv.stats["prefix_hits"], srv.stats["prefix_tokens_reused"]) != \
+            (hits, reused):
+        fail(f"run (e): prefix hits {srv.stats['prefix_hits']} / tokens "
+             f"reused {srv.stats['prefix_tokens_reused']}, expected {hits} / "
+             f"{reused}")
+    ref, outs_r, secs_r, _, counts_r = serve_counted(
+        eng, reqs, "run (e) without prefix sharing",
+        **{**SERVE_E, "prefix_cache": False})
+    differ = sum(not np.array_equal(a, b) for a, b in zip(outs, outs_r))
+    rec.update(unshared_seconds=secs_r,
+               unshared_prefill_tokens=ref.stats["prefill_tokens"],
+               unshared_launches=counts_r,
+               requests_differing_from_unshared=differ)
+    emit(rec)
+    if differ:
+        fail(f"run (e): {differ} requests differ from the unshared run")
+    return rec
 
 
 # --------------------------------------------------------------------- #
@@ -630,7 +1105,8 @@ def train_path():
     per_step = {name: n / steps for name, n in counts.items()}
     want = {"flash_attention": L, "flash_attention_dq": L,
             "flash_attention_dkv": L, "decode_attention": 0,
-            "chunk_prefill_attention": 0}
+            "chunk_prefill_attention": 0, "paged_decode_attention": 0,
+            "paged_chunk_prefill_attention": 0}
     if per_step != want:
         fail(f"run (c): launches per step {per_step}, the path needs {want}")
     if not all(math.isfinite(x) for x in losses):
@@ -754,8 +1230,13 @@ def main():
             checks[(key, dtype)] = bwd[key]
         checks[("K1 train", dtype)] = bwd["K1"]
         torch.cuda.empty_cache()
+        checks[("K6", dtype)] = check_paged_decode(dtype, timed)
+        checks[("K7", dtype)] = check_paged_chunk(dtype, timed)
 
-    runs = main_path()
+    runs, eng = main_path()
+    runs.update(serving_path(eng))
+    del eng
+    torch.cuda.empty_cache()
     runs["c"] = train_path()
     grad_check()
 
@@ -787,12 +1268,25 @@ def main():
             pallas + "flash_attention.py:388", train["flash_attention_dq"]),
         row("K5", "flash_attention_dkv", csrc + "flash_attention_bwd.cu",
             pallas + "flash_attention.py:421", train["flash_attention_dkv"]),
+        row("K6", "paged_decode_attention", csrc + "decode_attention.cu",
+            pallas + "paged_attention.py:206",
+            runs["d"]["launches"]["paged_decode_attention"]),
+        row("K7", "paged_chunk_prefill_attention", csrc + "flash_attention.cu",
+            pallas + "paged_attention.py:293",
+            runs["d"]["launches"]["paged_chunk_prefill_attention"]),
     ]
+    for k in kernels[5:]:
+        k["library"] = LIBRARY_NOTE
+    # run (d)'s monolithic twin runs K2 and K3 at the serving shapes
+    kernels[1]["launches_run_d_mono"] = \
+        runs["d_mono"]["launches"]["decode_attention"]
+    kernels[2]["launches_run_d_mono"] = \
+        runs["d_mono"]["launches"]["chunk_prefill_attention"]
     kernels[1]["launches_run_b"] = runs["b"]["launches"]["decode_attention"]
     # K1 also runs in every layer of run (c), with the LSE, at [2, 2048]
     kernels[0]["launches_run_c"] = train["flash_attention"]
     kernels[0]["run_c_shape"] = timing(checks[("K1 train", "bfloat16")])
-    for k in kernels[3:]:
+    for k in kernels[3:5]:
         k["launches_per_step"] = runs["c"]["launches_per_step"][k["name"]]
     print(card, flush=True)
     emit({"kernels": kernels})

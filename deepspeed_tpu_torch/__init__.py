@@ -4,15 +4,19 @@ The JAX package stays the reference; this package mirrors its module paths
 and runs on an NVIDIA H100 with hand-written CUDA kernels (see PERF.md).
 It imports nothing of JAX and nothing of ``deepspeed_tpu``.
 
-Ported so far, for the OPT family: the serving path
-(:func:`init_inference` → ``InferenceEngine.generate``) and single-device
-training (:func:`initialize` → ``engine.train_batch`` or
-``engine(batch)`` / ``engine.backward(loss)`` / ``engine.step()``).
+Ported so far, for the OPT family: generation (:func:`init_inference` →
+``InferenceEngine.generate``), continuous-batching serving
+(``InferenceEngine.serve`` → :class:`ServingEngine` ``submit`` / ``drain``,
+on slot lanes or a paged KV pool) and single-device training
+(:func:`initialize` → ``engine.train_batch`` or ``engine(batch)`` /
+``engine.backward(loss)`` / ``engine.step()``).
 """
 
 __version__ = "0.1.0"
 
 from deepspeed_tpu_torch.accelerator import get_accelerator  # noqa: F401
+from deepspeed_tpu_torch.inference.serving import (  # noqa: F401
+    ServingConfig, ServingEngine)
 from deepspeed_tpu_torch.utils.logging import logger, log_dist  # noqa: F401
 
 

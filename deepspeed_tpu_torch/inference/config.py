@@ -6,14 +6,16 @@ feature this port does not have yet raise ``NotImplementedError`` when
 set away from their default, so a config never silently does nothing:
 weight and KV-cache quantization, tensor parallelism, expert parallelism,
 the memory guard's ``strict_memory``, checkpoint loading, the fault
-block's ``bucket_downshift``, the persistent compile cache and every
-``serving`` knob.
+block's ``bucket_downshift`` and the persistent compile cache.  The
+``serving`` block parses into :class:`~deepspeed_tpu_torch.inference.
+serving.config.ServingConfig`, which raises for its own unported knobs.
 """
 
 import dataclasses
 from dataclasses import field
 from typing import Any, Dict, Optional
 
+from deepspeed_tpu_torch.inference.serving.config import ServingConfig
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
 
 _DTYPE_ALIASES = {"float16": "float16", "fp16": "float16", "half": "float16",
@@ -83,7 +85,7 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     prefill_chunk_size: Optional[Any] = "auto"
     compile_cache: Dict[str, Any] = field(default_factory=dict)
     fault: Dict[str, Any] = field(default_factory=dict)
-    serving: Dict[str, Any] = field(default_factory=dict)
+    serving: ServingConfig = field(default_factory=ServingConfig)
     # stop the decode loop once every row has emitted eos (tokens are
     # identical either way)
     decode_early_exit: bool = True
@@ -108,5 +110,3 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
             _not_ported("fault.bucket_downshift")
         if self.compile_cache.get("enabled"):
             _not_ported("compile_cache.enabled")
-        if self.serving:
-            _not_ported("serving.* (continuous-batching serving)")

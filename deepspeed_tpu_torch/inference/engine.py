@@ -6,7 +6,8 @@ split (chunked) prefill with the same ``"auto"`` chunk policy and
 ``prefill_plan`` answers, right-padded ``attention_mask`` prompts,
 greedy / temperature / top-k / top-p sampling over fp32 logits, and the
 ``decode_early_exit`` semantics (steps after a row's eos emit eos; the loop
-stops once every row is done).
+stops once every row is done), and ``serve()``: continuous batching over
+slot lanes or a paged KV pool (``inference/serving``).
 
 What has no counterpart here: the JAX engine's AOT compilation, its
 persistent executable cache, its compiled-program memory guard and the
@@ -131,8 +132,9 @@ class InferenceEngine:
         """Which prefill pipeline ``generate(batch, prompt)`` takes, as
         ``(mode, chunk, reason)``: ``("chunked", C, ...)`` for the split
         per-chunk path, ``("one_pass", None, ...)`` otherwise.  The reason
-        ends with the attention-registry modes the run dispatches through.
-        ``paged=True`` raises: paged serving is a later slice."""
+        ends with the attention-registry modes the run dispatches through:
+        with ``paged=True``, those of a paged serving pool (K7 prefill
+        chunks, K6 decode)."""
         from deepspeed_tpu_torch.ops.transformer.registry import kernel_modes
         modes = kernel_modes(paged=bool(paged))
         tail = (" [kernels: prefill=%s decode=%s]"
@@ -236,6 +238,18 @@ class InferenceEngine:
     def release_workspace(self):
         """Free the persistent KV-cache workspace buffer."""
         self._workspace.release()
+
+    def serve(self, **overrides):
+        """A continuous-batching :class:`~deepspeed_tpu_torch.inference.
+        serving.ServingEngine` over this engine: ``submit()`` requests,
+        ``drain()`` results; requests join freed slots between decode blocks
+        instead of waiting for a whole batch.  Knobs come from the config's
+        ``serving`` block, overridable per call (``engine.serve(
+        num_slots=16)``); ``paged=True`` swaps the per-slot lanes for a
+        block-table page pool with prefix sharing (``engine.serve(
+        paged=True, page_size=64)``).  Runs on this engine's device."""
+        from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+        return ServingEngine(self, **overrides)
 
 
 def require_right_padded(attention_mask):

@@ -4,9 +4,13 @@
 PyTorch idiom around the JAX package's layouts: ``nn.Module`` layers, the
 flax ``nn.scan`` over layers as a loop over an ``nn.ModuleList``, and the
 KV cache kept layer-stacked ``[L, B, S_max, KVH*D]`` exactly as
-``init_cache`` builds it in JAX.  Unlike JAX, the cache is updated IN
-PLACE (layer ``i`` writes through ``cache["k"][i]``): PyTorch has no
-donation, and a functional update would copy the whole cache per layer.
+``init_cache`` builds it in JAX — or, for paged serving, a page pool
+``[L, num_pages, page_size, KVH*D]`` (``init_paged_cache``) that a cache
+dict carrying a block table ``"pages"`` addresses.  Unlike JAX, the cache
+is updated IN PLACE (layer ``i`` writes through ``cache["k"][i]``):
+PyTorch has no donation, and a functional update would copy the whole
+cache per layer.  The layer index travels as an argument, not as the JAX
+cache dict's ``"layer"`` key.
 
 A module is built on the ``meta`` device by default — it then holds the
 architecture and no storage, like a flax module before ``init``; an
@@ -252,6 +256,28 @@ def cached_attention(q, k_cache, v_cache, q_positions, layer=None):
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
+def _paged_write(cache, layer, k_new, v_new, positions, start=None):
+    """Write this step's K/V rows ``[B, S, KVH*D]`` into layer ``layer`` of
+    a PAGED pool through its block table ``cache["pages"] [B, n_virt]``,
+    in place: virtual position ``pos`` of row ``b`` lands at pool page
+    ``pages[b, pos // page]``, in-page row ``pos % page``.  ``positions``
+    [B, S]: a row-uniform chunk (``start`` an int, checked against the
+    table here) may span page boundaries; per-row decode positions
+    (``start`` None) are the caller's to keep inside the table.  Unmapped
+    virtual pages alias the reserved trash page 0, so retired lanes'
+    masked writes land there (JAX ``models/transformer.py _paged_write``)."""
+    from deepspeed_tpu_torch.ops.transformer.paged_attention import (
+        write_pages)
+    pages = cache["pages"]
+    virt = pages.shape[1] * cache["k"].shape[-2]
+    S = k_new.shape[1]
+    if start is not None and not 0 <= start <= virt - S:
+        raise ValueError(f"paged write [{start}, {start + S}) past the "
+                         f"block table ({virt} virtual positions)")
+    write_pages(cache["k"][layer], pages, positions, k_new)
+    write_pages(cache["v"][layer], pages, positions, v_new)
+
+
 class Attention(nn.Module):
 
     def __init__(self, config, device=None):
@@ -373,9 +399,10 @@ class Transformer(nn.Module):
     def hidden_states(self, input_ids, mask=None, cache=None, start_pos=0,
                       prefill=False):
         """Final-norm hidden states [B, S, h].  With ``cache`` (the
-        stacked ``{"k", "v"}`` of :meth:`init_cache`), each layer writes
-        its K/V rows at positions ``start_pos + arange(S)`` in place and
-        attends over the cache.  ``start_pos``: an int, or a [B] tensor of
+        stacked ``{"k", "v"}`` of :meth:`init_cache`, or a pool of
+        :meth:`init_paged_cache` plus its block table ``"pages"``), each
+        layer writes its K/V rows at positions ``start_pos + arange(S)`` in
+        place and attends over the cache.  ``start_pos``: an int, or a [B] tensor of
         per-row offsets (padded-prompt decode).  ``prefill``: this block is
         a from-zero prompt (start 0) that attends only within itself."""
         cfg = self.config
@@ -463,6 +490,19 @@ class Transformer(nn.Module):
         (layer-stacked, S-major with flattened heads — the JAX layout)."""
         cfg = self.config
         shape = (cfg.num_layers, batch_size, max_len,
+                 cfg.kv_heads * cfg.head_dim)
+        kw = dict(dtype=dtype or cfg.torch_dtype, device=device or self.device)
+        return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+    def init_paged_cache(self, num_pages, page_size, dtype=None,
+                         device=None):
+        """Zero PAGED KV pool: ``{"k", "v"}`` each ``[L, num_pages,
+        page_size, KVH*D]`` (the JAX layout).  Physical pages hold no
+        position order: a consumer adds the block table ``"pages"``
+        ``[B, n_virt]`` (virtual page ``pos // page_size`` → pool page) to
+        the dict it passes to :meth:`decode`; page 0 is the trash page."""
+        cfg = self.config
+        shape = (cfg.num_layers, int(num_pages), int(page_size),
                  cfg.kv_heads * cfg.head_dim)
         kw = dict(dtype=dtype or cfg.torch_dtype, device=device or self.device)
         return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}

@@ -53,6 +53,35 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Where a kernel finds the K/V row of position `pos` of batch row b: an
+// element offset from the cache pointer it was given.  The attention
+// bodies are templates over this map, and the map is the only thing a
+// paged cache changes; the arithmetic on the rows they find is the same.
+
+// A strided [B, S, ...] cache: row (b, pos) at b*sb + pos*ss.
+struct StridedRows {
+  long long sb, ss;
+  __device__ __forceinline__ long long at(int b, int pos) const {
+    return b * sb + pos * ss;
+  }
+};
+
+// One layer of a page pool [num_pages, page, row] addressed through a
+// block table pages[B, n_virt]: virtual position pos of row b lies on
+// pool page pages[b, pos / page] at in-page row pos % page (the JAX
+// package's paged layout, deepspeed_tpu/ops/transformer/paged_attention.py).
+// Callers read only positions below a row's live length, whose table
+// entries the host has mapped.
+struct PagedRows {
+  const int* pages;
+  int n_virt, page;
+  long long row;  // elements per position: KVH * D
+  __device__ __forceinline__ long long at(int b, int pos) const {
+    const int pg = __ldg(pages + (long long)b * n_virt + pos / page);
+    return ((long long)pg * page + pos % page) * row;
+  }
+};
+
 }  // namespace dstt
 
 // Calls LAUNCH(T, D) with the element type and head dim of the call;

@@ -1,15 +1,24 @@
-// K1 (flash-attention forward) and K3 (chunked prefill) for Hopper.
+// K1 (flash-attention forward), K3 (chunked prefill) and K7 (chunked
+// prefill over a paged KV pool) for Hopper.
 //
-// Replaces two Pallas kernels of the JAX package:
+// Replaces three Pallas kernels of the JAX package:
 //   K1  deepspeed_tpu/ops/transformer/flash_attention.py  _fwd / _fwd_kernel
 //   K3  deepspeed_tpu/ops/transformer/decode_attention.py
 //       chunk_prefill_attention / _chunk_prefill_kernel
-// Both compute the same thing: rows of q at positions q_off[b] + i attend,
+//   K7  deepspeed_tpu/ops/transformer/paged_attention.py
+//       paged_chunk_prefill_attention (its body runs _chunk_prefill_kernel)
+// All compute the same thing: rows of q at positions q_off[b] + i attend,
 // with an online softmax in fp32, to keys at positions pos < Sk (and, when
 // causal, pos <= q_off[b] + i).  K1 reads k/v in the model's [B, S, KVH, D]
 // layout (q_off = 0); K3 reads the S-major cache [B, S_max, KVH*D] -- the
-// same [B, S, KVH, D] view with other strides -- so one template serves
-// both, addressed through the strides the wrapper passes.
+// same [B, S, KVH, D] view with other strides; K7 reads one layer of the
+// page pool [num_pages, page, KVH*D] through the block table pages[B,
+// n_virt].  One template serves all three: where key row (b, pos) lies is
+// a row map (attention_common.cuh StridedRows / PagedRows), and nothing
+// else differs, so K7 over the pool is bitwise equal to K3 over the
+// gathered view pool[pages] at any page size (a page need not divide the
+// 64-row k tile: each key row is resolved on its own).  The causal limit
+// keeps K7 to positions <= starts[b] + C - 1, whose pages the host mapped.
 //
 // What bounds it on an H100: at OPT-1.3B prefill shapes (S = 256, D = 64)
 // the work is ~2*S*D flops per score against ~D bytes per key row read, so
@@ -36,15 +45,16 @@ constexpr size_t flash_smem_bytes() {
   return sizeof(float) * (size_t)(kBQ * (D + 1) + 2 * kBK * (D + 1) + kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+// KRows: where key / value row (b, pos) starts in k and v (StridedRows
+// for K1 / K3, PagedRows for K7); skh / svh: the head stride within a row.
+template <typename T, int D, typename KRows>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ q_offsets,
                  int Sq, int H, int KVH, int Sk,
                  long long sqb, long long sqs, long long sqh,
-                 long long skb, long long sks, long long skh,
-                 long long svb, long long svs, long long svh,
+                 KRows krows, long long skh, KRows vrows, long long svh,
                  long long sob, long long sos, long long soh,
                  int causal, float scale) {
   constexpr int DP = D + 1;      // padded rows: no bank conflicts on column walks
@@ -64,8 +74,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qoff = q_offsets != nullptr ? q_offsets[b] : 0;
   const int nq = min(kBQ, Sq - q0);
   const T* qb = q + b * sqb + h * sqh;
-  const T* kb = k + b * skb + kvh * skh;
-  const T* vb = v + b * svb + kvh * svh;
+  const T* kb = k + kvh * skh;
+  const T* vb = v + kvh * svh;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -88,8 +98,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int c = i / D, d = i % D, pos = k0 + c;
       const bool ok = pos < Sk;  // zero the ragged tail: garbage * 0 can be NaN
-      ks[c * DP + d] = ok ? to_f(kb[pos * sks + d]) : 0.f;
-      vs[c * DP + d] = ok ? to_f(vb[pos * svs + d]) : 0.f;
+      ks[c * DP + d] = ok ? to_f(kb[krows.at(b, pos) + d]) : 0.f;
+      vs[c * DP + d] = ok ? to_f(vb[vrows.at(b, pos) + d]) : 0.f;
     }
     __syncthreads();
 
@@ -169,6 +179,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int HD, typename KRows>
+void launch_flash(const void* q, const void* k, const void* v, void* o,
+                  void* lse, const void* q_offsets, int B, int Sq, int H,
+                  int KVH, int Sk, long long sqb, long long sqs,
+                  long long sqh, KRows krows, long long skh, KRows vrows,
+                  long long svh, long long sob, long long sos, long long soh,
+                  int causal, float scale, cudaStream_t stream) {
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  const size_t smem = flash_smem_bytes<HD>();
+  cudaFuncSetAttribute(flash_fwd_kernel<T, HD, KRows>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  flash_fwd_kernel<T, HD, KRows><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
+      (const int*)q_offsets, Sq, H, KVH, Sk, sqb, sqs, sqh, krows, skh,
+      vrows, svh, sob, sos, soh, causal, scale);
+}
+
 }  // namespace dstt
 
 // q [B, Sq, H, D], k / v [B, Sk, KVH, D] and o [B, Sq, H, D], each given by
@@ -184,19 +211,38 @@ extern "C" int dstt_flash_attention_fwd(
     void* stream) {
   if (KVH <= 0 || H % KVH != 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return cudaSuccess;
-  const dim3 grid((Sq + dstt::kBQ - 1) / dstt::kBQ, H, B);
+  const dstt::StridedRows krows{skb, sks}, vrows{svb, svs};
 #define DSTT_FLASH_LAUNCH(T, HD)                                                 \
-  {                                                                              \
-    const size_t smem = dstt::flash_smem_bytes<HD>();                            \
-    cudaFuncSetAttribute(dstt::flash_fwd_kernel<T, HD>,                          \
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);\
-    dstt::flash_fwd_kernel<T, HD><<<grid, dstt::kThreads, smem,                  \
-                                    (cudaStream_t)stream>>>(                     \
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,               \
-        (const int*)q_offsets, Sq, H, KVH, Sk, sqb, sqs, sqh, skb, sks, skh,     \
-        svb, svs, svh, sob, sos, soh, causal, scale);                            \
-  }
+  dstt::launch_flash<T, HD>(q, k, v, o, lse, q_offsets, B, Sq, H, KVH, Sk, sqb,  \
+                            sqs, sqh, krows, skh, vrows, svh, sob, sos, soh,     \
+                            causal, scale, (cudaStream_t)stream);
   DSTT_DISPATCH(dtype, D, DSTT_FLASH_LAUNCH);
 #undef DSTT_FLASH_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// K7.  q [B, Sq, H, D] and o [B, Sq, H, D] given by their (b, s, h)
+// strides with a unit stride on D; k_pool / v_pool one layer of the page
+// pool, contiguous [num_pages, page, KVH*D]; pages [B, n_virt] int32;
+// starts [B] int32, the virtual position of each row's first query (its
+// chunk was written to the pool first).  Causal, no LSE.  Returns
+// cudaGetLastError().
+extern "C" int dstt_paged_chunk_prefill(
+    const void* q, const void* k_pool, const void* v_pool, void* o,
+    const void* starts, const void* pages, int dtype, int B, int Sq, int H,
+    int KVH, int D, int page, int n_virt, long long sqb, long long sqs,
+    long long sqh, long long sob, long long sos, long long soh, float scale,
+    void* stream) {
+  if (KVH <= 0 || H % KVH != 0 || page <= 0 || n_virt <= 0)
+    return cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0 || H == 0) return cudaSuccess;
+  const dstt::PagedRows rows{(const int*)pages, n_virt, page,
+                             (long long)KVH * D};
+#define DSTT_PAGED_CHUNK_LAUNCH(T, HD)                                           \
+  dstt::launch_flash<T, HD>(q, k_pool, v_pool, o, nullptr, starts, B, Sq, H,     \
+                            KVH, page * n_virt, sqb, sqs, sqh, rows, D, rows, D, \
+                            sob, sos, soh, 1, scale, (cudaStream_t)stream);
+  DSTT_DISPATCH(dtype, D, DSTT_PAGED_CHUNK_LAUNCH);
+#undef DSTT_PAGED_CHUNK_LAUNCH
   return (int)cudaGetLastError();
 }

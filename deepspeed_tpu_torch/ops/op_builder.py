@@ -117,6 +117,10 @@ FLASH = KernelLibrary("flash_attention", "flash_attention.cu", {
     # 12 strides (b, s, h for q, k, v, o), causal, scale, stream
     "dstt_flash_attention_fwd":
         [P, P, P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + [I, F, P],
+    # K7: q, k_pool, v_pool, o, starts, pages, dtype, B, Sq, H, KVH, D,
+    # page, n_virt, 6 strides (b, s, h for q and o), scale, stream
+    "dstt_paged_chunk_prefill":
+        [P, P, P, P, P, P, I, I, I, I, I, I, I, I] + [L] * 6 + [F, P],
 })
 
 FLASH_BWD = KernelLibrary("flash_attention_bwd", "flash_attention_bwd.cu", {
@@ -136,6 +140,10 @@ DECODE = KernelLibrary("decode_attention", "decode_attention.cu", {
     # q, k_cache, v_cache, lengths, new_k, new_v, out,
     # dtype, B, H, KVH, D, S_max, scale, stream
     "dstt_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    # K6: q, k_pool, v_pool, lengths, pages, new_k, new_v, out,
+    # dtype, B, H, KVH, D, page, n_virt, scale, stream
+    "dstt_paged_decode_attention":
+        [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 })
 
 LIBRARIES = (FLASH, FLASH_BWD, DECODE)

@@ -1,26 +1,36 @@
 """Attention-kernel registry — the one dispatch point for cached attention
-(port of ``deepspeed_tpu/ops/transformer/registry.py``, monolithic caches).
+(port of ``deepspeed_tpu/ops/transformer/registry.py``, monolithic caches
+and paged pools).
 
 * :func:`select_kernel` — the dispatch table.  Its probes read only
-  shapes and config, so ``InferenceEngine.prefill_plan`` reports what the
-  model will run.
+  shapes and config, so ``InferenceEngine.prefill_plan`` and the serving
+  engine's ``kernel_modes`` report what the model will run.
 * :func:`write_and_attend` — behind ``models.transformer.Attention``:
-  writes this step's K/V rows into the layer-stacked cache and attends
-  through the selected kernel.
+  writes this step's K/V rows into the layer-stacked cache (or through
+  the block table into the page pool) and attends through the selected
+  kernel.
 
 Modes, probed in order:
 
 ==========================  ==============================================
-``cuda_decode``             single-token decode (kernel K2, fused write)
-``cuda_chunked_prefill``    multi-token block vs the cache, S <= 512 (K3)
-``reference_fallback``      dense masked attention in plain PyTorch
+``cuda_paged_decode``       single-token decode over the page pool through
+                            the block table (kernel K6, fused write)
+``cuda_decode``             single-token decode over a monolithic cache
+                            (kernel K2, fused write)
+``cuda_chunked_prefill``    multi-token block vs the cache, S <= 512: K3
+                            on a monolithic cache, K7 on a page pool
+``reference_fallback``      dense masked attention in plain PyTorch over a
+                            monolithic cache (blocks longer than 512)
 ==========================  ==============================================
+
+A paged pool always runs K6 / K7: the serving engine caps its chunks at
+512 tokens, and a block the kernels cannot take raises.
 
 The kernels exist for every device the port runs on: CUDA tensors launch
 them, CPU tensors run their plain versions.  This mirrors the JAX package,
 whose ``pallas_supported()`` is true on the CPU (interpret mode), so the
 dispatch decisions and the ``"auto"`` chunk policy agree between the two
-packages.  Paged caches are a later slice and raise.
+packages.
 """
 
 import torch
@@ -28,27 +38,27 @@ import torch
 # the chunk kernel's longest block, as in the JAX package
 MAX_CHUNK_S = 512
 
-KERNEL_MODES = ("cuda_decode", "cuda_chunked_prefill", "reference_fallback")
+KERNEL_MODES = ("cuda_paged_decode", "cuda_decode", "cuda_chunked_prefill",
+                "reference_fallback")
 
 
 def select_kernel(*, s, paged=False):
     """The attention-kernel decision for one cached-attention call of
-    ``s`` tokens.  Returns a :data:`KERNEL_MODES` name.  (The JAX table
-    also probes alibi biases and sliding windows; the model features that
-    bring them are not ported and raise when a model is built.)"""
-    if paged:
-        raise NotImplementedError("paged KV caches are not ported to "
-                                  "deepspeed_tpu_torch yet (serving slice)")
+    ``s`` tokens; ``paged``: a block-table pool, not monolithic lanes.
+    Returns a :data:`KERNEL_MODES` name.  (The JAX table also probes alibi
+    biases, sliding windows and its ``paged_kernel=False`` A/B marker; the
+    model features that bring the first two are not ported and raise when
+    a model is built, and the port has no gather path to switch to.)"""
     if s == 1:
-        return "cuda_decode"
+        return "cuda_paged_decode" if paged else "cuda_decode"
     if 1 < s <= MAX_CHUNK_S:
         return "cuda_chunked_prefill"
     return "reference_fallback"
 
 
 def kernel_modes(*, paged=False):
-    """Which mode each program class takes (what ``prefill_plan``
-    reports)."""
+    """Which mode each program class takes (what ``prefill_plan`` and the
+    serving engine report)."""
     return {"decode": select_kernel(s=1, paged=paged),
             "prefill_chunk": select_kernel(s=2, paged=paged)}
 
@@ -87,13 +97,42 @@ def _fused_decode(q, k, v, positions, cache, layer):
     return out[:, None]
 
 
+def _paged_write_and_attend(q, k, v, positions, cache, layer, start,
+                            prefill):
+    """The paged half of :func:`write_and_attend`: decode through K6's
+    fused write, or the table-resolved write then K7."""
+    from deepspeed_tpu_torch.models.transformer import _paged_write
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+    B, S = k.shape[0], k.shape[1]
+    mode = select_kernel(s=S, paged=True)
+    if prefill or mode == "reference_fallback":
+        raise ValueError(
+            f"a page pool takes single-token decode and chunks of 2 to "
+            f"{MAX_CHUNK_S} tokens (got {S} tokens, prefill={prefill}); "
+            f"serve it through ServingEngine")
+    pages = cache["pages"]
+    if mode == "cuda_paged_decode":
+        lengths = (positions[:, 0] + 1).to(torch.int32)
+        out, _, _ = pa.paged_decode_attention(
+            q[:, 0], cache["k"], cache["v"], lengths, pages, layer=layer,
+            new_k=k[:, 0], new_v=v[:, 0])
+        return out[:, None]
+    _paged_write(cache, layer, k.reshape(B, S, -1), v.reshape(B, S, -1),
+                 positions, start)
+    return pa.paged_chunk_prefill_attention(
+        q, cache["k"], cache["v"], positions[:, 0].to(torch.int32), pages,
+        layer=layer)
+
+
 def write_and_attend(cfg, q, k, v, positions, cache, layer, *,
                      start=None, prefill=False):
-    """Write this step's K/V rows into ``cache`` (``{"k", "v"}`` stacked
-    ``[L, B, S_max, KVH*D]``, updated in place) and attend.  q [B, S, H, D],
-    k/v [B, S, KVH, D], positions [B, S]; ``start`` is the block's first
-    position when every row shares it (an int), else None.  Returns
-    ``out [B, S, H, D]``.
+    """Write this step's K/V rows into ``cache`` and attend.  ``cache`` is
+    ``{"k", "v"}`` stacked ``[L, B, S_max, KVH*D]``, or a page pool
+    ``{"k", "v"}`` ``[L, num_pages, page, KVH*D]`` with its block table
+    ``"pages"`` ``[B, n_virt]``; either is updated in place.
+    q [B, S, H, D], k/v [B, S, KVH, D], positions [B, S]; ``start`` is the
+    block's first position when every row shares it (an int), else None.
+    Returns ``out [B, S, H, D]``.
 
     ``prefill``: this block is a from-zero prompt, so it attends only
     within itself — causal flash over the fresh q/k/v — after the write.
@@ -103,6 +142,9 @@ def write_and_attend(cfg, q, k, v, positions, cache, layer, *,
     from deepspeed_tpu_torch.models.transformer import (_attention,
                                                         cached_attention)
     B, S = k.shape[0], k.shape[1]
+    if "pages" in cache:
+        return _paged_write_and_attend(q, k, v, positions, cache, layer,
+                                       start, prefill)
     KVHD = k.shape[-2] * k.shape[-1]
     S_max = cache["k"].shape[-2]
     if start is not None and not 0 <= start <= S_max - S:

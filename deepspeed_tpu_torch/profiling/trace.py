@@ -13,8 +13,12 @@ from pathlib import Path
 
 import torch
 
-# kernel-name patterns -> group (first match wins)
-GROUPS = (("K1 flash_fwd_kernel", ("flash_fwd_kernel",)),
+# kernel-name patterns -> group (first match wins; a tuple pattern needs
+# all its parts: the paged instantiations of K2's and K1's templates)
+GROUPS = (("K6 decode_kernel (paged)", (("decode_kernel", "PagedRows"),)),
+          ("K7 flash_fwd_kernel (paged)", (("flash_fwd_kernel",
+                                            "PagedRows"),)),
+          ("K1 flash_fwd_kernel", ("flash_fwd_kernel",)),
           ("K4 flash_bwd_dq_kernel", ("flash_bwd_dq_kernel",)),
           ("K5 flash_bwd_dkv_kernel", ("flash_bwd_dkv_kernel",)),
           ("K2 decode_kernel", ("decode_kernel",)),
@@ -33,7 +37,8 @@ PROFILE_ATTEMPTS = 3
 
 def _group(name):
     for group, pats in GROUPS:
-        if any(p in name for p in pats):
+        if any(all(part in name for part in
+                   (p if isinstance(p, tuple) else (p,))) for p in pats):
             return group
     return "other"
 

@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain versions on the card, at small
 shapes with ragged edges (K1: ragged S, GQA, D = 128, both causal modes;
 K2: GQA, zero-length rows, fused and unfused; K3: ragged chunks; K4 / K5:
-ragged S, GQA, D = 128, both causal modes, a strided dO), the autograd
-flash attention on the card against the CPU's gradients, plus the port's
-model on the card against the same model on the CPU.
+ragged S, GQA, D = 128, both causal modes, a strided dO; K6 / K7: page
+sizes 8 to 128 over a shuffled block table, G = 1 to 8, a zero-length
+lane on the trash page, and bitwise against K2 / K3 over the gathered
+view), the autograd flash attention on the card against the CPU's
+gradients, plus the port's model on the card against the same model on
+the CPU.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run on the card's machine without the repo's conftest:
@@ -19,6 +22,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.transformer import decode_attention as da
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -236,3 +240,165 @@ def test_model_training_on_card_matches_cpu(cuda, over):
             continue
         torch.testing.assert_close(g.grad.cpu(), p.grad, atol=1e-6,
                                    rtol=1e-4, msg=name)
+
+
+def _paged_pool(g, dtype, device, D, KVH, page, n_virt, B, L=2):
+    """A pool with a shuffled block table: row 0 is a dead lane (all trash
+    page 0), the others own n_virt distinct pages each, in random order."""
+    n_pages = 1 + (B - 1) * n_virt
+    kp = _randn(g, L, n_pages, page, KVH * D, dtype=dtype, device=device)
+    vp = _randn(g, L, n_pages, page, KVH * D, dtype=dtype, device=device)
+    perm = 1 + torch.randperm(n_pages - 1, generator=torch.Generator()
+                              .manual_seed(page + D))
+    pages = torch.zeros(B, n_virt, dtype=torch.int32)
+    pages[1:] = perm.view(B - 1, n_virt).to(torch.int32)
+    return kp, vp, pages.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("page", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("fused", [True, False])
+def test_paged_decode_kernel_matches_plain_and_k2(cuda, dtype, D, G, page,
+                                                  fused):
+    """K6 against its plain version, and bitwise against K2 over the
+    gathered view pool[pages] (same schedule, other addresses); the fused
+    write lands bitwise where the plain write puts it."""
+    g = torch.Generator(device=cuda).manual_seed(D + G + page)
+    H, B, n_virt, layer = 8, 4, 3, 1
+    KVH = H // G
+    kp, vp, pages = _paged_pool(g, dtype, cuda, D, KVH, page, n_virt, B)
+    q = _randn(g, B, H, D, dtype=dtype, device=cuda)
+    nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
+    nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
+    lengths = torch.tensor([0, 1, 2 * page + 3, n_virt * page],
+                           dtype=torch.int32, device=cuda)
+    kw = dict(new_k=nk, new_v=nv) if fused else {}
+    k1, v1 = kp.clone(), vp.clone()
+    before = pa.paged_decode_attention.launches
+    got = pa.paged_decode_attention(q, k1, v1, lengths, pages, layer=layer,
+                                    **kw)
+    assert pa.paged_decode_attention.launches == before + 1
+    if fused:
+        got, ko, vo = got
+        assert ko is k1 and vo is v1
+    k2, v2 = kp.clone(), vp.clone()
+    want = pa.paged_decode_attention_plain(q, k2[layer], v2[layer], lengths,
+                                           pages, **kw)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    _close(got, want, dtype)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))   # the dead lane
+    # K2 over the gathered view, written the same way
+    gk = pa.gather_pages(kp[layer], pages)
+    gv = pa.gather_pages(vp[layer], pages)
+    mono = da.decode_attention(q, gk, gv, lengths, **kw)
+    if fused:
+        mono = mono[0]
+        live = slice(1, B)
+        assert torch.equal(pa.gather_pages(k1[layer], pages)[live], gk[live])
+        assert torch.equal(pa.gather_pages(v1[layer], pages)[live], gv[live])
+    assert torch.equal(got, mono)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("page", [8, 16, 24, 64, 128])
+def test_paged_chunk_kernel_matches_plain_and_k3(cuda, dtype, D, G, page):
+    """K7 against its plain version, and bitwise against K3 over the
+    gathered view, with chunks that start inside a page and cross page
+    boundaries (a 24-row page does not divide the 64-row k tile)."""
+    g = torch.Generator(device=cuda).manual_seed(2 * D + G + page)
+    H, B, C, layer = 8, 3, 40, 0
+    KVH = H // G
+    n_virt = -(-(2 * page + 3 + C) // page)
+    kp, vp, pages = _paged_pool(g, dtype, cuda, D, KVH, page, n_virt, B + 1)
+    pages = pages[1:].contiguous()                  # live rows only
+    q = _randn(g, B, C, H, D, dtype=dtype, device=cuda)
+    starts = torch.tensor([0, page - 3, 2 * page + 3], dtype=torch.int32,
+                          device=cuda)
+    before = pa.paged_chunk_prefill_attention.launches
+    got = pa.paged_chunk_prefill_attention(q, kp, vp, starts, pages,
+                                           layer=layer)
+    assert pa.paged_chunk_prefill_attention.launches == before + 1
+    want = pa.paged_chunk_prefill_attention_plain(q, kp[layer], vp[layer],
+                                                  starts, pages)
+    _close(got, want, dtype)
+    mono = da.chunk_prefill_attention(q, pa.gather_pages(kp[layer], pages),
+                                      pa.gather_pages(vp[layer], pages),
+                                      starts)
+    assert torch.equal(got, mono)
+
+
+def test_paged_kernels_refuse_bad_inputs(cuda):
+    """A block table on another device, a wrong table shape, a 3-D pool and
+    an unsupported head dim raise before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    kp, vp, pages = _paged_pool(g, torch.float32, cuda, 64, 2, 16, 2, 3)
+    q = _randn(g, 3, 4, 64, dtype=torch.float32, device=cuda)
+    lengths = torch.tensor([0, 5, 20], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="device|cpu"):
+        pa.paged_decode_attention(q, kp, vp, lengths, pages.cpu(), layer=0)
+    with pytest.raises(ValueError, match="block table"):
+        pa.paged_decode_attention(q, kp, vp, lengths, pages[:2], layer=0)
+    with pytest.raises(ValueError, match="layer-stacked"):
+        pa.paged_decode_attention(q, kp[0], vp[0], lengths, pages, layer=0)
+    qc = _randn(g, 3, 8, 4, 64, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="device|cpu"):
+        pa.paged_chunk_prefill_attention(qc, kp, vp, lengths, pages.cpu(),
+                                         layer=0)
+    x = torch.zeros(3, 4, 16, device=cuda)
+    small = torch.zeros(1, 7, 16, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_decode_attention(x, small, small, lengths, pages, layer=0)
+
+
+@pytest.mark.parametrize("page", [16, 24])
+def test_serving_on_card_paged_equals_monolithic(cuda, page):
+    """The serving engine on the card, fp32: 10 mixed requests on 3 slots
+    through K7 / K6 over a paged pool give every request the tokens of the
+    monolithic lanes (K3 / K2), with one K6 launch per layer and decode
+    step and one K7 launch per layer and prefill chunk; after the drain
+    every page is back (the prefix index keeps its own)."""
+    import numpy as np
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        TransformerConfig)
+    cfg = TransformerConfig(vocab_size=97, hidden_size=256, num_layers=2,
+                            num_heads=4, max_seq_len=128, dtype="float32",
+                            tie_word_embeddings=True)
+    eng = init_inference(Transformer(cfg), dtype="float32", device=cuda,
+                         prefill_chunk_size=16)
+    eng.init_params(seed=0)
+    rng = np.random.default_rng(page)
+    reqs = [(rng.integers(0, 97, int(p)).astype(np.int32), int(n))
+            for p, n in zip(rng.integers(5, 60, 10), rng.integers(2, 30, 10))]
+    kw = dict(num_slots=3, max_cache_len=96, prefill_chunk=16,
+              prefill_token_budget=32, decode_block=3, page_size=page)
+    outs, counts = {}, {}
+    for paged in (True, False):
+        before = (pa.paged_decode_attention.launches,
+                  pa.paged_chunk_prefill_attention.launches,
+                  da.decode_attention.launches,
+                  da.chunk_prefill_attention.launches)
+        srv = eng.serve(paged=paged, **kw)
+        rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+        res = srv.drain()
+        outs[paged] = [res[r] for r in rids]
+        after = (pa.paged_decode_attention.launches,
+                 pa.paged_chunk_prefill_attention.launches,
+                 da.decode_attention.launches,
+                 da.chunk_prefill_attention.launches)
+        counts[paged] = [a - b for a, b in zip(after, before)]
+        L, st = cfg.num_layers, srv.stats
+        decode = L * srv.block * st["decode_calls"]
+        chunks = L * st["prefill_tokens"] // srv.chunk
+        want = [decode, chunks, 0, 0] if paged else [0, 0, decode, chunks]
+        assert counts[paged] == want
+        assert st["completed"] == len(reqs)
+        if paged:
+            assert not srv._slot_pages and (srv._page_table == 0).all()
+            assert srv._pool.in_use == len(srv._prefix)
+    for a, b in zip(outs[True], outs[False]):
+        np.testing.assert_array_equal(a, b)

@@ -44,6 +44,8 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys; before = set(sys.modules); "
             "import deepspeed_tpu_torch, deepspeed_tpu_torch.inference.engine, "
             "deepspeed_tpu_torch.ops.transformer.registry, "
+            "deepspeed_tpu_torch.ops.transformer.paged_attention, "
+            "deepspeed_tpu_torch.inference.serving.engine, "
             "deepspeed_tpu_torch.runtime.engine, "
             "deepspeed_tpu_torch.runtime.dataloader; "
             "bad = [m for m in ('jax', 'flax', 'pydantic', 'deepspeed_tpu') "
@@ -98,7 +100,8 @@ def test_unported_config_knobs_raise():
                  dict(strict_memory=True),
                  dict(fault={"bucket_downshift": True}),
                  dict(compile_cache={"enabled": True}),
-                 dict(serving={"num_slots": 4})):
+                 dict(serving={"speculative": True}),
+                 dict(serving={"max_queue_depth": 4})):
         with pytest.raises(NotImplementedError):
             DeepSpeedInferenceConfig(**knob)
     cfg = DeepSpeedInferenceConfig(replace_with_kernel_inject=False,

@@ -39,7 +39,22 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    the loss is finite and falls, and profiling one more step; then holds
    the kernel path's loss and gradients against the dense attention's on a
    2-layer cut of the same widths (cosine per parameter);
-6. prints the card, a ``kernels`` JSON line and, last, the result line.
+6. holds K8 (block-sparse attention) against its plain version at the
+   shape every layer of run (f) gives it — q/k/v [1, 8192, 32, 64], the
+   BigBird layout of ``docs/tutorials/long-context.md``, causal — and,
+   untimed, at blocks 16 / 32 / 128, head dim 128, a layout per head, a
+   key-padding mask and an empty block-row (exactly 0); its ``library_ms``
+   is SDPA with the layout expanded to a boolean [S, S] mask;
+7. drives block-sparse long-context training (f) — ``initialize(opt_model(
+   "opt-1.3b", max_seq_len=8192, sparse_attention=BigBird...))`` with
+   remat, bf16, AdamW and clipping, 2 warm-up and 3 timed ``train_batch``
+   steps on one seeded [1, 8192] batch — counting 48 K8 launches per step
+   (forward and remat's recompute, 24 layers) and no other attention
+   kernel, checking that the loss is finite and falls, and profiling one
+   more step (``build/profiles/sparse_train_trace.json``); then holds K8
+   plus the gather backward against dense attention masked by the same
+   layout on a 2-layer cut at seq 2048 (cosine per parameter);
+8. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 K6 and K7 are also held bitwise against K2 / K3 over the gathered view
 ``pool[layer][pages]`` (the same schedules over other addresses), and
@@ -50,6 +65,7 @@ It exits non-zero, with no result line, when there is no CUDA device, when
 the package is missing, or when any phase fails.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -105,7 +121,8 @@ SERVE_E = dict(paged=True, page_size=64, max_cache_len=768,
                num_slots=8)
 # the training path (c): OPT-1.3B at seq 2048, micro batch 2, and the
 # shapes its attention kernels (K1 with LSE, K4, K5) see in every layer
-RUN_C = dict(micro=2, seq=2048, loss_chunks=8, warmup=2, steps=5)
+RUN_C = dict(micro=2, seq=2048, loss_chunks=8, warmup=2, steps=5, seed=6,
+             trace="train_trace.json")
 KB_SHAPE = dict(B=2, S=2048, H=32, D=64)
 TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": RUN_C["micro"],
                 "gradient_accumulation_steps": 1,
@@ -122,6 +139,38 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": RUN_C["micro"],
 BWD_BF16_REL = 2.0 ** -7
 # gradient check, kernel path vs dense attention, on a 2-layer cut
 GRAD_CHECK = dict(layers=2, batch=2, seq=2048, loss_rel=1e-2, cosine=0.99)
+# block-sparse long-context training (f): the JAX package's long-context
+# story (docs/tutorials/long-context.md) — OPT-1.3B at seq 8192 made
+# block-sparse with the tutorial's BigBird layout; remat (nothing_saveable),
+# the loss in 32 sequence chunks, micro batch 1, otherwise run (c)'s config
+BIGBIRD = dict(num_heads=32, block=64, num_random_blocks=3,
+               num_sliding_window_blocks=3, num_global_blocks=1)
+RUN_F = dict(micro=1, seq=8192, loss_chunks=32, warmup=2, steps=3, seed=12,
+             trace="sparse_train_trace.json")
+TRAIN_F_CONFIG = {**TRAIN_CONFIG,
+                  "train_micro_batch_size_per_gpu": RUN_F["micro"]}
+# K8 at run (f)'s attention shape, and the untimed variants: blocks 16,
+# 32 and 128, head dim 128, a layout per head, a key-padding mask, a
+# hand-made layout with an empty block-row
+K8_SHAPE = dict(B=1, S=8192, H=32, D=64)
+K8_VARIANTS = (
+    dict(tag="block 16", B=2, S=1024, H=32, D=64, block=16, causal=True),
+    dict(tag="block 32", B=2, S=1024, H=32, D=64, block=32, causal=True),
+    dict(tag="block 128", B=2, S=1024, H=32, D=64, block=128, causal=True),
+    dict(tag="head dim 128", B=1, S=2048, H=16, D=128, block=64,
+         causal=True),
+    dict(tag="layout per head (Fixed, 4 global patterns)", B=1, S=2048,
+         H=32, D=64, block=64, causal=True, per_head=True),
+    dict(tag="non-causal, key padding (row 1: tail block padded)", B=2,
+         S=1024, H=32, D=64, block=64, causal=False, padded=True),
+    dict(tag="empty block-row (exactly 0)", B=1, S=1024, H=32, D=64,
+         block=64, causal=False, empty_row=3),
+)
+# the sparse gradient check: K8 + the gather backward against dense
+# attention masked by the same layout (at seq 8192 the dense scores would
+# take 8.6 GB per layer), on a 2-layer cut
+SPARSE_GRAD_CHECK = dict(layers=2, batch=2, seq=2048, loss_rel=1e-2,
+                         cosine=0.99)
 
 
 def fail(msg):
@@ -672,6 +721,139 @@ def check_flash_bwd(dtype, timed):
     return recs
 
 
+def bigbird(**over):
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    return BigBirdSparsityConfig(**{**BIGBIRD, **over})
+
+
+def live_pairs(layout, block, causal):
+    """The (query, key) pairs a layout [H, nb, nb] (upper blocks dropped
+    when causal) leaves live, per batch row: a full block per active
+    block, a lower triangle with its diagonal per causal diagonal block."""
+    import numpy as np
+    layout = np.asarray(layout)
+    n = int(layout.sum())
+    if not causal:
+        return n * block * block
+    diag = int(np.trace(layout, axis1=1, axis2=2).sum())
+    return (n - diag) * block * block + diag * block * (block + 1) // 2
+
+
+def check_block_sparse_case(dtype, B, S, H, D, block, causal, layout,
+                            keep=None):
+    """K8 and its plain version on one layout, on seeded inputs; returns
+    ((q, k, v), (idx, counts), bias, kernel output, plain output)."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    g = torch.Generator(device=DEV).manual_seed(S + H + D + block)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(B, S, H, D, generator=g, device=DEV, dtype=dt)
+               for _ in range(3))
+    idx, counts = bs.device_tables(layout, H, causal, DEV)
+    bias = None if keep is None else bs.padding_bias(keep, dt, DEV)
+    out = bs.block_sparse_attention_fwd(q, k, v, idx, counts, D ** -0.5,
+                                        causal, block, bias)
+    torch.cuda.synchronize()
+    want = bs.block_sparse_attention_plain(q, k, v, idx, counts, D ** -0.5,
+                                           causal, block, bias)
+    return (q, k, v), (idx, counts), bias, out, want
+
+
+def check_block_sparse(dtype, timed):
+    """K8 at run (f)'s attention shape — q/k/v [1, 8192, 32, 64], the
+    tutorial BigBird layout, causal — and, untimed, at the K8_VARIANTS;
+    timed in bf16 against its plain version, SDPA over the layout expanded
+    to a boolean [S, S] mask, and the gather backward of one layer."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    B, S, H, D = (K8_SHAPE[x] for x in "BSHD")
+    block = BIGBIRD["block"]
+    layout = bs.cached_layout(bigbird(), S, causal=True)
+    (q, k, v), (idx, counts), _, out, want = check_block_sparse_case(
+        dtype, B, S, H, D, block, True, layout)
+    err = check_close("K8 block_sparse_attention", out, want, dtype)
+    rec = {"kernel": "K8 block_sparse_attention", "dtype": dtype,
+           "shape": [B, S, H, D], "block": block, "causal": True,
+           "layout": "BigBird " + json.dumps(BIGBIRD),
+           "active_blocks": int(layout[0].sum()),
+           "max_active_per_row": int(idx.shape[-1]),
+           "max_abs_err": err, "tol": TOL[dtype], "variants": []}
+    del want
+    for var in K8_VARIANTS:
+        vB, vS, vH, vD, vblock, vcausal = (var[x] for x in (
+            "B", "S", "H", "D", "block", "causal"))
+        if var.get("per_head"):
+            lay = FixedSparsityConfig(
+                num_heads=vH, block=vblock, num_local_blocks=4,
+                different_layout_per_head=True,
+                num_different_global_patterns=4,
+                attention="unidirectional").make_layout(vS)
+        else:
+            lay = bigbird(num_heads=vH, block=vblock).make_layout(vS)
+        keep = None
+        if var.get("padded"):
+            keep = torch.ones(vB, vS, device=DEV)
+            keep[0, vS - 37:] = 0
+            keep[1, vS - vblock:] = 0
+        if "empty_row" in var:
+            lay = np.array(lay)
+            lay[:, var["empty_row"]] = 0
+        _, _, _, vout, vwant = check_block_sparse_case(
+            dtype, vB, vS, vH, vD, vblock, vcausal, lay, keep)
+        verr = check_close(f"K8 block_sparse_attention ({var['tag']})",
+                           vout, vwant, dtype)
+        if "empty_row" in var:
+            r = var["empty_row"] * vblock
+            if not bool((vout[:, r:r + vblock] == 0).all()):
+                fail(f"K8 ({dtype}): an empty block-row is not exactly 0")
+        rec["variants"].append({"case": var["tag"], "shape": [vB, vS, vH, vD],
+                                "block": vblock, "max_abs_err": verr})
+        del vout, vwant
+    if timed:
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        same = bool((layout == layout[:1]).all())
+        heads = layout[:1] if same else layout
+        live = torch.from_numpy(np.kron(heads, np.ones((block, block),
+                                                       np.int8)) > 0)
+        live = (live.to(DEV) & torch.ones(S, S, dtype=torch.bool,
+                                          device=DEV).tril())[None]
+
+        def run_gather_backward():   # what one layer's backward runs
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = bs.block_sparse_attention_plain(*leaves, idx, counts,
+                                                D ** -0.5, True, block)
+            torch.autograd.grad(o, leaves, q)
+
+        with torch.no_grad():
+            rec.update(time_all(
+                "k8", "block_sparse_fwd_kernel",
+                lambda: bs.block_sparse_attention_fwd(q, k, v, idx, counts,
+                                                      D ** -0.5, True,
+                                                      block),
+                lambda: bs.block_sparse_attention_plain(
+                    q, k, v, idx, counts, D ** -0.5, True, block),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       attn_mask=live), 20))
+        from deepspeed_tpu_torch.profiling.trace import device_ms_per_call
+        rec["gather_backward_ms"] = device_ms_per_call(
+            run_gather_backward, 3,
+            os.path.join(ROOT, "build", "profiles", "chip_smoke_k8_bwd.json"))
+        del live, qh, kh, vh
+        pairs = B * live_pairs(layout, block, True)
+        # q, k, v read and out written once, the two tables read
+        nbytes = 4 * q.numel() * q.element_size() + 4 * (idx.numel()
+                                                         + counts.numel())
+        rec["live_pairs"] = pairs
+        rec["bound_ms"], rec["bound_by"] = bound(4 * D * pairs, nbytes, dtype)
+    emit(rec)
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return rec
+
+
 # --------------------------------------------------------------------- #
 # The main path: init_inference -> generate for OPT-1.3B
 # --------------------------------------------------------------------- #
@@ -679,6 +861,7 @@ def counters():
     from deepspeed_tpu_torch.ops.transformer import decode_attention as da
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
     return {"flash_attention": fa.flash_attention,
             "decode_attention": da.decode_attention,
             "chunk_prefill_attention": da.chunk_prefill_attention,
@@ -686,7 +869,8 @@ def counters():
             "flash_attention_dkv": fa.flash_attention_dkv,
             "paged_decode_attention": pa.paged_decode_attention,
             "paged_chunk_prefill_attention":
-                pa.paged_chunk_prefill_attention}
+                pa.paged_chunk_prefill_attention,
+            "block_sparse_attention_fwd": bs.block_sparse_attention_fwd}
 
 
 def reset_counts():
@@ -791,7 +975,7 @@ def main_path():
         "flash_attention": L, "decode_attention": L * (new - 1),
         "chunk_prefill_attention": 0, "flash_attention_dq": 0,
         "flash_attention_dkv": 0, "paged_decode_attention": 0,
-        "paged_chunk_prefill_attention": 0})
+        "paged_chunk_prefill_attention": 0, "block_sparse_attention_fwd": 0})
     runs["a"] = {"run": "a", "route": "one_pass", "batch": B, "prompt": P,
                  "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
@@ -813,7 +997,8 @@ def main_path():
         "flash_attention": 0, "decode_attention": L * (new - 1),
         "chunk_prefill_attention": L * (-(-P // C)),
         "flash_attention_dq": 0, "flash_attention_dkv": 0,
-        "paged_decode_attention": 0, "paged_chunk_prefill_attention": 0})
+        "paged_decode_attention": 0, "paged_chunk_prefill_attention": 0,
+        "block_sparse_attention_fwd": 0})
     runs["b"] = {"run": "b", "route": "chunked", "chunk": C, "batch": B,
                  "prompt": P, "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
@@ -930,7 +1115,8 @@ def serve_expect(srv, paged):
             "decode_attention": 0 if paged else decode,
             "chunk_prefill_attention": 0 if paged else chunks,
             "paged_decode_attention": decode if paged else 0,
-            "paged_chunk_prefill_attention": chunks if paged else 0}
+            "paged_chunk_prefill_attention": chunks if paged else 0,
+            "block_sparse_attention_fwd": 0}
 
 
 def serve_counted(eng, reqs, tag, **overrides):
@@ -1067,30 +1253,29 @@ def prefix_path(eng):
 
 
 # --------------------------------------------------------------------- #
-# The training path: initialize -> train_batch for OPT-1.3B
+# Training: initialize -> train_batch for OPT-1.3B, dense (c) and
+# block-sparse (f)
 # --------------------------------------------------------------------- #
-def train_path():
-    """Run (c): warm-up steps, timed steps with launch counts, one profiled
-    step.  Returns the run's record."""
+def train_run(run, model, config, settings, want, **extra):
+    """One training run on ``model``: ``initialize`` with ``config``,
+    warm-up steps, timed steps on one seeded batch with every launch count
+    held to ``want`` per step (kernels not named: 0), a finite falling
+    loss, and one profiled step.  Returns the run's record."""
     import torch
     from deepspeed_tpu_torch import initialize
-    from deepspeed_tpu_torch.models.opt import opt_model
     from deepspeed_tpu_torch.profiling.trace import breakdown, kernel_events
-    micro, S, steps = RUN_C["micro"], RUN_C["seq"], RUN_C["steps"]
+    micro, S, steps = settings["micro"], settings["seq"], settings["steps"]
     t0 = time.perf_counter()
-    engine, *_ = initialize(
-        model=opt_model(MODEL, max_seq_len=S, loss_seq_chunks=RUN_C[
-            "loss_chunks"], remat=False, dtype="bfloat16"),
-        config=TRAIN_CONFIG, device=DEV)
+    engine, *_ = initialize(model=model, config=config, device=DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     L, V = engine.module.config.num_layers, engine.module.config.vocab_size
     n_params = sum(p.numel() for p in engine.params)
-    g = torch.Generator(device=DEV).manual_seed(6)
+    g = torch.Generator(device=DEV).manual_seed(settings["seed"])
     batch = {"input_ids": torch.randint(0, V, (1, micro, S), generator=g,
                                         device=DEV)}
     losses = [engine.train_batch(batch=batch)
-              for _ in range(RUN_C["warmup"])]
+              for _ in range(settings["warmup"])]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(DEV)
     reset_counts()
@@ -1103,20 +1288,19 @@ def train_path():
     peak = engine.max_memory_allocated()
     losses = torch.stack(losses).float().tolist()
     per_step = {name: n / steps for name, n in counts.items()}
-    want = {"flash_attention": L, "flash_attention_dq": L,
-            "flash_attention_dkv": L, "decode_attention": 0,
-            "chunk_prefill_attention": 0, "paged_decode_attention": 0,
-            "paged_chunk_prefill_attention": 0}
+    want = {**{name: 0 for name in counts}, **want}
     if per_step != want:
-        fail(f"run (c): launches per step {per_step}, the path needs {want}")
+        fail(f"run ({run}): launches per step {per_step}, the path needs "
+             f"{want}")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"run (c): non-finite loss {losses}")
+        fail(f"run ({run}): non-finite loss {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"run (c): the loss did not fall on a repeated batch: {losses}")
+        fail(f"run ({run}): the loss did not fall on a repeated batch: "
+             f"{losses}")
     tok_s = steps * micro * S / dt
-    rec = {"run": "c", "route": "train_batch", "micro_batch": micro,
-           "seq": S, "layers": L, "params": n_params, "steps": steps,
-           "step_ms": dt / steps * 1e3, "tokens_per_s": tok_s,
+    rec = {"run": run, **extra, "micro_batch": micro, "seq": S, "layers": L,
+           "params": n_params, "steps": steps, "step_ms": dt / steps * 1e3,
+           "tokens_per_s": tok_s,
            "mfu": 6 * n_params * tok_s / PEAK_FLOPS["bfloat16"],
            "peak_device_bytes": peak, "losses": losses,
            "launches": counts, "launches_per_step": per_step,
@@ -1131,8 +1315,8 @@ def train_path():
         torch.cuda.synchronize()
         wall["s"] = time.perf_counter() - t
 
-    trace = os.path.join(ROOT, "build", "profiles", "train_trace.json")
-    emit({"profile": "c", **breakdown(kernel_events(one_step, trace),
+    trace = os.path.join(ROOT, "build", "profiles", settings["trace"])
+    emit({"profile": run, **breakdown(kernel_events(one_step, trace),
                                       wall["s"]),
           "trace": os.path.relpath(trace, ROOT)})
     del engine, batch
@@ -1140,10 +1324,86 @@ def train_path():
     return rec
 
 
+def train_path():
+    """Run (c): OPT-1.3B at seq 2048, 24 K1, K4 and K5 launches a step."""
+    from deepspeed_tpu_torch.models.opt import opt_model
+    model = opt_model(MODEL, max_seq_len=RUN_C["seq"], loss_seq_chunks=RUN_C[
+        "loss_chunks"], remat=False, dtype="bfloat16")
+    L = model.config.num_layers
+    return train_run("c", model, TRAIN_CONFIG, RUN_C, {
+        "flash_attention": L, "flash_attention_dq": L,
+        "flash_attention_dkv": L}, route="train_batch")
+
+
+def sparse_train_path():
+    """Run (f): OPT-1.3B at seq 8192 with the tutorial BigBird layout, K8
+    twice per layer per step (the forward and remat's recompute)."""
+    from deepspeed_tpu_torch.models.opt import opt_model
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
+        cached_layout)
+    S, sc = RUN_F["seq"], bigbird()
+    model = opt_model(MODEL, max_seq_len=S, sparse_attention=sc, remat=True,
+                      loss_seq_chunks=RUN_F["loss_chunks"], dtype="bfloat16")
+    layout = cached_layout(sc, S, causal=True)   # the one the model uses
+    nb = S // sc.block
+    return train_run(
+        "f", model, TRAIN_F_CONFIG, RUN_F,
+        {"block_sparse_attention_fwd": 2 * model.config.num_layers},
+        route="train_batch, block-sparse",
+        sparsity="BigBird " + json.dumps(BIGBIRD),
+        active_blocks_per_head=int(layout[0].sum()),
+        causal_density=float(layout[0].sum()) / (nb * (nb + 1) // 2))
+
+
+def grad_compare(tag, bars, kernel_model, ref_model, ids, want,
+                 ref_context=None):
+    """Loss and every parameter's gradient of ``kernel_model`` against
+    ``ref_model`` (the same weights) on ``ids``: the kernel model's launch
+    counts must be ``want`` (kernels not named: 0); ``ref_context`` is
+    entered around the reference's forward and backward."""
+    import contextlib
+    import torch
+    losses = []
+    reset_counts()
+    for m, ctx in ((kernel_model, contextlib.nullcontext()),
+                   (ref_model, ref_context or contextlib.nullcontext())):
+        with ctx:
+            loss = m({"input_ids": ids})
+            loss.backward()
+        losses.append(float(loss.detach()))
+        if m is kernel_model:
+            counts = read_counts()
+    want = {**{name: 0 for name in counts}, **want}
+    if counts != want:
+        fail(f"{tag}: launches {counts}, the path needs {want}")
+    # a key bias shifts every score of a row alike, which the softmax
+    # ignores: its true gradient is 0 and both paths give roundoff
+    cos = {name: float(torch.nn.functional.cosine_similarity(
+        p.grad.flatten().float(), q.grad.flatten().float(), dim=0))
+        for (name, p), (_, q) in zip(kernel_model.named_parameters(),
+                                     ref_model.named_parameters())
+        if not name.endswith("attn.k_proj.bias")}
+    worst = min(cos, key=cos.get)
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    B, S = ids.shape
+    rec = {"check": tag, "layers": kernel_model.config.num_layers,
+           "batch": B, "seq": S, "loss_kernel": losses[0],
+           "loss_reference": losses[1], "loss_rel_diff": rel,
+           "min_grad_cosine": cos[worst], "min_grad_cosine_param": worst,
+           "params": len(cos), "launches": counts}
+    emit(rec)
+    if not rel <= bars["loss_rel"]:
+        fail(f"{tag}: losses differ by {rel} relative "
+             f"(bar {bars['loss_rel']})")
+    if not cos[worst] >= bars["cosine"]:
+        fail(f"{tag}: gradient cosine {cos[worst]} for {worst} "
+             f"(bar {bars['cosine']})")
+    return rec
+
+
 def grad_check():
-    """Loss and every parameter's gradient through K1 / K4 / K5 against
-    the dense reference attention, on OPT-1.3B's widths cut to 2 layers,
-    bf16, the same weights and batch."""
+    """Loss and gradients through K1 / K4 / K5 against the dense
+    reference attention, on OPT-1.3B's widths cut to 2 layers, bf16."""
     import torch
     from deepspeed_tpu_torch.models.opt import opt_model
     n, B, S = (GRAD_CHECK[x] for x in ("layers", "batch", "seq"))
@@ -1156,33 +1416,66 @@ def grad_check():
     g = torch.Generator(device=DEV).manual_seed(8)
     ids = torch.randint(0, flash.config.vocab_size, (B, S), generator=g,
                         device=DEV)
-    losses = []
-    for m in (flash, dense):
-        loss = m({"input_ids": ids})
-        loss.backward()
-        losses.append(float(loss.detach()))
-    # a key bias shifts every score of a row alike, which the softmax
-    # ignores: its true gradient is 0 and both paths give roundoff
-    cos = {name: float(torch.nn.functional.cosine_similarity(
-        p.grad.flatten().float(), q.grad.flatten().float(), dim=0))
-        for (name, p), (_, q) in zip(flash.named_parameters(),
-                                     dense.named_parameters())
-        if not name.endswith("attn.k_proj.bias")}
-    worst = min(cos, key=cos.get)
-    rel = abs(losses[0] - losses[1]) / abs(losses[1])
-    rec = {"check": "grad: K1/K4/K5 vs dense attention", "layers": n,
-           "batch": B, "seq": S, "loss_flash": losses[0],
-           "loss_dense": losses[1], "loss_rel_diff": rel,
-           "min_grad_cosine": cos[worst], "min_grad_cosine_param": worst,
-           "params": len(cos)}
-    emit(rec)
-    if not rel <= GRAD_CHECK["loss_rel"]:
-        fail(f"grad check: losses differ by {rel} relative "
-             f"(bar {GRAD_CHECK['loss_rel']})")
-    if not cos[worst] >= GRAD_CHECK["cosine"]:
-        fail(f"grad check: gradient cosine {cos[worst]} for {worst} "
-             f"(bar {GRAD_CHECK['cosine']})")
+    rec = grad_compare("grad: K1/K4/K5 vs dense attention", GRAD_CHECK,
+                       flash, dense, ids, {"flash_attention": n,
+                                           "flash_attention_dq": n,
+                                           "flash_attention_dkv": n})
     del flash, dense
+    torch.cuda.empty_cache()
+    return rec
+
+
+@contextlib.contextmanager
+def dense_masked_attention(sparsity_config):
+    """Within: the model's block-sparse attention runs as dense attention
+    masked by ``sparsity_config``'s layout (``sparse_attention_reference``,
+    O(S^2)), the oracle of the sparse gradient check."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    def dense_masked(q, k, v, idx, counts, block, scale=None, causal=False,
+                     key_padding_mask=None):
+        if key_padding_mask is not None:
+            fail("the dense masked oracle takes no key-padding mask")
+        layout = bs.cached_layout(sparsity_config, q.shape[1], causal=True)
+        return bs.sparse_attention_reference(q, k, v, layout, block, scale,
+                                             causal)
+
+    kernel_path = bs.block_sparse_attention_tables
+    bs.block_sparse_attention_tables = dense_masked
+    try:
+        yield
+    finally:
+        bs.block_sparse_attention_tables = kernel_path
+
+
+def sparse_grad_check():
+    """Loss and gradients through K8 and the gather backward against dense
+    attention masked by the same layout, on OPT-1.3B's widths cut to 2
+    layers at seq 2048, bf16, the same weights and batch."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.opt import opt_model
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    n, B, S = (SPARSE_GRAD_CHECK[x] for x in ("layers", "batch", "seq"))
+    kw = dict(device=DEV, num_layers=n, max_seq_len=S, remat=False,
+              loss_seq_chunks=RUN_C["loss_chunks"], dtype="bfloat16")
+    sparse = opt_model(MODEL, sparse_attention=bigbird(), **kw)
+    sparse.init_weights(torch.Generator(device=DEV).manual_seed(13))
+    dense_sc = bigbird()        # the same seed: the same layout
+    dense = opt_model(MODEL, sparse_attention=dense_sc, **kw)
+    dense.load_state_dict(sparse.state_dict())
+    g = torch.Generator(device=DEV).manual_seed(14)
+    ids = torch.randint(0, sparse.config.vocab_size, (B, S), generator=g,
+                        device=DEV)
+    rec = grad_compare(
+        "grad: K8 + gather backward vs dense masked attention",
+        SPARSE_GRAD_CHECK, sparse, dense, ids,
+        {"block_sparse_attention_fwd": n}, dense_masked_attention(dense_sc))
+    if not np.array_equal(bs.cached_layout(dense_sc, S, True),
+                          bs.cached_layout(sparse.config.sparse_attention, S,
+                                           True)):
+        fail("sparse grad check: the two models' layouts differ")
+    del sparse, dense
     torch.cuda.empty_cache()
     return rec
 
@@ -1232,6 +1525,7 @@ def main():
         torch.cuda.empty_cache()
         checks[("K6", dtype)] = check_paged_decode(dtype, timed)
         checks[("K7", dtype)] = check_paged_chunk(dtype, timed)
+        checks[("K8", dtype)] = check_block_sparse(dtype, timed)
 
     runs, eng = main_path()
     runs.update(serving_path(eng))
@@ -1239,6 +1533,8 @@ def main():
     torch.cuda.empty_cache()
     runs["c"] = train_path()
     grad_check()
+    runs["f"] = sparse_train_path()
+    sparse_grad_check()
 
     def timing(c):
         return {"max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
@@ -1274,9 +1570,18 @@ def main():
         row("K7", "paged_chunk_prefill_attention", csrc + "flash_attention.cu",
             pallas + "paged_attention.py:293",
             runs["d"]["launches"]["paged_chunk_prefill_attention"]),
+        row("K8", "block_sparse_attention", csrc + "block_sparse_attention.cu",
+            "deepspeed_tpu/ops/sparse_attention/block_sparse.py:198",
+            runs["f"]["launches"]["block_sparse_attention_fwd"]),
     ]
-    for k in kernels[5:]:
+    for k in kernels[5:7]:
         k["library"] = LIBRARY_NOTE
+    kernels[7]["launches_per_step"] = \
+        runs["f"]["launches_per_step"]["block_sparse_attention_fwd"]
+    kernels[7]["library"] = ("F.scaled_dot_product_attention with the "
+                             "layout expanded to a boolean [S, S] mask")
+    kernels[7]["gather_backward_ms"] = \
+        checks[("K8", "bfloat16")]["gather_backward_ms"]
     # run (d)'s monolithic twin runs K2 and K3 at the serving shapes
     kernels[1]["launches_run_d_mono"] = \
         runs["d_mono"]["launches"]["decode_attention"]

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.utils.logging import logger
+from deepspeed_tpu_torch.utils.logging import logger, warning_once
 
 
 @dataclass(frozen=True)
@@ -162,7 +162,6 @@ _NOT_PORTED = (
     (lambda c: c.parallel_residual, "parallel_residual"),
     (lambda c: c.embedding_norm, "embedding_norm"),
     (lambda c: c.fused_qkv, "fused_qkv"),
-    (lambda c: c.sparse_attention is not None, "sparse_attention"),
     (lambda c: c.sequence_parallel_impl is not None,
      "sequence_parallel_impl"),
     (lambda c: c.remat and c.remat_policy != "nothing_saveable",
@@ -223,11 +222,37 @@ def reference_attention(q, k, v, causal=True, mask=None):
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
+def _prefill_attention(q, k, v, config):
+    """Causal self-attention for a from-zero generation prefill: ONLY the
+    flash kernel (K1) or the dense causal reference, never ``_attention``'s
+    block-sparse branch.  Decode attends densely over the same cache, so
+    a sparse prefill would diverge from its own decode (the JAX
+    ``_prefill_attention``)."""
+    if config.use_flash_attention and q.shape[1] > 1:
+        from deepspeed_tpu_torch.ops.transformer.flash_attention import (
+            flash_attention)
+        return flash_attention(q, k, v, causal=True)
+    return reference_attention(q, k, v, causal=True)
+
+
 def _attention(q, k, v, config, mask=None):
-    """Causal self-attention within q/k/v: the uncached forward, and a
-    from-zero generation prefill (the JAX package's ``_prefill_attention``).
-    The flash kernel (K1), or the dense reference for a single token or a
-    key-padding ``mask``."""
+    """Causal self-attention within q/k/v, the uncached forward: block-sparse
+    attention (K8) when the config has ``sparse_attention``, a 2-D
+    key-padding ``mask`` folded in; else the flash kernel (K1), or the
+    dense reference for a single token or a key-padding ``mask``."""
+    sc = config.sparse_attention
+    if sc is not None and q.shape[1] > 1:
+        if mask is not None and mask.dim() != 2:
+            # the JAX model warns and goes dense, where such a mask fails too
+            raise ValueError(f"sparse_attention folds [B, S] key-padding "
+                             f"masks only; got a {mask.dim()}-D mask")
+        from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
+            block_sparse_attention_tables, cached_tables)
+        idx, counts = cached_tables(sc, q.shape[1], q.shape[2], q.device,
+                                    causal=True)
+        return block_sparse_attention_tables(q, k, v, idx, counts, sc.block,
+                                             causal=True,
+                                             key_padding_mask=mask)
     if config.use_flash_attention and q.shape[1] > 1 and mask is None:
         from deepspeed_tpu_torch.ops.transformer.flash_attention import (
             flash_attention)
@@ -308,6 +333,12 @@ class Attention(nn.Module):
             q = q * torch.tensor(cfg.attention_softmax_scale * math.sqrt(D),
                                  dtype=q.dtype)
         if cache is not None:
+            if cfg.sparse_attention is not None:
+                # cached prefill and decode attend densely; a model trained
+                # block-sparse sees another pattern at generation time
+                warning_once("sparse_attention model decoding with dense "
+                             "KV-cache attention — train/decode attention "
+                             "patterns differ")
             from deepspeed_tpu_torch.ops.transformer.registry import (
                 write_and_attend)
             out = write_and_attend(cfg, q, k, v, positions, cache, layer,

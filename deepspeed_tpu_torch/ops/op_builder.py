@@ -146,7 +146,14 @@ DECODE = KernelLibrary("decode_attention", "decode_attention.cu", {
         [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 })
 
-LIBRARIES = (FLASH, FLASH_BWD, DECODE)
+SPARSE = KernelLibrary("block_sparse_attention", "block_sparse_attention.cu", {
+    # K8: q, k, v, o, idx, counts, bias, dtype, B, S, H, D, A, block,
+    # 12 strides (b, s, h for q, k, v, o), causal, scale, stream
+    "dstt_block_sparse_attention_fwd":
+        [P] * 7 + [I] * 7 + [L] * 12 + [I, F, P],
+})
+
+LIBRARIES = (FLASH, FLASH_BWD, DECODE, SPARSE)
 
 
 def build_all():

@@ -139,7 +139,7 @@ def write_and_attend(cfg, q, k, v, positions, cache, layer, *,
     The caller sets it explicitly: chunked prefill passes False for every
     chunk, its first included, so chunk 0 attends through the chunk kernel
     as it does in the JAX package."""
-    from deepspeed_tpu_torch.models.transformer import (_attention,
+    from deepspeed_tpu_torch.models.transformer import (_prefill_attention,
                                                         cached_attention)
     B, S = k.shape[0], k.shape[1]
     if "pages" in cache:
@@ -157,7 +157,7 @@ def write_and_attend(cfg, q, k, v, positions, cache, layer, *,
     _write_cache(cache, layer, k.reshape(B, S, KVHD), v.reshape(B, S, KVHD),
                  positions, start)
     if prefill:
-        return _attention(q, k, v, cfg)
+        return _prefill_attention(q, k, v, cfg)
     if mode == "cuda_chunked_prefill":
         # each row's positions are contiguous and ascending, so the kernel
         # needs only the first

@@ -22,11 +22,17 @@ GROUPS = (("K6 decode_kernel (paged)", (("decode_kernel", "PagedRows"),)),
           ("K4 flash_bwd_dq_kernel", ("flash_bwd_dq_kernel",)),
           ("K5 flash_bwd_dkv_kernel", ("flash_bwd_dkv_kernel",)),
           ("K2 decode_kernel", ("decode_kernel",)),
+          ("K8 block_sparse_fwd_kernel", ("block_sparse_fwd_kernel",)),
           ("GEMM (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                              "splitKreduce")),
+          # advanced-indexing gathers and their scatter-add backward: in a
+          # block-sparse training step, the k / v block gathers of K8's
+          # gather backward and the scatter-add of their gradients
+          ("gather / scatter (index)", ("index_elementwise",
+                                        "indexing_backward")),
           ("layer norm", ("layer_norm", "LayerNorm")),
           ("optimizer / grad norm (foreach)", ("multi_tensor_apply",)),
-          ("embedding", ("embedding", "indexing_backward")),
+          ("embedding", ("embedding",)),
           ("softmax / sampling", ("softmax", "argmax", "reduce")),
           ("copy / cast / index", ("copy", "Copy", "index", "cat", "fill",
                                    "Fill")),

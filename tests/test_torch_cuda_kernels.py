@@ -4,9 +4,11 @@ K2: GQA, zero-length rows, fused and unfused; K3: ragged chunks; K4 / K5:
 ragged S, GQA, D = 128, both causal modes, a strided dO; K6 / K7: page
 sizes 8 to 128 over a shuffled block table, G = 1 to 8, a zero-length
 lane on the trash page, and bitwise against K2 / K3 over the gathered
-view), the autograd flash attention on the card against the CPU's
-gradients, plus the port's model on the card against the same model on
-the CPU.
+view; K8: blocks 16 to 128, head dims 64 / 128, causal or with a
+key-padding bias, one layout or one per head, empty rows), the autograd
+flash and block-sparse attention on the card against the CPU's
+gradients, plus the port's model (dense and block-sparse) on the card
+against the same model on the CPU.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run on the card's machine without the repo's conftest:
@@ -402,3 +404,150 @@ def test_serving_on_card_paged_equals_monolithic(cuda, page):
             assert srv._pool.in_use == len(srv._prefix)
     for a, b in zip(outs[True], outs[False]):
         np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------- #
+# K8: block-sparse attention forward
+# --------------------------------------------------------------------- #
+def _sparse_layout(kind, H, block, S):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    if kind == "bigbird":           # one layout broadcast over heads
+        cfg = sa.BigBirdSparsityConfig(num_heads=H, block=block,
+                                       num_random_blocks=2, seed=block)
+    else:                           # a layout per head
+        cfg = sa.FixedSparsityConfig(num_heads=H, block=block,
+                                     num_local_blocks=2,
+                                     different_layout_per_head=True,
+                                     num_different_global_patterns=2)
+    return cfg.make_layout(S)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_block_sparse_kernel_matches_plain(cuda, dtype, block, D, causal):
+    """K8 against its plain version: blocks 16-128, head dims 64 / 128,
+    causal and not, one layout broadcast and a layout per head; without
+    causality a key-padding bias whose row 1 has its tail block fully
+    padded; q, k and v are strided views of one projection."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    g = torch.Generator(device=cuda).manual_seed(block + D)
+    B, H, S = 2, 4, 8 * block
+    qkv = _randn(g, B, S, 3, H, D, dtype=dtype, device=cuda)
+    q, k, v = qkv.unbind(2)
+    bias = None
+    if not causal:
+        keep = torch.ones(B, S, device=cuda)
+        keep[0, S - 37:] = 0
+        keep[1, S - block:] = 0
+        bias = bs.padding_bias(keep, dtype, cuda)
+    for kind in ("bigbird", "fixed"):
+        lay = _sparse_layout(kind, H, block, S)
+        idx, counts = bs.device_tables(lay, H, causal, cuda)
+        before = bs.block_sparse_attention_fwd.launches
+        got = bs.block_sparse_attention_fwd(q, k, v, idx, counts, D ** -0.5,
+                                            causal, block, bias)
+        assert bs.block_sparse_attention_fwd.launches == before + 1
+        want = bs.block_sparse_attention_plain(q, k, v, idx, counts,
+                                               D ** -0.5, causal, block, bias)
+        assert got.dtype == dtype
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_block_sparse_kernel_empty_rows_are_zero(cuda, dtype):
+    """A block-row with no active block gives exactly 0; padded table
+    slots are never read (idx is garbage past counts)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, H, S, D, block = 2, 2, 256, 64, 64
+    q, k, v = (_randn(g, B, S, H, D, dtype=dtype, device=cuda)
+               for _ in range(3))
+    lay = torch.ones(H, 4, 4, dtype=torch.int64)
+    lay[:, 2] = 0
+    lay[1, 0] = 0
+    idx, counts = bs.device_tables(lay.numpy(), H, False, cuda)
+    idx = torch.where(torch.arange(idx.shape[-1], device=cuda)
+                      < counts[..., None], idx, 10 ** 6).to(torch.int32)
+    got = bs.block_sparse_attention_fwd(q, k, v, idx.contiguous(), counts,
+                                        D ** -0.5, False, block)
+    assert (got[:, 128:192] == 0).all() and (got[:, :64, 1] == 0).all()
+    idx, counts = bs.device_tables(lay.numpy(), H, False, cuda)
+    want = bs.block_sparse_attention_plain(q, k, v, idx, counts, D ** -0.5,
+                                           False, block)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_block_sparse_autograd_on_card_matches_cpu(cuda, masked):
+    """K8 forward plus the gather backward on the card give the CPU's
+    output and gradients (the plain forward and the same backward), fp32,
+    through the public entry with the key-padding fold."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    gen = torch.Generator().manual_seed(3)
+    B, S, H, D, block = 2, 256, 4, 64, 32
+    cpu = [torch.randn(B, S, H, D, generator=gen) for _ in range(4)]
+    lay = sa.BigBirdSparsityConfig(num_heads=H, block=block).make_layout(S)
+    keep = torch.ones(B, S)
+    keep[1, 200:] = 0
+    res = []
+    for dev in ("cpu", cuda):
+        q, k, v = (t.to(dev).requires_grad_(True) for t in cpu[:3])
+        out = sa.block_sparse_attention(
+            q, k, v, lay, block, causal=not masked,
+            key_padding_mask=keep.to(dev) if masked else None)
+        res.append([out] + list(torch.autograd.grad(out, (q, k, v),
+                                                    cpu[3].to(dev))))
+    for a, b in zip(res[1], res[0]):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_block_sparse_refuses_what_the_kernel_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    lay = sa.DenseSparsityConfig(num_heads=2, block=48).make_layout(96)
+    x = torch.zeros(1, 96, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="blocks"):
+        sa.block_sparse_attention(x, x, x, lay, 48)
+    lay = sa.DenseSparsityConfig(num_heads=2, block=16).make_layout(32)
+    x = torch.zeros(1, 32, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        sa.block_sparse_attention(x, x, x, lay, 16)
+
+
+def test_sparse_model_training_on_card_matches_cpu(cuda):
+    """A block-sparse model's loss and gradients through K8 and the gather
+    backward on the card against the same model on the CPU, fp32, remat
+    on (each block's K8 runs twice: 2 launches per layer)."""
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        TransformerConfig)
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    def cfg():
+        return TransformerConfig(
+            vocab_size=97, hidden_size=256, num_layers=2, num_heads=4,
+            max_seq_len=256, dtype="float32", tie_word_embeddings=True,
+            remat=True, sparse_attention=sa.BigBirdSparsityConfig(
+                num_heads=4, block=32, num_random_blocks=2))
+    cpu = Transformer(cfg(), device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    gpu = Transformer(cfg(), device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, 97, (2, 256), generator=torch.Generator()
+                        .manual_seed(1))
+    losses = []
+    for m, dev in ((cpu, "cpu"), (gpu, cuda)):
+        before = bs.block_sparse_attention_fwd.launches
+        loss = m({"input_ids": ids.to(dev)})
+        loss.backward()
+        losses.append(loss.detach().cpu())
+    assert bs.block_sparse_attention_fwd.launches - before == 4
+    torch.testing.assert_close(losses[1], losses[0], atol=1e-5, rtol=1e-5)
+    for (name, p), (_, g) in zip(cpu.named_parameters(),
+                                 gpu.named_parameters()):
+        if name.endswith("attn.k_proj.bias"):
+            continue
+        torch.testing.assert_close(g.grad.cpu(), p.grad, atol=1e-6,
+                                   rtol=1e-4, msg=name)

@@ -47,7 +47,8 @@ def test_import_leaves_jax_unloaded():
             "deepspeed_tpu_torch.ops.transformer.paged_attention, "
             "deepspeed_tpu_torch.inference.serving.engine, "
             "deepspeed_tpu_torch.runtime.engine, "
-            "deepspeed_tpu_torch.runtime.dataloader; "
+            "deepspeed_tpu_torch.runtime.dataloader, "
+            "deepspeed_tpu_torch.ops.sparse_attention; "
             "bad = [m for m in ('jax', 'flax', 'pydantic', 'deepspeed_tpu') "
             "if m in sys.modules and m not in before]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -25,9 +25,7 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    0.75 of the worst case — answers 192 mixed requests through K7
    (admission prefill) and K6 (decode), with exact launch counts, then the
    same requests on monolithic slot lanes (K3 / K2) must give every
-   request the same tokens, and the pair runs again monolithic first, so
-   an order effect shows apart from paging's own cost in the wall times;
-   a decode window with all 96 slots live goes
+   request the same tokens; a decode window with all 96 slots live goes
    once more under ``torch.profiler`` (a ``profile`` line, trace in
    ``build/profiles/serving_trace.json``); run (e) serves 24 requests
    behind one 512-token system prompt and must reuse its pages 23 times
@@ -54,12 +52,37 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    more step (``build/profiles/sparse_train_trace.json``); then holds K8
    plus the gather backward against dense attention masked by the same
    layout on a 2-layer cut at seq 2048 (cosine per parameter);
-8. prints the card, a ``kernels`` JSON line and, last, the result line.
+8. holds the int8 modes against their plain versions at the shapes of
+   runs (g) and (h): K2-int8 (fused, one all-zero fresh row stored as
+   payload 0 with scale 1.0, and unfused) and K2-i8mm on run (a)'s cache
+   [24, 16, 320, 2048] int8, K3-int8 at run (b)'s shape, K6-int8 (fused)
+   and K6-i8mm on run (d)'s pool [24, 433, 64, 2048] int8, K7-int8 at
+   the admission shape; fused writes leave payloads and scales bitwise
+   the plain quantize-and-write, and K6-int8 / K6-i8mm / K7-int8 are
+   bitwise K2-int8 / K2-i8mm (block = page) / K3-int8 over the gathered
+   view; their ``library_ms`` is SDPA over the cache dequantized to bf16
+   beforehand;
+9. drives int8 serving — ``init_inference(..., quant={"enabled": True,
+   "bits": 8, "per_channel": True, "kv_cache": True})`` with run (a)'s
+   weights quantized from fp32: run (g) generates at run (a)'s shape
+   (K1, K2-int8), run (b)'s (K3-int8, K2-int8) and run (a)'s with
+   ``decode_int8_matmuls`` (K2-i8mm); run (h) serves run (d)'s requests
+   on an int8 pool (K7-int8, K6-int8) and on int8 lanes (K3-int8,
+   K2-int8), every request's tokens equal, and (h-i8mm) 24 of them with
+   K6-i8mm; each with exact launch counts, its kernel-path logits
+   against the plain path on the card (``plain_kernels``), weight, KV
+   and peak bytes against the bf16 runs', and the share of greedy tokens
+   that agree with them (reported); run (g) goes once more under the
+   profiler (``profile`` "g", ``build/profiles/int8_generate_trace.json``);
+10. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 K6 and K7 are also held bitwise against K2 / K3 over the gathered view
 ``pool[layer][pages]`` (the same schedules over other addresses), and
 their ``library_ms`` is ``F.scaled_dot_product_attention`` over that view
 gathered beforehand: no one PyTorch call reads through a block table.
+The int8 x int8 modes are held to max|err| <= 1e-2 * max|want|
+(``I8MM_REL``): integer products are exact on both sides, but one exp
+ulp can flip one rounding of P.
 
 It exits non-zero, with no result line, when there is no CUDA device, when
 the package is missing, or when any phase fails.
@@ -75,7 +98,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
-              "float32": 67e12}    # fp32 outside the tensor cores
+              "float32": 67e12,    # fp32 outside the tensor cores
+              "int8": 1979e12}     # dense tensor-core int8 (TOP/s)
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the LSE is an fp32 result on both sides (summation order apart), and
 # every gradient of K4 / K5 goes through exp(s - lse)
@@ -119,6 +143,21 @@ RUN_E = dict(system=512, tails=24, tail=16, new=32, seed=1)
 SERVE_E = dict(paged=True, page_size=64, max_cache_len=768,
                prefill_chunk=128, prefill_token_budget=256, decode_block=8,
                num_slots=8)
+# int8 serving: per-channel int8 weights (quantized from run (a)'s weights
+# in fp32) and an int8 KV cache, the JAX bench's serving_paged settings
+# (bench.py:968-972).  Run (g): generation at run (a)'s and run (b)'s
+# shapes, and run (a)'s with decode_int8_matmuls; run (h): run (d)'s
+# requests and server on the int8 engine, with its monolithic twin; run
+# (h-i8mm): run (d)'s first 24 requests with decode_int8_matmuls, paged
+QUANT = {"enabled": True, "bits": 8, "per_channel": True, "kv_cache": True}
+RUN_H_I8MM = dict(requests=24)
+INT8_LIBRARY_NOTE = ("F.scaled_dot_product_attention over the int8 cache "
+                     "dequantized to bf16 beforehand (dequantization "
+                     "excluded)")
+# the int8 x int8 decode against its plain version: integer products are
+# exact on both sides, but one exp ulp can flip one rounding of P, which
+# moves that row by about rmax * |v|: max|err| <= 1e-2 * max|want|
+I8MM_REL = 1e-2
 # the training path (c): OPT-1.3B at seq 2048, micro batch 2, and the
 # shapes its attention kernels (K1 with LSE, K4, K5) see in every layer
 RUN_C = dict(micro=2, seq=2048, loss_chunks=8, warmup=2, steps=5, seed=6,
@@ -616,6 +655,458 @@ def check_paged_chunk(dtype, timed):
     return rec
 
 
+# --------------------------------------------------------------------- #
+# The int8 modes of K2 / K3 / K6 / K7 against their plain versions
+# --------------------------------------------------------------------- #
+def int8_pair(g, *lead, KVH, D):
+    """An int8-KV cache on the card: k and v payloads [*lead, KVH*D]
+    uniform in [-127, 127] and positive fp32 scales [*lead, KVH] in
+    [0.001, 0.021)."""
+    import torch
+    pay = [torch.randint(-127, 128, (*lead, KVH * D), generator=g, device=DEV,
+                         dtype=torch.int8) for _ in range(2)]
+    scales = [0.001 + 0.02 * torch.rand(*lead, KVH, generator=g, device=DEV)
+              for _ in range(2)]
+    return pay + scales
+
+
+def tensor_bytes(tensors):
+    """Bytes of the tensors of a dict (a cache, a pool) or a module."""
+    import torch
+    if isinstance(tensors, torch.nn.Module):
+        tensors = {**dict(tensors.named_parameters()),
+                   **dict(tensors.named_buffers())}
+    return sum(t.numel() * t.element_size() for t in tensors.values()
+               if isinstance(t, torch.Tensor))
+
+
+def dequant_heads(cache, scales, dtype):
+    """An int8 cache layer [B, S, KVH*D] with scales [B, S, KVH] as the
+    [B, KVH, S, D] ``dtype`` copy SDPA reads (MHA: KVH = H)."""
+    B, S, KVH = scales.shape
+    x = cache.view(B, S, KVH, -1).float() * scales[..., None]
+    return x.to(dtype).transpose(1, 2).contiguous()
+
+
+def int8_bytes(rows, H, D, KVH):
+    """Bytes of ``rows`` int8-KV positions of K and V: payload and scales."""
+    return 2 * rows * (H * D + 4 * KVH)
+
+
+def check_equal_bufs(tag, got, want):
+    import torch
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"{tag}: written payloads / scales differ from the plain "
+             f"quantize-and-write")
+
+
+def check_decode_int8(dtype, timed):
+    """K2's int8-KV mode at run (g)'s cache [24, 16, 320, 2048] int8 with a
+    layer index, fused (one fresh row all zero: payload 0, scale 1.0) and
+    unfused, and K2's int8 x int8 mode on the same cache (one KV block of
+    min(512, 320) positions); against the plain versions, the fused write
+    bitwise the plain quantize-and-write."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    L, B, S_max, H, D = (K2_SHAPE[x] for x in ("L", "B", "S_max", "H", "D"))
+    layer = L // 4
+    g = torch.Generator(device=DEV).manual_seed(21)
+    dt = getattr(torch, dtype)
+    bufs = int8_pair(g, L, B, S_max, KVH=H, D=D)
+    q, nk, nv = (torch.randn(B, H, D, generator=g, device=DEV, dtype=dt)
+                 for _ in range(3))
+    zero = B // 3                                 # its fresh k row is 0
+    nk[zero] = 0
+    lengths = torch.tensor(K2_SHAPE["lengths"], dtype=torch.int32,
+                           device=DEV)
+    a = [t.clone() for t in bufs]
+    out = da.decode_attention(q, a[0], a[1], lengths, layer=layer,
+                              k_scale=a[2], v_scale=a[3], new_k=nk,
+                              new_v=nv)[0]
+    torch.cuda.synchronize()
+    b = [t.clone() for t in bufs]
+    want = da.decode_attention_plain(q, b[0][layer], b[1][layer], lengths,
+                                     new_k=nk, new_v=nv, k_scale=b[2][layer],
+                                     v_scale=b[3][layer])
+    err = check_close("K2-int8 decode_attention", out, want, dtype)
+    check_equal_bufs(f"K2-int8 ({dtype})", a, b)
+    w = int(lengths[zero]) - 1
+    if a[0][layer, zero, w].any() \
+            or not bool((a[2][layer, zero, w] == 1).all()):
+        fail(f"K2-int8 ({dtype}): an all-zero fresh row was not stored as "
+             f"payload 0 with scale 1.0")
+    del b, want, bufs
+    unfused = da.decode_attention(q, a[0], a[1], lengths, layer=layer,
+                                  k_scale=a[2], v_scale=a[3])
+    check_close("K2-int8 decode_attention (unfused)", unfused,
+                da.decode_attention_plain(q, a[0][layer], a[1][layer],
+                                          lengths, k_scale=a[2][layer],
+                                          v_scale=a[3][layer]), dtype)
+    bk = min(512, S_max)
+    mm = da.decode_attention(q, a[0], a[1], lengths, layer=layer,
+                             k_scale=a[2], v_scale=a[3], int8_matmuls=True)
+    torch.cuda.synchronize()
+    mm_err = check_rel(f"K2-i8mm decode_attention ({dtype})", mm,
+                       da.decode_attention_i8mm_plain(
+                           q, a[0][layer], a[1][layer], lengths, a[2][layer],
+                           a[3][layer], block_k=bk), I8MM_REL)
+    shape = {"cache": [L, B, S_max, H * D], "cache_dtype": "int8",
+             "scales": [L, B, S_max, H], "lengths": lengths.tolist()}
+    rec = {"kernel": "K2-int8 decode_attention", "dtype": dtype, **shape,
+           "fused_write": True, "max_abs_err": err, "tol": TOL[dtype],
+           "cache_rows_and_scales_bitwise_equal": True,
+           "zero_row_scale": 1.0}
+    rec_mm = {"kernel": "K2-i8mm decode_attention", "dtype": dtype, **shape,
+              "int8_matmuls": True, "block_k": bk, "max_abs_err": mm_err,
+              "tol": f"{I8MM_REL} * max|want|"}
+    if timed:
+        it = iter(range(10 ** 9))
+        heads = [(dequant_heads(a[0][li], a[2][li], dt),
+                  dequant_heads(a[1][li], a[3][li], dt)) for li in range(L)]
+        live = (torch.arange(S_max, device=DEV)[None]
+                < lengths[:, None].long())[:, None, None, :]
+        qh = q[:, :, None, :]
+
+        def run_library():
+            kh, vh = heads[next(it) % L]
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=live)
+
+        def run_kernel():       # one layer per call, as decode walks them
+            li = next(it) % L
+            da.decode_attention(q, a[0], a[1], lengths, layer=li,
+                                k_scale=a[2], v_scale=a[3], new_k=nk,
+                                new_v=nv)
+
+        def run_plain():
+            li = next(it) % L
+            da.decode_attention_plain(q, a[0][li], a[1][li], lengths,
+                                      new_k=nk, new_v=nv, k_scale=a[2][li],
+                                      v_scale=a[3][li])
+
+        def run_mm():
+            li = next(it) % L
+            da.decode_attention(q, a[0], a[1], lengths, layer=li,
+                                k_scale=a[2], v_scale=a[3],
+                                int8_matmuls=True)
+
+        def run_mm_plain():
+            li = next(it) % L
+            da.decode_attention_i8mm_plain(q, a[0][li], a[1][li], lengths,
+                                           a[2][li], a[3][li], block_k=bk)
+
+        rec.update(time_all("k2_int8", "decode_kernel", run_kernel,
+                            run_plain, run_library, 240))
+        rec_mm.update(time_all("k2_i8mm", "decode_i8mm_kernel", run_mm,
+                               run_mm_plain, run_library, 240))
+        rec["library"] = rec_mm["library"] = INT8_LIBRARY_NOTE
+        del heads
+        n_live = int(lengths.sum())
+        es = q.element_size()
+        io = 2 * q.numel() * es + lengths.numel() * 4     # q read, out written
+        # fused: each row's last live position is this step's fresh row,
+        # read in q's dtype and written as payload + scale
+        nbytes = (int8_bytes(n_live - B, H, D, H) + 2 * nk.numel() * es
+                  + int8_bytes(B, H, D, H) + io)
+        rec["bound_ms"], rec["bound_by"] = bound(4 * H * D * n_live, nbytes,
+                                                 dtype)
+        rec_mm["bound_ms"], rec_mm["bound_by"] = bound(
+            4 * H * D * n_live, int8_bytes(n_live, H, D, H) + io, "int8")
+    emit(rec)
+    emit(rec_mm)
+    del a
+    torch.cuda.empty_cache()
+    return rec, rec_mm
+
+
+def check_chunk_int8(dtype, timed):
+    """K3's int8-KV mode at run (g)'s chunked-prefill shape: q
+    [16, 128, 32, 64] over [24, 16, 512, 2048] int8."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    L, B, C, S_max, H, D = (K3_SHAPE[x]
+                            for x in ("L", "B", "C", "S_max", "H", "D"))
+    layer = L // 3
+    g = torch.Generator(device=DEV).manual_seed(23)
+    dt = getattr(torch, dtype)
+    kc, vc, ks, vs = int8_pair(g, L, B, S_max, KVH=H, D=D)
+    q = torch.randn(B, C, H, D, generator=g, device=DEV, dtype=dt)
+    starts = torch.tensor(K3_SHAPE["starts"], dtype=torch.int32, device=DEV)
+    out = da.chunk_prefill_attention(q, kc, vc, starts, layer=layer,
+                                     k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    want = da.chunk_prefill_attention_plain(q, kc[layer], vc[layer], starts,
+                                            k_scale=ks[layer],
+                                            v_scale=vs[layer])
+    err = check_close("K3-int8 chunk_prefill_attention", out, want, dtype)
+    rec = {"kernel": "K3-int8 chunk_prefill_attention", "dtype": dtype,
+           "q": [B, C, H, D], "cache": [L, B, S_max, H * D],
+           "cache_dtype": "int8", "starts": starts.tolist(),
+           "max_abs_err": err, "tol": TOL[dtype]}
+    if timed:
+        it = iter(range(10 ** 9))
+        qh = q.transpose(1, 2).contiguous()
+        qpos = starts[:, None].long() + torch.arange(C, device=DEV)[None]
+        live = (torch.arange(S_max, device=DEV)[None, None]
+                <= qpos[..., None])[:, None]
+        heads = [(dequant_heads(kc[li], ks[li], dt),
+                  dequant_heads(vc[li], vs[li], dt)) for li in range(L)]
+
+        def run_library():
+            kh, vh = heads[next(it) % L]
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=live)
+
+        def run_kernel():
+            da.chunk_prefill_attention(q, kc, vc, starts, layer=next(it) % L,
+                                       k_scale=ks, v_scale=vs)
+
+        def run_plain():
+            li = next(it) % L
+            da.chunk_prefill_attention_plain(q, kc[li], vc[li], starts,
+                                             k_scale=ks[li], v_scale=vs[li])
+
+        rec.update(time_all("k3_int8", "flash_fwd_kernel", run_kernel,
+                            run_plain, run_library, 96))
+        rec["library"] = INT8_LIBRARY_NOTE
+        del heads
+        pairs = int(qpos.sum()) + B * C
+        nbytes = (int8_bytes(int((starts.long() + C).sum()), H, D, H)
+                  + 2 * q.numel() * q.element_size() + starts.numel() * 4)
+        rec["bound_ms"], rec["bound_by"] = bound(4 * H * D * pairs, nbytes,
+                                                 dtype)
+    emit(rec)
+    del kc, vc, ks, vs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_paged_decode_int8(dtype, timed):
+    """K6's int8-KV mode at run (h)'s pool [24, 433, 64, 2048] int8, B 96,
+    fused: against its plain version (pools bitwise the plain write) and
+    bitwise against K2-int8 over the gathered views; K6's int8 x int8 mode
+    against its plain version and bitwise against K2-i8mm over the
+    gathered views at block_k = page."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+    L, NP, page, B, H, D, nv = (K6_SHAPE[x] for x in (
+        "L", "pages", "page", "B", "H", "D", "n_virt"))
+    layer = L // 4
+    g = torch.Generator(device=DEV).manual_seed(29)
+    dt = getattr(torch, dtype)
+    bufs = int8_pair(g, L, NP, page, KVH=H, D=D)
+    q, nk, nw = (torch.randn(B, H, D, generator=g, device=DEV, dtype=dt)
+                 for _ in range(3))
+    spans = [nv * page * i // (B - 1) for i in range(B)]     # 0 .. 384
+    lengths = torch.tensor(spans, dtype=torch.int32, device=DEV)
+    table = paged_table(B, nv, NP, spans, page, seed=30)
+    views = [pa.gather_pages(t[layer], table) for t in bufs]
+    a = [t.clone() for t in bufs]
+    out = pa.paged_decode_attention(q, a[0], a[1], lengths, table,
+                                    layer=layer, k_scale=a[2], v_scale=a[3],
+                                    new_k=nk, new_v=nw)[0]
+    torch.cuda.synchronize()
+    b = [t.clone() for t in bufs]
+    want = pa.paged_decode_attention_plain(
+        q, b[0][layer], b[1][layer], lengths, table, new_k=nk, new_v=nw,
+        k_scale=b[2][layer], v_scale=b[3][layer])
+    err = check_close("K6-int8 paged_decode_attention", out, want, dtype)
+    check_equal_bufs(f"K6-int8 ({dtype})", a, b)
+    del b, want, bufs
+    mono = da.decode_attention(q, *views[:2], lengths, k_scale=views[2],
+                               v_scale=views[3], new_k=nk, new_v=nw)[0]
+    if not torch.equal(out, mono):
+        fail(f"K6-int8 ({dtype}) is not bitwise equal to K2-int8 over the "
+             f"gathered view: max diff {max_err(out, mono)}")
+    del views, mono
+    mm = pa.paged_decode_attention(q, a[0], a[1], lengths, table,
+                                   layer=layer, k_scale=a[2], v_scale=a[3],
+                                   int8_matmuls=True)
+    torch.cuda.synchronize()
+    mm_err = check_rel(f"K6-i8mm paged_decode_attention ({dtype})", mm,
+                       pa.paged_decode_attention_i8mm_plain(
+                           q, a[0][layer], a[1][layer], lengths, table,
+                           a[2][layer], a[3][layer]), I8MM_REL)
+    views = [pa.gather_pages(t[layer], table) for t in a]
+    mono = da.decode_attention(q, *views[:2], lengths, k_scale=views[2],
+                               v_scale=views[3], int8_matmuls=True,
+                               block_k=page)
+    if not torch.equal(mm, mono):
+        fail(f"K6-i8mm ({dtype}) is not bitwise equal to K2-i8mm over the "
+             f"gathered view at block_k = page: max diff "
+             f"{max_err(mm, mono)}")
+    del views, mono
+    shape = {"pool": [L, NP, page, H * D], "cache_dtype": "int8",
+             "table": [B, nv], "lengths": [min(spans), max(spans)]}
+    rec = {"kernel": "K6-int8 paged_decode_attention", "dtype": dtype,
+           **shape, "fused_write": True, "max_abs_err": err,
+           "tol": TOL[dtype], "bitwise_equal_to_k2_int8_over_gathered_view":
+           True, "pool_rows_and_scales_bitwise_equal": True}
+    rec_mm = {"kernel": "K6-i8mm paged_decode_attention", "dtype": dtype,
+              **shape, "int8_matmuls": True, "block_k": page,
+              "max_abs_err": mm_err, "tol": f"{I8MM_REL} * max|want|",
+              "bitwise_equal_to_k2_i8mm_over_gathered_view": True}
+    if timed:
+        it = iter(range(10 ** 9))
+        heads = [(dequant_heads(pa.gather_pages(a[0][li], table),
+                                pa.gather_pages(a[2][li], table), dt),
+                  dequant_heads(pa.gather_pages(a[1][li], table),
+                                pa.gather_pages(a[3][li], table), dt))
+                 for li in range(L)]
+        live = (torch.arange(nv * page, device=DEV)[None]
+                < lengths[:, None].long())[:, None, None, :]
+        qh = q[:, :, None, :]
+
+        def run_library():
+            kh, vh = heads[next(it) % L]
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=live)
+
+        def run_kernel():
+            pa.paged_decode_attention(q, a[0], a[1], lengths, table,
+                                      layer=next(it) % L, k_scale=a[2],
+                                      v_scale=a[3], new_k=nk, new_v=nw)
+
+        def run_plain():
+            li = next(it) % L
+            pa.paged_decode_attention_plain(
+                q, a[0][li], a[1][li], lengths, table, new_k=nk, new_v=nw,
+                k_scale=a[2][li], v_scale=a[3][li])
+
+        def run_mm():
+            pa.paged_decode_attention(q, a[0], a[1], lengths, table,
+                                      layer=next(it) % L, k_scale=a[2],
+                                      v_scale=a[3], int8_matmuls=True)
+
+        def run_mm_plain():
+            li = next(it) % L
+            pa.paged_decode_attention_i8mm_plain(q, a[0][li], a[1][li],
+                                                 lengths, table, a[2][li],
+                                                 a[3][li])
+
+        rec.update(time_all("k6_int8", "decode_kernel", run_kernel,
+                            run_plain, run_library, 240))
+        rec_mm.update(time_all("k6_i8mm", "decode_i8mm_kernel", run_mm,
+                               run_mm_plain, run_library, 240))
+        rec["library"] = rec_mm["library"] = \
+            INT8_LIBRARY_NOTE + "; " + LIBRARY_NOTE
+        del heads
+        n_live = sum(spans)
+        fresh = sum(1 for n in spans if n > 0)
+        es = q.element_size()
+        io = (2 * q.numel() * es + lengths.numel() * 4
+              + table.numel() * 4)
+        # every row (the dead lane's into the trash page) writes one
+        nbytes = (int8_bytes(n_live - fresh, H, D, H) + 2 * nk.numel() * es
+                  + int8_bytes(B, H, D, H) + io)
+        rec["bound_ms"], rec["bound_by"] = bound(4 * H * D * n_live, nbytes,
+                                                 dtype)
+        rec_mm["bound_ms"], rec_mm["bound_by"] = bound(
+            4 * H * D * n_live, int8_bytes(n_live, H, D, H) + io, "int8")
+    emit(rec)
+    emit(rec_mm)
+    del a
+    torch.cuda.empty_cache()
+    return rec, rec_mm
+
+
+def check_paged_chunk_int8(dtype, timed):
+    """K7's int8-KV mode at the admission shape (B = 1, start 128) and
+    B = 8 over 64-row pages of a pool of run (h)'s bytes: against its
+    plain version and bitwise against K3-int8 over the gathered views;
+    timed at the admission shape."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+    L, C, H, D, virt = (K7_SHAPE[x] for x in ("L", "C", "H", "D", "virt"))
+    page, NP = K6_SHAPE["page"], K6_SHAPE["pages"]
+    layer = L // 3
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=DEV).manual_seed(31)
+    kp, vp, ks, vs = int8_pair(g, L, NP, page, KVH=H, D=D)
+    cases, timed_rec = [], None
+    for pg, starts in K7_SHAPE["cases"]:
+        if pg != page:
+            continue
+        B = len(starts)
+        q = torch.randn(B, C, H, D, generator=g, device=DEV, dtype=dt)
+        st = torch.tensor(starts, dtype=torch.int32, device=DEV)
+        table = paged_table(B, virt // page, NP, [s + C for s in starts],
+                            page, seed=page + B + 1)
+        out = pa.paged_chunk_prefill_attention(q, kp, vp, st, table,
+                                               layer=layer, k_scale=ks,
+                                               v_scale=vs)
+        torch.cuda.synchronize()
+        want = pa.paged_chunk_prefill_attention_plain(
+            q, kp[layer], vp[layer], st, table, k_scale=ks[layer],
+            v_scale=vs[layer])
+        tag = f"K7-int8 paged_chunk_prefill_attention (B {B})"
+        err = check_close(tag, out, want, dtype)
+        views = [pa.gather_pages(t[layer], table) for t in (kp, vp, ks, vs)]
+        mono = da.chunk_prefill_attention(q, *views[:2], st,
+                                          k_scale=views[2], v_scale=views[3])
+        if not torch.equal(out, mono):
+            fail(f"{tag} ({dtype}) is not bitwise equal to K3-int8 over the "
+                 f"gathered view: max diff {max_err(out, mono)}")
+        cases.append({"page": page, "q": [B, C, H, D], "starts": starts,
+                      "max_abs_err": err})
+        if not (timed and B == 1):
+            continue
+        rec = {}
+        it = iter(range(10 ** 9))
+
+        def run_kernel():
+            pa.paged_chunk_prefill_attention(q, kp, vp, st, table,
+                                             layer=next(it) % L, k_scale=ks,
+                                             v_scale=vs)
+
+        def run_plain():
+            li = next(it) % L
+            pa.paged_chunk_prefill_attention_plain(
+                q, kp[li], vp[li], st, table, k_scale=ks[li], v_scale=vs[li])
+
+        heads = [(dequant_heads(pa.gather_pages(kp[li], table),
+                                pa.gather_pages(ks[li], table), dt),
+                  dequant_heads(pa.gather_pages(vp[li], table),
+                                pa.gather_pages(vs[li], table), dt))
+                 for li in range(L)]
+        qpos = st[:, None].long() + torch.arange(C, device=DEV)[None]
+        live = (torch.arange(virt, device=DEV)[None, None]
+                <= qpos[..., None])[:, None]
+        qh = q.transpose(1, 2).contiguous()
+
+        def run_library():
+            kh, vh = heads[next(it) % L]
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=live)
+
+        rec.update(time_all("k7_int8", "flash_fwd_kernel", run_kernel,
+                            run_plain, run_library, 96))
+        del heads
+        pairs = int(qpos.sum()) + B * C
+        nbytes = (int8_bytes(int((st.long() + C).sum()), H, D, H)
+                  + 2 * q.numel() * q.element_size() + st.numel() * 4
+                  + table.numel() * 4)
+        rec["bound_ms"], rec["bound_by"] = bound(4 * H * D * pairs, nbytes,
+                                                 dtype)
+        timed_rec = rec
+    rec = {"kernel": "K7-int8 paged_chunk_prefill_attention", "dtype": dtype,
+           "pool": [L, NP, page, H * D], "cache_dtype": "int8",
+           "cases": cases,
+           "max_abs_err": max(c["max_abs_err"] for c in cases),
+           "tol": TOL[dtype],
+           "bitwise_equal_to_k3_int8_over_gathered_view": True}
+    if timed_rec is not None:
+        rec.update(timed_rec)
+        rec.update(timed_shape=[1, C, H, D], timed_page=page,
+                   library=INT8_LIBRARY_NOTE + "; " + LIBRARY_NOTE)
+    emit(rec)
+    del kp, vp, ks, vs
+    torch.cuda.empty_cache()
+    return rec
+
+
 def check_rel(name, got, want, rel):
     """max |got - want| <= rel * max |want| (a bar scaled by the output's
     magnitude); returns the max abs error."""
@@ -858,28 +1349,44 @@ def check_block_sparse(dtype, timed):
 # The main path: init_inference -> generate for OPT-1.3B
 # --------------------------------------------------------------------- #
 def counters():
+    """Each kernel's launch count: ``{name: (wrapper, attribute)}``.  The
+    int8-KV and int8 x int8 modes count apart from the float-cache mode of
+    the same wrapper (``int8_launches``, ``i8mm_launches``)."""
     from deepspeed_tpu_torch.ops.transformer import decode_attention as da
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
     from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
-    return {"flash_attention": fa.flash_attention,
-            "decode_attention": da.decode_attention,
-            "chunk_prefill_attention": da.chunk_prefill_attention,
-            "flash_attention_dq": fa.flash_attention_dq,
-            "flash_attention_dkv": fa.flash_attention_dkv,
-            "paged_decode_attention": pa.paged_decode_attention,
-            "paged_chunk_prefill_attention":
-                pa.paged_chunk_prefill_attention,
-            "block_sparse_attention_fwd": bs.block_sparse_attention_fwd}
+    out = {"flash_attention": (fa.flash_attention, "launches"),
+           "flash_attention_dq": (fa.flash_attention_dq, "launches"),
+           "flash_attention_dkv": (fa.flash_attention_dkv, "launches"),
+           "block_sparse_attention_fwd": (bs.block_sparse_attention_fwd,
+                                          "launches")}
+    for name, fn in (("decode_attention", da.decode_attention),
+                     ("chunk_prefill_attention", da.chunk_prefill_attention),
+                     ("paged_decode_attention", pa.paged_decode_attention),
+                     ("paged_chunk_prefill_attention",
+                      pa.paged_chunk_prefill_attention)):
+        out[name] = (fn, "launches")
+        out[name + "_int8"] = (fn, "int8_launches")
+        if hasattr(fn, "i8mm_launches"):
+            out[name + "_i8mm"] = (fn, "i8mm_launches")
+    return out
 
 
 def reset_counts():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in counters().items()}
+
+
+def expect_only(expect):
+    """Every launch count: ``expect``'s, and 0 for the kernels it does not
+    name."""
+    return {**{name: 0 for name in counters()}, **expect}
 
 
 def cosine_rows(a, b):
@@ -921,16 +1428,16 @@ def run_generate(eng, ids, new, expect):
         fail("generate did not keep the prompt columns")
     if int(out.min()) < 0 or int(out.max()) >= V:
         fail("generate produced token ids outside the vocabulary")
-    for name, n in expect.items():
-        if counts[name] != n:
-            fail(f"{name}: {counts[name]} launches in this run, the path "
-                 f"needs {n}")
+    want = expect_only(expect)
+    if counts != want:
+        fail(f"generate: launches {counts}, the path needs {want}")
     return out, dt, counts, peak
 
 
-def profile_run(eng, ids, new):
+def profile_run(eng, ids, new, tag="a", trace="generate_trace.json"):
     """The same generate() once more under ``torch.profiler`` (CUDA
-    activity only): where its time goes on the card."""
+    activity only): where its time goes on the card (profile line
+    ``tag``, the trace in ``build/profiles/``)."""
     import torch
     from deepspeed_tpu_torch.profiling.trace import breakdown, kernel_events
     wall = {}
@@ -941,8 +1448,8 @@ def profile_run(eng, ids, new):
         torch.cuda.synchronize()
         wall["s"] = time.perf_counter() - t0
 
-    trace = os.path.join(ROOT, "build", "profiles", "generate_trace.json")
-    rec = {"profile": "a", **breakdown(kernel_events(run, trace), wall["s"]),
+    trace = os.path.join(ROOT, "build", "profiles", trace)
+    rec = {"profile": tag, **breakdown(kernel_events(run, trace), wall["s"]),
            "trace": os.path.relpath(trace, ROOT)}
     emit(rec)
     return rec
@@ -971,11 +1478,8 @@ def main_path():
     if plan[0] != "one_pass":
         fail(f"run (a) should take one-pass prefill, plan says {plan}")
     eng.generate(ids_a, max_new_tokens=4)     # warm-up (cuBLAS, allocator)
-    _, dt, cnt, peak = run_generate(eng, ids_a, new, {
-        "flash_attention": L, "decode_attention": L * (new - 1),
-        "chunk_prefill_attention": 0, "flash_attention_dq": 0,
-        "flash_attention_dkv": 0, "paged_decode_attention": 0,
-        "paged_chunk_prefill_attention": 0, "block_sparse_attention_fwd": 0})
+    out_a, dt, cnt, peak = run_generate(eng, ids_a, new, {
+        "flash_attention": L, "decode_attention": L * (new - 1)})
     runs["a"] = {"run": "a", "route": "one_pass", "batch": B, "prompt": P,
                  "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
@@ -993,12 +1497,9 @@ def main_path():
     if plan_b[:2] != ("chunked", C):
         fail(f"run (b) should take chunked prefill, plan says {plan_b}")
     eng_b.generate(ids_b, max_new_tokens=2)   # warm-up
-    _, dt, cnt, peak = run_generate(eng_b, ids_b, new, {
-        "flash_attention": 0, "decode_attention": L * (new - 1),
-        "chunk_prefill_attention": L * (-(-P // C)),
-        "flash_attention_dq": 0, "flash_attention_dkv": 0,
-        "paged_decode_attention": 0, "paged_chunk_prefill_attention": 0,
-        "block_sparse_attention_fwd": 0})
+    out_b, dt, cnt, peak = run_generate(eng_b, ids_b, new, {
+        "decode_attention": L * (new - 1),
+        "chunk_prefill_attention": L * (-(-P // C))})
     runs["b"] = {"run": "b", "route": "chunked", "chunk": C, "batch": B,
                  "prompt": P, "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
@@ -1034,7 +1535,7 @@ def main_path():
         compare_logits("(b) chunked prefill logits, K3 vs plain", got, want)
         del cache
     del eng_b
-    return runs, eng
+    return runs, eng, {"a": (ids_a, out_a), "b": (ids_b, out_b)}
 
 
 # --------------------------------------------------------------------- #
@@ -1101,51 +1602,64 @@ def serve_record(run, srv, secs, peak, counts, reqs):
             "paged_attention_fallback": st["paged_attention_fallback"],
             "prefix_hits": st["prefix_hits"],
             "prefix_tokens_reused": st["prefix_tokens_reused"],
+            "peak_device_bytes": st["peak_device_bytes"],
+            "kv_bytes": st["kv_bytes"],
             "kernel_modes": srv.kernel_modes, "launches": counts}
 
 
-def serve_expect(srv, paged):
+def serve_kernels(srv):
+    """The (decode, prefill chunk) kernels a server runs: K6 / K7 on a
+    paged pool, K2 / K3 on monolithic lanes, in their int8-KV modes on an
+    int8 cache and K2 / K6 in the int8 x int8 mode with
+    ``decode_int8_matmuls``."""
+    cfg = srv.module.config
+    pre = "paged_" if srv.paged else ""
+    mode = "_int8" if cfg.kv_cache_quant else ""
+    dmode = "_i8mm" if cfg.decode_int8_matmuls else mode
+    return (f"{pre}decode_attention{dmode}",
+            f"{pre}chunk_prefill_attention{mode}")
+
+
+def serve_expect(srv):
     """The launches a serving run needs: one per layer per decode step
-    (K6 paged, K2 monolithic) and per prefill chunk (K7 / K3)."""
+    and per prefill chunk, of the kernels :func:`serve_kernels` names."""
     L, st = srv.module.config.num_layers, srv.stats
-    decode = L * srv.block * st["decode_calls"]
-    chunks = L * st["prefill_tokens"] // srv.chunk
-    return {"flash_attention": 0, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0,
-            "decode_attention": 0 if paged else decode,
-            "chunk_prefill_attention": 0 if paged else chunks,
-            "paged_decode_attention": decode if paged else 0,
-            "paged_chunk_prefill_attention": chunks if paged else 0,
-            "block_sparse_attention_fwd": 0}
+    decode, chunk = serve_kernels(srv)
+    return expect_only({decode: L * srv.block * st["decode_calls"],
+                        chunk: L * st["prefill_tokens"] // srv.chunk})
 
 
 def serve_counted(eng, reqs, tag, **overrides):
     """One server over ``reqs`` with every launch count set to 0 just
-    before and read just after; the counts must be exactly the path's."""
+    before and read just after; the counts must be exactly the path's.
+    The peak device memory of the run and the bytes of its KV pool or
+    lanes go into ``srv.stats`` as ``peak_device_bytes`` and
+    ``kv_bytes``."""
     import torch
     srv = eng.serve(**overrides)
+    torch.cuda.reset_peak_memory_stats(DEV)
     reset_counts()
     outs, secs, peak = drive(srv, reqs)
     counts = read_counts()
-    want = serve_expect(srv, srv.paged)
+    want = serve_expect(srv)
     if counts != want:
         fail(f"{tag}: launches {counts}, the path needs {want}")
-    for name in ("paged_decode_attention", "paged_chunk_prefill_attention")\
-            if srv.paged else ("decode_attention", "chunk_prefill_attention"):
+    for name in serve_kernels(srv):
         if counts[name] == 0:
             fail(f"{tag}: {name} was never launched")
     if srv.stats["completed"] != len(reqs):
         fail(f"{tag}: {srv.stats['completed']} of {len(reqs)} completed")
     check_outputs(tag, outs, reqs, srv.module.config.vocab_size)
+    srv.stats["peak_device_bytes"] = torch.cuda.max_memory_allocated(DEV)
+    srv.stats["kv_bytes"] = tensor_bytes(srv._cache)
     srv.close()
     torch.cuda.empty_cache()
     return srv, outs, secs, peak, counts
 
 
 def serving_path(eng):
-    """Run (d) paged, its monolithic twin, the same pair again in the
-    other order (so an order effect shows apart from the paged path's own
-    cost), the decode-window profile and run (e)."""
+    """Run (d) paged, its monolithic twin, the decode-window profile and
+    run (e).  Returns the runs and run (d)'s outputs."""
     import numpy as np
     V = eng.module.config.vocab_size
     reqs = serving_traffic(V)
@@ -1169,17 +1683,9 @@ def serving_path(eng):
     if differ:
         fail(f"run (d): {differ} of {len(reqs)} requests' tokens differ "
              f"between the paged pool and the monolithic lanes")
-    # the pair again, monolithic first
-    for tag, over in (("d_mono_2", {"paged": False}), ("d_2", {})):
-        s2, o2, secs2, peak2, counts2 = serve_counted(
-            eng, reqs, f"run ({tag})", **{**SERVE_D, **over})
-        runs[tag] = serve_record(tag, s2, secs2, peak2, counts2, reqs)
-        emit(runs[tag])
-        if any(not np.array_equal(a, b) for a, b in zip(outs, o2)):
-            fail(f"run ({tag}): tokens differ from run (d)'s")
     runs["d_profile"] = profile_serving(eng, reqs)
     runs["e"] = prefix_path(eng)
-    return runs
+    return runs, outs
 
 
 def profile_serving(eng, reqs):
@@ -1250,6 +1756,271 @@ def prefix_path(eng):
     if differ:
         fail(f"run (e): {differ} requests differ from the unshared run")
     return rec
+
+
+# --------------------------------------------------------------------- #
+# int8 serving: generate() (g) and serve() (h) with int8 weights and KV
+# --------------------------------------------------------------------- #
+@contextlib.contextmanager
+def plain_kernels():
+    """Within: every cached-attention wrapper and the flash forward run
+    their plain versions on the card's tensors (the plain path of the
+    int8 runs' logits checks); the kernels' arithmetic is what the plain
+    versions repeat."""
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+
+    def flash(q, k, v, causal=True, scale=None, return_lse=False):
+        out, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            scale=scale)
+        return (out, lse) if return_lse else out
+
+    def decode(q, k, v, lengths, scale=None, layer=None, k_scale=None,
+               v_scale=None, int8_matmuls=False, new_k=None, new_v=None,
+               block_k=da.DEFAULT_BLOCK_K_DECODE):
+        kc, vc = da._layer_view(k, layer), da._layer_view(v, layer)
+        ks, vs = da._scale_view(k_scale, layer), da._scale_view(v_scale,
+                                                                layer)
+        if int8_matmuls:
+            return da.decode_attention_i8mm_plain(q, kc, vc, lengths, ks, vs,
+                                                  scale, block_k)
+        out = da.decode_attention_plain(q, kc, vc, lengths, scale, new_k,
+                                        new_v, k_scale=ks, v_scale=vs)
+        return out if new_k is None else (out, k, v, k_scale, v_scale)
+
+    def chunk(q, k, v, starts, scale=None, layer=None, k_scale=None,
+              v_scale=None):
+        return da.chunk_prefill_attention_plain(
+            q, da._layer_view(k, layer), da._layer_view(v, layer), starts,
+            scale, k_scale=da._scale_view(k_scale, layer),
+            v_scale=da._scale_view(v_scale, layer))
+
+    def paged_decode(q, k, v, lengths, pages, scale=None, layer=None,
+                     k_scale=None, v_scale=None, int8_matmuls=False,
+                     new_k=None, new_v=None):
+        kp, vp = pa.pool_layer(k, layer), pa.pool_layer(v, layer)
+        ks = None if k_scale is None else pa.pool_layer(k_scale, layer)
+        vs = None if v_scale is None else pa.pool_layer(v_scale, layer)
+        if int8_matmuls:
+            return pa.paged_decode_attention_i8mm_plain(q, kp, vp, lengths,
+                                                        pages, ks, vs, scale)
+        out = pa.paged_decode_attention_plain(q, kp, vp, lengths, pages,
+                                              scale, new_k, new_v,
+                                              k_scale=ks, v_scale=vs)
+        return out if new_k is None else (out, k, v, k_scale, v_scale)
+
+    def paged_chunk(q, k, v, starts, pages, scale=None, layer=None,
+                    k_scale=None, v_scale=None):
+        return pa.paged_chunk_prefill_attention_plain(
+            q, pa.pool_layer(k, layer), pa.pool_layer(v, layer), starts,
+            pages, scale,
+            k_scale=None if k_scale is None else pa.pool_layer(k_scale,
+                                                               layer),
+            v_scale=None if v_scale is None else pa.pool_layer(v_scale,
+                                                               layer))
+
+    swaps = [(fa, "flash_attention", flash),
+             (da, "decode_attention", decode),
+             (da, "chunk_prefill_attention", chunk),
+             (pa, "paged_decode_attention", paged_decode),
+             (pa, "paged_chunk_prefill_attention", paged_chunk)]
+    kernels = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in kernels:
+            setattr(mod, name, fn)
+
+
+def kernels_vs_plain(tag, m, ids, chunk=None, paged=None):
+    """A prefill (one pass, or ``chunk``-token blocks) and one decode step
+    of module ``m`` on a fresh int8 cache through the kernels, then the
+    same on another fresh cache through the plain versions on the card
+    (the decode step fed the kernel path's greedy token): per-row cosine
+    of the logits >= 0.999.  ``paged``: the page size of a pool that maps
+    each row's positions through a block table (chunked prefill, K7, then
+    K6)."""
+    import torch
+    B, P = ids.shape
+    last = torch.full((B,), P - 1, device=DEV)
+    res, nxt = [], None
+    for ctx in (contextlib.nullcontext(), plain_kernels()):
+        with ctx, torch.no_grad():
+            if paged is None:
+                cache = m.init_cache(B, P + 8)
+            else:
+                n_virt = -(-(P + 8) // paged)
+                cache = m.init_paged_cache(1 + B * n_virt, paged)
+                cache["pages"] = 1 + torch.arange(
+                    B * n_virt, device=DEV, dtype=torch.int32).view(B, n_virt)
+            if chunk is None:
+                pre, cache = m.decode(ids, cache, 0, logits_at=last,
+                                      prefill=True)
+            else:
+                for c0 in range(0, P, chunk):
+                    loc = torch.full((B,), min(chunk, P - c0) - 1,
+                                     device=DEV)
+                    pre, cache = m.decode(ids[:, c0:c0 + chunk], cache, c0,
+                                          logits_at=loc)
+            if nxt is None:
+                nxt = pre[:, 0].float().argmax(-1)
+            step, cache = m.decode(nxt[:, None], cache, P)
+            res.append((pre, step))
+            del cache
+    return [compare_logits(f"{tag} prefill logits, kernels vs plain",
+                           res[0][0], res[1][0]),
+            compare_logits(f"{tag} first decode step logits, kernels vs "
+                           f"plain", res[0][1], res[1][1])]
+
+
+def agreement(got, want, P):
+    """Share of generated token positions where two greedy runs agree."""
+    return float((got[:, P:] == want[:, P:]).float().mean())
+
+
+def int8_engine(sd, **model_over):
+    """``init_inference(opt_model("opt-1.3b"), quant=QUANT)`` with
+    ``sd``'s weights (run (a)'s, in bf16: loaded in fp32 and quantized per
+    channel); returns the engine and its set-up seconds."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import opt_model
+    t0 = time.perf_counter()
+    eng = init_inference(opt_model(MODEL, **model_over),
+                         {"quant": dict(QUANT)}, dtype="bfloat16",
+                         device=DEV)
+    eng.set_params(sd)
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def int8_generate_path(eng, tokens, runs):
+    """Runs (g) and (g-i8mm) on run (a)'s weights quantized per channel,
+    with an int8 KV cache: (g) at run (a)'s shape (K1 prefill, K2-int8
+    decode) and run (b)'s (K3-int8, K2-int8), (g-i8mm) at run (a)'s with
+    decode_int8_matmuls (K1, K2-i8mm); exact launches, kernel-path logits
+    against the plain path, greedy agreement with the bf16 runs."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    sd = eng.module.state_dict()
+    eng_g, init_s = int8_engine(sd)
+    L = eng_g.module.config.num_layers
+    (ids_a, out_a), (ids_b, out_b) = tokens["a"], tokens["b"]
+    weights = {"weight_bytes": tensor_bytes(eng_g.module),
+               "weight_bytes_bf16": tensor_bytes(eng.module),
+               "quantized_layers": len(eng_g.module.quantized_leaves()),
+               "init_seconds": init_s}
+    B, P, new = RUN_A["batch"], RUN_A["prompt"], RUN_A["new"]
+    eng_g.generate(ids_a, max_new_tokens=4)   # warm-up
+    out, dt, cnt, peak = run_generate(eng_g, ids_a, new, {
+        "flash_attention": L, "decode_attention_int8": L * (new - 1)})
+    runs["g"] = {"run": "g", "route": "one_pass", "batch": B, "prompt": P,
+                 "new_tokens": new, "seconds": dt,
+                 "tokens_per_s": B * new / dt, "launches": cnt,
+                 "peak_device_bytes": peak,
+                 "peak_device_bytes_run_a": runs["a"]["peak_device_bytes"],
+                 "kv_bytes": tensor_bytes(eng_g._workspace._cache),
+                 "kv_bytes_bf16": tensor_bytes(eng._workspace._cache),
+                 "greedy_agreement_with_a": agreement(out, out_a, P),
+                 **weights,
+                 "logits": kernels_vs_plain("(g)", eng_g.module, ids_a)}
+    emit(runs["g"])
+    runs["g_profile"] = profile_run(eng_g, ids_a, new, "g",
+                                    "int8_generate_trace.json")
+    B, P, new, C = (RUN_B[x] for x in ("batch", "prompt", "new", "chunk"))
+    # a second engine over the quantized module, as run (b)'s over (a)'s
+    eng_gb = init_inference(eng_g.module, {"quant": dict(QUANT),
+                                           "prefill_chunk_size": C},
+                            dtype="bfloat16", device=DEV)
+    eng_gb.generate(ids_b, max_new_tokens=2)  # warm-up
+    out, dt, cnt, peak = run_generate(eng_gb, ids_b, new, {
+        "decode_attention_int8": L * (new - 1),
+        "chunk_prefill_attention_int8": L * (-(-P // C))})
+    runs["g_b"] = {"run": "g_b", "route": "chunked", "chunk": C, "batch": B,
+                   "prompt": P, "new_tokens": new, "seconds": dt,
+                   "tokens_per_s": B * new / dt, "launches": cnt,
+                   "peak_device_bytes": peak,
+                   "peak_device_bytes_run_b": runs["b"]["peak_device_bytes"],
+                   "greedy_agreement_with_b": agreement(out, out_b, P),
+                   "logits": kernels_vs_plain("(g) chunked", eng_g.module,
+                                              ids_b, chunk=C)}
+    emit(runs["g_b"])
+    del eng_gb
+    eng_m, init_m = int8_engine(sd, kv_cache_quant=True,
+                                decode_int8_matmuls=True)
+    B, P, new = RUN_A["batch"], RUN_A["prompt"], RUN_A["new"]
+    eng_m.generate(ids_a, max_new_tokens=4)   # warm-up
+    out, dt, cnt, peak = run_generate(eng_m, ids_a, new, {
+        "flash_attention": L, "decode_attention_i8mm": L * (new - 1)})
+    runs["g_i8mm"] = {"run": "g_i8mm", "route": "one_pass",
+                      "decode_int8_matmuls": True, "batch": B, "prompt": P,
+                      "new_tokens": new, "seconds": dt,
+                      "tokens_per_s": B * new / dt, "launches": cnt,
+                      "peak_device_bytes": peak, "init_seconds": init_m,
+                      "greedy_agreement_with_a": agreement(out, out_a, P),
+                      "logits": kernels_vs_plain("(g-i8mm)", eng_m.module,
+                                                 ids_a)}
+    emit(runs["g_i8mm"])
+    eng_m.release_workspace()
+    torch.cuda.empty_cache()
+    return eng_g, eng_m
+
+
+def int8_serving_path(eng_g, eng_m, outs_d, runs):
+    """Run (h): run (d)'s requests and server on the int8 engine (K7-int8
+    admission, K6-int8 decode), its monolithic twin (K3-int8, K2-int8)
+    with every request's tokens equal, and (h-i8mm): run (d)'s first 24
+    requests with decode_int8_matmuls on the pool (K7-int8, K6-i8mm)."""
+    import numpy as np
+    import torch
+    V = eng_g.module.config.vocab_size
+    reqs = serving_traffic(V)
+    # the paged logits check's batch: the first 4 prompts cut to the
+    # shortest of them
+    P = min(len(p) for p, _ in reqs[:4])
+    ids = torch.tensor([p[:P].tolist() for p, _ in reqs[:4]], device=DEV)
+    warm = eng_g.serve(**SERVE_D)             # warm-up (allocator, cuBLAS)
+    drive(warm, reqs[:4])
+    warm.close()
+    srv, outs, secs, peak, counts = serve_counted(eng_g, reqs, "run (h)",
+                                                  **SERVE_D)
+    rec = serve_record("h", srv, secs, peak, counts, reqs)
+    rec.update(peak_device_bytes_run_d=runs["d"]["peak_device_bytes"],
+               kv_bytes_run_d=runs["d"]["kv_bytes"],
+               prefill_plan=eng_g.prefill_plan(1, max(RUN_D["prompts"]),
+                                               paged=True)[2],
+               greedy_agreement_with_d=float(np.mean(np.concatenate(
+                   [a[len(p):] == b[len(p):] for a, b, (p, _) in
+                    zip(outs, outs_d, reqs)]))),
+               logits=kernels_vs_plain(
+                   "(h) paged", eng_g.module, ids,
+                   chunk=SERVE_D["prefill_chunk"],
+                   paged=SERVE_D["page_size"]))
+    runs["h"] = rec
+    emit(rec)
+    mono, outs_m, secs_m, peak_m, counts_m = serve_counted(
+        eng_g, reqs, "run (h) monolithic", **{**SERVE_D, "paged": False})
+    differ = sum(not np.array_equal(a, b) for a, b in zip(outs, outs_m))
+    runs["h_mono"] = serve_record("h_mono", mono, secs_m, peak_m, counts_m,
+                                  reqs)
+    runs["h_mono"]["requests_differing_from_paged"] = differ
+    emit(runs["h_mono"])
+    if differ:
+        fail(f"run (h): {differ} of {len(reqs)} requests' tokens differ "
+             f"between the int8 pool and the int8 monolithic lanes")
+    few = reqs[:RUN_H_I8MM["requests"]]
+    srv, outs_i, secs_i, peak_i, counts_i = serve_counted(
+        eng_m, few, "run (h-i8mm)", **SERVE_D)
+    runs["h_i8mm"] = serve_record("h_i8mm", srv, secs_i, peak_i, counts_i,
+                                  few)
+    runs["h_i8mm"]["greedy_agreement_with_h"] = float(np.mean(
+        np.concatenate([a[len(p):] == b[len(p):]
+                        for a, b, (p, _) in zip(outs_i, outs, few)])))
+    emit(runs["h_i8mm"])
+    return runs
 
 
 # --------------------------------------------------------------------- #
@@ -1526,10 +2297,21 @@ def main():
         checks[("K6", dtype)] = check_paged_decode(dtype, timed)
         checks[("K7", dtype)] = check_paged_chunk(dtype, timed)
         checks[("K8", dtype)] = check_block_sparse(dtype, timed)
+        checks[("K2-int8", dtype)], checks[("K2-i8mm", dtype)] = \
+            check_decode_int8(dtype, timed)
+        checks[("K3-int8", dtype)] = check_chunk_int8(dtype, timed)
+        checks[("K6-int8", dtype)], checks[("K6-i8mm", dtype)] = \
+            check_paged_decode_int8(dtype, timed)
+        checks[("K7-int8", dtype)] = check_paged_chunk_int8(dtype, timed)
 
-    runs, eng = main_path()
-    runs.update(serving_path(eng))
+    runs, eng, tokens = main_path()
+    serving_runs, outs_d = serving_path(eng)
+    runs.update(serving_runs)
+    eng_g, eng_m = int8_generate_path(eng, tokens, runs)
     del eng
+    torch.cuda.empty_cache()
+    int8_serving_path(eng_g, eng_m, outs_d, runs)
+    del eng_g, eng_m
     torch.cuda.empty_cache()
     runs["c"] = train_path()
     grad_check()
@@ -1543,9 +2325,12 @@ def main():
                 "library_ms": c["library_ms"]}
 
     def row(key, name, source, replaces, launches):
+        check = checks[(key, "bfloat16")]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                **timing(checks[(key, "bfloat16")])}
+                **timing(check),
+                **({"library": check["library"]} if "library" in check
+                   else {})}
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/transformer/"
@@ -1580,6 +2365,34 @@ def main():
         runs["f"]["launches_per_step"]["block_sparse_attention_fwd"]
     kernels[7]["library"] = ("F.scaled_dot_product_attention with the "
                              "layout expanded to a boolean [S, S] mask")
+    # the int8 modes: their own rows, launches from runs (g), (h)
+    int8_rows = [
+        row("K2-int8", "decode_attention_int8", csrc + "decode_attention.cu",
+            pallas + "decode_attention.py:630",
+            runs["g"]["launches"]["decode_attention_int8"]),
+        row("K2-i8mm", "decode_attention_i8mm", csrc + "decode_attention.cu",
+            pallas + "decode_attention.py:630",
+            runs["g_i8mm"]["launches"]["decode_attention_i8mm"]),
+        row("K3-int8", "chunk_prefill_attention_int8",
+            csrc + "flash_attention.cu", pallas + "decode_attention.py:448",
+            runs["g_b"]["launches"]["chunk_prefill_attention_int8"]),
+        row("K6-int8", "paged_decode_attention_int8",
+            csrc + "decode_attention.cu", pallas + "paged_attention.py:206",
+            runs["h"]["launches"]["paged_decode_attention_int8"]),
+        row("K6-i8mm", "paged_decode_attention_i8mm",
+            csrc + "decode_attention.cu", pallas + "paged_attention.py:206",
+            runs["h_i8mm"]["launches"]["paged_decode_attention_i8mm"]),
+        row("K7-int8", "paged_chunk_prefill_attention_int8",
+            csrc + "flash_attention.cu", pallas + "paged_attention.py:293",
+            runs["h"]["launches"]["paged_chunk_prefill_attention_int8"]),
+    ]
+    int8_rows[0]["launches_run_g_b"] = \
+        runs["g_b"]["launches"]["decode_attention_int8"]
+    int8_rows[0]["launches_run_h_mono"] = \
+        runs["h_mono"]["launches"]["decode_attention_int8"]
+    int8_rows[2]["launches_run_h_mono"] = \
+        runs["h_mono"]["launches"]["chunk_prefill_attention_int8"]
+    kernels += int8_rows
     kernels[7]["gather_backward_ms"] = \
         checks[("K8", "bfloat16")]["gather_backward_ms"]
     # run (d)'s monolithic twin runs K2 and K3 at the serving shapes

@@ -7,9 +7,10 @@ It imports nothing of JAX and nothing of ``deepspeed_tpu``.
 Ported so far, for the OPT family: generation (:func:`init_inference` →
 ``InferenceEngine.generate``), continuous-batching serving
 (``InferenceEngine.serve`` → :class:`ServingEngine` ``submit`` / ``drain``,
-on slot lanes or a paged KV pool) and single-device training
-(:func:`initialize` → ``engine.train_batch`` or ``engine(batch)`` /
-``engine.backward(loss)`` / ``engine.step()``).
+on slot lanes or a paged KV pool), both with int8 weights and an int8 KV
+cache when the config's ``quant`` block asks for them, and single-device
+training (:func:`initialize` → ``engine.train_batch`` or ``engine(batch)``
+/ ``engine.backward(loss)`` / ``engine.step()``), dense or block-sparse.
 """
 
 __version__ = "0.1.0"
@@ -55,9 +56,12 @@ def init_inference(model=None, config=None, device=None, **kwargs):
     """Initialize the inference engine (the JAX package's
     ``init_inference``).  ``model`` is a port ``Transformer`` (e.g.
     ``models.opt.opt_model("opt-1.3b")``); ``config`` a dict or
-    ``DeepSpeedInferenceConfig``, with ``kwargs`` merged in.  ``device``:
-    ``None`` means ``"cuda"`` (a ``RuntimeError`` without a card); pass
-    ``"cpu"`` for the plain PyTorch path."""
+    ``DeepSpeedInferenceConfig``, with ``kwargs`` merged in.
+    ``quant.kv_cache=True`` sets the model's ``kv_cache_quant`` (on the
+    module itself, which keeps its weights), as the JAX package clones
+    its model with it.  ``device``: ``None`` means ``"cuda"`` (a
+    ``RuntimeError`` without a card); pass ``"cpu"`` for the plain PyTorch
+    path."""
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     from deepspeed_tpu_torch.models.transformer import Transformer
@@ -73,4 +77,8 @@ def init_inference(model=None, config=None, device=None, **kwargs):
             f"init_inference takes a deepspeed_tpu_torch Transformer; HF "
             f"models and model names ({type(model).__name__}) come with the "
             f"later module_inject slice")
+    if config.quant.kv_cache and not model.config.kv_cache_quant:
+        import dataclasses
+        model.replace_config_(
+            dataclasses.replace(model.config, kv_cache_quant=True))
     return InferenceEngine(model, config, device=device)

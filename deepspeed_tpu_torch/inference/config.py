@@ -1,12 +1,15 @@
 """Inference config (port of ``deepspeed_tpu/inference/config.py``).
 
 Same keys and aliases as the JAX package's ``DeepSpeedInferenceConfig``
-(``replace_with_kernel_inject``, ``tp``, ``max_tokens``).  Knobs whose
-feature this port does not have yet raise ``NotImplementedError`` when
-set away from their default, so a config never silently does nothing:
-weight and KV-cache quantization, tensor parallelism, expert parallelism,
-the memory guard's ``strict_memory``, checkpoint loading, the fault
-block's ``bucket_downshift`` and the persistent compile cache.  The
+(``replace_with_kernel_inject``, ``tp``, ``max_tokens``).  ``quant``
+carries over: ``enabled`` quantizes the weights when they are loaded
+(``bits`` 4 / 8, ``group_size``, ``per_channel``), ``kv_cache`` makes the
+KV cache int8 (``init_inference`` sets the model's ``kv_cache_quant``).
+Knobs whose feature this port does not have yet raise
+``NotImplementedError`` when set away from their default, so a config
+never silently does nothing: tensor parallelism, expert parallelism, the
+memory guard's ``strict_memory``, checkpoint loading, the fault block's
+``bucket_downshift`` and the persistent compile cache.  The
 ``serving`` block parses into :class:`~deepspeed_tpu_torch.inference.
 serving.config.ServingConfig`, which raises for its own unported knobs.
 """
@@ -94,10 +97,6 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         if self.mp_size is not None and self.tensor_parallel.tp_size == 1:
             self.tensor_parallel.tp_size = self.mp_size
         normalize_dtype_str(self.dtype)
-        if self.quant.enabled:
-            _not_ported("quant.enabled (weight quantization)")
-        if self.quant.kv_cache:
-            _not_ported("quant.kv_cache (int8 KV cache)")
         if self.tensor_parallel.tp_size > 1:
             _not_ported("tensor_parallel.tp_size > 1")
         if self.ep_size != 1 or self.moe:

@@ -7,7 +7,11 @@ split (chunked) prefill with the same ``"auto"`` chunk policy and
 greedy / temperature / top-k / top-p sampling over fp32 logits, and the
 ``decode_early_exit`` semantics (steps after a row's eos emit eos; the loop
 stops once every row is done), and ``serve()``: continuous batching over
-slot lanes or a paged KV pool (``inference/serving``).
+slot lanes or a paged KV pool (``inference/serving``).  With
+``quant.enabled`` the weights are quantized when they are set, from their
+fp32 values (the JAX ``set_params`` quantizes before its cast to the
+compute dtype), and stay resident as int8 / packed int4; an int8-KV model
+(``kv_cache_quant``) gets int8 workspaces with their scales.
 
 What has no counterpart here: the JAX engine's AOT compilation, its
 persistent executable cache, its compiled-program memory guard and the
@@ -22,6 +26,8 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.inference.config import (DeepSpeedInferenceConfig,
                                                   normalize_dtype_str)
+from deepspeed_tpu_torch.runtime.weight_quantizer import (WeightQuantization,
+                                                          holds_quantized)
 from deepspeed_tpu_torch.utils.logging import log_dist, warning_once
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
@@ -40,14 +46,23 @@ class InferenceEngine:
         self._accel = get_accelerator(self.device)
         self._config = config or DeepSpeedInferenceConfig()
         self.compute_dtype = _DTYPES[normalize_dtype_str(self._config.dtype)]
+        q = self._config.quant
+        self._quantizer = None if not q.enabled else WeightQuantization(
+            bits=q.bits, group_size=q.group_size, per_channel=q.per_channel)
+        # a quantizing engine holds fp32 weights until they are quantized
+        dtype = torch.float32 if self._quantizer else self.compute_dtype
         on_meta = any(p.is_meta for p in model.parameters())
         if on_meta:
             # cast on meta (free), then allocate once on the device
-            self.module = model.to(dtype=self.compute_dtype).to_empty(
-                device=self.device)
+            self.module = model.to(dtype=dtype).to_empty(device=self.device)
+        elif holds_quantized(model):
+            # already quantized (another engine's module): keep its payloads
+            # and scales as they are
+            self.module = model.to(device=self.device)
         else:
-            self.module = model.to(device=self.device,
-                                   dtype=self.compute_dtype)
+            self.module = model.to(device=self.device, dtype=dtype)
+            if self._quantizer:
+                self._quantize()
         self.module.eval()
         self._has_params = not on_meta
         self._workspace = KVCacheWorkspace(self.module)
@@ -60,25 +75,49 @@ class InferenceEngine:
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def set_params(self, params):
-        """Load a ``state_dict`` (torch tensors or numpy arrays, e.g. from
-        ``params_from_flax``); floating tensors are cast to the compute
-        dtype, as the JAX engine casts its parameter tree."""
+        """Load a float ``state_dict`` (torch tensors or numpy arrays, e.g.
+        from ``params_from_flax``); floating tensors are cast to the compute
+        dtype, as the JAX engine casts its parameter tree — or, with
+        ``quant.enabled``, loaded in fp32 and quantized first."""
         sd = {k: v if isinstance(v, torch.Tensor)
               else torch.tensor(np.asarray(v)) for k, v in params.items()}
-        sd = {k: v.to(self.compute_dtype) if v.is_floating_point() else v
+        dtype = torch.float32 if self._quantizer else self.compute_dtype
+        sd = {k: v.to(dtype) if v.is_floating_point() else v
               for k, v in sd.items()}
+        self._float_layout()
         self.module.load_state_dict(sd, strict=True)
         self._has_params = True
         n = sum(p.numel() for p in self.module.parameters())
         log_dist(f"inference params placed: {n / 1e6:.1f}M, "
-                 f"dtype={self.compute_dtype}", ranks=[0])
+                 f"dtype={dtype}", ranks=[0])
+        if self._quantizer:
+            self._quantize()
 
     def init_params(self, seed=0):
         """Random init from a ``torch.Generator`` seeded with ``seed``
-        (testing / benchmarking without a checkpoint)."""
+        (testing / benchmarking without a checkpoint); fp32 and then
+        quantized with ``quant.enabled``."""
         gen = self._accel.manual_seed(seed, self.device)
+        self._float_layout()
         self.module.init_weights(gen)
         self._has_params = True
+        if self._quantizer:
+            self._quantize()
+
+    def _float_layout(self):
+        """Back to float linear layers before new weights: a quantizing
+        engine's in fp32, any other's in the compute dtype."""
+        if holds_quantized(self.module):
+            self.module.float_weights_()
+            if not self._quantizer:
+                self.module.to(dtype=self.compute_dtype)
+
+    def _quantize(self):
+        self.module.quantize_weights_(self._quantizer, self.compute_dtype)
+        q = self._quantizer
+        log_dist(f"inference weights quantized to int{q.bits} "
+                 f"({'per channel' if q.per_channel else f'group {q.group_size}'}"
+                 f"), the rest in {self.compute_dtype}", ranks=[0])
 
     def _require_params(self):
         if not self._has_params:

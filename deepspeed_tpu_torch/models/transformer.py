@@ -6,7 +6,11 @@ flax ``nn.scan`` over layers as a loop over an ``nn.ModuleList``, and the
 KV cache kept layer-stacked ``[L, B, S_max, KVH*D]`` exactly as
 ``init_cache`` builds it in JAX — or, for paged serving, a page pool
 ``[L, num_pages, page_size, KVH*D]`` (``init_paged_cache``) that a cache
-dict carrying a block table ``"pages"`` addresses.  Unlike JAX, the cache
+dict carrying a block table ``"pages"`` addresses.  With
+``kv_cache_quant`` either holds int8 payloads plus fp32 per-(position,
+kv-head) scales ``k_scale`` / ``v_scale`` ``[L, B | num_pages, S_max |
+page, KVH]``, as in JAX; ``decode_int8_matmuls`` also runs decode's two
+products int8×int8.  Unlike JAX, the cache
 is updated IN PLACE (layer ``i`` writes through ``cache["k"][i]``):
 PyTorch has no donation, and a functional update would copy the whole
 cache per layer.  The layer index travels as an argument, not as the JAX
@@ -26,8 +30,10 @@ the head and the loss one sequence chunk at a time.
 
 Config features that OPT-1.3B does not use raise ``NotImplementedError``
 when a model is built (rope, alibi, GQA, post-LN, gated MLP,
-``embed_proj_dim``, windows, MoE, int8 KV, remat policies other than
-``nothing_saveable``, ...); ROADMAP.md lists them.
+``embed_proj_dim``, windows, MoE, remat policies other than
+``nothing_saveable``, ...); ROADMAP.md lists them.  Inference engines
+quantize the weights (:meth:`Transformer.quantize_weights_`, the JAX
+``WeightQuantization`` on the flax layout of each weight).
 """
 
 import math
@@ -96,6 +102,12 @@ class TransformerConfig:
     remat_policy: str = "nothing_saveable"
     scan_layers: bool = True
 
+    def __post_init__(self):
+        if self.decode_int8_matmuls and not self.kv_cache_quant:
+            raise ValueError("decode_int8_matmuls requires "
+                             "kv_cache_quant=True (its products consume "
+                             "int8 KV payloads)")
+
     @property
     def kv_heads(self):
         return self.num_kv_heads or self.num_heads
@@ -156,8 +168,6 @@ _NOT_PORTED = (
     (lambda c: c.attention_layers is not None,
      "attention_layers (local windows)"),
     (lambda c: c.moe_num_experts > 0, "MoE (moe_num_experts > 0)"),
-    (lambda c: c.kv_cache_quant or c.decode_int8_matmuls,
-     "kv_cache_quant / decode_int8_matmuls (int8 KV)"),
     (lambda c: c.rms_norm, "rms_norm"),
     (lambda c: c.parallel_residual, "parallel_residual"),
     (lambda c: c.embedding_norm, "embedding_norm"),
@@ -260,19 +270,29 @@ def _attention(q, k, v, config, mask=None):
     return reference_attention(q, k, v, causal=True, mask=mask)
 
 
-def cached_attention(q, k_cache, v_cache, q_positions, layer=None):
+def cached_attention(q, k_cache, v_cache, q_positions, layer=None,
+                     k_scale=None, v_scale=None):
     """Dense attention of q [B, S, H, D] at absolute positions q_positions
     [B, S] against a cache ``[B, S_max, KVH*D]`` or, with ``layer``, the
     stacked ``[L, B, S_max, KVH*D]`` cache; KV entries at positions past a
-    query's own position are masked.  The ``reference_fallback`` mode of
+    query's own position are masked.  An int8 cache (``k_scale`` /
+    ``v_scale`` ``[.., S_max, KVH]``) is dequantized to q's dtype first, as
+    the JAX dense path does.  The ``reference_fallback`` mode of
     ``ops.transformer.registry``, which sends single tokens to the decode
     kernel (K2) and blocks of up to 512 tokens to the chunk kernel (K3)."""
     B, S, H, D = q.shape
     if layer is not None:
         k_cache, v_cache = k_cache[layer], v_cache[layer]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
     S_max, KVH = k_cache.shape[-2], k_cache.shape[-1] // D
-    k = k_cache.reshape(B, S_max, KVH, D).repeat_interleave(H // KVH, dim=2)
-    v = v_cache.reshape(B, S_max, KVH, D).repeat_interleave(H // KVH, dim=2)
+    k = k_cache.reshape(B, S_max, KVH, D)
+    v = v_cache.reshape(B, S_max, KVH, D)
+    if k_scale is not None:
+        k = (k.float() * k_scale[..., None]).to(q.dtype)
+        v = (v.float() * v_scale[..., None]).to(q.dtype)
+    k = k.repeat_interleave(H // KVH, dim=2)
+    v = v.repeat_interleave(H // KVH, dim=2)
     logits = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(D)
     kv_pos = torch.arange(S_max, device=q.device)
     ok = q_positions[:, None, :, None] >= kv_pos[None, None, None, :]
@@ -281,10 +301,12 @@ def cached_attention(q, k_cache, v_cache, q_positions, layer=None):
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
-def _paged_write(cache, layer, k_new, v_new, positions, start=None):
-    """Write this step's K/V rows ``[B, S, KVH*D]`` into layer ``layer`` of
-    a PAGED pool through its block table ``cache["pages"] [B, n_virt]``,
-    in place: virtual position ``pos`` of row ``b`` lands at pool page
+def _paged_write(cache, layer, k_new, v_new, positions, start=None,
+                 ks_new=None, vs_new=None):
+    """Write this step's K/V rows ``[B, S, KVH*D]`` (and, for an int8
+    pool, their scales ``[B, S, KVH]``) into layer ``layer`` of a PAGED
+    pool through its block table ``cache["pages"] [B, n_virt]``, in place:
+    virtual position ``pos`` of row ``b`` lands at pool page
     ``pages[b, pos // page]``, in-page row ``pos % page``.  ``positions``
     [B, S]: a row-uniform chunk (``start`` an int, checked against the
     table here) may span page boundaries; per-row decode positions
@@ -299,8 +321,10 @@ def _paged_write(cache, layer, k_new, v_new, positions, start=None):
     if start is not None and not 0 <= start <= virt - S:
         raise ValueError(f"paged write [{start}, {start + S}) past the "
                          f"block table ({virt} virtual positions)")
-    write_pages(cache["k"][layer], pages, positions, k_new)
-    write_pages(cache["v"][layer], pages, positions, v_new)
+    for key, rows in (("k", k_new), ("v", v_new), ("k_scale", ks_new),
+                      ("v_scale", vs_new)):
+        if rows is not None:
+            write_pages(cache[key][layer], pages, positions, rows)
 
 
 class Attention(nn.Module):
@@ -412,6 +436,16 @@ class Transformer(nn.Module):
     def device(self):
         return self.embed_tokens.weight.device
 
+    def replace_config_(self, config):
+        """Swap in ``config`` (same architecture; e.g. ``kv_cache_quant``
+        flipped) on this model and every layer, in place: the weights stay
+        where they are."""
+        check_supported(config)
+        for mod in self.modules():
+            if hasattr(mod, "config"):
+                mod.config = config
+        return self
+
     @torch.no_grad()
     def init_weights(self, generator):
         """Random init from ``generator`` (a ``torch.Generator`` on the
@@ -518,25 +552,110 @@ class Transformer(nn.Module):
 
     def init_cache(self, batch_size, max_len, dtype=None, device=None):
         """Zero KV cache: ``{"k", "v"}`` each [L, B, max_len, KVH*D]
-        (layer-stacked, S-major with flattened heads — the JAX layout)."""
+        (layer-stacked, S-major with flattened heads — the JAX layout);
+        with ``kv_cache_quant`` int8 payloads plus fp32 ``k_scale`` /
+        ``v_scale`` [L, B, max_len, KVH]."""
         cfg = self.config
-        shape = (cfg.num_layers, batch_size, max_len,
-                 cfg.kv_heads * cfg.head_dim)
-        kw = dict(dtype=dtype or cfg.torch_dtype, device=device or self.device)
-        return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+        return self._zero_cache((cfg.num_layers, batch_size, max_len),
+                                dtype, device)
 
     def init_paged_cache(self, num_pages, page_size, dtype=None,
                          device=None):
         """Zero PAGED KV pool: ``{"k", "v"}`` each ``[L, num_pages,
-        page_size, KVH*D]`` (the JAX layout).  Physical pages hold no
-        position order: a consumer adds the block table ``"pages"``
-        ``[B, n_virt]`` (virtual page ``pos // page_size`` → pool page) to
-        the dict it passes to :meth:`decode`; page 0 is the trash page."""
+        page_size, KVH*D]`` (the JAX layout; int8 plus scales ``[L,
+        num_pages, page_size, KVH]`` with ``kv_cache_quant``).  Physical
+        pages hold no position order: a consumer adds the block table
+        ``"pages"`` ``[B, n_virt]`` (virtual page ``pos // page_size`` →
+        pool page) to the dict it passes to :meth:`decode`; page 0 is the
+        trash page."""
+        return self._zero_cache((self.config.num_layers, int(num_pages),
+                                 int(page_size)), dtype, device)
+
+    def _zero_cache(self, lead, dtype, device):
         cfg = self.config
-        shape = (cfg.num_layers, int(num_pages), int(page_size),
-                 cfg.kv_heads * cfg.head_dim)
-        kw = dict(dtype=dtype or cfg.torch_dtype, device=device or self.device)
+        shape = lead + (cfg.kv_heads * cfg.head_dim,)
+        device = device or self.device
+        if cfg.kv_cache_quant:
+            sshape = lead + (cfg.kv_heads,)
+            kw = dict(dtype=torch.float32, device=device)
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(sshape, **kw),
+                    "v_scale": torch.zeros(sshape, **kw)}
+        kw = dict(dtype=dtype or cfg.torch_dtype, device=device)
         return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+    def _flax_linears(self):
+        """Each linear layer as the JAX model holds it: ``(module name,
+        (kernel path, bias path), (kernel shape, bias shape))`` in the
+        unrolled (``scan_layers=False``) flax tree."""
+        cfg = self.config
+        h, H, D, KVH = cfg.hidden_size, cfg.num_heads, cfg.head_dim, \
+            cfg.kv_heads
+        f = cfg.ffn_size
+        per_layer = {"attn.q_proj": ((h, H, D), (H, D)),
+                     "attn.k_proj": ((h, KVH, D), (KVH, D)),
+                     "attn.v_proj": ((h, KVH, D), (KVH, D)),
+                     "attn.o_proj": ((H, D, h), (h,)),
+                     "mlp.up_proj": ((h, f), (f,)),
+                     "mlp.down_proj": ((f, h), (h,))}
+        for i in range(cfg.num_layers):
+            for name, shapes in per_layer.items():
+                path = f"layers_{i}/" + name.replace(".", "/")
+                yield (f"layers.{i}.{name}", (path + "/kernel",
+                                              path + "/bias"), shapes)
+        if self.lm_head is not None:
+            yield ("lm_head", ("lm_head/kernel", "lm_head/bias"),
+                   ((h, cfg.vocab_size), (cfg.vocab_size,)))
+
+    @torch.no_grad()
+    def quantize_weights_(self, quantizer, dtype):
+        """Quantize this model's fp32 weights in place, as the JAX engine's
+        ``quantize_tree`` treats the unrolled flax tree: every linear layer
+        the quantizer takes becomes a
+        :class:`~deepspeed_tpu_torch.runtime.weight_quantizer.
+        QuantizedLinear`; every other floating tensor is cast to
+        ``dtype``."""
+        from deepspeed_tpu_torch.runtime.weight_quantizer import (
+            QuantizedLinear)
+        for name, paths, shapes in self._flax_linears():
+            parent, attr = self._parent(name)
+            ql = QuantizedLinear.from_linear(getattr(parent, attr), quantizer,
+                                             paths, shapes, dtype)
+            if ql is not None:
+                setattr(parent, attr, ql)
+        for p in self.parameters():
+            p.data = p.data.to(dtype)
+
+    @torch.no_grad()
+    def float_weights_(self):
+        """Undo :meth:`quantize_weights_`'s layout: empty fp32 linear layers
+        in place of the quantized ones and every parameter in fp32, ready
+        for a float ``state_dict``."""
+        from deepspeed_tpu_torch.runtime.weight_quantizer import (
+            QuantizedLinear)
+        for name, _, _ in self._flax_linears():
+            parent, attr = self._parent(name)
+            mod = getattr(parent, attr)
+            if isinstance(mod, QuantizedLinear):
+                setattr(parent, attr, mod.float_linear())
+        for p in self.parameters():
+            p.data = p.data.float()
+
+    def quantized_leaves(self):
+        """``{flax path: QuantizedWeight}`` of every weight this model holds
+        quantized (the unrolled flax tree's paths)."""
+        from deepspeed_tpu_torch.runtime.weight_quantizer import (
+            QuantizedLinear)
+        out = {}
+        for mod in self.modules():
+            if isinstance(mod, QuantizedLinear):
+                out.update(mod.quantized())
+        return out
+
+    def _parent(self, name):
+        path, attr = name.rsplit(".", 1) if "." in name else ("", name)
+        return self.get_submodule(path), attr
 
 
 def derive_causal_labels(input_ids, attention_mask=None, ignore_index=-100):

@@ -1,10 +1,12 @@
-// Shared helpers of the attention kernels: element-type conversions and
-// the dtype / head-dim dispatch of the C entry points.
+// Shared helpers of the attention kernels: element-type conversions, the
+// int8 row quantizer of the int8-KV caches and the dtype / head-dim
+// dispatch of the C entry points.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace dstt {
 
@@ -20,6 +22,10 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x
 }
 template <> __device__ __forceinline__ float to_f<__half>(__half x) {
   return __half2float(x);
+}
+// an int8 cache payload (the int8-KV mode): the integer as a float, exact
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
+  return (float)x;
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -53,10 +59,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The int8 payload of x against a per-(position, kv-head) scale, as the
+// JAX package stores int8-KV rows: round half to even (rintf, as jnp.round)
+// of x / safe with IEEE division, clamped to +-127.
+__device__ __forceinline__ int8_t quant_i8(float x, float safe) {
+  return (int8_t)fminf(fmaxf(rintf(x / safe), -127.f), 127.f);
+}
+
 // Where a kernel finds the K/V row of position `pos` of batch row b: an
 // element offset from the cache pointer it was given.  The attention
 // bodies are templates over this map, and the map is the only thing a
 // paged cache changes; the arithmetic on the rows they find is the same.
+
+// The int8-KV scales [B | num_pages, S | page, KVH] take the same map with
+// KVH elements per position.
 
 // A strided [B, S, ...] cache: row (b, pos) at b*sb + pos*ss.
 struct StridedRows {

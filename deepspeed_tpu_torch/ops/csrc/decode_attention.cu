@@ -1,10 +1,12 @@
 // K2 (single-token decode attention with the fused cache write) and K6
-// (the same over a paged KV pool), for Hopper.
+// (the same over a paged KV pool), for Hopper, on bf16 / fp16 / fp32
+// caches and on int8-KV caches, plus their int8 x int8 mode.
 //
 // Replace two Pallas kernels of the JAX package:
 //   K2  deepspeed_tpu/ops/transformer/decode_attention.py
-//       decode_attention / _decode_kernel  (bf16 / fp16 / fp32 caches; its
-//       int8-KV, sliding-window and int8-matmul modes are not ported yet)
+//       decode_attention / _decode_kernel  (float and int8-KV caches, the
+//       fused write, and the int8-matmul mode; its sliding-window mode is
+//       not ported yet)
 //   K6  deepspeed_tpu/ops/transformer/paged_attention.py
 //       paged_decode_attention  (its body runs _decode_kernel unchanged)
 // One query row per head attends to cache positions pos < lengths[b].  K2
@@ -18,6 +20,17 @@
 // clamp of the JAX kernel; through the table for K6 -- and then attends
 // over the cache that now holds it, which is the unfused JAX order (write,
 // then attend).
+//
+// int8-KV (the cache type C = int8_t): payloads int8 with fp32 scales
+// [.., S_max, KVH] per (position, kv head), read through the same row map
+// with KVH elements per position.  The k-scale multiplies each score, the
+// v-scale each probability before the PV product (the running sum takes
+// the raw probability), as the JAX kernel applies them to its score and
+// probability tiles.  The fused write quantizes the fresh row in the block
+// that owns its kv head: s = max|x| / 127, safe = s == 0 ? 1 : s, payload
+// rintf(x / safe) clamped to +-127, scale safe.  The JAX fused kernel
+// substitutes the dequantized fresh row into the step's own scores instead
+// of reading it back: the same values up to fp32 rounding.
 //
 // What bounds it on an H100: the cache stream.  Each step reads
 // 2 * lengths[b] * KVH * D elements per layer and does ~4 flops per
@@ -38,6 +51,15 @@
 // warp-shuffle sum.  Each warp keeps an online softmax (max, sum, output)
 // per query head in registers; the 8 warps' states merge through shared
 // memory at the end.
+//
+// The int8 x int8 mode (decode_i8mm_kernel; unfused, as in JAX) quantizes
+// q per head and, per head and KV block, the probabilities folded with the
+// v-scales, and computes both products on integers (__dp4a, exact).  That
+// rounding of P depends on the blocking and the block order, so this
+// kernel walks the positions in the JAX kernel's blocks (block_k positions,
+// min(512, S_max) for K2 and the page for K6), in order: a block's scores
+// go to shared memory, one warp per head turns them into the block's
+// softmax update and quantized P, and all threads sum P.V.
 #include "attention_common.cuh"
 
 namespace dstt {
@@ -45,8 +67,10 @@ namespace dstt {
 constexpr int kDecWarps = 8;
 constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kRowsPerWarp = 4;  // rows in flight per warp (U)
+constexpr int kMaxBlockK = 512;  // the int8 x int8 mode's longest KV block
 
 template <int BYTES> struct VecOf;
+template <> struct VecOf<2> { using type = unsigned short; };
 template <> struct VecOf<4> { using type = unsigned int; };
 template <> struct VecOf<8> { using type = uint2; };
 template <> struct VecOf<16> { using type = uint4; };
@@ -62,23 +86,27 @@ __device__ __forceinline__ void load_floats(const T* p, float (&out)[N]) {
 }
 
 // Rows: where position t of batch row b starts (StridedRows for K2's
-// [B, S_max, KVH*D] cache, PagedRows for K6); S_max: the positions a row
-// can hold (n_virt * page for K6).
-template <typename T, int D, int G, typename Rows>
+// [B, S_max, KVH*D] cache, PagedRows for K6); srows: the same map over the
+// int8-KV scales (KVH per position; unused for float caches); S_max: the
+// positions a row can hold (n_virt * page for K6).  T: q / out / new row
+// type; C: the cache type, T or int8_t.
+template <typename T, typename C, int D, int G, typename Rows>
 __global__ void __launch_bounds__(kDecThreads)
-decode_kernel(const T* __restrict__ q, T* k_cache, T* v_cache,
-              const int* __restrict__ lengths, const T* __restrict__ new_k,
-              const T* __restrict__ new_v, T* __restrict__ out, int KVH,
-              int S_max, Rows rows, float scale) {
+decode_kernel(const T* __restrict__ q, C* k_cache, C* v_cache, float* k_scale,
+              float* v_scale, const int* __restrict__ lengths,
+              const T* __restrict__ new_k, const T* __restrict__ new_v,
+              T* __restrict__ out, int KVH, int S_max, Rows rows, Rows srows,
+              float scale) {
+  constexpr bool kInt8 = sizeof(C) == 1;
   constexpr int DPL = D / 32;      // dims per lane
   constexpr int U = kRowsPerWarp;
   const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int H = KVH * G;
-  // k_cache / v_cache are written below and read back: no __restrict__,
+  // caches and scales are written below and read back: no __restrict__,
   // no read-only loads on them
-  T* kb = k_cache + kvh * D;
-  T* vb = v_cache + kvh * D;
+  C* kb = k_cache + kvh * D;
+  C* vb = v_cache + kvh * D;
   const int len = min(max(lengths[b], 0), S_max);
 
   if (new_k != nullptr) {
@@ -86,9 +114,28 @@ decode_kernel(const T* __restrict__ q, T* k_cache, T* v_cache,
     const long long wo = rows.at(b, w);
     const T* nk = new_k + ((long long)b * KVH + kvh) * D;
     const T* nv = new_v + ((long long)b * KVH + kvh) * D;
-    for (int d = tid; d < D; d += kDecThreads) {
-      kb[wo + d] = nk[d];
-      vb[wo + d] = nv[d];
+    if constexpr (kInt8) {
+      // warp 0 quantizes the K row, warp 1 the V row
+      if (warp < 2) {
+        const T* src = warp == 0 ? nk : nv;
+        C* dst = (warp == 0 ? kb : vb) + wo;
+        float x[DPL], amax = 0.f;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) {
+          x[j] = to_f(src[lane * DPL + j]);
+          amax = fmaxf(amax, fabsf(x[j]));
+        }
+        const float s = warp_max(amax) / 127.0f;
+        const float safe = s == 0.f ? 1.f : s;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) dst[lane * DPL + j] = quant_i8(x[j], safe);
+        if (lane == 0) (warp == 0 ? k_scale : v_scale)[srows.at(b, w) + kvh] = safe;
+      }
+    } else {
+      for (int d = tid; d < D; d += kDecThreads) {
+        kb[wo + d] = nk[d];
+        vb[wo + d] = nv[d];
+      }
     }
     // the block's global writes are visible to all its threads after this
     __syncthreads();
@@ -114,16 +161,22 @@ decode_kernel(const T* __restrict__ q, T* k_cache, T* v_cache,
   }
 
   for (int t0 = warp * U; t0 < len; t0 += kDecWarps * U) {
-    float kr[U][DPL], vr[U][DPL];
+    float kr[U][DPL], vr[U][DPL], ksc[U], vsc[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (t0 + u < len) {
         const long long off = rows.at(b, t0 + u) + lane * DPL;
-        load_floats<T, DPL>(kb + off, kr[u]);
-        load_floats<T, DPL>(vb + off, vr[u]);
+        load_floats<C, DPL>(kb + off, kr[u]);
+        load_floats<C, DPL>(vb + off, vr[u]);
+        if constexpr (kInt8) {
+          const long long so = srows.at(b, t0 + u) + kvh;
+          ksc[u] = k_scale[so];
+          vsc[u] = v_scale[so];
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < DPL; ++j) kr[u][j] = vr[u][j] = 0.f;
+        ksc[u] = vsc[u] = 0.f;
       }
     }
 #pragma unroll
@@ -135,7 +188,9 @@ decode_kernel(const T* __restrict__ q, T* k_cache, T* v_cache,
         float part = 0.f;
 #pragma unroll
         for (int j = 0; j < DPL; ++j) part = fmaf(qv[g][j], kr[u][j], part);
-        s[u] = t0 + u < len ? warp_sum(part) : kNegInf;
+        float sc = warp_sum(part);
+        if constexpr (kInt8) sc *= ksc[u];
+        s[u] = t0 + u < len ? sc : kNegInf;
         mx = fmaxf(mx, s[u]);
       }
       const float corr = expf(m[g] - mx);
@@ -146,8 +201,10 @@ decode_kernel(const T* __restrict__ q, T* k_cache, T* v_cache,
       for (int u = 0; u < U; ++u) {
         const float p = t0 + u < len ? expf(s[u] - mx) : 0.f;
         psum += p;
+        float pv = p;
+        if constexpr (kInt8) pv *= vsc[u];
 #pragma unroll
-        for (int j = 0; j < DPL; ++j) acc[g][j] = fmaf(p, vr[u][j], acc[g][j]);
+        for (int j = 0; j < DPL; ++j) acc[g][j] = fmaf(pv, vr[u][j], acc[g][j]);
       }
       l[g] = l[g] * corr + psum;
       m[g] = mx;
@@ -184,16 +241,166 @@ decode_kernel(const T* __restrict__ q, T* k_cache, T* v_cache,
   }
 }
 
-template <typename T, int HD, typename Rows>
-int launch_decode(const void* q, void* k, void* v, const void* lengths,
-                  const void* new_k, const void* new_v, void* out, int B,
-                  int H, int KVH, int S_max, Rows rows, float scale,
-                  cudaStream_t stream) {
+// The int8 x int8 decode (JAX decode_int8_matmuls) over int8-KV caches:
+// blocks of block_k positions in order.  Per block: scores = the integer
+// dot of q_i8 and k_i8 times (qs * scale) times the k-scale; per head the
+// block's max updates the running max m, p = exp(s - m), the running sum
+// takes p, and pv = p * v-scale is quantized as rintf(pv / rsafe) with
+// rmax = max(pv) / 127 (rsafe = rmax, or 1 where rmax is 0); the integer
+// P.V of that times rmax joins acc * exp(m_old - m).  Integer sums are
+// exact in any order, so the only order-dependent float sum is each
+// block's sum of p (a lane-strided partial sum, then the warp tree).
+template <typename T, int D, int G, typename Rows>
+__global__ void __launch_bounds__(kDecThreads)
+decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
+                   const int8_t* __restrict__ v_cache,
+                   const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale,
+                   const int* __restrict__ lengths, T* __restrict__ out,
+                   int KVH, int S_max, int block_k, Rows rows, Rows srows,
+                   float scale) {
+  constexpr int W = D / 4;                 // int32 words per row of one head
+  constexpr int R = kDecThreads / W;       // position groups of the PV sum
+  static_assert(D % 32 == 0 && kDecThreads % W == 0, "head dim");
+  const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int H = KVH * G;
+  __shared__ __align__(16) int8_t q8[G][D];  // q quantized per head
+  __shared__ float qsc[G];                   // its scale times `scale`
+  __shared__ float sc[G][kMaxBlockK];        // scores, then P * v-scale
+  __shared__ int pq[G][kMaxBlockK];          // P quantized
+  __shared__ int oi[G][D];                   // the block's integer P.V
+  __shared__ float acc[G][D];
+  __shared__ float m_s[G], l_s[G], corr_s[G], rmax_s[G];
+  const int len = min(max(lengths[b], 0), S_max);
+
+  if (warp < G) {  // warp g quantizes head g of q
+    constexpr int DPL = D / 32;
+    const T* qh = q + ((long long)b * H + kvh * G + warp) * D + lane * DPL;
+    float x[DPL], amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      x[j] = to_f(qh[j]);
+      amax = fmaxf(amax, fabsf(x[j]));
+    }
+    float qs = warp_max(amax) / 127.0f;
+    qs = qs == 0.f ? 1.f : qs;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) q8[warp][lane * DPL + j] = quant_i8(x[j], qs);
+    if (lane == 0) {
+      qsc[warp] = qs * scale;
+      m_s[warp] = kNegInf;
+      l_s[warp] = 0.f;
+    }
+  }
+  for (int i = tid; i < G * D; i += kDecThreads) acc[i / D][i % D] = 0.f;
+  __syncthreads();
+
+  const int8_t* kb = k_cache + kvh * D;
+  const int8_t* vb = v_cache + kvh * D;
+  for (int t0 = 0; t0 < len; t0 += block_k) {
+    const int n = min(block_k, len - t0);
+    // scores, one position per thread: the row's D bytes as int4 loads
+    for (int t = tid; t < n; t += kDecThreads) {
+      const int4* kr = reinterpret_cast<const int4*>(kb + rows.at(b, t0 + t));
+      int kw[W];
+#pragma unroll
+      for (int w = 0; w < W / 4; ++w) {
+        const int4 x = kr[w];
+        kw[4 * w] = x.x;
+        kw[4 * w + 1] = x.y;
+        kw[4 * w + 2] = x.z;
+        kw[4 * w + 3] = x.w;
+      }
+      const float ks = k_scale[srows.at(b, t0 + t) + kvh];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int* qw = reinterpret_cast<const int*>(q8[g]);
+        int dot = 0;
+#pragma unroll
+        for (int w = 0; w < W; ++w) dot = __dp4a(kw[w], qw[w], dot);
+        sc[g][t] = (float)dot * qsc[g] * ks;
+      }
+    }
+    for (int i = tid; i < G * D; i += kDecThreads) oi[i / D][i % D] = 0;
+    __syncthreads();
+
+    if (warp < G) {  // warp g: head g's softmax update and quantized P
+      const int g = warp;
+      float mx = kNegInf;
+      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, sc[g][t]);
+      const float m_new = fmaxf(m_s[g], warp_max(mx));
+      float psum = 0.f, pmax = 0.f;
+      for (int t = lane; t < n; t += 32) {
+        const float p = expf(sc[g][t] - m_new);
+        psum += p;
+        const float pv = p * v_scale[srows.at(b, t0 + t) + kvh];
+        sc[g][t] = pv;
+        pmax = fmaxf(pmax, pv);
+      }
+      psum = warp_sum(psum);
+      const float rmax = warp_max(pmax) / 127.0f;
+      const float rsafe = rmax == 0.f ? 1.f : rmax;
+      for (int t = lane; t < n; t += 32) pq[g][t] = quant_i8(sc[g][t], rsafe);
+      if (lane == 0) {
+        const float corr = expf(m_s[g] - m_new);
+        l_s[g] = l_s[g] * corr + psum;
+        m_s[g] = m_new;
+        corr_s[g] = corr;
+        rmax_s[g] = rmax;
+      }
+    }
+    __syncthreads();
+
+    {  // P.V on integers: thread (r, word) sums positions r, r + R, ...
+      const int word = tid % W, r = tid / W;
+      int o[G][4];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[g][i] = 0;
+      for (int t = r; t < n; t += R) {
+        const int vw = reinterpret_cast<const int*>(
+            vb + rows.at(b, t0 + t))[word];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const int p = pq[g][t];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            o[g][i] += p * (int)(int8_t)(vw >> (8 * i));
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) atomicAdd(&oi[g][4 * word + i], o[g][i]);
+    }
+    __syncthreads();
+    for (int i = tid; i < G * D; i += kDecThreads) {
+      const int g = i / D, d = i % D;
+      acc[g][d] = acc[g][d] * corr_s[g] + (float)oi[g][d] * rmax_s[g];
+    }
+    __syncthreads();
+  }
+
+  T* ob = out + ((long long)b * H + kvh * G) * D;
+  for (int i = tid; i < G * D; i += kDecThreads) {
+    const int g = i / D, d = i % D;
+    ob[i] = from_f<T>(acc[g][d] / (l_s[g] == 0.f ? 1.f : l_s[g]));
+  }
+}
+
+template <typename T, typename C, int HD, typename Rows>
+int launch_decode(const void* q, void* k, void* v, void* ks, void* vs,
+                  const void* lengths, const void* new_k, const void* new_v,
+                  void* out, int B, int H, int KVH, int S_max, Rows rows,
+                  Rows srows, float scale, cudaStream_t stream) {
   const dim3 grid(KVH, B);
 #define DSTT_DECODE_G(GG)                                                      \
-  decode_kernel<T, HD, GG, Rows><<<grid, kDecThreads, 0, stream>>>(           \
-      (const T*)q, (T*)k, (T*)v, (const int*)lengths, (const T*)new_k,         \
-      (const T*)new_v, (T*)out, KVH, S_max, rows, scale)
+  decode_kernel<T, C, HD, GG, Rows><<<grid, kDecThreads, 0, stream>>>(        \
+      (const T*)q, (C*)k, (C*)v, (float*)ks, (float*)vs, (const int*)lengths,  \
+      (const T*)new_k, (const T*)new_v, (T*)out, KVH, S_max, rows, srows,      \
+      scale)
   switch (H / KVH) {
     case 1: DSTT_DECODE_G(1); break;
     case 2: DSTT_DECODE_G(2); break;
@@ -205,28 +412,61 @@ int launch_decode(const void* q, void* k, void* v, const void* lengths,
   return cudaSuccess;
 }
 
+template <typename T, int HD, typename Rows>
+int launch_decode_i8mm(const void* q, const void* k, const void* v,
+                       const void* ks, const void* vs, const void* lengths,
+                       void* out, int B, int H, int KVH, int S_max,
+                       int block_k, Rows rows, Rows srows, float scale,
+                       cudaStream_t stream) {
+  const dim3 grid(KVH, B);
+#define DSTT_I8MM_G(GG)                                                        \
+  decode_i8mm_kernel<T, HD, GG, Rows><<<grid, kDecThreads, 0, stream>>>(      \
+      (const T*)q, (const int8_t*)k, (const int8_t*)v, (const float*)ks,       \
+      (const float*)vs, (const int*)lengths, (T*)out, KVH, S_max, block_k,     \
+      rows, srows, scale)
+  switch (H / KVH) {
+    case 1: DSTT_I8MM_G(1); break;
+    case 2: DSTT_I8MM_G(2); break;
+    case 4: DSTT_I8MM_G(4); break;
+    case 8: DSTT_I8MM_G(8); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef DSTT_I8MM_G
+  return cudaSuccess;
+}
+
 }  // namespace dstt
 
 // q [B, H, D] and out [B, H, D] contiguous; k_cache / v_cache one layer's
-// contiguous [B, S_max, KVH*D], 16-byte aligned; lengths [B] int32 on the
-// device, counting this step's token; new_k / new_v [B, KVH, D]
-// contiguous, or both null for the unfused call.  G = H / KVH must be 1,
-// 2, 4 or 8.  Returns cudaGetLastError().
+// contiguous [B, S_max, KVH*D], 16-byte aligned, in q's dtype -- or int8
+// with k_scale / v_scale that layer's contiguous fp32 [B, S_max, KVH]
+// (both null for a float cache); lengths [B] int32 on the device, counting
+// this step's token; new_k / new_v [B, KVH, D] contiguous in q's dtype, or
+// both null for the unfused call.  G = H / KVH must be 1, 2, 4 or 8.
+// Returns cudaGetLastError().
 extern "C" int dstt_decode_attention(const void* q, void* k_cache,
-                                     void* v_cache, const void* lengths,
+                                     void* v_cache, void* k_scale,
+                                     void* v_scale, const void* lengths,
                                      const void* new_k, const void* new_v,
                                      void* out, int dtype, int B, int H,
                                      int KVH, int D, int S_max, float scale,
                                      void* stream) {
   if (KVH <= 0 || H % KVH != 0 || S_max <= 0) return cudaErrorInvalidValue;
   if ((new_k == nullptr) != (new_v == nullptr)) return cudaErrorInvalidValue;
+  if ((k_scale == nullptr) != (v_scale == nullptr)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const dstt::StridedRows rows{(long long)S_max * KVH * D, (long long)KVH * D};
+  const dstt::StridedRows srows{(long long)S_max * KVH, (long long)KVH};
 #define DSTT_DECODE_LAUNCH(T, HD)                                              \
   {                                                                            \
-    const int e = dstt::launch_decode<T, HD>(                                  \
-        q, k_cache, v_cache, lengths, new_k, new_v, out, B, H, KVH, S_max,     \
-        rows, scale, (cudaStream_t)stream);                                    \
+    const int e = k_scale != nullptr                                           \
+        ? dstt::launch_decode<T, int8_t, HD>(                                  \
+              q, k_cache, v_cache, k_scale, v_scale, lengths, new_k, new_v,    \
+              out, B, H, KVH, S_max, rows, srows, scale, (cudaStream_t)stream) \
+        : dstt::launch_decode<T, T, HD>(                                       \
+              q, k_cache, v_cache, k_scale, v_scale, lengths, new_k, new_v,    \
+              out, B, H, KVH, S_max, rows, srows, scale,                       \
+              (cudaStream_t)stream);                                           \
     if (e != cudaSuccess) return e;                                            \
   }
   DSTT_DISPATCH(dtype, D, DSTT_DECODE_LAUNCH);
@@ -235,29 +475,93 @@ extern "C" int dstt_decode_attention(const void* q, void* k_cache,
 }
 
 // K6.  k_pool / v_pool: one layer of the page pool, contiguous
-// [num_pages, page, KVH*D], 16-byte aligned; pages [B, n_virt] int32 on
-// the device (dead lanes point at the trash page 0); lengths, new_k /
-// new_v, q and out as for dstt_decode_attention.  page is any positive
-// size.  Returns cudaGetLastError().
+// [num_pages, page, KVH*D], 16-byte aligned, in q's dtype -- or int8 with
+// k_scale / v_scale that layer's fp32 [num_pages, page, KVH] (both null
+// for a float pool); pages [B, n_virt] int32 on the device (dead lanes
+// point at the trash page 0); lengths, new_k / new_v, q and out as for
+// dstt_decode_attention.  page is any positive size.  Returns
+// cudaGetLastError().
 extern "C" int dstt_paged_decode_attention(
-    const void* q, void* k_pool, void* v_pool, const void* lengths,
-    const void* pages, const void* new_k, const void* new_v, void* out,
-    int dtype, int B, int H, int KVH, int D, int page, int n_virt,
-    float scale, void* stream) {
+    const void* q, void* k_pool, void* v_pool, void* k_scale, void* v_scale,
+    const void* lengths, const void* pages, const void* new_k,
+    const void* new_v, void* out, int dtype, int B, int H, int KVH, int D,
+    int page, int n_virt, float scale, void* stream) {
   if (KVH <= 0 || H % KVH != 0 || page <= 0 || n_virt <= 0)
     return cudaErrorInvalidValue;
   if ((new_k == nullptr) != (new_v == nullptr)) return cudaErrorInvalidValue;
+  if ((k_scale == nullptr) != (v_scale == nullptr)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const dstt::PagedRows rows{(const int*)pages, n_virt, page,
                              (long long)KVH * D};
+  const dstt::PagedRows srows{(const int*)pages, n_virt, page, (long long)KVH};
 #define DSTT_PAGED_DECODE_LAUNCH(T, HD)                                        \
   {                                                                            \
-    const int e = dstt::launch_decode<T, HD>(                                  \
-        q, k_pool, v_pool, lengths, new_k, new_v, out, B, H, KVH,              \
-        page * n_virt, rows, scale, (cudaStream_t)stream);                     \
+    const int e = k_scale != nullptr                                           \
+        ? dstt::launch_decode<T, int8_t, HD>(                                  \
+              q, k_pool, v_pool, k_scale, v_scale, lengths, new_k, new_v, out, \
+              B, H, KVH, page * n_virt, rows, srows, scale,                    \
+              (cudaStream_t)stream)                                            \
+        : dstt::launch_decode<T, T, HD>(                                       \
+              q, k_pool, v_pool, k_scale, v_scale, lengths, new_k, new_v, out, \
+              B, H, KVH, page * n_virt, rows, srows, scale,                    \
+              (cudaStream_t)stream);                                           \
     if (e != cudaSuccess) return e;                                            \
   }
   DSTT_DISPATCH(dtype, D, DSTT_PAGED_DECODE_LAUNCH);
 #undef DSTT_PAGED_DECODE_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// K2's int8 x int8 mode: int8 caches and fp32 scales as for
+// dstt_decode_attention (required), no fused write; block_k the KV block
+// of P's quantization, 1 .. 512 (the JAX kernel's min(block_k, S_max)).
+extern "C" int dstt_decode_attention_i8mm(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* lengths, void* out,
+    int dtype, int B, int H, int KVH, int D, int S_max, int block_k,
+    float scale, void* stream) {
+  if (KVH <= 0 || H % KVH != 0 || S_max <= 0) return cudaErrorInvalidValue;
+  if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
+  if (block_k <= 0 || block_k > dstt::kMaxBlockK) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const dstt::StridedRows rows{(long long)S_max * KVH * D, (long long)KVH * D};
+  const dstt::StridedRows srows{(long long)S_max * KVH, (long long)KVH};
+#define DSTT_I8MM_LAUNCH(T, HD)                                                \
+  {                                                                            \
+    const int e = dstt::launch_decode_i8mm<T, HD>(                             \
+        q, k_cache, v_cache, k_scale, v_scale, lengths, out, B, H, KVH, S_max, \
+        block_k, rows, srows, scale, (cudaStream_t)stream);                    \
+    if (e != cudaSuccess) return e;                                            \
+  }
+  DSTT_DISPATCH(dtype, D, DSTT_I8MM_LAUNCH);
+#undef DSTT_I8MM_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// K6's int8 x int8 mode: the pool, scales and table as for
+// dstt_paged_decode_attention (int8, scales required), no fused write; the
+// KV block is the page (at most 512 rows).
+extern "C" int dstt_paged_decode_attention_i8mm(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* lengths,
+    const void* pages, void* out, int dtype, int B, int H, int KVH, int D,
+    int page, int n_virt, float scale, void* stream) {
+  if (KVH <= 0 || H % KVH != 0 || page <= 0 || n_virt <= 0)
+    return cudaErrorInvalidValue;
+  if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
+  if (page > dstt::kMaxBlockK) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const dstt::PagedRows rows{(const int*)pages, n_virt, page,
+                             (long long)KVH * D};
+  const dstt::PagedRows srows{(const int*)pages, n_virt, page, (long long)KVH};
+#define DSTT_PAGED_I8MM_LAUNCH(T, HD)                                          \
+  {                                                                            \
+    const int e = dstt::launch_decode_i8mm<T, HD>(                             \
+        q, k_pool, v_pool, k_scale, v_scale, lengths, out, B, H, KVH,          \
+        page * n_virt, page, rows, srows, scale, (cudaStream_t)stream);        \
+    if (e != cudaSuccess) return e;                                            \
+  }
+  DSTT_DISPATCH(dtype, D, DSTT_PAGED_I8MM_LAUNCH);
+#undef DSTT_PAGED_I8MM_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -117,10 +117,16 @@ FLASH = KernelLibrary("flash_attention", "flash_attention.cu", {
     # 12 strides (b, s, h for q, k, v, o), causal, scale, stream
     "dstt_flash_attention_fwd":
         [P, P, P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + [I, F, P],
-    # K7: q, k_pool, v_pool, o, starts, pages, dtype, B, Sq, H, KVH, D,
-    # page, n_virt, 6 strides (b, s, h for q and o), scale, stream
+    # K3 on an int8-KV cache: q, k, v, k_scale, v_scale, o, starts, dtype,
+    # B, Sq, H, KVH, D, S_max, 6 strides (b, s, h for q and o), scale,
+    # stream
+    "dstt_chunk_prefill_int8":
+        [P] * 7 + [I] * 7 + [L] * 6 + [F, P],
+    # K7: q, k_pool, v_pool, k_scale, v_scale (null: float pool), o,
+    # starts, pages, dtype, B, Sq, H, KVH, D, page, n_virt, 6 strides
+    # (b, s, h for q and o), scale, stream
     "dstt_paged_chunk_prefill":
-        [P, P, P, P, P, P, I, I, I, I, I, I, I, I] + [L] * 6 + [F, P],
+        [P] * 8 + [I] * 8 + [L] * 6 + [F, P],
 })
 
 FLASH_BWD = KernelLibrary("flash_attention_bwd", "flash_attention_bwd.cu", {
@@ -137,13 +143,18 @@ FLASH_BWD = KernelLibrary("flash_attention_bwd", "flash_attention_bwd.cu", {
 })
 
 DECODE = KernelLibrary("decode_attention", "decode_attention.cu", {
-    # q, k_cache, v_cache, lengths, new_k, new_v, out,
-    # dtype, B, H, KVH, D, S_max, scale, stream
-    "dstt_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
-    # K6: q, k_pool, v_pool, lengths, pages, new_k, new_v, out,
-    # dtype, B, H, KVH, D, page, n_virt, scale, stream
-    "dstt_paged_decode_attention":
-        [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    # q, k_cache, v_cache, k_scale, v_scale (null: float cache), lengths,
+    # new_k, new_v, out, dtype, B, H, KVH, D, S_max, scale, stream
+    "dstt_decode_attention": [P] * 9 + [I] * 6 + [F, P],
+    # K6: q, k_pool, v_pool, k_scale, v_scale, lengths, pages, new_k,
+    # new_v, out, dtype, B, H, KVH, D, page, n_virt, scale, stream
+    "dstt_paged_decode_attention": [P] * 10 + [I] * 7 + [F, P],
+    # int8 x int8: q, k_cache, v_cache, k_scale, v_scale, lengths, out,
+    # dtype, B, H, KVH, D, S_max, block_k, scale, stream
+    "dstt_decode_attention_i8mm": [P] * 7 + [I] * 7 + [F, P],
+    # q, k_pool, v_pool, k_scale, v_scale, lengths, pages, out, dtype, B,
+    # H, KVH, D, page, n_virt, scale, stream
+    "dstt_paged_decode_attention_i8mm": [P] * 8 + [I] * 7 + [F, P],
 })
 
 SPARSE = KernelLibrary("block_sparse_attention", "block_sparse_attention.cu", {

@@ -2,9 +2,11 @@
 (chunked prefill), each with its plain version.
 
 Port of ``deepspeed_tpu/ops/transformer/paged_attention.py`` for bf16 /
-fp16 / fp32 pools (its int8-KV and int8-matmul modes are still to port).
+fp16 / fp32 pools and int8-KV pools, with the int8×int8 decode mode.
 The KV cache is one page pool per K and V, layer-stacked ``[L,
-num_pages, page_size, KVH*D]`` (``Transformer.init_paged_cache``), and
+num_pages, page_size, KVH*D]`` (``Transformer.init_paged_cache``) — int8
+with fp32 scales ``[L, num_pages, page_size, KVH]`` in the int8-KV mode,
+in the same page layout — and
 each batch row owns a block table ``pages[b, virtual_page] ->
 physical_page``; virtual position ``pos`` of row ``b`` lives at pool page
 ``pages[b, pos // page_size]``, in-page row ``pos % page_size``.  Dead or
@@ -14,19 +16,23 @@ unmapped table entries point at the reserved trash page 0.
   ``dstt_paged_decode_attention``) replaces ``paged_decode_attention``:
   K2's body with the block table as its row map.  With ``new_k`` /
   ``new_v`` it first writes this step's row IN PLACE through the table at
-  virtual position ``max(lengths[b]-1, 0)``.
+  virtual position ``max(lengths[b]-1, 0)``, quantized on an int8 pool.
+  Its int8×int8 mode (entry ``dstt_paged_decode_attention_i8mm``, unfused)
+  quantizes P per page, the JAX kernel's block.
 * K7 (``ops/csrc/flash_attention.cu``, entry
   ``dstt_paged_chunk_prefill``) replaces ``paged_chunk_prefill_attention``:
   K3's body with the block table as its key-row map.
 
 The plain versions gather each row's virtual view ``pool[layer][pages[b]]``
-and run the monolithic plain functions on it, so they are bitwise equal to
-``decode_attention_plain`` / ``chunk_prefill_attention_plain`` over the
-gathered view; the kernels keep K2's / K3's schedules and are bitwise
-equal to K2 / K3 over that view on the card.
+(and its scales) and run the monolithic plain functions on it, so they are
+bitwise equal to ``decode_attention_plain`` / ``chunk_prefill_attention_
+plain`` over the gathered view; the kernels keep K2's / K3's schedules and
+are bitwise equal to K2 / K3 over that view on the card (the int8×int8
+mode at ``block_k`` = page).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
-version only for CPU tensors; it never falls back.
+version only for CPU tensors; it never falls back.  Launches are counted
+per mode, as in ``decode_attention``.
 """
 
 import math
@@ -35,7 +41,9 @@ import torch
 
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.transformer.decode_attention import (
-    chunk_prefill_attention_plain, decode_attention_plain)
+    _ptr, check_int8_cache, check_kernel_shapes, check_modes,
+    chunk_prefill_attention_plain, decode_attention_i8mm_plain,
+    decode_attention_plain, quantize_rows)
 from deepspeed_tpu_torch.ops.transformer.flash_attention import _check_cuda
 
 
@@ -68,48 +76,97 @@ def write_pages(pool, pages, positions, rows):
     pool[phys, positions % page] = rows.to(pool.dtype)
 
 
+def _gathered(pool, scales, pages):
+    """The virtual views of a pool layer and of its scales (None for a
+    float pool)."""
+    return (gather_pages(pool, pages),
+            None if scales is None else gather_pages(scales, pages))
+
+
 def paged_decode_attention_plain(q, k_pool, v_pool, lengths, pages,
-                                 scale=None, new_k=None, new_v=None):
+                                 scale=None, new_k=None, new_v=None,
+                                 k_scale=None, v_scale=None):
     """Write-then-attend over one pool layer in plain PyTorch.  q
     [B, H, D]; pools ``[num_pages, page, KVH*D]`` (written in place through
-    ``pages`` when ``new_k`` / ``new_v`` are given); lengths [B]; pages
-    [B, n_virt].  Returns [B, H, D]."""
+    ``pages`` when ``new_k`` / ``new_v`` are given, quantized on an int8
+    pool with ``k_scale`` / ``v_scale`` ``[num_pages, page, KVH]``);
+    lengths [B]; pages [B, n_virt].  Returns [B, H, D]."""
     B, H, D = q.shape
     n_virt, page = pages.shape[1], k_pool.shape[1]
     if new_k is not None:
         w = (lengths.to(q.device).long() - 1).clamp(0, n_virt * page - 1)
         KVHD = k_pool.shape[-1]
-        write_pages(k_pool, pages, w[:, None], new_k.reshape(B, 1, KVHD))
-        write_pages(v_pool, pages, w[:, None], new_v.reshape(B, 1, KVHD))
-    return decode_attention_plain(q, gather_pages(k_pool, pages),
-                                  gather_pages(v_pool, pages), lengths,
-                                  scale)
+        for pool, scales, new in ((k_pool, k_scale, new_k),
+                                  (v_pool, v_scale, new_v)):
+            rows = new.reshape(B, 1, KVHD)
+            if scales is not None:
+                rows, safe = quantize_rows(rows, KVHD // D)
+                write_pages(scales, pages, w[:, None], safe)
+            write_pages(pool, pages, w[:, None], rows)
+    gk, gks = _gathered(k_pool, k_scale, pages)
+    gv, gvs = _gathered(v_pool, v_scale, pages)
+    return decode_attention_plain(q, gk, gv, lengths, scale, k_scale=gks,
+                                  v_scale=gvs)
+
+
+def paged_decode_attention_i8mm_plain(q, k_pool, v_pool, lengths, pages,
+                                      k_scale, v_scale, scale=None):
+    """The int8×int8 decode over one int8 pool layer in plain PyTorch: the
+    monolithic plain version over the gathered views with one page per KV
+    block."""
+    gk, gks = _gathered(k_pool, k_scale, pages)
+    gv, gvs = _gathered(v_pool, v_scale, pages)
+    return decode_attention_i8mm_plain(q, gk, gv, lengths, gks, gvs, scale,
+                                       block_k=k_pool.shape[1])
 
 
 def paged_decode_attention(q, k_pool, v_pool, lengths, pages, scale=None,
-                           layer=None, new_k=None, new_v=None):
+                           layer=None, k_scale=None, v_scale=None,
+                           int8_matmuls=False, new_k=None, new_v=None):
     """Single-token decode attention over a paged pool.  q: [B, H, D];
-    pools ``[L, num_pages, page_size, KVH*D]`` with ``layer``; lengths
-    [B] int32, counting this step's token; pages [B, n_virt] int32.  With
-    ``new_k`` / ``new_v`` ([B, KVH, D]) the row is written in place
-    through the table first and ``(out, k_pool, v_pool)`` is returned;
-    otherwise ``out``."""
-    if (new_k is None) != (new_v is None):
-        raise ValueError("new_k and new_v must be given together")
+    pools ``[L, num_pages, page_size, KVH*D]`` with ``layer``, int8 with
+    ``k_scale`` / ``v_scale`` ``[L, num_pages, page_size, KVH]``; lengths
+    [B] int32, counting this step's token; pages [B, n_virt] int32.
+    ``int8_matmuls`` (int8 pools, unfused) runs both products int8×int8
+    with P quantized per page.  With ``new_k`` / ``new_v`` ([B, KVH, D])
+    the row is written in place through the table first and ``(out,
+    k_pool, v_pool[, k_scale, v_scale])`` is returned; otherwise ``out``."""
+    check_modes(k_scale, v_scale, int8_matmuls, new_k, new_v)
     kp, vp = pool_layer(k_pool, layer), pool_layer(v_pool, layer)
+    ks = None if k_scale is None else pool_layer(k_scale, layer)
+    vs = None if v_scale is None else pool_layer(v_scale, layer)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if int8_matmuls:
+        if q.is_cuda:
+            out = _launch_paged_decode(q, kp, vp, ks, vs, lengths, pages,
+                                       scale, None, None, i8mm=True)
+            paged_decode_attention.i8mm_launches += 1
+        else:
+            out = paged_decode_attention_i8mm_plain(q, kp, vp, lengths, pages,
+                                                    ks, vs, scale)
+        return out
     if q.is_cuda:
-        out = _launch_paged_decode(q, kp, vp, lengths, pages, scale, new_k,
-                                   new_v)
-        paged_decode_attention.launches += 1
+        out = _launch_paged_decode(q, kp, vp, ks, vs, lengths, pages, scale,
+                                   new_k, new_v)
+        if ks is None:
+            paged_decode_attention.launches += 1
+        else:
+            paged_decode_attention.int8_launches += 1
     else:
         out = paged_decode_attention_plain(q, kp, vp, lengths, pages, scale,
-                                           new_k, new_v)
-    return out if new_k is None else (out, k_pool, v_pool)
+                                           new_k, new_v, k_scale=ks,
+                                           v_scale=vs)
+    if new_k is None:
+        return out
+    if k_scale is None:
+        return out, k_pool, v_pool
+    return out, k_pool, v_pool, k_scale, v_scale
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0
+paged_decode_attention.i8mm_launches = 0
 
 
 def _table(pages, B, device):
@@ -122,7 +179,9 @@ def _table(pages, B, device):
     return pages.to(torch.int32).contiguous()
 
 
-def _check_pool(q, kp, vp, what):
+def _check_pool(q, kp, vp, ks, vs, what):
+    """KVH of a pool layer for a kernel launch; float pools in q's dtype,
+    int8 pools with their scales (``check_int8_cache``)."""
     D = q.shape[-1]
     KVHD = kp.shape[-1]
     KVH = KVHD // D
@@ -132,86 +191,112 @@ def _check_pool(q, kp, vp, what):
     if D not in (64, 128):
         raise ValueError(f"CUDA attention kernels take head_dim 64 or 128, "
                          f"got {D}")
-    if not (kp.is_contiguous() and vp.is_contiguous()):
-        raise ValueError(f"{what} needs contiguous [num_pages, page, KVH*D] "
-                         f"pool layers")
+    if ks is not None:
+        check_int8_cache(q, kp, vp, ks, vs, KVH, what)
+    else:
+        _check_cuda(what, q, kp, vp)
+        if not (kp.is_contiguous() and vp.is_contiguous()):
+            raise ValueError(f"{what} needs contiguous [num_pages, page, "
+                             f"KVH*D] pool layers")
     return KVH
 
 
-def _launch_paged_decode(q, kp, vp, lengths, pages, scale, new_k, new_v):
+def _launch_paged_decode(q, kp, vp, ks, vs, lengths, pages, scale, new_k,
+                         new_v, i8mm=False):
     B, H, D = q.shape
-    KVH = _check_pool(q, kp, vp, "paged decode kernel")
-    if H // KVH not in (1, 2, 4, 8):
-        raise ValueError(f"decode kernel serves 1, 2, 4 or 8 query heads "
-                         f"per kv head, got {H // KVH}")
+    KVH = check_kernel_shapes(q, kp.shape[-1], "paged decode kernel")
     q = q.contiguous()
-    tensors = [q, kp, vp]
+    _check_pool(q, kp, vp, ks, vs, "paged decode kernel")
+    fresh = []
     if new_k is not None:
-        new_k = new_k.to(kp.dtype).contiguous()
-        new_v = new_v.to(vp.dtype).contiguous()
-        tensors += [new_k, new_v]
-    _check_cuda("paged decode attention", *tensors)
-    if any(t.data_ptr() % 16 for t in tensors):
+        # the fresh rows stay in q's dtype: the kernel quantizes them on an
+        # int8 pool
+        new_k = new_k.to(q.dtype).contiguous()
+        new_v = new_v.to(q.dtype).contiguous()
+        fresh = [new_k, new_v]
+    _check_cuda("paged decode attention", q, *fresh)
+    if any(t.data_ptr() % 16 for t in [q, kp, vp, *fresh]):
         raise ValueError("paged decode kernel needs 16-byte aligned tensors")
     table = _table(pages, B, q.device)
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lib = op_builder.DECODE.load()
-    err = lib.dstt_paged_decode_attention(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), lengths.data_ptr(),
-        table.data_ptr(), None if new_k is None else new_k.data_ptr(),
-        None if new_v is None else new_v.data_ptr(), out.data_ptr(),
-        op_builder.dtype_code(q.dtype), B, H, KVH, D, kp.shape[1],
-        table.shape[1], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if i8mm:
+        if kp.shape[1] > 512:
+            raise ValueError(f"int8_matmuls takes pages of at most 512 rows, "
+                             f"got {kp.shape[1]}")
+        err = lib.dstt_paged_decode_attention_i8mm(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+            vs.data_ptr(), lengths.data_ptr(), table.data_ptr(),
+            out.data_ptr(), op_builder.dtype_code(q.dtype), B, H, KVH, D,
+            kp.shape[1], table.shape[1], float(scale), stream)
+    else:
+        err = lib.dstt_paged_decode_attention(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
+            lengths.data_ptr(), table.data_ptr(), _ptr(new_k), _ptr(new_v),
+            out.data_ptr(), op_builder.dtype_code(q.dtype), B, H, KVH, D,
+            kp.shape[1], table.shape[1], float(scale), stream)
     op_builder.check(err, "paged decode attention kernel")
     return out
 
 
 def paged_chunk_prefill_attention_plain(q, k_pool, v_pool, starts, pages,
-                                        scale=None):
+                                        scale=None, k_scale=None,
+                                        v_scale=None):
     """Dense fp32 chunk attention over the gathered views of one pool
-    layer ``[num_pages, page, KVH*D]``: row i of batch row b (virtual
-    position ``starts[b] + i``) sees positions ``<= starts[b] + i``."""
-    return chunk_prefill_attention_plain(q, gather_pages(k_pool, pages),
-                                         gather_pages(v_pool, pages), starts,
-                                         scale)
+    layer ``[num_pages, page, KVH*D]`` (int8 with ``k_scale`` /
+    ``v_scale``): row i of batch row b (virtual position ``starts[b] +
+    i``) sees positions ``<= starts[b] + i``."""
+    gk, gks = _gathered(k_pool, k_scale, pages)
+    gv, gvs = _gathered(v_pool, v_scale, pages)
+    return chunk_prefill_attention_plain(q, gk, gv, starts, scale, gks, gvs)
 
 
 def paged_chunk_prefill_attention(q, k_pool, v_pool, starts, pages,
-                                  scale=None, layer=None):
+                                  scale=None, layer=None, k_scale=None,
+                                  v_scale=None):
     """Chunked-prefill attention over a paged pool: a block of C query
     tokens, already written through the table at virtual positions
     ``starts[b] .. starts[b]+C-1``, attends causally over each row's
-    pages.  q: [B, C, H, D]; pools / pages / layer as in
+    pages.  q: [B, C, H, D]; pools / scales / pages / layer as in
     :func:`paged_decode_attention`; starts: [B] int32.  Returns
     [B, C, H, D]."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
     kp, vp = pool_layer(k_pool, layer), pool_layer(v_pool, layer)
+    ks = None if k_scale is None else pool_layer(k_scale, layer)
+    vs = None if v_scale is None else pool_layer(v_scale, layer)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.is_cuda:
-        out = _launch_paged_chunk(q, kp, vp, starts, pages, scale)
+    if not q.is_cuda:
+        return paged_chunk_prefill_attention_plain(q, kp, vp, starts, pages,
+                                                   scale, k_scale=ks,
+                                                   v_scale=vs)
+    out = _launch_paged_chunk(q, kp, vp, ks, vs, starts, pages, scale)
+    if ks is None:
         paged_chunk_prefill_attention.launches += 1
-        return out
-    return paged_chunk_prefill_attention_plain(q, kp, vp, starts, pages,
-                                               scale)
+    else:
+        paged_chunk_prefill_attention.int8_launches += 1
+    return out
 
 
 paged_chunk_prefill_attention.launches = 0
+paged_chunk_prefill_attention.int8_launches = 0
 
 
-def _launch_paged_chunk(q, kp, vp, starts, pages, scale):
+def _launch_paged_chunk(q, kp, vp, ks, vs, starts, pages, scale):
     B, C, H, D = q.shape
-    KVH = _check_pool(q, kp, vp, "paged chunk kernel")
-    _check_cuda("paged chunk prefill attention", q, kp, vp)
+    KVH = _check_pool(q, kp, vp, ks, vs, "paged chunk kernel")
+    _check_cuda("paged chunk prefill attention", q)
     table = _table(pages, B, q.device)
     starts = starts.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty(B, C, H, D, dtype=q.dtype, device=q.device)
     err = op_builder.FLASH.load().dstt_paged_chunk_prefill(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-        starts.data_ptr(), table.data_ptr(), op_builder.dtype_code(q.dtype),
-        B, C, H, KVH, D, kp.shape[1], table.shape[1], *q.stride()[:3],
-        *out.stride()[:3], float(scale),
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
+        out.data_ptr(), starts.data_ptr(), table.data_ptr(),
+        op_builder.dtype_code(q.dtype), B, C, H, KVH, D, kp.shape[1],
+        table.shape[1], *q.stride()[:3], *out.stride()[:3], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "paged chunk prefill kernel")
     return out

@@ -23,6 +23,14 @@ Modes, probed in order:
                             monolithic cache (blocks longer than 512)
 ==========================  ==============================================
 
+Every mode takes bf16 / fp16 / fp32 caches and int8 caches
+(``kv_cache_quant``: int8 payloads plus fp32 per-(position, kv-head)
+scales ``k_scale`` / ``v_scale`` in the cache dict).  On an int8 cache the
+decode kernels quantize the fresh row themselves in the fused write;
+every other write quantizes its rows outside a kernel
+(:func:`_quant_rows`).  With ``decode_int8_matmuls`` decode returns to
+write-then-attend, as in JAX, and K2 / K6 run their int8×int8 mode.
+
 A paged pool always runs K6 / K7: the serving engine caps its chunks at
 512 tokens, and a block the kernels cannot take raises.
 
@@ -33,7 +41,11 @@ dispatch decisions and the ``"auto"`` chunk policy agree between the two
 packages.
 """
 
+import functools
+
 import torch
+
+from deepspeed_tpu_torch.ops.quantizer.kernels import true_div
 
 # the chunk kernel's longest block, as in the JAX package
 MAX_CHUNK_S = 512
@@ -63,65 +75,111 @@ def kernel_modes(*, paged=False):
             "prefill_chunk": select_kernel(s=2, paged=paged)}
 
 
-def _write_cache(cache, layer, k_new, v_new, positions, start):
-    """This step's K/V rows ``[B, S, KVH*D]`` into layer ``layer`` of the
-    stacked cache, in place: a row-uniform block (``start`` an int) writes
-    positions ``start .. start+S-1``; per-row positions (``start`` None:
-    padded-prompt decode) scatter each row to its own positions."""
-    B, S = k_new.shape[0], k_new.shape[1]
-    kc, vc = cache["k"][layer], cache["v"][layer]
-    S_max = kc.shape[1]
-    if start is None:
-        if int(positions.max()) >= S_max or int(positions.min()) < 0:
-            raise ValueError(f"cache write past the cache ({S_max} "
-                             f"positions); size it with required_cache_len")
-        rows = torch.arange(B, device=kc.device)[:, None].expand(B, S)
-        kc[rows, positions] = k_new.to(kc.dtype)
-        vc[rows, positions] = v_new.to(vc.dtype)
-        return
-    kc[:, start:start + S] = k_new.to(kc.dtype)
-    vc[:, start:start + S] = v_new.to(vc.dtype)
+def _quant_rows(new, kvh):
+    """Per-(position, kv-head) symmetric int8 of rows ``[B, S, KVH*D]``
+    (the JAX ``_quant_rows``): the payload and the RAW scale
+    ``max|x| / 127`` ``[B, S, KVH]`` — 0.0 for an all-zero row, where the
+    fused kernels store 1.0 (payload 0 either way)."""
+    B, S, KVHD = new.shape
+    r = new.reshape(B, S, kvh, KVHD // kvh).float()
+    s = true_div(r.abs().amax(dim=-1), 127.0)
+    safe = torch.where(s == 0.0, torch.ones_like(s), s)
+    pay = torch.clamp(torch.round(r / safe[..., None]), -127, 127)
+    return pay.to(torch.int8).reshape(B, S, KVHD), s
 
 
-def _fused_decode(q, k, v, positions, cache, layer):
-    """Single-token decode through K2's fused write: the kernel writes this
-    step's row and attends in one launch.  Returns ``out [B, 1, H, D]``.
-    (The JAX package also needs the cache length to be a multiple of 8 for
-    its 8-row write stripes; this kernel writes one row and has no such
-    condition.)"""
+def _write_cache(cache, layer, rows, positions, start):
+    """This step's rows into layer ``layer`` of the stacked cache, in
+    place: ``rows`` maps cache keys (``"k"``, ``"v"`` and, for an int8
+    cache, ``"k_scale"`` / ``"v_scale"``) to ``[B, S, ...]``.  A
+    row-uniform block (``start`` an int) writes positions ``start ..
+    start+S-1``; per-row positions (``start`` None: padded-prompt decode)
+    scatter each row to its own positions."""
+    S_max = cache["k"].shape[-2]
+    if start is None and (int(positions.max()) >= S_max
+                          or int(positions.min()) < 0):
+        raise ValueError(f"cache write past the cache ({S_max} positions); "
+                         f"size it with required_cache_len")
+    for key, new in rows.items():
+        buf = cache[key][layer]
+        if start is None:
+            B, S = new.shape[0], new.shape[1]
+            idx = torch.arange(B, device=buf.device)[:, None].expand(B, S)
+            buf[idx, positions] = new.to(buf.dtype)
+        else:
+            buf[:, start:start + new.shape[1]] = new.to(buf.dtype)
+
+
+def _new_rows(cfg, k, v):
+    """The rows a write stores: ``{"k", "v"}`` ``[B, S, KVH*D]``, quantized
+    outside a kernel with their scales for an int8 cache."""
+    B, S, KVH, D = k.shape
+    k, v = k.reshape(B, S, KVH * D), v.reshape(B, S, KVH * D)
+    if not cfg.kv_cache_quant:
+        return {"k": k, "v": v}
+    (kq, ks), (vq, vs) = _quant_rows(k, KVH), _quant_rows(v, KVH)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _scales(cache):
+    return dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+
+
+def _decode(cfg, q, k, v, positions, cache, layer, paged, start):
+    """Single-token decode: K2 / K6 write this step's row (quantizing it
+    on an int8 cache) and attend in one launch; with
+    ``decode_int8_matmuls`` the row is quantized and written first (at
+    ``start`` when every row shares it) and the kernel attends int8×int8
+    (the JAX order: that mode has no fused write).  Returns
+    ``out [B, 1, H, D]``."""
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
     from deepspeed_tpu_torch.ops.transformer.decode_attention import (
         decode_attention)
     lengths = (positions[:, 0] + 1).to(torch.int32)
-    out, _, _ = decode_attention(q[:, 0], cache["k"], cache["v"], lengths,
-                                 layer=layer, new_k=k[:, 0], new_v=v[:, 0])
+    if paged:
+        attend = functools.partial(pa.paged_decode_attention,
+                                   pages=cache["pages"])
+    else:
+        attend = decode_attention
+    kw = dict(layer=layer, **_scales(cache))
+    if cfg.decode_int8_matmuls:
+        rows = _new_rows(cfg, k, v)
+        if paged:
+            _paged_rows_write(cache, layer, rows, positions, start)
+        else:
+            _write_cache(cache, layer, rows, positions, start)
+        out = attend(q[:, 0], cache["k"], cache["v"], lengths,
+                     int8_matmuls=True, **kw)
+    else:
+        out = attend(q[:, 0], cache["k"], cache["v"], lengths,
+                     new_k=k[:, 0], new_v=v[:, 0], **kw)[0]
     return out[:, None]
 
 
-def _paged_write_and_attend(q, k, v, positions, cache, layer, start,
-                            prefill):
-    """The paged half of :func:`write_and_attend`: decode through K6's
-    fused write, or the table-resolved write then K7."""
+def _paged_rows_write(cache, layer, rows, positions, start):
     from deepspeed_tpu_torch.models.transformer import _paged_write
+    _paged_write(cache, layer, rows["k"], rows["v"], positions, start,
+                 rows.get("k_scale"), rows.get("v_scale"))
+
+
+def _paged_write_and_attend(cfg, q, k, v, positions, cache, layer, start,
+                            prefill):
+    """The paged half of :func:`write_and_attend`: decode through K6, or
+    the table-resolved write then K7."""
     from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
-    B, S = k.shape[0], k.shape[1]
+    S = k.shape[1]
     mode = select_kernel(s=S, paged=True)
     if prefill or mode == "reference_fallback":
         raise ValueError(
             f"a page pool takes single-token decode and chunks of 2 to "
             f"{MAX_CHUNK_S} tokens (got {S} tokens, prefill={prefill}); "
             f"serve it through ServingEngine")
-    pages = cache["pages"]
     if mode == "cuda_paged_decode":
-        lengths = (positions[:, 0] + 1).to(torch.int32)
-        out, _, _ = pa.paged_decode_attention(
-            q[:, 0], cache["k"], cache["v"], lengths, pages, layer=layer,
-            new_k=k[:, 0], new_v=v[:, 0])
-        return out[:, None]
-    _paged_write(cache, layer, k.reshape(B, S, -1), v.reshape(B, S, -1),
-                 positions, start)
+        return _decode(cfg, q, k, v, positions, cache, layer, True, start)
+    _paged_rows_write(cache, layer, _new_rows(cfg, k, v), positions, start)
     return pa.paged_chunk_prefill_attention(
-        q, cache["k"], cache["v"], positions[:, 0].to(torch.int32), pages,
-        layer=layer)
+        q, cache["k"], cache["v"], positions[:, 0].to(torch.int32),
+        cache["pages"], layer=layer, **_scales(cache))
 
 
 def write_and_attend(cfg, q, k, v, positions, cache, layer, *,
@@ -129,23 +187,24 @@ def write_and_attend(cfg, q, k, v, positions, cache, layer, *,
     """Write this step's K/V rows into ``cache`` and attend.  ``cache`` is
     ``{"k", "v"}`` stacked ``[L, B, S_max, KVH*D]``, or a page pool
     ``{"k", "v"}`` ``[L, num_pages, page, KVH*D]`` with its block table
-    ``"pages"`` ``[B, n_virt]``; either is updated in place.
+    ``"pages"`` ``[B, n_virt]``; either may carry int8 scales
+    ``"k_scale"`` / ``"v_scale"``, and is updated in place.
     q [B, S, H, D], k/v [B, S, KVH, D], positions [B, S]; ``start`` is the
     block's first position when every row shares it (an int), else None.
     Returns ``out [B, S, H, D]``.
 
     ``prefill``: this block is a from-zero prompt, so it attends only
-    within itself — causal flash over the fresh q/k/v — after the write.
-    The caller sets it explicitly: chunked prefill passes False for every
-    chunk, its first included, so chunk 0 attends through the chunk kernel
-    as it does in the JAX package."""
+    within itself — causal flash over the fresh q/k/v (not the quantized
+    rows of an int8 cache), as in JAX — after the write.  The caller sets
+    it explicitly: chunked prefill passes False for every chunk, its first
+    included, so chunk 0 attends through the chunk kernel as it does in
+    the JAX package."""
     from deepspeed_tpu_torch.models.transformer import (_prefill_attention,
                                                         cached_attention)
-    B, S = k.shape[0], k.shape[1]
+    S = k.shape[1]
     if "pages" in cache:
-        return _paged_write_and_attend(q, k, v, positions, cache, layer,
+        return _paged_write_and_attend(cfg, q, k, v, positions, cache, layer,
                                        start, prefill)
-    KVHD = k.shape[-2] * k.shape[-1]
     S_max = cache["k"].shape[-2]
     if start is not None and not 0 <= start <= S_max - S:
         raise ValueError(f"cache write [{start}, {start + S}) past the cache "
@@ -153,9 +212,8 @@ def write_and_attend(cfg, q, k, v, positions, cache, layer, *,
                          f"required_cache_len")
     mode = select_kernel(s=S)
     if mode == "cuda_decode":
-        return _fused_decode(q, k, v, positions, cache, layer)
-    _write_cache(cache, layer, k.reshape(B, S, KVHD), v.reshape(B, S, KVHD),
-                 positions, start)
+        return _decode(cfg, q, k, v, positions, cache, layer, False, start)
+    _write_cache(cache, layer, _new_rows(cfg, k, v), positions, start)
     if prefill:
         return _prefill_attention(q, k, v, cfg)
     if mode == "cuda_chunked_prefill":
@@ -165,5 +223,6 @@ def write_and_attend(cfg, q, k, v, positions, cache, layer, *,
             chunk_prefill_attention)
         return chunk_prefill_attention(q, cache["k"], cache["v"],
                                        positions[:, 0].to(torch.int32),
-                                       layer=layer)
-    return cached_attention(q, cache["k"], cache["v"], positions, layer=layer)
+                                       layer=layer, **_scales(cache))
+    return cached_attention(q, cache["k"], cache["v"], positions, layer=layer,
+                            **_scales(cache))

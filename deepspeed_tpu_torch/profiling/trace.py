@@ -14,8 +14,19 @@ from pathlib import Path
 import torch
 
 # kernel-name patterns -> group (first match wins; a tuple pattern needs
-# all its parts: the paged instantiations of K2's and K1's templates)
-GROUPS = (("K6 decode_kernel (paged)", (("decode_kernel", "PagedRows"),)),
+# all its parts: the paged and the int8-KV (int8_t = "signed char")
+# instantiations of K2's and K1's templates)
+GROUPS = (("K6-i8mm decode_i8mm_kernel (paged)",
+           (("decode_i8mm_kernel", "PagedRows"),)),
+          ("K2-i8mm decode_i8mm_kernel", ("decode_i8mm_kernel",)),
+          ("K6-int8 decode_kernel (paged)",
+           (("decode_kernel", "signed char", "PagedRows"),)),
+          ("K2-int8 decode_kernel", (("decode_kernel", "signed char"),)),
+          ("K7-int8 flash_fwd_kernel (paged)",
+           (("flash_fwd_kernel", "signed char", "PagedRows"),)),
+          ("K3-int8 flash_fwd_kernel", (("flash_fwd_kernel",
+                                         "signed char"),)),
+          ("K6 decode_kernel (paged)", (("decode_kernel", "PagedRows"),)),
           ("K7 flash_fwd_kernel (paged)", (("flash_fwd_kernel",
                                             "PagedRows"),)),
           ("K1 flash_fwd_kernel", ("flash_fwd_kernel",)),

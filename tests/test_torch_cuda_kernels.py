@@ -551,3 +551,337 @@ def test_sparse_model_training_on_card_matches_cpu(cuda):
             continue
         torch.testing.assert_close(g.grad.cpu(), p.grad, atol=1e-6,
                                    rtol=1e-4, msg=name)
+
+
+# --------------------------------------------------------------------- #
+# int8-KV modes of K2 / K3 / K6 / K7 and the int8 x int8 mode of K2 / K6
+# --------------------------------------------------------------------- #
+def _int8_cache(g, device, *lead, KVH, D):
+    """int8 payloads [*lead, KVH*D] and positive fp32 scales [*lead, KVH]
+    (dequantized values of a few units)."""
+    pay = torch.randint(-127, 128, (*lead, KVH * D), generator=g,
+                        device=device, dtype=torch.int8)
+    scales = 0.001 + 0.02 * torch.rand(*lead, KVH, generator=g, device=device)
+    return pay, scales
+
+
+def _int8_pair(g, device, *lead, KVH, D):
+    k, ks = _int8_cache(g, device, *lead, KVH=KVH, D=D)
+    v, vs = _int8_cache(g, device, *lead, KVH=KVH, D=D)
+    return k, v, ks, vs
+
+
+def _clones(*ts):
+    return [t.clone() for t in ts]
+
+
+def _rel_close(got, want, rel):
+    """max |got - want| <= rel * max |want|: the int8 x int8 bar (a flip
+    of one rounding of P moves a row by about rmax * |v|)."""
+    err = float((got.float() - want.float()).abs().max())
+    assert bool(torch.isfinite(got).all())
+    assert err <= rel * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("fused", [True, False])
+def test_decode_int8_kernel_matches_plain(cuda, dtype, D, G, fused):
+    """K2 on an int8-KV cache against its plain version; the fused write
+    quantizes the fresh row bitwise as the plain write does (an all-zero
+    row stores payload 0 and scale 1.0)."""
+    g = torch.Generator(device=cuda).manual_seed(3 * D + G)
+    L, B, H, S_max, layer = 2, 5, 8, 136, 1
+    KVH = H // G
+    kc, vc, ks, vs = _int8_pair(g, cuda, L, B, S_max, KVH=KVH, D=D)
+    q = _randn(g, B, H, D, dtype=dtype, device=cuda)
+    nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
+    nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
+    nk[2] = 0
+    lengths = torch.tensor([0, 1, 64, 65, 136], dtype=torch.int32,
+                           device=cuda)
+    kw = dict(new_k=nk, new_v=nv) if fused else {}
+    a = _clones(kc, vc, ks, vs)
+    before = da.decode_attention.int8_launches
+    got = da.decode_attention(q, a[0], a[1], lengths, layer=layer,
+                              k_scale=a[2], v_scale=a[3], **kw)
+    assert da.decode_attention.int8_launches == before + 1
+    if fused:
+        assert all(x is y for x, y in zip(got[1:], a))
+        got = got[0]
+    b = _clones(kc, vc, ks, vs)
+    want = da.decode_attention_plain(q, b[0][layer], b[1][layer], lengths,
+                                     k_scale=b[2][layer],
+                                     v_scale=b[3][layer], **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    if fused:
+        assert float(a[2][layer, 2, 63].min()) == 1.0
+        assert not a[0][layer, 2, 63].any()
+    _close(got, want, dtype)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("block_k", [32, 136, 512])
+def test_decode_i8mm_kernel_matches_plain(cuda, dtype, D, G, block_k):
+    """K2's int8 x int8 mode against its plain version (the same blocks):
+    integer products are exact on both sides, so only exp and the order
+    of each block's probability sum differ."""
+    g = torch.Generator(device=cuda).manual_seed(5 * D + G + block_k)
+    L, B, H, S_max, layer = 2, 5, 8, 136, 0
+    KVH = H // G
+    kc, vc, ks, vs = _int8_pair(g, cuda, L, B, S_max, KVH=KVH, D=D)
+    q = _randn(g, B, H, D, dtype=dtype, device=cuda)
+    q[3] = 0
+    lengths = torch.tensor([0, 1, 33, 100, 136], dtype=torch.int32,
+                           device=cuda)
+    before = da.decode_attention.i8mm_launches
+    got = da.decode_attention(q, kc, vc, lengths, layer=layer, k_scale=ks,
+                              v_scale=vs, int8_matmuls=True, block_k=block_k)
+    assert da.decode_attention.i8mm_launches == before + 1
+    want = da.decode_attention_i8mm_plain(q, kc[layer], vc[layer], lengths,
+                                          ks[layer], vs[layer],
+                                          block_k=block_k)
+    _rel_close(got, want, 1e-2)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+def test_chunk_int8_kernel_matches_plain(cuda, dtype, D, G):
+    g = torch.Generator(device=cuda).manual_seed(7 * D + G)
+    L, B, C, H, S_max, layer = 2, 3, 40, 8, 200, 1
+    KVH = H // G
+    kc, vc, ks, vs = _int8_pair(g, cuda, L, B, S_max, KVH=KVH, D=D)
+    q = _randn(g, B, C, H, D, dtype=dtype, device=cuda)
+    starts = torch.tensor([0, 57, 160], dtype=torch.int32, device=cuda)
+    before = da.chunk_prefill_attention.int8_launches
+    got = da.chunk_prefill_attention(q, kc, vc, starts, layer=layer,
+                                     k_scale=ks, v_scale=vs)
+    assert da.chunk_prefill_attention.int8_launches == before + 1
+    want = da.chunk_prefill_attention_plain(q, kc[layer], vc[layer], starts,
+                                            k_scale=ks[layer],
+                                            v_scale=vs[layer])
+    _close(got, want, dtype)
+
+
+def _int8_pool(g, device, D, KVH, page, n_virt, B, L=2):
+    """An int8 pool, its scales and a shuffled block table (row 0 a dead
+    lane on the trash page, as in ``_paged_pool``)."""
+    n_pages = 1 + (B - 1) * n_virt
+    kp, vp, ks, vs = _int8_pair(g, device, L, n_pages, page, KVH=KVH, D=D)
+    perm = 1 + torch.randperm(n_pages - 1, generator=torch.Generator()
+                              .manual_seed(page + D))
+    pages = torch.zeros(B, n_virt, dtype=torch.int32)
+    pages[1:] = perm.view(B - 1, n_virt).to(torch.int32)
+    return kp, vp, ks, vs, pages.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("page", [16, 24, 64])
+@pytest.mark.parametrize("fused", [True, False])
+def test_paged_decode_int8_kernel_matches_plain_and_k2(cuda, dtype, D, G,
+                                                       page, fused):
+    """K6 on an int8 pool against its plain version, and bitwise against
+    K2 on the gathered int8 view; the fused write puts payload and scale
+    bitwise where the plain write does."""
+    g = torch.Generator(device=cuda).manual_seed(11 * D + G + page)
+    H, B, n_virt, layer = 8, 4, 3, 1
+    KVH = H // G
+    kp, vp, ks, vs, pages = _int8_pool(g, cuda, D, KVH, page, n_virt, B)
+    q = _randn(g, B, H, D, dtype=dtype, device=cuda)
+    nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
+    nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
+    lengths = torch.tensor([0, 1, 2 * page + 3, n_virt * page],
+                           dtype=torch.int32, device=cuda)
+    kw = dict(new_k=nk, new_v=nv) if fused else {}
+    gathered = [pa.gather_pages(t[layer], pages) for t in (kp, vp, ks, vs)]
+    a = _clones(kp, vp, ks, vs)
+    before = pa.paged_decode_attention.int8_launches
+    got = pa.paged_decode_attention(q, a[0], a[1], lengths, pages,
+                                    layer=layer, k_scale=a[2], v_scale=a[3],
+                                    **kw)
+    assert pa.paged_decode_attention.int8_launches == before + 1
+    if fused:
+        got = got[0]
+    b = _clones(kp, vp, ks, vs)
+    want = pa.paged_decode_attention_plain(q, b[0][layer], b[1][layer],
+                                           lengths, pages, k_scale=b[2][layer],
+                                           v_scale=b[3][layer], **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    _close(got, want, dtype)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))   # the dead lane
+    mono = da.decode_attention(q, gathered[0], gathered[1], lengths,
+                               k_scale=gathered[2], v_scale=gathered[3], **kw)
+    if fused:
+        mono = mono[0]
+        for x, y in zip(a, gathered):
+            assert torch.equal(pa.gather_pages(x[layer], pages)[1:], y[1:])
+    assert torch.equal(got, mono)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("page", [16, 24, 64])
+def test_paged_decode_i8mm_kernel_matches_plain_and_k2(cuda, dtype, D, G,
+                                                       page):
+    """K6's int8 x int8 mode against its plain version, and bitwise against
+    K2's int8 x int8 mode on the gathered view with block_k = page."""
+    g = torch.Generator(device=cuda).manual_seed(13 * D + G + page)
+    H, B, n_virt, layer = 8, 4, 3, 0
+    KVH = H // G
+    kp, vp, ks, vs, pages = _int8_pool(g, cuda, D, KVH, page, n_virt, B)
+    q = _randn(g, B, H, D, dtype=dtype, device=cuda)
+    lengths = torch.tensor([0, 1, 2 * page + 3, n_virt * page],
+                           dtype=torch.int32, device=cuda)
+    before = pa.paged_decode_attention.i8mm_launches
+    got = pa.paged_decode_attention(q, kp, vp, lengths, pages, layer=layer,
+                                    k_scale=ks, v_scale=vs, int8_matmuls=True)
+    assert pa.paged_decode_attention.i8mm_launches == before + 1
+    want = pa.paged_decode_attention_i8mm_plain(q, kp[layer], vp[layer],
+                                                lengths, pages, ks[layer],
+                                                vs[layer])
+    _rel_close(got, want, 1e-2)
+    gathered = [pa.gather_pages(t[layer], pages) for t in (kp, vp, ks, vs)]
+    mono = da.decode_attention(q, gathered[0], gathered[1], lengths,
+                               k_scale=gathered[2], v_scale=gathered[3],
+                               int8_matmuls=True, block_k=page)
+    assert torch.equal(got, mono)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("page", [16, 24, 64])
+def test_paged_chunk_int8_kernel_matches_plain_and_k3(cuda, dtype, D, G,
+                                                      page):
+    g = torch.Generator(device=cuda).manual_seed(17 * D + G + page)
+    H, B, C, layer = 8, 3, 40, 0
+    KVH = H // G
+    n_virt = -(-(2 * page + 3 + C) // page)
+    kp, vp, ks, vs, pages = _int8_pool(g, cuda, D, KVH, page, n_virt, B + 1)
+    pages = pages[1:].contiguous()
+    q = _randn(g, B, C, H, D, dtype=dtype, device=cuda)
+    starts = torch.tensor([0, page - 3, 2 * page + 3], dtype=torch.int32,
+                          device=cuda)
+    before = pa.paged_chunk_prefill_attention.int8_launches
+    got = pa.paged_chunk_prefill_attention(q, kp, vp, starts, pages,
+                                           layer=layer, k_scale=ks,
+                                           v_scale=vs)
+    assert pa.paged_chunk_prefill_attention.int8_launches == before + 1
+    want = pa.paged_chunk_prefill_attention_plain(
+        q, kp[layer], vp[layer], starts, pages, k_scale=ks[layer],
+        v_scale=vs[layer])
+    _close(got, want, dtype)
+    gathered = [pa.gather_pages(t[layer], pages) for t in (kp, vp, ks, vs)]
+    mono = da.chunk_prefill_attention(q, gathered[0], gathered[1], starts,
+                                      k_scale=gathered[2],
+                                      v_scale=gathered[3])
+    assert torch.equal(got, mono)
+
+
+def test_int8_kernels_refuse_bad_inputs(cuda):
+    """Scales of the wrong dtype or shape, and float caches with scales,
+    raise before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    kc, vc, ks, vs = _int8_pair(g, cuda, 2, 3, 32, KVH=2, D=64)
+    q = _randn(g, 3, 4, 64, dtype=torch.float32, device=cuda)
+    lengths = torch.tensor([1, 5, 20], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        da.decode_attention(q, kc, vc, lengths, layer=0, k_scale=ks.half(),
+                            v_scale=vs)
+    with pytest.raises(ValueError, match="scales"):
+        da.decode_attention(q, kc, vc, lengths, layer=0, k_scale=ks[..., :1],
+                            v_scale=vs, int8_matmuls=True)
+    with pytest.raises(ValueError, match="payloads"):
+        da.decode_attention(q, kc.float(), vc.float(), lengths, layer=0,
+                            k_scale=ks, v_scale=vs)
+
+
+def test_int8_serving_on_card_paged_equals_monolithic(cuda):
+    """int8 serving on the card (per-channel int8 weights, int8-KV, fp32):
+    10 mixed requests on 3 slots through K7-int8 / K6-int8 over a paged
+    pool give every request the tokens of the monolithic lanes (K3-int8 /
+    K2-int8), with one launch per layer and decode step or prefill chunk
+    and no float-cache launch."""
+    import numpy as np
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        TransformerConfig)
+    cfg = TransformerConfig(vocab_size=97, hidden_size=256, num_layers=2,
+                            num_heads=4, max_seq_len=128, dtype="float32",
+                            tie_word_embeddings=True)
+    eng = init_inference(Transformer(cfg), dtype="float32", device=cuda,
+                         prefill_chunk_size=16,
+                         quant={"enabled": True, "bits": 8,
+                                "per_channel": True, "kv_cache": True})
+    eng.init_params(seed=0)
+    assert eng.module.config.kv_cache_quant
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, 97, int(p)).astype(np.int32), int(n))
+            for p, n in zip(rng.integers(5, 60, 10), rng.integers(2, 30, 10))]
+    kw = dict(num_slots=3, max_cache_len=96, prefill_chunk=16,
+              prefill_token_budget=32, decode_block=3, page_size=16)
+    fns = (pa.paged_decode_attention, pa.paged_chunk_prefill_attention,
+           da.decode_attention, da.chunk_prefill_attention)
+    outs = {}
+    for paged in (True, False):
+        before = [(f.launches, f.int8_launches) for f in fns]
+        srv = eng.serve(paged=paged, **kw)
+        rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+        res = srv.drain()
+        outs[paged] = [res[r] for r in rids]
+        got = [(f.launches - a, f.int8_launches - b)
+               for f, (a, b) in zip(fns, before)]
+        L, st = cfg.num_layers, srv.stats
+        decode = L * srv.block * st["decode_calls"]
+        chunks = L * st["prefill_tokens"] // srv.chunk
+        want = [(0, decode), (0, chunks), (0, 0), (0, 0)] if paged else \
+            [(0, 0), (0, 0), (0, decode), (0, chunks)]
+        assert got == want
+        assert st["completed"] == len(reqs)
+    for a, b in zip(outs[True], outs[False]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_weight_quantization_on_card_matches_cpu(cuda, dtype):
+    """An int8 engine's quantization (IEEE division, round half to even)
+    and its per-channel dequantization (one mixed int8 x dtype multiply)
+    on the card are bitwise the CPU's."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        TransformerConfig)
+    from deepspeed_tpu_torch.runtime.weight_quantizer import QuantizedLinear
+    cfg = TransformerConfig(vocab_size=97, hidden_size=256, num_layers=2,
+                            num_heads=4, max_seq_len=64, dtype=dtype,
+                            tie_word_embeddings=True)
+    ref = Transformer(cfg, device="cpu")
+    ref.init_weights(torch.Generator().manual_seed(0))
+    sd = ref.state_dict()
+    mods = []
+    for dev in ("cpu", cuda):
+        eng = init_inference(Transformer(cfg), dtype=dtype, device=dev,
+                             quant={"enabled": True, "per_channel": True})
+        eng.set_params(sd)
+        mods.append(dict(eng.module.named_modules()))
+    n = 0
+    for name, mod in mods[0].items():
+        if not isinstance(mod, QuantizedLinear):
+            continue
+        n += 1
+        card = mods[1][name]
+        for a, b in ((mod.weight, card.weight), (mod.bias, card.bias),
+                     (mod.weight_q, card.weight_q),
+                     (mod.weight_scale, card.weight_scale)):
+            assert torch.equal(a, b.cpu()), name
+    assert n == cfg.num_layers * 6

@@ -127,7 +127,11 @@ def test_prefill_then_cached_decode_matches_jax(models):
 def test_unported_features_raise():
     for over in (dict(position_embedding="rope"), dict(num_kv_heads=2),
                  dict(pre_layer_norm=False), dict(gated_mlp=True),
-                 dict(embed_proj_dim=32), dict(kv_cache_quant=True),
+                 dict(embed_proj_dim=32),
                  dict(moe_num_experts=2, scan_layers=False)):
         with pytest.raises(NotImplementedError):
             pt.Transformer(pt.TransformerConfig(**dict(CFG, **over)))
+    # int8 KV is ported; its int8 x int8 mode still needs it, as in JAX
+    pt.Transformer(pt.TransformerConfig(**dict(CFG, kv_cache_quant=True)))
+    with pytest.raises(ValueError, match="kv_cache_quant"):
+        pt.TransformerConfig(**dict(CFG, decode_int8_matmuls=True))

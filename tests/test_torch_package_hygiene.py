@@ -48,6 +48,8 @@ def test_import_leaves_jax_unloaded():
             "deepspeed_tpu_torch.inference.serving.engine, "
             "deepspeed_tpu_torch.runtime.engine, "
             "deepspeed_tpu_torch.runtime.dataloader, "
+            "deepspeed_tpu_torch.runtime.weight_quantizer, "
+            "deepspeed_tpu_torch.ops.quantizer.kernels, "
             "deepspeed_tpu_torch.ops.sparse_attention; "
             "bad = [m for m in ('jax', 'flax', 'pydantic', 'deepspeed_tpu') "
             "if m in sys.modules and m not in before]; print(bad); "
@@ -96,8 +98,7 @@ def test_training_default_device_is_cuda(monkeypatch):
 
 def test_unported_config_knobs_raise():
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
-    for knob in (dict(quant={"enabled": True}), dict(quant={"kv_cache": True}),
-                 dict(tp={"tp_size": 2}), dict(mp_size=2),
+    for knob in (dict(tp={"tp_size": 2}), dict(mp_size=2),
                  dict(strict_memory=True),
                  dict(fault={"bucket_downshift": True}),
                  dict(compile_cache={"enabled": True}),
@@ -105,6 +106,12 @@ def test_unported_config_knobs_raise():
                  dict(serving={"max_queue_depth": 4})):
         with pytest.raises(NotImplementedError):
             DeepSpeedInferenceConfig(**knob)
+    # weight and KV-cache quantization are ported
+    q = DeepSpeedInferenceConfig(quant={"enabled": True, "bits": 4,
+                                        "group_size": 32,
+                                        "kv_cache": True}).quant
+    assert (q.enabled, q.bits, q.group_size, q.per_channel, q.kv_cache) \
+        == (True, 4, 32, False, True)
     cfg = DeepSpeedInferenceConfig(replace_with_kernel_inject=False,
                                    max_tokens=64, unknown_key=1)
     assert cfg.kernel_inject is False and cfg.max_out_tokens == 64

@@ -74,7 +74,31 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    and peak bytes against the bf16 runs', and the share of greedy tokens
    that agree with them (reported); run (g) goes once more under the
    profiler (``profile`` "g", ``build/profiles/int8_generate_trace.json``);
-10. prints the card, a ``kernels`` JSON line and, last, the result line.
+10. holds K2's sliding-window mode against its plain version at the
+   shape of run (i) — cache [24, 16, 384, 2048] (16 heads of 128), window
+   256, lengths 0 to 384 — fused, unfused, int8-KV fused and int8×int8,
+   and K6-window (unfused and fused), K6-int8-window and K6-i8mm-window
+   at run (j)'s pool [24, 129, 64, 2048] against theirs and BITWISE
+   against K2-window over the gathered view; timed against the bound of
+   the window's live rows only, the plain version and SDPA over the
+   window's rows gathered beforehand;
+11. drives GPT-Neo-1.3B (``gpt_neo_model("gpt-neo-1.3b")``: the published
+   widths, layers alternating global / local with a 256-position band,
+   seeded random bf16 weights): run (i) generates batch 16 × prompt 320
+   (longer than the window) × 64 new tokens with one-pass prefill (K1 on
+   the 12 global layers, the dense band on the 12 local ones; K2 and
+   K2-window decode) and at prompt 512 with ``prefill_chunk_size=128``
+   (K3 on global chunks, dense on local ones), then with an int8 KV cache
+   (K2-int8 / K2-int8-window) and ``decode_int8_matmuls`` (K2-i8mm /
+   K2-i8mm-window), each with exact launch counts per kernel and mode and
+   its kernel-path logits against the plain path (cosine ≥ 0.999); a
+   ``profile`` line "i"; run (j) serves 32 greedy requests (prompts 288
+   to 448, 16 to 64 new tokens) on a page pool of 16 slots (K7 on global
+   chunks, the gathered dense band on local ones, K6 and K6-window decode)
+   with every request equal to its monolithic-lane twin, and a few of
+   them on an int8 pool (K6-int8-window) and with ``decode_int8_matmuls``
+   (K6-i8mm-window);
+12. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 K6 and K7 are also held bitwise against K2 / K3 over the gathered view
 ``pool[layer][pages]`` (the same schedules over other addresses), and
@@ -136,6 +160,37 @@ RUN_D = dict(requests=192, seed=0, prompts=(64, 96, 128, 192, 256),
 SERVE_D = dict(paged=True, page_size=64, max_cache_len=384,
                prefill_chunk=128, prefill_token_budget=256, decode_block=8,
                num_slots=96, num_pages=int(0.75 * 96 * 6) + 1)
+# GPT-Neo-1.3B (gpt_neo_model's published widths: 16 heads of 128, layers
+# alternating global / local, a 256-position band): run (i), generation at
+# batch 16, prompt 320 (past the window) and 64 new tokens, one pass and
+# chunked at prompt 512, then short int8-KV and int8 x int8 runs; run (j),
+# 32 greedy requests on a 16-slot page pool (numpy seed 0, prompts and new
+# tokens uniform in these ranges), then 8 of them on int8 pools
+GPT_NEO = "gpt-neo-1.3b"
+WINDOW = 256
+RUN_I = dict(batch=16, prompt=320, new=64)
+RUN_I_CHUNKED = dict(batch=16, prompt=512, new=64, chunk=128)
+RUN_I_INT8 = dict(batch=16, prompt=320, new=16)
+RUN_J = dict(requests=32, seed=0, prompts=(288, 448), new=(16, 64),
+             int8_requests=8)
+SERVE_J = dict(paged=True, page_size=64, max_cache_len=512,
+               prefill_chunk=128, prefill_token_budget=256, decode_block=8,
+               num_slots=16)
+# K2-window at run (i)'s cache (required_cache_len(320, 64) = 384
+# positions), lengths below, at and past the window and a zero-length
+# row; timed at run (i)'s mid-decode length; K6-window at run (j)'s pool
+# (16 slots x 8 pages of 64 + the trash page), timed at lengths 288..498
+K1I_SHAPE = dict(B=16, S=320, H=16, D=128)    # run (i)'s global prefill
+K2W_SHAPE = dict(L=24, B=16, S_max=384, H=16, D=128,
+                 lengths=[0, 1, 100, 255, 256, 257, 300, 321, 330, 340, 350,
+                          360, 370, 380, 383, 384],
+                 timed=[352] * 16)
+K6W_SHAPE = dict(L=24, pages=129, page=64, B=16, H=16, D=128, n_virt=8,
+                 lengths=[0, 1, 100, 255, 256, 257, 300, 320, 350, 384,
+                          400, 420, 450, 480, 500, 512],
+                 timed=[288 + 14 * i for i in range(16)])
+WINDOW_LIBRARY_NOTE = ("F.scaled_dot_product_attention over the window's "
+                       "rows gathered beforehand (gather excluded)")
 # decode blocks traced with all 96 slots live (profile line "d")
 PROFILE_D_STEPS = 3
 # shared prefix (e): bench.py's 24 requests behind one 512-token prompt
@@ -285,11 +340,13 @@ def check_lse(name, got, want, dtype):
 # --------------------------------------------------------------------- #
 # Kernels against their plain versions, at main-path shapes
 # --------------------------------------------------------------------- #
-def check_flash(dtype, timed):
+def check_flash(dtype, timed, shape=None):
+    """K1 against its plain version at ``shape`` (run (a)'s, or run (i)'s
+    head dim 128 untimed)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
-    B, S, H, D = (K1_SHAPE[x] for x in "BSHD")
+    B, S, H, D = ((shape or K1_SHAPE)[x] for x in "BSHD")
     g = torch.Generator(device=DEV).manual_seed(1)
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(B, S, H, D, generator=g, device=DEV, dtype=dt)
@@ -1346,12 +1403,311 @@ def check_block_sparse(dtype, timed):
 
 
 # --------------------------------------------------------------------- #
+# The sliding-window mode of K2 / K6 (GPT-Neo's local layers)
+# --------------------------------------------------------------------- #
+def window_rows(t, lengths, W, H, D):
+    """The last ``W`` live rows of each batch row of one cache layer
+    ``t [B, S, H*D]`` (or its scales ``[B, S, H]``; every length >= W) as
+    the [B, H, W, D] (or [B, W, H]) copy SDPA reads."""
+    import torch
+    lo = [int(n) - W for n in lengths.tolist()]
+    rows = torch.stack([t[b, s:s + W] for b, s in enumerate(lo)])
+    if rows.shape[-1] == H:
+        return rows
+    return rows.view(len(lo), W, H, D).transpose(1, 2).contiguous()
+
+
+def window_library(q, bufs, lengths, layers, W, H, D, dt, int8):
+    """SDPA over each layer's window rows gathered (and for an int8 cache
+    dequantized to ``dt``) beforehand, one layer per call."""
+    import torch
+    import torch.nn.functional as F
+    heads = []
+    for layer in layers:
+        if int8:
+            k, v = (window_rows(bufs[i](layer), lengths, W, H, D).float()
+                    * window_rows(bufs[i + 2](layer), lengths, W, H,
+                                  D).transpose(1, 2)[..., None]
+                    for i in (0, 1))
+            heads.append((k.to(dt).contiguous(), v.to(dt).contiguous()))
+        else:
+            heads.append(tuple(window_rows(bufs[i](layer), lengths, W, H, D)
+                               for i in (0, 1)))
+    qh = q[:, :, None, :]
+    it = iter(range(10 ** 9))
+
+    def run():
+        kh, vh = heads[next(it) % len(heads)]
+        F.scaled_dot_product_attention(qh, kh, vh)
+
+    return run
+
+
+def check_decode_window(dtype, timed):
+    """K2's sliding-window mode at run (i)'s cache [24, 16, 384, 2048],
+    window 256, lengths 0 to 384: fused, unfused, int8-KV fused and
+    int8 x int8 (one KV block of min(512, 384)) against the plain versions
+    (the fused writes bitwise the plain write); timed at run (i)'s
+    mid-decode length 352 against the bound of the window's rows."""
+    import torch
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    L, B, S_max, H, D = (K2W_SHAPE[x] for x in ("L", "B", "S_max", "H", "D"))
+    layer, W, bk = L // 3, WINDOW, min(512, S_max)
+    g = torch.Generator(device=DEV).manual_seed(41)
+    dt = getattr(torch, dtype)
+    flt = [torch.randn(L, B, S_max, H * D, generator=g, device=DEV, dtype=dt)
+           for _ in range(2)]
+    i8 = int8_pair(g, L, B, S_max, KVH=H, D=D)
+    q, nk, nv = (torch.randn(B, H, D, generator=g, device=DEV, dtype=dt)
+                 for _ in range(3))
+    lengths = torch.tensor(K2W_SHAPE["lengths"], dtype=torch.int32,
+                           device=DEV)
+    recs = {}
+
+    def held(key, bufs, fused, i8mm=False):
+        a = [t.clone() for t in bufs]
+        b = [t.clone() for t in bufs]
+        sa = dict(k_scale=a[2], v_scale=a[3]) if len(a) == 4 else {}
+        sb = dict(k_scale=b[2][layer], v_scale=b[3][layer]) \
+            if len(b) == 4 else {}
+        kw = dict(new_k=nk, new_v=nv) if fused else {}
+        if i8mm:
+            out = da.decode_attention(q, a[0], a[1], lengths, layer=layer,
+                                      window=W, int8_matmuls=True, **sa)
+            want = da.decode_attention_i8mm_plain(
+                q, b[0][layer], b[1][layer], lengths, sb["k_scale"],
+                sb["v_scale"], block_k=bk, window=W)
+            return check_rel(f"{key} ({dtype})", out, want, I8MM_REL)
+        out = da.decode_attention(q, a[0], a[1], lengths, layer=layer,
+                                  window=W, **sa, **kw)
+        want = da.decode_attention_plain(q, b[0][layer], b[1][layer],
+                                         lengths, window=W, **sb, **kw)
+        err = check_close(key, out[0] if fused else out, want, dtype)
+        if fused:
+            check_equal_bufs(f"{key} ({dtype})", a, b)
+        return err
+
+    shape = {"cache": [L, B, S_max, H * D], "window": W,
+             "lengths": lengths.tolist()}
+    recs["K2-window"] = {"kernel": "K2-window decode_attention",
+                         "dtype": dtype, **shape, "fused_write": True,
+                         "max_abs_err": held("K2-window", flt, True),
+                         "unfused_max_abs_err": held("K2-window (unfused)",
+                                                     flt, False),
+                         "tol": TOL[dtype], "cache_rows_bitwise_equal": True}
+    recs["K2-window-int8"] = {
+        "kernel": "K2-window-int8 decode_attention", "dtype": dtype, **shape,
+        "cache_dtype": "int8", "fused_write": True,
+        "max_abs_err": held("K2-window-int8", i8, True), "tol": TOL[dtype],
+        "cache_rows_and_scales_bitwise_equal": True}
+    recs["K2-window-i8mm"] = {
+        "kernel": "K2-window-i8mm decode_attention", "dtype": dtype, **shape,
+        "cache_dtype": "int8", "int8_matmuls": True, "block_k": bk,
+        "max_abs_err": held("K2-window-i8mm", i8, False, i8mm=True),
+        "tol": f"{I8MM_REL} * max|want|"}
+    torch.cuda.synchronize()
+    if timed:
+        lt = torch.tensor(K2W_SHAPE["timed"], dtype=torch.int32, device=DEV)
+        it = iter(range(10 ** 9))
+        es = q.element_size()
+        io = 2 * q.numel() * es + lt.numel() * 4     # q read, out written
+        n_live = sum(min(int(n), W) for n in K2W_SHAPE["timed"])
+        flops = 4 * H * D * n_live
+        modes = (
+            ("K2-window", flt, dict(new_k=nk, new_v=nv), "decode_kernel",
+             # each row's last live position is this step's fresh row
+             2 * (n_live - B) * H * D * es + 2 * 2 * nk.numel() * es + io,
+             dtype),
+            ("K2-window-int8", i8, dict(new_k=nk, new_v=nv), "decode_kernel",
+             int8_bytes(n_live - B, H, D, H) + 2 * nk.numel() * es
+             + int8_bytes(B, H, D, H) + io, dtype),
+            ("K2-window-i8mm", i8, dict(int8_matmuls=True),
+             "decode_i8mm_kernel", int8_bytes(n_live, H, D, H) + io, "int8"))
+        for key, bufs, kw, kname, nbytes, peak in modes:
+            sc = {} if len(bufs) == 2 else dict(k_scale=bufs[2],
+                                                v_scale=bufs[3])
+
+            def run_kernel(bufs=bufs, kw=kw, sc=sc):
+                da.decode_attention(q, bufs[0], bufs[1], lt,
+                                    layer=next(it) % L, window=W, **sc,
+                                    **kw)
+
+            def run_plain(bufs=bufs, kw=kw):
+                li = next(it) % L
+                ps = {} if len(bufs) == 2 else dict(k_scale=bufs[2][li],
+                                                    v_scale=bufs[3][li])
+                if "int8_matmuls" in kw:
+                    da.decode_attention_i8mm_plain(
+                        q, bufs[0][li], bufs[1][li], lt, ps["k_scale"],
+                        ps["v_scale"], block_k=bk, window=W)
+                else:
+                    da.decode_attention_plain(q, bufs[0][li], bufs[1][li],
+                                              lt, window=W, **ps, **kw)
+
+            lib = window_library(
+                q, [lambda li, i=i: bufs[i][li] for i in range(len(bufs))],
+                lt, range(L), W, H, D, dt, len(bufs) == 4)
+            recs[key].update(time_all(key.lower(), kname, run_kernel,
+                                      run_plain, lib, 240))
+            del lib
+            recs[key]["timed_lengths"] = K2W_SHAPE["timed"]
+            recs[key]["library"] = WINDOW_LIBRARY_NOTE + (
+                "; dequantized to bf16 beforehand" if len(bufs) == 4 else "")
+            recs[key]["bound_ms"], recs[key]["bound_by"] = bound(
+                flops, nbytes, peak)
+    for rec in recs.values():
+        emit(rec)
+    del flt, i8
+    torch.cuda.empty_cache()
+    return recs
+
+
+def check_paged_decode_window(dtype, timed):
+    """K6's sliding-window mode at run (j)'s pool [24, 129, 64, 2048], 16
+    rows over a shuffled table, lengths 0 (a dead lane on the trash page)
+    to 512: unfused (run (j)'s route) and fused on a float pool, unfused
+    on an int8 pool, and int8 x int8 in the gathered view's KV blocks of
+    min(512, 8 x 64), each against its plain version and BITWISE against
+    K2-window over the gathered view; timed unfused at lengths 288..498."""
+    import torch
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+    L, NP, page, B, H, D, nv = (K6W_SHAPE[x] for x in (
+        "L", "pages", "page", "B", "H", "D", "n_virt"))
+    layer, W, bk = L // 4, WINDOW, min(512, nv * page)
+    g = torch.Generator(device=DEV).manual_seed(43)
+    dt = getattr(torch, dtype)
+    flt = [torch.randn(L, NP, page, H * D, generator=g, device=DEV, dtype=dt)
+           for _ in range(2)]
+    i8 = int8_pair(g, L, NP, page, KVH=H, D=D)
+    q, nk, nw = (torch.randn(B, H, D, generator=g, device=DEV, dtype=dt)
+                 for _ in range(3))
+    spans = K6W_SHAPE["lengths"]
+    lengths = torch.tensor(spans, dtype=torch.int32, device=DEV)
+    table = paged_table(B, nv, NP, spans, page, seed=44)
+    recs = {}
+
+    def held(key, bufs, fused=False, i8mm=False):
+        a = [t.clone() for t in bufs]
+        b = [t.clone() for t in bufs]
+        views = [pa.gather_pages(t[layer], table) for t in bufs]
+        sa = dict(k_scale=a[2], v_scale=a[3]) if len(a) == 4 else {}
+        sb = dict(k_scale=b[2][layer], v_scale=b[3][layer]) \
+            if len(b) == 4 else {}
+        sv = dict(k_scale=views[2], v_scale=views[3]) if len(a) == 4 else {}
+        kw = dict(new_k=nk, new_v=nw) if fused else {}
+        if i8mm:
+            kw = dict(int8_matmuls=True, block_k=bk)
+        out = pa.paged_decode_attention(q, a[0], a[1], lengths, table,
+                                        layer=layer, window=W, **sa, **kw)
+        mono = da.decode_attention(q, views[0], views[1], lengths, window=W,
+                                   **sv, **kw)
+        if fused:
+            out, mono = out[0], mono[0]
+        if i8mm:
+            err = check_rel(f"{key} ({dtype})", out,
+                            pa.paged_decode_attention_i8mm_plain(
+                                q, b[0][layer], b[1][layer], lengths, table,
+                                sb["k_scale"], sb["v_scale"], block_k=bk,
+                                window=W), I8MM_REL)
+        else:
+            err = check_close(key, out, pa.paged_decode_attention_plain(
+                q, b[0][layer], b[1][layer], lengths, table, window=W,
+                **sb, **kw), dtype)
+            check_equal_bufs(f"{key} ({dtype})", a, b)
+        if not torch.equal(out, mono):
+            fail(f"{key} ({dtype}) is not bitwise equal to K2-window over "
+                 f"the gathered view: max diff {max_err(out, mono)}")
+        return err
+
+    shape = {"pool": [L, NP, page, H * D], "table": [B, nv], "window": W,
+             "lengths": spans}
+    bit = {"bitwise_equal_to_k2_window_over_gathered_view": True}
+    recs["K6-window"] = {"kernel": "K6-window paged_decode_attention",
+                         "dtype": dtype, **shape, "fused_write": False,
+                         "max_abs_err": held("K6-window", flt),
+                         "fused_max_abs_err": held("K6-window (fused)", flt,
+                                                   fused=True),
+                         "tol": TOL[dtype], **bit}
+    recs["K6-window-int8"] = {
+        "kernel": "K6-window-int8 paged_decode_attention", "dtype": dtype,
+        **shape, "cache_dtype": "int8", "fused_write": False,
+        "max_abs_err": held("K6-window-int8", i8), "tol": TOL[dtype], **bit}
+    recs["K6-window-i8mm"] = {
+        "kernel": "K6-window-i8mm paged_decode_attention", "dtype": dtype,
+        **shape, "cache_dtype": "int8", "int8_matmuls": True, "block_k": bk,
+        "max_abs_err": held("K6-window-i8mm", i8, i8mm=True),
+        "tol": f"{I8MM_REL} * max|want|", **bit}
+    torch.cuda.synchronize()
+    if timed:
+        st = K6W_SHAPE["timed"]
+        lt = torch.tensor(st, dtype=torch.int32, device=DEV)
+        tt = paged_table(B, nv, NP, st, page, seed=45)
+        it = iter(range(10 ** 9))
+        es = q.element_size()
+        # q read, out written, lengths, and the table entries of the
+        # window's pages
+        io = (2 * q.numel() * es + lt.numel() * 4
+              + 4 * sum((n - 1) // page - max(n - W, 0) // page + 1
+                        for n in st))
+        n_live = sum(min(n, W) for n in st)
+        flops = 4 * H * D * n_live
+        modes = (("K6-window", flt, {}, "decode_kernel",
+                  2 * n_live * H * D * es + io, dtype),
+                 ("K6-window-int8", i8, {}, "decode_kernel",
+                  int8_bytes(n_live, H, D, H) + io, dtype),
+                 ("K6-window-i8mm", i8, dict(int8_matmuls=True, block_k=bk),
+                  "decode_i8mm_kernel", int8_bytes(n_live, H, D, H) + io,
+                  "int8"))
+        for key, bufs, kw, kname, nbytes, peak in modes:
+            sc = {} if len(bufs) == 2 else dict(k_scale=bufs[2],
+                                                v_scale=bufs[3])
+
+            def run_kernel(bufs=bufs, kw=kw, sc=sc):
+                pa.paged_decode_attention(q, bufs[0], bufs[1], lt, tt,
+                                          layer=next(it) % L, window=W,
+                                          **sc, **kw)
+
+            def run_plain(bufs=bufs, kw=kw):
+                li = next(it) % L
+                ps = {} if len(bufs) == 2 else dict(k_scale=bufs[2][li],
+                                                    v_scale=bufs[3][li])
+                if kw:
+                    pa.paged_decode_attention_i8mm_plain(
+                        q, bufs[0][li], bufs[1][li], lt, tt, ps["k_scale"],
+                        ps["v_scale"], block_k=bk, window=W)
+                else:
+                    pa.paged_decode_attention_plain(
+                        q, bufs[0][li], bufs[1][li], lt, tt, window=W, **ps)
+
+            lib = window_library(
+                q, [lambda li, i=i: pa.gather_pages(bufs[i][li], tt)
+                    for i in range(len(bufs))],
+                lt, range(L), W, H, D, dt, len(bufs) == 4)
+            recs[key].update(time_all(key.lower(), kname, run_kernel,
+                                      run_plain, lib, 240))
+            del lib
+            recs[key]["timed_lengths"] = st
+            recs[key]["library"] = WINDOW_LIBRARY_NOTE + (
+                "; dequantized to bf16 beforehand" if len(bufs) == 4 else "")
+            recs[key]["bound_ms"], recs[key]["bound_by"] = bound(
+                flops, nbytes, peak)
+    for rec in recs.values():
+        emit(rec)
+    del flt, i8
+    torch.cuda.empty_cache()
+    return recs
+
+
+# --------------------------------------------------------------------- #
 # The main path: init_inference -> generate for OPT-1.3B
 # --------------------------------------------------------------------- #
 def counters():
     """Each kernel's launch count: ``{name: (wrapper, attribute)}``.  The
     int8-KV and int8 x int8 modes count apart from the float-cache mode of
-    the same wrapper (``int8_launches``, ``i8mm_launches``)."""
+    the same wrapper (``int8_launches``, ``i8mm_launches``), and each
+    decode mode's sliding window apart from it (``window_launches``, ...:
+    ``decode_attention_window``, ``decode_attention_window_int8``, ...)."""
     from deepspeed_tpu_torch.ops.transformer import decode_attention as da
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
@@ -1370,6 +1726,10 @@ def counters():
         out[name + "_int8"] = (fn, "int8_launches")
         if hasattr(fn, "i8mm_launches"):
             out[name + "_i8mm"] = (fn, "i8mm_launches")
+        if hasattr(fn, "window_launches"):
+            out[name + "_window"] = (fn, "window_launches")
+            out[name + "_window_int8"] = (fn, "window_int8_launches")
+            out[name + "_window_i8mm"] = (fn, "window_i8mm_launches")
     return out
 
 
@@ -1395,13 +1755,15 @@ def cosine_rows(a, b):
     return torch.nn.functional.cosine_similarity(a, b, dim=1)
 
 
-def compare_logits(tag, got, want):
+def compare_logits(tag, got, want, gate=True):
+    """Per-row cosine of two logits tensors, failing below 0.999 unless
+    ``gate`` is False (a reported number)."""
     cos = cosine_rows(got, want)
     top1 = (got.float().argmax(-1) == want.float().argmax(-1)).float().mean()
     rec = {"check": tag, "min_cosine": float(cos.min()),
-           "top1_agreement": float(top1)}
+           "top1_agreement": float(top1), "gated": gate}
     emit(rec)
-    if not (float(cos.min()) >= 0.999):
+    if gate and not (float(cos.min()) >= 0.999):
         fail(f"{tag}: kernel-path logits cosine {float(cos.min())} < 0.999 "
              f"against the plain path")
     return rec
@@ -1607,26 +1969,43 @@ def serve_record(run, srv, secs, peak, counts, reqs):
             "kernel_modes": srv.kernel_modes, "launches": counts}
 
 
+def layer_kinds(cfg):
+    """(global layers, sliding-window layers) of a model config."""
+    local = sum(cfg.window_for_layer(i) is not None
+                for i in range(cfg.num_layers))
+    return cfg.num_layers - local, local
+
+
 def serve_kernels(srv):
-    """The (decode, prefill chunk) kernels a server runs: K6 / K7 on a
-    paged pool, K2 / K3 on monolithic lanes, in their int8-KV modes on an
-    int8 cache and K2 / K6 in the int8 x int8 mode with
-    ``decode_int8_matmuls``."""
+    """The (decode, prefill chunk[, windowed decode]) kernels a server
+    runs: K6 / K7 on a paged pool, K2 / K3 on monolithic lanes, in their
+    int8-KV modes on an int8 cache and K2 / K6 in the int8 x int8 mode
+    with ``decode_int8_matmuls``; a model with sliding-window layers also
+    runs K2 / K6's window mode (its windowed chunks attend dense)."""
     cfg = srv.module.config
     pre = "paged_" if srv.paged else ""
     mode = "_int8" if cfg.kv_cache_quant else ""
     dmode = "_i8mm" if cfg.decode_int8_matmuls else mode
-    return (f"{pre}decode_attention{dmode}",
-            f"{pre}chunk_prefill_attention{mode}")
+    names = (f"{pre}decode_attention{dmode}",
+             f"{pre}chunk_prefill_attention{mode}")
+    if layer_kinds(cfg)[1]:
+        names += (f"{pre}decode_attention_window{dmode}",)
+    return names
 
 
 def serve_expect(srv):
-    """The launches a serving run needs: one per layer per decode step
-    and per prefill chunk, of the kernels :func:`serve_kernels` names."""
-    L, st = srv.module.config.num_layers, srv.stats
-    decode, chunk = serve_kernels(srv)
-    return expect_only({decode: L * srv.block * st["decode_calls"],
-                        chunk: L * st["prefill_tokens"] // srv.chunk})
+    """The launches a serving run needs: one per global layer per decode
+    step and per prefill chunk, and one per windowed layer per decode
+    step, of the kernels :func:`serve_kernels` names."""
+    n_global, n_local = layer_kinds(srv.module.config)
+    st = srv.stats
+    decode, chunk, *window = serve_kernels(srv)
+    steps = srv.block * st["decode_calls"]
+    want = {decode: n_global * steps,
+            chunk: n_global * st["prefill_tokens"] // srv.chunk}
+    if window:
+        want[window[0]] = n_local * steps
+    return expect_only(want)
 
 
 def serve_counted(eng, reqs, tag, **overrides):
@@ -1778,15 +2157,17 @@ def plain_kernels():
 
     def decode(q, k, v, lengths, scale=None, layer=None, k_scale=None,
                v_scale=None, int8_matmuls=False, new_k=None, new_v=None,
-               block_k=da.DEFAULT_BLOCK_K_DECODE):
+               block_k=da.DEFAULT_BLOCK_K_DECODE, window=None):
         kc, vc = da._layer_view(k, layer), da._layer_view(v, layer)
         ks, vs = da._scale_view(k_scale, layer), da._scale_view(v_scale,
                                                                 layer)
         if int8_matmuls:
             return da.decode_attention_i8mm_plain(q, kc, vc, lengths, ks, vs,
-                                                  scale, block_k)
+                                                  scale, block_k,
+                                                  window=window)
         out = da.decode_attention_plain(q, kc, vc, lengths, scale, new_k,
-                                        new_v, k_scale=ks, v_scale=vs)
+                                        new_v, k_scale=ks, v_scale=vs,
+                                        window=window)
         return out if new_k is None else (out, k, v, k_scale, v_scale)
 
     def chunk(q, k, v, starts, scale=None, layer=None, k_scale=None,
@@ -1798,16 +2179,18 @@ def plain_kernels():
 
     def paged_decode(q, k, v, lengths, pages, scale=None, layer=None,
                      k_scale=None, v_scale=None, int8_matmuls=False,
-                     new_k=None, new_v=None):
+                     new_k=None, new_v=None, window=None, block_k=None):
         kp, vp = pa.pool_layer(k, layer), pa.pool_layer(v, layer)
         ks = None if k_scale is None else pa.pool_layer(k_scale, layer)
         vs = None if v_scale is None else pa.pool_layer(v_scale, layer)
         if int8_matmuls:
-            return pa.paged_decode_attention_i8mm_plain(q, kp, vp, lengths,
-                                                        pages, ks, vs, scale)
+            return pa.paged_decode_attention_i8mm_plain(
+                q, kp, vp, lengths, pages, ks, vs, scale, block_k,
+                window=window)
         out = pa.paged_decode_attention_plain(q, kp, vp, lengths, pages,
                                               scale, new_k, new_v,
-                                              k_scale=ks, v_scale=vs)
+                                              k_scale=ks, v_scale=vs,
+                                              window=window)
         return out if new_k is None else (out, k, v, k_scale, v_scale)
 
     def paged_chunk(q, k, v, starts, pages, scale=None, layer=None,
@@ -1835,13 +2218,14 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
-def kernels_vs_plain(tag, m, ids, chunk=None, paged=None):
+def kernels_vs_plain(tag, m, ids, chunk=None, paged=None, gate=True):
     """A prefill (one pass, or ``chunk``-token blocks) and one decode step
-    of module ``m`` on a fresh int8 cache through the kernels, then the
-    same on another fresh cache through the plain versions on the card
-    (the decode step fed the kernel path's greedy token): per-row cosine
-    of the logits >= 0.999.  ``paged``: the page size of a pool that maps
-    each row's positions through a block table (chunked prefill, K7, then
+    of module ``m`` on a fresh cache (of its config's kind) through the
+    kernels, then the same on another fresh cache through the plain
+    versions on the card (the decode step fed the kernel path's greedy
+    token): per-row cosine of the logits >= 0.999 (reported only when
+    ``gate`` is False).  ``paged``: the page size of a pool that maps each
+    row's positions through a block table (chunked prefill, K7, then
     K6)."""
     import torch
     B, P = ids.shape
@@ -1871,9 +2255,9 @@ def kernels_vs_plain(tag, m, ids, chunk=None, paged=None):
             res.append((pre, step))
             del cache
     return [compare_logits(f"{tag} prefill logits, kernels vs plain",
-                           res[0][0], res[1][0]),
+                           res[0][0], res[1][0], gate),
             compare_logits(f"{tag} first decode step logits, kernels vs "
-                           f"plain", res[0][1], res[1][1])]
+                           f"plain", res[0][1], res[1][1], gate)]
 
 
 def agreement(got, want, P):
@@ -2021,6 +2405,188 @@ def int8_serving_path(eng_g, eng_m, outs_d, runs):
                         for a, b, (p, _) in zip(outs_i, outs, few)])))
     emit(runs["h_i8mm"])
     return runs
+
+
+# --------------------------------------------------------------------- #
+# GPT-Neo-1.3B: generate() (i) and the paged server (j), global and
+# sliding-window layers
+# --------------------------------------------------------------------- #
+def gpt_neo_engine(module, **model_over):
+    """A bf16 engine over ``module`` with its config changed in place by
+    ``model_over`` (the KV cache's type and decode mode; the weights stay
+    where they are)."""
+    import dataclasses
+    from deepspeed_tpu_torch import init_inference
+    module.replace_config_(dataclasses.replace(module.config, **model_over))
+    return init_inference(module, dtype="bfloat16", device=DEV)
+
+
+def gpt_neo_traffic(V):
+    """Run (j)'s requests: numpy seed 0, prompt lengths and new tokens
+    uniform in RUN_J's ranges, prompt ids uniform over the vocabulary."""
+    import numpy as np
+    rng = np.random.default_rng(RUN_J["seed"])
+    lo, hi = RUN_J["prompts"]
+    nlo, nhi = RUN_J["new"]
+    return [(rng.integers(0, V, int(rng.integers(lo, hi + 1)))
+             .astype(np.int32), int(rng.integers(nlo, nhi + 1)))
+            for _ in range(RUN_J["requests"])]
+
+
+def gpt_neo_logits(tag, m, m32, ids, **kw):
+    """Kernel-path logits against the plain path on GPT-Neo's weights: in
+    bf16 (reported: with unscaled attention logits of |q.k| ~ 10 a random
+    model amplifies bf16 rounding through 24 layers, each output rounding
+    moving near-tied softmax maxima) and on the fp32 copy of the same
+    weights (gated at cosine 0.999: the same kernels and routes, rounding
+    at 2^-24)."""
+    return {"bf16": kernels_vs_plain(f"{tag} bf16", m, ids, gate=False,
+                                     **kw),
+            "fp32": kernels_vs_plain(f"{tag} fp32", m32, ids, **kw)}
+
+
+def gpt_neo_generate(eng, ids, new, tag, expect, runs, **extra):
+    """One counted generate() of run (i) and its record."""
+    B, P = ids.shape
+    eng.generate(ids, max_new_tokens=2)       # warm-up
+    out, dt, cnt, peak = run_generate(eng, ids, new, expect)
+    runs[tag] = {"run": tag, "model": GPT_NEO, "batch": B, "prompt": P,
+                 "new_tokens": new, "seconds": dt,
+                 "tokens_per_s": B * new / dt, "launches": cnt,
+                 "peak_device_bytes": peak, **extra}
+    return out
+
+
+def gpt_neo_path():
+    """Run (i): GPT-Neo-1.3B generation, one pass at prompt 320 (K1 on
+    the global layers, the dense band on the local ones; K2 and K2-window
+    decode), chunked at prompt 512 (K3 on global chunks), then with an
+    int8 KV cache (K2-int8 / K2-int8-window) and decode_int8_matmuls
+    (K2-i8mm / K2-i8mm-window), each with exact launches and its
+    kernel-path logits against the plain path; a profile of the one-pass
+    run.  Run (j): the paged server and its monolithic twin, then a few
+    requests on int8 pools.  Returns the runs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.gpt_neo import gpt_neo_model
+    t0 = time.perf_counter()
+    eng = init_inference(gpt_neo_model(GPT_NEO), dtype="bfloat16", device=DEV)
+    eng.init_params(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    m = eng.module
+    cfg = m.config
+    n_global, n_local = layer_kinds(cfg)
+    # an fp32 copy of the same (bf16) weights for the gated logits checks
+    m32 = gpt_neo_model(GPT_NEO, dtype="float32").to_empty(device=DEV)
+    m32.load_state_dict(m.state_dict())
+    m32.eval()
+    V = cfg.vocab_size
+    g = torch.Generator(device=DEV).manual_seed(9)
+    runs = {}
+    B, P, new = RUN_I["batch"], RUN_I["prompt"], RUN_I["new"]
+    ids = torch.randint(0, V, (B, P), generator=g, device=DEV)
+    plan = eng.prefill_plan(B, P)
+    if plan[0] != "one_pass":
+        fail(f"run (i) should take one-pass prefill, plan says {plan}")
+    steps = n_global * (new - 1), n_local * (new - 1)
+    gpt_neo_generate(eng, ids, new, "i", {
+        "flash_attention": n_global, "decode_attention": steps[0],
+        "decode_attention_window": steps[1]}, runs, route="one_pass",
+        window=cfg.window_size, init_seconds=init_s, plan=plan[2],
+        logits=gpt_neo_logits("(i)", m, m32, ids))
+    emit(runs["i"])
+    runs["i_profile"] = profile_run(eng, ids, new, "i",
+                                    "gpt_neo_generate_trace.json")
+    B, P, new, C = (RUN_I_CHUNKED[x] for x in ("batch", "prompt", "new",
+                                               "chunk"))
+    eng_c = init_inference(m, {"prefill_chunk_size": C}, dtype="bfloat16",
+                           device=DEV)
+    ids_c = torch.randint(0, V, (B, P), generator=g, device=DEV)
+    if eng_c.prefill_plan(B, P)[:2] != ("chunked", C):
+        fail(f"run (i) chunked should take chunked prefill, plan says "
+             f"{eng_c.prefill_plan(B, P)}")
+    gpt_neo_generate(eng_c, ids_c, new, "i_chunked", {
+        "chunk_prefill_attention": n_global * (-(-P // C)),
+        "decode_attention": n_global * (new - 1),
+        "decode_attention_window": n_local * (new - 1)}, runs,
+        route="chunked", chunk=C,
+        logits=gpt_neo_logits("(i) chunked", m, m32, ids_c, chunk=C))
+    emit(runs["i_chunked"])
+    del eng_c
+    torch.cuda.empty_cache()
+    serving = gpt_neo_serving_path(eng, m32)
+    runs.update(serving)
+    eng.release_workspace()
+    # the int8 KV modes on the same weights: short runs at run (i)'s shape
+    few = gpt_neo_traffic(V)[:RUN_J["int8_requests"]]
+    B, P, new = RUN_I_INT8["batch"], RUN_I_INT8["prompt"], RUN_I_INT8["new"]
+    ids8 = ids[:B, :P]
+    for tag, over, mode in (
+            ("i_int8", dict(kv_cache_quant=True), "_int8"),
+            ("i_i8mm", dict(kv_cache_quant=True, decode_int8_matmuls=True),
+             "_i8mm")):
+        eng8 = gpt_neo_engine(m, **over)
+        m32.replace_config_(dataclasses.replace(m32.config, **over))
+        gpt_neo_generate(eng8, ids8, new, tag, {
+            "flash_attention": n_global,
+            "decode_attention" + mode: n_global * (new - 1),
+            "decode_attention_window" + mode: n_local * (new - 1)}, runs,
+            route="one_pass", **over,
+            logits=gpt_neo_logits(f"({tag})", m, m32, ids8))
+        emit(runs[tag])
+        eng8.release_workspace()
+        jtag = "j" + tag[1:]
+        srv, outs, secs, peak, counts = serve_counted(eng8, few,
+                                                      f"run ({jtag})",
+                                                      **SERVE_J)
+        runs[jtag] = serve_record(jtag, srv, secs, peak, counts, few)
+        runs[jtag]["greedy_agreement_with_j"] = float(np.mean(
+            np.concatenate([a[len(p):] == b[len(p):] for a, b, (p, _) in
+                            zip(outs, serving["j_outputs"], few)])))
+        emit(runs[jtag])
+        del eng8
+        torch.cuda.empty_cache()
+    runs.pop("j_outputs")
+    del eng, m, m32
+    torch.cuda.empty_cache()
+    return runs
+
+
+def gpt_neo_serving_path(eng, m32):
+    """Run (j): 32 requests on a 16-slot page pool (K7 on global chunks,
+    the gathered dense band on local ones; K6 and K6-window decode), the
+    kernel path's logits on a pool against the plain path, and the same
+    requests on monolithic lanes (K3; K2 and K2-window), every request
+    equal.  Returns the runs and run (j)'s outputs (``j_outputs``)."""
+    import numpy as np
+    import torch
+    V = eng.module.config.vocab_size
+    reqs = gpt_neo_traffic(V)
+    warm = eng.serve(**SERVE_J)               # warm-up (allocator, cuBLAS)
+    drive(warm, reqs[:4])
+    warm.close()
+    srv, outs, secs, peak, counts = serve_counted(eng, reqs, "run (j)",
+                                                  **SERVE_J)
+    rec = serve_record("j", srv, secs, peak, counts, reqs)
+    P = min(len(p) for p, _ in reqs[:4])
+    ids = torch.tensor([p[:P].tolist() for p, _ in reqs[:4]], device=DEV)
+    rec["logits"] = gpt_neo_logits("(j) paged", eng.module, m32, ids,
+                                   chunk=SERVE_J["prefill_chunk"],
+                                   paged=SERVE_J["page_size"])
+    emit(rec)
+    mono, outs_m, secs_m, peak_m, counts_m = serve_counted(
+        eng, reqs, "run (j) monolithic", **{**SERVE_J, "paged": False})
+    differ = sum(not np.array_equal(a, b) for a, b in zip(outs, outs_m))
+    rec_m = serve_record("j_mono", mono, secs_m, peak_m, counts_m, reqs)
+    rec_m["requests_differing_from_paged"] = differ
+    emit(rec_m)
+    if differ:
+        fail(f"run (j): {differ} of {len(reqs)} requests' tokens differ "
+             f"between the paged pool and the monolithic lanes")
+    return {"j": rec, "j_mono": rec_m, "j_outputs": outs}
 
 
 # --------------------------------------------------------------------- #
@@ -2303,6 +2869,10 @@ def main():
         checks[("K6-int8", dtype)], checks[("K6-i8mm", dtype)] = \
             check_paged_decode_int8(dtype, timed)
         checks[("K7-int8", dtype)] = check_paged_chunk_int8(dtype, timed)
+        checks[("K1 run i", dtype)] = check_flash(dtype, False, K1I_SHAPE)
+        for key, rec in {**check_decode_window(dtype, timed),
+                         **check_paged_decode_window(dtype, timed)}.items():
+            checks[(key, dtype)] = rec
 
     runs, eng, tokens = main_path()
     serving_runs, outs_d = serving_path(eng)
@@ -2313,6 +2883,7 @@ def main():
     int8_serving_path(eng_g, eng_m, outs_d, runs)
     del eng_g, eng_m
     torch.cuda.empty_cache()
+    runs.update(gpt_neo_path())
     runs["c"] = train_path()
     grad_check()
     runs["f"] = sparse_train_path()
@@ -2393,6 +2964,25 @@ def main():
     int8_rows[2]["launches_run_h_mono"] = \
         runs["h_mono"]["launches"]["chunk_prefill_attention_int8"]
     kernels += int8_rows
+    # the sliding-window modes, launches from GPT-Neo's runs (i), (j): all
+    # replace B4's window mode (the JAX paged kernel has none; JAX runs B4
+    # over the gathered view of a pool)
+    for key, name, run in (
+            ("K2-window", "decode_attention_window", "i"),
+            ("K2-window-int8", "decode_attention_window_int8", "i_int8"),
+            ("K2-window-i8mm", "decode_attention_window_i8mm", "i_i8mm"),
+            ("K6-window", "paged_decode_attention_window", "j"),
+            ("K6-window-int8", "paged_decode_attention_window_int8",
+             "j_int8"),
+            ("K6-window-i8mm", "paged_decode_attention_window_i8mm",
+             "j_i8mm")):
+        kernels.append(row(key, name, csrc + "decode_attention.cu",
+                           pallas + "decode_attention.py:630",
+                           runs[run]["launches"][name]))
+    kernels[-6]["launches_run_i_chunked"] = \
+        runs["i_chunked"]["launches"]["decode_attention_window"]
+    kernels[-6]["launches_run_j_mono"] = \
+        runs["j_mono"]["launches"]["decode_attention_window"]
     kernels[7]["gather_backward_ms"] = \
         checks[("K8", "bfloat16")]["gather_backward_ms"]
     # run (d)'s monolithic twin runs K2 and K3 at the serving shapes

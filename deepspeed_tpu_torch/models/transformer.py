@@ -1,5 +1,5 @@
-"""Decoder-only transformer — the OPT path of the flagship model family
-(port of ``deepspeed_tpu/models/transformer.py``).
+"""Decoder-only transformer — the OPT and GPT-Neo paths of the flagship
+model family (port of ``deepspeed_tpu/models/transformer.py``).
 
 PyTorch idiom around the JAX package's layouts: ``nn.Module`` layers, the
 flax ``nn.scan`` over layers as a loop over an ``nn.ModuleList``, and the
@@ -28,9 +28,14 @@ With ``remat=True`` each block runs under ``torch.utils.checkpoint``
 (the JAX ``nothing_saveable`` policy), and ``loss_seq_chunks`` computes
 the head and the loss one sequence chunk at a time.
 
-Config features that OPT-1.3B does not use raise ``NotImplementedError``
-when a model is built (rope, alibi, GQA, post-LN, gated MLP,
-``embed_proj_dim``, windows, MoE, remat policies other than
+GPT-Neo's alternating global / local layers (``attention_layers``, band
+``window_size``) run as in JAX: a local layer attends to the trailing
+``window`` positions, dense in the uncached forward and in prefill, and
+through the decode kernels' window mode once cached.
+
+Config features that OPT-1.3B and GPT-Neo do not use raise
+``NotImplementedError`` when a model is built (rope, alibi, GQA, post-LN,
+gated MLP, ``embed_proj_dim``, MoE, remat policies other than
 ``nothing_saveable``, ...); ROADMAP.md lists them.  Inference engines
 quantize the weights (:meth:`Transformer.quantize_weights_`, the JAX
 ``WeightQuantization`` on the flax layout of each weight).
@@ -72,6 +77,8 @@ class TransformerConfig:
     attention_bias: Optional[bool] = None    # None → not rms_norm
     attention_out_bias: Optional[bool] = None
     mlp_bias: Optional[bool] = None          # None → not rms_norm
+    # gpt-neo: per-layer "global" / "local" pattern and the local band;
+    # requires scan_layers=False
     attention_layers: Optional[tuple] = None
     window_size: int = 256
     # None → 1/sqrt(head_dim); gpt-neo uses 1.0 (unscaled logits)
@@ -107,6 +114,14 @@ class TransformerConfig:
             raise ValueError("decode_int8_matmuls requires "
                              "kv_cache_quant=True (its products consume "
                              "int8 KV payloads)")
+        if self.attention_layers is not None:
+            if len(self.attention_layers) != self.num_layers:
+                raise ValueError(
+                    f"attention_layers has {len(self.attention_layers)} "
+                    f"entries for {self.num_layers} layers")
+            if self.scan_layers:
+                raise ValueError("attention_layers (per-layer local/global "
+                                 "patterns) requires scan_layers=False")
 
     @property
     def kv_heads(self):
@@ -129,6 +144,13 @@ class TransformerConfig:
     def attn_out_bias_enabled(self):
         return self.attention_out_bias if self.attention_out_bias is not None \
             else self.attn_bias_enabled
+
+    def window_for_layer(self, layer_idx):
+        """Band width for this layer, or None for full (global) attention."""
+        if self.attention_layers is None or layer_idx is None:
+            return None
+        return self.window_size \
+            if self.attention_layers[layer_idx] == "local" else None
 
     @property
     def mlp_bias_enabled(self):
@@ -165,8 +187,6 @@ _NOT_PORTED = (
     (lambda c: not c.pre_layer_norm, "post-LN (pre_layer_norm=False)"),
     (lambda c: c.gated_mlp, "gated_mlp"),
     (lambda c: c.embed_proj_dim is not None, "embed_proj_dim"),
-    (lambda c: c.attention_layers is not None,
-     "attention_layers (local windows)"),
     (lambda c: c.moe_num_experts > 0, "MoE (moe_num_experts > 0)"),
     (lambda c: c.rms_norm, "rms_norm"),
     (lambda c: c.parallel_residual, "parallel_residual"),
@@ -210,10 +230,11 @@ def _layer_norm(x, norm, eps):
                         norm.bias.to(x.dtype), eps)
 
 
-def reference_attention(q, k, v, causal=True, mask=None):
+def reference_attention(q, k, v, causal=True, mask=None, window=None):
     """Dense attention: the CPU path and the golden reference.  q: [B, S,
     H, D], k/v: [B, T, KVH, D]; ``mask``: optional [B, T] key-padding
-    mask (1 = keep)."""
+    mask (1 = keep); ``window``: optional band width (GPT-Neo's local
+    attention: each row sees its trailing ``window`` positions only)."""
     B, S, H, D = q.shape
     KVH = k.shape[2]
     if KVH != H:
@@ -224,7 +245,10 @@ def reference_attention(q, k, v, causal=True, mask=None):
     if causal:
         rows = torch.arange(S, device=q.device)[:, None]
         cols = torch.arange(k.shape[1], device=q.device)[None, :]
-        logits = logits.masked_fill(~(cols <= rows)[None, None], -1e30)
+        keep = cols <= rows
+        if window is not None:
+            keep = keep & (cols > rows - window)
+        logits = logits.masked_fill(~keep[None, None], -1e30)
     if mask is not None:
         keep = mask.to(torch.bool)[:, None, None, :]
         logits = logits.masked_fill(~keep, -1e30)
@@ -232,24 +256,29 @@ def reference_attention(q, k, v, causal=True, mask=None):
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
-def _prefill_attention(q, k, v, config):
+def _prefill_attention(q, k, v, config, window=None):
     """Causal self-attention for a from-zero generation prefill: ONLY the
     flash kernel (K1) or the dense causal reference, never ``_attention``'s
     block-sparse branch.  Decode attends densely over the same cache, so
     a sparse prefill would diverge from its own decode (the JAX
-    ``_prefill_attention``)."""
-    if config.use_flash_attention and q.shape[1] > 1:
+    ``_prefill_attention``).  A windowed layer goes dense with its band."""
+    if window is None and config.use_flash_attention and q.shape[1] > 1:
         from deepspeed_tpu_torch.ops.transformer.flash_attention import (
             flash_attention)
         return flash_attention(q, k, v, causal=True)
-    return reference_attention(q, k, v, causal=True)
+    return reference_attention(q, k, v, causal=True, window=window)
 
 
-def _attention(q, k, v, config, mask=None):
-    """Causal self-attention within q/k/v, the uncached forward: block-sparse
-    attention (K8) when the config has ``sparse_attention``, a 2-D
-    key-padding ``mask`` folded in; else the flash kernel (K1), or the
-    dense reference for a single token or a key-padding ``mask``."""
+def _attention(q, k, v, config, mask=None, window=None):
+    """Causal self-attention within q/k/v, the uncached forward: a windowed
+    (GPT-Neo local) layer goes dense with its band, bypassing the kernels
+    as in JAX; else block-sparse attention (K8) when the config has
+    ``sparse_attention``, a 2-D key-padding ``mask`` folded in; else the
+    flash kernel (K1), or the dense reference for a single token or a
+    key-padding ``mask``."""
+    if window is not None:
+        return reference_attention(q, k, v, causal=True, mask=mask,
+                                   window=window)
     sc = config.sparse_attention
     if sc is not None and q.shape[1] > 1:
         if mask is not None and mask.dim() != 2:
@@ -271,11 +300,12 @@ def _attention(q, k, v, config, mask=None):
 
 
 def cached_attention(q, k_cache, v_cache, q_positions, layer=None,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, window=None):
     """Dense attention of q [B, S, H, D] at absolute positions q_positions
     [B, S] against a cache ``[B, S_max, KVH*D]`` or, with ``layer``, the
     stacked ``[L, B, S_max, KVH*D]`` cache; KV entries at positions past a
-    query's own position are masked.  An int8 cache (``k_scale`` /
+    query's own position are masked, and with ``window`` those at or below
+    its position minus ``window``.  An int8 cache (``k_scale`` /
     ``v_scale`` ``[.., S_max, KVH]``) is dequantized to q's dtype first, as
     the JAX dense path does.  The ``reference_fallback`` mode of
     ``ops.transformer.registry``, which sends single tokens to the decode
@@ -296,6 +326,9 @@ def cached_attention(q, k_cache, v_cache, q_positions, layer=None,
     logits = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(D)
     kv_pos = torch.arange(S_max, device=q.device)
     ok = q_positions[:, None, :, None] >= kv_pos[None, None, None, :]
+    if window is not None:
+        ok = ok & (kv_pos[None, None, None, :]
+                   > q_positions[:, None, :, None] - window)
     logits = logits.masked_fill(~ok, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
@@ -328,10 +361,13 @@ def _paged_write(cache, layer, k_new, v_new, positions, start=None,
 
 
 class Attention(nn.Module):
+    """Self-attention of layer ``layer_idx`` (JAX ``Attention.layer_idx``),
+    which picks its window (``window_for_layer``)."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, layer_idx=None):
         super().__init__()
         self.config = cfg = config
+        self.layer_idx = layer_idx
         h, H, D, KVH = cfg.hidden_size, cfg.num_heads, cfg.head_dim, \
             cfg.kv_heads
         kw = dict(device=device, dtype=torch.float32)
@@ -348,6 +384,7 @@ class Attention(nn.Module):
         dt = cfg.torch_dtype
         B, S, _ = x.shape
         H, D, KVH = cfg.num_heads, cfg.head_dim, cfg.kv_heads
+        window = cfg.window_for_layer(self.layer_idx)
         q = _linear(x, self.q_proj, dt).view(B, S, H, D)
         k = _linear(x, self.k_proj, dt).view(B, S, KVH, D)
         v = _linear(x, self.v_proj, dt).view(B, S, KVH, D)
@@ -366,9 +403,10 @@ class Attention(nn.Module):
             from deepspeed_tpu_torch.ops.transformer.registry import (
                 write_and_attend)
             out = write_and_attend(cfg, q, k, v, positions, cache, layer,
-                                   start=start, prefill=prefill)
+                                   start=start, prefill=prefill,
+                                   window=window)
         else:
-            out = _attention(q, k, v, cfg, mask=mask)
+            out = _attention(q, k, v, cfg, mask=mask, window=window)
         return _linear(out.reshape(B, S, H * D), self.o_proj, dt)
 
 
@@ -390,15 +428,16 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN decoder block (OPT-1.3B's layout)."""
+    """Pre-LN decoder block (OPT-1.3B's and GPT-Neo's layout), layer
+    ``layer_idx`` of the trunk."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, layer_idx=None):
         super().__init__()
         self.config = cfg = config
         kw = dict(device=device, dtype=torch.float32)
         self.input_norm = nn.LayerNorm(cfg.hidden_size,
                                        eps=cfg.layernorm_epsilon, **kw)
-        self.attn = Attention(cfg, device=device)
+        self.attn = Attention(cfg, device=device, layer_idx=layer_idx)
         self.post_attn_norm = nn.LayerNorm(cfg.hidden_size,
                                            eps=cfg.layernorm_epsilon, **kw)
         self.mlp = MLP(cfg, device=device)
@@ -425,8 +464,8 @@ class Transformer(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.embed_positions = nn.Embedding(cfg.max_seq_len, cfg.hidden_size,
                                             **kw)
-        self.layers = nn.ModuleList(Block(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Block(cfg, device=device, layer_idx=i)
+                                    for i in range(cfg.num_layers))
         self.final_norm = nn.LayerNorm(cfg.hidden_size,
                                        eps=cfg.layernorm_epsilon, **kw)
         self.lm_head = None if cfg.tie_word_embeddings else nn.Linear(

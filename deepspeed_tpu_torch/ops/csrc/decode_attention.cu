@@ -5,11 +5,16 @@
 // Replace two Pallas kernels of the JAX package:
 //   K2  deepspeed_tpu/ops/transformer/decode_attention.py
 //       decode_attention / _decode_kernel  (float and int8-KV caches, the
-//       fused write, and the int8-matmul mode; its sliding-window mode is
-//       not ported yet)
+//       fused write, the int8-matmul mode and the sliding window)
 //   K6  deepspeed_tpu/ops/transformer/paged_attention.py
 //       paged_decode_attention  (its body runs _decode_kernel unchanged)
-// One query row per head attends to cache positions pos < lengths[b].  K2
+// One query row per head attends to cache positions pos < lengths[b] --
+// with a sliding window (window > 0; GPT-Neo's local layers) only to
+// lengths[b] - window <= pos < lengths[b].  The window moves the first
+// position of the loops, nothing else: the kernel never reads a row (or,
+// for K6, a table entry) below the window, so a windowed step reads
+// O(window) rows, as the JAX kernel's index maps pin the blocks below
+// the window to its first block.  K2
 // reads the S-major cache [B, S_max, KVH*D]; K6 reads one layer of the
 // page pool [num_pages, page, KVH*D] through the block table pages[B,
 // n_virt] (attention_common.cuh PagedRows).  The kernel body is one
@@ -19,7 +24,8 @@
 // virtual position max(lengths[b] - 1, 0) in place -- the zero-length
 // clamp of the JAX kernel; through the table for K6 -- and then attends
 // over the cache that now holds it, which is the unfused JAX order (write,
-// then attend).
+// then attend).  The fresh row lies inside any window of at least one
+// position.
 //
 // int8-KV (the cache type C = int8_t): payloads int8 with fp32 scales
 // [.., S_max, KVH] per (position, kv head), read through the same row map
@@ -59,7 +65,10 @@
 // kernel walks the positions in the JAX kernel's blocks (block_k positions,
 // min(512, S_max) for K2 and the page for K6), in order: a block's scores
 // go to shared memory, one warp per head turns them into the block's
-// softmax update and quantized P, and all threads sum P.V.
+// softmax update and quantized P, and all threads sum P.V.  With a window
+// it starts at the block holding lengths[b] - window (the JAX kernel skips
+// every block wholly below it) and leaves that block's rows below the
+// window out of every loop (JAX masks them to P = 0).
 #include "attention_common.cuh"
 
 namespace dstt {
@@ -95,8 +104,8 @@ __global__ void __launch_bounds__(kDecThreads)
 decode_kernel(const T* __restrict__ q, C* k_cache, C* v_cache, float* k_scale,
               float* v_scale, const int* __restrict__ lengths,
               const T* __restrict__ new_k, const T* __restrict__ new_v,
-              T* __restrict__ out, int KVH, int S_max, Rows rows, Rows srows,
-              float scale) {
+              T* __restrict__ out, int KVH, int S_max, int window, Rows rows,
+              Rows srows, float scale) {
   constexpr bool kInt8 = sizeof(C) == 1;
   constexpr int DPL = D / 32;      // dims per lane
   constexpr int U = kRowsPerWarp;
@@ -108,6 +117,8 @@ decode_kernel(const T* __restrict__ q, C* k_cache, C* v_cache, float* k_scale,
   C* kb = k_cache + kvh * D;
   C* vb = v_cache + kvh * D;
   const int len = min(max(lengths[b], 0), S_max);
+  // the first live position: the window's, or 0
+  const int lo = window > 0 ? max(len - window, 0) : 0;
 
   if (new_k != nullptr) {
     const int w = min(max(lengths[b] - 1, 0), S_max - 1);
@@ -160,7 +171,7 @@ decode_kernel(const T* __restrict__ q, C* k_cache, C* v_cache, float* k_scale,
     for (int j = 0; j < DPL; ++j) acc[g][j] = 0.f;
   }
 
-  for (int t0 = warp * U; t0 < len; t0 += kDecWarps * U) {
+  for (int t0 = lo + warp * U; t0 < len; t0 += kDecWarps * U) {
     float kr[U][DPL], vr[U][DPL], ksc[U], vsc[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -257,8 +268,8 @@ decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
                    const float* __restrict__ k_scale,
                    const float* __restrict__ v_scale,
                    const int* __restrict__ lengths, T* __restrict__ out,
-                   int KVH, int S_max, int block_k, Rows rows, Rows srows,
-                   float scale) {
+                   int KVH, int S_max, int block_k, int window, Rows rows,
+                   Rows srows, float scale) {
   constexpr int W = D / 4;                 // int32 words per row of one head
   constexpr int R = kDecThreads / W;       // position groups of the PV sum
   static_assert(D % 32 == 0 && kDecThreads % W == 0, "head dim");
@@ -273,6 +284,10 @@ decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
   __shared__ float acc[G][D];
   __shared__ float m_s[G], l_s[G], corr_s[G], rmax_s[G];
   const int len = min(max(lengths[b], 0), S_max);
+  // the window's first position (may be negative), and the first block
+  // that reaches it
+  const int lo = window > 0 ? len - window : 0;
+  const int first = max(lo, 0) / block_k * block_k;
 
   if (warp < G) {  // warp g quantizes head g of q
     constexpr int DPL = D / 32;
@@ -298,10 +313,14 @@ decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
 
   const int8_t* kb = k_cache + kvh * D;
   const int8_t* vb = v_cache + kvh * D;
-  for (int t0 = 0; t0 < len; t0 += block_k) {
+  for (int t0 = first; t0 < len; t0 += block_k) {
     const int n = min(block_k, len - t0);
+    // the block's rows below the window take no part: every loop below
+    // starts at t_lo (their P is 0 in JAX, so no sum, max or product
+    // changes)
+    const int t_lo = max(lo - t0, 0);
     // scores, one position per thread: the row's D bytes as int4 loads
-    for (int t = tid; t < n; t += kDecThreads) {
+    for (int t = t_lo + tid; t < n; t += kDecThreads) {
       const int4* kr = reinterpret_cast<const int4*>(kb + rows.at(b, t0 + t));
       int kw[W];
 #pragma unroll
@@ -328,10 +347,10 @@ decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
     if (warp < G) {  // warp g: head g's softmax update and quantized P
       const int g = warp;
       float mx = kNegInf;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, sc[g][t]);
+      for (int t = t_lo + lane; t < n; t += 32) mx = fmaxf(mx, sc[g][t]);
       const float m_new = fmaxf(m_s[g], warp_max(mx));
       float psum = 0.f, pmax = 0.f;
-      for (int t = lane; t < n; t += 32) {
+      for (int t = t_lo + lane; t < n; t += 32) {
         const float p = expf(sc[g][t] - m_new);
         psum += p;
         const float pv = p * v_scale[srows.at(b, t0 + t) + kvh];
@@ -341,7 +360,8 @@ decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
       psum = warp_sum(psum);
       const float rmax = warp_max(pmax) / 127.0f;
       const float rsafe = rmax == 0.f ? 1.f : rmax;
-      for (int t = lane; t < n; t += 32) pq[g][t] = quant_i8(sc[g][t], rsafe);
+      for (int t = t_lo + lane; t < n; t += 32)
+        pq[g][t] = quant_i8(sc[g][t], rsafe);
       if (lane == 0) {
         const float corr = expf(m_s[g] - m_new);
         l_s[g] = l_s[g] * corr + psum;
@@ -359,7 +379,7 @@ decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
       for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int i = 0; i < 4; ++i) o[g][i] = 0;
-      for (int t = r; t < n; t += R) {
+      for (int t = t_lo + r; t < n; t += R) {
         const int vw = reinterpret_cast<const int*>(
             vb + rows.at(b, t0 + t))[word];
 #pragma unroll
@@ -393,14 +413,14 @@ decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
 template <typename T, typename C, int HD, typename Rows>
 int launch_decode(const void* q, void* k, void* v, void* ks, void* vs,
                   const void* lengths, const void* new_k, const void* new_v,
-                  void* out, int B, int H, int KVH, int S_max, Rows rows,
-                  Rows srows, float scale, cudaStream_t stream) {
+                  void* out, int B, int H, int KVH, int S_max, int window,
+                  Rows rows, Rows srows, float scale, cudaStream_t stream) {
   const dim3 grid(KVH, B);
 #define DSTT_DECODE_G(GG)                                                      \
   decode_kernel<T, C, HD, GG, Rows><<<grid, kDecThreads, 0, stream>>>(        \
       (const T*)q, (C*)k, (C*)v, (float*)ks, (float*)vs, (const int*)lengths,  \
-      (const T*)new_k, (const T*)new_v, (T*)out, KVH, S_max, rows, srows,      \
-      scale)
+      (const T*)new_k, (const T*)new_v, (T*)out, KVH, S_max, window, rows,     \
+      srows, scale)
   switch (H / KVH) {
     case 1: DSTT_DECODE_G(1); break;
     case 2: DSTT_DECODE_G(2); break;
@@ -416,14 +436,14 @@ template <typename T, int HD, typename Rows>
 int launch_decode_i8mm(const void* q, const void* k, const void* v,
                        const void* ks, const void* vs, const void* lengths,
                        void* out, int B, int H, int KVH, int S_max,
-                       int block_k, Rows rows, Rows srows, float scale,
-                       cudaStream_t stream) {
+                       int block_k, int window, Rows rows, Rows srows,
+                       float scale, cudaStream_t stream) {
   const dim3 grid(KVH, B);
 #define DSTT_I8MM_G(GG)                                                        \
   decode_i8mm_kernel<T, HD, GG, Rows><<<grid, kDecThreads, 0, stream>>>(      \
       (const T*)q, (const int8_t*)k, (const int8_t*)v, (const float*)ks,       \
       (const float*)vs, (const int*)lengths, (T*)out, KVH, S_max, block_k,     \
-      rows, srows, scale)
+      window, rows, srows, scale)
   switch (H / KVH) {
     case 1: DSTT_I8MM_G(1); break;
     case 2: DSTT_I8MM_G(2); break;
@@ -442,15 +462,16 @@ int launch_decode_i8mm(const void* q, const void* k, const void* v,
 // with k_scale / v_scale that layer's contiguous fp32 [B, S_max, KVH]
 // (both null for a float cache); lengths [B] int32 on the device, counting
 // this step's token; new_k / new_v [B, KVH, D] contiguous in q's dtype, or
-// both null for the unfused call.  G = H / KVH must be 1, 2, 4 or 8.
-// Returns cudaGetLastError().
+// both null for the unfused call; window the sliding window's positions,
+// <= 0 for none.  G = H / KVH must be 1, 2, 4 or 8.  Returns
+// cudaGetLastError().
 extern "C" int dstt_decode_attention(const void* q, void* k_cache,
                                      void* v_cache, void* k_scale,
                                      void* v_scale, const void* lengths,
                                      const void* new_k, const void* new_v,
                                      void* out, int dtype, int B, int H,
-                                     int KVH, int D, int S_max, float scale,
-                                     void* stream) {
+                                     int KVH, int D, int S_max, int window,
+                                     float scale, void* stream) {
   if (KVH <= 0 || H % KVH != 0 || S_max <= 0) return cudaErrorInvalidValue;
   if ((new_k == nullptr) != (new_v == nullptr)) return cudaErrorInvalidValue;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return cudaErrorInvalidValue;
@@ -462,10 +483,11 @@ extern "C" int dstt_decode_attention(const void* q, void* k_cache,
     const int e = k_scale != nullptr                                           \
         ? dstt::launch_decode<T, int8_t, HD>(                                  \
               q, k_cache, v_cache, k_scale, v_scale, lengths, new_k, new_v,    \
-              out, B, H, KVH, S_max, rows, srows, scale, (cudaStream_t)stream) \
+              out, B, H, KVH, S_max, window, rows, srows, scale,               \
+              (cudaStream_t)stream)                                            \
         : dstt::launch_decode<T, T, HD>(                                       \
               q, k_cache, v_cache, k_scale, v_scale, lengths, new_k, new_v,    \
-              out, B, H, KVH, S_max, rows, srows, scale,                       \
+              out, B, H, KVH, S_max, window, rows, srows, scale,               \
               (cudaStream_t)stream);                                           \
     if (e != cudaSuccess) return e;                                            \
   }
@@ -478,14 +500,14 @@ extern "C" int dstt_decode_attention(const void* q, void* k_cache,
 // [num_pages, page, KVH*D], 16-byte aligned, in q's dtype -- or int8 with
 // k_scale / v_scale that layer's fp32 [num_pages, page, KVH] (both null
 // for a float pool); pages [B, n_virt] int32 on the device (dead lanes
-// point at the trash page 0); lengths, new_k / new_v, q and out as for
-// dstt_decode_attention.  page is any positive size.  Returns
+// point at the trash page 0); lengths, new_k / new_v, q, out and window as
+// for dstt_decode_attention.  page is any positive size.  Returns
 // cudaGetLastError().
 extern "C" int dstt_paged_decode_attention(
     const void* q, void* k_pool, void* v_pool, void* k_scale, void* v_scale,
     const void* lengths, const void* pages, const void* new_k,
     const void* new_v, void* out, int dtype, int B, int H, int KVH, int D,
-    int page, int n_virt, float scale, void* stream) {
+    int page, int n_virt, int window, float scale, void* stream) {
   if (KVH <= 0 || H % KVH != 0 || page <= 0 || n_virt <= 0)
     return cudaErrorInvalidValue;
   if ((new_k == nullptr) != (new_v == nullptr)) return cudaErrorInvalidValue;
@@ -499,11 +521,11 @@ extern "C" int dstt_paged_decode_attention(
     const int e = k_scale != nullptr                                           \
         ? dstt::launch_decode<T, int8_t, HD>(                                  \
               q, k_pool, v_pool, k_scale, v_scale, lengths, new_k, new_v, out, \
-              B, H, KVH, page * n_virt, rows, srows, scale,                    \
+              B, H, KVH, page * n_virt, window, rows, srows, scale,            \
               (cudaStream_t)stream)                                            \
         : dstt::launch_decode<T, T, HD>(                                       \
               q, k_pool, v_pool, k_scale, v_scale, lengths, new_k, new_v, out, \
-              B, H, KVH, page * n_virt, rows, srows, scale,                    \
+              B, H, KVH, page * n_virt, window, rows, srows, scale,            \
               (cudaStream_t)stream);                                           \
     if (e != cudaSuccess) return e;                                            \
   }
@@ -514,12 +536,13 @@ extern "C" int dstt_paged_decode_attention(
 
 // K2's int8 x int8 mode: int8 caches and fp32 scales as for
 // dstt_decode_attention (required), no fused write; block_k the KV block
-// of P's quantization, 1 .. 512 (the JAX kernel's min(block_k, S_max)).
+// of P's quantization, 1 .. 512 (the JAX kernel's min(block_k, S_max));
+// window as for dstt_decode_attention.
 extern "C" int dstt_decode_attention_i8mm(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* lengths, void* out,
     int dtype, int B, int H, int KVH, int D, int S_max, int block_k,
-    float scale, void* stream) {
+    int window, float scale, void* stream) {
   if (KVH <= 0 || H % KVH != 0 || S_max <= 0) return cudaErrorInvalidValue;
   if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
   if (block_k <= 0 || block_k > dstt::kMaxBlockK) return cudaErrorInvalidValue;
@@ -530,7 +553,7 @@ extern "C" int dstt_decode_attention_i8mm(
   {                                                                            \
     const int e = dstt::launch_decode_i8mm<T, HD>(                             \
         q, k_cache, v_cache, k_scale, v_scale, lengths, out, B, H, KVH, S_max, \
-        block_k, rows, srows, scale, (cudaStream_t)stream);                    \
+        block_k, window, rows, srows, scale, (cudaStream_t)stream);            \
     if (e != cudaSuccess) return e;                                            \
   }
   DSTT_DISPATCH(dtype, D, DSTT_I8MM_LAUNCH);
@@ -539,17 +562,21 @@ extern "C" int dstt_decode_attention_i8mm(
 }
 
 // K6's int8 x int8 mode: the pool, scales and table as for
-// dstt_paged_decode_attention (int8, scales required), no fused write; the
-// KV block is the page (at most 512 rows).
+// dstt_paged_decode_attention (int8, scales required), no fused write;
+// block_k the KV block of P's quantization in virtual positions, 1 .. 512
+// (the page, as the JAX paged kernel; a windowed layer's gathered-view
+// route takes min(512, page * n_virt)); window as for
+// dstt_decode_attention.
 extern "C" int dstt_paged_decode_attention_i8mm(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* lengths,
     const void* pages, void* out, int dtype, int B, int H, int KVH, int D,
-    int page, int n_virt, float scale, void* stream) {
+    int page, int n_virt, int block_k, int window, float scale,
+    void* stream) {
   if (KVH <= 0 || H % KVH != 0 || page <= 0 || n_virt <= 0)
     return cudaErrorInvalidValue;
   if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
-  if (page > dstt::kMaxBlockK) return cudaErrorInvalidValue;
+  if (block_k <= 0 || block_k > dstt::kMaxBlockK) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const dstt::PagedRows rows{(const int*)pages, n_virt, page,
                              (long long)KVH * D};
@@ -558,7 +585,8 @@ extern "C" int dstt_paged_decode_attention_i8mm(
   {                                                                            \
     const int e = dstt::launch_decode_i8mm<T, HD>(                             \
         q, k_pool, v_pool, k_scale, v_scale, lengths, out, B, H, KVH,          \
-        page * n_virt, page, rows, srows, scale, (cudaStream_t)stream);        \
+        page * n_virt, block_k, window, rows, srows, scale,                    \
+        (cudaStream_t)stream);                                                 \
     if (e != cudaSuccess) return e;                                            \
   }
   DSTT_DISPATCH(dtype, D, DSTT_PAGED_I8MM_LAUNCH);

@@ -144,17 +144,18 @@ FLASH_BWD = KernelLibrary("flash_attention_bwd", "flash_attention_bwd.cu", {
 
 DECODE = KernelLibrary("decode_attention", "decode_attention.cu", {
     # q, k_cache, v_cache, k_scale, v_scale (null: float cache), lengths,
-    # new_k, new_v, out, dtype, B, H, KVH, D, S_max, scale, stream
-    "dstt_decode_attention": [P] * 9 + [I] * 6 + [F, P],
+    # new_k, new_v, out, dtype, B, H, KVH, D, S_max, window (0: none),
+    # scale, stream
+    "dstt_decode_attention": [P] * 9 + [I] * 7 + [F, P],
     # K6: q, k_pool, v_pool, k_scale, v_scale, lengths, pages, new_k,
-    # new_v, out, dtype, B, H, KVH, D, page, n_virt, scale, stream
-    "dstt_paged_decode_attention": [P] * 10 + [I] * 7 + [F, P],
+    # new_v, out, dtype, B, H, KVH, D, page, n_virt, window, scale, stream
+    "dstt_paged_decode_attention": [P] * 10 + [I] * 8 + [F, P],
     # int8 x int8: q, k_cache, v_cache, k_scale, v_scale, lengths, out,
-    # dtype, B, H, KVH, D, S_max, block_k, scale, stream
-    "dstt_decode_attention_i8mm": [P] * 7 + [I] * 7 + [F, P],
+    # dtype, B, H, KVH, D, S_max, block_k, window, scale, stream
+    "dstt_decode_attention_i8mm": [P] * 7 + [I] * 8 + [F, P],
     # q, k_pool, v_pool, k_scale, v_scale, lengths, pages, out, dtype, B,
-    # H, KVH, D, page, n_virt, scale, stream
-    "dstt_paged_decode_attention_i8mm": [P] * 8 + [I] * 7 + [F, P],
+    # H, KVH, D, page, n_virt, block_k, window, scale, stream
+    "dstt_paged_decode_attention_i8mm": [P] * 8 + [I] * 9 + [F, P],
 })
 
 SPARSE = KernelLibrary("block_sparse_attention", "block_sparse_attention.cu", {

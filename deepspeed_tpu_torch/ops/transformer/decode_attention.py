@@ -3,7 +3,7 @@
 
 Port of ``deepspeed_tpu/ops/transformer/decode_attention.py`` for bf16 /
 fp16 / fp32 caches and int8-KV caches, with the int8×int8 decode mode
-(its sliding-window mode is still to port).  Caches keep the JAX
+and the sliding-window mode of decode.  Caches keep the JAX
 package's layout: S-major with heads flattened, ``[B, S_max, KVH*D]``, or
 layer-stacked ``[L, B, S_max, KVH*D]`` with a ``layer`` index — the
 wrappers then hand the kernels the contiguous view ``cache[layer]``.  An
@@ -17,7 +17,13 @@ S_max, KVH]``, one per (position, kv head), stacked the same way.
   the caller's tensors are updated and returned), quantizing it on an
   int8 cache (:func:`quantize_rows`, which stores the safe scale).  With
   ``int8_matmuls`` (unfused only) both products run int8×int8 in the
-  JAX kernel's KV blocks of ``min(block_k, S_max)`` positions.
+  JAX kernel's KV blocks of ``min(block_k, S_max)`` positions.  With
+  ``window`` (GPT-Neo's local layers) the query at position ``length-1``
+  sees only ``[length - window, length)``: the kernel starts its position
+  loop there, so it reads O(window) rows, as the JAX kernel's index maps
+  pin the blocks below the window; the int8×int8 mode starts at the
+  block holding ``length - window`` and skips every block wholly below
+  it, as JAX does.
 * K3 (the chunk entries of ``ops/csrc/flash_attention.cu``) replaces
   ``_chunk_prefill_kernel``: C rows at positions ``starts[b] + i`` attend
   causally over the cache.
@@ -25,7 +31,9 @@ S_max, KVH]``, one per (position, kv head), stacked the same way.
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors; it never falls back.  Launches are counted
 per mode: ``launches`` on float caches, ``int8_launches`` on int8-KV
-caches and, for decode, ``i8mm_launches`` in the int8×int8 mode.
+caches and, for decode, ``i8mm_launches`` in the int8×int8 mode, and a
+windowed decode apart from a full one (``window_launches``,
+``window_int8_launches``, ``window_i8mm_launches``).
 """
 
 import math
@@ -55,6 +63,27 @@ def _scale_view(scale, layer):
     if scale is None or scale.dim() == 3:
         return scale
     return _layer_view(scale, layer)
+
+
+def check_window(window):
+    """``window`` as an int, or None for full attention."""
+    if window is None:
+        return None
+    if int(window) < 1:
+        raise ValueError(f"window must be a positive number of positions, "
+                         f"got {window}")
+    return int(window)
+
+
+def live_positions(lengths, t0, t1, window):
+    """``[B, t1 - t0]``: which positions ``t0 .. t1-1`` a decode query at
+    ``lengths[b] - 1`` sees — those below ``lengths[b]`` and, with
+    ``window``, at or above ``lengths[b] - window``."""
+    pos = torch.arange(t0, t1, device=lengths.device)[None]
+    live = pos < lengths[:, None]
+    if window is not None:
+        live = live & (pos >= lengths[:, None] - window)
+    return live
 
 
 def check_modes(k_scale, v_scale, int8_matmuls, new_k, new_v):
@@ -119,16 +148,18 @@ def _write_fresh_rows(k_cache, v_cache, k_scale, v_scale, rows, w, new_k,
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, scale=None,
                            new_k=None, new_v=None, k_scale=None,
-                           v_scale=None):
+                           v_scale=None, window=None):
     """Write-then-attend in plain PyTorch (the unfused JAX order).  q:
     [B, H, D]; caches: one layer's [B, S_max, KVH*D] (updated in place
     when ``new_k``/``new_v`` are given), int8 with ``k_scale`` /
     ``v_scale`` [B, S_max, KVH] (the scores take the k-scale, the
     probabilities the v-scale: attention over the fp32 dequantized cache);
-    lengths [B].  Returns [B, H, D]."""
+    lengths [B]; ``window``: only the last ``window`` positions are live.
+    Returns [B, H, D]."""
     B, H, D = q.shape
     S_max, KVHD = k_cache.shape[-2], k_cache.shape[-1]
     KVH = KVHD // D
+    window = check_window(window)
     lengths = lengths.to(q.device).long()
     if new_k is not None:
         rows = torch.arange(B, device=q.device)
@@ -142,7 +173,7 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, scale=None,
     k = k.repeat_interleave(H // KVH, dim=2)
     v = v.repeat_interleave(H // KVH, dim=2)
     s = torch.einsum("bhd,bthd->bht", q.float(), k) * scale
-    live = torch.arange(S_max, device=q.device)[None] < lengths[:, None]
+    live = live_positions(lengths, 0, S_max, window)
     s = s.masked_fill(~live[:, None], -1e30)
     p = torch.softmax(s, dim=-1) * live[:, None]
     return torch.einsum("bht,bthd->bhd", p, v).to(q.dtype)
@@ -157,21 +188,26 @@ def _quant_int8(x, dim):
 
 
 def decode_attention_i8mm_plain(q, k_cache, v_cache, lengths, k_scale,
-                                v_scale, scale=None, block_k=None):
+                                v_scale, scale=None, block_k=None,
+                                window=None):
     """The int8×int8 decode (JAX ``int8_matmuls=True``) in plain PyTorch,
     block for block: q quantized per head; per KV block of ``block_k``
     positions (``min(512, S_max)`` when None) the integer scores times
     ``qs * scale`` times the k-scale update the running max, and P times
     the v-scale is quantized per head with ``rmax = max / 127`` before the
     integer PV product (times ``rmax``).  Integer products are exact in
-    fp32 (every sum stays below 2^24).  q: [B, H, D]; one layer's int8
-    caches [B, S_max, KVH*D] and scales [B, S_max, KVH]; lengths [B]."""
+    fp32 (every sum stays below 2^24).  With ``window`` a block runs only
+    where it reaches ``[length - window, length)`` and its positions below
+    the window are masked, as the JAX kernel skips and masks them.  q:
+    [B, H, D]; one layer's int8 caches [B, S_max, KVH*D] and scales
+    [B, S_max, KVH]; lengths [B]."""
     B, H, D = q.shape
     S_max, KVHD = k_cache.shape[-2], k_cache.shape[-1]
     KVH = KVHD // D
     G = H // KVH
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    window = check_window(window)
     block_k = min(block_k or DEFAULT_BLOCK_K_DECODE, S_max)
     lengths = lengths.to(q.device).long()
     q8, qs = _quant_int8(q.float(), -1)                  # [B, H, D], [B, H, 1]
@@ -185,11 +221,13 @@ def decode_attention_i8mm_plain(q, k_cache, v_cache, lengths, k_scale,
     acc = torch.zeros(B, H, D, device=q.device)
     for t0 in range(0, S_max, block_k):
         t1 = min(t0 + block_k, S_max)
-        run = (t0 < lengths)[:, None]                    # [B, 1]
+        run = t0 < lengths
+        if window is not None:
+            run = run & (t0 + block_k > lengths - window)
+        run = run[:, None]                               # [B, 1]
         s = torch.einsum("bhd,bthd->bht", q8, k[:, t0:t1])
         s = s * qsc[..., None] * ks[:, t0:t1].transpose(1, 2)
-        live = (torch.arange(t0, t1, device=q.device)[None]
-                < lengths[:, None])[:, None]             # [B, 1, bk]
+        live = live_positions(lengths, t0, t1, window)[:, None]  # [B, 1, bk]
         s = s.masked_fill(~live, -1e30)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.where(live, torch.exp(s - m_new[..., None]),
@@ -210,17 +248,21 @@ def decode_attention_i8mm_plain(q, k_cache, v_cache, lengths, k_scale,
 def decode_attention(q, k_cache, v_cache, lengths, scale=None, layer=None,
                      k_scale=None, v_scale=None, int8_matmuls=False,
                      new_k=None, new_v=None,
-                     block_k=DEFAULT_BLOCK_K_DECODE):
+                     block_k=DEFAULT_BLOCK_K_DECODE, window=None):
     """Single-token decode attention.  q: [B, H, D]; caches [B, S_max,
     KVH*D] or stacked [L, B, S_max, KVH*D] with ``layer``; lengths: [B]
     int32, counting this step's token.  ``k_scale`` / ``v_scale`` ([..,
     S_max, KVH] fp32) mark int8-KV caches; ``int8_matmuls`` runs both
     products int8×int8 in KV blocks of ``min(block_k, S_max)`` positions
-    (unfused only).  With ``new_k``/``new_v`` ([B, KVH, D]) the row is
+    (unfused only).  ``window``: sliding-window decode, only positions
+    ``[lengths[b] - window, lengths[b])`` are live (composes with every
+    other mode).  With ``new_k``/``new_v`` ([B, KVH, D]) the row is
     written in place first (quantized on an int8 cache) and ``(out,
     k_cache, v_cache[, k_scale, v_scale])`` is returned; otherwise
-    ``out``."""
+    ``out``.  Launches count per mode, and in ``window_launches`` /
+    ``window_int8_launches`` / ``window_i8mm_launches`` with a window."""
     check_modes(k_scale, v_scale, int8_matmuls, new_k, new_v)
+    window = check_window(window)
     B, H, D = q.shape
     kc, vc = _layer_view(k_cache, layer), _layer_view(v_cache, layer)
     ks, vs = _scale_view(k_scale, layer), _scale_view(v_scale, layer)
@@ -229,21 +271,19 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None, layer=None,
     if int8_matmuls:
         if q.is_cuda:
             out = _launch_decode_i8mm(q, kc, vc, ks, vs, lengths, scale,
-                                      min(block_k, kc.shape[-2]))
-            decode_attention.i8mm_launches += 1
+                                      min(block_k, kc.shape[-2]), window)
+            count_launch(decode_attention, "i8mm", window)
         else:
             out = decode_attention_i8mm_plain(q, kc, vc, lengths, ks, vs,
-                                              scale, block_k)
+                                              scale, block_k, window=window)
         return out
     if q.is_cuda:
-        out = _launch_decode(q, kc, vc, ks, vs, lengths, scale, new_k, new_v)
-        if ks is None:
-            decode_attention.launches += 1
-        else:
-            decode_attention.int8_launches += 1
+        out = _launch_decode(q, kc, vc, ks, vs, lengths, scale, new_k, new_v,
+                             window)
+        count_launch(decode_attention, "" if ks is None else "int8", window)
     else:
         out = decode_attention_plain(q, kc, vc, lengths, scale, new_k, new_v,
-                                     k_scale=ks, v_scale=vs)
+                                     k_scale=ks, v_scale=vs, window=window)
     if new_k is None:
         return out
     if k_scale is None:
@@ -251,9 +291,20 @@ def decode_attention(q, k_cache, v_cache, lengths, scale=None, layer=None,
     return out, k_cache, v_cache, k_scale, v_scale
 
 
+def count_launch(wrapper, mode, window):
+    """One launch of ``wrapper``'s kernel in ``mode`` ("" for float
+    caches, "int8", "i8mm"), counted apart with a window."""
+    name = "_".join(x for x in ("window" if window else "", mode,
+                                "launches") if x)
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
 decode_attention.launches = 0
 decode_attention.int8_launches = 0
 decode_attention.i8mm_launches = 0
+decode_attention.window_launches = 0
+decode_attention.window_int8_launches = 0
+decode_attention.window_i8mm_launches = 0
 
 
 def check_kernel_shapes(q, KVHD, what):
@@ -296,7 +347,8 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_decode(q, kc, vc, ks, vs, lengths, scale, new_k, new_v):
+def _launch_decode(q, kc, vc, ks, vs, lengths, scale, new_k, new_v,
+                   window=None):
     B, H, D = q.shape
     S_max, KVHD = kc.shape[-2], kc.shape[-1]
     KVH = check_kernel_shapes(q, KVHD, "decode kernel")
@@ -325,13 +377,14 @@ def _launch_decode(q, kc, vc, ks, vs, lengths, scale, new_k, new_v):
     err = lib.dstt_decode_attention(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), _ptr(ks), _ptr(vs),
         lengths.data_ptr(), _ptr(new_k), _ptr(new_v), out.data_ptr(),
-        op_builder.dtype_code(q.dtype), B, H, KVH, D, S_max, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        op_builder.dtype_code(q.dtype), B, H, KVH, D, S_max, window or 0,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "decode attention kernel")
     return out
 
 
-def _launch_decode_i8mm(q, kc, vc, ks, vs, lengths, scale, block_k):
+def _launch_decode_i8mm(q, kc, vc, ks, vs, lengths, scale, block_k,
+                        window=None):
     B, H, D = q.shape
     S_max, KVHD = kc.shape[-2], kc.shape[-1]
     KVH = check_kernel_shapes(q, KVHD, "int8 x int8 decode kernel")
@@ -346,7 +399,8 @@ def _launch_decode_i8mm(q, kc, vc, ks, vs, lengths, scale, block_k):
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ks.data_ptr(),
         vs.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         op_builder.dtype_code(q.dtype), B, H, KVH, D, S_max, int(block_k),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        window or 0, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "int8 x int8 decode attention kernel")
     return out
 

@@ -2,7 +2,8 @@
 (chunked prefill), each with its plain version.
 
 Port of ``deepspeed_tpu/ops/transformer/paged_attention.py`` for bf16 /
-fp16 / fp32 pools and int8-KV pools, with the int8×int8 decode mode.
+fp16 / fp32 pools and int8-KV pools, with the int8×int8 decode mode and
+K2's sliding window.
 The KV cache is one page pool per K and V, layer-stacked ``[L,
 num_pages, page_size, KVH*D]`` (``Transformer.init_paged_cache``) — int8
 with fp32 scales ``[L, num_pages, page_size, KVH]`` in the int8-KV mode,
@@ -18,7 +19,12 @@ unmapped table entries point at the reserved trash page 0.
   ``new_v`` it first writes this step's row IN PLACE through the table at
   virtual position ``max(lengths[b]-1, 0)``, quantized on an int8 pool.
   Its int8×int8 mode (entry ``dstt_paged_decode_attention_i8mm``, unfused)
-  quantizes P per page, the JAX kernel's block.
+  quantizes P per page, the JAX kernel's block, or per ``block_k``
+  virtual positions when asked.  ``window`` comes through K2's template:
+  the JAX paged kernel has no window (``window=None`` there), and a
+  windowed layer's decode on a pool takes JAX's gather route — write,
+  gather the virtual view, run B4 with the window over it — which K6
+  reproduces bitwise without the gather (``registry``).
 * K7 (``ops/csrc/flash_attention.cu``, entry
   ``dstt_paged_chunk_prefill``) replaces ``paged_chunk_prefill_attention``:
   K3's body with the block table as its key-row map.
@@ -41,8 +47,8 @@ import torch
 
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.transformer.decode_attention import (
-    _ptr, check_int8_cache, check_kernel_shapes, check_modes,
-    chunk_prefill_attention_plain, decode_attention_i8mm_plain,
+    _ptr, check_int8_cache, check_kernel_shapes, check_modes, check_window,
+    chunk_prefill_attention_plain, count_launch, decode_attention_i8mm_plain,
     decode_attention_plain, quantize_rows)
 from deepspeed_tpu_torch.ops.transformer.flash_attention import _check_cuda
 
@@ -85,12 +91,13 @@ def _gathered(pool, scales, pages):
 
 def paged_decode_attention_plain(q, k_pool, v_pool, lengths, pages,
                                  scale=None, new_k=None, new_v=None,
-                                 k_scale=None, v_scale=None):
+                                 k_scale=None, v_scale=None, window=None):
     """Write-then-attend over one pool layer in plain PyTorch.  q
     [B, H, D]; pools ``[num_pages, page, KVH*D]`` (written in place through
     ``pages`` when ``new_k`` / ``new_v`` are given, quantized on an int8
     pool with ``k_scale`` / ``v_scale`` ``[num_pages, page, KVH]``);
-    lengths [B]; pages [B, n_virt].  Returns [B, H, D]."""
+    lengths [B]; pages [B, n_virt]; ``window`` as for
+    ``decode_attention``.  Returns [B, H, D]."""
     B, H, D = q.shape
     n_virt, page = pages.shape[1], k_pool.shape[1]
     if new_k is not None:
@@ -106,57 +113,65 @@ def paged_decode_attention_plain(q, k_pool, v_pool, lengths, pages,
     gk, gks = _gathered(k_pool, k_scale, pages)
     gv, gvs = _gathered(v_pool, v_scale, pages)
     return decode_attention_plain(q, gk, gv, lengths, scale, k_scale=gks,
-                                  v_scale=gvs)
+                                  v_scale=gvs, window=window)
 
 
 def paged_decode_attention_i8mm_plain(q, k_pool, v_pool, lengths, pages,
-                                      k_scale, v_scale, scale=None):
+                                      k_scale, v_scale, scale=None,
+                                      block_k=None, window=None):
     """The int8×int8 decode over one int8 pool layer in plain PyTorch: the
-    monolithic plain version over the gathered views with one page per KV
-    block."""
+    monolithic plain version over the gathered views with KV blocks of
+    ``block_k`` virtual positions (one page when None)."""
     gk, gks = _gathered(k_pool, k_scale, pages)
     gv, gvs = _gathered(v_pool, v_scale, pages)
     return decode_attention_i8mm_plain(q, gk, gv, lengths, gks, gvs, scale,
-                                       block_k=k_pool.shape[1])
+                                       block_k=block_k or k_pool.shape[1],
+                                       window=window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, lengths, pages, scale=None,
                            layer=None, k_scale=None, v_scale=None,
-                           int8_matmuls=False, new_k=None, new_v=None):
+                           int8_matmuls=False, new_k=None, new_v=None,
+                           window=None, block_k=None):
     """Single-token decode attention over a paged pool.  q: [B, H, D];
     pools ``[L, num_pages, page_size, KVH*D]`` with ``layer``, int8 with
     ``k_scale`` / ``v_scale`` ``[L, num_pages, page_size, KVH]``; lengths
     [B] int32, counting this step's token; pages [B, n_virt] int32.
     ``int8_matmuls`` (int8 pools, unfused) runs both products int8×int8
-    with P quantized per page.  With ``new_k`` / ``new_v`` ([B, KVH, D])
-    the row is written in place through the table first and ``(out,
-    k_pool, v_pool[, k_scale, v_scale])`` is returned; otherwise ``out``."""
+    with P quantized per ``block_k`` virtual positions (one page when
+    None).  ``window``: sliding-window decode, as in ``decode_attention``.
+    With ``new_k`` / ``new_v`` ([B, KVH, D]) the row is written in place
+    through the table first and ``(out, k_pool, v_pool[, k_scale,
+    v_scale])`` is returned; otherwise ``out``.  Launches count per mode,
+    as in ``decode_attention``."""
     check_modes(k_scale, v_scale, int8_matmuls, new_k, new_v)
+    window = check_window(window)
     kp, vp = pool_layer(k_pool, layer), pool_layer(v_pool, layer)
     ks = None if k_scale is None else pool_layer(k_scale, layer)
     vs = None if v_scale is None else pool_layer(v_scale, layer)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if int8_matmuls:
+        block_k = block_k or kp.shape[1]
         if q.is_cuda:
             out = _launch_paged_decode(q, kp, vp, ks, vs, lengths, pages,
-                                       scale, None, None, i8mm=True)
-            paged_decode_attention.i8mm_launches += 1
+                                       scale, None, None, window,
+                                       i8mm_block=block_k)
+            count_launch(paged_decode_attention, "i8mm", window)
         else:
             out = paged_decode_attention_i8mm_plain(q, kp, vp, lengths, pages,
-                                                    ks, vs, scale)
+                                                    ks, vs, scale, block_k,
+                                                    window=window)
         return out
     if q.is_cuda:
         out = _launch_paged_decode(q, kp, vp, ks, vs, lengths, pages, scale,
-                                   new_k, new_v)
-        if ks is None:
-            paged_decode_attention.launches += 1
-        else:
-            paged_decode_attention.int8_launches += 1
+                                   new_k, new_v, window)
+        count_launch(paged_decode_attention, "" if ks is None else "int8",
+                     window)
     else:
         out = paged_decode_attention_plain(q, kp, vp, lengths, pages, scale,
                                            new_k, new_v, k_scale=ks,
-                                           v_scale=vs)
+                                           v_scale=vs, window=window)
     if new_k is None:
         return out
     if k_scale is None:
@@ -167,6 +182,9 @@ def paged_decode_attention(q, k_pool, v_pool, lengths, pages, scale=None,
 paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
 paged_decode_attention.i8mm_launches = 0
+paged_decode_attention.window_launches = 0
+paged_decode_attention.window_int8_launches = 0
+paged_decode_attention.window_i8mm_launches = 0
 
 
 def _table(pages, B, device):
@@ -202,7 +220,7 @@ def _check_pool(q, kp, vp, ks, vs, what):
 
 
 def _launch_paged_decode(q, kp, vp, ks, vs, lengths, pages, scale, new_k,
-                         new_v, i8mm=False):
+                         new_v, window=None, i8mm_block=None):
     B, H, D = q.shape
     KVH = check_kernel_shapes(q, kp.shape[-1], "paged decode kernel")
     q = q.contiguous()
@@ -222,21 +240,22 @@ def _launch_paged_decode(q, kp, vp, ks, vs, lengths, pages, scale, new_k,
     out = torch.empty_like(q)
     lib = op_builder.DECODE.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if i8mm:
-        if kp.shape[1] > 512:
-            raise ValueError(f"int8_matmuls takes pages of at most 512 rows, "
-                             f"got {kp.shape[1]}")
+    if i8mm_block is not None:
+        if not 0 < i8mm_block <= 512:
+            raise ValueError(f"int8_matmuls takes KV blocks of 1 to 512 "
+                             f"positions, got {i8mm_block}")
         err = lib.dstt_paged_decode_attention_i8mm(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
             vs.data_ptr(), lengths.data_ptr(), table.data_ptr(),
             out.data_ptr(), op_builder.dtype_code(q.dtype), B, H, KVH, D,
-            kp.shape[1], table.shape[1], float(scale), stream)
+            kp.shape[1], table.shape[1], int(i8mm_block), window or 0,
+            float(scale), stream)
     else:
         err = lib.dstt_paged_decode_attention(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
             lengths.data_ptr(), table.data_ptr(), _ptr(new_k), _ptr(new_v),
             out.data_ptr(), op_builder.dtype_code(q.dtype), B, H, KVH, D,
-            kp.shape[1], table.shape[1], float(scale), stream)
+            kp.shape[1], table.shape[1], window or 0, float(scale), stream)
     op_builder.check(err, "paged decode attention kernel")
     return out
 

@@ -885,3 +885,254 @@ def test_weight_quantization_on_card_matches_cpu(cuda, dtype):
                      (mod.weight_scale, card.weight_scale)):
             assert torch.equal(a, b.cpu()), name
     assert n == cfg.num_layers * 6
+
+
+# --------------------------------------------------------------------- #
+# The sliding-window mode of K2 / K6 (GPT-Neo's local layers)
+# --------------------------------------------------------------------- #
+WINDOW_MODES = ["float", "float_fused", "int8", "int8_fused", "i8mm"]
+
+
+def _window_counter(mode):
+    return {"float": "window_launches", "int8": "window_int8_launches",
+            "i8mm": "window_i8mm_launches"}[mode.split("_")[0]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("mode", WINDOW_MODES)
+@pytest.mark.parametrize("window", [8, 40])
+def test_decode_window_kernel_matches_plain(cuda, dtype, D, G, mode,
+                                            window):
+    """K2-window against its plain version in every mode, with lengths
+    below, at and past the window and a zero-length row; a fused write
+    lands bitwise where the plain write puts it; only the window counter
+    of the mode moves."""
+    g = torch.Generator(device=cuda).manual_seed(17 * D + G + window)
+    L, B, H, S_max, layer = 2, 6, 8, 136, 1
+    KVH = H // G
+    int8 = mode != "float" and mode != "float_fused"
+    if int8:
+        bufs = list(_int8_pair(g, cuda, L, B, S_max, KVH=KVH, D=D))
+        scales = dict(k_scale=bufs[2], v_scale=bufs[3])
+    else:
+        bufs = [_randn(g, L, B, S_max, KVH * D, dtype=dtype, device=cuda)
+                for _ in range(2)]
+        scales = {}
+    q = _randn(g, B, H, D, dtype=dtype, device=cuda)
+    nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
+    nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
+    lengths = torch.tensor([0, 1, window, window + 1, 97, 136],
+                           dtype=torch.int32, device=cuda)
+    kw = dict(new_k=nk, new_v=nv) if mode.endswith("fused") else {}
+    if mode == "i8mm":
+        kw = dict(int8_matmuls=True, block_k=32)
+    counter = _window_counter(mode)
+    before = {n: getattr(da.decode_attention, n) for n in
+                     ("launches", "int8_launches", "i8mm_launches",
+                      "window_launches", "window_int8_launches",
+                      "window_i8mm_launches")}
+    a = _clones(*bufs)
+    sa = dict(k_scale=a[2], v_scale=a[3]) if int8 else {}
+    got = da.decode_attention(q, a[0], a[1], lengths, layer=layer,
+                              window=window, **sa, **kw)
+    read = {n: getattr(da.decode_attention, n) - v for n, v in before.items()}
+    assert read == {n: int(n == counter) for n in read}
+    if "new_k" in kw:
+        got = got[0]
+    b = _clones(*bufs)
+    sb = dict(k_scale=b[2][layer], v_scale=b[3][layer]) if int8 else {}
+    if mode == "i8mm":
+        want = da.decode_attention_i8mm_plain(
+            q, b[0][layer], b[1][layer], lengths, sb["k_scale"],
+            sb["v_scale"], block_k=32, window=window)
+        _rel_close(got, want, 1e-2)
+    else:
+        want = da.decode_attention_plain(q, b[0][layer], b[1][layer],
+                                         lengths, window=window, **sb, **kw)
+        _close(got, want, dtype)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("mode", WINDOW_MODES)
+def test_paged_decode_window_kernel_is_k2_over_gathered_view(cuda, dtype, D,
+                                                             G, page, mode):
+    """K6-window (and K6-i8mm-window, in the gathered view's KV blocks of
+    min(512, virtual positions)) against its plain version, and bitwise
+    against K2-window over the gathered view; a dead lane on the trash
+    page gives 0."""
+    g = torch.Generator(device=cuda).manual_seed(19 * D + G + page)
+    H, B, n_virt, layer, window = 8, 5, 4, 1, 40
+    KVH = H // G
+    int8 = mode != "float" and mode != "float_fused"
+    if int8:
+        kp, vp, ks, vs, pages = _int8_pool(g, cuda, D, KVH, page, n_virt, B)
+        bufs = [kp, vp, ks, vs]
+    else:
+        kp, vp, pages = _paged_pool(g, dtype, cuda, D, KVH, page, n_virt, B)
+        bufs = [kp, vp]
+    q = _randn(g, B, H, D, dtype=dtype, device=cuda)
+    nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
+    nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
+    lengths = torch.tensor([0, 1, window, 2 * page + 3, n_virt * page],
+                           dtype=torch.int32, device=cuda)
+    kw = dict(new_k=nk, new_v=nv) if mode.endswith("fused") else {}
+    if mode == "i8mm":
+        kw = dict(int8_matmuls=True, block_k=min(512, n_virt * page))
+    gathered = [pa.gather_pages(t[layer], pages) for t in bufs]
+    counter = _window_counter(mode)
+    before = getattr(pa.paged_decode_attention, counter)
+    a = _clones(*bufs)
+    sa = dict(k_scale=a[2], v_scale=a[3]) if int8 else {}
+    got = pa.paged_decode_attention(q, a[0], a[1], lengths, pages,
+                                    layer=layer, window=window, **sa, **kw)
+    assert getattr(pa.paged_decode_attention, counter) == before + 1
+    b = _clones(*bufs)
+    sb = dict(k_scale=b[2][layer], v_scale=b[3][layer]) if int8 else {}
+    if mode == "i8mm":
+        want = pa.paged_decode_attention_i8mm_plain(
+            q, b[0][layer], b[1][layer], lengths, pages, sb["k_scale"],
+            sb["v_scale"], block_k=kw["block_k"], window=window)
+        _rel_close(got, want, 1e-2)
+    else:
+        if kw:
+            got = got[0]
+        want = pa.paged_decode_attention_plain(
+            q, b[0][layer], b[1][layer], lengths, pages, window=window,
+            **sb, **kw)
+        _close(got, want, dtype)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))   # the dead lane
+    sg = dict(k_scale=gathered[2], v_scale=gathered[3]) if int8 else {}
+    mono = da.decode_attention(q, gathered[0], gathered[1], lengths,
+                               window=window, **sg, **kw)
+    if "new_k" in kw:
+        mono = mono[0]
+        for x, y in zip(a, gathered):
+            assert torch.equal(pa.gather_pages(x[layer], pages)[1:], y[1:])
+    assert torch.equal(got, mono)
+
+
+def _gpt_neo_tiny(**over):
+    from deepspeed_tpu_torch.models.transformer import (Transformer,
+                                                        TransformerConfig)
+    cfg = TransformerConfig(vocab_size=97, hidden_size=256, num_layers=2,
+                            num_heads=2, max_seq_len=128, dtype="float32",
+                            tie_word_embeddings=True, activation="gelu",
+                            attention_bias=False, attention_out_bias=True,
+                            attention_softmax_scale=1.0,
+                            attention_layers=("global", "local"),
+                            window_size=8, scan_layers=False, **over)
+    return Transformer(cfg)
+
+
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_gpt_neo_on_card_matches_cpu(cuda, chunk):
+    """A tiny GPT-Neo (head dim 128, window 8, fp32, matrices std 0.2):
+    a 32-token prefill (one pass: K1 and the dense band; or 16-token
+    chunks: K3 and the dense band) and 12 decode steps (K2 and K2-window)
+    on the card give the CPU's logits at 1e-3 (cuBLAS sums the fp32
+    projections in another order, see test_model_on_card_matches_cpu)."""
+    cpu = _gpt_neo_tiny().to_empty(device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "norm" in name:
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+            else:
+                p.copy_(0.2 * torch.randn(p.shape, generator=gen))
+    gpu = _gpt_neo_tiny().to_empty(device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, 97, (2, 44), generator=torch.Generator()
+                        .manual_seed(1))
+    caches = [m.init_cache(2, 48, dtype=torch.float32) for m in (cpu, gpu)]
+    with torch.no_grad():
+        for m, cache, dev in ((cpu, caches[0], "cpu"),
+                              (gpu, caches[1], cuda)):
+            x = ids.to(dev)
+            if chunk is None:
+                out, _ = m.decode(x[:, :32], cache, 0, prefill=True)
+            else:
+                out = torch.cat([m.decode(x[:, c:c + chunk], cache, c)[0]
+                                 for c in range(0, 32, chunk)], 1)
+            before = (da.decode_attention.launches,
+                      da.decode_attention.window_launches)
+            steps = [m.decode(x[:, t:t + 1], cache, t)[0]
+                     for t in range(32, 44)]
+            after = (da.decode_attention.launches,
+                     da.decode_attention.window_launches)
+            if dev != "cpu":
+                assert [a - b for a, b in zip(after, before)] == [12, 12]
+                got = torch.cat([out] + steps, 1).cpu()
+            else:
+                want = torch.cat([out] + steps, 1)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("kv", ["int8", "i8mm"])
+def test_gpt_neo_int8_generate_launches_on_card(cuda, kv):
+    """GPT-Neo generation on the card with an int8 KV cache: K2-int8 on
+    the global layer and K2-int8-window (or, with decode_int8_matmuls,
+    K2-i8mm and K2-i8mm-window) on the local one, once per decode step;
+    tokens in the vocabulary."""
+    from deepspeed_tpu_torch import init_inference
+    over = dict(kv_cache_quant=True, decode_int8_matmuls=kv == "i8mm")
+    eng = init_inference(_gpt_neo_tiny(**over), dtype="float32", device=cuda)
+    eng.init_params(seed=0)
+    ids = torch.randint(0, 97, (3, 40), device=cuda)
+    mode = "int8_" if kv == "int8" else "i8mm_"
+    names = (mode + "launches", "window_" + mode + "launches")
+    before = [getattr(da.decode_attention, n) for n in names]
+    out = eng.generate(ids, max_new_tokens=12)
+    assert [getattr(da.decode_attention, n) - b
+            for n, b in zip(names, before)] == [11, 11]
+    assert out.shape == (3, 52) and int(out.min()) >= 0 \
+        and int(out.max()) < 97
+
+
+def test_gpt_neo_serving_on_card_paged_equals_monolithic(cuda):
+    """GPT-Neo serving on the card, fp32: 10 mixed requests on 3 slots give
+    every request the same tokens on a page pool (K7 and K6 on the global
+    layer, the gather route and K6-window on the local one) and on
+    monolithic lanes (K3 and K2; K2-window), with exact launch counts."""
+    import numpy as np
+    from deepspeed_tpu_torch import init_inference
+    eng = init_inference(_gpt_neo_tiny(), dtype="float32", device=cuda,
+                         prefill_chunk_size=16)
+    eng.init_params(seed=0)
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, 97, int(p)).astype(np.int32), int(n))
+            for p, n in zip(rng.integers(5, 60, 10), rng.integers(2, 30, 10))]
+    kw = dict(num_slots=3, max_cache_len=96, prefill_chunk=16,
+              prefill_token_budget=32, decode_block=3, page_size=16)
+    names = [(pa.paged_decode_attention, "launches"),
+             (pa.paged_decode_attention, "window_launches"),
+             (pa.paged_chunk_prefill_attention, "launches"),
+             (da.decode_attention, "launches"),
+             (da.decode_attention, "window_launches"),
+             (da.chunk_prefill_attention, "launches")]
+    outs = {}
+    for paged in (True, False):
+        before = [getattr(f, n) for f, n in names]
+        srv = eng.serve(paged=paged, **kw)
+        rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+        res = srv.drain()
+        outs[paged] = [res[r] for r in rids]
+        got = [getattr(f, n) - b for (f, n), b in zip(names, before)]
+        st = srv.stats
+        decode = srv.block * st["decode_calls"]      # one layer of each kind
+        chunks = st["prefill_tokens"] // srv.chunk
+        want = [decode, decode, chunks, 0, 0, 0] if paged else \
+            [0, 0, 0, decode, decode, chunks]
+        assert got == want
+        assert st["completed"] == len(reqs)
+    for a, b in zip(outs[True], outs[False]):
+        np.testing.assert_array_equal(a, b)

@@ -218,6 +218,9 @@ I8MM_REL = 1e-2
 RUN_C = dict(micro=2, seq=2048, loss_chunks=8, warmup=2, steps=5, seed=6,
              trace="train_trace.json")
 KB_SHAPE = dict(B=2, S=2048, H=32, D=64)
+# K1 / K4 / K5 also at GPT-Neo-1.3B's global layers' shape (16 heads of
+# 128, the scale in the kernels), held and timed like run (c)'s
+KB_D128_SHAPE = dict(B=2, S=2048, H=16, D=128)
 TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": RUN_C["micro"],
                 "gradient_accumulation_steps": 1,
                 "optimizer": {"type": "AdamW",
@@ -229,7 +232,9 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": RUN_C["micro"],
 # K4 / K5 in bf16 against the fp32 plain backward of the same bf16 inputs:
 # both sum in fp32, then the kernel rounds each gradient to bf16, which is
 # off by at most half an ulp (2^-8 of the value, <= 2^-8 of the largest
-# |gradient|); the bar is twice that, for the fp32 summation order
+# |gradient|); the bar is twice that, for the fp32 summation order and for
+# the bf16 rounding of P and dS before the second products (as JAX rounds
+# them: random-signed errors of 2^-9 of each term, far below the bar)
 BWD_BF16_REL = 2.0 ** -7
 # gradient check, kernel path vs dense attention, on a 2-layer cut
 GRAD_CHECK = dict(layers=2, batch=2, seq=2048, loss_rel=1e-2, cosine=0.99)
@@ -1176,35 +1181,41 @@ def check_rel(name, got, want, rel):
     return err
 
 
-def check_flash_bwd(dtype, timed):
+def check_flash_bwd(dtype, timed, shape=KB_SHAPE):
     """K1 (with the LSE, as the training forward launches it), K4 and K5 at
-    the training path's shapes: causal, q/k/v/dO [2, 2048, 32, 64], the
-    power-of-two scale folded into q as the autograd wrapper folds it."""
+    a training shape: causal, q/k/v/dO ``shape`` — run (c)'s
+    [2, 2048, 32, 64] (the power-of-two scale folded into q as the autograd
+    wrapper folds it), or GPT-Neo's global layers' [2, 2048, 16, 128]
+    (``KB_D128_SHAPE``: the scale in the kernels).  Timed: K4, K5 and SDPA's
+    whole backward in this call, their sum against SDPA's."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
-    B, S, H, D = (KB_SHAPE[x] for x in "BSHD")
+    B, S, H, D = (shape[x] for x in "BSHD")
+    tag = "" if shape is KB_SHAPE else f" [{B}, {S}, {H}, {D}]"
     g = torch.Generator(device=DEV).manual_seed(5)
     dt = getattr(torch, dtype)
     q, k, v, dout = (torch.randn(B, S, H, D, generator=g, device=DEV,
                                  dtype=dt) for _ in range(4))
-    q = q * torch.tensor(1 / math.sqrt(D), dtype=dt)
-    out, lse = fa.launch_attention_kernel(q, k, v, True, 1.0, None, True)
-    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout, True, 1.0)
+    sc = 1 / math.sqrt(D)
+    if math.log2(sc).is_integer():
+        q, sc = q * torch.tensor(sc, dtype=dt), 1.0
+    out, lse = fa.launch_attention_kernel(q, k, v, True, sc, None, True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout, True, sc)
     torch.cuda.synchronize()
-    want, want_lse = fa.flash_attention_plain(q, k, v, causal=True, scale=1.0)
-    k1_err = check_close("K1 flash_attention (training shape)", out, want,
-                         dtype)
-    lse_err = check_lse("K1 flash_attention lse (training shape)", lse,
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=True, scale=sc)
+    k1_err = check_close(f"K1 flash_attention (training shape{tag})", out,
+                         want, dtype)
+    lse_err = check_lse(f"K1 flash_attention lse (training shape{tag})", lse,
                         want_lse, dtype)
     # the plain backward in fp32 from the same (16-bit) inputs
     ref = fa.flash_attention_bwd_plain(
-        *(t.float() for t in (q, k, v, out)), lse, dout.float(), True, 1.0)
+        *(t.float() for t in (q, k, v, out)), lse, dout.float(), True, sc)
     errs = {}
     for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-        tag = f"K{4 if name == 'dq' else 5} {name} ({dtype})"
-        errs[name] = (check_close(tag, got, r, dtype) if dtype == "float32"
-                      else check_rel(tag, got, r, BWD_BF16_REL))
+        label = f"K{4 if name == 'dq' else 5} {name} ({dtype}){tag}"
+        errs[name] = (check_close(label, got, r, dtype) if dtype == "float32"
+                      else check_rel(label, got, r, BWD_BF16_REL))
     del ref, want
     tol = TOL[dtype] if dtype == "float32" else f"{BWD_BF16_REL} * max|want|"
     recs = {
@@ -1219,38 +1230,39 @@ def check_flash_bwd(dtype, timed):
                "tol": tol},
     }
     for rec in recs.values():
-        rec.update(shape=[B, S, H, D], causal=True)
+        rec.update(shape=[B, S, H, D], causal=True, in_kernel_scale=sc)
     if timed:
         delta = fa._delta(out, dout)
         qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
                       for x in (q, k, v))
         oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                            scale=1.0)
+                                            scale=sc)
         doh = dout.transpose(1, 2).contiguous()
 
         def sdpa_backward():       # dq, dk and dv in one library call
             torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
 
         def plain_backward():      # the plain version of K4 and K5 together
-            fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, True, 1.0)
+            fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, True, sc)
 
+        suffix = "" if shape is KB_SHAPE else f"_d{D}"
         with torch.no_grad():
             recs["K1"].update(time_all(
-                "k1_train", "flash_fwd_kernel",
-                lambda: fa.launch_attention_kernel(q, k, v, True, 1.0, None,
+                "k1_train" + suffix, "flash_fwd_kernel",
+                lambda: fa.launch_attention_kernel(q, k, v, True, sc, None,
                                                    True),
-                lambda: fa.flash_attention_plain(q, k, v, True, 1.0),
+                lambda: fa.flash_attention_plain(q, k, v, True, sc),
                 lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=True, scale=1.0), 20))
+                    qh, kh, vh, is_causal=True, scale=sc), 20))
         recs["K4"].update(time_all(
-            "k4", "flash_bwd_dq_kernel",
+            "k4" + suffix, "flash_bwd_dq_kernel",
             lambda: fa.flash_attention_dq(q, k, v, dout, lse, delta, True,
-                                          1.0),
+                                          sc),
             plain_backward, sdpa_backward, 20))
         recs["K5"].update(time_all(
-            "k5", "flash_bwd_dkv_kernel",
+            "k5" + suffix, "flash_bwd_dkv_kernel",
             lambda: fa.flash_attention_dkv(q, k, v, dout, lse, delta, True,
-                                           1.0),
+                                           sc),
             plain_backward, sdpa_backward, 20))
         pairs = B * H * S * (S + 1) // 2        # causal (q, k) pairs
         tensor = q.numel() * q.element_size()   # one [B, S, H, D] tensor
@@ -1264,8 +1276,52 @@ def check_flash_bwd(dtype, timed):
         # K5: the same reads, dk and dv written; S, dP, dV, dK
         recs["K5"]["bound_ms"], recs["K5"]["bound_by"] = bound(
             8 * D * pairs, 6 * tensor + 2 * rows, dtype)
+        for key, products in (("K4", 3), ("K5", 4)):
+            recs[key]["tflops"] = (2 * products * D * pairs
+                                   / recs[key]["kernel_ms"] / 1e9)
+        # the pair computes what one SDPA backward call computes
+        pair = recs["K4"]["kernel_ms"] + recs["K5"]["kernel_ms"]
+        for key in ("K4", "K5"):
+            recs[key].update(pair_ms=pair,
+                             pair_over_library=pair / recs[key]["library_ms"])
     for rec in recs.values():
         emit(rec)
+    return recs
+
+
+def ptxas_report(log, smem_of):
+    """Registers, spills and shared memory of each kernel in one library's
+    ``-Xptxas -v`` output; ``smem_of(name)`` gives the dynamic shared
+    memory of a kernel (ptxas counts only the static part)."""
+    import re
+    kinds = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
+    recs, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d((?:wgmma_)?flash_bwd_[a-z]+_kernel)I("
+                          r"13__nv_bfloat16|6__half|f)Li(\d+)E", m.group(1))
+            cur = None
+            if k:
+                cur = {"kernel": f"{k.group(1)}<{kinds[k.group(2)]}, "
+                                 f"{k.group(3)}>"}
+                cur["dynamic_smem_bytes"] = smem_of(
+                    k.group(1), kinds[k.group(2)], int(k.group(3)))
+                recs.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(m.group(1)) if m else 0
     return recs
 
 
@@ -2653,9 +2709,18 @@ def train_run(run, model, config, settings, want, **extra):
         wall["s"] = time.perf_counter() - t
 
     trace = os.path.join(ROOT, "build", "profiles", settings["trace"])
-    emit({"profile": run, **breakdown(kernel_events(one_step, trace),
-                                      wall["s"]),
-          "trace": os.path.relpath(trace, ROOT)})
+    prof = breakdown(kernel_events(one_step, trace), wall["s"])
+    emit({"profile": run, **prof, "trace": os.path.relpath(trace, ROOT)})
+    # the step's end-to-end numbers beside the profiled step's device ms
+    # of each attention kernel group
+    rec["profile_attention_ms_per_step"] = {
+        grp: ms for grp, ms in prof["device_ms_by_group"].items()
+        if grp.split()[0] in ("K1", "K4", "K5", "K8")}
+    emit({"run": run, "summary": True, "step_ms": rec["step_ms"],
+          "tokens_per_s": tok_s, "mfu": rec["mfu"],
+          "profile_wall_ms": prof["wall_ms"],
+          "profile_attention_ms_per_step":
+              rec["profile_attention_ms_per_step"]})
     del engine, batch
     torch.cuda.empty_cache()
     return rec
@@ -2839,6 +2904,16 @@ def main():
                     for line in log.splitlines() if "registers" in line})
     emit({"build_seconds": build_s, "built": sorted(logs),
           "ptxas": ptxas})
+    if "flash_attention_bwd" in logs:   # K4 / K5: every instantiation
+        bwd_lib = op_builder.FLASH_BWD.load()
+
+        def smem_of(name, kind, D):
+            return bwd_lib.dstt_flash_attention_bwd_smem(
+                0 if "_dq_" in name else 1,
+                {"fp32": 0, "bf16": 1, "fp16": 2}[kind], D)
+
+        emit({"ptxas_flash_bwd": ptxas_report(logs["flash_attention_bwd"],
+                                              smem_of)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2859,6 +2934,10 @@ def main():
         for key in ("K4", "K5"):
             checks[(key, dtype)] = bwd[key]
         checks[("K1 train", dtype)] = bwd["K1"]
+        torch.cuda.empty_cache()
+        bwd = check_flash_bwd(dtype, timed, KB_D128_SHAPE)
+        for key in ("K4", "K5"):
+            checks[(key + " d128", dtype)] = bwd[key]
         torch.cuda.empty_cache()
         checks[("K6", dtype)] = check_paged_decode(dtype, timed)
         checks[("K7", dtype)] = check_paged_chunk(dtype, timed)
@@ -2994,8 +3073,15 @@ def main():
     # K1 also runs in every layer of run (c), with the LSE, at [2, 2048]
     kernels[0]["launches_run_c"] = train["flash_attention"]
     kernels[0]["run_c_shape"] = timing(checks[("K1 train", "bfloat16")])
-    for k in kernels[3:5]:
+    for key, k in zip(("K4", "K5"), kernels[3:5]):
         k["launches_per_step"] = runs["c"]["launches_per_step"][k["name"]]
+        check = checks[(key, "bfloat16")]
+        k.update(tflops=check["tflops"], pair_ms=check["pair_ms"],
+                 library="SDPA's whole backward (dq, dk, dv in one call)")
+        d128 = checks[(key + " d128", "bfloat16")]
+        k["d128_shape"] = {**timing(d128), "shape": d128["shape"],
+                           "tflops": d128["tflops"],
+                           "pair_ms": d128["pair_ms"]}
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -140,6 +140,8 @@ FLASH_BWD = KernelLibrary("flash_attention_bwd", "flash_attention_bwd.cu", {
     "dstt_flash_attention_bwd_dkv":
         [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I] + [L] * 15
         + [I, F, P],
+    # kernel (0: dq, 1: dk / dv), dtype, D -> dynamic shared memory bytes
+    "dstt_flash_attention_bwd_smem": [I, I, I],
 })
 
 DECODE = KernelLibrary("decode_attention", "decode_attention.cu", {

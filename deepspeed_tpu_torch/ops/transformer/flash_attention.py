@@ -8,8 +8,10 @@ through strides (no transpose), runs the online softmax in fp32, skips k
 tiles past its q tile's causal limit, maps GQA heads as ``kv = h*KVH//H``
 and writes O in the input dtype plus the per-row LSE in fp32.  The two
 backward kernels (``ops/csrc/flash_attention_bwd.cu``) replace
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; :class:`_FlashAttention` is
-the port of the JAX ``custom_vjp`` around them.
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``: for bf16 / fp16 inputs they
+run every product on the tensor cores (wgmma) over tiles that TMA loads,
+for fp32 inputs fp32 FMAs; :class:`_FlashAttention` is the port of the
+JAX ``custom_vjp`` around them.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors; it never falls back.
@@ -73,13 +75,18 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True,
     saved residuals (q as the kernel saw it, k, v, out, lse [B, H, S]) and
     dO — not autograd through the plain forward.  P = exp(scale*q.k - lse)
     (0 where masked), dS = P * (dO.v - delta) * scale; dq = dS.k,
-    dk = dS^T.q, dv = P^T.dO, each GQA group summed.  Returns (dq, dk, dv)
-    in the inputs' dtypes."""
+    dk = dS^T.q, dv = P^T.dO, each GQA group summed.  For 16-bit inputs P
+    and dS are rounded to the input dtype before the second products, and
+    each query head's dk / dv before its group's sum, as the JAX kernels
+    (``ds.astype(k.dtype)``, ``p.astype(do.dtype)``, a 16-bit dk / dv per
+    head) and K4 / K5 round them; fp32 keeps them in fp32.  Returns
+    (dq, dk, dv) in the inputs' dtypes."""
     B, S, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     rep = H // KVH
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    lowp = q.dtype in (torch.bfloat16, torch.float16)
     qf, dof = q.float(), dout.float()
     kf = k.float().repeat_interleave(rep, dim=2)
     vf = v.float().repeat_interleave(rep, dim=2)
@@ -90,9 +97,14 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True,
         p = torch.where(live[:, None], p, torch.zeros((), device=q.device))
     dp = torch.einsum("bshd,bthd->bhst", dof, vf)
     ds = p * (dp - _delta(out, dout)[..., None]) * scale
+    if lowp:
+        ds = ds.to(q.dtype).float()
+        p = p.to(dout.dtype).float()
     dq = torch.einsum("bhst,bthd->bshd", ds, kf)
     dk = torch.einsum("bhst,bshd->bthd", ds, qf)
     dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    if lowp:
+        dk, dv = dk.to(q.dtype).float(), dv.to(q.dtype).float()
     dk = dk.view(B, Sk, KVH, rep, D).sum(3)
     dv = dv.view(B, Sk, KVH, rep, D).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -147,6 +159,19 @@ def launch_attention_kernel(q, k, v, causal, scale, q_offsets, with_lse):
     return out, lse
 
 
+def _check_tma(name, t):
+    """K4 / K5 load 16-bit tiles by TMA, which needs a 16-byte aligned
+    address and (b, s, h) strides of whole 16-byte units; raise (no
+    fallback) for a tensor that breaks either."""
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(st * size % 16 for st in t.stride()[:3]):
+        raise ValueError(
+            f"flash attention backward: {name} (strides {tuple(t.stride())}, "
+            f"address {t.data_ptr():#x}) breaks TMA's 16-byte rules: the "
+            f"address and the (b, s, h) strides in bytes must be multiples "
+            f"of 16")
+
+
 def _bwd_args(q, k, v, dout, lse, delta):
     _check_shapes(q, k)
     _check_cuda("flash attention backward", q, k, v, dout)
@@ -155,6 +180,11 @@ def _bwd_args(q, k, v, dout, lse, delta):
                 or t.device != q.device:
             raise ValueError("lse / delta must be contiguous fp32 on q's "
                              "device")
+    if q.dtype != torch.float32:
+        if k.shape[1] == 0:
+            raise ValueError("flash attention backward: no keys")
+        for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+            _check_tma(name, t)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
 

@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain versions on the card, at small
 shapes with ragged edges (K1: ragged S, GQA, D = 128, both causal modes;
 K2: GQA, zero-length rows, fused and unfused; K3: ragged chunks; K4 / K5:
-ragged S, GQA, D = 128, both causal modes, a strided dO; K6 / K7: page
+ragged S, GQA, D = 128, both causal modes, a strided dO, and for the
+16-bit (wgmma / TMA) kernels S below one tile, S = 2048 through the tile
+ring, fp16, bitwise repeatability, the fp32 route on the FMA kernels and
+a refused TMA stride; K6 / K7: page
 sizes 8 to 128 over a shuffled block table, G = 1 to 8, a zero-length
 lane on the trash page, and bitwise against K2 / K3 over the gathered
 view; K8: blocks 16 to 128, head dims 64 / 128, causal or with a
@@ -152,6 +155,120 @@ def test_flash_autograd_on_card_matches_cpu(cuda, D, kvh, causal):
         grads.append(torch.autograd.grad(out, (q, k, v), cpu[3].to(dev)))
     for a, b in zip(grads[1], grads[0]):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+# the 16-bit K4 / K5 (wgmma + TMA) against the fp32 plain backward of the
+# same 16-bit inputs: max |err| <= 2^-7 * max |grad| (chip_smoke.py's
+# BWD_BF16_REL: both sum in fp32; the kernels round P, dS and the outputs
+# to the input type, as JAX does)
+BWD_16_REL = 2.0 ** -7
+WGMMA_CASES = [  # B, S, H, KVH, D, causal
+    (2, 17, 4, 4, 64, True),        # S below one 64-row tile
+    (1, 2048, 2, 2, 64, True),      # 32 tiles through the 2-stage ring
+    (1, 2048, 2, 1, 128, False),    # the ring at D = 128, GQA
+    (2, 100, 8, 2, 128, True),      # D = 128 with GQA, ragged
+    (2, 77, 4, 2, 64, False),       # non-causal, ragged
+    (2, 130, 4, 4, 128, False),     # non-causal, ragged, D = 128
+]
+
+
+def _bwd_inputs(g, dtype, device, B, S, H, KVH, D):
+    q = _randn(g, B, S, H, D, dtype=dtype, device=device)
+    k = _randn(g, B, S, KVH, D, dtype=dtype, device=device)
+    v = _randn(g, B, S, KVH, D, dtype=dtype, device=device)
+    dout = _randn(g, B, S, H, D, dtype=dtype, device=device)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=[f"B{c[0]}-S{c[1]}-H{c[2]}-kvh{c[3]}-D{c[4]}-"
+                              f"{'causal' if c[5] else 'full'}"
+                              for c in WGMMA_CASES])
+def test_flash_backward_wgmma_matches_fp32_plain(cuda, dtype, case):
+    """The tensor-core K4 / K5 at ragged, one-tile, many-tile, D = 128 and
+    GQA shapes, causal and not, both in-kernel scales (1 and D^-0.5),
+    against the fp32 plain backward of the same 16-bit inputs."""
+    B, S, H, KVH, D, causal = case
+    g = torch.Generator(device=cuda).manual_seed(S + D + H)
+    q, k, v, dout = _bwd_inputs(g, dtype, cuda, B, S, H, KVH, D)
+    for scale in (1.0, D ** -0.5):
+        out, lse = fa.launch_attention_kernel(q, k, v, causal, scale, None,
+                                              True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal, scale)
+        want = fa.flash_attention_bwd_plain(
+            *(t.float() for t in (q, k, v, out)), lse, dout.float(), causal,
+            scale)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert a.dtype == dtype and a.shape == b.shape
+            err = float((a.float() - b).abs().max())
+            top = float(b.abs().max())
+            assert bool(torch.isfinite(a).all()) and err <= BWD_16_REL * top, \
+                (name, scale, err, top)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
+    """Every output tile is written by one block, with no atomics: two
+    launches on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, dout = _bwd_inputs(g, dtype, cuda, 2, 300, 8, 2, 64)
+    out, lse = fa.launch_attention_kernel(q, k, v, True, 0.125, None, True)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, dout, True, 0.125)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, dout, True, 0.125)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_backward_routes_by_dtype(cuda, dtype, tmp_path):
+    """fp32 runs the FMA kernels (``flash_bwd_dq_kernel`` /
+    ``flash_bwd_dkv_kernel``, and stays at the fp32 bar of 1e-4 against the
+    plain backward); bf16 / fp16 run the wgmma kernels."""
+    from deepspeed_tpu_torch.profiling.trace import kernel_events
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, dout = _bwd_inputs(g, dtype, cuda, 2, 100, 4, 2, 128)
+    scale = 128 ** -0.5
+    out, lse = fa.launch_attention_kernel(q, k, v, True, scale, None, True)
+    got = {}
+
+    def run():
+        got["g"] = fa.flash_attention_bwd(q, k, v, out, lse, dout, True,
+                                          scale)
+
+    names = {e["name"] for e in kernel_events(run, tmp_path / "route.json")}
+    wgmma = {n for n in names if "wgmma_flash_bwd" in n}
+    fma = {n for n in names if "flash_bwd" in n and n not in wgmma}
+    if dtype == torch.float32:
+        assert not wgmma and len(fma) == 2, names
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, True,
+                                            scale)
+        for a, b in zip(got["g"], want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    else:
+        assert not fma and len(wgmma) == 2, names
+
+
+def test_flash_backward_refuses_strides_tma_cannot_take(cuda):
+    """A 16-bit tensor whose (b, s, h) strides are not whole 16-byte units,
+    or whose address is not 16-byte aligned, raises: no fallback."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    B, S, H, D = 1, 64, 2, 64
+    q, k, v, dout = _bwd_inputs(g, torch.bfloat16, cuda, B, S, H, H, D)
+    out, lse = fa.launch_attention_kernel(q, k, v, True, 0.125, None, True)
+    wide = _randn(g, B, S, H, D + 4, dtype=torch.bfloat16, device=cuda)
+    odd = wide[..., :D]                       # h stride 136 bytes
+    flat = _randn(g, B * S * H * D + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(B, S, H, D)       # address 2 bytes past 16
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    for name, bad in (("dout", odd), ("k", odd), ("q", shifted)):
+        args = dict(q=q, k=k, v=v, dout=dout)
+        args[name] = bad
+        with pytest.raises(ValueError, match="TMA"):
+            fa.flash_attention_bwd(args["q"], args["k"], args["v"], out, lse,
+                                   args["dout"], True, 0.125)
+    assert (fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == before
 
 
 def test_unsupported_head_dim_raises(cuda):

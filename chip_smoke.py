@@ -100,6 +100,16 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    (K6-i8mm-window);
 12. prints the card, a ``kernels`` JSON line and, last, the result line.
 
+K1 / K3 / K7 on bf16 / fp16 run one tensor-core template (``wgmma`` over
+TMA tiles; a ``ptxas_flash_fwd`` line gives registers, spills and dynamic
+shared memory of every instantiation, as ``ptxas_flash_bwd`` does for K4 /
+K5); K1 is timed at run (c)'s shape at head dim 64 and 128.  K7 and
+K7-int8 are also held bitwise against K3 over the gathered view at pages of
+8 and 24 rows (a key tile filled from several TMA boxes) and at GPT-Neo's
+16 heads of 128 (``K7_EXTRA``), and K3 / K7, float and int8, give the same
+bits when every row past all queries' causal limits holds NaN as when it
+holds 0 (``NAN_TAIL``).
+
 K6 and K7 are also held bitwise against K2 / K3 over the gathered view
 ``pool[layer][pages]`` (the same schedules over other addresses), and
 their ``library_ms`` is ``F.scaled_dot_product_attention`` over that view
@@ -146,6 +156,20 @@ K6_SHAPE = dict(L=24, pages=433, page=64, B=96, H=32, D=64, n_virt=6)
 K7_SHAPE = dict(L=24, C=128, H=32, D=64, virt=384,
                 cases=((64, [128]), (64, [0, 37, 73, 110, 146, 183, 219, 256]),
                        (16, [128]), (16, [0, 37, 73, 110, 146, 183, 219, 256])))
+# untimed K7 / K7-int8 cases held bitwise against K3 over the gathered
+# view: pages of 8 and 24 rows (neither is a 64-row tile, so the tensor-core
+# kernel fills a key tile from 8 boxes of 8 rows), at run (d)'s widths and
+# at GPT-Neo's global layers' (16 heads of 128, run (j)'s 512 positions)
+K7_EXTRA = (dict(H=32, D=64, virt=384, page=8, starts=[128]),
+            dict(H=32, D=64, virt=384, page=24,
+                 starts=[0, 37, 73, 110, 146, 183, 219, 256]),
+            dict(H=16, D=128, virt=512, page=64, starts=[128, 384]),
+            dict(H=16, D=128, virt=512, page=24, starts=[0, 130, 257, 384]))
+# K3 / K7 with every cache or pool row past all queries' causal limits
+# poisoned (NaN; int8 payloads 127 under NaN scales): run (b)'s chunk shape
+# over 576 positions (9 tiles of 64, 24 pages of 24, 72 of 8)
+NAN_TAIL = dict(B=16, C=128, S_max=576, H=32, D=64,
+                starts=[0, 128, 256, 384] * 4, pages=(64, 24, 8))
 LIBRARY_NOTE = ("F.scaled_dot_product_attention over the view gathered "
                 "through the block table beforehand (gather excluded)")
 # the two main-path runs: one-pass prefill (a) and chunked prefill (b)
@@ -702,6 +726,9 @@ def check_paged_chunk(dtype, timed):
             timed_rec = rec
         del kp, vp
         torch.cuda.empty_cache()
+    for i, case in enumerate(K7_EXTRA):
+        cases.append(k7_extra_case(dtype, g, int8=False, seed=50 + i, **case))
+    torch.cuda.empty_cache()
     rec = {"kernel": "K7 paged_chunk_prefill_attention", "dtype": dtype,
            "pool_bytes_like": [K7_SHAPE["L"], K6_SHAPE["pages"],
                                K6_SHAPE["page"], H * D],
@@ -714,6 +741,120 @@ def check_paged_chunk(dtype, timed):
         rec.update(timed_shape=[1, C, H, D], timed_page=64,
                    library=LIBRARY_NOTE)
     emit(rec)
+    return rec
+
+
+def k7_extra_case(dtype, g, H, D, virt, page, starts, int8, seed):
+    """One untimed K7 case (float or int8-KV pool, two layers, one row
+    per start over its own pages): against its plain version and bitwise
+    against K3 over the gathered view."""
+    import torch
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+    C, B, n_virt, layer = K7_SHAPE["C"], len(starts), -(-virt // page), 1
+    NP = 1 + B * n_virt
+    dt = getattr(torch, dtype)
+    if int8:
+        bufs = int8_pair(g, 2, NP, page, KVH=H, D=D)
+    else:
+        bufs = [torch.randn(2, NP, page, H * D, generator=g, device=DEV,
+                            dtype=dt) for _ in range(2)] + [None, None]
+    q = torch.randn(B, C, H, D, generator=g, device=DEV, dtype=dt)
+    st = torch.tensor(starts, dtype=torch.int32, device=DEV)
+    table = paged_table(B, n_virt, NP, [s + C for s in starts], page, seed)
+    lay = [None if t is None else t[layer] for t in bufs]
+    out = pa.paged_chunk_prefill_attention(q, bufs[0], bufs[1], st, table,
+                                           layer=layer, k_scale=bufs[2],
+                                           v_scale=bufs[3])
+    torch.cuda.synchronize()
+    want = pa.paged_chunk_prefill_attention_plain(q, lay[0], lay[1], st,
+                                                  table, k_scale=lay[2],
+                                                  v_scale=lay[3])
+    tag = (f"K7{'-int8' if int8 else ''} paged_chunk_prefill_attention "
+           f"(page {page}, B {B}, {H} heads of {D})")
+    err = check_close(tag, out, want, dtype)
+    views = [None if t is None else pa.gather_pages(t, table) for t in lay]
+    mono = da.chunk_prefill_attention(q, views[0], views[1], st,
+                                      k_scale=views[2], v_scale=views[3])
+    if not torch.equal(out, mono):
+        fail(f"{tag} ({dtype}) is not bitwise equal to K3 over the gathered "
+             f"view: max diff {max_err(out, mono)}")
+    return {"page": page, "q": [B, C, H, D], "starts": starts,
+            "max_abs_err": err}
+
+
+def check_nan_tail(dtype):
+    """K3 and K7, float and int8-KV: a cache (pool) whose rows past every
+    query's causal limit hold NaN (int8: payload 127, scale NaN) gives
+    finite outputs bitwise equal to the same cache with those rows 0, and
+    K7 over pools of each page size in ``NAN_TAIL`` stays bitwise K3."""
+    import torch
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+    B, C, S, H, D = (NAN_TAIL[x] for x in ("B", "C", "S_max", "H", "D"))
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=DEV).manual_seed(41)
+    starts = torch.tensor(NAN_TAIL["starts"], dtype=torch.int32, device=DEV)
+    live = torch.arange(S, device=DEV)[None] < starts[:, None] + C
+    q = torch.randn(B, C, H, D, generator=g, device=DEV, dtype=dt)
+    rec = {"kernel": "K3 / K7 rows past the causal limit", "dtype": dtype,
+           "q": [B, C, H, D], "cache": [B, S, H * D],
+           "pages": list(NAN_TAIL["pages"])}
+    for int8 in (False, True):
+        if int8:
+            bufs = int8_pair(g, B, S, KVH=H, D=D)
+        else:
+            bufs = [torch.randn(B, S, H * D, generator=g, device=DEV,
+                                dtype=dt) for _ in range(2)] + [None, None]
+        poison = (127 if int8 else float("nan"), float("nan"))
+        tails = []
+        for fill in (poison, (0, 0.0)):
+            tails.append([None if t is None else torch.where(
+                live[..., None], t, torch.full_like(t, fill[i >= 2]))
+                for i, t in enumerate(bufs)])
+        mode = "int8" if int8 else "float"
+        outs = [da.chunk_prefill_attention(q, t[0], t[1], starts,
+                                           k_scale=t[2], v_scale=t[3])
+                for t in tails]
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(outs[0]).all())
+                and torch.equal(outs[0], outs[1])):
+            fail(f"K3 ({mode}, {dtype}): a NaN tail past the causal limit "
+                 f"changed the output (max diff "
+                 f"{max_err(outs[0], outs[1])})")
+        for page in NAN_TAIL["pages"]:
+            n_virt = S // page
+            NP = 1 + B * n_virt
+            perm = 1 + torch.randperm(NP - 1, generator=torch.Generator()
+                                      .manual_seed(page))
+            table = perm.view(B, n_virt).to(device=DEV, dtype=torch.int32)
+            pouts = []
+            for views, fill in zip(tails, (poison, (0, 0.0))):
+                pools = []
+                for i, t in enumerate(views):
+                    if t is None:
+                        pools.append(None)
+                        continue
+                    pool = torch.full((1, NP, page, t.shape[-1]),
+                                      fill[i >= 2], dtype=t.dtype, device=DEV)
+                    pool[0][table.long()] = t.view(B, n_virt, page, -1)
+                    pools.append(pool)
+                pouts.append(pa.paged_chunk_prefill_attention(
+                    q, pools[0], pools[1], starts, table, layer=0,
+                    k_scale=pools[2], v_scale=pools[3]))
+                del pools
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(pouts[0]).all())
+                    and torch.equal(pouts[0], pouts[1])
+                    and torch.equal(pouts[0], outs[0])):
+                fail(f"K7 ({mode}, page {page}, {dtype}): a NaN tail past "
+                     f"the causal limit changed the output, or K7 is not "
+                     f"K3 over the same rows (max diffs "
+                     f"{max_err(pouts[0], pouts[1])}, "
+                     f"{max_err(pouts[0], outs[0])})")
+        rec[f"{mode}_bitwise_equal_to_zero_tail"] = True
+    emit(rec)
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1153,6 +1294,10 @@ def check_paged_chunk_int8(dtype, timed):
         rec["bound_ms"], rec["bound_by"] = bound(4 * H * D * pairs, nbytes,
                                                  dtype)
         timed_rec = rec
+    del kp, vp, ks, vs
+    torch.cuda.empty_cache()
+    for i, case in enumerate(K7_EXTRA):
+        cases.append(k7_extra_case(dtype, g, int8=True, seed=60 + i, **case))
     rec = {"kernel": "K7-int8 paged_chunk_prefill_attention", "dtype": dtype,
            "pool": [L, NP, page, H * D], "cache_dtype": "int8",
            "cases": cases,
@@ -1164,7 +1309,6 @@ def check_paged_chunk_int8(dtype, timed):
         rec.update(timed_shape=[1, C, H, D], timed_page=page,
                    library=INT8_LIBRARY_NOTE + "; " + LIBRARY_NOTE)
     emit(rec)
-    del kp, vp, ks, vs
     torch.cuda.empty_cache()
     return rec
 
@@ -1276,7 +1420,7 @@ def check_flash_bwd(dtype, timed, shape=KB_SHAPE):
         # K5: the same reads, dk and dv written; S, dP, dV, dK
         recs["K5"]["bound_ms"], recs["K5"]["bound_by"] = bound(
             8 * D * pairs, 6 * tensor + 2 * rows, dtype)
-        for key, products in (("K4", 3), ("K5", 4)):
+        for key, products in (("K1", 2), ("K4", 3), ("K5", 4)):
             recs[key]["tflops"] = (2 * products * D * pairs
                                    / recs[key]["kernel_ms"] / 1e9)
         # the pair computes what one SDPA backward call computes
@@ -1289,24 +1433,50 @@ def check_flash_bwd(dtype, timed, shape=KB_SHAPE):
     return recs
 
 
-def ptxas_report(log, smem_of):
-    """Registers, spills and shared memory of each kernel in one library's
-    ``-Xptxas -v`` output; ``smem_of(name)`` gives the dynamic shared
-    memory of a kernel (ptxas counts only the static part)."""
+PTXAS_KINDS = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
+
+
+def bwd_kernel_of(mangled, smem_of):
+    """(label, dynamic shared memory) of a K4 / K5 instantiation, or None."""
     import re
-    kinds = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}
+    k = re.search(r"\d((?:wgmma_)?flash_bwd_[a-z]+_kernel)I("
+                  r"13__nv_bfloat16|6__half|f)Li(\d+)E", mangled)
+    if not k:
+        return None
+    kind = PTXAS_KINDS[k.group(2)]
+    return (f"{k.group(1)}<{kind}, {k.group(3)}>",
+            smem_of(k.group(1), kind, int(k.group(3))))
+
+
+def fwd_kernel_of(mangled, smem_of):
+    """(label, dynamic shared memory) of a K1 / K3 / K7 instantiation
+    (element type, int8-KV or not, head dim, row map), or None."""
+    import re
+    k = re.search(r"\d((?:wgmma_)?flash_fwd_kernel)I(13__nv_bfloat16|"
+                  r"6__half|f)(a|f|S\d*_)Li(\d+)E", mangled)
+    if not k:
+        return None
+    kind, int8 = PTXAS_KINDS[k.group(2)], k.group(3) == "a"
+    rows = "PagedRows" if "PagedRows" in mangled else "StridedRows"
+    cache = "int8" if int8 else kind
+    return (f"{k.group(1)}<{kind}, {cache}, {k.group(4)}, {rows}>",
+            smem_of(kind, int8, int(k.group(4))))
+
+
+def ptxas_report(log, smem_of, kernel_of=bwd_kernel_of):
+    """Registers, spills and shared memory of each kernel in one library's
+    ``-Xptxas -v`` output; ``kernel_of(mangled name, smem_of)`` names a
+    kernel of interest and gives its dynamic shared memory (ptxas counts
+    only the static part)."""
+    import re
     recs, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d((?:wgmma_)?flash_bwd_[a-z]+_kernel)I("
-                          r"13__nv_bfloat16|6__half|f)Li(\d+)E", m.group(1))
+            k = kernel_of(m.group(1), smem_of)
             cur = None
             if k:
-                cur = {"kernel": f"{k.group(1)}<{kinds[k.group(2)]}, "
-                                 f"{k.group(3)}>"}
-                cur["dynamic_smem_bytes"] = smem_of(
-                    k.group(1), kinds[k.group(2)], int(k.group(3)))
+                cur = {"kernel": k[0], "dynamic_smem_bytes": k[1]}
                 recs.append(cur)
             continue
         if cur is None:
@@ -2914,6 +3084,15 @@ def main():
 
         emit({"ptxas_flash_bwd": ptxas_report(logs["flash_attention_bwd"],
                                               smem_of)})
+    if "flash_attention" in logs:       # K1 / K3 / K7: every instantiation
+        fwd_lib = op_builder.FLASH.load()
+
+        def fwd_smem_of(kind, int8, D):
+            return fwd_lib.dstt_flash_attention_fwd_smem(
+                {"fp32": 0, "bf16": 1, "fp16": 2}[kind], int(int8), D)
+
+        emit({"ptxas_flash_fwd": ptxas_report(logs["flash_attention"],
+                                              fwd_smem_of, fwd_kernel_of)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2938,6 +3117,7 @@ def main():
         bwd = check_flash_bwd(dtype, timed, KB_D128_SHAPE)
         for key in ("K4", "K5"):
             checks[(key + " d128", dtype)] = bwd[key]
+        checks[("K1 train d128", dtype)] = bwd["K1"]
         torch.cuda.empty_cache()
         checks[("K6", dtype)] = check_paged_decode(dtype, timed)
         checks[("K7", dtype)] = check_paged_chunk(dtype, timed)
@@ -2948,6 +3128,7 @@ def main():
         checks[("K6-int8", dtype)], checks[("K6-i8mm", dtype)] = \
             check_paged_decode_int8(dtype, timed)
         checks[("K7-int8", dtype)] = check_paged_chunk_int8(dtype, timed)
+        checks[("nan tail", dtype)] = check_nan_tail(dtype)
         checks[("K1 run i", dtype)] = check_flash(dtype, False, K1I_SHAPE)
         for key, rec in {**check_decode_window(dtype, timed),
                          **check_paged_decode_window(dtype, timed)}.items():
@@ -3072,7 +3253,11 @@ def main():
     kernels[1]["launches_run_b"] = runs["b"]["launches"]["decode_attention"]
     # K1 also runs in every layer of run (c), with the LSE, at [2, 2048]
     kernels[0]["launches_run_c"] = train["flash_attention"]
-    kernels[0]["run_c_shape"] = timing(checks[("K1 train", "bfloat16")])
+    k1c = checks[("K1 train", "bfloat16")]
+    kernels[0]["run_c_shape"] = {**timing(k1c), "tflops": k1c["tflops"]}
+    d128 = checks[("K1 train d128", "bfloat16")]
+    kernels[0]["run_c_shape_d128"] = {**timing(d128), "shape": d128["shape"],
+                                      "tflops": d128["tflops"]}
     for key, k in zip(("K4", "K5"), kernels[3:5]):
         k["launches_per_step"] = runs["c"]["launches_per_step"][k["name"]]
         check = checks[(key, "bfloat16")]

@@ -364,11 +364,14 @@ namespace hk = dstt::hopper;
 
 constexpr int kWgThreads = 128;   // one warpgroup
 
-// one [64, D] tile of 16-bit elements: D / 64 swizzled 64 x 64 tiles
-template <int D>
-__host__ __device__ constexpr int row_tile_bytes() {
-  return (D / 64) * hk::kTileBytes;
-}
+using hk::align_smem;
+using hk::row_tile_bytes;
+using hk::tma_row_tile;
+// P = exp(x) is computed as exp2(x * log2(e)) — one fused multiply-add
+// and one ex2 per element; expf's accurate range reduction costs several
+// more.  The result differs from expf by a few fp32 ulps, far below the
+// 16-bit rounding of P that follows.
+using hk::kLog2e;
 
 // both kernels: their own two [64, D] tiles, 2 stages of the other side's
 // two, fp32 lse / delta for 2 stages (K5), 3 mbarriers; + alignment slack
@@ -377,27 +380,6 @@ constexpr size_t wg_smem_bytes() {
   return hk::kSwizzleAlign + 6 * row_tile_bytes<D>() + 4 * 64 * sizeof(float) +
          64;
 }
-
-__device__ __forceinline__ uint8_t* align_smem(uint8_t* raw) {
-  const uint32_t a = hk::smem_u32(raw);
-  return raw + ((hk::kSwizzleAlign - (a & (hk::kSwizzleAlign - 1))) &
-                (hk::kSwizzleAlign - 1));
-}
-
-// load one [64, D] row tile (D / 64 boxes) at position s0 of (head h, row b)
-template <int D>
-__device__ __forceinline__ void tma_row_tile(uint8_t* dst, const CUtensorMap* map,
-                                             uint64_t* bar, int h, int s0, int b) {
-#pragma unroll
-  for (int t = 0; t < D / 64; ++t)
-    hk::tma_load_4d(dst + t * hk::kTileBytes, map, bar, 64 * t, h, s0, b);
-}
-
-// log2(e): P = exp(x) is computed as exp2(x * log2(e)) — one fused
-// multiply-add and one ex2 per element; expf's accurate range reduction
-// costs several more.  The result differs from expf by a few fp32 ulps,
-// far below the 16-bit rounding of P that follows.
-constexpr float kLog2e = 1.4426950408889634f;
 
 
 // K4: one block per (64-row q tile, head, batch row), heaviest (last) q

@@ -31,8 +31,24 @@ constexpr int kTileCols = 64;                         // 16-bit elements
 constexpr int kTileBytes = kTileRows * kTileCols * 2;  // 8 KB
 constexpr int kSwizzleAlign = 1024;
 
+// exp(x) = exp2(x * log2(e)): kernels fold log2(e) into their scale
+constexpr float kLog2e = 1.4426950408889634f;
+
+// one [64, D] row tile of 16-bit elements: D / 64 swizzled 64 x 64 tiles
+template <int D>
+__host__ __device__ constexpr int row_tile_bytes() {
+  return (D / 64) * kTileBytes;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first swizzle-period (1024-byte) boundary at or after raw
+__device__ __forceinline__ uint8_t* align_smem(uint8_t* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((kSwizzleAlign - (a & (kSwizzleAlign - 1))) &
+                (kSwizzleAlign - 1));
 }
 
 // ---------------------------------------------------------------- mbarrier
@@ -90,6 +106,23 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands): each writer fences, then the
+// block synchronises, then the products are issued
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one [64, D] row tile (D / 64 boxes of a `make_bshd_map` map) at
+// position s0 of (head h, batch row b)
+template <int D>
+__device__ __forceinline__ void tma_row_tile(uint8_t* dst, const CUtensorMap* map,
+                                             uint64_t* bar, int h, int s0, int b) {
+#pragma unroll
+  for (int t = 0; t < D / 64; ++t)
+    tma_load_4d(dst + t * kTileBytes, map, bar, 64 * t, h, s0, b);
 }
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
@@ -298,20 +331,23 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A map over a strided [B, S, H, D] tensor of 16-bit elements (strides in
-// elements, unit stride on D) whose box is 64 positions x 64 of D for one
-// (head, batch row), 128-byte swizzled: one `tma_load_4d` at coordinates
-// (d0, h, s0, b) fills one tile.  Returns false when the map cannot be
-// encoded (an address or stride TMA cannot take).
+// elements, unit stride on D) whose box is `box_rows` positions x 64 of D
+// for one (head, batch row), 128-byte swizzled: one `tma_load_4d` at
+// coordinates (d0, h, s0, b) fills one tile (box_rows = 64) or its rows
+// from 128 * (row offset) bytes on (a box of 8, 16 or 32 rows written at
+// a multiple of 1024 bytes into a tile keeps the tile's swizzle phase).
+// Returns false when the map cannot be encoded (an address or stride TMA
+// cannot take).
 inline bool make_bshd_map(CUtensorMap* map, const void* ptr, bool fp16, int B,
                           int S, int H, int D, long long sb, long long ss,
-                          long long sh) {
+                          long long sh, int box_rows = kTileRows) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kTileCols, 1, kTileRows, 1};
+  const cuuint32_t box[4] = {kTileCols, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map,
                 fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16

@@ -123,10 +123,12 @@ FLASH = KernelLibrary("flash_attention", "flash_attention.cu", {
     "dstt_chunk_prefill_int8":
         [P] * 7 + [I] * 7 + [L] * 6 + [F, P],
     # K7: q, k_pool, v_pool, k_scale, v_scale (null: float pool), o,
-    # starts, pages, dtype, B, Sq, H, KVH, D, page, n_virt, 6 strides
-    # (b, s, h for q and o), scale, stream
+    # starts, pages, dtype, B, Sq, H, KVH, D, num_pages, page, n_virt,
+    # box_rows, 6 strides (b, s, h for q and o), scale, stream
     "dstt_paged_chunk_prefill":
-        [P] * 8 + [I] * 8 + [L] * 6 + [F, P],
+        [P] * 8 + [I] * 10 + [L] * 6 + [F, P],
+    # dtype, int8 (1: int8-KV), D -> dynamic shared memory bytes
+    "dstt_flash_attention_fwd_smem": [I, I, I],
 })
 
 FLASH_BWD = KernelLibrary("flash_attention_bwd", "flash_attention_bwd.cu", {

@@ -26,7 +26,9 @@ S_max, KVH]``, one per (position, kv head), stacked the same way.
   it, as JAX does.
 * K3 (the chunk entries of ``ops/csrc/flash_attention.cu``) replaces
   ``_chunk_prefill_kernel``: C rows at positions ``starts[b] + i`` attend
-  causally over the cache.
+  causally over the cache.  For bf16 / fp16 q it runs K1's tensor-core
+  kernel (float caches by TMA, int8 payloads converted into the same
+  tiles), so q (and a 16-bit cache) must meet TMA's 16-byte rules.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors; it never falls back.  Launches are counted
@@ -43,7 +45,7 @@ import torch
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.quantizer.kernels import true_div
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
-    _check_cuda, flash_attention_plain, launch_attention_kernel)
+    _check_cuda, check_tma, flash_attention_plain, launch_attention_kernel)
 
 # the JAX decode kernel's KV block (its DSTPU_DECODE_BLOCK_K default): the
 # blocks in which the int8×int8 mode quantizes P
@@ -462,6 +464,8 @@ def _launch_chunk_int8(q, kc, vc, ks, vs, starts, scale):
                          f"got {D}")
     _check_cuda("chunk prefill attention", q)
     check_int8_cache(q, kc, vc, ks, vs, KVH, "int8-KV chunk kernel")
+    if q.dtype != torch.float32:
+        check_tma("int8-KV chunk kernel", "q", q)
     starts = starts.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty(B, C, H, D, dtype=q.dtype, device=q.device)
     err = op_builder.FLASH.load().dstt_chunk_prefill_int8(

@@ -6,7 +6,10 @@ forward (``ops/csrc/flash_attention.cu``) replaces the Pallas ``_fwd`` /
 ``_fwd_kernel``: it reads q/k/v in the model's ``[B, S, H, D]`` layout
 through strides (no transpose), runs the online softmax in fp32, skips k
 tiles past its q tile's causal limit, maps GQA heads as ``kv = h*KVH//H``
-and writes O in the input dtype plus the per-row LSE in fp32.  The two
+and writes O in the input dtype plus the per-row LSE in fp32.  For bf16 /
+fp16 inputs both its products run on the tensor cores (wgmma) over tiles
+that TMA loads, and P is rounded to the input dtype before P·V, as JAX
+rounds it; fp32 inputs take fp32 FMAs.  The two
 backward kernels (``ops/csrc/flash_attention_bwd.cu``) replace
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``: for bf16 / fp16 inputs they
 run every product on the tensor cores (wgmma) over tiles that TMA loads,
@@ -140,6 +143,11 @@ def launch_attention_kernel(q, k, v, causal, scale, q_offsets, with_lse):
     Sk, KVH = k.shape[1], k.shape[2]
     _check_shapes(q, k)
     _check_cuda("attention kernel", q, k, v)
+    if q.dtype != torch.float32:
+        if Sk == 0:
+            raise ValueError("flash attention forward: no keys")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma("flash attention forward", name, t)
     out = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device) \
         if with_lse else None
@@ -159,14 +167,14 @@ def launch_attention_kernel(q, k, v, causal, scale, q_offsets, with_lse):
     return out, lse
 
 
-def _check_tma(name, t):
-    """K4 / K5 load 16-bit tiles by TMA, which needs a 16-byte aligned
-    address and (b, s, h) strides of whole 16-byte units; raise (no
-    fallback) for a tensor that breaks either."""
+def check_tma(what, name, t):
+    """The 16-bit kernels (K1 / K3 / K7, K4 / K5) load tiles by TMA, which
+    needs a 16-byte aligned address and (b, s, h) strides of whole 16-byte
+    units; raise (no fallback) for a tensor that breaks either."""
     size = t.element_size()
     if t.data_ptr() % 16 or any(st * size % 16 for st in t.stride()[:3]):
         raise ValueError(
-            f"flash attention backward: {name} (strides {tuple(t.stride())}, "
+            f"{what}: {name} (strides {tuple(t.stride())}, "
             f"address {t.data_ptr():#x}) breaks TMA's 16-byte rules: the "
             f"address and the (b, s, h) strides in bytes must be multiples "
             f"of 16")
@@ -184,7 +192,7 @@ def _bwd_args(q, k, v, dout, lse, delta):
         if k.shape[1] == 0:
             raise ValueError("flash attention backward: no keys")
         for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-            _check_tma(name, t)
+            check_tma("flash attention backward", name, t)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
 

@@ -27,7 +27,10 @@ unmapped table entries point at the reserved trash page 0.
   reproduces bitwise without the gather (``registry``).
 * K7 (``ops/csrc/flash_attention.cu``, entry
   ``dstt_paged_chunk_prefill``) replaces ``paged_chunk_prefill_attention``:
-  K3's body with the block table as its key-row map.
+  K3's body with the block table as its key-row map.  On a 16-bit float
+  pool each 64-row key tile arrives as ``64 / r`` TMA boxes of ``r =``
+  :func:`paged_box_rows` rows, read through the table from the pool
+  layer viewed as :func:`pool_tma_view`.
 
 The plain versions gather each row's virtual view ``pool[layer][pages[b]]``
 (and its scales) and run the monolithic plain functions on it, so they are
@@ -50,7 +53,11 @@ from deepspeed_tpu_torch.ops.transformer.decode_attention import (
     _ptr, check_int8_cache, check_kernel_shapes, check_modes, check_window,
     chunk_prefill_attention_plain, count_launch, decode_attention_i8mm_plain,
     decode_attention_plain, quantize_rows)
-from deepspeed_tpu_torch.ops.transformer.flash_attention import _check_cuda
+from deepspeed_tpu_torch.ops.transformer.flash_attention import (
+    _check_cuda, check_tma)
+
+# the key tile of K7's tensor-core kernel, in positions
+KEY_TILE = 64
 
 
 def pool_layer(pool, layer):
@@ -304,18 +311,49 @@ paged_chunk_prefill_attention.launches = 0
 paged_chunk_prefill_attention.int8_launches = 0
 
 
+def paged_box_rows(page):
+    """Rows of one TMA box of K7's key tiles on a 16-bit float pool: the
+    largest multiple of 8 dividing both the page and the 64-row tile
+    (``gcd(page, 64)``), so a box never crosses a page and starts on the
+    swizzle's 1024-byte period inside the tile; a tile takes
+    ``64 // rows`` boxes.  Pages must be a multiple of 8 positions, as the
+    serving engine rounds them."""
+    page = int(page)
+    if page <= 0 or page % 8:
+        raise ValueError(f"paged chunk kernel: page size {page} is not a "
+                         f"positive multiple of 8")
+    return math.gcd(page, KEY_TILE)
+
+
+def pool_tma_view(pool, D):
+    """One pool layer ``[num_pages, page, KVH*D]`` as the ``[num_pages,
+    page, KVH, D]`` tensor K7's TMA map reads (box ``j`` of a key tile at
+    (page ``pages[b, v // page]``, row ``v % page``, kv head, 0) for
+    virtual row ``v``)."""
+    num_pages, page, KVHD = pool.shape
+    return pool.view(num_pages, page, KVHD // D, D)
+
+
 def _launch_paged_chunk(q, kp, vp, ks, vs, starts, pages, scale):
     B, C, H, D = q.shape
     KVH = _check_pool(q, kp, vp, ks, vs, "paged chunk kernel")
     _check_cuda("paged chunk prefill attention", q)
+    box_rows = 0
+    if q.dtype != torch.float32:
+        check_tma("paged chunk kernel", "q", q)
+        if ks is None:
+            box_rows = paged_box_rows(kp.shape[1])
+            for name, t in (("k_pool", kp), ("v_pool", vp)):
+                check_tma("paged chunk kernel", name, pool_tma_view(t, D))
     table = _table(pages, B, q.device)
     starts = starts.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty(B, C, H, D, dtype=q.dtype, device=q.device)
     err = op_builder.FLASH.load().dstt_paged_chunk_prefill(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
         out.data_ptr(), starts.data_ptr(), table.data_ptr(),
-        op_builder.dtype_code(q.dtype), B, C, H, KVH, D, kp.shape[1],
-        table.shape[1], *q.stride()[:3], *out.stride()[:3], float(scale),
+        op_builder.dtype_code(q.dtype), B, C, H, KVH, D, kp.shape[0],
+        kp.shape[1], table.shape[1], box_rows, *q.stride()[:3],
+        *out.stride()[:3], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "paged chunk prefill kernel")
     return out

@@ -4,7 +4,11 @@ K2: GQA, zero-length rows, fused and unfused; K3: ragged chunks; K4 / K5:
 ragged S, GQA, D = 128, both causal modes, a strided dO, and for the
 16-bit (wgmma / TMA) kernels S below one tile, S = 2048 through the tile
 ring, fp16, bitwise repeatability, the fp32 route on the FMA kernels and
-a refused TMA stride; K6 / K7: page
+a refused TMA stride; the 16-bit K1 / K3 / K7 (wgmma / TMA): GQA,
+ragged and unequal Sq / Sk, non-causal, a non-power-of-two scale, D =
+128, fp16, the LSE at the fp32 bar, routing by dtype, refused TMA
+strides, rows past the causal limit poisoned with NaN, and the 16-bit
+autograd path against the CPU; K6 / K7: page
 sizes 8 to 128 over a shuffled block table, G = 1 to 8, a zero-length
 lane on the trash page, and bitwise against K2 / K3 over the gathered
 view; K8: blocks 16 to 128, head dims 64 / 128, causal or with a
@@ -269,6 +273,193 @@ def test_flash_backward_refuses_strides_tma_cannot_take(cuda):
                                    args["dout"], True, 0.125)
     assert (fa.flash_attention_dq.launches,
             fa.flash_attention_dkv.launches) == before
+
+
+# the 16-bit forward (wgmma + TMA): B, Sq, Sk, H, KVH, D, causal, scale
+# (None: D^-0.5, folded into q at D = 64; 0.1: a non-power-of-two scale
+# in the kernel)
+FWD16_CASES = [
+    (2, 17, 17, 4, 4, 64, True, None),       # below one 64-row tile
+    (2, 100, 100, 8, 2, 64, True, 0.1),      # ragged, GQA
+    (1, 300, 300, 4, 1, 128, True, None),    # D = 128, MQA, 5 tiles
+    (2, 77, 130, 4, 2, 64, False, None),     # non-causal, Sq != Sk
+    (2, 130, 77, 4, 4, 128, False, 0.1),     # non-causal, Sk < Sq
+    (1, 64, 200, 8, 8, 64, True, None),      # Sq < Sk, causal
+    (1, 2048, 2048, 2, 2, 64, True, None),   # 32 tiles through the ring
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", FWD16_CASES,
+                         ids=[f"B{c[0]}-Sq{c[1]}-Sk{c[2]}-H{c[3]}-kvh{c[4]}-"
+                              f"D{c[5]}-{'causal' if c[6] else 'full'}-"
+                              f"{'pow2' if c[7] is None else 'scale'}"
+                              for c in FWD16_CASES])
+def test_flash_forward_16bit_matches_plain(cuda, dtype, case):
+    """K1's tensor-core forward against the plain version of the same
+    16-bit inputs: the output at the 16-bit bar (the kernel rounds P to
+    the input type before P.V, as JAX does), the LSE at the fp32 bar."""
+    B, Sq, Sk, H, KVH, D, causal, scale = case
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
+    q = _randn(g, B, Sq, H, D, dtype=dtype, device=cuda)
+    k = _randn(g, B, Sk, KVH, D, dtype=dtype, device=cuda)
+    v = _randn(g, B, Sk, KVH, D, dtype=dtype, device=cuda)
+    before = fa.flash_attention.launches
+    out, lse = fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                                  return_lse=True)
+    assert fa.flash_attention.launches == before + 1
+    # a power-of-two scale folded into q is exact: the plain version
+    # takes the scale itself
+    want, want_lse = fa.flash_attention_plain(
+        q, k, v, causal=causal, scale=D ** -0.5 if scale is None else scale)
+    _close(out, want, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_forward_routes_by_dtype(cuda, dtype, tmp_path):
+    """fp32 runs the FMA ``flash_fwd_kernel``; bf16 / fp16 run
+    ``wgmma_flash_fwd_kernel`` -- for K1, K3 and K7 alike."""
+    from deepspeed_tpu_torch.profiling.trace import kernel_events
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q = _randn(g, 2, 100, 4, 64, dtype=dtype, device=cuda)
+    k = _randn(g, 2, 100, 2, 64, dtype=dtype, device=cuda)
+    kp, vp, pages = _paged_pool(g, dtype, cuda, 64, 2, 16, 4, 2)
+    cache = _randn(g, 2, 64, 128, dtype=dtype, device=cuda)
+    starts = torch.tensor([3, 20], dtype=torch.int32, device=cuda)
+
+    def run():
+        fa.flash_attention(q, k, k, causal=True)
+        da.chunk_prefill_attention(q[:, :40], cache, cache, starts)
+        pa.paged_chunk_prefill_attention(q[:, :40], kp, vp, starts, pages,
+                                         layer=0)
+
+    names = [e["name"] for e in kernel_events(run, tmp_path / "fwd.json")]
+    fwd = [n for n in names if "flash_fwd_kernel" in n]
+    wgmma = [n for n in fwd if "wgmma_flash_fwd_kernel" in n]
+    assert len(fwd) == 3, names
+    assert len(wgmma) == (0 if dtype == torch.float32 else 3), names
+
+
+def test_flash_forward_refuses_strides_tma_cannot_take(cuda):
+    """A 16-bit q / k / v (K1), q (K3, K3-int8, K7) or pool (K7) that TMA
+    cannot take raises before any launch: no fallback."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    B, S, H, D = 1, 64, 2, 64
+    dt = torch.bfloat16
+    q, k, v = (_randn(g, B, S, H, D, dtype=dt, device=cuda) for _ in range(3))
+    odd = _randn(g, B, S, H, D + 4, dtype=dt, device=cuda)[..., :D]
+    flat = _randn(g, B * S * H * D + 1, dtype=dt, device=cuda)
+    shifted = flat[1:].view(B, S, H, D)        # address 2 bytes past 16
+    counts = (fa.flash_attention.launches,
+              da.chunk_prefill_attention.launches,
+              da.chunk_prefill_attention.int8_launches,
+              pa.paged_chunk_prefill_attention.launches)
+    for name, bad in (("q", odd), ("k", shifted), ("v", odd)):
+        args = dict(q=q, k=k, v=v)
+        args[name] = bad
+        with pytest.raises(ValueError, match="TMA"):
+            fa.flash_attention(args["q"], args["k"], args["v"], scale=0.1)
+    starts = torch.tensor([0], dtype=torch.int32, device=cuda)
+    cache = _randn(g, B, 128, H * D, dtype=dt, device=cuda)
+    with pytest.raises(ValueError, match="TMA"):
+        da.chunk_prefill_attention(odd, cache, cache, starts)
+    kc, vc, ks, vs = _int8_pair(g, cuda, B, 128, KVH=H, D=D)
+    with pytest.raises(ValueError, match="TMA"):
+        da.chunk_prefill_attention(shifted, kc, vc, starts, k_scale=ks,
+                                   v_scale=vs)
+    kp, vp, pages = _paged_pool(g, dt, cuda, D, H, 16, 4, 2)
+    with pytest.raises(ValueError, match="TMA"):
+        pa.paged_chunk_prefill_attention(odd, kp, vp, starts, pages[1:],
+                                         layer=0)
+    assert counts == (fa.flash_attention.launches,
+                      da.chunk_prefill_attention.launches,
+                      da.chunk_prefill_attention.int8_launches,
+                      pa.paged_chunk_prefill_attention.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("int8", [False, True])
+def test_chunk_kernels_ignore_rows_past_the_limit(cuda, dtype, D, int8):
+    """K3 and K7, float and int8-KV: cache / pool rows past every query's
+    causal limit (and, for K7, every page the chunk does not reach) set
+    to NaN give finite outputs bitwise equal to the zero-filled run."""
+    g = torch.Generator(device=cuda).manual_seed(16 + D)
+    H, KVH, C, page, n_virt = 8, 4, 40, 24, 6
+    B, S_max = 3, page * n_virt
+    starts = torch.tensor([0, 37, 80], dtype=torch.int32, device=cuda)
+    live = (torch.arange(S_max, device=cuda)[None]
+            < (starts[:, None] + C))                       # [B, S_max]
+    q = _randn(g, B, C, H, D, dtype=dtype, device=cuda)
+    if int8:
+        kc, vc, ks, vs = _int8_pair(g, cuda, B, S_max, KVH=KVH, D=D)
+    else:
+        kc, vc = (_randn(g, B, S_max, KVH * D, dtype=dtype, device=cuda)
+                  for _ in range(2))
+        ks = vs = None
+
+    def tails(fill_payload, fill_scale):
+        out = []
+        for t, fill in ((kc, fill_payload), (vc, fill_payload),
+                        (ks, fill_scale), (vs, fill_scale)):
+            out.append(None if t is None else
+                       torch.where(live[..., None], t,
+                                   torch.full_like(t, fill)))
+        return out
+
+    nan_fill = 127 if int8 else float("nan")
+    poisoned, zeroed = tails(nan_fill, float("nan")), tails(0, 0.0)
+    got = [da.chunk_prefill_attention(q, *t[:2], starts, k_scale=t[2],
+                                      v_scale=t[3])
+           for t in (poisoned, zeroed)]
+    assert bool(torch.isfinite(got[0]).all())
+    assert torch.equal(got[0], got[1])
+    # the same views as one layer of a pool: rows scattered over shuffled
+    # pages, every unmapped page and the trash page poisoned too
+    n_pages = 1 + B * n_virt
+    perm = 1 + torch.randperm(n_pages - 1, generator=torch.Generator()
+                              .manual_seed(D))
+    pages = perm.view(B, n_virt).to(device=cuda, dtype=torch.int32)
+    outs = []
+    for views, fill in ((poisoned, (nan_fill, float("nan"))),
+                        (zeroed, (0, 0.0))):
+        pools = []
+        for i, t in enumerate(views):
+            if t is None:
+                pools.append(None)
+                continue
+            pool = torch.full((1, n_pages, page, t.shape[-1]),
+                              fill[i >= 2], dtype=t.dtype, device=cuda)
+            pool[0][pages.long()] = t.view(B, n_virt, page, t.shape[-1])
+            pools.append(pool)
+        outs.append(pa.paged_chunk_prefill_attention(
+            q, pools[0], pools[1], starts, pages, layer=0, k_scale=pools[2],
+            v_scale=pools[3]))
+    assert bool(torch.isfinite(outs[0]).all())
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], got[0])           # K7 == K3 on the view
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_autograd_16bit_on_card_matches_cpu(cuda, dtype, D):
+    """The 16-bit autograd path on the card -- K1's LSE feeding K4 / K5 --
+    against the CPU's (plain forward, plain backward) on the same 16-bit
+    inputs: max |err| <= 2^-7 * max |grad| (``BWD_16_REL``)."""
+    gen = torch.Generator().manual_seed(3 * D)
+    B, S, H, KVH = 2, 150, 4, 2
+    cpu = [torch.randn(B, S, n, D, generator=gen).to(dtype)
+           for n in (H, KVH, KVH, H)]
+    grads = []
+    for dev in ("cpu", cuda):
+        q, k, v = (t.to(dev).requires_grad_(True) for t in cpu[:3])
+        out = fa.flash_attention(q, k, v, causal=True)
+        grads.append(torch.autograd.grad(out, (q, k, v), cpu[3].to(dev)))
+    for a, b in zip(grads[1], grads[0]):
+        err = float((a.cpu().float() - b.float()).abs().max())
+        assert bool(torch.isfinite(a).all())
+        assert err <= BWD_16_REL * float(b.float().abs().max()), err
 
 
 def test_unsupported_head_dim_raises(cuda):
@@ -878,7 +1069,7 @@ def test_paged_decode_i8mm_kernel_matches_plain_and_k2(cuda, dtype, D, G,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("page", [16, 24, 64])
+@pytest.mark.parametrize("page", [8, 16, 24, 64])
 def test_paged_chunk_int8_kernel_matches_plain_and_k3(cuda, dtype, D, G,
                                                       page):
     g = torch.Generator(device=cuda).manual_seed(17 * D + G + page)

@@ -110,6 +110,18 @@ K7-int8 are also held bitwise against K3 over the gathered view at pages of
 bits when every row past all queries' causal limits holds NaN as when it
 holds 0 (``NAN_TAIL``).
 
+K2 / K6 in every float and int8-KV mode, window or not, run one
+template (``decode_kernel``: a ring of cp.async tiles in shared memory,
+one block per batch row and one or two kv heads); their rows are timed
+per wrapper call (every kernel one call launches, over the calls), and a
+``ptxas_decode`` line gives registers, spills and shared memory of every
+instantiation.
+
+The profiled runs (``profile`` lines) are held to the launch counters:
+a trace must record as many of the port's kernels as the wrappers counted
+in the same run, or it is taken again (the profiler has dropped records
+on an H100).
+
 K6 and K7 are also held bitwise against K2 / K3 over the gathered view
 ``pool[layer][pages]`` (the same schedules over other addresses), and
 their ``library_ms`` is ``F.scaled_dot_product_attention`` over that view
@@ -310,12 +322,17 @@ def time_all(tag, kernel_name, kernel_fn, plain_fn, library_fn, iters):
     kernel, of its plain version and of the library call, plus the
     kernel's wall time per call with the wrapper (``call_ms``, CUDA events
     around back-to-back calls: where it exceeds ``kernel_ms`` the host
-    cannot keep the card fed)."""
+    cannot keep the card fed).  ``kernel_ms`` is the time per launch of
+    the kernels named like ``kernel_name``, or with None (K2 / K6) the
+    time per wrapper call: every call launches one ``decode_kernel`` and
+    nothing else, checked on the trace, so the mean of its launches is
+    the time of a call, whatever records the profiler drops."""
     from deepspeed_tpu_torch.profiling.trace import device_ms_per_call
     trace = os.path.join(ROOT, "build", "profiles", f"chip_smoke_{tag}.json")
     return {
-        "kernel_ms": device_ms_per_call(kernel_fn, iters, trace,
-                                        name=kernel_name),
+        "kernel_ms": device_ms_per_call(
+            kernel_fn, iters, trace, name=kernel_name or "decode_kernel",
+            alone=kernel_name is None),
         "call_ms": cuda_time(kernel_fn, iters),
         "plain_ms": device_ms_per_call(plain_fn, max(iters // 10, 2), trace),
         "library_ms": device_ms_per_call(library_fn, iters, trace),
@@ -460,7 +477,7 @@ def check_decode(dtype, timed):
             kh, vh = heads[next(it) % L]
             F.scaled_dot_product_attention(qh, kh, vh, attn_mask=live)
 
-        rec.update(time_all("k2", "decode_kernel", run_kernel, run_plain,
+        rec.update(time_all("k2", None, run_kernel, run_plain,
                             run_library, 240))
         del heads
         n_live = int(lengths.sum())
@@ -624,7 +641,7 @@ def check_paged_decode(dtype, timed):
             kh, vh = heads[next(it) % L]
             F.scaled_dot_product_attention(qh, kh, vh, attn_mask=live)
 
-        rec.update(time_all("k6", "decode_kernel", run_kernel, run_plain,
+        rec.update(time_all("k6", None, run_kernel, run_plain,
                             run_library, 240))
         rec["library"] = LIBRARY_NOTE
         del heads
@@ -998,7 +1015,7 @@ def check_decode_int8(dtype, timed):
             da.decode_attention_i8mm_plain(q, a[0][li], a[1][li], lengths,
                                            a[2][li], a[3][li], block_k=bk)
 
-        rec.update(time_all("k2_int8", "decode_kernel", run_kernel,
+        rec.update(time_all("k2_int8", None, run_kernel,
                             run_plain, run_library, 240))
         rec_mm.update(time_all("k2_i8mm", "decode_i8mm_kernel", run_mm,
                                run_mm_plain, run_library, 240))
@@ -1188,7 +1205,7 @@ def check_paged_decode_int8(dtype, timed):
                                                  lengths, table, a[2][li],
                                                  a[3][li])
 
-        rec.update(time_all("k6_int8", "decode_kernel", run_kernel,
+        rec.update(time_all("k6_int8", None, run_kernel,
                             run_plain, run_library, 240))
         rec_mm.update(time_all("k6_i8mm", "decode_i8mm_kernel", run_mm,
                                run_mm_plain, run_library, 240))
@@ -1461,6 +1478,23 @@ def fwd_kernel_of(mangled, smem_of):
     cache = "int8" if int8 else kind
     return (f"{k.group(1)}<{kind}, {cache}, {k.group(4)}, {rows}>",
             smem_of(kind, int8, int(k.group(4))))
+
+
+def decode_kernel_of(mangled, smem_of):
+    """(label, dynamic shared memory) of a K2 / K6 ``decode_kernel``
+    instantiation (element type, cache type, head dim, query heads per kv
+    head, kv heads per block, row map), or None."""
+    import re
+    k = re.search(r"\d(decode_kernel)I(13__nv_bfloat16|6__half|f)(a|f|S\d*_)"
+                  r"Li(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if not k:
+        return None
+    kind = PTXAS_KINDS[k.group(2)]
+    cache = "int8" if k.group(3) == "a" else kind
+    rows = "PagedRows" if "PagedRows" in mangled else "StridedRows"
+    return (f"decode_kernel<{kind}, {cache}, {k.group(4)}, G={k.group(5)}, "
+            f"HPB={k.group(6)}, {rows}>", smem_of(kind, cache,
+                                                  int(k.group(4))))
 
 
 def ptxas_report(log, smem_of, kernel_of=bwd_kernel_of):
@@ -1740,11 +1774,11 @@ def check_decode_window(dtype, timed):
         n_live = sum(min(int(n), W) for n in K2W_SHAPE["timed"])
         flops = 4 * H * D * n_live
         modes = (
-            ("K2-window", flt, dict(new_k=nk, new_v=nv), "decode_kernel",
+            ("K2-window", flt, dict(new_k=nk, new_v=nv), None,
              # each row's last live position is this step's fresh row
              2 * (n_live - B) * H * D * es + 2 * 2 * nk.numel() * es + io,
              dtype),
-            ("K2-window-int8", i8, dict(new_k=nk, new_v=nv), "decode_kernel",
+            ("K2-window-int8", i8, dict(new_k=nk, new_v=nv), None,
              int8_bytes(n_live - B, H, D, H) + 2 * nk.numel() * es
              + int8_bytes(B, H, D, H) + io, dtype),
             ("K2-window-i8mm", i8, dict(int8_matmuls=True),
@@ -1878,9 +1912,9 @@ def check_paged_decode_window(dtype, timed):
                         for n in st))
         n_live = sum(min(n, W) for n in st)
         flops = 4 * H * D * n_live
-        modes = (("K6-window", flt, {}, "decode_kernel",
+        modes = (("K6-window", flt, {}, None,
                   2 * n_live * H * D * es + io, dtype),
-                 ("K6-window-int8", i8, {}, "decode_kernel",
+                 ("K6-window-int8", i8, {}, None,
                   int8_bytes(n_live, H, D, H) + io, dtype),
                  ("K6-window-i8mm", i8, dict(int8_matmuls=True, block_k=bk),
                   "decode_i8mm_kernel", int8_bytes(n_live, H, D, H) + io,
@@ -2022,12 +2056,33 @@ def run_generate(eng, ids, new, expect):
     return out, dt, counts, peak
 
 
+def counted_events(fn, trace):
+    """``kernel_events`` of ``fn``, held to the launch counters: a trace
+    that records fewer of the port's kernels (``dstt::``) than the
+    wrappers counted in the same call of ``fn`` is taken again, and
+    after ``PROFILE_ATTEMPTS`` the most complete one is used, so a
+    profile line's group times are whole only where its
+    ``port_kernels_traced`` equals ``port_kernels_launched``.  Returns
+    the events and those two counts."""
+    from deepspeed_tpu_torch.profiling.trace import kernel_events
+
+    def counted():
+        reset_counts()
+        fn()
+
+    ks = kernel_events(counted, trace,
+                       expected=lambda: sum(read_counts().values()))
+    return ks, {"port_kernels_traced": sum("dstt::" in e["name"]
+                                           for e in ks),
+                "port_kernels_launched": sum(read_counts().values())}
+
+
 def profile_run(eng, ids, new, tag="a", trace="generate_trace.json"):
     """The same generate() once more under ``torch.profiler`` (CUDA
     activity only): where its time goes on the card (profile line
     ``tag``, the trace in ``build/profiles/``)."""
     import torch
-    from deepspeed_tpu_torch.profiling.trace import breakdown, kernel_events
+    from deepspeed_tpu_torch.profiling.trace import breakdown
     wall = {}
 
     def run():
@@ -2037,7 +2092,8 @@ def profile_run(eng, ids, new, tag="a", trace="generate_trace.json"):
         wall["s"] = time.perf_counter() - t0
 
     trace = os.path.join(ROOT, "build", "profiles", trace)
-    rec = {"profile": tag, **breakdown(kernel_events(run, trace), wall["s"]),
+    ks, held = counted_events(run, trace)
+    rec = {"profile": tag, **breakdown(ks, wall["s"]), **held,
            "trace": os.path.relpath(trace, ROOT)}
     emit(rec)
     return rec
@@ -2299,7 +2355,7 @@ def profile_serving(eng, reqs):
     iteration (no prefill budget) on a worst-case pool, then
     ``PROFILE_D_STEPS`` decode-only scheduler steps traced."""
     import torch
-    from deepspeed_tpu_torch.profiling.trace import breakdown, kernel_events
+    from deepspeed_tpu_torch.profiling.trace import breakdown
     srv = eng.serve(**{**SERVE_D, "prefill_token_budget": 0, "num_pages": 0})
     for p, _ in reqs[:srv.num_slots]:
         srv.submit(p, max_new_tokens=max(RUN_D["new"]))
@@ -2318,9 +2374,10 @@ def profile_serving(eng, reqs):
         wall["s"] = time.perf_counter() - t0
 
     trace = os.path.join(ROOT, "build", "profiles", "serving_trace.json")
+    ks, held = counted_events(window, trace)
     rec = {"profile": "d", "live_slots": srv.active_slots,
            "decode_steps": PROFILE_D_STEPS * srv.block,
-           **breakdown(kernel_events(window, trace), wall["s"]),
+           **breakdown(ks, wall["s"]), **held,
            "trace": os.path.relpath(trace, ROOT)}
     emit(rec)
     srv.close()
@@ -2826,7 +2883,7 @@ def train_run(run, model, config, settings, want, **extra):
     loss, and one profiled step.  Returns the run's record."""
     import torch
     from deepspeed_tpu_torch import initialize
-    from deepspeed_tpu_torch.profiling.trace import breakdown, kernel_events
+    from deepspeed_tpu_torch.profiling.trace import breakdown
     micro, S, steps = settings["micro"], settings["seq"], settings["steps"]
     t0 = time.perf_counter()
     engine, *_ = initialize(model=model, config=config, device=DEV)
@@ -2879,7 +2936,8 @@ def train_run(run, model, config, settings, want, **extra):
         wall["s"] = time.perf_counter() - t
 
     trace = os.path.join(ROOT, "build", "profiles", settings["trace"])
-    prof = breakdown(kernel_events(one_step, trace), wall["s"])
+    ks, held = counted_events(one_step, trace)
+    prof = {**breakdown(ks, wall["s"]), **held}
     emit({"profile": run, **prof, "trace": os.path.relpath(trace, ROOT)})
     # the step's end-to-end numbers beside the profiled step's device ms
     # of each attention kernel group
@@ -3093,6 +3151,11 @@ def main():
 
         emit({"ptxas_flash_fwd": ptxas_report(logs["flash_attention"],
                                               fwd_smem_of, fwd_kernel_of)})
+    if "decode_attention" in logs:      # K2 / K6: every decode_kernel
+        emit({"ptxas_decode": ptxas_report(logs["decode_attention"],
+                                           lambda *a: 0, decode_kernel_of),
+              "combine": "none: one decode_kernel a call; all "
+                         "shared memory is static"})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -76,6 +76,8 @@ __device__ __forceinline__ int8_t quant_i8(float x, float safe) {
 
 // A strided [B, S, ...] cache: row (b, pos) at b*sb + pos*ss.
 struct StridedRows {
+  static constexpr bool kPaged = false;
+  struct Cursor {};  // PagedRows' table walk; a strided map needs none
   long long sb, ss;
   __device__ __forceinline__ long long at(int b, int pos) const {
     return b * sb + pos * ss;
@@ -89,12 +91,37 @@ struct StridedRows {
 // Callers read only positions below a row's live length, whose table
 // entries the host has mapped.
 struct PagedRows {
+  static constexpr bool kPaged = true;
   const int* pages;
   int n_virt, page;
   long long row;  // elements per position: KVH * D
   __device__ __forceinline__ long long at(int b, int pos) const {
     const int pg = __ldg(pages + (long long)b * n_virt + pos / page);
     return ((long long)pg * page + pos % page) * row;
+  }
+  // A walk over positions pos, pos + step, ...: the virtual page and the
+  // row in it, advanced without a division per step.  key_at reads the
+  // table entry (the map's one dependent load, so a kernel can issue it
+  // early); at_cursor finds the row from it.
+  struct Cursor {
+    int vpg, inp, dq, dr;
+  };
+  __device__ __forceinline__ Cursor cursor(int pos, int step) const {
+    return {pos / page, pos % page, step / page, step % page};
+  }
+  __device__ __forceinline__ int key_at(int b, const Cursor& c) const {
+    return __ldg(pages + (long long)b * n_virt + c.vpg);
+  }
+  __device__ __forceinline__ long long at_cursor(int pg, const Cursor& c) const {
+    return ((long long)pg * page + c.inp) * row;
+  }
+  __device__ __forceinline__ void advance(Cursor& c) const {
+    c.vpg += c.dq;
+    c.inp += c.dr;
+    if (c.inp >= page) {
+      c.inp -= page;
+      ++c.vpg;
+    }
   }
 };
 

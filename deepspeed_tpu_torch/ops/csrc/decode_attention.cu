@@ -10,15 +10,15 @@
 //       paged_decode_attention  (its body runs _decode_kernel unchanged)
 // One query row per head attends to cache positions pos < lengths[b] --
 // with a sliding window (window > 0; GPT-Neo's local layers) only to
-// lengths[b] - window <= pos < lengths[b].  The window moves the first
-// position of the loops, nothing else: the kernel never reads a row (or,
-// for K6, a table entry) below the window, so a windowed step reads
-// O(window) rows, as the JAX kernel's index maps pin the blocks below
-// the window to its first block.  K2
-// reads the S-major cache [B, S_max, KVH*D]; K6 reads one layer of the
-// page pool [num_pages, page, KVH*D] through the block table pages[B,
-// n_virt] (attention_common.cuh PagedRows).  The kernel body is one
-// template over that row map, so with the same warp / position schedule K6
+// lengths[b] - window <= pos < lengths[b].  No row below the window or at
+// or past lengths[b] is read (and, for K6, no table entry for one), so a
+// windowed step reads O(window) rows, as the JAX kernel's index maps pin
+// the blocks below the window to its first block.  K2 reads the S-major
+// cache [B, S_max, KVH*D]; K6 reads one layer of the page pool
+// [num_pages, page, KVH*D] through the block table pages[B, n_virt]
+// (attention_common.cuh PagedRows).  The kernel body is one template
+// over that row map, and its tiles and lane schedule depend only on
+// virtual positions (lengths, window), so K6
 // over the pool is bitwise equal to K2 over the gathered view pool[pages].
 // With new_k / new_v given, the kernel first writes this step's row at
 // virtual position max(lengths[b] - 1, 0) in place -- the zero-length
@@ -33,30 +33,56 @@
 // v-scale each probability before the PV product (the running sum takes
 // the raw probability), as the JAX kernel applies them to its score and
 // probability tiles.  The fused write quantizes the fresh row in the block
-// that owns its kv head: s = max|x| / 127, safe = s == 0 ? 1 : s, payload
+// that owns it: s = max|x| / 127, safe = s == 0 ? 1 : s, payload
 // rintf(x / safe) clamped to +-127, scale safe.  The JAX fused kernel
 // substitutes the dequantized fresh row into the step's own scores instead
 // of reading it back: the same values up to fp32 rounding.
 //
-// What bounds it on an H100: the cache stream.  Each step reads
-// 2 * lengths[b] * KVH * D elements per layer and does ~4 flops per
-// element, far below the card's flop-per-byte ridge, so the kernel is
-// memory-bound, and at decode's short rows (a few hundred positions) the
-// latency of each row's loads matters as much as the bandwidth.  The
-// design reads every live cache row of its kv head exactly once, never
-// touches rows past lengths[b] (so K6 never reads a table entry past the
-// live pages), keeps several rows' loads in flight per warp and has no
-// barrier inside the position loop; the cache write is D elements per kv
-// head, done by the block that owns those columns, so no other block can
-// race it.  K6 adds one table read per position (cached in L1).
+// What bounds it on an H100: bytes.  Each step reads 2 * lengths[b] * KVH
+// * D cache elements per layer and does ~4 flops per element (about one
+// flop per byte in bf16), far below the card's flop-per-byte ridge, and
+// the main path has one query head per kv head, so there is no tile for
+// the tensor cores.  At decode's short rows the latency of the loads
+// matters as much as the bandwidth.  The design keeps bytes in flight:
 //
-// One block per (kv head, batch row) serves that kv head's G = H / KVH
-// query heads with 8 warps.  Warp w takes positions w*U .. w*U+U-1, then
-// the next 8*U, and so on; lane l holds dims l*DPL .. l*DPL+DPL-1 of a row
-// (DPL = D / 32), so a row is one coalesced warp load and a score is a
-// warp-shuffle sum.  Each warp keeps an online softmax (max, sum, output)
-// per query head in registers; the 8 warps' states merge through shared
-// memory at the end.
+// * A block owns the live positions of one batch row and HPB kv heads
+//   and walks them in tiles of TP positions whose K and V rows fill 8 KB
+//   (at HPB = 1: TP = 32 at bf16 D 64, 16 at bf16 D 128, 64 / 32 for
+//   int8).  With one query head per kv head (the main path) the host
+//   gives a block HPB = 2 heads wherever the launch still has four
+//   blocks an SM: a position's two rows are one run of the cache, its two
+//   int8 scales one 8-byte copy instead of two 4-byte ones, and the table
+//   read and the block's set-up serve both heads; each head gets 2
+//   warps (heads_per_block in ops/transformer/decode_attention.py picks
+//   HPB from shapes alone: nothing is read from the device).  A ring of
+//   kStages tiles in shared memory is
+//   filled by cp.async (16 bytes a thread, .cg), kStages - 1 tiles ahead
+//   of the one being scored, so a block pays one memory latency per
+//   kStages - 1 tiles instead of one per iteration.  The int8 scales of
+//   a tile come with it (cp.async of 4 * HPB bytes a position).
+//   K6 reads each position's table entry once, in one thread, a tile
+//   ahead of its rows, into a ring of row offsets in shared memory: no
+//   lane waits on a table load in front of a row, and the lanes that copy
+//   a row find its address with one load.  The ring is small (three 8 KB
+//   tiles) to leave room for four blocks an SM.
+//   The fused write comes before the block loads a tile; cp.async reads
+//   through the generic proxy, so the block barrier after the write
+//   orders it.
+// * Scoring from shared memory: a row of one kv head is split over LPR
+//   lanes of E elements each (16 bytes: 8 bf16, 16 int8; fewer where G
+//   query heads would need too many registers; a score sums four partial
+//   dot products), so a warp scores 32 / LPR rows at once from 128
+//   contiguous bytes a quarter warp, and a score is a log2(LPR)-level
+//   shuffle sum.  Every lane group
+//   keeps an online softmax (max, sum, its E output columns) per query
+//   head in registers, updated once per group of up to 16 / G of its
+//   rows of a tile and rescaled only when the maximum grows, with scores
+//   in the exp2 domain (q carries scale * log2 e); lane groups, then the
+//   4 warps, merge at the end, in a fixed order (no atomics: bitwise
+//   repeatable).  A state with no live position merges as (m = kNegInf,
+//   l = 0), so a zero-length row comes out as 0.  int8 payloads become
+//   floats exactly by the 2^23 mantissa trick (a byte permute and a
+//   subtract, no I2F).
 //
 // The int8 x int8 mode (decode_i8mm_kernel; unfused, as in JAX) quantizes
 // q per head and, per head and KV block, the probabilities folded with the
@@ -69,67 +95,207 @@
 // it starts at the block holding lengths[b] - window (the JAX kernel skips
 // every block wholly below it) and leaves that block's rows below the
 // window out of every loop (JAX masks them to P = 0).
+#include <type_traits>
+
 #include "attention_common.cuh"
 
 namespace dstt {
 
-constexpr int kDecWarps = 8;
-constexpr int kDecThreads = 32 * kDecWarps;
-constexpr int kRowsPerWarp = 4;  // rows in flight per warp (U)
-constexpr int kMaxBlockK = 512;  // the int8 x int8 mode's longest KV block
+// decode_kernel (K2 / K6, float and int8-KV)
+constexpr int kTileWarps = 4;
+constexpr int kTileThreads = 32 * kTileWarps;
+constexpr int kStages = 3;         // tiles in the shared-memory ring
+constexpr int kTileBytes = 8192;   // the K and V rows of one tile
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int BYTES> struct VecOf;
-template <> struct VecOf<2> { using type = unsigned short; };
-template <> struct VecOf<4> { using type = unsigned int; };
-template <> struct VecOf<8> { using type = uint2; };
-template <> struct VecOf<16> { using type = uint4; };
-
-// N consecutive elements at p (aligned to N * sizeof(T)) as floats
-template <typename T, int N>
-__device__ __forceinline__ void load_floats(const T* p, float (&out)[N]) {
-  using V = typename VecOf<N * sizeof(T)>::type;
-  const V v = *reinterpret_cast<const V*>(p);
-  const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
+// positions of one tile: its K and V rows of HPB kv heads fill kTileBytes
+template <typename C, int D, int HPB>
+__host__ __device__ constexpr int tile_positions() {
+  return kTileBytes / (2 * HPB * D * (int)sizeof(C));
 }
 
-// Rows: where position t of batch row b starts (StridedRows for K2's
-// [B, S_max, KVH*D] cache, PagedRows for K6); srows: the same map over the
-// int8-KV scales (KVH per position; unused for float caches); S_max: the
+// decode_i8mm_kernel (the int8 x int8 mode)
+constexpr int kDecWarps = 8;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kMaxBlockK = 512;  // the int8 x int8 mode's longest KV block
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+// 4 or 8 bytes (aligned to their size), through L1
+template <int N>
+__device__ __forceinline__ void cp_async_bytes(void* smem, const void* gmem) {
+  static_assert(N == 4 || N == 8, "4 or 8 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(smem)),
+               "l"(gmem), "n"(N)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// W 32-bit words of shared memory at p (aligned to 4 * W bytes)
+template <int W>
+__device__ __forceinline__ void lds_words(const unsigned char* p,
+                                          uint32_t (&w)[W]) {
+  if constexpr (W == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (W == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    static_assert(W == 1, "1, 2 or 4 words");
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// the elements of C packed in W words, as floats (exact)
+template <typename C, int W>
+__device__ __forceinline__ void unpack(const uint32_t (&w)[W],
+                                       float (&f)[W * 4 / sizeof(C)]) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (sizeof(C) == 4) {
+      f[i] = __uint_as_float(w[i]);
+    } else if constexpr (sizeof(C) == 1) {
+      // byte b ^ 0x80 is b + 128; as the low mantissa bits of 2^23 it is
+      // the float 2^23 + b + 128
+      const uint32_t x = w[i] ^ 0x80808080u;
+      f[4 * i] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440)) -
+                 8388736.f;
+      f[4 * i + 1] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7441)) -
+                     8388736.f;
+      f[4 * i + 2] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7442)) -
+                     8388736.f;
+      f[4 * i + 3] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7443)) -
+                     8388736.f;
+    } else if constexpr (std::is_same<C, __nv_bfloat16>::value) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {
+      const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+}
+
+// A lane's E elements (at most 16 bytes) of the row at `row` in shared
+// memory, from element part * E, as floats
+template <typename C, int E>
+__device__ __forceinline__ void lds_slice(const unsigned char* row, int part,
+                                          float (&f)[E]) {
+  constexpr int W = E * (int)sizeof(C) / 4;
+  uint32_t w[W];
+  lds_words<W>(row + part * E * (int)sizeof(C), w);
+  unpack<C, W>(w, f);
+}
+
+// One block per (group of HPB kv heads, batch row).  HPB = 2 (G = 1 only)
+// gives each head WPH = 2 warps and loads a position's 2 rows, and 2
+// int8 scales, as one run.  Rows: where position t of batch
+// row b starts (StridedRows for K2's [B, S_max, KVH*D] cache, PagedRows
+// for K6), a multiple of KVH * D elements; the int8-KV scales (KVH per
+// position) of that position start at the same offset / D.  S_max: the
 // positions a row can hold (n_virt * page for K6).  T: q / out / new row
-// type; C: the cache type, T or int8_t.
-template <typename T, typename C, int D, int G, typename Rows>
-__global__ void __launch_bounds__(kDecThreads)
+// type; C: the cache type, T or int8_t.  Four blocks an SM bound the
+// registers at 128; G >= 4 (q and outputs of 4 or 8 heads) takes two,
+// 255 registers, rather than spill.
+template <typename T, typename C, int D, int G, int HPB, typename Rows>
+__global__ void __launch_bounds__(kTileThreads, G >= 4 ? 2 : 4)
 decode_kernel(const T* __restrict__ q, C* k_cache, C* v_cache, float* k_scale,
               float* v_scale, const int* __restrict__ lengths,
               const T* __restrict__ new_k, const T* __restrict__ new_v,
               T* __restrict__ out, int KVH, int S_max, int window, Rows rows,
-              Rows srows, float scale) {
+              float scale) {
   constexpr bool kInt8 = sizeof(C) == 1;
-  constexpr int DPL = D / 32;      // dims per lane
-  constexpr int U = kRowsPerWarp;
-  const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  constexpr int ES = sizeof(C);
+  constexpr int TP = tile_positions<C, D, HPB>();
+  constexpr int RB = D * ES;         // bytes of one row of one kv head
+  constexpr int PB = HPB * RB;       // a position's rows of the block
+  constexpr int CPP = PB / 16;       // their 16-byte chunks
+  constexpr int WPH = kTileWarps / HPB;  // warps per head
+  // elements per lane when scoring: 16 bytes, or 32 / G elements so that
+  // q and the output columns of G heads keep to 64 registers (32-byte
+  // lanes cost more registers than they save instructions on an H100)
+  constexpr int E = (16 / ES) < (32 / G) ? 16 / ES : 32 / G;
+  constexpr int LPR = D / E;       // lanes per row
+  constexpr int SLOTS = 32 / LPR;  // rows a warp scores at once
+  constexpr int U = TP / (WPH * SLOTS);  // rows of a tile per lane
+  // rows scored per softmax update: G * UG scores stay in registers
+  constexpr int UG = U < 16 / G ? U : (16 / G > 0 ? 16 / G : 1);
+  static_assert(HPB == 1 || (HPB == 2 && G == 1), "2 heads a block at G = 1");
+  static_assert(U % UG == 0, "row groups");
+  // the loads: a pass of the block copies kTileThreads / CPP positions
+  // of K and of V, 16 bytes a thread
+  constexpr int PASS = kTileThreads / CPP;
+  static_assert(TP % PASS == 0 && 2 * TP <= kTileThreads, "load map");
+  static_assert(LPR <= 32 && U * WPH * SLOTS == TP, "lane map");
+  // the warps' merge states reuse the ring at the end
+  constexpr int kMergeBytes = kTileWarps * G * (D + 2) * 4;
+  constexpr int kRingBytes = kStages * kTileBytes > kMergeBytes
+                                 ? kStages * kTileBytes : kMergeBytes;
+
+  // the ring: tile n in stage n % kStages, K rows then V rows (position
+  // major, a position's HPB heads side by side, as in the cache); the
+  // int8 scales of a stage (K then V, HPB a position); K6's row offsets
+  // (rows.at) of the positions of tile n, in slot n % kStages until tile
+  // n is issued
+  __shared__ __align__(16) unsigned char ring[kRingBytes];
+  __shared__ __align__(16) float sc[kInt8 ? kStages * 2 * TP * HPB : 1];
+  __shared__ long long offs[Rows::kPaged ? kStages * TP : 1];
+
+  const int kvh0 = blockIdx.x * HPB, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  const int head = warp / WPH, ws = warp % WPH;  // this warp's head
   const int H = KVH * G;
+  // this lane's slice of each query head, pre-scaled (exp2 domain),
+  // loaded first: it does not wait for lengths[b]
+  const int part = lane % LPR, slot = lane / LPR;
+  float qv[G][E];
+  const T* qb = q + ((long long)b * H + (kvh0 + head) * G) * D;
+  const float qscale = scale * kLog2e;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      qv[g][e] = to_f(qb[g * D + part * E + e]) * qscale;
+
   // caches and scales are written below and read back: no __restrict__,
   // no read-only loads on them
-  C* kb = k_cache + kvh * D;
-  C* vb = v_cache + kvh * D;
-  const int len = min(max(lengths[b], 0), S_max);
-  // the first live position: the window's, or 0
-  const int lo = window > 0 ? max(len - window, 0) : 0;
+  C* kb = k_cache + kvh0 * D;
+  C* vb = v_cache + kvh0 * D;
+  // the live positions [start, end): the window's, or all
+  const int end = min(max(lengths[b], 0), S_max);
+  const int start = window > 0 ? max(end - window, 0) : 0;
+  const int nt = (end - start + TP - 1) / TP;
 
   if (new_k != nullptr) {
     const int w = min(max(lengths[b] - 1, 0), S_max - 1);
     const long long wo = rows.at(b, w);
-    const T* nk = new_k + ((long long)b * KVH + kvh) * D;
-    const T* nv = new_v + ((long long)b * KVH + kvh) * D;
+    const T* nk = new_k + ((long long)b * KVH + kvh0) * D;
+    const T* nv = new_v + ((long long)b * KVH + kvh0) * D;
     if constexpr (kInt8) {
-      // warp 0 quantizes the K row, warp 1 the V row
-      if (warp < 2) {
-        const T* src = warp == 0 ? nk : nv;
-        C* dst = (warp == 0 ? kb : vb) + wo;
+      // 2 * HPB rows (K and V of each head), one a warp at a time
+      constexpr int DPL = D / 32;
+      for (int t = warp; t < 2 * HPB; t += kTileWarps) {
+        const int h = t / 2;
+        const T* src = (t % 2 == 0 ? nk : nv) + h * D;
+        C* dst = (t % 2 == 0 ? kb : vb) + wo + h * D;
         float x[DPL], amax = 0.f;
 #pragma unroll
         for (int j = 0; j < DPL; ++j) {
@@ -140,113 +306,233 @@ decode_kernel(const T* __restrict__ q, C* k_cache, C* v_cache, float* k_scale,
         const float safe = s == 0.f ? 1.f : s;
 #pragma unroll
         for (int j = 0; j < DPL; ++j) dst[lane * DPL + j] = quant_i8(x[j], safe);
-        if (lane == 0) (warp == 0 ? k_scale : v_scale)[srows.at(b, w) + kvh] = safe;
+        if (lane == 0)
+          (t % 2 == 0 ? k_scale : v_scale)[(unsigned long long)wo / D + kvh0 +
+                                           h] = safe;
       }
     } else {
-      for (int d = tid; d < D; d += kDecThreads) {
+      for (int d = tid; d < HPB * D; d += kTileThreads) {
         kb[wo + d] = nk[d];
         vb[wo + d] = nv[d];
       }
     }
-    // the block's global writes are visible to all its threads after this
+    // the block's global writes are visible to all its threads (and their
+    // cp.async reads) after this
     __syncthreads();
   }
 
-  // this lane's slice of each query head, pre-scaled
-  float qv[G][DPL];
-  const T* qb = q + ((long long)b * H + kvh * G) * D + lane * DPL;
+  // Loads of tile n: thread tid copies chunk tid % CPP of positions
+  // tid / CPP + i * PASS of K and of V; thread tid < 2 * TP the HPB
+  // k-scales (tid < TP) or v-scales of position tid % TP.  K2 computes a
+  // position's offset; K6 finds it in `offs`, where one thread per
+  // position put it after its one table read.
+  const int r0 = tid / CPP, cpart = tid % CPP;
+  auto issue = [&](int n) {
+    const int t0 = start + n * TP;
+    unsigned char* st = ring + (n % kStages) * kTileBytes;
+    const long long* of = offs + (n % kStages) * TP;
+    auto row_at = [&](int r) {
+      return Rows::kPaged ? of[r] : rows.at(b, t0 + r);
+    };
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    load_floats<T, DPL>(qb + g * D, qv[g]);
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) qv[g][j] *= scale;
-  }
+    for (int i = 0; i < TP / PASS; ++i) {
+      const int r = r0 + i * PASS;
+      if (t0 + r < end) {
+        const long long off = row_at(r) + cpart * (16 / ES);
+        cp_async16(st + r * PB + cpart * 16, kb + off);
+        cp_async16(st + (TP + r) * PB + cpart * 16, vb + off);
+      }
+    }
+    if constexpr (kInt8) {
+      const int r = tid % TP;
+      if (tid < 2 * TP && t0 + r < end) {
+        const float* src = (tid < TP ? k_scale : v_scale) +
+                           (unsigned long long)row_at(r) / D + kvh0;
+        cp_async_bytes<4 * HPB>(sc + ((n % kStages) * 2 * TP + tid) * HPB,
+                                src);
+      }
+    }
+  };
 
-  float m[G], l[G], acc[G][DPL];
+  float m[G], l[G], acc[G][E];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[g][j] = 0.f;
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
-  for (int t0 = lo + warp * U; t0 < len; t0 += kDecWarps * U) {
-    float kr[U][DPL], vr[U][DPL], ksc[U], vsc[U];
+  // K6: the row offsets of tiles 0 .. kStages - 1 (table reads in
+  // parallel, the only ones on the block's critical path); then fill the
+  // ring with tiles 0 .. kStages - 2.
+  // K6's thread tid < TP then walks its position of tiles kStages,
+  // kStages + 1, ... with a cursor (no division by the page size per tile)
+  typename Rows::Cursor cur{};
+  if constexpr (Rows::kPaged) {
+    if (tid < TP) {
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (t0 + u < len) {
-        const long long off = rows.at(b, t0 + u) + lane * DPL;
-        load_floats<C, DPL>(kb + off, kr[u]);
-        load_floats<C, DPL>(vb + off, vr[u]);
-        if constexpr (kInt8) {
-          const long long so = srows.at(b, t0 + u) + kvh;
-          ksc[u] = k_scale[so];
-          vsc[u] = v_scale[so];
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) kr[u][j] = vr[u][j] = 0.f;
-        ksc[u] = vsc[u] = 0.f;
+      for (int n = 0; n < kStages; ++n) {
+        const int pos = start + n * TP + tid;
+        if (pos < end) offs[n * TP + tid] = rows.at(b, pos);
       }
     }
+    cur = rows.cursor(start + kStages * TP + tid, TP);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int n = 0; n < kStages - 1; ++n) {
+    if (n < nt) issue(n);
+    cp_async_commit();
+  }
+
+  for (int n = 0; n < nt; ++n) {
+    cp_async_wait<kStages - 2>();  // tile n has landed (this thread's part)
+    __syncthreads();               // ... everyone's; stage n - 1 is free
+    if (n + kStages - 1 < nt) issue(n + kStages - 1);
+    cp_async_commit();
+    // K6: the row offsets of tile n + kStages go into tile n's slot (its
+    // rows are issued); the table read waits behind this tile's scoring
+    const int fpos = start + (n + kStages) * TP + tid;
+    const bool fetch = Rows::kPaged && tid < TP && fpos < end;
+    int key = 0;
+    if constexpr (Rows::kPaged) {
+      if (fetch) key = rows.key_at(b, cur);
+    }
+
+    const unsigned char* st = ring + (n % kStages) * kTileBytes + head * RB;
+    const float* scs = sc + (n % kStages) * 2 * TP * HPB + head;
+    const int t0 = start + n * TP;
+#pragma unroll
+    for (int u0 = 0; u0 < U; u0 += UG) {
+      float s[G][UG];
+      bool valid[UG];
+#pragma unroll
+      for (int u = 0; u < UG; ++u) {
+        const int r = (ws * U + u0 + u) * SLOTS + slot;
+        valid[u] = t0 + r < end;
+        float kf[E];
+        lds_slice<C, E>(st + r * PB, part, kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {  // four partial sums: short chains
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int e = 0; e < E; ++e) d[e % 4] = fmaf(qv[g][e], kf[e], d[e % 4]);
+          s[g][u] = (d[0] + d[1]) + (d[2] + d[3]);
+        }
+      }
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int u = 0; u < UG; ++u)
+            s[g][u] += __shfl_xor_sync(0xffffffffu, s[g][u], off);
+
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mx = m[g];
+#pragma unroll
+        for (int u = 0; u < UG; ++u) {
+          float x = s[g][u];
+          if constexpr (kInt8)
+            x *= scs[((ws * U + u0 + u) * SLOTS + slot) * HPB];
+          s[g][u] = valid[u] ? x : kNegInf;
+          mx = fmaxf(mx, s[g][u]);
+        }
+        // rescale only when the maximum grows: otherwise the factor is
+        // exp2(0) = 1 exactly, so skipping it changes no bit
+        if (mx > m[g]) {
+          const float corr = exp2f(m[g] - mx);
+          l[g] *= corr;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] *= corr;
+          m[g] = mx;
+        }
+        float psum = 0.f;
+#pragma unroll
+        for (int u = 0; u < UG; ++u) {
+          s[g][u] = valid[u] ? exp2f(s[g][u] - mx) : 0.f;
+          psum += s[g][u];
+        }
+        l[g] += psum;
+      }
+#pragma unroll
+      for (int u = 0; u < UG; ++u) {
+        if (valid[u]) {  // a row past the run holds stale or no data
+          const int r = (ws * U + u0 + u) * SLOTS + slot;
+          float vf[E];
+          lds_slice<C, E>(st + (TP + r) * PB, part, vf);
+          float vsc = 1.f;
+          if constexpr (kInt8) vsc = scs[(TP + r) * HPB];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float pv = kInt8 ? s[g][u] * vsc : s[g][u];
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pv, vf[e], acc[g][e]);
+          }
+        }
+      }
+    }
+    if constexpr (Rows::kPaged) {
+      if (fetch) offs[(n % kStages) * TP + tid] = rows.at_cursor(key, cur);
+      rows.advance(cur);
+    }
+  }
+
+  // merge the lane groups of each warp (lanes part, part + LPR, ...)
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float s[U];
-      float mx = m[g];
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mx = fmaxf(m[g], mo);
+      const float ca = exp2f(m[g] - mx), cb = exp2f(mo - mx);
+      l[g] = l[g] * ca + lo_ * cb;
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) part = fmaf(qv[g][j], kr[u][j], part);
-        float sc = warp_sum(part);
-        if constexpr (kInt8) sc *= ksc[u];
-        s[u] = t0 + u < len ? sc : kNegInf;
-        mx = fmaxf(mx, s[u]);
+      for (int e = 0; e < E; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+        acc[g][e] = acc[g][e] * ca + ao * cb;
       }
-      const float corr = expf(m[g] - mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[g][j] *= corr;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float p = t0 + u < len ? expf(s[u] - mx) : 0.f;
-        psum += p;
-        float pv = p;
-        if constexpr (kInt8) pv *= vsc[u];
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) acc[g][j] = fmaf(pv, vr[u][j], acc[g][j]);
-      }
-      l[g] = l[g] * corr + psum;
       m[g] = mx;
     }
   }
 
-  // merge the warps' softmax states
-  __shared__ float sm_m[kDecWarps][G], sm_l[kDecWarps][G];
-  __shared__ float sm_acc[kDecWarps][G][D];
+  // each warp's state into the ring (every tile is consumed), then each
+  // head's WPH states merge in warp order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* st_acc = reinterpret_cast<float*>(ring);  // [warp][G][D]
+  float* st_ml = st_acc + kTileWarps * G * D;     // [warp][G][m, l]
+  if (slot == 0) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        st_acc[(warp * G + g) * D + part * E + e] = acc[g][e];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      st_ml[(warp * G + g) * 2] = m[g];
+      st_ml[(warp * G + g) * 2 + 1] = l[g];
     }
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) sm_acc[warp][g][lane * DPL + j] = acc[g][j];
   }
   __syncthreads();
-  T* ob = out + ((long long)b * H + kvh * G) * D;
-  for (int i = tid; i < G * D; i += kDecThreads) {
-    const int g = i / D, d = i % D;
+  T* ob = out + ((long long)b * H + kvh0 * G) * D;
+  for (int i = tid; i < HPB * G * D; i += kTileThreads) {
+    const int h = i / (G * D), g = i / D % G, d = i % D;
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    for (int w = h * WPH; w < (h + 1) * WPH; ++w)
+      mx = fmaxf(mx, st_ml[(w * G + g) * 2]);
     float lsum = 0.f, o = 0.f;
 #pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) {
-      const float c = expf(sm_m[w][g] - mx);
-      lsum = fmaf(sm_l[w][g], c, lsum);
-      o = fmaf(sm_acc[w][g][d], c, o);
+    for (int w = h * WPH; w < (h + 1) * WPH; ++w) {
+      const float c = exp2f(st_ml[(w * G + g) * 2] - mx);
+      lsum = fmaf(st_ml[(w * G + g) * 2 + 1], c, lsum);
+      o = fmaf(st_acc[(w * G + g) * D + d], c, o);
     }
     ob[i] = from_f<T>(o / (lsum == 0.f ? 1.f : lsum));
   }
@@ -410,22 +696,25 @@ decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
   }
 }
 
+// decode_kernel over grid (KVH / hpb, B); hpb 2 only for G = 1
 template <typename T, typename C, int HD, typename Rows>
 int launch_decode(const void* q, void* k, void* v, void* ks, void* vs,
                   const void* lengths, const void* new_k, const void* new_v,
                   void* out, int B, int H, int KVH, int S_max, int window,
-                  Rows rows, Rows srows, float scale, cudaStream_t stream) {
-  const dim3 grid(KVH, B);
-#define DSTT_DECODE_G(GG)                                                      \
-  decode_kernel<T, C, HD, GG, Rows><<<grid, kDecThreads, 0, stream>>>(        \
+                  int hpb, Rows rows, float scale, cudaStream_t stream) {
+  const dim3 grid(KVH / hpb, B);
+#define DSTT_DECODE_G(GG, HH)                                                  \
+  decode_kernel<T, C, HD, GG, HH, Rows><<<grid, kTileThreads, 0, stream>>>(    \
       (const T*)q, (C*)k, (C*)v, (float*)ks, (float*)vs, (const int*)lengths,  \
       (const T*)new_k, (const T*)new_v, (T*)out, KVH, S_max, window, rows,     \
-      srows, scale)
-  switch (H / KVH) {
-    case 1: DSTT_DECODE_G(1); break;
-    case 2: DSTT_DECODE_G(2); break;
-    case 4: DSTT_DECODE_G(4); break;
-    case 8: DSTT_DECODE_G(8); break;
+      scale);                                                                  \
+  break
+  switch (H / KVH * 8 + hpb) {
+    case 8 + 1: DSTT_DECODE_G(1, 1);
+    case 8 + 2: DSTT_DECODE_G(1, 2);
+    case 16 + 1: DSTT_DECODE_G(2, 1);
+    case 32 + 1: DSTT_DECODE_G(4, 1);
+    case 64 + 1: DSTT_DECODE_G(8, 1);
     default: return cudaErrorInvalidValue;
   }
 #undef DSTT_DECODE_G
@@ -463,31 +752,32 @@ int launch_decode_i8mm(const void* q, const void* k, const void* v,
 // (both null for a float cache); lengths [B] int32 on the device, counting
 // this step's token; new_k / new_v [B, KVH, D] contiguous in q's dtype, or
 // both null for the unfused call; window the sliding window's positions,
-// <= 0 for none.  G = H / KVH must be 1, 2, 4 or 8.  Returns
-// cudaGetLastError().
+// <= 0 for none; hpb the kv heads of one block (1, or 2 dividing KVH at G
+// = 1; int8 scales then aligned to 8 bytes).  G = H / KVH must be 1, 2, 4
+// or 8.  Returns the launch's error, or cudaGetLastError().
 extern "C" int dstt_decode_attention(const void* q, void* k_cache,
                                      void* v_cache, void* k_scale,
                                      void* v_scale, const void* lengths,
                                      const void* new_k, const void* new_v,
                                      void* out, int dtype, int B, int H,
                                      int KVH, int D, int S_max, int window,
-                                     float scale, void* stream) {
+                                     int hpb, float scale, void* stream) {
   if (KVH <= 0 || H % KVH != 0 || S_max <= 0) return cudaErrorInvalidValue;
+  if (hpb < 1 || KVH % hpb != 0) return cudaErrorInvalidValue;
   if ((new_k == nullptr) != (new_v == nullptr)) return cudaErrorInvalidValue;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const dstt::StridedRows rows{(long long)S_max * KVH * D, (long long)KVH * D};
-  const dstt::StridedRows srows{(long long)S_max * KVH, (long long)KVH};
 #define DSTT_DECODE_LAUNCH(T, HD)                                              \
   {                                                                            \
     const int e = k_scale != nullptr                                           \
         ? dstt::launch_decode<T, int8_t, HD>(                                  \
               q, k_cache, v_cache, k_scale, v_scale, lengths, new_k, new_v,    \
-              out, B, H, KVH, S_max, window, rows, srows, scale,               \
+              out, B, H, KVH, S_max, window, hpb, rows, scale,         \
               (cudaStream_t)stream)                                            \
         : dstt::launch_decode<T, T, HD>(                                       \
               q, k_cache, v_cache, k_scale, v_scale, lengths, new_k, new_v,    \
-              out, B, H, KVH, S_max, window, rows, srows, scale,               \
+              out, B, H, KVH, S_max, window, hpb, rows, scale,         \
               (cudaStream_t)stream);                                           \
     if (e != cudaSuccess) return e;                                            \
   }
@@ -500,38 +790,45 @@ extern "C" int dstt_decode_attention(const void* q, void* k_cache,
 // [num_pages, page, KVH*D], 16-byte aligned, in q's dtype -- or int8 with
 // k_scale / v_scale that layer's fp32 [num_pages, page, KVH] (both null
 // for a float pool); pages [B, n_virt] int32 on the device (dead lanes
-// point at the trash page 0); lengths, new_k / new_v, q, out and window as
-// for dstt_decode_attention.  page is any positive size.  Returns
+// point at the trash page 0); lengths, new_k / new_v, q, out, window and
+// hpb as for dstt_decode_attention.  page is any positive size.  Returns the launch's error, or
 // cudaGetLastError().
 extern "C" int dstt_paged_decode_attention(
     const void* q, void* k_pool, void* v_pool, void* k_scale, void* v_scale,
     const void* lengths, const void* pages, const void* new_k,
     const void* new_v, void* out, int dtype, int B, int H, int KVH, int D,
-    int page, int n_virt, int window, float scale, void* stream) {
+    int page, int n_virt, int window, int hpb, float scale, void* stream) {
   if (KVH <= 0 || H % KVH != 0 || page <= 0 || n_virt <= 0)
     return cudaErrorInvalidValue;
+  if (hpb < 1 || KVH % hpb != 0) return cudaErrorInvalidValue;
   if ((new_k == nullptr) != (new_v == nullptr)) return cudaErrorInvalidValue;
   if ((k_scale == nullptr) != (v_scale == nullptr)) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const dstt::PagedRows rows{(const int*)pages, n_virt, page,
                              (long long)KVH * D};
-  const dstt::PagedRows srows{(const int*)pages, n_virt, page, (long long)KVH};
 #define DSTT_PAGED_DECODE_LAUNCH(T, HD)                                        \
   {                                                                            \
     const int e = k_scale != nullptr                                           \
         ? dstt::launch_decode<T, int8_t, HD>(                                  \
               q, k_pool, v_pool, k_scale, v_scale, lengths, new_k, new_v, out, \
-              B, H, KVH, page * n_virt, window, rows, srows, scale,            \
+              B, H, KVH, page * n_virt, window, hpb, rows, scale,      \
               (cudaStream_t)stream)                                            \
         : dstt::launch_decode<T, T, HD>(                                       \
               q, k_pool, v_pool, k_scale, v_scale, lengths, new_k, new_v, out, \
-              B, H, KVH, page * n_virt, window, rows, srows, scale,            \
+              B, H, KVH, page * n_virt, window, hpb, rows, scale,      \
               (cudaStream_t)stream);                                           \
     if (e != cudaSuccess) return e;                                            \
   }
   DSTT_DISPATCH(dtype, D, DSTT_PAGED_DECODE_LAUNCH);
 #undef DSTT_PAGED_DECODE_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Positions of one decode_kernel tile: the K and V rows of hpb kv heads
+// of D elements of cache_bytes each fill kTileBytes (for the card tests'
+// lengths at tile edges).
+extern "C" int dstt_decode_tile_positions(int cache_bytes, int D, int hpb) {
+  return dstt::kTileBytes / (2 * hpb * D * cache_bytes);
 }
 
 // K2's int8 x int8 mode: int8 caches and fp32 scales as for

@@ -34,7 +34,8 @@ P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 class KernelLibrary:
     """One CUDA source (plus the shared headers) compiled into one shared
     library.  ``signatures`` maps each exported C function to its
-    ``argtypes``; every function returns an ``int`` CUDA error code."""
+    ``argtypes``; every function returns an ``int``: a CUDA error code, or
+    a size for the queries (``*_smem``, ``dstt_decode_tile_positions``)."""
 
     def __init__(self, name, source, signatures):
         self.name = name
@@ -149,11 +150,14 @@ FLASH_BWD = KernelLibrary("flash_attention_bwd", "flash_attention_bwd.cu", {
 DECODE = KernelLibrary("decode_attention", "decode_attention.cu", {
     # q, k_cache, v_cache, k_scale, v_scale (null: float cache), lengths,
     # new_k, new_v, out, dtype, B, H, KVH, D, S_max, window (0: none),
-    # scale, stream
-    "dstt_decode_attention": [P] * 9 + [I] * 7 + [F, P],
+    # hpb (kv heads a block), scale, stream
+    "dstt_decode_attention": [P] * 9 + [I] * 8 + [F, P],
     # K6: q, k_pool, v_pool, k_scale, v_scale, lengths, pages, new_k,
-    # new_v, out, dtype, B, H, KVH, D, page, n_virt, window, scale, stream
-    "dstt_paged_decode_attention": [P] * 10 + [I] * 8 + [F, P],
+    # new_v, out, dtype, B, H, KVH, D, page, n_virt, window, hpb, scale,
+    # stream
+    "dstt_paged_decode_attention": [P] * 10 + [I] * 9 + [F, P],
+    # cache_bytes, D, hpb -> positions of one decode_kernel tile
+    "dstt_decode_tile_positions": [I] * 3,
     # int8 x int8: q, k_cache, v_cache, k_scale, v_scale, lengths, out,
     # dtype, B, H, KVH, D, S_max, block_k, window, scale, stream
     "dstt_decode_attention_i8mm": [P] * 7 + [I] * 8 + [F, P],

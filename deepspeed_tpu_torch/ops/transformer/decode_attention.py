@@ -30,6 +30,13 @@ S_max, KVH]``, one per (position, kv head), stacked the same way.
   kernel (float caches by TMA, int8 payloads converted into the same
   tiles), so q (and a 16-bit cache) must meet TMA's 16-byte rules.
 
+K2's kernel walks a row's live positions in tiles held in a shared-memory
+ring; with one query head per kv head it serves 2 kv heads a block
+where the launch still fills the card.  :func:`heads_per_block` picks
+that on the host from shapes alone, so a launch reads nothing back from
+the device (and K6 over a pool gets the choice of K2 over its gathered
+view).
+
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors; it never falls back.  Launches are counted
 per mode: ``launches`` on float caches, ``int8_launches`` on int8-KV
@@ -38,6 +45,7 @@ windowed decode apart from a full one (``window_launches``,
 ``window_int8_launches``, ``window_i8mm_launches``).
 """
 
+import functools
 import math
 
 import torch
@@ -50,6 +58,11 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
 # the JAX decode kernel's KV block (its DSTPU_DECODE_BLOCK_K default): the
 # blocks in which the int8×int8 mode quantizes P
 DEFAULT_BLOCK_K_DECODE = 512
+
+# K2 / K6 (ops/csrc/decode_attention.cu decode_kernel) run 4 blocks an
+# SM; a block serves 2 kv heads (G = 1 only) where the launch still has
+# that many blocks for every SM of the card
+DECODE_BLOCKS_PER_SM = 4
 
 
 def _layer_view(cache, layer):
@@ -349,6 +362,31 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def heads_per_block(B, KVH, G, sm_count, scale_align=8):
+    """The kv heads of one block of a K2 / K6 launch, 1 or 2: 2 where G is
+    1, KVH is even, the ``B * KVH / 2`` blocks still give every one of the
+    card's ``sm_count`` SMs ``DECODE_BLOCKS_PER_SM`` of them, and the int8
+    scales (if any) let one 8-byte copy take a position's two
+    (``scale_align``: their base address's alignment in bytes).  A
+    function of shapes the host knows, never of ``lengths``."""
+    return 2 if (G == 1 and KVH % 2 == 0 and scale_align % 8 == 0
+                 and B * KVH // 2 >= DECODE_BLOCKS_PER_SM * sm_count) else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_heads_per_block(q, KVH, scales=()):
+    """:func:`heads_per_block` of a K2 / K6 launch of ``q [B, H, D]`` on
+    q's card, over int8 ``scales`` (none for a float cache)."""
+    B, H, _ = q.shape
+    align = min((t.data_ptr() & -t.data_ptr() for t in scales), default=8)
+    return heads_per_block(B, KVH, H // KVH, _sm_count(q.device.index),
+                           align)
+
+
 def _launch_decode(q, kc, vc, ks, vs, lengths, scale, new_k, new_v,
                    window=None):
     B, H, D = q.shape
@@ -374,13 +412,15 @@ def _launch_decode(q, kc, vc, ks, vs, lengths, scale, new_k, new_v,
     if any(t.data_ptr() % 16 for t in [*tensors, *fresh]):
         raise ValueError("decode kernel needs 16-byte aligned tensors")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    hpb = launch_heads_per_block(q, KVH, () if ks is None else (ks, vs))
     out = torch.empty_like(q)
     lib = op_builder.DECODE.load()
     err = lib.dstt_decode_attention(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), _ptr(ks), _ptr(vs),
         lengths.data_ptr(), _ptr(new_k), _ptr(new_v), out.data_ptr(),
         op_builder.dtype_code(q.dtype), B, H, KVH, D, S_max, window or 0,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        hpb, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "decode attention kernel")
     return out
 

@@ -15,7 +15,9 @@ unmapped table entries point at the reserved trash page 0.
 
 * K6 (``ops/csrc/decode_attention.cu``, entry
   ``dstt_paged_decode_attention``) replaces ``paged_decode_attention``:
-  K2's body with the block table as its row map.  With ``new_k`` /
+  K2's body with the block table as its row map (its tiles and lane
+  schedule depend only on virtual positions, so it is bitwise K2 over
+  the gathered view).  With ``new_k`` /
   ``new_v`` it first writes this step's row IN PLACE through the table at
   virtual position ``max(lengths[b]-1, 0)``, quantized on an int8 pool.
   Its int8×int8 mode (entry ``dstt_paged_decode_attention_i8mm``, unfused)
@@ -52,7 +54,7 @@ from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.transformer.decode_attention import (
     _ptr, check_int8_cache, check_kernel_shapes, check_modes, check_window,
     chunk_prefill_attention_plain, count_launch, decode_attention_i8mm_plain,
-    decode_attention_plain, quantize_rows)
+    decode_attention_plain, launch_heads_per_block, quantize_rows)
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     _check_cuda, check_tma)
 
@@ -258,11 +260,13 @@ def _launch_paged_decode(q, kp, vp, ks, vs, lengths, pages, scale, new_k,
             kp.shape[1], table.shape[1], int(i8mm_block), window or 0,
             float(scale), stream)
     else:
+        hpb = launch_heads_per_block(q, KVH, () if ks is None else (ks, vs))
         err = lib.dstt_paged_decode_attention(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
             lengths.data_ptr(), table.data_ptr(), _ptr(new_k), _ptr(new_v),
             out.data_ptr(), op_builder.dtype_code(q.dtype), B, H, KVH, D,
-            kp.shape[1], table.shape[1], window or 0, float(scale), stream)
+            kp.shape[1], table.shape[1], window or 0, hpb, float(scale),
+            stream)
     op_builder.check(err, "paged decode attention kernel")
     return out
 

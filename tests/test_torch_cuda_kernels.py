@@ -29,6 +29,7 @@ rounding); written cache rows bitwise.
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.transformer import decode_attention as da
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
@@ -75,19 +76,62 @@ def test_flash_kernel_matches_plain(cuda, dtype, D, kvh, causal):
     _close(lse, want_lse, dtype)
 
 
+@pytest.fixture(params=["h100", "one_sm"])
+def card(request, cuda, monkeypatch):
+    """The launch choices of this card, or of a one-SM card: 2 kv heads a
+    block wherever KVH and G allow."""
+    if request.param == "one_sm":
+        monkeypatch.setattr(da, "_sm_count", lambda index: 1)
+    return request.param
+
+
+def _tile(B, KVH, D, cache_bytes, G=1):
+    """Positions of one tile of a K2 / K6 launch on this card (or the
+    `card` fixture's), from the kernel library."""
+    hpb = da.heads_per_block(B, KVH, G, da._sm_count(0))
+    return op_builder.DECODE.load().dstt_decode_tile_positions(
+        cache_bytes, D, hpb)
+
+
+def _decode_lengths(case, B, KVH, G, S_max, D, cache_bytes):
+    """Lengths of the decode kernel cases: "ragged" (0, 1, a tile of 64
+    and one past it, a full row), "edges" (0, 1 and one short of, on and
+    one past a tile and the 3-tile ring, a full row), "long" (one row of
+    4096 positions at B = 1)."""
+    if case == "ragged":
+        return [0, 1, 64, 65, 136][:B]
+    if case == "long":
+        return [S_max - 95]
+    tp = _tile(B, KVH, D, cache_bytes, G)
+    return [min(n, S_max) for n in [0, 1, tp - 1, tp, tp + 1, 2 * tp,
+                                     3 * tp - 1, 3 * tp, 3 * tp + 1,
+                                     S_max][:B]]
+
+
+DECODE_CASES = {"ragged": (5, 136), "edges": (10, 200), "long": (1, 4096)}
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("fused", [True, False])
-def test_decode_kernel_matches_plain(cuda, dtype, D, fused):
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_kernel_matches_plain(card, cuda, dtype, D, fused, case):
+    """K2 against its plain version at ragged lengths, at the tile and
+    ring edges (+-1) and on one long row at B = 1; the fused write
+    bitwise the plain write, zero-length rows 0,
+    and a second launch bitwise the first."""
     g = torch.Generator(device=cuda).manual_seed(D)
-    L, B, H, KVH, S_max, layer = 2, 5, 8, 2, 136, 1
+    B, S_max = DECODE_CASES[case]
+    L, H, KVH, layer = 2, 8, 2, 1
+    es = torch.tensor([], dtype=dtype).element_size()
+    lengths = torch.tensor(_decode_lengths(case, B, KVH, H // KVH, S_max, D,
+                                           es),
+                           dtype=torch.int32, device=cuda)
     kc = _randn(g, L, B, S_max, KVH * D, dtype=dtype, device=cuda)
     vc = _randn(g, L, B, S_max, KVH * D, dtype=dtype, device=cuda)
     q = _randn(g, B, H, D, dtype=dtype, device=cuda)
     nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
     nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
-    lengths = torch.tensor([0, 1, 64, 65, 136], dtype=torch.int32,
-                           device=cuda)
     kw = dict(new_k=nk, new_v=nv) if fused else {}
     k1, v1 = kc.clone(), vc.clone()
     got = da.decode_attention(q, k1, v1, lengths, layer=layer, **kw)
@@ -98,7 +142,11 @@ def test_decode_kernel_matches_plain(cuda, dtype, D, fused):
         assert ko is k1 and vo is v1
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
     _close(got, want, dtype)
-    assert torch.equal(got[0], torch.zeros_like(got[0]))   # empty row
+    empty = lengths == 0
+    assert not got[empty].any()                            # empty rows
+    k3, v3 = kc.clone(), vc.clone()
+    again = da.decode_attention(q, k3, v3, lengths, layer=layer, **kw)
+    assert torch.equal(again[0] if fused else again, got)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -565,24 +613,38 @@ def _paged_pool(g, dtype, device, D, KVH, page, n_virt, B, L=2):
     return kp, vp, pages.to(device)
 
 
+def _paged_lengths(B, KVH, G, page, n_virt, D, cache_bytes):
+    """K6 lengths: a dead lane (0), 1, a row two pages and 3 in, one short
+    of and one past a tile and the 3-tile ring, and a full row; ``B`` of
+    them."""
+    S_max = page * n_virt
+    tp = _tile(B, KVH, D, cache_bytes, G)
+    ls = [0, 1, 2 * page + 3, tp - 1, tp + 1, 3 * tp - 1, 3 * tp + 1, S_max]
+    return [min(n, S_max) for n in (ls + [tp] * B)[:B]]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
-@pytest.mark.parametrize("page", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("page", [5, 8, 13, 16, 24, 64, 128])
 @pytest.mark.parametrize("fused", [True, False])
-def test_paged_decode_kernel_matches_plain_and_k2(cuda, dtype, D, G, page,
-                                                  fused):
+def test_paged_decode_kernel_matches_plain_and_k2(card, cuda, dtype, D, G,
+                                                  page, fused):
     """K6 against its plain version, and bitwise against K2 over the
-    gathered view pool[pages] (same schedule, other addresses); the fused
-    write lands bitwise where the plain write puts it."""
+    gathered view pool[pages] (same schedule, other addresses), at pages
+    that are and are not a multiple of 8 and lengths at the tile and
+    ring edges; the fused write lands bitwise where the plain write
+    puts it, and a second launch is bitwise the first."""
     g = torch.Generator(device=cuda).manual_seed(D + G + page)
-    H, B, n_virt, layer = 8, 4, 3, 1
+    H, B, layer = 8, 8, 1
+    n_virt = max(3, -(-256 // page))
     KVH = H // G
     kp, vp, pages = _paged_pool(g, dtype, cuda, D, KVH, page, n_virt, B)
     q = _randn(g, B, H, D, dtype=dtype, device=cuda)
     nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
     nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
-    lengths = torch.tensor([0, 1, 2 * page + 3, n_virt * page],
+    es = torch.tensor([], dtype=dtype).element_size()
+    lengths = torch.tensor(_paged_lengths(B, KVH, G, page, n_virt, D, es),
                            dtype=torch.int32, device=cuda)
     kw = dict(new_k=nk, new_v=nv) if fused else {}
     k1, v1 = kp.clone(), vp.clone()
@@ -593,6 +655,9 @@ def test_paged_decode_kernel_matches_plain_and_k2(cuda, dtype, D, G, page,
     if fused:
         got, ko, vo = got
         assert ko is k1 and vo is v1
+    again = pa.paged_decode_attention(q, kp.clone(), vp.clone(), lengths,
+                                      pages, layer=layer, **kw)
+    assert torch.equal(again[0] if fused else again, got)
     k2, v2 = kp.clone(), vp.clone()
     want = pa.paged_decode_attention_plain(q, k2[layer], v2[layer], lengths,
                                            pages, **kw)
@@ -895,20 +960,26 @@ def _rel_close(got, want, rel):
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("fused", [True, False])
-def test_decode_int8_kernel_matches_plain(cuda, dtype, D, G, fused):
-    """K2 on an int8-KV cache against its plain version; the fused write
-    quantizes the fresh row bitwise as the plain write does (an all-zero
-    row stores payload 0 and scale 1.0)."""
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_int8_kernel_matches_plain(card, cuda, dtype, D, G, fused,
+                                          case):
+    """K2 on an int8-KV cache against its plain version at ragged lengths,
+    at the tile and ring edges and on one long row at B = 1; the
+    fused write quantizes the fresh row bitwise as the plain write does
+    (an all-zero row stores payload 0 and scale 1.0); a second launch is
+    bitwise the first."""
     g = torch.Generator(device=cuda).manual_seed(3 * D + G)
-    L, B, H, S_max, layer = 2, 5, 8, 136, 1
+    B, S_max = DECODE_CASES[case]
+    L, H, layer = 2, 8, 1
     KVH = H // G
     kc, vc, ks, vs = _int8_pair(g, cuda, L, B, S_max, KVH=KVH, D=D)
     q = _randn(g, B, H, D, dtype=dtype, device=cuda)
     nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
     nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
-    nk[2] = 0
-    lengths = torch.tensor([0, 1, 64, 65, 136], dtype=torch.int32,
-                           device=cuda)
+    zero = min(2, B - 1)                 # its fresh k row is all zero
+    nk[zero] = 0
+    lengths = torch.tensor(_decode_lengths(case, B, KVH, G, S_max, D, 1),
+                           dtype=torch.int32, device=cuda)
     kw = dict(new_k=nk, new_v=nv) if fused else {}
     a = _clones(kc, vc, ks, vs)
     before = da.decode_attention.int8_launches
@@ -925,10 +996,15 @@ def test_decode_int8_kernel_matches_plain(cuda, dtype, D, G, fused):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     if fused:
-        assert float(a[2][layer, 2, 63].min()) == 1.0
-        assert not a[0][layer, 2, 63].any()
+        w = max(int(lengths[zero]) - 1, 0)
+        assert float(a[2][layer, zero, w].min()) == 1.0
+        assert not a[0][layer, zero, w].any()
     _close(got, want, dtype)
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert not got[lengths == 0].any()
+    c = _clones(kc, vc, ks, vs)
+    again = da.decode_attention(q, c[0], c[1], lengths, layer=layer,
+                                k_scale=c[2], v_scale=c[3], **kw)
+    assert torch.equal(again[0] if fused else again, got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -993,21 +1069,23 @@ def _int8_pool(g, device, D, KVH, page, n_virt, B, L=2):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("page", [16, 24, 64])
+@pytest.mark.parametrize("page", [5, 16, 24, 64])
 @pytest.mark.parametrize("fused", [True, False])
-def test_paged_decode_int8_kernel_matches_plain_and_k2(cuda, dtype, D, G,
-                                                       page, fused):
+def test_paged_decode_int8_kernel_matches_plain_and_k2(card, cuda, dtype, D,
+                                                       G, page, fused):
     """K6 on an int8 pool against its plain version, and bitwise against
-    K2 on the gathered int8 view; the fused write puts payload and scale
-    bitwise where the plain write does."""
+    K2 on the gathered int8 view, at lengths on the tile and ring
+    edges; the fused write puts payload and scale bitwise where the plain
+    write does; a second launch is bitwise the first."""
     g = torch.Generator(device=cuda).manual_seed(11 * D + G + page)
-    H, B, n_virt, layer = 8, 4, 3, 1
+    H, B, layer = 8, 8, 1
+    n_virt = max(3, -(-256 // page))
     KVH = H // G
     kp, vp, ks, vs, pages = _int8_pool(g, cuda, D, KVH, page, n_virt, B)
     q = _randn(g, B, H, D, dtype=dtype, device=cuda)
     nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
     nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
-    lengths = torch.tensor([0, 1, 2 * page + 3, n_virt * page],
+    lengths = torch.tensor(_paged_lengths(B, KVH, G, page, n_virt, D, 1),
                            dtype=torch.int32, device=cuda)
     kw = dict(new_k=nk, new_v=nv) if fused else {}
     gathered = [pa.gather_pages(t[layer], pages) for t in (kp, vp, ks, vs)]
@@ -1019,6 +1097,11 @@ def test_paged_decode_int8_kernel_matches_plain_and_k2(cuda, dtype, D, G,
     assert pa.paged_decode_attention.int8_launches == before + 1
     if fused:
         got = got[0]
+    c = _clones(kp, vp, ks, vs)
+    again = pa.paged_decode_attention(q, c[0], c[1], lengths, pages,
+                                      layer=layer, k_scale=c[2],
+                                      v_scale=c[3], **kw)
+    assert torch.equal(again[0] if fused else again, got)
     b = _clones(kp, vp, ks, vs)
     want = pa.paged_decode_attention_plain(q, b[0][layer], b[1][layer],
                                            lengths, pages, k_scale=b[2][layer],
@@ -1206,19 +1289,30 @@ def _window_counter(mode):
             "i8mm": "window_i8mm_launches"}[mode.split("_")[0]]
 
 
+def _window_lengths(window, S_max, tp):
+    """Lengths below, at and past a window, with ``length - window`` one
+    short of, on and one past a tile of ``tp`` positions, a zero-length
+    row and a full row."""
+    ls = [0, 1, window - 1, window, window + 1, window + tp - 1,
+          window + tp, window + tp + 1, 97, S_max]
+    return [min(n, S_max) for n in ls]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("mode", WINDOW_MODES)
-@pytest.mark.parametrize("window", [8, 40])
-def test_decode_window_kernel_matches_plain(cuda, dtype, D, G, mode,
+@pytest.mark.parametrize("window", [8, 40, 100])
+def test_decode_window_kernel_matches_plain(card, cuda, dtype, D, G, mode,
                                             window):
     """K2-window against its plain version in every mode, with lengths
-    below, at and past the window and a zero-length row; a fused write
-    lands bitwise where the plain write puts it; only the window counter
-    of the mode moves."""
+    below, at and past the window, the window's start on a tile edge, a
+    zero-length row and (window 100) a window of several tiles; a
+    fused write lands bitwise where the plain write puts it; only the
+    window counter of the mode moves; a second launch is bitwise the
+    first."""
     g = torch.Generator(device=cuda).manual_seed(17 * D + G + window)
-    L, B, H, S_max, layer = 2, 6, 8, 136, 1
+    L, B, H, S_max, layer = 2, 10, 8, 136, 1
     KVH = H // G
     int8 = mode != "float" and mode != "float_fused"
     if int8:
@@ -1231,7 +1325,9 @@ def test_decode_window_kernel_matches_plain(cuda, dtype, D, G, mode,
     q = _randn(g, B, H, D, dtype=dtype, device=cuda)
     nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
     nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
-    lengths = torch.tensor([0, 1, window, window + 1, 97, 136],
+    es = 1 if int8 else torch.tensor([], dtype=dtype).element_size()
+    tp = _tile(B, KVH, D, es, G)
+    lengths = torch.tensor(_window_lengths(window, S_max, tp),
                            dtype=torch.int32, device=cuda)
     kw = dict(new_k=nk, new_v=nv) if mode.endswith("fused") else {}
     if mode == "i8mm":
@@ -1263,21 +1359,29 @@ def test_decode_window_kernel_matches_plain(cuda, dtype, D, G, mode,
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
+    c = _clones(*bufs)
+    sc = dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
+    again = da.decode_attention(q, c[0], c[1], lengths, layer=layer,
+                                window=window, **sc, **kw)
+    assert torch.equal(again[0] if "new_k" in kw else again, got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("page", [13, 16, 64])
 @pytest.mark.parametrize("mode", WINDOW_MODES)
-def test_paged_decode_window_kernel_is_k2_over_gathered_view(cuda, dtype, D,
-                                                             G, page, mode):
+def test_paged_decode_window_kernel_is_k2_over_gathered_view(card, cuda,
+                                                             dtype, D, G,
+                                                             page, mode):
     """K6-window (and K6-i8mm-window, in the gathered view's KV blocks of
     min(512, virtual positions)) against its plain version, and bitwise
-    against K2-window over the gathered view; a dead lane on the trash
-    page gives 0."""
+    against K2-window over the gathered view, at lengths below and at the
+    window and with ``length - window`` on a page edge (pages of 13 rows
+    too); a dead lane on the trash page gives 0."""
     g = torch.Generator(device=cuda).manual_seed(19 * D + G + page)
-    H, B, n_virt, layer, window = 8, 5, 4, 1, 40
+    H, B, layer, window = 8, 8, 1, 40
+    n_virt = max(4, -(-(window + 2 * page) // page))
     KVH = H // G
     int8 = mode != "float" and mode != "float_fused"
     if int8:
@@ -1289,7 +1393,8 @@ def test_paged_decode_window_kernel_is_k2_over_gathered_view(cuda, dtype, D,
     q = _randn(g, B, H, D, dtype=dtype, device=cuda)
     nk = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
     nv = _randn(g, B, KVH, D, dtype=dtype, device=cuda)
-    lengths = torch.tensor([0, 1, window, 2 * page + 3, n_virt * page],
+    lengths = torch.tensor([0, 1, window - 1, window, window + page,
+                            window + page + 1, 2 * page + 3, n_virt * page],
                            dtype=torch.int32, device=cuda)
     kw = dict(new_k=nk, new_v=nv) if mode.endswith("fused") else {}
     if mode == "i8mm":

@@ -112,10 +112,12 @@ holds 0 (``NAN_TAIL``).
 
 K2 / K6 in every float and int8-KV mode, window or not, run one
 template (``decode_kernel``: a ring of cp.async tiles in shared memory,
-one block per batch row and one or two kv heads); their rows are timed
-per wrapper call (every kernel one call launches, over the calls), and a
-``ptxas_decode`` line gives registers, spills and shared memory of every
-instantiation.
+one block per batch row and one or two kv heads), and their int8 x int8
+modes another (``decode_i8mm_kernel``: the same ring, taking a KV block's
+K tiles, then its V tiles); their rows are timed per wrapper call (the
+one kernel a call launches, over the calls), and a ``ptxas_decode`` line
+gives registers, spills and shared memory of every instantiation of
+both.
 
 The profiled runs (``profile`` lines) are held to the launch counters:
 a trace must record as many of the port's kernels as the wrappers counted
@@ -249,6 +251,9 @@ INT8_LIBRARY_NOTE = ("F.scaled_dot_product_attention over the int8 cache "
 # exact on both sides, but one exp ulp can flip one rounding of P, which
 # moves that row by about rmax * |v|: max|err| <= 1e-2 * max|want|
 I8MM_REL = 1e-2
+# the KV block at which ptxas_decode gives decode_i8mm_kernel's dynamic
+# shared memory (its per-block arrays grow with block_k; 512 is the most)
+I8MM_SMEM_BLOCK = 512
 # the training path (c): OPT-1.3B at seq 2048, micro batch 2, and the
 # shapes its attention kernels (K1 with LSE, K4, K5) see in every layer
 RUN_C = dict(micro=2, seq=2048, loss_chunks=8, warmup=2, steps=5, seed=6,
@@ -323,16 +328,17 @@ def time_all(tag, kernel_name, kernel_fn, plain_fn, library_fn, iters):
     kernel's wall time per call with the wrapper (``call_ms``, CUDA events
     around back-to-back calls: where it exceeds ``kernel_ms`` the host
     cannot keep the card fed).  ``kernel_ms`` is the time per launch of
-    the kernels named like ``kernel_name``, or with None (K2 / K6) the
-    time per wrapper call: every call launches one ``decode_kernel`` and
-    nothing else, checked on the trace, so the mean of its launches is
-    the time of a call, whatever records the profiler drops."""
+    the kernels named like ``kernel_name``; for K2 / K6 (None:
+    ``decode_kernel``, or ``decode_i8mm_kernel``) the time per wrapper
+    call: every call launches that one kernel and nothing else, checked
+    on the trace, so the mean of its launches is the time of a call,
+    whatever records the profiler drops."""
     from deepspeed_tpu_torch.profiling.trace import device_ms_per_call
     trace = os.path.join(ROOT, "build", "profiles", f"chip_smoke_{tag}.json")
     return {
         "kernel_ms": device_ms_per_call(
             kernel_fn, iters, trace, name=kernel_name or "decode_kernel",
-            alone=kernel_name is None),
+            alone=kernel_name in (None, "decode_i8mm_kernel")),
         "call_ms": cuda_time(kernel_fn, iters),
         "plain_ms": device_ms_per_call(plain_fn, max(iters // 10, 2), trace),
         "library_ms": device_ms_per_call(library_fn, iters, trace),
@@ -1483,18 +1489,26 @@ def fwd_kernel_of(mangled, smem_of):
 def decode_kernel_of(mangled, smem_of):
     """(label, dynamic shared memory) of a K2 / K6 ``decode_kernel``
     instantiation (element type, cache type, head dim, query heads per kv
-    head, kv heads per block, row map), or None."""
+    head, kv heads per block, row map; all its shared memory is static)
+    or ``decode_i8mm_kernel`` instantiation (element type, head dim, G,
+    HPB, row map; ``smem_of(D, G, HPB, paged)`` its dynamic shared
+    memory), or None."""
     import re
+    rows = "PagedRows" if "PagedRows" in mangled else "StridedRows"
+    k = re.search(r"\d(decode_i8mm_kernel)I(13__nv_bfloat16|6__half|f)"
+                  r"Li(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if k:
+        D, G, hpb = (int(k.group(i)) for i in (3, 4, 5))
+        return (f"decode_i8mm_kernel<{PTXAS_KINDS[k.group(2)]}, {D}, G={G}, "
+                f"HPB={hpb}, {rows}>", smem_of(D, G, hpb, rows == "PagedRows"))
     k = re.search(r"\d(decode_kernel)I(13__nv_bfloat16|6__half|f)(a|f|S\d*_)"
                   r"Li(\d+)ELi(\d+)ELi(\d+)E", mangled)
     if not k:
         return None
     kind = PTXAS_KINDS[k.group(2)]
     cache = "int8" if k.group(3) == "a" else kind
-    rows = "PagedRows" if "PagedRows" in mangled else "StridedRows"
     return (f"decode_kernel<{kind}, {cache}, {k.group(4)}, G={k.group(5)}, "
-            f"HPB={k.group(6)}, {rows}>", smem_of(kind, cache,
-                                                  int(k.group(4))))
+            f"HPB={k.group(6)}, {rows}>", 0)
 
 
 def ptxas_report(log, smem_of, kernel_of=bwd_kernel_of):
@@ -3151,11 +3165,19 @@ def main():
 
         emit({"ptxas_flash_fwd": ptxas_report(logs["flash_attention"],
                                               fwd_smem_of, fwd_kernel_of)})
-    if "decode_attention" in logs:      # K2 / K6: every decode_kernel
+    if "decode_attention" in logs:      # K2 / K6: both decode templates
+        dec_lib = op_builder.DECODE.load()
+
+        def i8mm_smem_of(D, G, hpb, paged):
+            return dec_lib.dstt_decode_i8mm_smem(D, G, hpb, int(paged),
+                                                 I8MM_SMEM_BLOCK)
+
         emit({"ptxas_decode": ptxas_report(logs["decode_attention"],
-                                           lambda *a: 0, decode_kernel_of),
-              "combine": "none: one decode_kernel a call; all "
-                         "shared memory is static"})
+                                           i8mm_smem_of, decode_kernel_of),
+              "combine": "none: one kernel a call",
+              "dynamic_smem": f"decode_kernel none (static); "
+                              f"decode_i8mm_kernel at block_k "
+                              f"{I8MM_SMEM_BLOCK}"})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

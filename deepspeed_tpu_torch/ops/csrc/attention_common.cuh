@@ -115,6 +115,11 @@ struct PagedRows {
   __device__ __forceinline__ long long at_cursor(int pg, const Cursor& c) const {
     return ((long long)pg * page + c.inp) * row;
   }
+  // the pool row (page * page_size + in-page row) at_cursor finds, as an
+  // int: at_cursor is this times `row`
+  __device__ __forceinline__ int pool_row(int pg, const Cursor& c) const {
+    return pg * page + c.inp;
+  }
   __device__ __forceinline__ void advance(Cursor& c) const {
     c.vpg += c.dq;
     c.inp += c.dr;

@@ -89,12 +89,18 @@
 // v-scales, and computes both products on integers (__dp4a, exact).  That
 // rounding of P depends on the blocking and the block order, so this
 // kernel walks the positions in the JAX kernel's blocks (block_k positions,
-// min(512, S_max) for K2 and the page for K6), in order: a block's scores
-// go to shared memory, one warp per head turns them into the block's
-// softmax update and quantized P, and all threads sum P.V.  With a window
-// it starts at the block holding lengths[b] - window (the JAX kernel skips
-// every block wholly below it) and leaves that block's rows below the
-// window out of every loop (JAX masks them to P = 0).
+// min(512, S_max) for K2 and the page for K6), in order, and quantizes a
+// block's P whole.  With a window it starts at the block holding
+// lengths[b] - window (the JAX kernel skips every block wholly below it)
+// and leaves that block's rows below the window out of every tile (JAX
+// masks them to P = 0).  It is bound by bytes too (about 2 integer
+// operations a byte), so it keeps decode_kernel's shape: 4 warps, the
+// same ring of 8 KB tiles, 2 kv heads a block by the same rule, K6's
+// table read once per position a tile ahead.  A tile holds a block's K
+// rows or its V rows: the ring takes a block's K tiles, then its V tiles,
+// then the next block's K tiles, so the loads run ahead of the block's
+// softmax and across blocks, while the block's scores and P stay in
+// shared memory (decode_i8mm_kernel's own note has the phases).
 #include <type_traits>
 
 #include "attention_common.cuh"
@@ -114,9 +120,8 @@ __host__ __device__ constexpr int tile_positions() {
   return kTileBytes / (2 * HPB * D * (int)sizeof(C));
 }
 
-// decode_i8mm_kernel (the int8 x int8 mode)
-constexpr int kDecWarps = 8;
-constexpr int kDecThreads = 32 * kDecWarps;
+// decode_i8mm_kernel (the int8 x int8 mode): decode_kernel's warps and
+// ring, a tile holding the K or the V rows of its positions
 constexpr int kMaxBlockK = 512;  // the int8 x int8 mode's longest KV block
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -538,6 +543,46 @@ decode_kernel(const T* __restrict__ q, C* k_cache, C* v_cache, float* k_scale,
   }
 }
 
+// decode_i8mm_kernel's shared memory, all dynamic, in bytes from its base:
+// the ring of kStages tiles (a tile: the K or the V rows of TP positions
+// of HPB kv heads, kTileBytes), the k-scales of each stage, two slots of
+// the blocks' integer P.V sums, q quantized, the warps' partial maxima /
+// sums, q's scales; then per KV block of bkp positions (block_k rounded up
+// to a quad): two slots of v-scales (and of K6's pool rows), the block's
+// scores (then P * v-scale) and its quantized P.
+template <int D, int G, int HPB, bool kPaged>
+struct MmSmem {
+  static constexpr int kHG = HPB * G;               // query heads of a block
+  static constexpr int kTP = kTileBytes / (HPB * D);  // positions of a tile
+  static constexpr int kKs = kStages * kTileBytes;    // [kStages][TP * HPB]
+  static constexpr int kOi = kKs + kStages * kTP * HPB * 4;  // [2][HG * D]
+  static constexpr int kQ8 = kOi + 2 * kHG * D * 4;          // [HG][D]
+  static constexpr int kPart = kQ8 + kHG * D;      // [3][kTileWarps][HG]
+  static constexpr int kQs = kPart + 3 * kTileWarps * kHG * 4;  // [HG]
+  static constexpr int kBlock = kQs + (kHG * 4 + 15) / 16 * 16;
+  __host__ __device__ static constexpr int bytes(int bkp) {
+    return kBlock + bkp * (8 * HPB + (kPaged ? 8 : 0) + 5 * kHG);
+  }
+};
+
+// A place in decode_i8mm_kernel's stream of tiles: tile i (K, or V when
+// v) of the KV block starting at t0 whose live positions are [a, e); par
+// the block's parity (its slots of the two-slot arrays).
+struct MmWalk {
+  int t0, a, e, i;
+  bool v;
+  int par;
+  __device__ __forceinline__ bool live() const { return a < e; }
+};
+
+// a[i] for a runtime i, from registers
+template <int N>
+__device__ __forceinline__ float pick(const float (&a)[N], int i) {
+  float x = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) x = i == k ? a[k] : x;
+  return x;
+}
 // The int8 x int8 decode (JAX decode_int8_matmuls) over int8-KV caches:
 // blocks of block_k positions in order.  Per block: scores = the integer
 // dot of q_i8 and k_i8 times (qs * scale) times the k-scale; per head the
@@ -546,38 +591,98 @@ decode_kernel(const T* __restrict__ q, C* k_cache, C* v_cache, float* k_scale,
 // rmax = max(pv) / 127 (rsafe = rmax, or 1 where rmax is 0); the integer
 // P.V of that times rmax joins acc * exp(m_old - m).  Integer sums are
 // exact in any order, so the only order-dependent float sum is each
-// block's sum of p (a lane-strided partial sum, then the warp tree).
-template <typename T, int D, int G, typename Rows>
-__global__ void __launch_bounds__(kDecThreads)
+// block's sum of p: lane partial sums, the warp's xor tree, then the 4
+// warps in order.
+//
+// The stream of tiles.  A block's live positions [a, e) are cut into
+// tiles of TP positions from a (the last one shorter; a block of fewer
+// positions is one short tile); the ring takes block j's K tiles (each
+// with its positions' k-scales, and their v-scales into a per-block
+// array), then block j's V tiles, then block j + 1's K tiles, and so on,
+// kStages - 1 tiles ahead of the one consumed: the copies run across the
+// phases of a block and across blocks.  A warp owns positions [w * PW,
+// (w + 1) * PW) of every tile, K or V, so it quantizes the P it reads
+// itself; the block's scores, P * v-scale and quantized P (`sc`, `pq`)
+// stay in shared memory for the whole block.  Per block:
+//   K tiles: a row over LPR lanes of 16 bytes, four __dp4a and a
+//     log2(LPR) shuffle sum; each lane keeps the max of its scores;
+//   the warps' maxima, a barrier, the block max; p, p * v-scale, the
+//     warps' sums of p and maxima of p * v-scale (all lanes);
+//   V tiles (after the first one's ring barrier, which also publishes
+//     those sums): every thread merges the 4 warps in order (the same
+//     bits in every thread, so each keeps the running m / l itself), the
+//     warp quantizes its P (zero-padded to a quad), then a lane sums C
+//     columns of one head over quads of 4 positions: a 4 x 4 byte
+//     transpose of 4 rows and one __dp4a per column against the quad's
+//     packed P;
+//   the lanes of a (head, columns) slice add up (xor shuffles, where a
+//     slice has more than one lane) and atomicAdd their sums into `oi`
+//     (integers: exact in any order); the owner of each output folds
+//     them into its accumulator after the next barrier (acc * corr + oi *
+//     rmax, no contraction, the reference's rounding), so the merge costs
+//     no barrier of its own.
+//
+// Occupancy: 2 kv heads a block (K6-i8mm's launch of 1,536 blocks at B 96)
+// run 6 blocks an SM within 80 registers, no spill (unbounded it takes
+// 104 and 4 blocks: 0.0462 against 0.0417 ms a call on an H100, both in
+// one run); one head a block keeps 4 (K2-i8mm's 512 blocks fill the card
+// once anyway, and the tighter bound made it slower: 0.0093 against
+// 0.0083); G >= 4 takes 2, as decode_kernel.
+template <typename T, int D, int G, int HPB, typename Rows>
+__global__ void __launch_bounds__(kTileThreads,
+                                  G >= 4 ? 2 : (HPB == 2 ? 6 : 4))
 decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
                    const int8_t* __restrict__ v_cache,
                    const float* __restrict__ k_scale,
                    const float* __restrict__ v_scale,
                    const int* __restrict__ lengths, T* __restrict__ out,
                    int KVH, int S_max, int block_k, int window, Rows rows,
-                   Rows srows, float scale) {
-  constexpr int W = D / 4;                 // int32 words per row of one head
-  constexpr int R = kDecThreads / W;       // position groups of the PV sum
-  static_assert(D % 32 == 0 && kDecThreads % W == 0, "head dim");
-  const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+                   float scale) {
+  using Smem = MmSmem<D, G, HPB, Rows::kPaged>;
+  constexpr int HG = Smem::kHG, TP = Smem::kTP;
+  constexpr int PB = HPB * D;                 // bytes of a position's rows
+  constexpr int CPP = PB / 16;                // their 16-byte chunks
+  constexpr int PASS = kTileThreads / CPP;    // positions of a load pass
+  constexpr int PW = TP / kTileWarps;         // a warp's positions of a tile
+  constexpr int RW = PW * HPB;                // ... and their rows
+  constexpr int LPR = D / 16, SLOTS = 32 / LPR;  // scoring lanes
+  // P.V: a lane sums C columns of one head (G * C integers), the fewest
+  // that let a warp's lanes cover a row's HPB heads at once (narrower
+  // slices than 16 bytes: fewer registers, and no lanes to add up at the
+  // block's end; measured faster)
+  constexpr int C = HPB * D / 32 > 4 ? HPB * D / 32 : 4;
+  constexpr int CS = D / C;                   // column slices of a row
+  constexpr int QPP = 32 / (HPB * CS);        // quads a warp takes at once
+  constexpr int NQ = PW / 4;                  // a warp's quads of a tile
+  constexpr int NOWN = (HG * D + kTileThreads - 1) / kTileThreads;
+  static_assert(HPB == 1 || (HPB == 2 && G == 1), "2 heads a block at G = 1");
+  static_assert(TP % PASS == 0 && TP <= kTileThreads, "load map");
+  static_assert(RW % SLOTS == 0 && SLOTS % HPB == 0, "score map");
+  static_assert(PW % 4 == 0 && QPP >= 1 && NQ % QPP == 0, "P.V map");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* ksr = reinterpret_cast<float*>(smem + Smem::kKs);
+  int* oi = reinterpret_cast<int*>(smem + Smem::kOi);
+  int8_t* q8 = reinterpret_cast<int8_t*>(smem + Smem::kQ8);
+  float* wmax = reinterpret_cast<float*>(smem + Smem::kPart);  // [warp][HG]
+  float* wsum = wmax + kTileWarps * HG;
+  float* wpmax = wsum + kTileWarps * HG;
+  float* qsc = reinterpret_cast<float*>(smem + Smem::kQs);
+  const int bkp = (block_k + 3) & ~3;
+  float* vsb = reinterpret_cast<float*>(smem + Smem::kBlock);
+  int* prow = reinterpret_cast<int*>(vsb + 2 * bkp * HPB);
+  float* sc = reinterpret_cast<float*>(prow + (Rows::kPaged ? 2 * bkp : 0));
+  int8_t* pq = reinterpret_cast<int8_t*>(sc + HG * bkp);
+
+  const int kvh0 = blockIdx.x * HPB, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int H = KVH * G;
-  __shared__ __align__(16) int8_t q8[G][D];  // q quantized per head
-  __shared__ float qsc[G];                   // its scale times `scale`
-  __shared__ float sc[G][kMaxBlockK];        // scores, then P * v-scale
-  __shared__ int pq[G][kMaxBlockK];          // P quantized
-  __shared__ int oi[G][D];                   // the block's integer P.V
-  __shared__ float acc[G][D];
-  __shared__ float m_s[G], l_s[G], corr_s[G], rmax_s[G];
-  const int len = min(max(lengths[b], 0), S_max);
-  // the window's first position (may be negative), and the first block
-  // that reaches it
-  const int lo = window > 0 ? len - window : 0;
-  const int first = max(lo, 0) / block_k * block_k;
-
-  if (warp < G) {  // warp g quantizes head g of q
+  // q quantized per head (max|q| / 127, 1 where 0), warp w taking heads
+  // w, w + 4 of the block's HG
+  for (int hg = warp; hg < HG; hg += kTileWarps) {
     constexpr int DPL = D / 32;
-    const T* qh = q + ((long long)b * H + kvh * G + warp) * D + lane * DPL;
+    const T* qh = q + ((long long)b * H + kvh0 * G + hg) * D + lane * DPL;
     float x[DPL], amax = 0.f;
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
@@ -587,112 +692,367 @@ decode_i8mm_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_cache,
     float qs = warp_max(amax) / 127.0f;
     qs = qs == 0.f ? 1.f : qs;
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) q8[warp][lane * DPL + j] = quant_i8(x[j], qs);
-    if (lane == 0) {
-      qsc[warp] = qs * scale;
-      m_s[warp] = kNegInf;
-      l_s[warp] = 0.f;
+    for (int j = 0; j < DPL; ++j)
+      q8[hg * D + lane * DPL + j] = quant_i8(x[j], qs);
+    if (lane == 0) qsc[hg] = qs * scale;
+  }
+  for (int i = tid; i < 2 * HG * D; i += kTileThreads) oi[i] = 0;
+
+  const int len = min(max(lengths[b], 0), S_max);
+  // the window's first position, and the block holding it
+  const int start = window > 0 ? max(len - window, 0) : 0;
+  const int first = start / block_k * block_k;
+  const MmWalk w0{first, start, min(first + block_k, len), 0, false, 0};
+  auto next_block = [&](MmWalk& w) {  // its K tiles
+    w = {w.t0 + block_k, w.t0 + block_k, min(w.t0 + 2 * block_k, len), 0,
+         false, w.par ^ 1};
+  };
+  auto walk_next = [&](MmWalk& w) {
+    if (w.a + (w.i + 1) * TP < w.e) {
+      ++w.i;
+    } else if (!w.v) {
+      w.i = 0;
+      w.v = true;
+    } else {
+      next_block(w);
+    }
+  };
+  // element offset of position u of w's block (K6: its pool row, read
+  // once from the table into `prow`)
+  auto row_off = [&](const MmWalk& w, int u) -> long long {
+    if constexpr (Rows::kPaged)
+      return (long long)prow[w.par * bkp + u] * rows.row;
+    else
+      return rows.at(b, w.a + u);
+  };
+
+  // Loads of the tile at w into stage n % kStages: thread tid copies chunk
+  // tid % CPP of positions tid / CPP + k * PASS; a K tile's thread tid <
+  // its positions also the HPB k-scales (into the stage's) and v-scales
+  // (into the block's) of position tid.
+  const int r0 = tid / CPP, cpart = tid % CPP;
+  const int8_t* kb = k_cache + kvh0 * D;
+  const int8_t* vb = v_cache + kvh0 * D;
+  auto issue = [&](const MmWalk& w, int n) {
+    const int u0 = w.i * TP, np = min(TP, w.e - w.a - u0);
+    unsigned char* st = ring + (n % kStages) * kTileBytes;
+    const int8_t* src = w.v ? vb : kb;
+#pragma unroll
+    for (int k = 0; k < TP / PASS; ++k) {
+      const int r = r0 + k * PASS;
+      if (r < np)
+        cp_async16(st + r * PB + cpart * 16,
+                   src + row_off(w, u0 + r) + cpart * 16);
+    }
+    if (!w.v && tid < np) {
+      const unsigned long long so =
+          (unsigned long long)row_off(w, u0 + tid) / D + kvh0;
+      cp_async_bytes<4 * HPB>(ksr + ((n % kStages) * TP + tid) * HPB,
+                              k_scale + so);
+      cp_async_bytes<4 * HPB>(vsb + (w.par * bkp + u0 + tid) * HPB,
+                              v_scale + so);
+    }
+  };
+
+  // K6: thread tid < TP reads the table entry of its position of each K
+  // tile once, while the tile before it is consumed, with two cursors (no
+  // division per tile): tc at its position in the next K tile, bc at its
+  // position in the next block's first.  Positions past the block's live
+  // ones read nothing.
+  typename Rows::Cursor tc{}, bc{};
+  if constexpr (Rows::kPaged) {
+    tc = rows.cursor(start + tid, TP);
+    bc = rows.cursor(first + block_k + tid, block_k);
+  }
+  auto fetches = [&](const MmWalk& w) {
+    return w.live() && !w.v && tid < TP && w.a + w.i * TP + tid < w.e;
+  };
+  auto fetch_key = [&](const MmWalk& w) {
+    int key = 0;
+    if constexpr (Rows::kPaged) {
+      if (fetches(w)) key = rows.key_at(b, tc);
+    }
+    return key;
+  };
+  auto fetch_store = [&](const MmWalk& w, int key) {
+    if constexpr (Rows::kPaged) {
+      if (!w.live() || w.v) return;
+      if (fetches(w))
+        prow[w.par * bkp + w.i * TP + tid] = rows.pool_row(key, tc);
+      if (w.a + (w.i + 1) * TP < w.e) {
+        rows.advance(tc);
+      } else {
+        tc.vpg = bc.vpg;
+        tc.inp = bc.inp;
+        rows.advance(bc);
+      }
+    }
+  };
+  if constexpr (Rows::kPaged) {  // the K tiles among the first kStages
+    MmWalk w = w0;
+#pragma unroll
+    for (int m = 0; m < kStages; ++m) {
+      fetch_store(w, fetch_key(w));
+      walk_next(w);
     }
   }
-  for (int i = tid; i < G * D; i += kDecThreads) acc[i / D][i % D] = 0.f;
-  __syncthreads();
+  __syncthreads();  // q8, qsc, oi and the first rows
 
-  const int8_t* kb = k_cache + kvh * D;
-  const int8_t* vb = v_cache + kvh * D;
-  for (int t0 = first; t0 < len; t0 += block_k) {
-    const int n = min(block_k, len - t0);
-    // the block's rows below the window take no part: every loop below
-    // starts at t_lo (their P is 0 in JAX, so no sum, max or product
-    // changes)
-    const int t_lo = max(lo - t0, 0);
-    // scores, one position per thread: the row's D bytes as int4 loads
-    for (int t = t_lo + tid; t < n; t += kDecThreads) {
-      const int4* kr = reinterpret_cast<const int4*>(kb + rows.at(b, t0 + t));
-      int kw[W];
+  // scoring: lane (slot, part) scores rows warp * RW + p * SLOTS + slot
+  // (head hs = slot % HPB) from bytes part * 16 of the row
+  const int part = lane % LPR, slot = lane / LPR, hs = slot % HPB;
+  uint32_t qw[G][4];
+  float qsr[G];
 #pragma unroll
-      for (int w = 0; w < W / 4; ++w) {
-        const int4 x = kr[w];
-        kw[4 * w] = x.x;
-        kw[4 * w + 1] = x.y;
-        kw[4 * w + 2] = x.z;
-        kw[4 * w + 3] = x.w;
-      }
-      const float ks = k_scale[srows.at(b, t0 + t) + kvh];
+  for (int g = 0; g < G; ++g) {
+    lds_words<4>(reinterpret_cast<const unsigned char*>(q8) +
+                     (hs * G + g) * D + part * 16, qw[g]);
+    qsr[g] = qsc[hs * G + g];
+  }
+  // P.V: lane (qg, hv, cs) sums columns cs * C .. of head hv over quads
+  const int cs = lane % CS, hv = lane / CS % HPB, qg = lane / (CS * HPB);
+
+  MmWalk iw = w0;  // the next tile to issue
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int* qw = reinterpret_cast<const int*>(q8[g]);
-        int dot = 0;
+  for (int m = 0; m < kStages - 1; ++m) {
+    if (iw.live()) {
+      issue(iw, m);
+      walk_next(iw);
+    }
+    cp_async_commit();
+  }
+  int n = 0;  // the stream index of the tile consumed next
+  auto step = [&]() {
+    cp_async_wait<kStages - 2>();  // tile n has landed (this thread's part)
+    __syncthreads();               // ... everyone's; stage n - 1 is free
+    if (iw.live()) {
+      issue(iw, n + kStages - 1);
+      walk_next(iw);
+    }
+    cp_async_commit();
+  };
+
+  float m_run[HG], l_run[HG], pc[HG], pr[HG], acc[NOWN];
 #pragma unroll
-        for (int w = 0; w < W; ++w) dot = __dp4a(kw[w], qw[w], dot);
-        sc[g][t] = (float)dot * qsc[g] * ks;
+  for (int hg = 0; hg < HG; ++hg) {
+    m_run[hg] = kNegInf;
+    l_run[hg] = 0.f;
+    pc[hg] = pr[hg] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < NOWN; ++k) acc[k] = 0.f;
+  // the previous block's P.V sums into acc, after a barrier that follows
+  // its atomics; its slot of oi is zeroed for the block after next
+  bool pending = false;
+  int ppar = 0;
+  auto merge = [&]() {
+#pragma unroll
+    for (int k = 0; k < NOWN; ++k) {
+      const int i = tid + k * kTileThreads;
+      if (i < HG * D) {
+        int* o = oi + ppar * HG * D + i;
+        const float s = (float)*o;
+        *o = 0;
+        acc[k] = __fadd_rn(__fmul_rn(acc[k], pick(pc, i / D)),
+                           __fmul_rn(s, pick(pr, i / D)));
       }
     }
-    for (int i = tid; i < G * D; i += kDecThreads) oi[i / D][i % D] = 0;
-    __syncthreads();
+    pending = false;
+  };
 
-    if (warp < G) {  // warp g: head g's softmax update and quantized P
-      const int g = warp;
-      float mx = kNegInf;
-      for (int t = t_lo + lane; t < n; t += 32) mx = fmaxf(mx, sc[g][t]);
-      const float m_new = fmaxf(m_s[g], warp_max(mx));
-      float psum = 0.f, pmax = 0.f;
-      for (int t = t_lo + lane; t < n; t += 32) {
-        const float p = expf(sc[g][t] - m_new);
-        psum += p;
-        const float pv = p * v_scale[srows.at(b, t0 + t) + kvh];
-        sc[g][t] = pv;
-        pmax = fmaxf(pmax, pv);
-      }
-      psum = warp_sum(psum);
-      const float rmax = warp_max(pmax) / 127.0f;
-      const float rsafe = rmax == 0.f ? 1.f : rmax;
-      for (int t = t_lo + lane; t < n; t += 32)
-        pq[g][t] = quant_i8(sc[g][t], rsafe);
-      if (lane == 0) {
-        const float corr = expf(m_s[g] - m_new);
-        l_s[g] = l_s[g] * corr + psum;
-        m_s[g] = m_new;
-        corr_s[g] = corr;
-        rmax_s[g] = rmax;
-      }
-    }
-    __syncthreads();
-
-    {  // P.V on integers: thread (r, word) sums positions r, r + R, ...
-      const int word = tid % W, r = tid / W;
-      int o[G][4];
+  for (MmWalk cw = w0; cw.live();) {
+    const int nl = cw.e - cw.a;            // the block's live positions
+    const int nt = (nl + TP - 1) / TP;     // its K tiles, and V tiles
+    const int items = nt * PW;             // a warp's positions of them
+    float mx[G];
 #pragma unroll
-      for (int g = 0; g < G; ++g)
+    for (int g = 0; g < G; ++g) mx[g] = kNegInf;
+    for (int i = 0; i < nt; ++i, ++n) {  // scores
+      step();
+      if (pending) merge();
+      const int key = fetch_key(iw);
+      const unsigned char* st = ring + (n % kStages) * kTileBytes;
+      const float* ks = ksr + (n % kStages) * TP * HPB;
+      const int np = min(TP, nl - i * TP);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) o[g][i] = 0;
-      for (int t = t_lo + r; t < n; t += R) {
-        const int vw = reinterpret_cast<const int*>(
-            vb + rows.at(b, t0 + t))[word];
+      for (int p = 0; p < RW / SLOTS; ++p) {
+        if (warp * PW + p * SLOTS / HPB >= np) break;  // warp-uniform
+        const int r = warp * RW + p * SLOTS + slot;   // row of the tile
+        uint32_t kw[4];
+        lds_words<4>(st + r * D + part * 16, kw);
+        int dot[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          const int p = pq[g][t];
+          dot[g] = __dp4a((int)kw[0], (int)qw[g][0], 0);
+          dot[g] = __dp4a((int)kw[1], (int)qw[g][1], dot[g]);
+          dot[g] = __dp4a((int)kw[2], (int)qw[g][2], dot[g]);
+          dot[g] = __dp4a((int)kw[3], (int)qw[g][3], dot[g]);
+        }
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            o[g][i] += p * (int)(int8_t)(vw >> (8 * i));
+        for (int off = LPR / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], off);
+        const int pl = r / HPB;  // the row's position in the tile
+        if (pl < np) {
+          const float ksc = ks[r];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float s = (float)dot[g] * qsr[g] * ksc;
+            mx[g] = fmaxf(mx[g], s);
+            if (g % LPR == part) sc[(hs * G + g) * bkp + i * TP + pl] = s;
+          }
         }
       }
+      fetch_store(iw, key);
+    }
+    // the block's max: the warps' maxima
+#pragma unroll
+    for (int hh = 0; hh < HPB; ++hh)
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float v = warp_max(hs == hh ? mx[g] : kNegInf);
+        if (lane == 0) wmax[warp * HG + hh * G + g] = v;
+      }
+    __syncthreads();
+    float m_new[HG];
+#pragma unroll
+    for (int hg = 0; hg < HG; ++hg) {
+      float mb = wmax[hg];
+#pragma unroll
+      for (int w = 1; w < kTileWarps; ++w) mb = fmaxf(mb, wmax[w * HG + hg]);
+      m_new[hg] = fmaxf(m_run[hg], mb);
+    }
+    // p and p * v-scale of the warp's positions; the warp's sum of p and
+    // max of p * v-scale
+#pragma unroll
+    for (int hg = 0; hg < HG; ++hg) {
+      float ps = 0.f, pm = 0.f;
+      float* sh = sc + hg * bkp;
+      for (int e = lane; e < items; e += 32) {
+        const int u = e / PW * TP + warp * PW + e % PW;
+        if (u < nl) {
+          const float p = expf(sh[u] - m_new[hg]);
+          const float pv = p * vsb[(cw.par * bkp + u) * HPB + hg / G];
+          ps += p;
+          sh[u] = pv;
+          pm = fmaxf(pm, pv);
+        }
+      }
+      ps = warp_sum(ps);
+      pm = warp_max(pm);
+      if (lane == 0) {
+        wsum[warp * HG + hg] = ps;
+        wpmax[warp * HG + hg] = pm;
+      }
+    }
+
+    int o[G][C];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int c = 0; c < C; ++c) o[g][c] = 0;
+    for (int i = 0; i < nt; ++i, ++n) {  // P.V
+      step();
+      const int key = fetch_key(iw);
+      if (i == 0) {
+        // the block's softmax update (the 4 warps in order, in every
+        // thread) and its P quantized whole, zero-padded to a quad
+        float rs[HG];
+#pragma unroll
+        for (int hg = 0; hg < HG; ++hg) {
+          float ps = wsum[hg], pm = wpmax[hg];
+#pragma unroll
+          for (int w = 1; w < kTileWarps; ++w) {
+            ps += wsum[w * HG + hg];
+            pm = fmaxf(pm, wpmax[w * HG + hg]);
+          }
+          const float rmax = pm / 127.0f;
+          rs[hg] = rmax == 0.f ? 1.f : rmax;
+          const float corr = expf(m_run[hg] - m_new[hg]);
+          l_run[hg] = __fadd_rn(__fmul_rn(l_run[hg], corr), ps);
+          m_run[hg] = m_new[hg];
+          pc[hg] = corr;
+          pr[hg] = rmax;
+        }
+        const int nl4 = (nl + 3) & ~3;
+#pragma unroll
+        for (int hg = 0; hg < HG; ++hg)
+          for (int e = lane; e < items; e += 32) {
+            const int u = e / PW * TP + warp * PW + e % PW;
+            if (u < nl4)
+              pq[hg * bkp + u] =
+                  u < nl ? quant_i8(sc[hg * bkp + u], rs[hg]) : (int8_t)0;
+          }
+        __syncwarp();
+      }
+      const unsigned char* st = ring + (n % kStages) * kTileBytes;
+      const int np = min(TP, nl - i * TP);
+#pragma unroll
+      for (int p = 0; p < NQ / QPP; ++p) {
+        const int pl0 = warp * PW + (p * QPP + qg) * 4;  // the quad's first
+        if (pl0 < np) {
+          // rows past the live ones hold stale bytes: their P is 0
+          uint32_t w[4][C / 4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            lds_words<C / 4>(st + ((pl0 + k) * HPB + hv) * D + cs * C, w[k]);
+          int pw[G];
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            pw[g] = *reinterpret_cast<const int*>(pq + (hv * G + g) * bkp +
+                                                   i * TP + pl0);
+#pragma unroll
+          for (int j = 0; j < C / 4; ++j) {
+            // column c of the 4 rows as one word (byte k: row k)
+            const uint32_t lo01 = __byte_perm(w[0][j], w[1][j], 0x5140);
+            const uint32_t hi01 = __byte_perm(w[0][j], w[1][j], 0x7362);
+            const uint32_t lo23 = __byte_perm(w[2][j], w[3][j], 0x5140);
+            const uint32_t hi23 = __byte_perm(w[2][j], w[3][j], 0x7362);
+            const int col[4] = {(int)__byte_perm(lo01, lo23, 0x5410),
+                                (int)__byte_perm(lo01, lo23, 0x7632),
+                                (int)__byte_perm(hi01, hi23, 0x5410),
+                                (int)__byte_perm(hi01, hi23, 0x7632)};
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                o[g][4 * j + c] = __dp4a(col[c], pw[g], o[g][4 * j + c]);
+          }
+        }
+      }
+      fetch_store(iw, key);
+    }
+    // the slice's lanes add up; the block's sums into its slot of oi
+#pragma unroll
+    for (int off = HPB * CS; off < 32; off <<= 1)
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) atomicAdd(&oi[g][4 * word + i], o[g][i]);
-    }
-    __syncthreads();
-    for (int i = tid; i < G * D; i += kDecThreads) {
-      const int g = i / D, d = i % D;
-      acc[g][d] = acc[g][d] * corr_s[g] + (float)oi[g][d] * rmax_s[g];
-    }
-    __syncthreads();
+        for (int c = 0; c < C; ++c)
+          o[g][c] += __shfl_xor_sync(0xffffffffu, o[g][c], off);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (c % QPP == qg)
+          atomicAdd(oi + (cw.par * HG + hv * G + g) * D + cs * C + c, o[g][c]);
+    pending = true;
+    ppar = cw.par;
+    next_block(cw);
   }
 
-  T* ob = out + ((long long)b * H + kvh * G) * D;
-  for (int i = tid; i < G * D; i += kDecThreads) {
-    const int g = i / D, d = i % D;
-    ob[i] = from_f<T>(acc[g][d] / (l_s[g] == 0.f ? 1.f : l_s[g]));
+  cp_async_wait<0>();
+  __syncthreads();
+  if (pending) merge();
+  T* ob = out + ((long long)b * H + kvh0 * G) * D;
+#pragma unroll
+  for (int k = 0; k < NOWN; ++k) {
+    const int i = tid + k * kTileThreads;
+    if (i < HG * D) {
+      const float l = pick(l_run, i / D);
+      ob[i] = from_f<T>(acc[k] / (l == 0.f ? 1.f : l));
+    }
   }
 }
 
@@ -721,23 +1081,34 @@ int launch_decode(const void* q, void* k, void* v, void* ks, void* vs,
   return cudaSuccess;
 }
 
+// decode_i8mm_kernel over grid (KVH / hpb, B); hpb 2 only for G = 1
 template <typename T, int HD, typename Rows>
 int launch_decode_i8mm(const void* q, const void* k, const void* v,
                        const void* ks, const void* vs, const void* lengths,
                        void* out, int B, int H, int KVH, int S_max,
-                       int block_k, int window, Rows rows, Rows srows,
+                       int block_k, int window, int hpb, Rows rows,
                        float scale, cudaStream_t stream) {
-  const dim3 grid(KVH, B);
-#define DSTT_I8MM_G(GG)                                                        \
-  decode_i8mm_kernel<T, HD, GG, Rows><<<grid, kDecThreads, 0, stream>>>(      \
-      (const T*)q, (const int8_t*)k, (const int8_t*)v, (const float*)ks,       \
-      (const float*)vs, (const int*)lengths, (T*)out, KVH, S_max, block_k,     \
-      window, rows, srows, scale)
-  switch (H / KVH) {
-    case 1: DSTT_I8MM_G(1); break;
-    case 2: DSTT_I8MM_G(2); break;
-    case 4: DSTT_I8MM_G(4); break;
-    case 8: DSTT_I8MM_G(8); break;
+  const dim3 grid(KVH / hpb, B);
+  const int bkp = (block_k + 3) & ~3;
+#define DSTT_I8MM_G(GG, HH)                                                    \
+  {                                                                            \
+    auto kernel = decode_i8mm_kernel<T, HD, GG, HH, Rows>;                     \
+    const int smem = MmSmem<HD, GG, HH, Rows::kPaged>::bytes(bkp);             \
+    if (smem > 48 * 1024)                                                      \
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,\
+                           smem);                                              \
+    kernel<<<grid, kTileThreads, smem, stream>>>(                              \
+        (const T*)q, (const int8_t*)k, (const int8_t*)v, (const float*)ks,     \
+        (const float*)vs, (const int*)lengths, (T*)out, KVH, S_max, block_k,   \
+        window, rows, scale);                                                  \
+  }                                                                            \
+  break
+  switch (H / KVH * 8 + hpb) {
+    case 8 + 1: DSTT_I8MM_G(1, 1);
+    case 8 + 2: DSTT_I8MM_G(1, 2);
+    case 16 + 1: DSTT_I8MM_G(2, 1);
+    case 32 + 1: DSTT_I8MM_G(4, 1);
+    case 64 + 1: DSTT_I8MM_G(8, 1);
     default: return cudaErrorInvalidValue;
   }
 #undef DSTT_I8MM_G
@@ -834,23 +1205,23 @@ extern "C" int dstt_decode_tile_positions(int cache_bytes, int D, int hpb) {
 // K2's int8 x int8 mode: int8 caches and fp32 scales as for
 // dstt_decode_attention (required), no fused write; block_k the KV block
 // of P's quantization, 1 .. 512 (the JAX kernel's min(block_k, S_max));
-// window as for dstt_decode_attention.
+// window and hpb as for dstt_decode_attention.
 extern "C" int dstt_decode_attention_i8mm(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* lengths, void* out,
     int dtype, int B, int H, int KVH, int D, int S_max, int block_k,
-    int window, float scale, void* stream) {
+    int window, int hpb, float scale, void* stream) {
   if (KVH <= 0 || H % KVH != 0 || S_max <= 0) return cudaErrorInvalidValue;
+  if (hpb < 1 || KVH % hpb != 0) return cudaErrorInvalidValue;
   if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
   if (block_k <= 0 || block_k > dstt::kMaxBlockK) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const dstt::StridedRows rows{(long long)S_max * KVH * D, (long long)KVH * D};
-  const dstt::StridedRows srows{(long long)S_max * KVH, (long long)KVH};
 #define DSTT_I8MM_LAUNCH(T, HD)                                                \
   {                                                                            \
     const int e = dstt::launch_decode_i8mm<T, HD>(                             \
         q, k_cache, v_cache, k_scale, v_scale, lengths, out, B, H, KVH, S_max, \
-        block_k, window, rows, srows, scale, (cudaStream_t)stream);            \
+        block_k, window, hpb, rows, scale, (cudaStream_t)stream);              \
     if (e != cudaSuccess) return e;                                            \
   }
   DSTT_DISPATCH(dtype, D, DSTT_I8MM_LAUNCH);
@@ -862,31 +1233,56 @@ extern "C" int dstt_decode_attention_i8mm(
 // dstt_paged_decode_attention (int8, scales required), no fused write;
 // block_k the KV block of P's quantization in virtual positions, 1 .. 512
 // (the page, as the JAX paged kernel; a windowed layer's gathered-view
-// route takes min(512, page * n_virt)); window as for
+// route takes min(512, page * n_virt)); window and hpb as for
 // dstt_decode_attention.
 extern "C" int dstt_paged_decode_attention_i8mm(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* lengths,
     const void* pages, void* out, int dtype, int B, int H, int KVH, int D,
-    int page, int n_virt, int block_k, int window, float scale,
+    int page, int n_virt, int block_k, int window, int hpb, float scale,
     void* stream) {
   if (KVH <= 0 || H % KVH != 0 || page <= 0 || n_virt <= 0)
     return cudaErrorInvalidValue;
+  if (hpb < 1 || KVH % hpb != 0) return cudaErrorInvalidValue;
   if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
   if (block_k <= 0 || block_k > dstt::kMaxBlockK) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const dstt::PagedRows rows{(const int*)pages, n_virt, page,
                              (long long)KVH * D};
-  const dstt::PagedRows srows{(const int*)pages, n_virt, page, (long long)KVH};
 #define DSTT_PAGED_I8MM_LAUNCH(T, HD)                                          \
   {                                                                            \
     const int e = dstt::launch_decode_i8mm<T, HD>(                             \
         q, k_pool, v_pool, k_scale, v_scale, lengths, out, B, H, KVH,          \
-        page * n_virt, block_k, window, rows, srows, scale,                    \
+        page * n_virt, block_k, window, hpb, rows, scale,                      \
         (cudaStream_t)stream);                                                 \
     if (e != cudaSuccess) return e;                                            \
   }
   DSTT_DISPATCH(dtype, D, DSTT_PAGED_I8MM_LAUNCH);
 #undef DSTT_PAGED_I8MM_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a decode_i8mm_kernel launch (D 64 / 128, G =
+// H / KVH, hpb, paged 1 for K6, block_k), or 0 for no instantiation.
+extern "C" int dstt_decode_i8mm_smem(int D, int G, int hpb, int paged,
+                                     int block_k) {
+  const int bkp = (block_k + 3) & ~3;
+#define DSTT_I8MM_SMEM(HD)                                                     \
+  switch (G * 8 + hpb) {                                                       \
+    case 8 + 1: return paged ? dstt::MmSmem<HD, 1, 1, true>::bytes(bkp)        \
+                             : dstt::MmSmem<HD, 1, 1, false>::bytes(bkp);      \
+    case 8 + 2: return paged ? dstt::MmSmem<HD, 1, 2, true>::bytes(bkp)        \
+                             : dstt::MmSmem<HD, 1, 2, false>::bytes(bkp);      \
+    case 16 + 1: return paged ? dstt::MmSmem<HD, 2, 1, true>::bytes(bkp)       \
+                              : dstt::MmSmem<HD, 2, 1, false>::bytes(bkp);     \
+    case 32 + 1: return paged ? dstt::MmSmem<HD, 4, 1, true>::bytes(bkp)       \
+                              : dstt::MmSmem<HD, 4, 1, false>::bytes(bkp);     \
+    case 64 + 1: return paged ? dstt::MmSmem<HD, 8, 1, true>::bytes(bkp)       \
+                              : dstt::MmSmem<HD, 8, 1, false>::bytes(bkp);     \
+    default: return 0;                                                         \
+  }
+  if (D == 64) DSTT_I8MM_SMEM(64);
+  if (D == 128) DSTT_I8MM_SMEM(128);
+#undef DSTT_I8MM_SMEM
+  return 0;
 }

@@ -159,11 +159,14 @@ DECODE = KernelLibrary("decode_attention", "decode_attention.cu", {
     # cache_bytes, D, hpb -> positions of one decode_kernel tile
     "dstt_decode_tile_positions": [I] * 3,
     # int8 x int8: q, k_cache, v_cache, k_scale, v_scale, lengths, out,
-    # dtype, B, H, KVH, D, S_max, block_k, window, scale, stream
-    "dstt_decode_attention_i8mm": [P] * 7 + [I] * 8 + [F, P],
+    # dtype, B, H, KVH, D, S_max, block_k, window, hpb, scale, stream
+    "dstt_decode_attention_i8mm": [P] * 7 + [I] * 9 + [F, P],
     # q, k_pool, v_pool, k_scale, v_scale, lengths, pages, out, dtype, B,
-    # H, KVH, D, page, n_virt, block_k, window, scale, stream
-    "dstt_paged_decode_attention_i8mm": [P] * 8 + [I] * 9 + [F, P],
+    # H, KVH, D, page, n_virt, block_k, window, hpb, scale, stream
+    "dstt_paged_decode_attention_i8mm": [P] * 8 + [I] * 10 + [F, P],
+    # D, G, hpb, paged (1: K6), block_k -> dynamic shared memory bytes of
+    # a decode_i8mm_kernel launch
+    "dstt_decode_i8mm_smem": [I] * 5,
 })
 
 SPARSE = KernelLibrary("block_sparse_attention", "block_sparse_attention.cu", {

@@ -30,12 +30,12 @@ S_max, KVH]``, one per (position, kv head), stacked the same way.
   kernel (float caches by TMA, int8 payloads converted into the same
   tiles), so q (and a 16-bit cache) must meet TMA's 16-byte rules.
 
-K2's kernel walks a row's live positions in tiles held in a shared-memory
-ring; with one query head per kv head it serves 2 kv heads a block
-where the launch still fills the card.  :func:`heads_per_block` picks
-that on the host from shapes alone, so a launch reads nothing back from
-the device (and K6 over a pool gets the choice of K2 over its gathered
-view).
+K2's kernels (float / int8-KV, and int8×int8) walk a row's live
+positions in tiles held in a shared-memory ring; with one query head per
+kv head they serve 2 kv heads a block where the launch still fills the
+card.  :func:`heads_per_block` picks that on the host from shapes alone,
+so a launch reads nothing back from the device (and K6 over a pool gets
+the choice of K2 over its gathered view).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors; it never falls back.  Launches are counted
@@ -59,9 +59,10 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
 # blocks in which the int8×int8 mode quantizes P
 DEFAULT_BLOCK_K_DECODE = 512
 
-# K2 / K6 (ops/csrc/decode_attention.cu decode_kernel) run 4 blocks an
-# SM; a block serves 2 kv heads (G = 1 only) where the launch still has
-# that many blocks for every SM of the card
+# K2 / K6 (ops/csrc/decode_attention.cu decode_kernel, and
+# decode_i8mm_kernel in the int8×int8 mode) run at least 4 blocks an SM;
+# a block serves 2 kv heads (G = 1 only) where the launch still has that
+# many blocks for every SM of the card
 DECODE_BLOCKS_PER_SM = 4
 
 
@@ -436,12 +437,13 @@ def _launch_decode_i8mm(q, kc, vc, ks, vs, lengths, scale, block_k,
     q = q.contiguous()
     check_int8_cache(q, kc, vc, ks, vs, KVH, "int8 x int8 decode kernel")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    hpb = launch_heads_per_block(q, KVH, (ks, vs))
     out = torch.empty_like(q)
     err = op_builder.DECODE.load().dstt_decode_attention_i8mm(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ks.data_ptr(),
         vs.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         op_builder.dtype_code(q.dtype), B, H, KVH, D, S_max, int(block_k),
-        window or 0, float(scale),
+        window or 0, hpb, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "int8 x int8 decode attention kernel")
     return out

@@ -249,6 +249,7 @@ def _launch_paged_decode(q, kp, vp, ks, vs, lengths, pages, scale, new_k,
     out = torch.empty_like(q)
     lib = op_builder.DECODE.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    hpb = launch_heads_per_block(q, KVH, () if ks is None else (ks, vs))
     if i8mm_block is not None:
         if not 0 < i8mm_block <= 512:
             raise ValueError(f"int8_matmuls takes KV blocks of 1 to 512 "
@@ -257,10 +258,9 @@ def _launch_paged_decode(q, kp, vp, ks, vs, lengths, pages, scale, new_k,
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
             vs.data_ptr(), lengths.data_ptr(), table.data_ptr(),
             out.data_ptr(), op_builder.dtype_code(q.dtype), B, H, KVH, D,
-            kp.shape[1], table.shape[1], int(i8mm_block), window or 0,
+            kp.shape[1], table.shape[1], int(i8mm_block), window or 0, hpb,
             float(scale), stream)
     else:
-        hpb = launch_heads_per_block(q, KVH, () if ks is None else (ks, vs))
         err = lib.dstt_paged_decode_attention(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
             lengths.data_ptr(), table.data_ptr(), _ptr(new_k), _ptr(new_v),

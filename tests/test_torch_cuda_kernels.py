@@ -1007,22 +1007,55 @@ def test_decode_int8_kernel_matches_plain(card, cuda, dtype, D, G, fused,
     assert torch.equal(again[0] if fused else again, got)
 
 
+def _i8mm_tile(B, KVH, D, G):
+    """Positions of one decode_i8mm_kernel tile on this card (or the
+    `card` fixture's): the K (or V) rows of its kv heads a block fill 8 KB."""
+    return 8192 // (da.heads_per_block(B, KVH, G, da._sm_count(0)) * D)
+
+
+# B, S_max, block_k of the int8 x int8 decode cases: "ragged" lengths at
+# blocks of 32 / 136 / 512 over 136 positions, "edges" (0, 1 and one short
+# of, on and one past a tile and a 512-position block), "block320" (one
+# block of 320 over a 320-position cache, run (g-i8mm)'s), "long" (one row
+# of 4096 positions at B = 1)
+I8MM_CASES = {"ragged32": (5, 136, 32), "ragged136": (5, 136, 136),
+              "ragged512": (5, 136, 512), "edges": (10, 600, 512),
+              "block320": (7, 320, 320), "long": (1, 4096, 512)}
+
+
+def _i8mm_lengths(case, B, KVH, D, G, S_max, block_k):
+    if case.startswith("ragged"):
+        return [0, 1, 33, 100, 136]
+    if case == "long":
+        return [S_max - 95]
+    tp = _i8mm_tile(B, KVH, D, G)
+    bk = min(block_k, S_max)
+    ls = [0, 1, tp - 1, tp, tp + 1, bk - 1, bk, bk + 1, 2 * tp + 3, S_max]
+    return [min(n, S_max) for n in ls][:B]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("block_k", [32, 136, 512])
-def test_decode_i8mm_kernel_matches_plain(cuda, dtype, D, G, block_k):
-    """K2's int8 x int8 mode against its plain version (the same blocks):
-    integer products are exact on both sides, so only exp and the order
-    of each block's probability sum differ."""
-    g = torch.Generator(device=cuda).manual_seed(5 * D + G + block_k)
-    L, B, H, S_max, layer = 2, 5, 8, 136, 0
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("case", list(I8MM_CASES))
+def test_decode_i8mm_kernel_matches_plain(card, cuda, dtype, D, G, case):
+    """K2's int8 x int8 mode against its plain version (the same blocks)
+    at ragged lengths, at the tile and block edges (+-1), in one block of
+    320 and on a 4096-position row, under the card's kv heads a block and
+    a one-SM card's (2 at G = 1): integer products are exact on both
+    sides, so only exp and the order of each block's probability sum
+    differ.  G = 8 at D = 128 in blocks of 512 takes more than 48 KB of
+    shared memory (the launch raises the kernel's limit).  Zero-length
+    rows give 0; a second launch is bitwise the first."""
+    B, S_max, block_k = I8MM_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(5 * D + G + S_max + block_k)
+    L, H, layer = 2, 8, 0
     KVH = H // G
     kc, vc, ks, vs = _int8_pair(g, cuda, L, B, S_max, KVH=KVH, D=D)
     q = _randn(g, B, H, D, dtype=dtype, device=cuda)
-    q[3] = 0
-    lengths = torch.tensor([0, 1, 33, 100, 136], dtype=torch.int32,
-                           device=cuda)
+    q[B // 2] = 0
+    lengths = torch.tensor(_i8mm_lengths(case, B, KVH, D, G, S_max, block_k),
+                           dtype=torch.int32, device=cuda)
     before = da.decode_attention.i8mm_launches
     got = da.decode_attention(q, kc, vc, lengths, layer=layer, k_scale=ks,
                               v_scale=vs, int8_matmuls=True, block_k=block_k)
@@ -1031,7 +1064,11 @@ def test_decode_i8mm_kernel_matches_plain(cuda, dtype, D, G, block_k):
                                           ks[layer], vs[layer],
                                           block_k=block_k)
     _rel_close(got, want, 1e-2)
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert not got[lengths == 0].any()
+    again = da.decode_attention(q, kc, vc, lengths, layer=layer, k_scale=ks,
+                                v_scale=vs, int8_matmuls=True,
+                                block_k=block_k)
+    assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1121,31 +1158,52 @@ def test_paged_decode_int8_kernel_matches_plain_and_k2(card, cuda, dtype, D,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("page", [16, 24, 64])
-def test_paged_decode_i8mm_kernel_matches_plain_and_k2(cuda, dtype, D, G,
-                                                       page):
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("page", [5, 13, 16, 24, 64])
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_decode_i8mm_kernel_matches_plain_and_k2(card, cuda, dtype, D,
+                                                       G, page, window):
     """K6's int8 x int8 mode against its plain version, and bitwise against
-    K2's int8 x int8 mode on the gathered view with block_k = page."""
+    K2's int8 x int8 mode on the gathered view with block_k = page (with a
+    window: the view's blocks of min(512, virtual positions), GPT-Neo's
+    route), at pages of 5 to 64 rows, lengths at the tile edges and a dead
+    lane on the trash page, under the card's kv heads a block and a one-SM
+    card's; a second launch is bitwise the first."""
     g = torch.Generator(device=cuda).manual_seed(13 * D + G + page)
-    H, B, n_virt, layer = 8, 4, 3, 0
+    H, B, layer = 8, 8, 0
     KVH = H // G
+    tp = _i8mm_tile(B, KVH, D, G)
+    n_virt = max(3, -(-(tp + 2) // page))
+    S = n_virt * page
     kp, vp, ks, vs, pages = _int8_pool(g, cuda, D, KVH, page, n_virt, B)
     q = _randn(g, B, H, D, dtype=dtype, device=cuda)
-    lengths = torch.tensor([0, 1, 2 * page + 3, n_virt * page],
+    lengths = torch.tensor([min(n, S) for n in (0, 1, 2 * page + 3, tp - 1,
+                                                tp, tp + 1, 39, S)],
                            dtype=torch.int32, device=cuda)
-    before = pa.paged_decode_attention.i8mm_launches
+    block_k = page if window is None else min(512, S)
+    before = pa.paged_decode_attention.i8mm_launches + \
+        pa.paged_decode_attention.window_i8mm_launches
     got = pa.paged_decode_attention(q, kp, vp, lengths, pages, layer=layer,
-                                    k_scale=ks, v_scale=vs, int8_matmuls=True)
-    assert pa.paged_decode_attention.i8mm_launches == before + 1
+                                    k_scale=ks, v_scale=vs, int8_matmuls=True,
+                                    block_k=block_k, window=window)
+    assert pa.paged_decode_attention.i8mm_launches + \
+        pa.paged_decode_attention.window_i8mm_launches == before + 1
     want = pa.paged_decode_attention_i8mm_plain(q, kp[layer], vp[layer],
                                                 lengths, pages, ks[layer],
-                                                vs[layer])
+                                                vs[layer], block_k=block_k,
+                                                window=window)
     _rel_close(got, want, 1e-2)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))   # the dead lane
+    again = pa.paged_decode_attention(q, kp, vp, lengths, pages, layer=layer,
+                                      k_scale=ks, v_scale=vs,
+                                      int8_matmuls=True, block_k=block_k,
+                                      window=window)
+    assert torch.equal(again, got)
     gathered = [pa.gather_pages(t[layer], pages) for t in (kp, vp, ks, vs)]
     mono = da.decode_attention(q, gathered[0], gathered[1], lengths,
                                k_scale=gathered[2], v_scale=gathered[3],
-                               int8_matmuls=True, block_k=page)
+                               int8_matmuls=True, block_k=block_k,
+                               window=window)
     assert torch.equal(got, mono)
 
 

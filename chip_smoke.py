@@ -37,12 +37,17 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    the loss is finite and falls, and profiling one more step; then holds
    the kernel path's loss and gradients against the dense attention's on a
    2-layer cut of the same widths (cosine per parameter);
-6. holds K8 (block-sparse attention) against its plain version at the
-   shape every layer of run (f) gives it — q/k/v [1, 8192, 32, 64], the
-   BigBird layout of ``docs/tutorials/long-context.md``, causal — and,
-   untimed, at blocks 16 / 32 / 128, head dim 128, a layout per head, a
-   key-padding mask and an empty block-row (exactly 0); its ``library_ms``
-   is SDPA with the layout expanded to a boolean [S, S] mask;
+6. holds K8 (block-sparse attention) and its LSE against its plain
+   version at the shape every layer of run (f) gives it — q/k/v [1, 8192,
+   32, 64], the BigBird layout of ``docs/tutorials/long-context.md``,
+   causal — and at blocks 16 / 32 / 128, a ragged S of 1040 at block 16,
+   head dim 128, a layout per head, a key-padding mask and an empty
+   block-row (exactly 0, LSE -1e30), each launched twice and bitwise the
+   same; all timed in bf16 beside their bounds, plain versions and SDPA
+   with the layout expanded to an [S, S] mask (its ``library_ms``); a
+   ``ptxas_sparse`` line gives registers, spills and shared memory of
+   every K8 instantiation (``wgmma_sparse_fwd_kernel`` for bf16 / fp16,
+   the FMA ``block_sparse_fwd_kernel`` for fp32);
 7. drives block-sparse long-context training (f) — ``initialize(opt_model(
    "opt-1.3b", max_seq_len=8192, sparse_attention=BigBird...))`` with
    remat, bf16, AdamW and clipping, 2 warm-up and 3 timed ``train_batch``
@@ -289,12 +294,15 @@ RUN_F = dict(micro=1, seq=8192, loss_chunks=32, warmup=2, steps=3, seed=12,
              trace="sparse_train_trace.json")
 TRAIN_F_CONFIG = {**TRAIN_CONFIG,
                   "train_micro_batch_size_per_gpu": RUN_F["micro"]}
-# K8 at run (f)'s attention shape, and the untimed variants: blocks 16,
-# 32 and 128, head dim 128, a layout per head, a key-padding mask, a
-# hand-made layout with an empty block-row
+# K8 at run (f)'s attention shape, and the variants: blocks 16, 32 and
+# 128, a ragged S (not a multiple of the 64-row tiles) at block 16, head
+# dim 128, a layout per head, a key-padding mask, a hand-made layout with
+# an empty block-row
 K8_SHAPE = dict(B=1, S=8192, H=32, D=64)
 K8_VARIANTS = (
     dict(tag="block 16", B=2, S=1024, H=32, D=64, block=16, causal=True),
+    dict(tag="ragged S 1040, block 16", B=2, S=1040, H=32, D=64, block=16,
+         causal=True),
     dict(tag="block 32", B=2, S=1024, H=32, D=64, block=32, causal=True),
     dict(tag="block 128", B=2, S=1024, H=32, D=64, block=128, causal=True),
     dict(tag="head dim 128", B=1, S=2048, H=16, D=128, block=64,
@@ -1511,6 +1519,24 @@ def decode_kernel_of(mangled, smem_of):
             f"HPB={k.group(6)}, {rows}>", 0)
 
 
+def sparse_kernel_of(mangled, smem_of):
+    """(label, dynamic shared memory) of a K8 instantiation: the 16-bit
+    ``wgmma_sparse_fwd_kernel<T, D, bias>`` or the fp32
+    ``block_sparse_fwd_kernel<float, D, block>``, or None."""
+    import re
+    k = re.search(r"\d(wgmma_sparse_fwd_kernel)I(13__nv_bfloat16|6__half)"
+                  r"Li(\d+)ELb([01])E", mangled)
+    if k:
+        kind, D = PTXAS_KINDS[k.group(2)], int(k.group(3))
+        bias = "bias" if k.group(4) == "1" else "no bias"
+        return f"{k.group(1)}<{kind}, {D}, {bias}>", smem_of(kind, D, 64)
+    k = re.search(r"\d(block_sparse_fwd_kernel)IfLi(\d+)ELi(\d+)E", mangled)
+    if not k:
+        return None
+    D, blk = int(k.group(2)), int(k.group(3))
+    return f"{k.group(1)}<fp32, {D}, {blk}>", smem_of("fp32", D, blk)
+
+
 def ptxas_report(log, smem_of, kernel_of=bwd_kernel_of):
     """Registers, spills and shared memory of each kernel in one library's
     ``-Xptxas -v`` output; ``kernel_of(mangled name, smem_of)`` names a
@@ -1561,117 +1587,171 @@ def live_pairs(layout, block, causal):
     return (n - diag) * block * block + diag * block * (block + 1) // 2
 
 
-def check_block_sparse_case(dtype, B, S, H, D, block, causal, layout,
+def check_block_sparse_case(tag, dtype, B, S, H, D, block, causal, layout,
                             keep=None):
-    """K8 and its plain version on one layout, on seeded inputs; returns
-    ((q, k, v), (idx, counts), bias, kernel output, plain output)."""
+    """K8 (with its LSE) and its plain version on one layout, on seeded
+    inputs: the output at the dtype's bar, the LSE at ``LSE_TOL``; twice
+    launched, bitwise the same.  Returns ((q, k, v), tables, bias, kernel
+    output, {"max_abs_err", "lse_max_abs_err"})."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
     g = torch.Generator(device=DEV).manual_seed(S + H + D + block)
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(B, S, H, D, generator=g, device=DEV, dtype=dt)
                for _ in range(3))
-    idx, counts = bs.device_tables(layout, H, causal, DEV)
+    tables = bs.device_tables(layout, H, causal, DEV, block)
     bias = None if keep is None else bs.padding_bias(keep, dt, DEV)
-    out = bs.block_sparse_attention_fwd(q, k, v, idx, counts, D ** -0.5,
-                                        causal, block, bias)
+    out, lse = bs.block_sparse_attention_fwd(q, k, v, tables, D ** -0.5,
+                                             causal, block, bias,
+                                             with_lse=True)
+    again, lse_again = bs.block_sparse_attention_fwd(
+        q, k, v, tables, D ** -0.5, causal, block, bias, with_lse=True)
     torch.cuda.synchronize()
-    want = bs.block_sparse_attention_plain(q, k, v, idx, counts, D ** -0.5,
-                                           causal, block, bias)
-    return (q, k, v), (idx, counts), bias, out, want
+    if not (torch.equal(out, again) and torch.equal(lse, lse_again)):
+        fail(f"{tag} ({dtype}): two launches differ")
+    want, want_lse = bs.block_sparse_attention_plain(
+        q, k, v, tables.idx, tables.counts, D ** -0.5, causal, block, bias,
+        return_lse=True)
+    errs = {"max_abs_err": check_close(tag, out, want, dtype),
+            "lse_max_abs_err": check_lse(tag + " LSE", lse, want_lse,
+                                         dtype)}
+    return (q, k, v), tables, bias, (out, lse), errs
+
+
+def k8_layout(var):
+    """A K8_VARIANTS entry's layout (upper blocks dropped when causal) and
+    its key-padding mask (or None)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    vB, vS, vH, vblock = (var[x] for x in ("B", "S", "H", "block"))
+    if var.get("per_head"):
+        lay = FixedSparsityConfig(
+            num_heads=vH, block=vblock, num_local_blocks=4,
+            different_layout_per_head=True,
+            num_different_global_patterns=4,
+            attention="unidirectional").make_layout(vS)
+    else:
+        lay = bigbird(num_heads=vH, block=vblock).make_layout(vS)
+    lay = np.array(lay)
+    if "empty_row" in var:
+        lay[:, var["empty_row"]] = 0
+    if var["causal"]:
+        lay = np.tril(lay)
+    keep = None
+    if var.get("padded"):
+        keep = torch.ones(vB, vS, device=DEV)
+        keep[0, vS - 37:] = 0
+        keep[1, vS - vblock:] = 0
+    return lay, keep
+
+
+def time_k8(tag, qkv, tables, bias, layout, block, causal, dtype):
+    """K8, its plain version and SDPA over the layout expanded to a [S, S]
+    mask (boolean; additive with a key bias) at one shape, beside the
+    bound of the live pairs' products and of q, k, v, o, the bias and the
+    table entries the launched kernel reads, moved once."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    q, k, v = qkv
+    B, S, H, D = q.shape
+    scale = D ** -0.5
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    same = bool((layout == layout[:1]).all())
+    heads = layout[:1] if same else layout
+    live = torch.from_numpy(np.kron(heads, np.ones((block, block),
+                                                   np.int8)) > 0).to(DEV)
+    if causal:
+        live &= torch.ones(S, S, dtype=torch.bool, device=DEV).tril()
+    mask = live[None]                                # [1, H | 1, S, S]
+    if bias is not None:
+        mask = torch.where(mask, (bias * scale)[:, None, None, :],
+                           float("-inf")).to(q.dtype)
+    with torch.no_grad():
+        rec = time_all(
+            tag, "sparse_fwd_kernel",
+            lambda: bs.block_sparse_attention_fwd(q, k, v, tables, scale,
+                                                  causal, block, bias),
+            lambda: bs.block_sparse_attention_plain(
+                q, k, v, tables.idx, tables.counts, scale, causal, block,
+                bias),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                   attn_mask=mask), 20)
+    del live, mask, qh, kh, vh
+    pairs = B * live_pairs(layout, block, causal)
+    # q, k, v read and out written once, the bias read, and the table the
+    # launched kernel walks: a count per row and the entries below it (the
+    # 16-bit kernel's 64-row tiles, the fp32 kernel's layout rows)
+    counts = tables.counts if dtype == "float32" else tables.tile_counts
+    nbytes = 4 * q.numel() * q.element_size() + 4 * (
+        counts.numel() + int(counts.sum())) + (
+        0 if bias is None else bias.numel() * bias.element_size())
+    rec["live_pairs"] = pairs
+    rec["bound_ms"], rec["bound_by"] = bound(4 * D * pairs, nbytes, dtype)
+    return rec
 
 
 def check_block_sparse(dtype, timed):
     """K8 at run (f)'s attention shape — q/k/v [1, 8192, 32, 64], the
-    tutorial BigBird layout, causal — and, untimed, at the K8_VARIANTS;
-    timed in bf16 against its plain version, SDPA over the layout expanded
-    to a boolean [S, S] mask, and the gather backward of one layer."""
-    import numpy as np
+    tutorial BigBird layout, causal — and at the K8_VARIANTS, each with
+    its LSE and repeated bitwise; timed in bf16 against its plain version,
+    SDPA over the layout expanded to a [S, S] mask and the bound (every
+    shape), and the gather backward of one layer (run (f)'s shape)."""
     import torch
-    import torch.nn.functional as F
-    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
     from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
     B, S, H, D = (K8_SHAPE[x] for x in "BSHD")
     block = BIGBIRD["block"]
     layout = bs.cached_layout(bigbird(), S, causal=True)
-    (q, k, v), (idx, counts), _, out, want = check_block_sparse_case(
-        dtype, B, S, H, D, block, True, layout)
-    err = check_close("K8 block_sparse_attention", out, want, dtype)
-    rec = {"kernel": "K8 block_sparse_attention", "dtype": dtype,
+    tag = "K8 block_sparse_attention"
+    qkv, tables, _, _, errs = check_block_sparse_case(
+        tag, dtype, B, S, H, D, block, True, layout)
+    rec = {"kernel": tag, "dtype": dtype,
            "shape": [B, S, H, D], "block": block, "causal": True,
            "layout": "BigBird " + json.dumps(BIGBIRD),
            "active_blocks": int(layout[0].sum()),
-           "max_active_per_row": int(idx.shape[-1]),
-           "max_abs_err": err, "tol": TOL[dtype], "variants": []}
-    del want
-    for var in K8_VARIANTS:
+           "max_active_per_row": int(tables.idx.shape[-1]),
+           "max_tiles_per_q_tile": int(tables.tiles.shape[-1]),
+           **errs, "tol": TOL[dtype], "lse_tol": LSE_TOL, "variants": []}
+    for i, var in enumerate(K8_VARIANTS):
         vB, vS, vH, vD, vblock, vcausal = (var[x] for x in (
             "B", "S", "H", "D", "block", "causal"))
-        if var.get("per_head"):
-            lay = FixedSparsityConfig(
-                num_heads=vH, block=vblock, num_local_blocks=4,
-                different_layout_per_head=True,
-                num_different_global_patterns=4,
-                attention="unidirectional").make_layout(vS)
-        else:
-            lay = bigbird(num_heads=vH, block=vblock).make_layout(vS)
-        keep = None
-        if var.get("padded"):
-            keep = torch.ones(vB, vS, device=DEV)
-            keep[0, vS - 37:] = 0
-            keep[1, vS - vblock:] = 0
-        if "empty_row" in var:
-            lay = np.array(lay)
-            lay[:, var["empty_row"]] = 0
-        _, _, _, vout, vwant = check_block_sparse_case(
-            dtype, vB, vS, vH, vD, vblock, vcausal, lay, keep)
-        verr = check_close(f"K8 block_sparse_attention ({var['tag']})",
-                           vout, vwant, dtype)
+        lay, keep = k8_layout(var)
+        vqkv, vtables, vbias, (vout, vlse), verrs = check_block_sparse_case(
+            f"{tag} ({var['tag']})", dtype, vB, vS, vH, vD, vblock,
+            vcausal, lay, keep)
         if "empty_row" in var:
             r = var["empty_row"] * vblock
-            if not bool((vout[:, r:r + vblock] == 0).all()):
-                fail(f"K8 ({dtype}): an empty block-row is not exactly 0")
-        rec["variants"].append({"case": var["tag"], "shape": [vB, vS, vH, vD],
-                                "block": vblock, "max_abs_err": verr})
-        del vout, vwant
+            if not (bool((vout[:, r:r + vblock] == 0).all())
+                    and bool((vlse[:, :, r:r + vblock] == -1e30).all())):
+                fail(f"K8 ({dtype}): an empty block-row is not exactly 0 "
+                     f"with LSE -1e30")
+        vrec = {"case": var["tag"], "shape": [vB, vS, vH, vD],
+                "block": vblock, **verrs}
+        if timed:
+            vrec.update(time_k8(f"k8_variant{i}", vqkv, vtables, vbias,
+                                lay, vblock, vcausal, dtype))
+        rec["variants"].append(vrec)
+        del vqkv, vout, vlse
     if timed:
-        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        same = bool((layout == layout[:1]).all())
-        heads = layout[:1] if same else layout
-        live = torch.from_numpy(np.kron(heads, np.ones((block, block),
-                                                       np.int8)) > 0)
-        live = (live.to(DEV) & torch.ones(S, S, dtype=torch.bool,
-                                          device=DEV).tril())[None]
+        q, k, v = qkv
 
         def run_gather_backward():   # what one layer's backward runs
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            o = bs.block_sparse_attention_plain(*leaves, idx, counts,
-                                                D ** -0.5, True, block)
+            o = bs.block_sparse_attention_plain(*leaves, tables.idx,
+                                                tables.counts, D ** -0.5,
+                                                True, block)
             torch.autograd.grad(o, leaves, q)
 
-        with torch.no_grad():
-            rec.update(time_all(
-                "k8", "block_sparse_fwd_kernel",
-                lambda: bs.block_sparse_attention_fwd(q, k, v, idx, counts,
-                                                      D ** -0.5, True,
-                                                      block),
-                lambda: bs.block_sparse_attention_plain(
-                    q, k, v, idx, counts, D ** -0.5, True, block),
-                lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                       attn_mask=live), 20))
+        rec.update(time_k8("k8", qkv, tables, None, layout, block, True,
+                           dtype))
         from deepspeed_tpu_torch.profiling.trace import device_ms_per_call
         rec["gather_backward_ms"] = device_ms_per_call(
             run_gather_backward, 3,
             os.path.join(ROOT, "build", "profiles", "chip_smoke_k8_bwd.json"))
-        del live, qh, kh, vh
-        pairs = B * live_pairs(layout, block, True)
-        # q, k, v read and out written once, the two tables read
-        nbytes = 4 * q.numel() * q.element_size() + 4 * (idx.numel()
-                                                         + counts.numel())
-        rec["live_pairs"] = pairs
-        rec["bound_ms"], rec["bound_by"] = bound(4 * D * pairs, nbytes, dtype)
     emit(rec)
-    del q, k, v, out
+    del qkv
     torch.cuda.empty_cache()
     return rec
 
@@ -3076,7 +3156,7 @@ def dense_masked_attention(sparsity_config):
     O(S^2)), the oracle of the sparse gradient check."""
     from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
 
-    def dense_masked(q, k, v, idx, counts, block, scale=None, causal=False,
+    def dense_masked(q, k, v, tables, block, scale=None, causal=False,
                      key_padding_mask=None):
         if key_padding_mask is not None:
             fail("the dense masked oracle takes no key-padding mask")
@@ -3178,6 +3258,16 @@ def main():
               "dynamic_smem": f"decode_kernel none (static); "
                               f"decode_i8mm_kernel at block_k "
                               f"{I8MM_SMEM_BLOCK}"})
+
+    if "block_sparse_attention" in logs:   # K8: every instantiation
+        sparse_lib = op_builder.SPARSE.load()
+
+        def sparse_smem_of(kind, D, block):
+            return sparse_lib.dstt_block_sparse_attention_fwd_smem(
+                {"fp32": 0, "bf16": 1, "fp16": 2}[kind], D, block)
+
+        emit({"ptxas_sparse": ptxas_report(logs["block_sparse_attention"],
+                                           sparse_smem_of, sparse_kernel_of)})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3281,6 +3371,13 @@ def main():
         runs["f"]["launches_per_step"]["block_sparse_attention_fwd"]
     kernels[7]["library"] = ("F.scaled_dot_product_attention with the "
                              "layout expanded to a boolean [S, S] mask")
+    k8 = checks[("K8", "bfloat16")]
+    kernels[7]["lse_max_abs_err"] = k8["lse_max_abs_err"]
+    kernels[7]["variants"] = [
+        {key: var[key] for key in (
+            "case", "shape", "block", "max_abs_err", "lse_max_abs_err",
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        for var in k8["variants"]]
     # the int8 modes: their own rows, launches from runs (g), (h)
     int8_rows = [
         row("K2-int8", "decode_attention_int8", csrc + "decode_attention.cu",

@@ -287,9 +287,9 @@ def _attention(q, k, v, config, mask=None, window=None):
                              f"masks only; got a {mask.dim()}-D mask")
         from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
             block_sparse_attention_tables, cached_tables)
-        idx, counts = cached_tables(sc, q.shape[1], q.shape[2], q.device,
-                                    causal=True)
-        return block_sparse_attention_tables(q, k, v, idx, counts, sc.block,
+        tables = cached_tables(sc, q.shape[1], q.shape[2], q.device,
+                               causal=True)
+        return block_sparse_attention_tables(q, k, v, tables, sc.block,
                                              causal=True,
                                              key_padding_mask=mask)
     if config.use_flash_attention and q.shape[1] > 1 and mask is None:

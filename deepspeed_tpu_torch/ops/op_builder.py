@@ -113,6 +113,19 @@ def check(err, what):
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def check_tma(what, name, t):
+    """The 16-bit kernels (K1 / K3 / K7, K4 / K5, K8) load tiles by TMA,
+    which needs a 16-byte aligned address and (b, s, h) strides of whole
+    16-byte units; raise (no fallback) for a tensor that breaks either."""
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(st * size % 16 for st in t.stride()[:3]):
+        raise ValueError(
+            f"{what}: {name} (strides {tuple(t.stride())}, "
+            f"address {t.data_ptr():#x}) breaks TMA's 16-byte rules: the "
+            f"address and the (b, s, h) strides in bytes must be multiples "
+            f"of 16")
+
+
 FLASH = KernelLibrary("flash_attention", "flash_attention.cu", {
     # q, k, v, o, lse, q_offsets, dtype, B, Sq, H, KVH, D, Sk,
     # 12 strides (b, s, h for q, k, v, o), causal, scale, stream
@@ -170,10 +183,14 @@ DECODE = KernelLibrary("decode_attention", "decode_attention.cu", {
 })
 
 SPARSE = KernelLibrary("block_sparse_attention", "block_sparse_attention.cu", {
-    # K8: q, k, v, o, idx, counts, bias, dtype, B, S, H, D, A, block,
-    # 12 strides (b, s, h for q, k, v, o), causal, scale, stream
+    # K8: q, k, v, o, lse (null: none), idx, counts (fp32), tiles,
+    # tile_counts (bf16 / fp16), bias (null: none), dtype, B, S, H, D, A,
+    # T (tiles' width), block, 12 strides (b, s, h for q, k, v, o), causal,
+    # scale, stream
     "dstt_block_sparse_attention_fwd":
-        [P] * 7 + [I] * 7 + [L] * 12 + [I, F, P],
+        [P] * 10 + [I] * 8 + [L] * 12 + [I, F, P],
+    # dtype, D, block -> dynamic shared memory bytes of that launch
+    "dstt_block_sparse_attention_fwd_smem": [I, I, I],
 })
 
 LIBRARIES = (FLASH, FLASH_BWD, DECODE, SPARSE)

@@ -44,10 +44,10 @@ class SparseAttentionFn:
         causal = getattr(sc, "attention", "bidirectional") == "unidirectional"
         # the layout is the one JAX caches (causal=False); the causal
         # tables drop its upper blocks
-        idx, counts = cached_tables(sc, S, H, query.device, causal=causal,
-                                    layout_causal=False)
+        tables = cached_tables(sc, S, H, query.device, causal=causal,
+                               layout_causal=False)
         return block_sparse_attention_tables(
-            query, key, value, idx, counts, sc.block, causal=causal,
+            query, key, value, tables, sc.block, causal=causal,
             key_padding_mask=key_padding_mask)
 
 

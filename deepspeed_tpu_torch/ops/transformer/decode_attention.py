@@ -51,9 +51,10 @@ import math
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.op_builder import check_tma
 from deepspeed_tpu_torch.ops.quantizer.kernels import true_div
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
-    _check_cuda, check_tma, flash_attention_plain, launch_attention_kernel)
+    _check_cuda, flash_attention_plain, launch_attention_kernel)
 
 # the JAX decode kernel's KV block (its DSTPU_DECODE_BLOCK_K default): the
 # blocks in which the int8×int8 mode quantizes P

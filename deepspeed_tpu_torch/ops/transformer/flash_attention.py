@@ -25,6 +25,7 @@ import math
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.op_builder import check_tma
 
 
 def _pow2(scale):
@@ -165,19 +166,6 @@ def launch_attention_kernel(q, k, v, causal, scale, q_offsets, with_lse):
         torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "flash attention kernel")
     return out, lse
-
-
-def check_tma(what, name, t):
-    """The 16-bit kernels (K1 / K3 / K7, K4 / K5) load tiles by TMA, which
-    needs a 16-byte aligned address and (b, s, h) strides of whole 16-byte
-    units; raise (no fallback) for a tensor that breaks either."""
-    size = t.element_size()
-    if t.data_ptr() % 16 or any(st * size % 16 for st in t.stride()[:3]):
-        raise ValueError(
-            f"{what}: {name} (strides {tuple(t.stride())}, "
-            f"address {t.data_ptr():#x}) breaks TMA's 16-byte rules: the "
-            f"address and the (b, s, h) strides in bytes must be multiples "
-            f"of 16")
 
 
 def _bwd_args(q, k, v, dout, lse, delta):

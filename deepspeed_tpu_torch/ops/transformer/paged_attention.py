@@ -51,12 +51,12 @@ import math
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.op_builder import check_tma
 from deepspeed_tpu_torch.ops.transformer.decode_attention import (
     _ptr, check_int8_cache, check_kernel_shapes, check_modes, check_window,
     chunk_prefill_attention_plain, count_launch, decode_attention_i8mm_plain,
     decode_attention_plain, launch_heads_per_block, quantize_rows)
-from deepspeed_tpu_torch.ops.transformer.flash_attention import (
-    _check_cuda, check_tma)
+from deepspeed_tpu_torch.ops.transformer.flash_attention import _check_cuda
 
 # the key tile of K7's tensor-core kernel, in positions
 KEY_TILE = 64

@@ -33,7 +33,8 @@ GROUPS = (("K6-i8mm decode_i8mm_kernel (paged)",
           ("K4 flash_bwd_dq_kernel", ("flash_bwd_dq_kernel",)),
           ("K5 flash_bwd_dkv_kernel", ("flash_bwd_dkv_kernel",)),
           ("K2 decode_kernel", ("decode_kernel",)),
-          ("K8 block_sparse_fwd_kernel", ("block_sparse_fwd_kernel",)),
+          # K8: wgmma_sparse_fwd_kernel (16-bit), block_sparse_fwd_kernel
+          ("K8 sparse_fwd_kernel", ("sparse_fwd_kernel",)),
           ("GEMM (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                              "splitKreduce")),
           # advanced-indexing gathers and their scatter-add backward: in a

@@ -12,7 +12,10 @@ autograd path against the CPU; K6 / K7: page
 sizes 8 to 128 over a shuffled block table, G = 1 to 8, a zero-length
 lane on the trash page, and bitwise against K2 / K3 over the gathered
 view; K8: blocks 16 to 128, head dims 64 / 128, causal or with a
-key-padding bias, one layout or one per head, empty rows), the autograd
+key-padding bias, one layout or one per head, empty rows, the LSE at the
+fp32 bar, ragged S against the 16-bit kernel's 64-row tiles, a padded
+batch, repeat launches bitwise, routing by dtype, refused TMA strides),
+the autograd
 flash and block-sparse attention on the card against the CPU's
 gradients, plus the port's model (dense and block-sparse) on the card
 against the same model on the CPU.
@@ -795,15 +798,39 @@ def _sparse_layout(kind, H, block, S):
     return cfg.make_layout(S)
 
 
+def _sparse_check(q, k, v, tables, block, causal, bias, dtype):
+    """K8 with its LSE against the plain version (the output at the
+    dtype's bar, the LSE at the fp32 bar), launched twice: bitwise the
+    same, one count each."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    D = q.shape[-1]
+    before = bs.block_sparse_attention_fwd.launches
+    got, lse = bs.block_sparse_attention_fwd(q, k, v, tables, D ** -0.5,
+                                             causal, block, bias,
+                                             with_lse=True)
+    again, lse_again = bs.block_sparse_attention_fwd(
+        q, k, v, tables, D ** -0.5, causal, block, bias, with_lse=True)
+    assert bs.block_sparse_attention_fwd.launches == before + 2
+    assert torch.equal(got, again) and torch.equal(lse, lse_again)
+    want, want_lse = bs.block_sparse_attention_plain(
+        q, k, v, tables.idx, tables.counts, D ** -0.5, causal, block, bias,
+        return_lse=True)
+    assert got.dtype == dtype and lse.dtype == torch.float32
+    _close(got, want, dtype)
+    _close(lse, want_lse, torch.float32)
+    return got, lse
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("block", [16, 32, 64, 128])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_block_sparse_kernel_matches_plain(cuda, dtype, block, D, causal):
-    """K8 against its plain version: blocks 16-128, head dims 64 / 128,
-    causal and not, one layout broadcast and a layout per head; without
-    causality a key-padding bias whose row 1 has its tail block fully
-    padded; q, k and v are strided views of one projection."""
+    """K8 and its LSE against its plain version: blocks 16-128, head dims
+    64 / 128, causal and not, one layout broadcast and a layout per head;
+    without causality a key-padding bias whose row 1 has its tail block
+    fully padded; q, k and v are strided views of one projection; each
+    case launched twice, bitwise the same."""
     from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
     g = torch.Generator(device=cuda).manual_seed(block + D)
     B, H, S = 2, 4, 8 * block
@@ -817,21 +844,73 @@ def test_block_sparse_kernel_matches_plain(cuda, dtype, block, D, causal):
         bias = bs.padding_bias(keep, dtype, cuda)
     for kind in ("bigbird", "fixed"):
         lay = _sparse_layout(kind, H, block, S)
-        idx, counts = bs.device_tables(lay, H, causal, cuda)
-        before = bs.block_sparse_attention_fwd.launches
-        got = bs.block_sparse_attention_fwd(q, k, v, idx, counts, D ** -0.5,
-                                            causal, block, bias)
-        assert bs.block_sparse_attention_fwd.launches == before + 1
-        want = bs.block_sparse_attention_plain(q, k, v, idx, counts,
-                                               D ** -0.5, causal, block, bias)
-        assert got.dtype == dtype
-        _close(got, want, dtype)
+        tables = bs.device_tables(lay, H, causal, cuda, block)
+        _sparse_check(q, k, v, tables, block, causal, bias, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block,S", [(16, 1040), (32, 288)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_block_sparse_kernel_ragged_seq(cuda, dtype, block, S, causal):
+    """S divisible by the block but not by the 16-bit kernel's 64-row
+    tiles: the last q and key tiles are ragged (TMA's zero fill, cells
+    past S never live, no row past S written)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    g = torch.Generator(device=cuda).manual_seed(S + causal)
+    B, H, D = 2, 4, 64
+    q, k, v = (_randn(g, B, S, H, D, dtype=dtype, device=cuda)
+               for _ in range(3))
+    for kind in ("bigbird", "fixed"):
+        lay = _sparse_layout(kind, H, block, S)
+        tables = bs.device_tables(lay, H, causal, cuda, block)
+        got, lse = _sparse_check(q, k, v, tables, block, causal, None, dtype)
+        # the same launch into buffers with rows past S: none is written
+        out = torch.full((B, S + 64, H, D), 7.0, dtype=dtype, device=cuda)
+        lse_out = torch.full((B, H, S + 64), 7.0, device=cuda)
+        err = op_builder.SPARSE.load().dstt_block_sparse_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_out.data_ptr(), *(t.data_ptr() for t in tables), None,
+            op_builder.dtype_code(dtype), B, S, H, D,
+            tables.idx.shape[-1], tables.tiles.shape[-1], block,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], int(causal), D ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+        op_builder.check(err, "block-sparse attention kernel")
+        torch.cuda.synchronize()
+        assert (out[:, S:] == 7.0).all() and torch.equal(out[:, :S], got)
+        # the LSE rows are S apart in lse_out's [B, H, S] reading
+        flat = lse_out.flatten()[:B * H * S].view(B, H, S)
+        assert torch.equal(flat, lse)
+        assert (lse_out.flatten()[B * H * S:] == 7.0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_block_sparse_kernel_padded_batch(cuda, dtype, causal):
+    """A key-padding bias over a batch: a row padded from a ragged point,
+    one whose tail block is fully padded, one fully padded (its queries
+    attend to finite, padded scores, as in JAX), at block 32."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    g = torch.Generator(device=cuda).manual_seed(11 + causal)
+    B, H, S, D, block = 3, 4, 256, 64, 32
+    q, k, v = (_randn(g, B, S, H, D, dtype=dtype, device=cuda)
+               for _ in range(3))
+    keep = torch.ones(B, S, device=cuda)
+    keep[0, 173:] = 0
+    keep[1, S - block:] = 0
+    keep[2] = 0
+    bias = bs.padding_bias(keep, dtype, cuda)
+    lay = _sparse_layout("bigbird", H, block, S)
+    tables = bs.device_tables(lay, H, causal, cuda, block)
+    got, _ = _sparse_check(q, k, v, tables, block, causal, bias, dtype)
+    assert bool(torch.isfinite(got).all())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_block_sparse_kernel_empty_rows_are_zero(cuda, dtype):
-    """A block-row with no active block gives exactly 0; padded table
-    slots are never read (idx is garbage past counts)."""
+    """A block-row with no active block gives exactly 0 and LSE -1e30;
+    padded table slots are never read (idx and tiles are garbage past
+    counts and tile_counts)."""
     from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
     g = torch.Generator(device=cuda).manual_seed(7)
     B, H, S, D, block = 2, 2, 256, 64, 64
@@ -840,16 +919,65 @@ def test_block_sparse_kernel_empty_rows_are_zero(cuda, dtype):
     lay = torch.ones(H, 4, 4, dtype=torch.int64)
     lay[:, 2] = 0
     lay[1, 0] = 0
-    idx, counts = bs.device_tables(lay.numpy(), H, False, cuda)
-    idx = torch.where(torch.arange(idx.shape[-1], device=cuda)
-                      < counts[..., None], idx, 10 ** 6).to(torch.int32)
-    got = bs.block_sparse_attention_fwd(q, k, v, idx.contiguous(), counts,
-                                        D ** -0.5, False, block)
+    t = bs.device_tables(lay.numpy(), H, False, cuda, block)
+    idx = torch.where(torch.arange(t.idx.shape[-1], device=cuda)
+                      < t.counts[..., None], t.idx, 10 ** 6).to(torch.int32)
+    tiles = torch.where(torch.arange(t.tiles.shape[-1], device=cuda)
+                        < t.tile_counts[..., None], t.tiles,
+                        (0x7FFF << 16) | 0xFFFF).to(torch.int32)
+    poisoned = bs.SparseTables(idx.contiguous(), t.counts,
+                               tiles.contiguous(), t.tile_counts)
+    got, lse = bs.block_sparse_attention_fwd(q, k, v, poisoned, D ** -0.5,
+                                             False, block, with_lse=True)
     assert (got[:, 128:192] == 0).all() and (got[:, :64, 1] == 0).all()
-    idx, counts = bs.device_tables(lay.numpy(), H, False, cuda)
-    want = bs.block_sparse_attention_plain(q, k, v, idx, counts, D ** -0.5,
-                                           False, block)
+    assert (lse[:, :, 128:192] == -1e30).all()
+    assert (lse[:, 1, :64] == -1e30).all()
+    want, want_lse = bs.block_sparse_attention_plain(
+        q, k, v, t.idx, t.counts, D ** -0.5, False, block, return_lse=True)
     _close(got, want, dtype)
+    _close(lse, want_lse, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_block_sparse_routes_by_dtype(cuda, dtype, tmp_path):
+    """bf16 / fp16 launch ``wgmma_sparse_fwd_kernel``, fp32 the FMA
+    ``block_sparse_fwd_kernel`` (fp32's bar of 1e-4 is beyond TF32's
+    products), by the profiler's kernel names."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    from deepspeed_tpu_torch.profiling.trace import kernel_events
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, H, S, D, block = 1, 2, 256, 64, 32
+    q, k, v = (_randn(g, B, S, H, D, dtype=dtype, device=cuda)
+               for _ in range(3))
+    tables = bs.device_tables(_sparse_layout("bigbird", H, block, S), H,
+                              True, cuda, block)
+
+    def run():
+        bs.block_sparse_attention_fwd(q, k, v, tables, D ** -0.5, True,
+                                      block)
+
+    names = [e["name"] for e in kernel_events(run, tmp_path / "k8.json")]
+    wgmma = [n for n in names if "wgmma_sparse_fwd_kernel" in n]
+    fma = [n for n in names if "block_sparse_fwd_kernel" in n]
+    if dtype == torch.float32:
+        assert not wgmma and len(fma) == 1, names
+    else:
+        assert not fma and len(wgmma) == 1, names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_block_sparse_refuses_what_tma_cannot_load(cuda, dtype):
+    """A 16-bit q / k / v whose (b, s, h) strides are not whole 16-byte
+    units raises before a launch (no fallback)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    B, H, S, D, block = 1, 2, 64, 64, 64
+    x = torch.zeros(B, S, H, D + 4, dtype=dtype, device=cuda)[..., 2:D + 2]
+    tables = bs.device_tables(torch.ones(H, 1, 1).numpy(), H, False, cuda,
+                              block)
+    before = bs.block_sparse_attention_fwd.launches
+    with pytest.raises(ValueError, match="TMA"):
+        bs.block_sparse_attention_fwd(x, x, x, tables, 0.125, False, block)
+    assert bs.block_sparse_attention_fwd.launches == before
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -355,8 +355,10 @@ def test_kernel_wrapper_refuses_blocks_and_head_dims(block, D):
     before anything is launched (never a quiet dense path)."""
     S = 2 * block
     q = torch.zeros(1, S, 2, D)
-    idx = torch.zeros(2, 2, 1, dtype=torch.int32)
-    counts = torch.ones(2, 2, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        pbs.block_sparse_attention_fwd(q, q, q, idx, counts, 0.1, True,
-                                       block)
+    nt = -(-S // pbs.TILE)
+    tables = pbs.SparseTables(torch.zeros(2, 2, 1, dtype=torch.int32),
+                              torch.ones(2, 2, dtype=torch.int32),
+                              torch.zeros(2, nt, 1, dtype=torch.int32),
+                              torch.ones(2, nt, dtype=torch.int32))
+    with pytest.raises(ValueError, match="block|head_dim"):
+        pbs.block_sparse_attention_fwd(q, q, q, tables, 0.1, True, block)

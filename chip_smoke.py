@@ -105,6 +105,16 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    (K6-i8mm-window);
 12. prints the card, a ``kernels`` JSON line and, last, the result line.
 
+Generation and serving run on the captured decode programs (CUDA graphs,
+``enable_cuda_graph``'s default) after ``warmup()`` / ``srv.warmup()``,
+whose seconds each run's record prints; the launch counts are the eager
+launches plus each graph's captured launches times its replays, so every
+gate keeps its meaning.  Runs (a), (d) and (h) also run on an eager
+engine over the same weights (``enable_cuda_graph=False``): every token
+must be bitwise equal, and a ``graphs_vs_eager`` line gives tokens/s and
+the profiled window's idle share both ways (profile lines "a", "d", "h"
+eager, "a_graph", "d_graph", "h_graph" on the graphs).
+
 K1 / K3 / K7 on bf16 / fp16 run one tensor-core template (``wgmma`` over
 TMA tiles; a ``ptxas_flash_fwd`` line gives registers, spills and dynamic
 shared memory of every instantiation, as ``ptxas_flash_bwd`` does for K4 /
@@ -2171,6 +2181,25 @@ def counted_events(fn, trace):
                 "port_kernels_launched": sum(read_counts().values())}
 
 
+def graphs_vs_eager(runs):
+    """Runs (a), (d) and (h) with the captured decode programs and on
+    eager engines, from this call: tokens/s and the profiled window's
+    device idle share each way."""
+    out = {}
+    for run in ("a", "d", "h"):
+        out[run] = {
+            "tokens_per_s_graphs": runs[run]["tokens_per_s"],
+            "tokens_per_s_eager": runs[run + "_eager"]["tokens_per_s"],
+            "idle_share_graphs":
+                runs[run + "_graph_profile"]["device_idle_share"],
+            "idle_share_eager": runs[run + "_profile"]["device_idle_share"],
+            "busy_ms_graphs": runs[run + "_graph_profile"]["device_busy_ms"],
+            "busy_ms_eager": runs[run + "_profile"]["device_busy_ms"],
+            "wall_ms_graphs": runs[run + "_graph_profile"]["wall_ms"],
+            "wall_ms_eager": runs[run + "_profile"]["wall_ms"]}
+    return out
+
+
 def profile_run(eng, ids, new, tag="a", trace="generate_trace.json"):
     """The same generate() once more under ``torch.profiler`` (CUDA
     activity only): where its time goes on the card (profile line
@@ -2187,16 +2216,19 @@ def profile_run(eng, ids, new, tag="a", trace="generate_trace.json"):
 
     trace = os.path.join(ROOT, "build", "profiles", trace)
     ks, held = counted_events(run, trace)
-    rec = {"profile": tag, **breakdown(ks, wall["s"]), **held,
+    rec = {"profile": tag, "cuda_graphs": eng._config.enable_cuda_graph,
+           **breakdown(ks, wall["s"]), **held,
            "trace": os.path.relpath(trace, ROOT)}
     emit(rec)
     return rec
 
 
 def main_path():
-    """Drive init_inference -> generate twice, counting launches per run
-    (and run (a) once more under the profiler), then hold the kernel path's
-    logits against the plain path's."""
+    """Drive init_inference -> generate twice with the captured decode
+    graphs (``warmup()`` first), counting launches per run; run (a) also
+    on an eager engine (tokens bitwise equal) and once more under the
+    profiler each way; then hold the kernel path's logits against the
+    plain path's."""
     import torch
     from deepspeed_tpu_torch import init_inference
     from deepspeed_tpu_torch.models.opt import opt_model
@@ -2215,16 +2247,38 @@ def main_path():
     plan = eng.prefill_plan(B, P)
     if plan[0] != "one_pass":
         fail(f"run (a) should take one-pass prefill, plan says {plan}")
-    eng.generate(ids_a, max_new_tokens=4)     # warm-up (cuBLAS, allocator)
-    out_a, dt, cnt, peak = run_generate(eng, ids_a, new, {
-        "flash_attention": L, "decode_attention": L * (new - 1)})
+    expect_a = {"flash_attention": L, "decode_attention": L * (new - 1)}
+    # warm-up: captures run (a)'s decode graphs (and warms cuBLAS and the
+    # allocator through its eager prefill)
+    warm = eng.warmup(P, new, batch_sizes=(B,))
+    out_a, dt, cnt, peak = run_generate(eng, ids_a, new, expect_a)
     runs["a"] = {"run": "a", "route": "one_pass", "batch": B, "prompt": P,
                  "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
-                 "peak_device_bytes": peak,
+                 "peak_device_bytes": peak, "cuda_graphs": True,
+                 "warmup_seconds": warm,
+                 "graph_pool_bytes": graph_pool_bytes(eng),
                  "plan": plan[2], "init_seconds": init_s}
     emit(runs["a"])
-    runs["a_profile"] = profile_run(eng, ids_a, new)
+    # the same run on an eager engine over the same weights: every token
+    # bitwise the graphs' (its launches counted one by one)
+    eng_e = eager_twin(eng)
+    eng_e.generate(ids_a, max_new_tokens=4)   # warm-up
+    out_e, dt, cnt, peak = run_generate(eng_e, ids_a, new, expect_a)
+    runs["a_eager"] = {"run": "a_eager", "cuda_graphs": False,
+                       "seconds": dt, "tokens_per_s": B * new / dt,
+                       "launches": cnt, "peak_device_bytes": peak,
+                       "tokens_equal_to_graphs": bool(torch.equal(out_e,
+                                                                  out_a))}
+    emit(runs["a_eager"])
+    if not runs["a_eager"]["tokens_equal_to_graphs"]:
+        fail("run (a): the eager engine's tokens differ from the captured "
+             "decode graphs'")
+    # the profile lines: "a" on the eager engine (as in earlier runs),
+    # "a_graph" on the captured graphs
+    runs["a_profile"] = profile_run(eng_e, ids_a, new)
+    runs["a_graph_profile"] = profile_run(eng, ids_a, new, "a_graph",
+                                          "generate_graph_trace.json")
 
     # (b) split (chunked) prefill over the same weights
     B, P, new, C = (RUN_B[x] for x in ("batch", "prompt", "new", "chunk"))
@@ -2234,15 +2288,15 @@ def main_path():
     plan_b = eng_b.prefill_plan(B, P)
     if plan_b[:2] != ("chunked", C):
         fail(f"run (b) should take chunked prefill, plan says {plan_b}")
-    eng_b.generate(ids_b, max_new_tokens=2)   # warm-up
+    warm = eng_b.warmup(P, new, batch_sizes=(B,))
     out_b, dt, cnt, peak = run_generate(eng_b, ids_b, new, {
         "decode_attention": L * (new - 1),
         "chunk_prefill_attention": L * (-(-P // C))})
     runs["b"] = {"run": "b", "route": "chunked", "chunk": C, "batch": B,
                  "prompt": P, "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
-                 "peak_device_bytes": peak,
-                 "plan": plan_b[2]}
+                 "peak_device_bytes": peak, "cuda_graphs": True,
+                 "warmup_seconds": warm, "plan": plan_b[2]}
     emit(runs["b"])
 
     # the kernel path's logits against the plain path on the same card and
@@ -2273,7 +2327,25 @@ def main_path():
         compare_logits("(b) chunked prefill logits, K3 vs plain", got, want)
         del cache
     del eng_b
-    return runs, eng, {"a": (ids_a, out_a), "b": (ids_b, out_b)}
+    return runs, eng, eng_e, {"a": (ids_a, out_a), "b": (ids_b, out_b)}
+
+
+def graph_pool_bytes(eng):
+    """Device bytes of the graph memory pools of ``eng``'s captured decode
+    programs."""
+    from deepspeed_tpu_torch.inference.engine import CapturedGenerate
+    return sum(p.pool_bytes() for fn in eng._programs.values()
+               if isinstance(fn, CapturedGenerate)
+               for p in fn.programs.values())
+
+
+def eager_twin(eng, **config):
+    """An engine over ``eng``'s module (its weights as they are) with
+    ``enable_cuda_graph=False``: the eager per-step decode loop and
+    serving block."""
+    from deepspeed_tpu_torch import init_inference
+    return init_inference(eng.module, {**config, "enable_cuda_graph": False},
+                          dtype="bfloat16", device=DEV)
 
 
 # --------------------------------------------------------------------- #
@@ -2334,6 +2406,8 @@ def serve_record(run, srv, secs, peak, counts, reqs):
             "admission_stalls": st["admission_stalls"],
             "page_evictions": st["page_evictions"],
             "peak_page_pool_utilization": peak,
+            "cuda_graphs": srv.engine._config.enable_cuda_graph,
+            "warmup_seconds": st["warmup_seconds"],
             "sync_secs": st["sync_secs"], "wall_secs": st["wall_secs"],
             "sync_share": st["sync_secs"] / st["wall_secs"],
             "iterations": st["iterations"],
@@ -2342,6 +2416,7 @@ def serve_record(run, srv, secs, peak, counts, reqs):
             "prefix_tokens_reused": st["prefix_tokens_reused"],
             "peak_device_bytes": st["peak_device_bytes"],
             "kv_bytes": st["kv_bytes"],
+            "graph_pool_bytes": st["graph_pool_bytes"],
             "kernel_modes": srv.kernel_modes, "launches": counts}
 
 
@@ -2385,16 +2460,20 @@ def serve_expect(srv):
 
 
 def serve_counted(eng, reqs, tag, **overrides):
-    """One server over ``reqs`` with every launch count set to 0 just
-    before and read just after; the counts must be exactly the path's.
+    """One server over ``reqs`` (``warmup()`` first: the decode block's
+    graph is captured before the count) with every launch count set to 0
+    just before and read just after; the counts must be exactly the
+    path's.
     The peak device memory of the run and the bytes of its KV pool or
     lanes go into ``srv.stats`` as ``peak_device_bytes`` and
     ``kv_bytes``."""
     import torch
     srv = eng.serve(**overrides)
+    warm = srv.warmup()                       # captures the decode block
     torch.cuda.reset_peak_memory_stats(DEV)
     reset_counts()
     outs, secs, peak = drive(srv, reqs)
+    srv.stats["warmup_seconds"] = warm
     counts = read_counts()
     want = serve_expect(srv)
     if counts != want:
@@ -2407,14 +2486,17 @@ def serve_counted(eng, reqs, tag, **overrides):
     check_outputs(tag, outs, reqs, srv.module.config.vocab_size)
     srv.stats["peak_device_bytes"] = torch.cuda.max_memory_allocated(DEV)
     srv.stats["kv_bytes"] = tensor_bytes(srv._cache)
+    srv.stats["graph_pool_bytes"] = srv._decode_prog.pool_bytes()
     srv.close()
     torch.cuda.empty_cache()
     return srv, outs, secs, peak, counts
 
 
-def serving_path(eng):
-    """Run (d) paged, its monolithic twin, the decode-window profile and
-    run (e).  Returns the runs and run (d)'s outputs."""
+def serving_path(eng, eng_e):
+    """Run (d) paged on the captured decode block, again on ``eng_e``'s
+    eager block (every request equal), its monolithic twin, the
+    decode-window profile each way and run (e).  Returns the runs and run
+    (d)'s outputs."""
     import numpy as np
     V = eng.module.config.vocab_size
     reqs = serving_traffic(V)
@@ -2428,6 +2510,7 @@ def serving_path(eng):
     runs["d"]["prefill_plan"] = eng.prefill_plan(1, max(RUN_D["prompts"]),
                                                  paged=True)[2]
     emit(runs["d"])
+    runs["d_eager"] = eager_serving("d_eager", eng_e, reqs, outs, SERVE_D)
     mono, outs_m, secs_m, peak_m, counts_m = serve_counted(
         eng, reqs, "run (d) monolithic", **{**SERVE_D, "paged": False})
     differ = sum(not np.array_equal(a, b) for a, b in zip(outs, outs_m))
@@ -2438,16 +2521,36 @@ def serving_path(eng):
     if differ:
         fail(f"run (d): {differ} of {len(reqs)} requests' tokens differ "
              f"between the paged pool and the monolithic lanes")
-    runs["d_profile"] = profile_serving(eng, reqs)
+    runs["d_profile"] = profile_serving(eng_e, reqs)
+    runs["d_graph_profile"] = profile_serving(eng, reqs, "d_graph",
+                                              "serving_graph_trace.json")
     runs["e"] = prefix_path(eng)
     return runs, outs
 
 
-def profile_serving(eng, reqs):
+def eager_serving(run, eng_e, reqs, outs, serve):
+    """``reqs`` served on the eager engine ``eng_e`` (counted as any
+    server): every request's tokens must equal ``outs``, the captured
+    block's."""
+    import numpy as np
+    srv, outs_e, secs, peak, counts = serve_counted(eng_e, reqs,
+                                                    f"run ({run})", **serve)
+    rec = serve_record(run, srv, secs, peak, counts, reqs)
+    rec["requests_differing_from_graphs"] = sum(
+        not np.array_equal(a, b) for a, b in zip(outs, outs_e))
+    emit(rec)
+    if rec["requests_differing_from_graphs"]:
+        fail(f"run ({run}): {rec['requests_differing_from_graphs']} "
+             f"requests' tokens differ from the captured decode block's")
+    return rec
+
+
+def profile_serving(eng, reqs, tag="d", trace="serving_trace.json"):
     """A decode window with all 96 slots live under ``torch.profiler``:
     run (d)'s first 96 prompts with 128 new tokens each, admitted in one
     iteration (no prefill budget) on a worst-case pool, then
-    ``PROFILE_D_STEPS`` decode-only scheduler steps traced."""
+    ``PROFILE_D_STEPS`` decode-only scheduler steps traced (profile line
+    ``tag``)."""
     import torch
     from deepspeed_tpu_torch.profiling.trace import breakdown
     srv = eng.serve(**{**SERVE_D, "prefill_token_budget": 0, "num_pages": 0})
@@ -2467,9 +2570,10 @@ def profile_serving(eng, reqs):
         torch.cuda.synchronize()
         wall["s"] = time.perf_counter() - t0
 
-    trace = os.path.join(ROOT, "build", "profiles", "serving_trace.json")
+    trace = os.path.join(ROOT, "build", "profiles", trace)
     ks, held = counted_events(window, trace)
-    rec = {"profile": "d", "live_slots": srv.active_slots,
+    rec = {"profile": tag, "live_slots": srv.active_slots,
+           "cuda_graphs": eng._config.enable_cuda_graph,
            "decode_steps": PROFILE_D_STEPS * srv.block,
            **breakdown(ks, wall["s"]), **held,
            "trace": os.path.relpath(trace, ROOT)}
@@ -2675,7 +2779,7 @@ def int8_generate_path(eng, tokens, runs):
                "quantized_layers": len(eng_g.module.quantized_leaves()),
                "init_seconds": init_s}
     B, P, new = RUN_A["batch"], RUN_A["prompt"], RUN_A["new"]
-    eng_g.generate(ids_a, max_new_tokens=4)   # warm-up
+    warm = eng_g.warmup(P, new, batch_sizes=(B,))
     out, dt, cnt, peak = run_generate(eng_g, ids_a, new, {
         "flash_attention": L, "decode_attention_int8": L * (new - 1)})
     runs["g"] = {"run": "g", "route": "one_pass", "batch": B, "prompt": P,
@@ -2686,17 +2790,23 @@ def int8_generate_path(eng, tokens, runs):
                  "kv_bytes": tensor_bytes(eng_g._workspace._cache),
                  "kv_bytes_bf16": tensor_bytes(eng._workspace._cache),
                  "greedy_agreement_with_a": agreement(out, out_a, P),
-                 **weights,
+                 "cuda_graphs": True, "warmup_seconds": warm,
+                 "graph_pool_bytes": graph_pool_bytes(eng_g), **weights,
                  "logits": kernels_vs_plain("(g)", eng_g.module, ids_a)}
     emit(runs["g"])
-    runs["g_profile"] = profile_run(eng_g, ids_a, new, "g",
+    # the profile line on an eager engine over the quantized module, as in
+    # earlier runs (run (h)'s eager twin serves on it too)
+    eng_ge = eager_twin(eng_g, quant=dict(QUANT))
+    eng_ge.generate(ids_a, max_new_tokens=4)  # warm-up
+    runs["g_profile"] = profile_run(eng_ge, ids_a, new, "g",
                                     "int8_generate_trace.json")
+    eng_ge.release_workspace()
     B, P, new, C = (RUN_B[x] for x in ("batch", "prompt", "new", "chunk"))
     # a second engine over the quantized module, as run (b)'s over (a)'s
     eng_gb = init_inference(eng_g.module, {"quant": dict(QUANT),
                                            "prefill_chunk_size": C},
                             dtype="bfloat16", device=DEV)
-    eng_gb.generate(ids_b, max_new_tokens=2)  # warm-up
+    warm = eng_gb.warmup(P, new, batch_sizes=(B,))
     out, dt, cnt, peak = run_generate(eng_gb, ids_b, new, {
         "decode_attention_int8": L * (new - 1),
         "chunk_prefill_attention_int8": L * (-(-P // C))})
@@ -2706,6 +2816,7 @@ def int8_generate_path(eng, tokens, runs):
                    "peak_device_bytes": peak,
                    "peak_device_bytes_run_b": runs["b"]["peak_device_bytes"],
                    "greedy_agreement_with_b": agreement(out, out_b, P),
+                   "cuda_graphs": True, "warmup_seconds": warm,
                    "logits": kernels_vs_plain("(g) chunked", eng_g.module,
                                               ids_b, chunk=C)}
     emit(runs["g_b"])
@@ -2713,7 +2824,7 @@ def int8_generate_path(eng, tokens, runs):
     eng_m, init_m = int8_engine(sd, kv_cache_quant=True,
                                 decode_int8_matmuls=True)
     B, P, new = RUN_A["batch"], RUN_A["prompt"], RUN_A["new"]
-    eng_m.generate(ids_a, max_new_tokens=4)   # warm-up
+    warm = eng_m.warmup(P, new, batch_sizes=(B,))
     out, dt, cnt, peak = run_generate(eng_m, ids_a, new, {
         "flash_attention": L, "decode_attention_i8mm": L * (new - 1)})
     runs["g_i8mm"] = {"run": "g_i8mm", "route": "one_pass",
@@ -2721,20 +2832,23 @@ def int8_generate_path(eng, tokens, runs):
                       "new_tokens": new, "seconds": dt,
                       "tokens_per_s": B * new / dt, "launches": cnt,
                       "peak_device_bytes": peak, "init_seconds": init_m,
+                      "cuda_graphs": True, "warmup_seconds": warm,
                       "greedy_agreement_with_a": agreement(out, out_a, P),
                       "logits": kernels_vs_plain("(g-i8mm)", eng_m.module,
                                                  ids_a)}
     emit(runs["g_i8mm"])
     eng_m.release_workspace()
     torch.cuda.empty_cache()
-    return eng_g, eng_m
+    return eng_g, eng_ge, eng_m
 
 
-def int8_serving_path(eng_g, eng_m, outs_d, runs):
+def int8_serving_path(eng_g, eng_ge, eng_m, outs_d, runs):
     """Run (h): run (d)'s requests and server on the int8 engine (K7-int8
-    admission, K6-int8 decode), its monolithic twin (K3-int8, K2-int8)
-    with every request's tokens equal, and (h-i8mm): run (d)'s first 24
-    requests with decode_int8_matmuls on the pool (K7-int8, K6-i8mm)."""
+    admission, K6-int8 decode) with the captured decode block, again on
+    the eager engine ``eng_ge`` (every request equal), a decode-window
+    profile each way, its monolithic twin (K3-int8, K2-int8) with every
+    request's tokens equal, and (h-i8mm): run (d)'s first 24 requests
+    with decode_int8_matmuls on the pool (K7-int8, K6-i8mm)."""
     import numpy as np
     import torch
     V = eng_g.module.config.vocab_size
@@ -2762,6 +2876,11 @@ def int8_serving_path(eng_g, eng_m, outs_d, runs):
                    paged=SERVE_D["page_size"]))
     runs["h"] = rec
     emit(rec)
+    runs["h_eager"] = eager_serving("h_eager", eng_ge, reqs, outs, SERVE_D)
+    runs["h_profile"] = profile_serving(eng_ge, reqs, "h",
+                                        "int8_serving_trace.json")
+    runs["h_graph_profile"] = profile_serving(
+        eng_g, reqs, "h_graph", "int8_serving_graph_trace.json")
     mono, outs_m, secs_m, peak_m, counts_m = serve_counted(
         eng_g, reqs, "run (h) monolithic", **{**SERVE_D, "paged": False})
     differ = sum(not np.array_equal(a, b) for a, b in zip(outs, outs_m))
@@ -2823,14 +2942,16 @@ def gpt_neo_logits(tag, m, m32, ids, **kw):
 
 
 def gpt_neo_generate(eng, ids, new, tag, expect, runs, **extra):
-    """One counted generate() of run (i) and its record."""
+    """One counted generate() of run (i), after ``warmup()``, and its
+    record."""
     B, P = ids.shape
-    eng.generate(ids, max_new_tokens=2)       # warm-up
+    warm = eng.warmup(P, new, batch_sizes=(B,))
     out, dt, cnt, peak = run_generate(eng, ids, new, expect)
     runs[tag] = {"run": tag, "model": GPT_NEO, "batch": B, "prompt": P,
                  "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
-                 "peak_device_bytes": peak, **extra}
+                 "peak_device_bytes": peak, "cuda_graphs": True,
+                 "warmup_seconds": warm, **extra}
     return out
 
 
@@ -2875,8 +2996,12 @@ def gpt_neo_path():
         window=cfg.window_size, init_seconds=init_s, plan=plan[2],
         logits=gpt_neo_logits("(i)", m, m32, ids))
     emit(runs["i"])
-    runs["i_profile"] = profile_run(eng, ids, new, "i",
+    # the profile line on an eager engine, as in earlier runs
+    eng_e = eager_twin(eng)
+    eng_e.generate(ids, max_new_tokens=2)     # warm-up
+    runs["i_profile"] = profile_run(eng_e, ids, new, "i",
                                     "gpt_neo_generate_trace.json")
+    del eng_e
     B, P, new, C = (RUN_I_CHUNKED[x] for x in ("batch", "prompt", "new",
                                                "chunk"))
     eng_c = init_inference(m, {"prefill_chunk_size": C}, dtype="bfloat16",
@@ -3309,15 +3434,17 @@ def main():
                          **check_paged_decode_window(dtype, timed)}.items():
             checks[(key, dtype)] = rec
 
-    runs, eng, tokens = main_path()
-    serving_runs, outs_d = serving_path(eng)
+    runs, eng, eng_e, tokens = main_path()
+    serving_runs, outs_d = serving_path(eng, eng_e)
     runs.update(serving_runs)
-    eng_g, eng_m = int8_generate_path(eng, tokens, runs)
+    del eng_e
+    eng_g, eng_ge, eng_m = int8_generate_path(eng, tokens, runs)
     del eng
     torch.cuda.empty_cache()
-    int8_serving_path(eng_g, eng_m, outs_d, runs)
-    del eng_g, eng_m
+    int8_serving_path(eng_g, eng_ge, eng_m, outs_d, runs)
+    del eng_g, eng_ge, eng_m
     torch.cuda.empty_cache()
+    emit({"graphs_vs_eager": graphs_vs_eager(runs)})
     runs.update(gpt_neo_path())
     runs["c"] = train_path()
     grad_check()

@@ -5,7 +5,9 @@ Same keys and aliases as the JAX package's ``DeepSpeedInferenceConfig``
 carries over: ``enabled`` quantizes the weights when they are loaded
 (``bits`` 4 / 8, ``group_size``, ``per_channel``), ``kv_cache`` makes the
 KV cache int8 (``init_inference`` sets the model's ``kv_cache_quant``).
-Knobs whose feature this port does not have yet raise
+``enable_cuda_graph`` (default True) selects the captured decode
+programs of ``inference/engine.py`` and the serving engine.  Knobs whose
+feature this port does not have yet raise
 ``NotImplementedError`` when set away from their default, so a config
 never silently does nothing: tensor parallelism, expert parallelism, the
 memory guard's ``strict_memory``, checkpoint loading, the fault block's
@@ -73,6 +75,10 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     min_out_tokens: int = 1
     max_batch_size: int = 8
     replace_method: str = "auto"
+    # captured decode programs (as JAX's "jitted decode step, always
+    # on"): generate() replays CUDA graphs of DECODE_STEPS_PER_GRAPH
+    # decode steps and the serving engine a graph of its decode block;
+    # False runs the eager per-step loop and block
     enable_cuda_graph: bool = True
     checkpoint: Optional[Any] = None
     base_dir: str = ""

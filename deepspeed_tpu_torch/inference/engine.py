@@ -13,11 +13,27 @@ fp32 values (the JAX ``set_params`` quantizes before its cast to the
 compute dtype), and stay resident as int8 / packed int4; an int8-KV model
 (``kv_cache_quant``) gets int8 workspaces with their scales.
 
-What has no counterpart here: the JAX engine's AOT compilation, its
-persistent executable cache, its compiled-program memory guard and the
-``_run_guarded`` retries.  PyTorch runs eagerly, so each call runs the
-model directly; cache updates happen in place instead of by donation.
+**Compiled decode programs.**  The JAX engine runs ``generate()`` as one
+compiled program per signature: prefill, then a bounded ``while_loop``
+that stops on the device once every row is done.  Here, with
+``enable_cuda_graph`` (on by default, as in JAX), the decode loop is a
+CUDA graph of :data:`DECODE_STEPS_PER_GRAPH` decode steps (sample, eos
+mask and ``done`` update on the device), captured once per signature by a
+:class:`~deepspeed_tpu_torch.model_implementations.CompiledGraphModule`
+and replayed ``ceil(T / k)`` times, with a tail graph for ``T mod k``
+steps; ``done`` is read once per replay.  The prefill stays eager (see
+:class:`CapturedGenerate`).  The graphs are tied to the KV-cache
+workspace's buffers and are dropped when it grows or is released.
+:meth:`InferenceEngine.warmup` captures them ahead of time.
+``enable_cuda_graph=False`` keeps the eager per-step loop; an engine on
+the CPU runs the same decode programs directly (no graph there).
+
+What has no counterpart here: the JAX engine's persistent executable
+cache, its compiled-program memory guard and the ``_run_guarded``
+retries.  Cache updates happen in place instead of by donation.
 """
+
+import time
 
 import numpy as np
 import torch
@@ -26,12 +42,19 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.inference.config import (DeepSpeedInferenceConfig,
                                                   normalize_dtype_str)
+from deepspeed_tpu_torch.model_implementations.features.cuda_graph import (
+    CompiledGraphModule)
 from deepspeed_tpu_torch.runtime.weight_quantizer import (WeightQuantization,
                                                           holds_quantized)
 from deepspeed_tpu_torch.utils.logging import log_dist, warning_once
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
+
+# decode steps in one captured decode graph (k): ``done`` is read once per
+# replay, and up to k - 1 steps run after every row is done; chosen on the
+# card from 4 and 16 by scripts/decode_graph_steps.py (PERF.md)
+DECODE_STEPS_PER_GRAPH = 4
 
 
 class InferenceEngine:
@@ -65,7 +88,11 @@ class InferenceEngine:
                 self._quantize()
         self.module.eval()
         self._has_params = not on_meta
-        self._workspace = KVCacheWorkspace(self.module)
+        # the generation programs, one per signature (the JAX memo)
+        self._programs = {}
+        self._workspace = KVCacheWorkspace(self.module,
+                                           on_drop=self._drop_graphs)
+        # reseeded in place, never rebound: captured graphs draw from it
         self._gen = self._accel.manual_seed(0, self.device)
         log_dist(f"inference engine on {self._accel.device_name(self.device)}"
                  f", dtype={self.compute_dtype}", ranks=[0])
@@ -145,13 +172,28 @@ class InferenceEngine:
     def _get_generate(self, prompt_len, max_new_tokens, do_sample,
                       temperature, top_k, top_p, with_mask=False,
                       external_prefill=False):
-        # the JAX engine memoizes a compiled program per signature; an
-        # eager loop costs nothing to build
-        return make_generate_fn(
-            self.module, prompt_len, max_new_tokens, do_sample, temperature,
-            top_k, top_p, with_mask=with_mask,
-            external_prefill=external_prefill,
-            early_exit=self._config.decode_early_exit)
+        """The generation program of a signature, memoized as the JAX
+        engine memoizes its compiled programs: captured decode graphs with
+        ``enable_cuda_graph``, else the eager loop."""
+        key = (prompt_len, max_new_tokens, do_sample, temperature, top_k,
+               top_p, with_mask, external_prefill)
+        fn = self._programs.get(key)
+        if fn is None:
+            fn = make_generate_fn(
+                self.module, prompt_len, max_new_tokens, do_sample,
+                temperature, top_k, top_p, with_mask=with_mask,
+                external_prefill=external_prefill,
+                early_exit=self._config.decode_early_exit,
+                graphs=self._config.enable_cuda_graph)
+            self._programs[key] = fn
+        return fn
+
+    def _drop_graphs(self):
+        """Drop every captured decode graph: the workspace buffers they
+        were captured on are about to be freed."""
+        for fn in self._programs.values():
+            if isinstance(fn, CapturedGenerate):
+                fn.reset()
 
     def _prefill_chunk_for(self, batch_size, prompt_len):
         cfg = self._config.prefill_chunk_size
@@ -208,7 +250,7 @@ class InferenceEngine:
             require_right_padded(attention_mask)
             attention_mask = self._ids(attention_mask)
         if seed is not None:
-            self._gen = self._accel.manual_seed(seed, self.device)
+            self._gen.manual_seed(int(seed))
         return self._generate_once(input_ids, int(max_new_tokens),
                                    bool(do_sample), float(temperature),
                                    int(top_k), float(top_p),
@@ -216,30 +258,28 @@ class InferenceEngine:
 
     def _generate_once(self, input_ids, max_new_tokens, do_sample,
                        temperature, top_k, top_p, eos_token_id,
-                       attention_mask):
+                       attention_mask, timings=None):
         B, P = input_ids.shape
         chunk = self._prefill_chunk_for(B, P)
         n_chunks = -(-P // chunk) if chunk else 1
         if n_chunks > 1:
             return self._generate_split(input_ids, max_new_tokens, do_sample,
                                         temperature, top_k, top_p,
-                                        eos_token_id, attention_mask, chunk)
+                                        eos_token_id, attention_mask, chunk,
+                                        timings)
         fn = self._get_generate(P, max_new_tokens, do_sample, temperature,
                                 top_k, top_p,
                                 with_mask=attention_mask is not None)
         cache = self._workspace.take(
             B, required_cache_len(P, max_new_tokens, chunk),
             self.compute_dtype)
-        try:
-            out, cache = fn(cache, input_ids, self._gen, eos_token_id,
-                            attention_mask)
-        finally:
-            self._workspace.give_back(cache)
+        out, _ = fn(cache, input_ids, self._gen, eos_token_id,
+                    attention_mask)
         return out
 
     def _generate_split(self, input_ids, max_new_tokens, do_sample,
                         temperature, top_k, top_p, eos_token_id,
-                        attention_mask, chunk):
+                        attention_mask, chunk, timings=None):
         """Split-prefill generation: the prompt goes through the model in
         ``chunk``-token blocks, each attending to the cache through the
         chunk kernel (chunk 0 included), then the decode-only loop."""
@@ -254,29 +294,108 @@ class InferenceEngine:
         else:
             last = torch.full((B,), P - 1, dtype=torch.long,
                               device=self.device)
-        try:
-            sel = None
-            for ci in range(n):
-                local = (last - ci * C).clamp(0, C - 1)
-                logits, cache = self.module.decode(
-                    ids_pad[:, ci * C:(ci + 1) * C], cache, ci * C,
-                    logits_at=local)
-                in_chunk = ((last // C) == ci)[:, None, None]
-                sel = logits if sel is None \
-                    else torch.where(in_chunk, logits, sel)
-            fn = self._get_generate(P, max_new_tokens, do_sample, temperature,
-                                    top_k, top_p,
-                                    with_mask=attention_mask is not None,
-                                    external_prefill=True)
-            out, cache = fn(cache, input_ids, self._gen, eos_token_id,
-                            attention_mask, sel)
-        finally:
-            self._workspace.give_back(cache)
+        sel = None
+        for ci in range(n):
+            local = (last - ci * C).clamp(0, C - 1)
+            logits, cache = self.module.decode(
+                ids_pad[:, ci * C:(ci + 1) * C], cache, ci * C,
+                logits_at=local)
+            in_chunk = ((last // C) == ci)[:, None, None]
+            sel = logits if sel is None \
+                else torch.where(in_chunk, logits, sel)
+        if timings is not None:
+            self._accel.synchronize(self.device)
+            timings["prefill"] = time.perf_counter()
+        fn = self._get_generate(P, max_new_tokens, do_sample, temperature,
+                                top_k, top_p,
+                                with_mask=attention_mask is not None,
+                                external_prefill=True)
+        out, _ = fn(cache, input_ids, self._gen, eos_token_id,
+                    attention_mask, sel)
         return out
 
     def release_workspace(self):
-        """Free the persistent KV-cache workspace buffer."""
+        """Free the persistent KV-cache workspace buffer (and the decode
+        graphs captured on it)."""
         self._workspace.release()
+
+    # ------------------------------------------------------------------ #
+    # Warmup: capture every decode graph up front
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def warmup(self, prompt_len, max_new_tokens, batch_sizes=(1,),
+               do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+               with_mask=False):
+        """Capture every program a ``generate(prompt_len, max_new_tokens)``
+        call will run, for each batch size in ``batch_sizes`` — the
+        split-prefill pair when the chunk policy routes that batch there.
+        Returns ``{program: seconds}`` under the JAX engine's names:
+        ``generate:b{B}p{P}n{N}``, or ``prefill_chunk:b{B}c{C}`` and
+        ``decode:b{B}p{P}n{N}``; 0.0 where the program was captured
+        already.
+
+        Unlike the JAX engine's abstract AOT compile, a capture runs: each
+        batch size makes one ``generate()`` call on an all-zero prompt
+        (no eos, no early exit), on the real KV workspace, which is first
+        sized for the largest batch size so that no later size drops the
+        graphs of an earlier one.  That is harmless: every attention path
+        masks the stale cache rows it leaves behind, and the engine's
+        generator is restored afterwards, so later draws are unchanged.
+        The prefill (and a chunked prefill's chunks) runs eagerly and has
+        no graph: its seconds are its first run's.  With
+        ``enable_cuda_graph=False`` nothing is captured and every name
+        reports 0.0; on the CPU the call runs once all the same."""
+        self._require_params()
+        P, new = int(prompt_len), int(max_new_tokens)
+        sizes = [int(b) for b in batch_sizes]
+        top = max(sizes)
+        self._workspace.take(top, required_cache_len(
+            P, new, self._prefill_chunk_for(top, P)), self.compute_dtype)
+        state = self._gen.get_state()
+        report = {}
+        try:
+            for B in sizes:
+                report.update(self._warmup_one(
+                    B, P, new, bool(do_sample), float(temperature),
+                    int(top_k), float(top_p), bool(with_mask)))
+        finally:
+            self._gen.set_state(state)
+        for name, dt in report.items():
+            log_dist(f"warmup[{name}]: "
+                     + ("captured" if dt == 0.0 else f"{dt:.3f}s"),
+                     ranks=[0])
+        return report
+
+    precompile = warmup
+
+    def _warmup_one(self, B, P, new, do_sample, temperature, top_k, top_p,
+                    with_mask):
+        chunk = self._prefill_chunk_for(B, P)
+        split = chunk is not None and -(-P // chunk) > 1
+        if split:
+            names = (f"prefill_chunk:b{B}c{chunk}", f"decode:b{B}p{P}n{new}")
+        else:
+            names = (f"generate:b{B}p{P}n{new}",)
+        fn = self._get_generate(P, new, do_sample, temperature, top_k, top_p,
+                                with_mask=with_mask, external_prefill=split)
+        cache = self._workspace.take(B, required_cache_len(P, new, chunk),
+                                     self.compute_dtype)
+        if not isinstance(fn, CapturedGenerate) \
+                or fn.captured(cache, self._gen):
+            return {name: 0.0 for name in names}
+        ids = torch.zeros((B, P), dtype=torch.long, device=self.device)
+        mask = torch.ones_like(ids) if with_mask else None
+        timings = {}
+        self._accel.synchronize(self.device)
+        t0 = time.perf_counter()
+        self._generate_once(ids, new, do_sample, temperature, top_k, top_p,
+                            -1, mask, timings)
+        self._accel.synchronize(self.device)
+        t1 = time.perf_counter()
+        if split:
+            return {names[0]: timings["prefill"] - t0,
+                    names[1]: t1 - timings["prefill"]}
+        return {names[0]: t1 - t0}
 
     def serve(self, **overrides):
         """A continuous-batching :class:`~deepspeed_tpu_torch.inference.
@@ -306,31 +425,50 @@ def require_right_padded(attention_mask):
 
 
 class KVCacheWorkspace:
-    """Engine-owned persistent KV-cache buffer: allocated once per
-    ``(batch, length, dtype)`` and reused; generation writes into it in
-    place.  Stale contents are harmless: every attention path masks
-    positions beyond each row's live length."""
+    """Engine-owned persistent KV-cache buffers: one per cache tensor
+    (``"k"``, ``"v"`` and an int8 cache's scales), grown to the largest
+    generation served so far; a generation takes a view of each buffer's
+    first elements in its own ``(batch, length)`` shape and writes into it
+    in place.  Stale contents are harmless: every attention path masks
+    positions beyond each row's live length, and a buffer only ever holds
+    values of its own dtype.
 
-    def __init__(self, module):
+    Captured decode graphs hold these buffers' addresses, so every shape
+    the buffers served keeps its graphs; growing the buffers or
+    :meth:`release` calls ``on_drop`` first, which drops the graphs — a
+    graph never replays onto freed memory."""
+
+    def __init__(self, module, on_drop=None):
         self._module = module
-        self._key = None
+        self._on_drop = on_drop
+        self._bufs = {}
         self._cache = None
 
     def take(self, batch_size, max_len, dtype):
-        key = (int(batch_size), int(max_len), dtype)
-        cache, self._cache = self._cache, None
-        if cache is None or self._key != key:
-            cache = None                    # drop the old buffer first
-            self._key = key
-            cache = self._module.init_cache(batch_size, max_len, dtype=dtype)
-        return cache
-
-    def give_back(self, cache):
-        self._cache = cache
+        spec = self._module.init_cache(int(batch_size), int(max_len),
+                                       dtype=dtype, device="meta")
+        if set(spec) != set(self._bufs) or any(
+                self._bufs[k].dtype != t.dtype
+                or self._bufs[k].numel() < t.numel()
+                for k, t in spec.items()):
+            sizes = {k: max(t.numel(), self._bufs[k].numel()
+                            if k in self._bufs
+                            and self._bufs[k].dtype == t.dtype else 0)
+                     for k, t in spec.items()}
+            self.release()                  # drop the old buffers first
+            self._bufs = {k: torch.zeros(sizes[k], dtype=t.dtype,
+                                         device=self._module.device)
+                          for k, t in spec.items()}
+        # the cache last handed out (its views)
+        self._cache = {k: self._bufs[k][:t.numel()].view(t.shape)
+                       for k, t in spec.items()}
+        return self._cache
 
     def release(self):
+        if self._bufs and self._on_drop is not None:
+            self._on_drop()
+        self._bufs = {}
         self._cache = None
-        self._key = None
 
 
 def auto_prefill_chunk(batch_size, prompt_len, token_budget=None):
@@ -393,51 +531,71 @@ def build_sample_fn(do_sample, temperature, top_k, top_p):
     return sample_fn
 
 
+def _prefill(module, prompt_len, sample_fn, with_mask, external_prefill,
+             cache, input_ids, generator, attention_mask, prefill_logits):
+    """The generation prefill: the last real position's logits (one-pass
+    prefill through K1 unless ``external_prefill``), the first sampled
+    token [B] and the first decode position: ``n`` [B] for padded prompts,
+    ``prompt_len`` otherwise."""
+    B = input_ids.shape[0]
+    if with_mask:
+        n = attention_mask.long().sum(1)                        # [B]
+        last_pos = n - 1
+    else:
+        last_pos = torch.full((B,), prompt_len - 1, dtype=torch.long,
+                              device=input_ids.device)
+    if external_prefill:
+        logits = prefill_logits
+    else:
+        logits, _ = module.decode(input_ids, cache, 0, logits_at=last_pos,
+                                  prefill=True)
+    return sample_fn(logits[:, 0], generator), n if with_mask else prompt_len
+
+
+def _check_cache_len(cache, prompt_len, max_new_tokens):
+    min_len = prompt_len + max_new_tokens
+    if cache["k"].shape[-2] < min_len:
+        raise ValueError(
+            f"KV cache has {cache['k'].shape[-2]} positions but this "
+            f"generation needs >= {min_len} — size it with "
+            f"required_cache_len()")
+
+
 def make_generate_fn(module, prompt_len, max_new_tokens, do_sample,
                      temperature, top_k, top_p, with_mask=False,
-                     external_prefill=False, early_exit=True):
-    """The generation loop: one-pass prefill (flash attention within the
-    prompt) unless ``external_prefill``, then a Python decode loop.
+                     external_prefill=False, early_exit=True, graphs=False):
+    """The generation program: one-pass prefill (flash attention within the
+    prompt) unless ``external_prefill``, then the decode loop — with
+    ``graphs``, a :class:`CapturedGenerate` (captured decode blocks), else
+    a Python loop of single decode steps.
 
     Returns ``fn(cache, input_ids, generator, eos_id[, attention_mask,
     prefill_logits]) -> ([B, prompt+new], cache)``; the cache is updated in
     place and must hold ``prompt_len + max_new_tokens`` positions.
-    ``external_prefill=True`` builds the decode-only loop: the caller
+    ``external_prefill=True`` builds the decode-only program: the caller
     prefilled the cache and passes the last-position logits [B, 1, V].
     ``early_exit`` stops the loop once every row has emitted ``eos_id``;
     tokens are identical either way, since steps after a row's eos emit
     eos."""
     sample_fn = build_sample_fn(do_sample, temperature, top_k, top_p)
+    if graphs:
+        return CapturedGenerate(module, prompt_len, max_new_tokens,
+                                sample_fn, with_mask=with_mask,
+                                external_prefill=external_prefill,
+                                early_exit=early_exit)
 
     def generate(cache, input_ids, generator, eos_id, attention_mask=None,
                  prefill_logits=None):
         B = input_ids.shape[0]
-        dev = input_ids.device
-        min_len = prompt_len + max_new_tokens
-        if cache["k"].shape[-2] < min_len:
-            raise ValueError(
-                f"KV cache has {cache['k'].shape[-2]} positions but this "
-                f"generation needs >= {min_len} — size it with "
-                f"required_cache_len()")
-        if with_mask:
-            n = attention_mask.long().sum(1)                    # [B]
-            last_pos = n - 1
-        else:
-            n = None
-            last_pos = torch.full((B,), prompt_len - 1, dtype=torch.long,
-                                  device=dev)
-        if external_prefill:
-            logits = prefill_logits
-        else:
-            logits, cache = module.decode(input_ids, cache, 0,
-                                          logits_at=last_pos, prefill=True)
-        next_tok = sample_fn(logits[:, 0], generator)
+        _check_cache_len(cache, prompt_len, max_new_tokens)
+        next_tok, pos = _prefill(module, prompt_len, sample_fn, with_mask,
+                                 external_prefill, cache, input_ids,
+                                 generator, attention_mask, prefill_logits)
         # per-row positions for padded prompts; one shared int otherwise
-        pos = n if with_mask else prompt_len
         done = next_tok == eos_id
         T = max_new_tokens - 1
         toks = torch.full((B, max(T, 0)), eos_id, dtype=torch.long,
-                          device=dev)
+                          device=input_ids.device)
         tok = next_tok
         for t in range(T):
             # an eos below 0 can never be sampled, so no row can finish:
@@ -455,3 +613,117 @@ def make_generate_fn(module, prompt_len, max_new_tokens, do_sample,
         return out, cache
 
     return generate
+
+
+def make_decode_steps(module, sample_fn, steps):
+    """``steps`` decode steps as one capturable program: ``fn(cache,
+    state, generator) -> tokens [B, steps]``.  ``state`` holds ``[B]``
+    tensors ``token`` (the last token), ``pos`` (its position: every row's
+    own, so a replay reads it from the device), ``done`` and ``eos``; each
+    step is the eager loop's (sample, eos for rows already done, ``done``
+    update), and the new ``token`` / ``pos`` / ``done`` are copied into
+    the same tensors, so the next replay continues from them."""
+
+    def decode_steps(cache, state, generator):
+        tok, pos, done, eos = (state[k] for k in ("token", "pos", "done",
+                                                   "eos"))
+        toks = []
+        for _ in range(steps):
+            logits, _ = module.decode(tok[:, None], cache, pos)
+            nxt = sample_fn(logits[:, -1], generator)
+            nxt = torch.where(done, eos, nxt)
+            done = done | (nxt == eos)
+            toks.append(nxt)
+            tok = nxt
+            pos = pos + 1
+        state["token"].copy_(tok)
+        state["pos"].copy_(pos)
+        state["done"].copy_(done)
+        return torch.stack(toks, dim=1)
+
+    return decode_steps
+
+
+class CapturedGenerate:
+    """The captured generation program of one signature (``make_generate_fn
+    (..., graphs=True)``), the port's form of the JAX program's prefill
+    plus bounded ``while_loop``.
+
+    The prefill stays eager: it runs once per call and is device-bound
+    (one pass of K1 and the GEMMs over ``B x P`` tokens, a few hundred
+    launches), and a chunked prefill's chunks run eagerly too.  The
+    ``T = max_new_tokens - 1`` decode steps run as a graph of
+    ``k = DECODE_STEPS_PER_GRAPH`` steps replayed ``T // k`` times and a
+    tail graph of ``T % k`` steps (:func:`make_decode_steps`), each a
+    :class:`CompiledGraphModule` over the workspace's cache and a
+    ``[B]`` state this program owns per batch size.  With ``early_exit``
+    and an ``eos_id >= 0``, ``done`` is read once per replay and the
+    loop stops once every row is done; tokens equal the eager loop's,
+    because steps after a row's eos emit eos and the output starts full
+    of eos.  Each replay's tokens are copied out of the graph's output
+    before the next replay."""
+
+    def __init__(self, module, prompt_len, max_new_tokens, sample_fn,
+                 with_mask=False, external_prefill=False, early_exit=True):
+        self.module = module
+        self.prompt_len = prompt_len
+        self.max_new_tokens = max_new_tokens
+        self.sample_fn = sample_fn
+        self.with_mask = with_mask
+        self.external_prefill = external_prefill
+        self.early_exit = early_exit
+        T = max(max_new_tokens - 1, 0)
+        k = min(DECODE_STEPS_PER_GRAPH, T) or 1
+        self.plan = [k] * (T // k) + ([T % k] if T % k else [])
+        self.programs = {n: CompiledGraphModule(
+            make_decode_steps(module, sample_fn, n), donate_argnums=(0, 1))
+            for n in set(self.plan)}
+        self._states = {}
+
+    def _state(self, B, device):
+        if B not in self._states:
+            kw = dict(dtype=torch.long, device=device)
+            self._states[B] = {
+                "token": torch.zeros(B, **kw), "pos": torch.zeros(B, **kw),
+                "done": torch.zeros(B, dtype=torch.bool, device=device),
+                "eos": torch.zeros(B, **kw)}
+        return self._states[B]
+
+    def captured(self, cache, generator):
+        """True when a call over ``cache`` replays graphs only."""
+        state = self._state(cache["k"].shape[1], cache["k"].device)
+        return all(p.has_graph(cache, state, generator)
+                   for p in self.programs.values())
+
+    def reset(self):
+        """Drop the captured graphs (the workspace is being freed)."""
+        for p in self.programs.values():
+            p.reset()
+
+    def __call__(self, cache, input_ids, generator, eos_id,
+                 attention_mask=None, prefill_logits=None):
+        B = input_ids.shape[0]
+        dev = input_ids.device
+        _check_cache_len(cache, self.prompt_len, self.max_new_tokens)
+        next_tok, pos = _prefill(self.module, self.prompt_len,
+                                 self.sample_fn, self.with_mask,
+                                 self.external_prefill, cache, input_ids,
+                                 generator, attention_mask, prefill_logits)
+        state = self._state(B, dev)
+        state["token"].copy_(next_tok)
+        if isinstance(pos, torch.Tensor):
+            state["pos"].copy_(pos)
+        else:
+            state["pos"].fill_(pos)
+        state["eos"].fill_(eos_id)
+        state["done"].copy_(next_tok == eos_id)
+        toks = torch.full((B, sum(self.plan)), eos_id, dtype=torch.long,
+                          device=dev)
+        t = 0
+        for n in self.plan:
+            if self.early_exit and eos_id >= 0 and bool(state["done"].all()):
+                break
+            toks[:, t:t + n].copy_(self.programs[n](cache, state, generator))
+            t += n
+        out = torch.cat([input_ids, next_tok[:, None], toks], dim=1)
+        return out, cache

@@ -12,11 +12,13 @@ The scheduler loop per iteration (:meth:`ServingEngine.step`):
    prefill is admitted by one admit call (first-token sample, lane copy
    for monolithic lanes, slot-state write).
 2. **Decode** — one :func:`~.slots.decode_block` advances every slot
-   ``decode_block`` tokens.  Lanes that emit their ``eos`` or exhaust
-   ``max_new_tokens`` retire on the device; the host mirrors the
-   retirement from the emitted tokens, frees their slots (and pages)
-   mid-flight and hands them to the queue — no request waits for a batch
-   to finish.
+   ``decode_block`` tokens: with the engine's ``enable_cuda_graph`` (the
+   default) a CUDA graph of the whole block, captured at the first
+   dispatch (or by :meth:`ServingEngine.warmup`) and replayed after.
+   Lanes that emit their ``eos`` or exhaust ``max_new_tokens`` retire
+   on the device; the host mirrors the retirement from the emitted
+   tokens, frees their slots (and pages) mid-flight and hands them to the
+   queue — no request waits for a batch to finish.
 
 **Lag-one events.**  The slot state lives on the device and every call
 chains through it in stream order, so the host never waits on the device
@@ -29,7 +31,8 @@ in block N is re-admitted from block N+2 on.
 
 **Paged KV pool** (``serving.paged``): one pool ``[L, num_pages,
 page_size, KVH*D]`` plus per-slot block tables that the host owns
-(:mod:`.paging`) and copies to the device for each dispatch; decode runs
+(:mod:`.paging`) and copies into one static device table (the captured
+block reads it) for each dispatch; decode runs
 K6 through the table, admission prefill K7.  Pool pressure turns into
 admission backpressure (a request waits at the queue head until pages
 free up), and hash-matched prompt prefixes map to the same refcounted
@@ -53,6 +56,8 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.serving import slots
+from deepspeed_tpu_torch.model_implementations.features.cuda_graph import (
+    CompiledGraphModule)
 from deepspeed_tpu_torch.inference.serving.config import ServingConfig
 from deepspeed_tpu_torch.inference.serving.paging import (PagePool,
                                                           PrefixIndex,
@@ -187,6 +192,13 @@ class ServingEngine:
             self._slot_pages = {}        # slot -> [page ids]
         self._cache = None               # slot lanes, or the page pool
         self._state = None               # device-resident slot state
+        self._pages_dev = None           # the static device block table
+        # the decode block, captured per (cache, state, table) buffers: one
+        # graph per server, as JAX compiles one program per signature
+        self._decode_prog = CompiledGraphModule(
+            slots.decode_block,
+            enable_cuda_graph=engine._config.enable_cuda_graph,
+            donate_argnums=(1, 2, 7))
         # host mirror of slot occupancy, updated as events are PROCESSED
         # (it lags the device by the in-flight events — by design)
         self._mirror_active = np.zeros((self.num_slots,), bool)
@@ -361,6 +373,17 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     # Host <-> device without waiting on the device
     # ------------------------------------------------------------------ #
+    def _upload_table(self):
+        """The host block tables into the static device table, from a
+        pinned snapshot without waiting (the host may change the tables
+        right after; the copy runs in stream order before the block)."""
+        host = torch.from_numpy(np.array(self._page_table))
+        if self.device.type == "cpu":
+            self._pages_dev.copy_(host)
+        else:
+            self._pages_dev.copy_(host.pin_memory(), non_blocking=True)
+        return self._pages_dev
+
     def _to_device(self, arr):
         """A host array as a fresh device tensor.  On a card the copy reads
         a pinned snapshot of ``arr`` asynchronously, so the host may change
@@ -443,6 +466,7 @@ class ServingEngine:
         self._free = deque(range(self.num_slots))
         self._mirror_active[:] = False
         self._state = None
+        self._decode_prog.reset()
         self._paging_reset()
         if lost:
             logger.warning(f"serving {why}: aborted {len(lost)} in-flight "
@@ -450,10 +474,14 @@ class ServingEngine:
 
     def _ensure_workspace(self):
         if self._cache is None:
+            self._decode_prog.reset()    # its graphs read the old buffers
             dtype = self.engine.compute_dtype
             if self.paged:
                 self._cache = self.module.init_paged_cache(
                     self.num_pages, self.page, dtype=dtype)
+                self._pages_dev = torch.zeros(
+                    (self.num_slots, self.n_slot_pages), dtype=torch.int32,
+                    device=self.device)
                 self._paging_reset()
             else:
                 self._cache = self.module.init_cache(
@@ -465,7 +493,8 @@ class ServingEngine:
     def _guarded(self, fn, *args):
         """Run one device call; on a failure the workspace may hold half a
         step, so every request past admission is aborted (the queue
-        survives) and the error propagates."""
+        survives), the workspace and the decode graphs captured on it are
+        dropped, and the error propagates."""
         try:
             return fn(*args)
         except BaseException:
@@ -641,13 +670,83 @@ class ServingEngine:
         if not (self._mirror_active.any()
                 or any(e[0] == "admit" for e in self._events)):
             return False
-        pages = self._to_device(self._page_table) if self.paged else None
-        toks = self._guarded(slots.decode_block, self.module, self._cache,
-                             self._state, self.block, self.max_pos,
-                             self._sample_fn, self._gen, pages)
+        toks = self._guarded(self._decode_prog, *self._decode_args())
         self._events.append(("decode", *self._to_host(toks)))
         self.stats["decode_calls"] += 1
         return True
+
+    def _decode_args(self):
+        pages = self._upload_table() if self.paged else None
+        return (self.module, self._cache, self._state, self.block,
+                self.max_pos, self._sample_fn, self._gen, pages)
+
+    # ------------------------------------------------------------------ #
+    # Warmup: capture the decode block up front
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def warmup(self):
+        """Run the admission-prefill chunk once and capture the decode
+        block before the first request, so that no request pays for them.
+        Returns ``{program: seconds}`` under the JAX engine's names
+        (``serving_prefill[_paged]:...``, ``serving_decode[_paged]:...``);
+        0.0 for both when the block was captured already.
+
+        The prefill chunk runs eagerly (it has no graph): its seconds are a
+        first run's.  Unlike JAX's abstract AOT compile, the capture runs
+        a real block over the idle server's free lanes: their writes land
+        on the trash page (paged) or in free lanes' rows that every read
+        masks, the slot state is reset afterwards and the sampling
+        generator restored, so the served tokens are unchanged.  Raises
+        ``RuntimeError`` once requests are in flight."""
+        if self._closed:
+            raise RuntimeError("warmup() on a closed ServingEngine")
+        if self.work_pending():
+            raise RuntimeError("warmup() needs an idle server: call it "
+                               "before submit()")
+        self._ensure_workspace()
+        N, S, C = self.num_slots, self.cache_len, self.chunk
+        if self.paged:
+            names = (f"serving_prefill_paged:c{C}p{self.page}",
+                     f"serving_decode_paged:n{N}s{S}b{self.block}"
+                     f"p{self.page}")
+        else:
+            names = (f"serving_prefill:c{C}",
+                     f"serving_decode:n{N}s{S}b{self.block}")
+        args = self._decode_args()
+        if self._decode_prog.has_graph(*args):
+            return {name: 0.0 for name in names}
+        accel = self.engine._accel
+        ids = torch.zeros((1, C), dtype=torch.long, device=self.device)
+        at = torch.full((1,), C - 1, dtype=torch.long, device=self.device)
+        gen_state = self._gen.get_state()
+        report = {}
+        try:
+            accel.synchronize(self.device)
+            t0 = time.perf_counter()
+            if self.paged:
+                # an all-trash table row: the chunk writes the trash page
+                row = torch.zeros((1, self.n_slot_pages), dtype=torch.int32,
+                                  device=self.device)
+                self._guarded(slots.paged_chunk, self.module, self._cache,
+                              row, ids, 0, at)
+            else:
+                lane = self._lane_pool.take(self.cache_len,
+                                            self.engine.compute_dtype)
+                self._guarded(slots.prefill_chunk, self.module, lane, ids, 0,
+                              at)
+                self._lane_pool.give_back(lane)
+            accel.synchronize(self.device)
+            t1 = time.perf_counter()
+            self._guarded(self._decode_prog, *args)
+            accel.synchronize(self.device)
+            report = {names[0]: t1 - t0, names[1]: time.perf_counter() - t1}
+        finally:
+            self._gen.set_state(gen_state)
+            if self._state is not None:
+                slots.reset_slot_state(self._state)
+        for name, dt in report.items():
+            log_dist(f"serving warmup[{name}]: {dt:.3f}s", ranks=[0])
+        return report
 
     # ------------------------------------------------------------------ #
     # Event processing (the host's lagging mirror of the device)

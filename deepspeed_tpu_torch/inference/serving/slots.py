@@ -7,7 +7,9 @@ steps remaining, eos id — is a ``[num_slots]`` tensor on the device
 (:func:`init_slot_state`), so admissions, retirements and request churn
 change only tensor contents and the host never reads the state back on
 the dispatch path.  Where the JAX programs are jitted with the cache and
-state donated, these update the cache and the state dict in place.
+state donated, these update the cache and the state tensors in place —
+never rebinding them, so :func:`decode_block` can be captured as a CUDA
+graph that later admissions (:func:`_write_state`) and replays see.
 
 * :func:`decode_block` — ``block`` decode steps over every slot, per-row
   positions, in-program retirement.  Its per-step math is
@@ -81,8 +83,20 @@ def decode_block(module, cache, state, block, max_pos, sample_fn,
         remaining = torch.clamp(remaining - 1, min=0)
         toks.append(nxt)
         tok = nxt
-    state.update(token=tok, pos=pos, active=active, remaining=remaining)
+    # into the same tensors: a captured block's next replay and the
+    # admissions between blocks read them
+    for key, val in (("token", tok), ("pos", pos), ("active", active),
+                     ("remaining", remaining)):
+        state[key].copy_(val)
     return torch.stack(toks)
+
+
+def reset_slot_state(state):
+    """Every lane free again, in place (the values of
+    :func:`init_slot_state`)."""
+    for key in ("token", "pos", "active", "remaining"):
+        state[key].zero_()
+    state["eos"].fill_(-1)
 
 
 def _write_state(state, slot, first, pos0, max_new, eos):

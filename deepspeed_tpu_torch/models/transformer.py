@@ -507,8 +507,11 @@ class Transformer(nn.Module):
         :meth:`init_paged_cache` plus its block table ``"pages"``), each
         layer writes its K/V rows at positions ``start_pos + arange(S)`` in
         place and attends over the cache.  ``start_pos``: an int, or a [B] tensor of
-        per-row offsets (padded-prompt decode).  ``prefill``: this block is
-        a from-zero prompt (start 0) that attends only within itself."""
+        per-row offsets (padded-prompt decode, serving lanes, and every
+        captured decode step: an int becomes a constant of a CUDA graph,
+        a tensor is read on each replay; both routes write and attend the
+        same bits).  ``prefill``: this block is a from-zero prompt (start
+        0) that attends only within itself."""
         cfg = self.config
         B, S = input_ids.shape
         dev = input_ids.device

@@ -10,6 +10,12 @@ once and waits for all of them.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when it is not 0.  Nothing here runs at import time.
+
+Each kernel wrapper counts its launches in attributes of its own
+(``decode_attention.launches``, ...), registered here with
+:func:`launch_counters`, so a captured CUDA graph
+(``model_implementations/features/cuda_graph.py``) can add the launches
+its capture recorded on every replay.
 """
 
 import ctypes
@@ -29,6 +35,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # pointer / stream arguments must be c_void_p: ctypes would pass a bare
 # Python int as a 32-bit int and cut the address
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# every kernel wrapper's launch counters, ``(wrapper, attribute)``
+LAUNCH_COUNTERS = []
+
+
+def launch_counters(wrapper, *attrs):
+    """Register ``wrapper``'s launch counters ``attrs``, each set to 0.  A
+    wrapper adds one to a counter where it launches its kernel."""
+    for attr in attrs:
+        setattr(wrapper, attr, 0)
+        LAUNCH_COUNTERS.append((wrapper, attr))
+
+
+def launch_counts():
+    """Every registered counter's value, in registration order."""
+    return [getattr(w, a) for w, a in LAUNCH_COUNTERS]
+
+
+def add_launch_counts(delta):
+    """Add ``delta`` (values in registration order, possibly fewer than
+    the counters) to the counters."""
+    for (w, a), n in zip(LAUNCH_COUNTERS, delta):
+        if n:
+            setattr(w, a, getattr(w, a) + n)
 
 
 class KernelLibrary:

@@ -367,7 +367,7 @@ def block_sparse_attention_fwd(q, k, v, tables, scale, causal, block,
     return (out, lse) if with_lse else out
 
 
-block_sparse_attention_fwd.launches = 0
+op_builder.launch_counters(block_sparse_attention_fwd, "launches")
 
 
 def _forward(q, k, v, tables, bias, scale, causal, block):

@@ -42,7 +42,11 @@ version only for CPU tensors; it never falls back.  Launches are counted
 per mode: ``launches`` on float caches, ``int8_launches`` on int8-KV
 caches and, for decode, ``i8mm_launches`` in the int8×int8 mode, and a
 windowed decode apart from a full one (``window_launches``,
-``window_int8_launches``, ``window_i8mm_launches``).
+``window_int8_launches``, ``window_i8mm_launches``).  A launch inside a
+captured CUDA graph is counted once per replay
+(``model_implementations/features/cuda_graph.py``): every launch reads
+its stream, tensors and shapes when it is called, so a capture records
+it like any other kernel.
 """
 
 import functools
@@ -316,12 +320,10 @@ def count_launch(wrapper, mode, window):
     setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
-decode_attention.launches = 0
-decode_attention.int8_launches = 0
-decode_attention.i8mm_launches = 0
-decode_attention.window_launches = 0
-decode_attention.window_int8_launches = 0
-decode_attention.window_i8mm_launches = 0
+DECODE_COUNTERS = ("launches", "int8_launches", "i8mm_launches",
+                   "window_launches", "window_int8_launches",
+                   "window_i8mm_launches")
+op_builder.launch_counters(decode_attention, *DECODE_COUNTERS)
 
 
 def check_kernel_shapes(q, KVHD, what):
@@ -492,8 +494,8 @@ def chunk_prefill_attention(q, k_cache, v_cache, starts, scale=None,
     return out
 
 
-chunk_prefill_attention.launches = 0
-chunk_prefill_attention.int8_launches = 0
+op_builder.launch_counters(chunk_prefill_attention, "launches",
+                           "int8_launches")
 
 
 def _launch_chunk_int8(q, kc, vc, ks, vs, starts, scale):

@@ -222,8 +222,8 @@ def flash_attention_dkv(q, k, v, dout, lse, delta, causal, scale):
     return dk, dv
 
 
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+op_builder.launch_counters(flash_attention_dq, "launches")
+op_builder.launch_counters(flash_attention_dkv, "launches")
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None):
@@ -306,4 +306,4 @@ def flash_attention(q, k, v, causal=True, scale=None, return_lse=False):
     return (out, lse) if return_lse else out
 
 
-flash_attention.launches = 0
+op_builder.launch_counters(flash_attention, "launches")

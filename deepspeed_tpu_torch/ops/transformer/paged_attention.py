@@ -53,9 +53,10 @@ import torch
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.op_builder import check_tma
 from deepspeed_tpu_torch.ops.transformer.decode_attention import (
-    _ptr, check_int8_cache, check_kernel_shapes, check_modes, check_window,
-    chunk_prefill_attention_plain, count_launch, decode_attention_i8mm_plain,
-    decode_attention_plain, launch_heads_per_block, quantize_rows)
+    DECODE_COUNTERS, _ptr, check_int8_cache, check_kernel_shapes,
+    check_modes, check_window, chunk_prefill_attention_plain, count_launch,
+    decode_attention_i8mm_plain, decode_attention_plain,
+    launch_heads_per_block, quantize_rows)
 from deepspeed_tpu_torch.ops.transformer.flash_attention import _check_cuda
 
 # the key tile of K7's tensor-core kernel, in positions
@@ -188,12 +189,7 @@ def paged_decode_attention(q, k_pool, v_pool, lengths, pages, scale=None,
     return out, k_pool, v_pool, k_scale, v_scale
 
 
-paged_decode_attention.launches = 0
-paged_decode_attention.int8_launches = 0
-paged_decode_attention.i8mm_launches = 0
-paged_decode_attention.window_launches = 0
-paged_decode_attention.window_int8_launches = 0
-paged_decode_attention.window_i8mm_launches = 0
+op_builder.launch_counters(paged_decode_attention, *DECODE_COUNTERS)
 
 
 def _table(pages, B, device):
@@ -311,8 +307,8 @@ def paged_chunk_prefill_attention(q, k_pool, v_pool, starts, pages,
     return out
 
 
-paged_chunk_prefill_attention.launches = 0
-paged_chunk_prefill_attention.int8_launches = 0
+op_builder.launch_counters(paged_chunk_prefill_attention, "launches",
+                           "int8_launches")
 
 
 def paged_box_rows(page):

@@ -4,7 +4,11 @@ A host clock (or CUDA events around many calls) measures a small kernel's
 wrapper as much as the kernel when the host cannot keep the card fed; the
 profiler's kernel records give the device's own time.  The trace is
 written as Chrome JSON (``path``) and its kernel events are returned;
-:func:`breakdown` sums them by kernel group.
+:func:`breakdown` sums them by kernel group.  On an H100 the profiler
+records the kernels of a CUDA graph's replay one by one, with their own
+names and times, so a run on captured decode graphs breaks down like an
+eager run (and its ``dstt::`` kernels can be held to the launch
+counters, which count a replay's launches).
 """
 
 import json

@@ -103,7 +103,23 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    with every request equal to its monolithic-lane twin, and a few of
    them on an int8 pool (K6-int8-window) and with ``decode_int8_matmuls``
    (K6-i8mm-window);
-12. prints the card, a ``kernels`` JSON line and, last, the result line.
+12. holds K1, K2, K3, K6 and K7 against their plain versions, timed, at
+   Llama-7B's width (32 heads of 128 over 32 layers) and drives Llama-7B
+   (``llama_model("llama-7b")``: its published widths and depth, rope,
+   RMSNorm, SwiGLU, seeded random bf16 weights): run (k) generates 16 ×
+   prompt 256 × 64 new tokens in one pass (K1, K2) on the decode graphs
+   and on an eager engine (tokens bitwise), with ``profile`` lines "k"
+   and "k_graph" and a ``llama_elementwise`` line (device ms of rope,
+   RMSNorm and SwiGLU), then prompt 512 in 128-token chunks (K3, K2);
+   run (l) serves run (d)'s first 64 requests on a 32-slot page pool (K7,
+   K6) and on an eager engine, with ``profile`` lines "l" and "l_graph",
+   then on monolithic lanes (K3, K2), every request equal, the first 4
+   also through solo ``generate()``; run (k-gqa) takes a 2-layer cut with
+   8 kv heads (G = 4) through ``generate()`` and a paged server, its
+   kernel-path tokens equal to the plain path's on fp32 weights; each
+   with exact launches and kernel-path logits against the plain path
+   (cosine ≥ 0.999);
+13. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 Generation and serving run on the captured decode programs (CUDA graphs,
 ``enable_cuda_graph``'s default) after ``warmup()`` / ``srv.warmup()``,
@@ -112,8 +128,9 @@ launches plus each graph's captured launches times its replays, so every
 gate keeps its meaning.  Runs (a), (d) and (h) also run on an eager
 engine over the same weights (``enable_cuda_graph=False``): every token
 must be bitwise equal, and a ``graphs_vs_eager`` line gives tokens/s and
-the profiled window's idle share both ways (profile lines "a", "d", "h"
-eager, "a_graph", "d_graph", "h_graph" on the graphs).
+the profiled window's idle share both ways for them and Llama's runs (k)
+and (l) (profile lines "a", "d", "h", "k", "l" eager, "a_graph",
+"d_graph", "h_graph", "k_graph", "l_graph" on the graphs).
 
 K1 / K3 / K7 on bf16 / fp16 run one tensor-core template (``wgmma`` over
 TMA tiles; a ``ptxas_flash_fwd`` line gives registers, spills and dynamic
@@ -244,6 +261,31 @@ K6W_SHAPE = dict(L=24, pages=129, page=64, B=16, H=16, D=128, n_virt=8,
                  timed=[288 + 14 * i for i in range(16)])
 WINDOW_LIBRARY_NOTE = ("F.scaled_dot_product_attention over the window's "
                        "rows gathered beforehand (gather excluded)")
+# Llama-7B (llama_model's published widths: hidden 4096, 32 layers, 32
+# heads of 128, SwiGLU ffn 11008, rope, RMSNorm, vocab 32000, an untied
+# head; seeded random bf16 weights): run (k), generation at run (a)'s
+# shape (one pass: K1, K2) and run (b)'s (prompt 512 in 128-token chunks:
+# K3, K2); run (l), run (d)'s first 64 requests on 32 slots over a pool of
+# 0.75 of the worst case, as run (d) sizes its own (K7, K6), then on
+# monolithic lanes (K3, K2); run (k-gqa), a cut that is not a published
+# config: 2 layers with 8 kv heads (G = 4 at 128-wide heads)
+LLAMA = "llama-7b"
+RUN_K = dict(batch=16, prompt=256, new=64)
+RUN_K_CHUNKED = dict(batch=16, prompt=512, new=16, chunk=128)
+RUN_L = dict(requests=64, solo=4)
+SERVE_L = dict(SERVE_D, num_slots=32, num_pages=int(0.75 * 32 * 6) + 1)
+RUN_K_GQA = dict(num_kv_heads=8, num_layers=2, batch=16, prompt=256, new=16,
+                 requests=8)
+# K1 / K2 / K3 / K6 / K7 at runs (k) and (l)'s shapes: K2 over run (k)'s
+# cache (required_cache_len(256, 64) = 320), K3 over its chunked twin's
+# (required_cache_len(512, 16, 128) = 528), K6 over run (l)'s pool with
+# 32 slots, K7 at the admission shape and B = 8 over a pool of its bytes
+K1K_SHAPE = dict(B=16, S=256, H=32, D=128)
+K2K_SHAPE = dict(K2_SHAPE, L=32, D=128)
+K3K_SHAPE = dict(K3_SHAPE, L=32, S_max=528, D=128)
+K6L_SHAPE = dict(K6_SHAPE, L=32, pages=SERVE_L["num_pages"], B=32, D=128)
+K7L_SHAPE = dict(K7_SHAPE, L=32, D=128,
+                 cases=tuple(c for c in K7_SHAPE["cases"] if c[0] == 64))
 # decode blocks traced with all 96 slots live (profile line "d")
 PROFILE_D_STEPS = 3
 # shared prefix (e): bench.py's 24 requests behind one 512-token prompt
@@ -445,11 +487,14 @@ def check_flash(dtype, timed, shape=None):
     return rec
 
 
-def check_decode(dtype, timed):
+def check_decode(dtype, timed, shape=None):
+    """K2 (fused write) against its plain version at ``shape`` (run (a)'s
+    cache, or run (k)'s)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import decode_attention as da
-    L, B, S_max, H, D = (K2_SHAPE[x] for x in ("L", "B", "S_max", "H", "D"))
+    shape = shape or K2_SHAPE
+    L, B, S_max, H, D = (shape[x] for x in ("L", "B", "S_max", "H", "D"))
     layer = L // 4
     g = torch.Generator(device=DEV).manual_seed(2)
     dt = getattr(torch, dtype)
@@ -458,8 +503,7 @@ def check_decode(dtype, timed):
     q = torch.randn(B, H, D, generator=g, device=DEV, dtype=dt)
     nk = torch.randn(B, H, D, generator=g, device=DEV, dtype=dt)
     nv = torch.randn(B, H, D, generator=g, device=DEV, dtype=dt)
-    lengths = torch.tensor(K2_SHAPE["lengths"], dtype=torch.int32,
-                           device=DEV)
+    lengths = torch.tensor(shape["lengths"], dtype=torch.int32, device=DEV)
     k1, v1 = kc.clone(), vc.clone()
     out, _, _ = da.decode_attention(q, k1, v1, lengths, layer=layer,
                                     new_k=nk, new_v=nv)
@@ -517,11 +561,14 @@ def check_decode(dtype, timed):
     return rec
 
 
-def check_chunk(dtype, timed):
+def check_chunk(dtype, timed, shape=None):
+    """K3 against its plain version at ``shape`` (run (b)'s chunks, or run
+    (k)'s chunked twin's)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import decode_attention as da
-    L, B, C, S_max, H, D = (K3_SHAPE[x]
+    shape = shape or K3_SHAPE
+    L, B, C, S_max, H, D = (shape[x]
                             for x in ("L", "B", "C", "S_max", "H", "D"))
     layer = L // 3
     g = torch.Generator(device=DEV).manual_seed(3)
@@ -529,7 +576,7 @@ def check_chunk(dtype, timed):
     kc = torch.randn(L, B, S_max, H * D, generator=g, device=DEV, dtype=dt)
     vc = torch.randn(L, B, S_max, H * D, generator=g, device=DEV, dtype=dt)
     q = torch.randn(B, C, H, D, generator=g, device=DEV, dtype=dt)
-    starts = torch.tensor(K3_SHAPE["starts"], dtype=torch.int32, device=DEV)
+    starts = torch.tensor(shape["starts"], dtype=torch.int32, device=DEV)
     out = da.chunk_prefill_attention(q, kc, vc, starts, layer=layer)
     torch.cuda.synchronize()
     want = da.chunk_prefill_attention_plain(q, kc[layer], vc[layer], starts)
@@ -592,14 +639,15 @@ def heads_view(x, H, D):
     return x.view(B, S, H, D).transpose(1, 2).contiguous()
 
 
-def check_paged_decode(dtype, timed):
-    """K6 at run (d)'s pool with the fused write: against its plain
-    version, and bitwise against K2 over the gathered view."""
+def check_paged_decode(dtype, timed, shape=None):
+    """K6 at ``shape``'s pool (run (d)'s, or run (l)'s) with the fused
+    write: against its plain version, and bitwise against K2 over the
+    gathered view."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import decode_attention as da
     from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
-    L, NP, page, B, H, D, nv = (K6_SHAPE[x] for x in (
+    L, NP, page, B, H, D, nv = ((shape or K6_SHAPE)[x] for x in (
         "L", "pages", "page", "B", "H", "D", "n_virt"))
     layer = L // 4
     g = torch.Generator(device=DEV).manual_seed(9)
@@ -686,26 +734,30 @@ def check_paged_decode(dtype, timed):
     return rec
 
 
-def check_paged_chunk(dtype, timed):
-    """K7 at the admission shape (B = 1) and B = 8, page sizes 64 and 16:
-    against its plain version, and bitwise against K3 over the gathered
-    view; timed at the admission shape with 64-row pages (run (d))."""
+def check_paged_chunk(dtype, timed, shape=None, pool=None,
+                      extra=K7_EXTRA):
+    """K7 at ``shape``'s cases (run (d)'s: the admission shape, B = 1, and
+    B = 8, page sizes 64 and 16) over a pool of ``pool``'s bytes (run
+    (d)'s pool, or run (l)'s), then the ``extra`` cases: against its plain
+    version, and bitwise against K3 over the gathered view; timed at the
+    admission shape with 64-row pages."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import decode_attention as da
     from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
-    L, C, H, D, virt = (K7_SHAPE[x] for x in ("L", "C", "H", "D", "virt"))
+    shape, pool = shape or K7_SHAPE, pool or K6_SHAPE
+    L, C, H, D, virt = (shape[x] for x in ("L", "C", "H", "D", "virt"))
     layer = L // 3
     dt = getattr(torch, dtype)
     g = torch.Generator(device=DEV).manual_seed(11)
     cases, timed_rec = [], None
-    for page in sorted({pg for pg, _ in K7_SHAPE["cases"]}, reverse=True):
-        NP = K6_SHAPE["pages"] * K6_SHAPE["page"] // page   # run (d)'s bytes
+    for page in sorted({pg for pg, _ in shape["cases"]}, reverse=True):
+        NP = pool["pages"] * pool["page"] // page          # the pool's bytes
         kp = torch.randn(L, NP, page, H * D, generator=g, device=DEV,
                          dtype=dt)
         vp = torch.randn(L, NP, page, H * D, generator=g, device=DEV,
                          dtype=dt)
-        for pg, starts in K7_SHAPE["cases"]:
+        for pg, starts in shape["cases"]:
             if pg != page:
                 continue
             B = len(starts)
@@ -767,12 +819,11 @@ def check_paged_chunk(dtype, timed):
             timed_rec = rec
         del kp, vp
         torch.cuda.empty_cache()
-    for i, case in enumerate(K7_EXTRA):
+    for i, case in enumerate(extra):
         cases.append(k7_extra_case(dtype, g, int8=False, seed=50 + i, **case))
     torch.cuda.empty_cache()
     rec = {"kernel": "K7 paged_chunk_prefill_attention", "dtype": dtype,
-           "pool_bytes_like": [K7_SHAPE["L"], K6_SHAPE["pages"],
-                               K6_SHAPE["page"], H * D],
+           "pool_bytes_like": [L, pool["pages"], pool["page"], H * D],
            "cases": cases, "max_abs_err": max(c["max_abs_err"]
                                               for c in cases),
            "tol": TOL[dtype], "bitwise_equal_to_k3_over_gathered_view": True}
@@ -2182,11 +2233,11 @@ def counted_events(fn, trace):
 
 
 def graphs_vs_eager(runs):
-    """Runs (a), (d) and (h) with the captured decode programs and on
-    eager engines, from this call: tokens/s and the profiled window's
-    device idle share each way."""
+    """Runs (a), (d), (h), (k) and (l) with the captured decode programs
+    and on eager engines, from this call: tokens/s and the profiled
+    window's device idle share each way."""
     out = {}
-    for run in ("a", "d", "h"):
+    for run in ("a", "d", "h", "k", "l"):
         out[run] = {
             "tokens_per_s_graphs": runs[run]["tokens_per_s"],
             "tokens_per_s_eager": runs[run + "_eager"]["tokens_per_s"],
@@ -2351,13 +2402,14 @@ def eager_twin(eng, **config):
 # --------------------------------------------------------------------- #
 # Continuous-batching serving: engine.serve -> submit / drain, (d) and (e)
 # --------------------------------------------------------------------- #
-def serving_traffic(V):
-    """Run (d)'s requests: numpy seed 0, prompt lengths and new tokens
-    drawn from RUN_D's sets, prompt ids uniform over the vocabulary."""
+def serving_traffic(V, n=RUN_D["requests"]):
+    """Run (d)'s requests (the first ``n``: run (l) takes 64): numpy seed
+    0, prompt lengths and new tokens drawn from RUN_D's sets, prompt ids
+    uniform over the vocabulary."""
     import numpy as np
     rng = np.random.default_rng(RUN_D["seed"])
     reqs = []
-    for _ in range(RUN_D["requests"]):
+    for _ in range(n):
         P = int(rng.choice(RUN_D["prompts"]))
         new = int(rng.choice(RUN_D["new"]))
         reqs.append((rng.integers(0, V, P).astype(np.int32), new))
@@ -2545,15 +2597,16 @@ def eager_serving(run, eng_e, reqs, outs, serve):
     return rec
 
 
-def profile_serving(eng, reqs, tag="d", trace="serving_trace.json"):
-    """A decode window with all 96 slots live under ``torch.profiler``:
-    run (d)'s first 96 prompts with 128 new tokens each, admitted in one
-    iteration (no prefill budget) on a worst-case pool, then
-    ``PROFILE_D_STEPS`` decode-only scheduler steps traced (profile line
-    ``tag``)."""
+def profile_serving(eng, reqs, tag="d", trace="serving_trace.json",
+                    serve=SERVE_D):
+    """A decode window with every slot live under ``torch.profiler``:
+    the first prompts of ``reqs`` (run (d)'s: 96 slots; run (l)'s: 32)
+    with 128 new tokens each, admitted in one iteration (no prefill
+    budget) on a worst-case pool, then ``PROFILE_D_STEPS`` decode-only
+    scheduler steps traced (profile line ``tag``)."""
     import torch
     from deepspeed_tpu_torch.profiling.trace import breakdown
-    srv = eng.serve(**{**SERVE_D, "prefill_token_budget": 0, "num_pages": 0})
+    srv = eng.serve(**{**serve, "prefill_token_budget": 0, "num_pages": 0})
     for p, _ in reqs[:srv.num_slots]:
         srv.submit(p, max_new_tokens=max(RUN_D["new"]))
     srv.step()                              # admits all, first decode block
@@ -2929,29 +2982,31 @@ def gpt_neo_traffic(V):
             for _ in range(RUN_J["requests"])]
 
 
-def gpt_neo_logits(tag, m, m32, ids, **kw):
-    """Kernel-path logits against the plain path on GPT-Neo's weights: in
-    bf16 (reported: with unscaled attention logits of |q.k| ~ 10 a random
-    model amplifies bf16 rounding through 24 layers, each output rounding
-    moving near-tied softmax maxima) and on the fp32 copy of the same
-    weights (gated at cosine 0.999: the same kernels and routes, rounding
-    at 2^-24)."""
+def fp32_gated_logits(tag, m, m32, ids, **kw):
+    """Kernel-path logits against the plain path on a model's weights: in
+    bf16 (reported: a deep random model amplifies bf16 rounding — GPT-Neo
+    through its unscaled attention logits, |q.k| ~ 10, over 24 layers;
+    Llama-7B over 32 layers, each output rounding moving near-tied maxima)
+    and on the fp32 copy of the same weights (gated at cosine 0.999: the
+    same routes, rounding at 2^-24)."""
     return {"bf16": kernels_vs_plain(f"{tag} bf16", m, ids, gate=False,
                                      **kw),
             "fp32": kernels_vs_plain(f"{tag} fp32", m32, ids, **kw)}
 
 
-def gpt_neo_generate(eng, ids, new, tag, expect, runs, **extra):
-    """One counted generate() of run (i), after ``warmup()``, and its
-    record."""
+def counted_generate(eng, ids, new, tag, expect, runs, model, **extra):
+    """One counted generate() of run ``tag`` (GPT-Neo's (i), Llama's (k))
+    after ``warmup()``, and its record."""
     B, P = ids.shape
     warm = eng.warmup(P, new, batch_sizes=(B,))
     out, dt, cnt, peak = run_generate(eng, ids, new, expect)
-    runs[tag] = {"run": tag, "model": GPT_NEO, "batch": B, "prompt": P,
+    runs[tag] = {"run": tag, "model": model, "batch": B, "prompt": P,
                  "new_tokens": new, "seconds": dt,
                  "tokens_per_s": B * new / dt, "launches": cnt,
                  "peak_device_bytes": peak, "cuda_graphs": True,
-                 "warmup_seconds": warm, **extra}
+                 "warmup_seconds": warm,
+                 "graph_pool_bytes": graph_pool_bytes(eng),
+                 "kv_bytes": tensor_bytes(eng._workspace._cache), **extra}
     return out
 
 
@@ -2990,11 +3045,12 @@ def gpt_neo_path():
     if plan[0] != "one_pass":
         fail(f"run (i) should take one-pass prefill, plan says {plan}")
     steps = n_global * (new - 1), n_local * (new - 1)
-    gpt_neo_generate(eng, ids, new, "i", {
+    counted_generate(eng, ids, new, "i", {
         "flash_attention": n_global, "decode_attention": steps[0],
-        "decode_attention_window": steps[1]}, runs, route="one_pass",
+        "decode_attention_window": steps[1]}, runs, GPT_NEO,
+        route="one_pass",
         window=cfg.window_size, init_seconds=init_s, plan=plan[2],
-        logits=gpt_neo_logits("(i)", m, m32, ids))
+        logits=fp32_gated_logits("(i)", m, m32, ids))
     emit(runs["i"])
     # the profile line on an eager engine, as in earlier runs
     eng_e = eager_twin(eng)
@@ -3010,12 +3066,12 @@ def gpt_neo_path():
     if eng_c.prefill_plan(B, P)[:2] != ("chunked", C):
         fail(f"run (i) chunked should take chunked prefill, plan says "
              f"{eng_c.prefill_plan(B, P)}")
-    gpt_neo_generate(eng_c, ids_c, new, "i_chunked", {
+    counted_generate(eng_c, ids_c, new, "i_chunked", {
         "chunk_prefill_attention": n_global * (-(-P // C)),
         "decode_attention": n_global * (new - 1),
-        "decode_attention_window": n_local * (new - 1)}, runs,
+        "decode_attention_window": n_local * (new - 1)}, runs, GPT_NEO,
         route="chunked", chunk=C,
-        logits=gpt_neo_logits("(i) chunked", m, m32, ids_c, chunk=C))
+        logits=fp32_gated_logits("(i) chunked", m, m32, ids_c, chunk=C))
     emit(runs["i_chunked"])
     del eng_c
     torch.cuda.empty_cache()
@@ -3032,12 +3088,13 @@ def gpt_neo_path():
              "_i8mm")):
         eng8 = gpt_neo_engine(m, **over)
         m32.replace_config_(dataclasses.replace(m32.config, **over))
-        gpt_neo_generate(eng8, ids8, new, tag, {
+        counted_generate(eng8, ids8, new, tag, {
             "flash_attention": n_global,
             "decode_attention" + mode: n_global * (new - 1),
             "decode_attention_window" + mode: n_local * (new - 1)}, runs,
+            GPT_NEO,
             route="one_pass", **over,
-            logits=gpt_neo_logits(f"({tag})", m, m32, ids8))
+            logits=fp32_gated_logits(f"({tag})", m, m32, ids8))
         emit(runs[tag])
         eng8.release_workspace()
         jtag = "j" + tag[1:]
@@ -3075,7 +3132,7 @@ def gpt_neo_serving_path(eng, m32):
     rec = serve_record("j", srv, secs, peak, counts, reqs)
     P = min(len(p) for p, _ in reqs[:4])
     ids = torch.tensor([p[:P].tolist() for p, _ in reqs[:4]], device=DEV)
-    rec["logits"] = gpt_neo_logits("(j) paged", eng.module, m32, ids,
+    rec["logits"] = fp32_gated_logits("(j) paged", eng.module, m32, ids,
                                    chunk=SERVE_J["prefill_chunk"],
                                    paged=SERVE_J["page_size"])
     emit(rec)
@@ -3089,6 +3146,339 @@ def gpt_neo_serving_path(eng, m32):
         fail(f"run (j): {differ} of {len(reqs)} requests' tokens differ "
              f"between the paged pool and the monolithic lanes")
     return {"j": rec, "j_mono": rec_m, "j_outputs": outs}
+
+
+# --------------------------------------------------------------------- #
+# Llama-7B: generate() (k), the paged server (l), the GQA cut (k-gqa)
+# --------------------------------------------------------------------- #
+def llama_elementwise(m, B, P, new):
+    """Device ms of the plain-PyTorch work that Llama adds to a forward
+    (``torch.profiler`` kernel records, all kernels of each call): the
+    rotary tables once and q / k rotated in every layer, the 2 RMS norms
+    of every layer and the final one, SwiGLU's ``silu(gate) * up`` in
+    every layer; for one decode step at batch ``B`` and for the prefill
+    of ``B`` x ``P``, and for a whole ``generate()`` of ``new`` tokens
+    (the prefill and ``new - 1`` steps)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.models import transformer as tr
+    from deepspeed_tpu_torch.profiling.trace import device_ms_per_call
+    cfg = m.config
+    L, H, KVH, D = cfg.num_layers, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    dt = cfg.torch_dtype
+    g = torch.Generator(device=DEV).manual_seed(14)
+    trace = os.path.join(ROOT, "build", "profiles", "llama_elementwise.json")
+    rec = {}
+    for tag, S in (("decode_step", 1), ("prefill", P)):
+        pos = torch.arange(S, device=DEV)[None].expand(B, S) + \
+            (P if S == 1 else 0)
+
+        def rand(*shape):
+            return torch.randn(*shape, generator=g, device=DEV, dtype=dt)
+
+        q, k = rand(B, S, H, D), rand(B, S, KVH, D)
+        x = rand(B, S, cfg.hidden_size)
+        gate, up = rand(B, S, cfg.ffn_size), rand(B, S, cfg.ffn_size)
+
+        def rope():
+            cs = tr.rope_tables(pos, D, cfg.rope_theta, cfg.rope_dim)
+            for _ in range(L):
+                tr.apply_rope(q, *cs)
+                tr.apply_rope(k, *cs)
+
+        def rms_norm():
+            for _ in range(2 * L + 1):
+                tr._norm(x, m.final_norm, cfg)
+
+        def swiglu():
+            for _ in range(L):
+                F.silu(gate) * up
+
+        rec[tag] = {name: device_ms_per_call(fn, 5, trace) for name, fn in
+                    (("rope", rope), ("rms_norm", rms_norm),
+                     ("swiglu", swiglu))}
+        rec[tag]["total"] = sum(rec[tag].values())
+    rec["generate_total_ms"] = rec["prefill"]["total"] + \
+        (new - 1) * rec["decode_step"]["total"]
+    return rec
+
+
+def llama_path():
+    """Run (k): Llama-7B generation at its full widths and depth, one
+    pass at run (a)'s shape (K1, K2) on the captured decode graphs after
+    ``warmup()``, the same on an eager engine (tokens bitwise), profile
+    lines "k" (eager) and "k_graph", the device ms of rope / RMSNorm /
+    SwiGLU, then chunked at run (b)'s (K3, K2), each with exact launches;
+    run (l); then, on an fp32 copy of the same weights, the checks that
+    bf16 rounding on a 32-layer random model would blur
+    (:func:`llama_fp32_checks`); then run (k-gqa).  Returns the runs."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import llama_model
+    t0 = time.perf_counter()
+    eng = init_inference(llama_model(LLAMA), dtype="bfloat16", device=DEV)
+    eng.init_params(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    m = eng.module
+    cfg = m.config
+    L, V = cfg.num_layers, cfg.vocab_size
+    g = torch.Generator(device=DEV).manual_seed(13)
+    runs = {}
+    B, P, new = RUN_K["batch"], RUN_K["prompt"], RUN_K["new"]
+    ids = torch.randint(0, V, (B, P), generator=g, device=DEV)
+    plan = eng.prefill_plan(B, P)
+    if plan[0] != "one_pass":
+        fail(f"run (k) should take one-pass prefill, plan says {plan}")
+    expect = {"flash_attention": L, "decode_attention": L * (new - 1)}
+    out = counted_generate(eng, ids, new, "k", expect, runs, LLAMA,
+                           route="one_pass", params=cfg.num_params(),
+                           weight_bytes=tensor_bytes(m),
+                           init_seconds=init_s, plan=plan[2])
+    emit(runs["k"])
+    eng_e = eager_twin(eng)
+    eng_e.generate(ids, max_new_tokens=4)     # warm-up
+    out_e, dt, cnt, peak = run_generate(eng_e, ids, new, expect)
+    runs["k_eager"] = {"run": "k_eager", "cuda_graphs": False,
+                       "seconds": dt, "tokens_per_s": B * new / dt,
+                       "launches": cnt, "peak_device_bytes": peak,
+                       "tokens_equal_to_graphs": bool(torch.equal(out_e,
+                                                                  out))}
+    emit(runs["k_eager"])
+    if not runs["k_eager"]["tokens_equal_to_graphs"]:
+        fail("run (k): the eager engine's tokens differ from the captured "
+             "decode graphs'")
+    runs["k_profile"] = profile_run(eng_e, ids, new, "k",
+                                    "llama_generate_trace.json")
+    runs["k_graph_profile"] = profile_run(eng, ids, new, "k_graph",
+                                          "llama_generate_graph_trace.json")
+    elem = llama_elementwise(m, B, P, new)
+    for prof in ("k_profile", "k_graph_profile"):
+        elem[f"share_of_{prof[:-8]}_busy"] = \
+            elem["generate_total_ms"] / runs[prof]["device_busy_ms"]
+    runs["k_elementwise"] = elem
+    emit({"llama_elementwise": elem})
+    eng_e.release_workspace()
+    eng.release_workspace()
+    B, P, new, C = (RUN_K_CHUNKED[x] for x in ("batch", "prompt", "new",
+                                               "chunk"))
+    eng_c = init_inference(m, {"prefill_chunk_size": C}, dtype="bfloat16",
+                           device=DEV)
+    ids_c = torch.randint(0, V, (B, P), generator=g, device=DEV)
+    if eng_c.prefill_plan(B, P)[:2] != ("chunked", C):
+        fail(f"run (k) chunked should take chunked prefill, plan says "
+             f"{eng_c.prefill_plan(B, P)}")
+    counted_generate(eng_c, ids_c, new, "k_chunked", {
+        "chunk_prefill_attention": L * (-(-P // C)),
+        "decode_attention": L * (new - 1)}, runs, LLAMA, route="chunked",
+        chunk=C)
+    emit(runs["k_chunked"])
+    del eng_c
+    torch.cuda.empty_cache()
+    serving, reqs = llama_serving_path(eng, eng_e)
+    runs.update(serving)
+    del eng, eng_e
+    torch.cuda.empty_cache()
+    runs["k_fp32_checks"] = llama_fp32_checks(m, ids, ids_c, reqs, runs)
+    del m
+    torch.cuda.empty_cache()
+    runs.update(llama_gqa_path())
+    return runs
+
+
+def llama_serving_path(eng, eng_e):
+    """Run (l): run (d)'s first 64 requests on a 32-slot page pool (K7
+    admission, K6 decode) on the captured decode block, again on the
+    eager engine ``eng_e`` (every request equal), a decode-window profile
+    each way, then the same requests on monolithic lanes (K3, K2: every
+    request equal); the first 4 also through solo generate() calls, their
+    greedy agreement with the served stream reported (bf16: a batch of 1
+    runs other GEMM kernels than a decode block of 32 slots; the fp32
+    check in :func:`llama_fp32_checks` gates the equality).  Returns the
+    runs and the requests."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    V = eng.module.config.vocab_size
+    reqs = serving_traffic(V, RUN_L["requests"])
+    warm = eng.serve(**SERVE_L)               # warm-up (allocator, cuBLAS)
+    drive(warm, reqs[:4])
+    warm.close()
+    srv, outs, secs, peak, counts = serve_counted(eng, reqs, "run (l)",
+                                                  **SERVE_L)
+    rec = serve_record("l", srv, secs, peak, counts, reqs)
+    emit(rec)
+    runs = {"l": rec}
+    runs["l_eager"] = eager_serving("l_eager", eng_e, reqs, outs, SERVE_L)
+    runs["l_profile"] = profile_serving(eng_e, reqs, "l",
+                                        "llama_serving_trace.json", SERVE_L)
+    runs["l_graph_profile"] = profile_serving(
+        eng, reqs, "l_graph", "llama_serving_graph_trace.json", SERVE_L)
+    mono, outs_m, secs_m, peak_m, counts_m = serve_counted(
+        eng, reqs, "run (l) monolithic", **{**SERVE_L, "paged": False})
+    differ = sum(not np.array_equal(a, b) for a, b in zip(outs, outs_m))
+    rec_m = serve_record("l_mono", mono, secs_m, peak_m, counts_m, reqs)
+    rec_m["requests_differing_from_paged"] = differ
+    few = reqs[:RUN_L["solo"]]
+    solo_eng = init_inference(eng.module, {
+        "prefill_chunk_size": SERVE_L["prefill_chunk"]}, dtype="bfloat16",
+        device=DEV)
+    solo = [solo_eng.generate(torch.tensor(p[None], device=DEV),
+                              max_new_tokens=n)[0].cpu().numpy()
+            for p, n in few]
+    del solo_eng
+    rec_m["bf16_solo"] = {
+        "requests": len(few),
+        "requests_differing_from_paged": sum(
+            not np.array_equal(a, b) for a, b in zip(solo, outs)),
+        "greedy_agreement_with_paged": float(np.mean(np.concatenate(
+            [a[len(p):] == b[len(p):]
+             for a, b, (p, _) in zip(solo, outs, few)])))}
+    emit(rec_m)
+    runs["l_mono"] = rec_m
+    if differ:
+        fail(f"run (l): {differ} of {len(reqs)} requests' tokens differ "
+             f"between the paged pool and the monolithic lanes")
+    torch.cuda.empty_cache()
+    return runs, reqs
+
+
+def llama_fp32_checks(m, ids, ids_c, reqs, runs):
+    """On an fp32 copy of Llama-7B's weights (the kernels' fp32 modes):
+    kernel-path logits against the plain path for runs (k), (k) chunked
+    and (l)'s pool, in bf16 (reported) and fp32 (gated at cosine 0.999),
+    beside the bf16 plain path's own cosine to its fp32 logits (the
+    rounding floor, reported); and run (l)'s first 4 requests served on
+    its pool, each equal to its solo generate() (gated).  Returns the
+    checks."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import llama_model
+    m32 = llama_model(LLAMA, dtype="float32").to_empty(device=DEV)
+    m32.load_state_dict(m.state_dict())
+    m32.eval()
+    P = min(len(p) for p, _ in reqs[:4])
+    ids_l = torch.tensor([p[:P].tolist() for p, _ in reqs[:4]], device=DEV)
+    rec = {"k": fp32_gated_logits("(k)", m, m32, ids),
+           "k_chunked": fp32_gated_logits("(k) chunked", m, m32, ids_c,
+                                          chunk=RUN_K_CHUNKED["chunk"]),
+           "l": fp32_gated_logits("(l) paged", m, m32, ids_l,
+                                  chunk=SERVE_L["prefill_chunk"],
+                                  paged=SERVE_L["page_size"])}
+    for run in ("k", "k_chunked", "l"):
+        runs[run]["logits"] = rec[run]
+    # the bf16 noise floor: the plain path's own bf16 prefill logits
+    # against its fp32 ones (reported beside the kernel path's bf16 cosine)
+    B, P = ids.shape
+    last = torch.full((B,), P - 1, device=DEV)
+    with plain_kernels(), torch.no_grad():
+        pre = [mm.decode(ids, mm.init_cache(B, P + 8), 0, logits_at=last,
+                         prefill=True)[0] for mm in (m, m32)]
+    rec["bf16_plain_vs_fp32_plain"] = compare_logits(
+        "(k) prefill logits, bf16 plain vs fp32 plain", pre[0], pre[1],
+        gate=False)
+    del pre
+    eng32 = init_inference(m32, {
+        "prefill_chunk_size": SERVE_L["prefill_chunk"]}, dtype="float32",
+        device=DEV)
+    few = reqs[:RUN_L["solo"]]
+    srv = eng32.serve(**SERVE_L)
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in few]
+    done = srv.drain()
+    srv.close()
+    solo = [eng32.generate(torch.tensor(p[None], device=DEV),
+                           max_new_tokens=n)[0].cpu().numpy()
+            for p, n in few]
+    rec["fp32_solo"] = {"requests": len(few),
+                        "requests_differing_from_paged": sum(
+                            not np.array_equal(done[r], s)
+                            for r, s in zip(rids, solo))}
+    emit({"run": "l", "fp32_solo": rec["fp32_solo"]})
+    if rec["fp32_solo"]["requests_differing_from_paged"]:
+        fail(f"run (l) on fp32 weights: "
+             f"{rec['fp32_solo']['requests_differing_from_paged']} of the "
+             f"first {len(few)} served requests differ from their solo "
+             f"generate()")
+    del eng32, m32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def llama_gqa_path():
+    """Run (k-gqa): the GQA cut (2 layers, 8 kv heads of 128: G = 4) at
+    run (k)'s batch and prompt.  In bf16: generate() through K1 and K2
+    with exact launches and the kernel-path logits against the plain path
+    (cosine >= 0.999), the greedy agreement with the plain path reported.
+    On an fp32 copy of the same weights (the kernels' fp32 modes, where
+    rounding cannot move a greedy choice): generate() and a paged server
+    of 8 requests through the kernels, every token equal to the plain
+    path's (``plain_kernels``, on an eager engine)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import llama_model
+    over = {k: RUN_K_GQA[k] for k in ("num_kv_heads", "num_layers")}
+    eng = init_inference(llama_model(LLAMA, **over), dtype="bfloat16",
+                         device=DEV)
+    eng.init_params(seed=1)
+    m = eng.module
+    cfg = m.config
+    L, V = cfg.num_layers, cfg.vocab_size
+    g = torch.Generator(device=DEV).manual_seed(15)
+    B, P, new = (RUN_K_GQA[x] for x in ("batch", "prompt", "new"))
+    ids = torch.randint(0, V, (B, P), generator=g, device=DEV)
+    expect = {"flash_attention": L, "decode_attention": L * (new - 1)}
+    runs = {}
+    out = counted_generate(eng, ids, new, "k_gqa", expect, runs, LLAMA,
+                           cut=over, group=cfg.num_heads // cfg.kv_heads,
+                           logits=kernels_vs_plain("(k-gqa)", m, ids))
+    with plain_kernels():
+        plain = eager_twin(eng).generate(ids, max_new_tokens=new)
+    runs["k_gqa"]["greedy_agreement_with_plain"] = agreement(out, plain, P)
+    # the fp32 copy: kernels against plain, tokens equal
+    m32 = llama_model(LLAMA, dtype="float32", **over).to_empty(device=DEV)
+    m32.load_state_dict(m.state_dict())
+    m32.eval()
+    del eng, m
+    serve = dict(SERVE_L, num_slots=RUN_K_GQA["requests"], num_pages=0)
+    reqs = [(p, new) for p, _ in serving_traffic(V, RUN_K_GQA["requests"])]
+    got = {}
+    for path in ("kernels", "plain"):
+        ctx = plain_kernels() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            e32 = init_inference(m32, {"serving": dict(serve),
+                                       "enable_cuda_graph": path ==
+                                       "kernels"},
+                                 dtype="float32", device=DEV)
+            reset_counts()
+            gen = e32.generate(ids, max_new_tokens=new)
+            counts = read_counts()
+            srv = e32.serve()
+            rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+            done = srv.drain()
+            srv.close()
+        got[path] = (gen, [done[r] for r in rids])
+        if path == "kernels" and counts != expect_only(expect):
+            fail(f"run (k-gqa) fp32: launches {counts}, the path needs "
+                 f"{expect_only(expect)}")
+        del e32
+    rec32 = {"generate_tokens_equal": bool(torch.equal(got["kernels"][0],
+                                                       got["plain"][0])),
+             "served_requests_differing": sum(
+                 not np.array_equal(a, b)
+                 for a, b in zip(got["kernels"][1], got["plain"][1])),
+             "served_requests": len(reqs)}
+    runs["k_gqa"]["fp32_kernels_vs_plain"] = rec32
+    emit(runs["k_gqa"])
+    if not rec32["generate_tokens_equal"] or \
+            rec32["served_requests_differing"]:
+        fail(f"run (k-gqa): kernel-path tokens differ from the plain path's "
+             f"on fp32 weights: {rec32}")
+    del m32
+    torch.cuda.empty_cache()
+    return runs
 
 
 # --------------------------------------------------------------------- #
@@ -3433,6 +3823,17 @@ def main():
         for key, rec in {**check_decode_window(dtype, timed),
                          **check_paged_decode_window(dtype, timed)}.items():
             checks[(key, dtype)] = rec
+    # K1 / K2 / K3 / K6 / K7 at Llama-7B's width (runs (k), (l)), in bf16
+    dtype = "bfloat16"
+    checks[("K1 run k", dtype)] = check_flash(dtype, True, K1K_SHAPE)
+    checks[("K2 run k", dtype)] = check_decode(dtype, True, K2K_SHAPE)
+    torch.cuda.empty_cache()
+    checks[("K3 run k", dtype)] = check_chunk(dtype, True, K3K_SHAPE)
+    torch.cuda.empty_cache()
+    checks[("K6 run l", dtype)] = check_paged_decode(dtype, True, K6L_SHAPE)
+    checks[("K7 run l", dtype)] = check_paged_chunk(
+        dtype, True, K7L_SHAPE, pool=K6L_SHAPE, extra=())
+    torch.cuda.empty_cache()
 
     runs, eng, eng_e, tokens = main_path()
     serving_runs, outs_d = serving_path(eng, eng_e)
@@ -3444,8 +3845,9 @@ def main():
     int8_serving_path(eng_g, eng_ge, eng_m, outs_d, runs)
     del eng_g, eng_ge, eng_m
     torch.cuda.empty_cache()
-    emit({"graphs_vs_eager": graphs_vs_eager(runs)})
     runs.update(gpt_neo_path())
+    runs.update(llama_path())
+    emit({"graphs_vs_eager": graphs_vs_eager(runs)})
     runs["c"] = train_path()
     grad_check()
     runs["f"] = sparse_train_path()
@@ -3567,6 +3969,30 @@ def main():
     d128 = checks[("K1 train d128", "bfloat16")]
     kernels[0]["run_c_shape_d128"] = {**timing(d128), "shape": d128["shape"],
                                       "tflops": d128["tflops"]}
+    # runs (k) and (l): Llama-7B's width (32 heads of 128, 32 layers)
+    for k, key, ran in ((kernels[0], "K1 run k", (("k", "flash_attention"),
+                                                  ("k_gqa",
+                                                   "flash_attention"))),
+                        (kernels[1], "K2 run k", (
+                            ("k", "decode_attention"),
+                            ("k_chunked", "decode_attention"),
+                            ("l_mono", "decode_attention"),
+                            ("k_gqa", "decode_attention"))),
+                        (kernels[2], "K3 run k", (
+                            ("k_chunked", "chunk_prefill_attention"),
+                            ("l_mono", "chunk_prefill_attention"))),
+                        (kernels[5], "K6 run l", (
+                            ("l", "paged_decode_attention"),)),
+                        (kernels[6], "K7 run l", (
+                            ("l", "paged_chunk_prefill_attention"),))):
+        check = checks[(key, "bfloat16")]
+        k["llama_shape"] = {
+            **timing(check),
+            "shape": {x: check[x] for x in ("shape", "cache", "q", "pool",
+                                            "table", "timed_shape")
+                      if x in check},
+            **{f"launches_run_{run}": runs[run]["launches"][name]
+               for run, name in ran}}
     for key, k in zip(("K4", "K5"), kernels[3:5]):
         k["launches_per_step"] = runs["c"]["launches_per_step"][k["name"]]
         check = checks[(key, "bfloat16")]

@@ -34,6 +34,7 @@ retries.  Cache updates happen in place instead of by donation.
 """
 
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -440,7 +441,12 @@ class KVCacheWorkspace:
 
     def __init__(self, module, on_drop=None):
         self._module = module
-        self._on_drop = on_drop
+        # ``on_drop`` is the owning engine's bound method, held weakly: a
+        # strong reference back would make a cycle that keeps the engine,
+        # its graphs and its buffers alive after the last ``del`` until
+        # Python's cycle collector happens to run
+        self._on_drop = None if on_drop is None else weakref.WeakMethod(
+            on_drop)
         self._bufs = {}
         self._cache = None
 
@@ -465,8 +471,9 @@ class KVCacheWorkspace:
         return self._cache
 
     def release(self):
-        if self._bufs and self._on_drop is not None:
-            self._on_drop()
+        drop = None if self._on_drop is None else self._on_drop()
+        if self._bufs and drop is not None:
+            drop()
         self._bufs = {}
         self._cache = None
 

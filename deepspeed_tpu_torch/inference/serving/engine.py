@@ -169,9 +169,12 @@ class ServingEngine:
                 f"serving lanes hold {self.cache_len} positions but the "
                 f"model's max_seq_len is {max_seq}: requests are held to "
                 f"{max_seq} positions")
-        # positions a request may reach: the learned position table bounds
-        # them (the JAX gather clamps an out-of-range position; PyTorch's
-        # embedding faults on it, so dead lanes clamp to this too)
+        # positions a request may reach, and where dead lanes clamp theirs:
+        # the lane, and the model's max_seq_len.  For a learned position
+        # table that is its size (the JAX gather clamps an out-of-range
+        # position; PyTorch's embedding faults on it).  A rotary model has
+        # no table and computes any position, but max_seq_len is the
+        # context it was made for, so it is held to it the same way
         self.max_pos = min(self.cache_len, max_seq)
         from deepspeed_tpu_torch.inference.engine import build_sample_fn
         from deepspeed_tpu_torch.ops.transformer.registry import kernel_modes

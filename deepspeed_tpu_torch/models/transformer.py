@@ -1,5 +1,5 @@
-"""Decoder-only transformer — the OPT and GPT-Neo paths of the flagship
-model family (port of ``deepspeed_tpu/models/transformer.py``).
+"""Decoder-only transformer — the OPT, GPT-Neo and Llama paths of the
+flagship model family (port of ``deepspeed_tpu/models/transformer.py``).
 
 PyTorch idiom around the JAX package's layouts: ``nn.Module`` layers, the
 flax ``nn.scan`` over layers as a loop over an ``nn.ModuleList``, and the
@@ -33,10 +33,21 @@ GPT-Neo's alternating global / local layers (``attention_layers``, band
 ``window`` positions, dense in the uncached forward and in prefill, and
 through the decode kernels' window mode once cached.
 
-Config features that OPT-1.3B and GPT-Neo do not use raise
-``NotImplementedError`` when a model is built (rope, alibi, GQA, post-LN,
-gated MLP, ``embed_proj_dim``, MoE, remat policies other than
-``nothing_saveable``, ...); ROADMAP.md lists them.  Inference engines
+The Llama layout (``models/opt.py`` ``llama_model``) runs as in JAX:
+rotary positions (:func:`_rope`: the half-split layout, the gptj
+``rope_interleaved`` layout and a partial ``rope_dim``) applied to q and k
+after their projections, so every cache and pool holds rotated keys; RMS
+norms (:func:`_rms_norm`, flax's numerics); the gated MLP
+``down(act(gate(x)) * up(x))``; fewer kv heads than query heads (GQA),
+query head ``h`` reading kv head ``h // G``.  The rotation's cos / sin
+come from the ``positions`` tensor on every forward, never from a table
+built once, so a captured CUDA graph recomputes them on each replay.
+
+Config features that these models do not use raise
+``NotImplementedError`` when a model is built (alibi, post-LN,
+``embed_proj_dim``, ``parallel_residual``, ``embedding_norm``,
+``fused_qkv``, MoE, ``sequence_parallel_impl``, remat policies other than
+``nothing_saveable``); ROADMAP.md lists them.  Inference engines
 quantize the weights (:meth:`Transformer.quantize_weights_`, the JAX
 ``WeightQuantization`` on the flax layout of each weight).
 """
@@ -181,14 +192,11 @@ class TransformerConfig:
 # config features of the JAX model that this port does not have yet:
 # (predicate, what to say)
 _NOT_PORTED = (
-    (lambda c: c.position_embedding != "learned",
-     "position_embedding other than 'learned' (rope / alibi)"),
-    (lambda c: c.kv_heads != c.num_heads, "GQA (num_kv_heads != num_heads)"),
+    (lambda c: c.position_embedding not in ("learned", "rope"),
+     "position_embedding other than 'learned' or 'rope' (alibi)"),
     (lambda c: not c.pre_layer_norm, "post-LN (pre_layer_norm=False)"),
-    (lambda c: c.gated_mlp, "gated_mlp"),
     (lambda c: c.embed_proj_dim is not None, "embed_proj_dim"),
     (lambda c: c.moe_num_experts > 0, "MoE (moe_num_experts > 0)"),
-    (lambda c: c.rms_norm, "rms_norm"),
     (lambda c: c.parallel_residual, "parallel_residual"),
     (lambda c: c.embedding_norm, "embedding_norm"),
     (lambda c: c.fused_qkv, "fused_qkv"),
@@ -228,6 +236,87 @@ def _layer_norm(x, norm, eps):
     statistics in fp32 for bf16 / fp16 inputs, as flax's LayerNorm does."""
     return F.layer_norm(x, x.shape[-1:], norm.weight.to(x.dtype),
                         norm.bias.to(x.dtype), eps)
+
+
+def _rms_norm(x, norm, eps):
+    """RMSNorm in flax's numerics (``nn.RMSNorm``, ``_normalize``): the
+    mean square of ``x`` in fp32, ``rsqrt(ms + eps) * scale`` and ``x`` in
+    fp32 times that; the result stays fp32 (the caller rounds it once to
+    the model dtype, as the JAX block does)."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return xf * (torch.rsqrt(ms + eps) * norm.weight.float())
+
+
+def _norm(x, norm, config):
+    """The block's and the final norm: RMSNorm rounded to the model dtype
+    for ``rms_norm`` configs, else LayerNorm."""
+    if config.rms_norm:
+        return _rms_norm(x, norm, config.layernorm_epsilon).to(
+            config.torch_dtype)
+    return _layer_norm(x, norm, config.layernorm_epsilon)
+
+
+class RMSNorm(nn.Module):
+    """An RMS norm's scale (flax ``nn.RMSNorm``: no bias)."""
+
+    def __init__(self, size, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(size, device=device,
+                                              dtype=torch.float32))
+
+
+def _make_norm(config, device):
+    if config.rms_norm:
+        return RMSNorm(config.hidden_size, device=device)
+    return nn.LayerNorm(config.hidden_size, eps=config.layernorm_epsilon,
+                        device=device, dtype=torch.float32)
+
+
+def rope_tables(positions, head_dim, theta, rope_dim=None):
+    """cos / sin of the rotary angles ``[B, S, 1, rope_dim // 2]`` (fp32)
+    for absolute ``positions`` [B, S], as the JAX ``_rope`` computes them:
+    ``freqs = 1 / theta ** (arange(half) / half)``, angles ``positions *
+    freqs`` in fp32.  Computed from the tensor on every call, so a CUDA
+    graph recomputes them on each replay from the positions it reads."""
+    half = (rope_dim or head_dim) // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    angles = positions[..., None].float() * freqs
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope(x, cos, sin, interleaved=False):
+    """Rotate the first ``2 * cos.shape[-1]`` features of each head of
+    ``x`` [B, S, heads, D] (the rest pass through): the half-split layout
+    (neox / llama), or with ``interleaved`` the gptj rotate-every-two one.
+    Each term is computed on ``x`` promoted to fp32 and the result rounded
+    once to ``x``'s dtype, as in JAX."""
+    half = cos.shape[-1]
+    d = 2 * half
+    rx = x[..., :d].float()
+    if interleaved:
+        x1, x2 = rx[..., 0::2], rx[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(rx.shape)
+    else:
+        x1, x2 = rx[..., :half], rx[..., half:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    out = out.to(x.dtype)
+    if x.shape[-1] > d:
+        out = torch.cat([out, x[..., d:]], dim=-1)
+    return out
+
+
+def _rope(q, k, positions, head_dim, theta, rope_dim=None,
+          interleaved=False):
+    """Rotary position embeddings of q and k (the JAX ``_rope``, same
+    signature): the half-split layout by default, ``interleaved`` the gptj
+    layout, ``rope_dim`` a partial rotation (neox ``rotary_pct`` / gptj
+    ``rotary_dim``)."""
+    cos, sin = rope_tables(positions, head_dim, theta, rope_dim)
+    return (apply_rope(q, cos, sin, interleaved),
+            apply_rope(k, cos, sin, interleaved))
 
 
 def reference_attention(q, k, v, causal=True, mask=None, window=None):
@@ -379,7 +468,10 @@ class Attention(nn.Module):
                                 **kw)
 
     def forward(self, x, positions, mask=None, cache=None, layer=None,
-                start=None, prefill=False):
+                start=None, prefill=False, rope=None):
+        """``rope``: the (cos, sin) of :func:`rope_tables` at
+        ``positions`` for a rotary config (computed once per forward by
+        the model), else None."""
         cfg = self.config
         dt = cfg.torch_dtype
         B, S, _ = x.shape
@@ -388,6 +480,11 @@ class Attention(nn.Module):
         q = _linear(x, self.q_proj, dt).view(B, S, H, D)
         k = _linear(x, self.k_proj, dt).view(B, S, KVH, D)
         v = _linear(x, self.v_proj, dt).view(B, S, KVH, D)
+        if rope is not None:
+            # before the scale fold and before any cache write: every cache
+            # and pool holds rotated keys (JAX Attention.__call__)
+            q = apply_rope(q, *rope, cfg.rope_interleaved)
+            k = apply_rope(k, *rope, cfg.rope_interleaved)
         if cfg.attention_softmax_scale is not None:
             # every attention path divides by sqrt(D): fold any other scale
             # into q up front, as the JAX model does
@@ -411,11 +508,16 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
+    """``down(act(up(x)))``, or with ``gated_mlp`` (Llama's SwiGLU)
+    ``down(act(gate(x)) * up(x))``."""
 
     def __init__(self, config, device=None):
         super().__init__()
         self.config = cfg = config
         kw = dict(device=device, dtype=torch.float32)
+        if cfg.gated_mlp:
+            self.gate_proj = nn.Linear(cfg.hidden_size, cfg.ffn_size,
+                                       bias=cfg.mlp_bias_enabled, **kw)
         self.up_proj = nn.Linear(cfg.hidden_size, cfg.ffn_size,
                                  bias=cfg.mlp_bias_enabled, **kw)
         self.down_proj = nn.Linear(cfg.ffn_size, cfg.hidden_size,
@@ -424,32 +526,32 @@ class MLP(nn.Module):
     def forward(self, x):
         dt = self.config.torch_dtype
         act = _ACTIVATIONS[self.config.activation]
-        return _linear(act(_linear(x, self.up_proj, dt)), self.down_proj, dt)
+        if self.config.gated_mlp:
+            h = act(_linear(x, self.gate_proj, dt)) * _linear(x, self.up_proj,
+                                                             dt)
+        else:
+            h = act(_linear(x, self.up_proj, dt))
+        return _linear(h, self.down_proj, dt)
 
 
 class Block(nn.Module):
-    """Pre-LN decoder block (OPT-1.3B's and GPT-Neo's layout), layer
-    ``layer_idx`` of the trunk."""
+    """Pre-norm decoder block (OPT-1.3B's, GPT-Neo's and Llama's layout),
+    layer ``layer_idx`` of the trunk."""
 
     def __init__(self, config, device=None, layer_idx=None):
         super().__init__()
         self.config = cfg = config
-        kw = dict(device=device, dtype=torch.float32)
-        self.input_norm = nn.LayerNorm(cfg.hidden_size,
-                                       eps=cfg.layernorm_epsilon, **kw)
+        self.input_norm = _make_norm(cfg, device)
         self.attn = Attention(cfg, device=device, layer_idx=layer_idx)
-        self.post_attn_norm = nn.LayerNorm(cfg.hidden_size,
-                                           eps=cfg.layernorm_epsilon, **kw)
+        self.post_attn_norm = _make_norm(cfg, device)
         self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, positions, mask=None, cache=None, layer=None,
-                start=None, prefill=False):
+                start=None, prefill=False, rope=None):
         cfg = self.config
-        eps = cfg.layernorm_epsilon
-        normed = _layer_norm(x, self.input_norm, eps)
-        x = x + self.attn(normed, positions, mask, cache, layer, start,
-                          prefill)
-        return x + self.mlp(_layer_norm(x, self.post_attn_norm, eps))
+        x = x + self.attn(_norm(x, self.input_norm, cfg), positions, mask,
+                          cache, layer, start, prefill, rope)
+        return x + self.mlp(_norm(x, self.post_attn_norm, cfg))
 
 
 class Transformer(nn.Module):
@@ -462,12 +564,13 @@ class Transformer(nn.Module):
         self.config = cfg = config
         kw = dict(device=device, dtype=torch.float32)
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
-        self.embed_positions = nn.Embedding(cfg.max_seq_len, cfg.hidden_size,
-                                            **kw)
+        # rotary configs have no position table: positions enter as rope
+        self.embed_positions = nn.Embedding(
+            cfg.max_seq_len, cfg.hidden_size, **kw) \
+            if cfg.position_embedding == "learned" else None
         self.layers = nn.ModuleList(Block(cfg, device=device, layer_idx=i)
                                     for i in range(cfg.num_layers))
-        self.final_norm = nn.LayerNorm(cfg.hidden_size,
-                                       eps=cfg.layernorm_epsilon, **kw)
+        self.final_norm = _make_norm(cfg, device)
         self.lm_head = None if cfg.tie_word_embeddings else nn.Linear(
             cfg.hidden_size, cfg.vocab_size, bias=cfg.lm_head_bias, **kw)
 
@@ -489,10 +592,12 @@ class Transformer(nn.Module):
     def init_weights(self, generator):
         """Random init from ``generator`` (a ``torch.Generator`` on the
         parameters' device): normal(0, 0.02) matrices and embeddings, zero
-        biases, unit norm scales."""
+        biases, unit norm scales (an RMS norm has no bias)."""
         std = 0.02
         for mod in self.modules():
-            if isinstance(mod, nn.LayerNorm):
+            if isinstance(mod, RMSNorm):
+                mod.weight.fill_(1.0)
+            elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
             elif isinstance(mod, (nn.Linear, nn.Embedding)):
@@ -525,17 +630,24 @@ class Transformer(nn.Module):
         if prefill and start != 0:
             raise ValueError("prefill=True needs start_pos == 0")
         x = F.embedding(input_ids, self.embed_tokens.weight).to(cfg.torch_dtype)
-        x = x + F.embedding(positions, self.embed_positions.weight).to(
-            cfg.torch_dtype)
+        rope = None
+        if self.embed_positions is not None:
+            x = x + F.embedding(positions, self.embed_positions.weight).to(
+                cfg.torch_dtype)
+        else:
+            # the rotary angles once for every layer, from the positions
+            rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                               cfg.rope_dim)
         # remat (JAX nn.remat with nothing_saveable): each block keeps only
         # its input and recomputes itself in the backward
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(self.layers):
             if remat:
-                x = checkpoint(blk, x, positions, mask, use_reentrant=False)
+                x = checkpoint(blk, x, positions, mask, rope=rope,
+                               use_reentrant=False)
             else:
-                x = blk(x, positions, mask, cache, i, start, prefill)
-        return _layer_norm(x, self.final_norm, cfg.layernorm_epsilon)
+                x = blk(x, positions, mask, cache, i, start, prefill, rope)
+        return _norm(x, self.final_norm, cfg)
 
     def _head_fn(self):
         """The LM head as a closure over weights cast once to the model
@@ -639,6 +751,8 @@ class Transformer(nn.Module):
                      "attn.k_proj": ((h, KVH, D), (KVH, D)),
                      "attn.v_proj": ((h, KVH, D), (KVH, D)),
                      "attn.o_proj": ((H, D, h), (h,)),
+                     **({"mlp.gate_proj": ((h, f), (f,))}
+                        if cfg.gated_mlp else {}),
                      "mlp.up_proj": ((h, f), (f,)),
                      "mlp.down_proj": ((f, h), (h,))}
         for i in range(cfg.num_layers):
@@ -804,10 +918,13 @@ def params_from_flax(tree, cfg):
             stacked_leaves[name] = take(f"layers/{name}")
         return stacked_leaves[name][i]
 
+    rms = cfg.rms_norm                   # RMS norms: a scale, no bias
     sd = {"embed_tokens.weight": t(take("embed_tokens/embedding")),
-          "embed_positions.weight": t(take("embed_positions/embedding")),
-          "final_norm.weight": t(take("final_norm/scale")),
-          "final_norm.bias": t(take("final_norm/bias"))}
+          "final_norm.weight": t(take("final_norm/scale"))}
+    if cfg.position_embedding == "learned":
+        sd["embed_positions.weight"] = t(take("embed_positions/embedding"))
+    if not rms:
+        sd["final_norm.bias"] = t(take("final_norm/bias"))
     for i in range(L):
         p = f"layers.{i}."
         for proj in ("q_proj", "k_proj", "v_proj"):
@@ -820,7 +937,8 @@ def params_from_flax(tree, cfg):
         sd[p + "attn.o_proj.weight"] = t(kern.reshape(-1, h).T)
         if cfg.attn_out_bias_enabled:
             sd[p + "attn.o_proj.bias"] = t(layer_leaf(i, "attn/o_proj/bias"))
-        for proj in ("up_proj", "down_proj"):
+        for proj in ("gate_proj",) * cfg.gated_mlp + ("up_proj",
+                                                      "down_proj"):
             sd[p + f"mlp.{proj}.weight"] = t(
                 layer_leaf(i, f"mlp/{proj}/kernel").T)
             if cfg.mlp_bias_enabled:
@@ -828,7 +946,8 @@ def params_from_flax(tree, cfg):
                     layer_leaf(i, f"mlp/{proj}/bias"))
         for norm in ("input_norm", "post_attn_norm"):
             sd[p + f"{norm}.weight"] = t(layer_leaf(i, f"{norm}/scale"))
-            sd[p + f"{norm}.bias"] = t(layer_leaf(i, f"{norm}/bias"))
+            if not rms:
+                sd[p + f"{norm}.bias"] = t(layer_leaf(i, f"{norm}/bias"))
     if not cfg.tie_word_embeddings:
         sd["lm_head.weight"] = t(take("lm_head/kernel").T)
         if cfg.lm_head_bias:

@@ -47,6 +47,13 @@ GROUPS = (("K6-i8mm decode_i8mm_kernel (paged)",
           ("gather / scatter (index)", ("index_elementwise",
                                         "indexing_backward")),
           ("layer norm", ("layer_norm", "LayerNorm")),
+          # Llama's plain-PyTorch elementwise work, where the kernel's name
+          # says it: SwiGLU's silu, RMSNorm's square / mean / rsqrt, the
+          # rotary angles' pow / cos / sin (their products, sums and
+          # concatenations land in the generic groups below)
+          ("rope / RMSNorm / SwiGLU (named kernels)",
+           ("silu", "rsqrt", "MeanOps", "pow_", "cos_kernel",
+            "sin_kernel")),
           ("optimizer / grad norm (foreach)", ("multi_tensor_apply",)),
           ("embedding", ("embedding",)),
           ("softmax / sampling", ("softmax", "argmax", "reduce")),

@@ -376,6 +376,34 @@ def test_workspace_views_and_drops_programs(setup, monkeypatch):
     assert len(drops) == len(eng._programs)
 
 
+@pytest.mark.parametrize("paged", [None, False, True],
+                         ids=["generate", "lanes", "pool"])
+def test_engine_frees_its_weights_on_del(setup, paged):
+    """With the cycle collector off, ``del`` of an engine that captured
+    its decode programs (and of a closed server) frees its module at
+    once: the workspace holds its engine's drop callback weakly."""
+    import gc
+    import weakref
+    eng = _port(setup["sd"], serving=dict(SERVING))
+    ids = torch.from_numpy(setup["ids"])
+    gc.disable()
+    try:
+        if paged is None:
+            eng.generate(ids, max_new_tokens=NEW)
+            eng.warmup(10, 4)
+        else:
+            srv = eng.serve(paged=paged)
+            srv.submit(setup["ids"][0], max_new_tokens=4)
+            srv.drain()
+            srv.close()
+            del srv
+        module = weakref.ref(eng.module)
+        del eng
+        assert module() is None
+    finally:
+        gc.enable()
+
+
 def test_seeded_generator_is_reseeded_in_place(setup):
     eng = _port(setup["sd"])
     gen = eng._gen

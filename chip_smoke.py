@@ -119,7 +119,23 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    kernel-path tokens equal to the plain path's on fp32 weights; each
    with exact launches and kernel-path logits against the plain path
    (cosine ≥ 0.999);
-13. prints the card, a ``kernels`` JSON line and, last, the result line.
+13. drives speculative serving, run (m) — the JAX bench's
+   ``serving_spec_bench`` point at 16 slots and ``spec_k`` 4: OPT-1.3B
+   with run (a)'s weights, 32 greedy requests on slot lanes of 384 —
+   plain (K3, K2), with a self-draft (``spec_draft_model="self"``: K2 in
+   the draft's 5 steps a round, K3 in the verify at B = 16, C = 5 and in
+   both prefills), the same over a worst-case page pool (K7 in the verify
+   and the target's prefill) and with a seeded random opt-125m draft; each
+   with exact launches, useful tokens/s, the accept rate, tokens per
+   round, the draft's share, time between tokens at p50 / p99 from the
+   requests' token streams, bf16 agreement with the plain server, peak
+   memory, warm-up seconds and graph pool bytes; the self-draft server
+   again on eager programs (every token equal); the first 8 requests on
+   an fp32 copy of the weights (every speculative server equal to the
+   plain one); a profiled window of 3 rounds on the graphs (``profile``
+   "m_graph"); and K3 / K7 at the verify shape against their plain
+   versions, timed (``KV_SHAPE``, dead rows included);
+14. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 Generation and serving run on the captured decode programs (CUDA graphs,
 ``enable_cuda_graph``'s default) after ``warmup()`` / ``srv.warmup()``,
@@ -286,8 +302,29 @@ K3K_SHAPE = dict(K3_SHAPE, L=32, S_max=528, D=128)
 K6L_SHAPE = dict(K6_SHAPE, L=32, pages=SERVE_L["num_pages"], B=32, D=128)
 K7L_SHAPE = dict(K7_SHAPE, L=32, D=128,
                  cases=tuple(c for c in K7_SHAPE["cases"] if c[0] == 64))
-# decode blocks traced with all 96 slots live (profile line "d")
+# speculative serving (m): the JAX bench's serving_spec_bench point
+# (bench.py:1123-1169) at 16 slots and spec_k 4 — OPT-1.3B bf16, 32 greedy
+# requests (numpy seed 0; prompts and new tokens drawn from these sets),
+# slot lanes of 384, chunk 128, budget 256, block 8 — served plain, with
+# a self-draft on lanes and over a worst-case page pool (page 64), and
+# with a seeded random opt-125m draft (the accept rate's floor); the
+# first 8 requests again on an fp32 copy of the weights, where every
+# speculative server must equal the plain one token for token
+RUN_M = dict(requests=32, seed=0, prompts=(64, 96, 128, 192),
+             new=(64, 96, 128), fp32_requests=8, draft="opt-125m")
+SERVE_M = dict(max_cache_len=384, prefill_chunk=128,
+               prefill_token_budget=256, decode_block=8, num_slots=16)
+SPEC_M = dict(speculative=True, spec_k=4, spec_draft_model="self")
+# K3 / K7 at run (m)'s verify shape: q [16, 5, 32, 64] (16 slots, a window
+# of spec_k + 1) over its lanes [24, 16, 384, 2048] and over its pool
+# [24, 97, 64, 2048] (16 slots x 6 pages + the trash page), starts spread
+# over the lane up to its end, a quarter of the rows dead (start 384 - 5,
+# as spec_verify clamps it; on the pool their table rows on the trash page)
+KV_SHAPE = dict(L=24, B=16, C=5, S_max=384, H=32, D=64, page=64, dead=4)
+# decode blocks traced with all 96 slots live (profile line "d"), and
+# speculative rounds with run (m)'s 16 slots live (profile line "m_graph")
 PROFILE_D_STEPS = 3
+PROFILE_M_ROUNDS = 3
 # shared prefix (e): bench.py's 24 requests behind one 512-token prompt
 RUN_E = dict(system=512, tails=24, tail=16, new=32, seed=1)
 SERVE_E = dict(paged=True, page_size=64, max_cache_len=768,
@@ -873,6 +910,111 @@ def k7_extra_case(dtype, g, H, D, virt, page, starts, int8, seed):
              f"view: max diff {max_err(out, mono)}")
     return {"page": page, "q": [B, C, H, D], "starts": starts,
             "max_abs_err": err}
+
+
+def check_verify(dtype, timed):
+    """K3 over run (m)'s lanes and K7 over its pool at the verify shape
+    (``KV_SHAPE``: dead rows at the lane's end, their table rows on the
+    trash page) against their plain versions, K7 bitwise K3 over the
+    gathered view; timed (kernel, plain, SDPA over the same rows with a
+    per-row causal offset mask, the bound of the rows the kernels read)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    from deepspeed_tpu_torch.ops.transformer import paged_attention as pa
+    L, B, C, S_max, H, D, page = (KV_SHAPE[x] for x in (
+        "L", "B", "C", "S_max", "H", "D", "page"))
+    layer, n_virt = L // 3, S_max // page
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=DEV).manual_seed(17)
+    live = [0, 1, 63, 64, 130, 200, 255, 256, 300, 333, 370, S_max - C]
+    starts = torch.tensor(live + [S_max - C] * KV_SHAPE["dead"],
+                          dtype=torch.int32, device=DEV)
+    q = torch.randn(B, C, H, D, generator=g, device=DEV, dtype=dt)
+    kc = torch.randn(L, B, S_max, H * D, generator=g, device=DEV, dtype=dt)
+    vc = torch.randn(L, B, S_max, H * D, generator=g, device=DEV, dtype=dt)
+    n_pages = 1 + B * n_virt
+    kp = torch.randn(L, n_pages, page, H * D, generator=g, device=DEV,
+                     dtype=dt)
+    vp = torch.randn(L, n_pages, page, H * D, generator=g, device=DEV,
+                     dtype=dt)
+    table = paged_table(B, n_virt, n_pages, [S_max] * len(live)
+                        + [0] * KV_SHAPE["dead"], page, seed=B)
+    out = da.chunk_prefill_attention(q, kc, vc, starts, layer=layer)
+    torch.cuda.synchronize()
+    want = da.chunk_prefill_attention_plain(q, kc[layer], vc[layer], starts)
+    k3 = {"kernel": "K3 chunk_prefill_attention at the verify shape",
+          "dtype": dtype, "q": [B, C, H, D], "cache": [L, B, S_max, H * D],
+          "starts": starts.tolist(),
+          "max_abs_err": check_close("K3 at the verify shape", out, want,
+                                     dtype), "tol": TOL[dtype]}
+    out = pa.paged_chunk_prefill_attention(q, kp, vp, starts, table,
+                                           layer=layer)
+    torch.cuda.synchronize()
+    want = pa.paged_chunk_prefill_attention_plain(q, kp[layer], vp[layer],
+                                                  starts, table)
+    k7 = {"kernel": "K7 paged_chunk_prefill_attention at the verify shape",
+          "dtype": dtype, "q": [B, C, H, D], "pool": [L, n_pages, page,
+                                                      H * D],
+          "table": [B, n_virt], "dead_rows_on_trash_page": KV_SHAPE["dead"],
+          "max_abs_err": check_close("K7 at the verify shape", out, want,
+                                     dtype), "tol": TOL[dtype]}
+    mono = da.chunk_prefill_attention(q, pa.gather_pages(kp[layer], table),
+                                      pa.gather_pages(vp[layer], table),
+                                      starts)
+    if not torch.equal(out, mono):
+        fail(f"K7 at the verify shape ({dtype}) is not bitwise equal to K3 "
+             f"over the gathered view: max diff {max_err(out, mono)}")
+    if timed:
+        qh = q.transpose(1, 2).contiguous()
+        qpos = starts[:, None].long() + torch.arange(C, device=DEV)[None]
+        mask = (torch.arange(S_max, device=DEV)[None, None]
+                <= qpos[..., None])[:, None]          # [B, 1, C, S_max]
+        pairs = int(qpos.sum()) + B * C
+        es = q.element_size()
+        nbytes = (2 * int((starts.long() + C).sum()) * H * D * es
+                  + 2 * q.numel() * es + starts.numel() * 4)
+
+        def time_one(tag, kernel, plain, bufs, view, nbytes):
+            it = iter(range(10 ** 9))
+            heads = [tuple(heads_view(view(kv[li]), H, D) for kv in bufs)
+                     for li in range(L)]
+
+            def run_library():
+                kh, vh = heads[next(it) % L]
+                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+            rec = time_all(tag, "flash_fwd_kernel",
+                           lambda: kernel(next(it) % L),
+                           lambda: plain(next(it) % L), run_library, 96)
+            rec["bound_ms"], rec["bound_by"] = bound(4 * H * D * pairs,
+                                                     nbytes, dtype)
+            return rec
+
+        k3.update(time_one(
+            "k3v",
+            lambda li: da.chunk_prefill_attention(q, kc, vc, starts,
+                                                  layer=li),
+            lambda li: da.chunk_prefill_attention_plain(q, kc[li], vc[li],
+                                                        starts),
+            (kc, vc), lambda x: x, nbytes))
+        k7.update(time_one(
+            "k7v",
+            lambda li: pa.paged_chunk_prefill_attention(q, kp, vp, starts,
+                                                        table, layer=li),
+            lambda li: pa.paged_chunk_prefill_attention_plain(
+                q, kp[li], vp[li], starts, table),
+            (kp, vp), lambda x: pa.gather_pages(x, table),
+            nbytes + table.numel() * 4))
+        k3["library"] = ("F.scaled_dot_product_attention over the same rows "
+                         "with a per-row causal offset mask")
+        k7["library"] = k3["library"] + (" (the view gathered through the "
+                                          "block table beforehand)")
+    emit(k3)
+    emit(k7)
+    del kc, vc, kp, vp
+    torch.cuda.empty_cache()
+    return k3, k7
 
 
 def check_nan_tail(dtype):
@@ -2416,14 +2558,20 @@ def serving_traffic(V, n=RUN_D["requests"]):
     return reqs
 
 
-def drive(srv, reqs):
+def drive(srv, reqs, stamps=None):
     """Submit every request, step the server to the end; returns the
     outputs in submission order, the wall seconds (ending in a device
-    sync) and the peak page-pool utilization seen between steps."""
+    sync) and the peak page-pool utilization seen between steps.  With
+    ``stamps`` (a dict), each request's token stream stamps the host
+    clock as each of its tokens is pushed (the drain point, one event
+    behind the device): ``stamps[rid]`` lists them."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+    if stamps is not None:
+        for rid in rids:
+            srv.token_events(rid, on_event=token_stamper(stamps, rid))
     outs, peak = {}, 0.0
     while srv.work_pending():
         outs.update(srv.step())
@@ -2433,6 +2581,28 @@ def drive(srv, reqs):
     if sorted(outs) != sorted(rids):
         fail(f"the server finished {len(outs)} of {len(rids)} requests")
     return [outs[r] for r in rids], secs, peak
+
+
+def token_stamper(stamps, rid):
+    times = stamps.setdefault(rid, [])
+
+    def on_event(ev):
+        if ev["event"] == "token":
+            times.append(time.perf_counter())
+
+    return on_event
+
+
+def between_tokens(stamps):
+    """Time between tokens (ms) at p50 / p99 over every request's stream:
+    the JAX bench's reading (a speculative round's m tokens reach a
+    stream together, so most gaps inside a round are ~0)."""
+    import numpy as np
+    gaps = [(b - a) * 1e3 for ts in stamps.values()
+            for a, b in zip(ts, ts[1:])]
+    return {"tbt_p50_ms": float(np.percentile(gaps, 50)),
+            "tbt_p99_ms": float(np.percentile(gaps, 99)),
+            "tbt_gaps": len(gaps)}
 
 
 def check_outputs(tag, outs, reqs, V):
@@ -2469,7 +2639,14 @@ def serve_record(run, srv, secs, peak, counts, reqs):
             "peak_device_bytes": st["peak_device_bytes"],
             "kv_bytes": st["kv_bytes"],
             "graph_pool_bytes": st["graph_pool_bytes"],
-            "kernel_modes": srv.kernel_modes, "launches": counts}
+            "kernel_modes": srv.kernel_modes, "launches": counts,
+            **({key: st[key] for key in (
+                "spec_rounds", "spec_windows", "spec_committed_tokens",
+                "spec_accept_rate", "spec_tokens_per_dispatch",
+                "spec_draft_secs", "spec_verify_secs",
+                "spec_draft_fraction", "program_launches")}
+               if srv.speculative else {}),
+            **st.get("between_tokens", {})}
 
 
 def layer_kinds(cfg):
@@ -2484,8 +2661,14 @@ def serve_kernels(srv):
     runs: K6 / K7 on a paged pool, K2 / K3 on monolithic lanes, in their
     int8-KV modes on an int8 cache and K2 / K6 in the int8 x int8 mode
     with ``decode_int8_matmuls``; a model with sliding-window layers also
-    runs K2 / K6's window mode (its windowed chunks attend dense)."""
+    runs K2 / K6's window mode (its windowed chunks attend dense).  A
+    speculative server: K2 (the draft's steps over its lanes), the
+    verify's and the target prefill's K3 / K7, the draft prefill's K3."""
     cfg = srv.module.config
+    if srv.speculative:
+        pre = "paged_" if srv.paged else ""
+        return ("decode_attention", f"{pre}chunk_prefill_attention",
+                "chunk_prefill_attention")
     pre = "paged_" if srv.paged else ""
     mode = "_int8" if cfg.kv_cache_quant else ""
     dmode = "_i8mm" if cfg.decode_int8_matmuls else mode
@@ -2500,6 +2683,8 @@ def serve_expect(srv):
     """The launches a serving run needs: one per global layer per decode
     step and per prefill chunk, and one per windowed layer per decode
     step, of the kernels :func:`serve_kernels` names."""
+    if srv.speculative:
+        return spec_expect(srv)
     n_global, n_local = layer_kinds(srv.module.config)
     st = srv.stats
     decode, chunk, *window = serve_kernels(srv)
@@ -2511,7 +2696,59 @@ def serve_expect(srv):
     return expect_only(want)
 
 
-def serve_counted(eng, reqs, tag, **overrides):
+def spec_expect(srv):
+    """A speculative run's launches: per round, k + 1 draft steps (K2 in
+    every draft layer, the last step write-only) and one verify (K3 / K7
+    in every target layer); per prefill chunk, the target's K3 / K7 and
+    the draft's K3."""
+    want = spec_program_expect(srv)
+    chunks = srv.stats["prefill_tokens"] // srv.chunk
+    _, target, draft_chunk = serve_kernels(srv)
+    want = {**want["propose"], **want["verify"]}
+    want[draft_chunk] = want.get(draft_chunk, 0) \
+        + srv.draft_module.config.num_layers * chunks
+    want[target] = want.get(target, 0) \
+        + srv.module.config.num_layers * chunks
+    return expect_only(want)
+
+
+def spec_program_expect(srv):
+    """The launches of the propose and the verify program alone over a
+    run: ``L_d (k + 1)`` K2 launches a round in the draft, ``L`` K3 / K7
+    launches a round in the verify, nothing else."""
+    L = srv.module.config.num_layers
+    L_d = srv.draft_module.config.num_layers
+    st, k = srv.stats, srv.spec_k
+    rounds = st["spec_rounds"]
+    if rounds != st["decode_calls"]:
+        fail(f"{rounds} speculative rounds processed of "
+             f"{st['decode_calls']} dispatched")
+    draft, target, _ = serve_kernels(srv)
+    return {"propose": {draft: L_d * (k + 1) * rounds},
+            "verify": {target: L * rounds}}
+
+
+class CountedProgram:
+    """A server's captured program, wrapped so that the launches each of
+    its calls adds (replays included) are summed apart from the run's
+    totals: the counts are read just before and just after every call."""
+
+    def __init__(self, prog):
+        self.prog = prog
+        self.launches = dict.fromkeys(counters(), 0)
+
+    def __call__(self, *args):
+        before = read_counts()
+        out = self.prog(*args)
+        for name, n in read_counts().items():
+            self.launches[name] += n - before[name]
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.prog, name)
+
+
+def serve_counted(eng, reqs, tag, tbt=False, **overrides):
     """One server over ``reqs`` (``warmup()`` first: the decode block's
     graph is captured before the count) with every launch count set to 0
     just before and read just after; the counts must be exactly the
@@ -2522,14 +2759,30 @@ def serve_counted(eng, reqs, tag, **overrides):
     import torch
     srv = eng.serve(**overrides)
     warm = srv.warmup()                       # captures the decode block
+    if srv.speculative:                       # each program's own count
+        srv._propose_prog = CountedProgram(srv._propose_prog)
+        srv._verify_prog = CountedProgram(srv._verify_prog)
     torch.cuda.reset_peak_memory_stats(DEV)
     reset_counts()
-    outs, secs, peak = drive(srv, reqs)
+    stamps = {} if tbt else None
+    outs, secs, peak = drive(srv, reqs, stamps)
     srv.stats["warmup_seconds"] = warm
+    if tbt:
+        srv.stats["between_tokens"] = between_tokens(stamps)
     counts = read_counts()
     want = serve_expect(srv)
     if counts != want:
         fail(f"{tag}: launches {counts}, the path needs {want}")
+    if srv.speculative:
+        progs = {"propose": srv._propose_prog.launches,
+                 "verify": srv._verify_prog.launches}
+        for prog, need in spec_program_expect(srv).items():
+            if progs[prog] != expect_only(need):
+                fail(f"{tag}: the {prog} program launched {progs[prog]}, "
+                     f"it needs {expect_only(need)}")
+        srv.stats["program_launches"] = {
+            prog: {name: n for name, n in got.items() if n}
+            for prog, got in progs.items()}
     for name in serve_kernels(srv):
         if counts[name] == 0:
             fail(f"{tag}: {name} was never launched")
@@ -2538,7 +2791,7 @@ def serve_counted(eng, reqs, tag, **overrides):
     check_outputs(tag, outs, reqs, srv.module.config.vocab_size)
     srv.stats["peak_device_bytes"] = torch.cuda.max_memory_allocated(DEV)
     srv.stats["kv_bytes"] = tensor_bytes(srv._cache)
-    srv.stats["graph_pool_bytes"] = srv._decode_prog.pool_bytes()
+    srv.stats["graph_pool_bytes"] = srv.graph_pool_bytes()
     srv.close()
     torch.cuda.empty_cache()
     return srv, outs, secs, peak, counts
@@ -2598,12 +2851,13 @@ def eager_serving(run, eng_e, reqs, outs, serve):
 
 
 def profile_serving(eng, reqs, tag="d", trace="serving_trace.json",
-                    serve=SERVE_D):
+                    serve=SERVE_D, steps=PROFILE_D_STEPS):
     """A decode window with every slot live under ``torch.profiler``:
-    the first prompts of ``reqs`` (run (d)'s: 96 slots; run (l)'s: 32)
-    with 128 new tokens each, admitted in one iteration (no prefill
-    budget) on a worst-case pool, then ``PROFILE_D_STEPS`` decode-only
-    scheduler steps traced (profile line ``tag``)."""
+    the first prompts of ``reqs`` (run (d)'s: 96 slots; run (l)'s: 32;
+    run (m)'s: 16) with 128 new tokens each, admitted in one iteration (no
+    prefill budget) on a worst-case pool, then ``steps`` decode-only
+    scheduler steps (decode blocks, or speculative rounds) traced
+    (profile line ``tag``)."""
     import torch
     from deepspeed_tpu_torch.profiling.trace import breakdown
     srv = eng.serve(**{**serve, "prefill_token_budget": 0, "num_pages": 0})
@@ -2618,7 +2872,7 @@ def profile_serving(eng, reqs, tag="d", trace="serving_trace.json",
 
     def window():
         t0 = time.perf_counter()
-        for _ in range(PROFILE_D_STEPS):
+        for _ in range(steps):
             srv.step()
         torch.cuda.synchronize()
         wall["s"] = time.perf_counter() - t0
@@ -2627,13 +2881,112 @@ def profile_serving(eng, reqs, tag="d", trace="serving_trace.json",
     ks, held = counted_events(window, trace)
     rec = {"profile": tag, "live_slots": srv.active_slots,
            "cuda_graphs": eng._config.enable_cuda_graph,
-           "decode_steps": PROFILE_D_STEPS * srv.block,
+           **({"spec_rounds": steps, "spec_k": srv.spec_k}
+              if srv.speculative else {"decode_steps": steps * srv.block}),
            **breakdown(ks, wall["s"]), **held,
            "trace": os.path.relpath(trace, ROOT)}
     emit(rec)
     srv.close()
     torch.cuda.empty_cache()
     return rec
+
+
+# --------------------------------------------------------------------- #
+# Speculative serving: engine.serve(speculative=True), run (m)
+# --------------------------------------------------------------------- #
+def spec_traffic(V):
+    """Run (m)'s requests: the JAX bench's workload at 16 slots (numpy
+    seed 0, prompts and new tokens drawn from RUN_M's sets, ids uniform
+    over the vocabulary)."""
+    import numpy as np
+    rng = np.random.default_rng(RUN_M["seed"])
+    n = RUN_M["requests"]
+    lens = rng.choice(RUN_M["prompts"], n)
+    news = rng.choice(RUN_M["new"], n)
+    return [(rng.integers(0, V, int(P)).astype(np.int32), int(new))
+            for P, new in zip(lens, news)]
+
+
+def generated_agreement(outs, ref, reqs):
+    """Share of generated token positions where two servers agree."""
+    same = total = 0
+    for (p, _), a, b in zip(reqs, outs, ref):
+        same += int((a[len(p):] == b[len(p):]).sum())
+        total += len(a) - len(p)
+    return same / total
+
+
+SPEC_SERVERS = (("m", {}), ("m_self", SPEC_M),
+                ("m_self_paged", dict(SPEC_M, paged=True, page_size=64)),
+                ("m_draft", dict(SPEC_M, spec_draft_model=RUN_M["draft"])))
+
+
+def spec_path(eng, eng_e):
+    """Run (m): the four servers of ``SPEC_SERVERS`` on run (m)'s
+    requests (after ``warmup()``, exact launches, time between tokens
+    from the streams, bf16 agreement with the plain server), the
+    self-draft server again on ``eng_e``'s eager programs (every token
+    equal), the first 8 requests on an fp32 copy of the weights (every
+    speculative server equal to the plain one), and a profiled window of
+    speculative rounds on the graphs (``m_graph``)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import opt_model
+    t0 = time.perf_counter()
+    V = eng.module.config.vocab_size
+    reqs = spec_traffic(V)
+    runs, outs = {}, {}
+    for run, over in SPEC_SERVERS:
+        srv, outs[run], secs, peak, counts = serve_counted(
+            eng, reqs, f"run ({run})", tbt=True, **SERVE_M, **over)
+        rec = serve_record(run, srv, secs, peak, counts, reqs)
+        if run != "m":
+            rec["bf16_agreement_with_plain"] = generated_agreement(
+                outs[run], outs["m"], reqs)
+            rec["draft"] = over["spec_draft_model"]
+        runs[run] = rec
+        emit(rec)
+    srv, outs_e, secs, peak, counts = serve_counted(
+        eng_e, reqs, "run (m_self) eager", **SERVE_M, **SPEC_M)
+    rec = serve_record("m_self_eager", srv, secs, peak, counts, reqs)
+    rec["requests_differing_from_graphs"] = sum(
+        not np.array_equal(a, b) for a, b in zip(outs["m_self"], outs_e))
+    runs["m_self_eager"] = rec
+    emit(rec)
+    if rec["requests_differing_from_graphs"]:
+        fail(f"run (m): {rec['requests_differing_from_graphs']} requests' "
+             f"tokens differ between the captured spec programs and eager")
+    # the fp32 gate: the same weights in fp32, the first 8 requests
+    eng32 = init_inference(opt_model(MODEL, dtype="float32"), dtype="float32",
+                           device=DEV)
+    eng32.set_params({k: v.float()
+                      for k, v in eng.module.state_dict().items()})
+    reqs32 = reqs[:RUN_M["fp32_requests"]]
+    ref = None
+    gate = {"check": "run (m) fp32: speculative servers equal the plain "
+                     "server", "requests": len(reqs32)}
+    for run, over in SPEC_SERVERS:
+        _, got, _, _, _ = serve_counted(eng32, reqs32, f"run ({run}) fp32",
+                                        **SERVE_M, **over)
+        if ref is None:
+            ref = got
+            continue
+        differ = sum(not np.array_equal(a, b) for a, b in zip(got, ref))
+        gate[f"{run}_requests_differing"] = differ
+        if differ:
+            emit(gate)
+            fail(f"run ({run}) on fp32 weights: {differ} of {len(reqs32)} "
+                 f"requests differ from the plain server")
+    emit(gate)
+    del eng32
+    torch.cuda.empty_cache()
+    runs["m_graph_profile"] = profile_serving(
+        eng, reqs, "m_graph", "spec_graph_trace.json",
+        serve={**SERVE_M, **SPEC_M}, steps=PROFILE_M_ROUNDS)
+    runs["m_seconds"] = time.perf_counter() - t0
+    emit({"run_m_seconds": runs["m_seconds"]})
+    return runs
 
 
 def prefix_path(eng):
@@ -3811,6 +4164,8 @@ def main():
         torch.cuda.empty_cache()
         checks[("K6", dtype)] = check_paged_decode(dtype, timed)
         checks[("K7", dtype)] = check_paged_chunk(dtype, timed)
+        checks[("K3 verify", dtype)], checks[("K7 verify", dtype)] = \
+            check_verify(dtype, timed)
         checks[("K8", dtype)] = check_block_sparse(dtype, timed)
         checks[("K2-int8", dtype)], checks[("K2-i8mm", dtype)] = \
             check_decode_int8(dtype, timed)
@@ -3838,6 +4193,7 @@ def main():
     runs, eng, eng_e, tokens = main_path()
     serving_runs, outs_d = serving_path(eng, eng_e)
     runs.update(serving_runs)
+    runs.update(spec_path(eng, eng_e))
     del eng_e
     eng_g, eng_ge, eng_m = int8_generate_path(eng, tokens, runs)
     del eng
@@ -3993,6 +4349,25 @@ def main():
                       if x in check},
             **{f"launches_run_{run}": runs[run]["launches"][name]
                for run, name in ran}}
+    # run (m): the verify's K3 (lanes) / K7 (pool) at B = 16, C = 5, and
+    # the draft's K2; launches counted over the whole run and, apart, in
+    # the verify and the propose program's own calls
+    for k, key, run, name in ((kernels[2], "K3 verify", "m_self",
+                               "chunk_prefill_attention"),
+                              (kernels[6], "K7 verify", "m_self_paged",
+                               "paged_chunk_prefill_attention")):
+        check = checks[(key, "bfloat16")]
+        k["verify_shape"] = {
+            **timing(check), "library": check["library"],
+            "shape": {x: check[x] for x in ("q", "cache", "pool", "table")
+                      if x in check},
+            "launches_verify_run_" + run:
+                runs[run]["program_launches"]["verify"][name],
+            "launches_run_" + run: runs[run]["launches"][name]}
+    kernels[1]["launches_run_m_self_draft"] = \
+        runs["m_self"]["program_launches"]["propose"]["decode_attention"]
+    kernels[1]["launches_run_m_draft_opt125m"] = \
+        runs["m_draft"]["program_launches"]["propose"]["decode_attention"]
     for key, k in zip(("K4", "K5"), kernels[3:5]):
         k["launches_per_step"] = runs["c"]["launches_per_step"][k["name"]]
         check = checks[(key, "bfloat16")]

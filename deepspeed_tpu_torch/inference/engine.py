@@ -398,7 +398,7 @@ class InferenceEngine:
                     names[1]: t1 - timings["prefill"]}
         return {names[0]: t1 - t0}
 
-    def serve(self, **overrides):
+    def serve(self, draft_module=None, draft_params=None, **overrides):
         """A continuous-batching :class:`~deepspeed_tpu_torch.inference.
         serving.ServingEngine` over this engine: ``submit()`` requests,
         ``drain()`` results; requests join freed slots between decode blocks
@@ -406,9 +406,15 @@ class InferenceEngine:
         ``serving`` block, overridable per call (``engine.serve(
         num_slots=16)``); ``paged=True`` swaps the per-slot lanes for a
         block-table page pool with prefix sharing (``engine.serve(
-        paged=True, page_size=64)``).  Runs on this engine's device."""
+        paged=True, page_size=64)``); ``speculative=True, spec_k=k`` decodes
+        speculatively (greedy) with the draft ``spec_draft_model`` names
+        (``"self"`` or an OPT preset) or the ``draft_module`` /
+        ``draft_params`` pair given here (a port ``Transformer`` and its
+        float ``state_dict``, e.g. from ``params_from_flax``).  Runs on
+        this engine's device."""
         from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
-        return ServingEngine(self, **overrides)
+        return ServingEngine(self, draft_module=draft_module,
+                             draft_params=draft_params, **overrides)
 
 
 def require_right_padded(attention_mask):

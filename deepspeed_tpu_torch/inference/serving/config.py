@@ -4,11 +4,13 @@
 The same keys and defaults as the JAX package's ``ServingConfig``, as a
 dataclass.  The continuous-batching core is ported: slots, the admission
 chunk and its token budget, the decode block, the admission order, the
-paged pool with prefix sharing, and sampling.  Every other knob — speculative decoding, the SLO / queue /
-breaker / drain knobs, priority lanes, fairness, tracing, the flight
-recorder, the profile endpoint and memory telemetry — raises
-``NotImplementedError`` when set away from its default, so a config never
-silently does nothing.  ``paged_kernel=False`` (the JAX package's A/B
+paged pool with prefix sharing, sampling and speculative decoding (a
+draft model proposes ``spec_k`` tokens per slot, the target verifies them
+in one forward).  Every other knob — the SLO / queue / breaker / drain
+knobs, priority lanes, fairness, tracing, the flight recorder, the
+profile endpoint and memory telemetry — raises ``NotImplementedError``
+when set away from its default, so a config never silently does
+nothing.  ``paged_kernel=False`` (the JAX package's A/B
 switch to a gather path) raises too: a page pool always runs the paged
 kernels K6 / K7.
 """
@@ -20,7 +22,6 @@ from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
 # knobs whose feature is not ported yet (a value other than the default
 # raises)
 NOT_PORTED = (
-    "speculative", "spec_k", "spec_draft_model",
     "max_queue_depth", "queue_policy", "default_deadline_s",
     "breaker_threshold", "breaker_cooldown_s", "drain_timeout_s",
     "priority_lanes", "priority_aging_s", "fairness_tokens_per_s",
@@ -62,9 +63,12 @@ class ServingConfig(DeepSpeedConfigModel):
     paged_kernel: bool = True
     # copy-on-write prefix sharing at page granularity (paged only)
     prefix_cache: bool = True
-    # ---- not ported (raise when set) ----
+    # ---- speculative decoding (greedy only) ----
     speculative: bool = False
+    # draft tokens proposed per slot and round (1..64)
     spec_k: int = 4
+    # the draft when no draft_module is passed to serve(): "self" (the
+    # target drafts for itself) or an OPT preset name (random weights)
     spec_draft_model: str = ""
     # ---- sampling, for every request ----
     do_sample: bool = False

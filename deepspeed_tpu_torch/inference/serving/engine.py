@@ -38,16 +38,39 @@ admission backpressure (a request waits at the queue head until pages
 free up), and hash-matched prompt prefixes map to the same refcounted
 pages, prefilled once.
 
+**Speculative decoding** (``serving.speculative``, greedy only): a draft
+model — the target itself (``spec_draft_model="self"``), an OPT preset,
+or a ``(draft_module, draft_params)`` pair given to ``engine.serve()`` —
+proposes ``spec_k`` tokens per live slot from its own slot lanes
+(:func:`~.slots.draft_propose`), and the target verifies the whole window
+in one forward and commits the accepted prefix on the device
+(:func:`~.slots.spec_verify`).  Each is one CUDA graph per server.  The
+host reads the round's tokens ``[spec_k+1, N]`` and accepted counts
+``[N]`` one round behind, like a decode block's.  Every admission chunk
+also prefills the draft's lane (:func:`~.slots.draft_chunk`), and the
+admit copies it in (:func:`~.slots.draft_admit`); the draft's cache is
+always slot lanes, even over a target pool, so prefix sharing is off
+under speculation.  Committed tokens are the target's own greedy
+samples: outputs equal non-speculative serving's.
+
+**Streams and cancellation.**  :meth:`ServingEngine.token_events` gives a
+request's :class:`~.slo.TokenStream`: one event per generated token,
+pushed where the host mirror processes it (a speculative round that
+commits m tokens pushes m events), then one typed ``end`` event.
+:meth:`ServingEngine.cancel` retires a request at once, giving back its
+slot, pages and lanes; :meth:`ServingEngine.status` reads its status.
+
 One thread drives the scheduler (``submit`` / ``step`` / ``drain`` /
-``close`` are not thread-safe).  The JAX engine's speculative decoding,
-SLO layer (deadlines, bounded queue, breaker, drain timeouts, preemption,
-snapshots), owner binding and instrumented lock, token streams, HTTP
-front end, fairness, priority lanes, tracing and memory telemetry are not
-ported yet.
+``cancel`` / ``close`` are not thread-safe; a stream may be read from
+any thread).  The JAX engine's SLO layer (deadlines, bounded queue,
+breaker, drain timeouts, preemption, snapshots), owner binding and
+instrumented lock, HTTP front end, fairness, priority lanes, tracing and
+memory telemetry are not ported yet.
 """
 
 import math
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
@@ -64,13 +87,15 @@ from deepspeed_tpu_torch.inference.serving.paging import (PagePool,
                                                           pages_for)
 from deepspeed_tpu_torch.inference.serving.slo import (RequestResult,
                                                        RequestStatus,
-                                                       TERMINAL_STATUSES)
+                                                       TERMINAL_STATUSES,
+                                                       TokenStream)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
-@dataclass
+@dataclass(eq=False)
 class ServeRequest:
-    """One queued / running request (host bookkeeping only)."""
+    """One queued / running request (host bookkeeping only); ``streamed``
+    counts the tokens already pushed to its streams."""
     rid: int
     ids: np.ndarray                  # [P] int32 prompt
     max_new: int
@@ -82,6 +107,7 @@ class ServeRequest:
     status: str = RequestStatus.QUEUED
     submit_t: float = 0.0
     first_tok_t: Optional[float] = None
+    streamed: int = 0
 
 
 class _PendingPrefill:
@@ -99,6 +125,8 @@ class _PendingPrefill:
         # (chunk-aligned); positions below it are served by shared pages
         self.start = 0
         self.fill_tokens = None          # the prompt (prefix registration)
+        # speculative serving: the draft's single-lane prefill cache
+        self.draft_lane = None
 
 
 class _LanePool:
@@ -132,7 +160,8 @@ class ServingEngine:
     ``generate()`` contract ``[prompt..., generated...]`` of length
     ``len(prompt) + max_new_tokens`` (eos-padded past an early stop)."""
 
-    def __init__(self, engine, **overrides):
+    def __init__(self, engine, draft_module=None, draft_params=None,
+                 **overrides):
         engine._require_params()
         cfg = engine._config.serving
         if overrides:
@@ -163,7 +192,36 @@ class ServingEngine:
             if self.num_pages < 2:
                 raise ValueError(f"serving.num_pages={cfg.num_pages}: need "
                                  f">= 2 (trash + 1 allocatable)")
+        # speculative decoding: the draft model and the fixed verify window
+        self.speculative = bool(cfg.speculative)
+        self.spec_k = int(cfg.spec_k)
+        self.draft_module = None
+        if self.speculative:
+            if cfg.do_sample:
+                raise ValueError(
+                    "serving.speculative=True requires greedy decoding "
+                    "(do_sample=False): the verify-and-commit program's "
+                    "bitwise contract is the target's greedy tokens — "
+                    "lossless speculative SAMPLING is not implemented")
+            if not 1 <= self.spec_k <= 64:
+                raise ValueError(f"serving.spec_k={cfg.spec_k}: need "
+                                 f"1 <= spec_k <= 64")
+            self.draft_module = _resolve_draft(engine, cfg, draft_module,
+                                               draft_params)
+            dvocab = self.draft_module.config.vocab_size
+            tvocab = self.module.config.vocab_size
+            if dvocab != tvocab:
+                raise ValueError(
+                    f"draft model vocab_size={dvocab} != target "
+                    f"vocab_size={tvocab} — speculative verification "
+                    f"compares token ids, the vocabularies must match")
+        elif draft_module is not None or draft_params is not None:
+            raise ValueError("draft_module / draft_params are used only "
+                             "with serving.speculative=True")
         max_seq = self.module.config.max_seq_len
+        if self.speculative:
+            # the draft's positions must lie in its own tables too
+            max_seq = min(max_seq, self.draft_module.config.max_seq_len)
         if self.cache_len > max_seq:
             logger.warning(
                 f"serving lanes hold {self.cache_len} positions but the "
@@ -176,6 +234,11 @@ class ServingEngine:
         # no table and computes any position, but max_seq_len is the
         # context it was made for, so it is held to it the same way
         self.max_pos = min(self.cache_len, max_seq)
+        if self.speculative and self.spec_k + 1 > self.max_pos:
+            raise ValueError(
+                f"serving.spec_k={self.spec_k}: a verify window of "
+                f"{self.spec_k + 1} positions does not fit lanes of "
+                f"{self.max_pos}")
         from deepspeed_tpu_torch.inference.engine import build_sample_fn
         from deepspeed_tpu_torch.ops.transformer.registry import kernel_modes
         self._sample_fn = build_sample_fn(bool(cfg.do_sample),
@@ -196,12 +259,27 @@ class ServingEngine:
         self._cache = None               # slot lanes, or the page pool
         self._state = None               # device-resident slot state
         self._pages_dev = None           # the static device block table
-        # the decode block, captured per (cache, state, table) buffers: one
-        # graph per server, as JAX compiles one program per signature
-        self._decode_prog = CompiledGraphModule(
-            slots.decode_block,
-            enable_cuda_graph=engine._config.enable_cuda_graph,
-            donate_argnums=(1, 2, 7))
+        # the decode block — or, speculative, the draft propose and the
+        # verify-and-commit — captured per (cache, state, table) buffers:
+        # one graph each per server, as JAX compiles one program per
+        # signature
+        graphs = engine._config.enable_cuda_graph
+        self._decode_prog = self._propose_prog = self._verify_prog = None
+        if not self.speculative:
+            self._decode_prog = CompiledGraphModule(
+                slots.decode_block, enable_cuda_graph=graphs,
+                donate_argnums=(1, 2, 7))
+        else:
+            self._propose_prog = CompiledGraphModule(
+                slots.draft_propose, enable_cuda_graph=graphs,
+                donate_argnums=(1, 2))
+            self._verify_prog = CompiledGraphModule(
+                slots.spec_verify, enable_cuda_graph=graphs,
+                donate_argnums=(1, 2, 8))
+            # the draft's slot lanes (always lanes, even over a target
+            # pool) and its single-lane prefill caches
+            self._draft_cache = None
+            self._draft_lanes = _LanePool(self.draft_module)
         # host mirror of slot occupancy, updated as events are PROCESSED
         # (it lags the device by the in-flight events — by design)
         self._mirror_active = np.zeros((self.num_slots,), bool)
@@ -219,23 +297,48 @@ class ServingEngine:
         self._it = 0
         self._requests = {}
         self._results = {}
+        self._streams = {}               # rid -> [TokenStream]
         self._closed = False
         self.stats = {"iterations": 0, "decode_calls": 0,
                       "decode_tokens": 0, "prefill_tokens": 0,
-                      "completed": 0, "admitted": 0, "aborted": 0,
-                      "wall_secs": 0.0, "sync_secs": 0.0,
+                      "completed": 0, "admitted": 0, "cancelled": 0,
+                      "aborted": 0, "wall_secs": 0.0, "sync_secs": 0.0,
                       "prefix_lookups": 0, "prefix_hits": 0,
                       "prefix_tokens_reused": 0, "page_evictions": 0,
-                      "admission_stalls": 0,
+                      "admission_stalls": 0, "stream_bridge_drops": 0,
                       # the JAX key for paged decodes that skipped the
                       # paged kernel: always 0, a pool always runs K6/K7
                       "paged_attention_fallback": 0}
+        if self.speculative:
+            # windows: (round x live slot) verify opportunities, each
+            # committing 1..spec_k+1 tokens; accept_rate = accepted draft
+            # tokens / proposed ones; draft / verify secs: host dispatch
+            # wall time (the draft's prefill and admit count as draft)
+            self.stats.update({
+                "spec_rounds": 0, "spec_windows": 0,
+                "spec_committed_tokens": 0, "spec_accept_rate": 0.0,
+                "spec_tokens_per_dispatch": 0.0,
+                "spec_draft_secs": 0.0, "spec_verify_secs": 0.0,
+                "spec_draft_fraction": 0.0})
         self.occupancy_trace = []        # (it, n_active)
         log_dist(f"serving engine: {self.num_slots} slots x "
                  f"{self.cache_len} positions, "
                  + (f"paged ({self.num_pages} pages of {self.page})"
                     if self.paged else "monolithic lanes")
+                 + (f", speculative k={self.spec_k}"
+                    if self.speculative else "")
                  + f", kernels {self.kernel_modes}", ranks=[0])
+
+    @property
+    def _progs(self):
+        """The captured programs this server runs."""
+        return [p for p in (self._decode_prog, self._propose_prog,
+                            self._verify_prog) if p is not None]
+
+    def graph_pool_bytes(self):
+        """Device bytes of the graph memory pools of this server's
+        captured programs."""
+        return sum(p.pool_bytes() for p in self._progs)
 
     # ------------------------------------------------------------------ #
     # Public API
@@ -243,9 +346,9 @@ class ServingEngine:
     def submit(self, input_ids, max_new_tokens=32, eos_token_id=-1):
         """Enqueue one prompt (1-D ids in the vocabulary: a list, numpy
         array or tensor); returns the request id.  A request must fit a slot:
-        ``ceil(P/chunk)*chunk`` and ``P + max_new_tokens`` positions (and,
-        paged, that many pages of the pool) — one that never can is refused
-        with ``ValueError``."""
+        ``ceil(P/chunk)*chunk`` and ``P + max_new_tokens`` positions (plus
+        ``spec_k - 1`` under speculation; and, paged, that many pages of
+        the pool) — one that never can is refused with ``ValueError``."""
         if self._closed:
             raise RuntimeError("submit() on a closed ServingEngine; create "
                                "a fresh server with engine.serve()")
@@ -262,11 +365,19 @@ class ServingEngine:
         if max_new < 1:
             raise ValueError(f"max_new_tokens={max_new}: need >= 1")
         padded = -(-P // self.chunk) * self.chunk
-        need = max(P + max_new, padded)
+        # speculative serving reserves spec_k - 1 tail positions per lane:
+        # a live lane's last verify window writes K/V for up to spec_k
+        # draft tokens past its final committed position (overwritten or
+        # never attended, but inside the lane)
+        spec_tail = (self.spec_k - 1) if self.speculative else 0
+        need = max(P + max_new + spec_tail, padded)
         if need > self.max_pos:
             raise ValueError(
                 f"request needs {need} cache positions (prompt {P} + new "
-                f"{max_new}, chunk-padded {padded}) but slots hold "
+                f"{max_new}"
+                + (f" + speculative window reserve {spec_tail}"
+                   if spec_tail else "")
+                + f", chunk-padded {padded}) but slots hold "
                 f"{self.max_pos} — raise serving.max_cache_len or split the "
                 f"request")
         if self.paged and pages_for(need, self.page) > self._pool.allocatable:
@@ -283,12 +394,103 @@ class ServingEngine:
         self._requests[req.rid] = req
         return req.rid
 
+    def _known(self, rid, what):
+        req = self._requests.get(rid)
+        if req is None:
+            raise KeyError(
+                f"unknown request id {rid!r} — {what} on a request this "
+                f"server never issued (submit() returned the valid ids)")
+        return req
+
     def result(self, rid):
         """The :class:`~.slo.RequestResult` of a finished request, or None
         while it runs.  Raises ``KeyError`` for an id never issued."""
-        if rid not in self._requests:
-            raise KeyError(f"unknown request id {rid!r}")
+        self._known(rid, "result()")
         return self._results.get(rid)
+
+    def status(self, rid):
+        """The request's :class:`~.slo.RequestStatus` string; ``KeyError``
+        for an id never issued."""
+        return self._known(rid, "status()").status
+
+    def cancel(self, rid):
+        """Retire a request now, with terminal status ``CANCELLED``: a
+        queued one never takes a slot; one in its admission prefill gives
+        back its slot, pages and prefill lanes; one in a slot gives back
+        the slot and its pages, its lane is made inactive on the device
+        (a write in stream order: nothing is read back), and its tokens
+        still in flight are dropped.  Returns False for a request already
+        ended; ``KeyError`` for an id never issued."""
+        req = self._known(rid, "cancel()")
+        if req.status in TERMINAL_STATUSES:
+            return False
+        self.stats["cancelled"] += 1
+        if req in self._queue:
+            self._queue.remove(req)
+            self._record_terminal(req, RequestStatus.CANCELLED,
+                                  "cancelled while queued")
+            return True
+        if self._pending is not None and self._pending.req is req:
+            self._give_back_lanes(self._pending)
+            self._free.append(int(self._pending.slot))
+            self._release_slot_pages(self._pending.slot)
+            self._pending = None
+            self._record_terminal(req, RequestStatus.CANCELLED,
+                                  "cancelled during admission prefill")
+            return True
+        self._record_terminal(req, RequestStatus.CANCELLED,
+                              f"cancelled in slot {req.slot}")
+        # the lane stops on the device: it must not keep writing into a
+        # table row (or lane) the host hands to the slot's next occupant
+        # before that occupant's admit overwrites the state
+        if self._state is not None:
+            self._state["active"][req.slot] = False
+        if self._mirror_active[req.slot]:
+            self._free_slot(req.slot)
+        # else the admit is still in flight: _process_admit frees the slot
+        return True
+
+    def token_events(self, rid, on_event=None):
+        """Subscribe to the request's per-token stream: a
+        :class:`~.slo.TokenStream` fed where the host mirror processes
+        the device's tokens (one event behind the device, one event per
+        token).  Subscribing replays every token already generated and,
+        for an ended request, its ``end`` event, so the stream is
+        lossless whenever it attaches.  ``on_event`` is called with each
+        event as it is pushed and must not block.  ``KeyError`` for an id
+        never issued."""
+        req = self._known(rid, "token_events()")
+        stream = TokenStream(rid, on_event=on_event,
+                             on_drop=_drop_counter(self))
+        for i, t in enumerate(req.tokens):
+            stream.push({"event": "token", "rid": rid, "index": i,
+                         "token": int(t)})
+        if req.status in TERMINAL_STATUSES:
+            res = self._results.get(rid)
+            stream.push({"event": "end", "rid": rid, "status": req.status,
+                         "detail": res.detail if res is not None else ""})
+        else:
+            self._streams.setdefault(rid, []).append(stream)
+        return stream
+
+    def _publish_progress(self, req):
+        """Push the request's tokens not yet streamed to its
+        subscribers."""
+        n = len(req.tokens)
+        for s in self._streams.get(req.rid, ()):
+            for i in range(req.streamed, n):
+                s.push({"event": "token", "rid": req.rid, "index": i,
+                        "token": int(req.tokens[i])})
+        req.streamed = n
+
+    def _publish_end(self, req, status, detail=""):
+        """The typed terminal event: exactly once, last; the subscribers
+        are dropped (a later ``token_events()`` replays from the
+        request)."""
+        self._publish_progress(req)
+        for s in self._streams.pop(req.rid, ()):
+            s.push({"event": "end", "rid": req.rid, "status": status,
+                    "detail": detail})
 
     def step(self):
         """One scheduler iteration: admission prefill under the token
@@ -340,11 +542,14 @@ class ServingEngine:
             + ([self._pending.req.rid] if self._pending is not None else [])
             + [r.rid for r in self._queue])
         for req in self._queue:
-            self._record_abort(req, "engine closed with the request queued")
+            self._record_terminal(req, RequestStatus.ABORTED,
+                                  "engine closed with the request queued")
         self._queue.clear()
         self._abort_in_flight("close()")
         self._cache = None
         self._lane_pool.release()
+        if self.speculative:
+            self._draft_lanes.release()
         self._closed = True
         return undrained
 
@@ -396,23 +601,26 @@ class ServingEngine:
             return host
         return host.pin_memory().to(self.device, non_blocking=True)
 
-    def _to_host(self, t):
-        """Start copying a device tensor to pinned host memory; returns
-        ``(host tensor, event)`` — read the host tensor after
-        ``event.synchronize()`` (event None on the CPU)."""
-        if t.device.type == "cpu":
-            return t, None
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
+    def _to_host(self, *ts):
+        """Start copying device tensors to pinned host memory; returns
+        ``(host tensors, event)`` — read them after ``event.synchronize()``
+        (event None on the CPU)."""
+        if ts[0].device.type == "cpu":
+            return ts, None
+        hosts = []
+        for t in ts:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            hosts.append(host)
         ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(t.device))
-        return host, ev
+        ev.record(torch.cuda.current_stream(ts[0].device))
+        return tuple(hosts), ev
 
-    def _read(self, host, ev):
+    def _read(self, hosts, ev):
         t0 = time.perf_counter()
         if ev is not None:
             ev.synchronize()
-        out = host.numpy()
+        out = [h.numpy() for h in hosts]
         self.stats["sync_secs"] += time.perf_counter() - t0
         return out
 
@@ -444,32 +652,52 @@ class ServingEngine:
         self._page_table[:] = 0
         self._slot_pages.clear()
 
-    def _record_abort(self, req, detail):
-        req.status = RequestStatus.ABORTED
+    def _record_terminal(self, req, status, detail):
+        """A terminal outcome other than ``COMPLETED`` (output None): the
+        result is recorded before the stream's ``end`` event, so a
+        subscriber woken by it can read ``result(rid)``."""
+        req.status = status
         req.finished_it = self._it
-        self.stats["aborted"] += 1
+        if status == RequestStatus.ABORTED:
+            self.stats["aborted"] += 1
+        ttft = (req.first_tok_t - req.submit_t) \
+            if req.first_tok_t is not None else None
         self._results[req.rid] = RequestResult(
-            rid=req.rid, status=RequestStatus.ABORTED, detail=detail,
-            submitted_it=req.submitted_it, finished_it=self._it)
+            rid=req.rid, status=status, detail=detail,
+            submitted_it=req.submitted_it, finished_it=self._it,
+            ttft_s=ttft)
+        self._publish_end(req, status, detail)
+
+    def _give_back_lanes(self, p):
+        """Return a dropped admission's prefill lane(s) to their pools:
+        the target's and, under speculation, the draft's."""
+        self._lane_pool.give_back(p.lane)
+        if p.draft_lane is not None:
+            self._draft_lanes.give_back(p.draft_lane)
+            p.draft_lane = None
 
     def _abort_in_flight(self, why):
         """Drop every request past admission and restore the slot
         bookkeeping to all-free; queued requests survive.  The next step
-        starts on a fresh workspace."""
+        starts on a fresh workspace (the draft's cache included)."""
         lost = [r for r in self._slots if r is not None]
         if self._pending is not None:
             lost.append(self._pending.req)
-            self._lane_pool.give_back(self._pending.lane)
+            self._give_back_lanes(self._pending)
             self._pending = None
         for req in lost:
             if req.status not in TERMINAL_STATUSES:
-                self._record_abort(req, f"in-flight request aborted: {why}")
+                self._record_terminal(req, RequestStatus.ABORTED,
+                                      f"in-flight request aborted: {why}")
         self._events.clear()
         self._slots = [None] * self.num_slots
         self._free = deque(range(self.num_slots))
         self._mirror_active[:] = False
         self._state = None
-        self._decode_prog.reset()
+        for prog in self._progs:
+            prog.reset()
+        if self.speculative:
+            self._draft_cache = None
         self._paging_reset()
         if lost:
             logger.warning(f"serving {why}: aborted {len(lost)} in-flight "
@@ -477,7 +705,8 @@ class ServingEngine:
 
     def _ensure_workspace(self):
         if self._cache is None:
-            self._decode_prog.reset()    # its graphs read the old buffers
+            for prog in self._progs:     # their graphs read the old buffers
+                prog.reset()
             dtype = self.engine.compute_dtype
             if self.paged:
                 self._cache = self.module.init_paged_cache(
@@ -489,6 +718,12 @@ class ServingEngine:
             else:
                 self._cache = self.module.init_cache(
                     self.num_slots, self.cache_len, dtype=dtype)
+        if self.speculative and self._draft_cache is None:
+            for prog in self._progs:
+                prog.reset()
+            self._draft_cache = self.draft_module.init_cache(
+                self.num_slots, self.cache_len,
+                dtype=self.engine.compute_dtype)
         if self._state is None:
             self._state = slots.init_slot_state(self.num_slots, self.device)
             self._mirror_active[:] = False
@@ -549,7 +784,16 @@ class ServingEngine:
         ids_pad = np.zeros((1, n * self.chunk), np.int64)
         ids_pad[0, :P] = req.ids
         lane = self._lane_pool.take(self.cache_len, self.engine.compute_dtype)
-        return _PendingPrefill(req, slot, lane, ids_pad, n, P)
+        pend = _PendingPrefill(req, slot, lane, ids_pad, n, P)
+        self._take_draft_lane(pend)
+        return pend
+
+    def _take_draft_lane(self, pend):
+        """Speculative serving: the draft's prefill lane for an admission
+        (the prompt's K/V must reach the draft's cache too)."""
+        if self.speculative:
+            pend.draft_lane = self._draft_lanes.take(
+                self.cache_len, self.engine.compute_dtype)
 
     def _start_prefill_paged(self, req, P):
         """Paged admission: map the longest indexed prefix (full pages,
@@ -559,7 +803,10 @@ class ServingEngine:
         allocated) when the pool cannot back the request yet."""
         fill = req.ids
         matched = []
-        if self.config.prefix_cache:
+        # speculative serving shares no prefix: the draft's lanes have no
+        # pool, so its prefill runs from position 0 anyway
+        sharing = self.config.prefix_cache and not self.speculative
+        if sharing:
             # cap the match so the block holding the LAST prompt position
             # is always recomputed: admission samples the first token from
             # that position's logits
@@ -594,7 +841,7 @@ class ServingEngine:
             for pg in matched:
                 self._pool.decref(pg)
             return None
-        if self.config.prefix_cache:
+        if sharing:
             # count ADMISSIONS, not stalled retries of one request
             self.stats["prefix_lookups"] += 1
             if matched:
@@ -612,6 +859,7 @@ class ServingEngine:
         pend = _PendingPrefill(req, slot, None, ids_pad, n_chunks, P)
         pend.start = s0
         pend.fill_tokens = fill
+        self._take_draft_lane(pend)
         return pend
 
     def _run_prefill_chunk(self, p):
@@ -629,6 +877,13 @@ class ServingEngine:
         else:
             logits = self._guarded(slots.prefill_chunk, self.module, p.lane,
                                    ids, start, at)
+        if self.speculative:
+            # the same chunk into the draft's lane (start is 0-based: no
+            # prefix sharing under speculation)
+            t0 = time.perf_counter()
+            self._guarded(slots.draft_chunk, self.draft_module, p.draft_lane,
+                          ids, start)
+            self.stats["spec_draft_secs"] += time.perf_counter() - t0
         if (P - 1 - p.start) // C == p.ci:
             # this chunk holds the prompt's last real position: its logits
             # seed the first token (never read on the host here)
@@ -650,7 +905,7 @@ class ServingEngine:
         else:
             first = self._guarded(slots.admit, self._cache, self._state,
                                   p.lane, *sample)
-        if self.paged and self.config.prefix_cache:
+        if self.paged and self.config.prefix_cache and not self.speculative:
             # index this request's full-prompt pages as sharable: their
             # prefill writes were dispatched before this admit, and nothing
             # writes them again (the slot's own writes land at positions
@@ -658,9 +913,14 @@ class ServingEngine:
             self._prefix.register(p.fill_tokens, self.page,
                                   self._slot_pages[p.slot], self._pool,
                                   p.fill_len // self.page)
+        if self.speculative:
+            t0 = time.perf_counter()
+            self._guarded(slots.draft_admit, self._draft_cache, p.draft_lane,
+                          p.slot)
+            self.stats["spec_draft_secs"] += time.perf_counter() - t0
         req.status = RequestStatus.RUNNING
         self._slots[p.slot] = req
-        self._events.append(("admit", req, p.slot, p.lane,
+        self._events.append(("admit", req, p.slot, p.lane, p.draft_lane,
                              *self._to_host(first)))
         self.stats["admitted"] += 1
 
@@ -673,8 +933,11 @@ class ServingEngine:
         if not (self._mirror_active.any()
                 or any(e[0] == "admit" for e in self._events)):
             return False
-        toks = self._guarded(self._decode_prog, *self._decode_args())
-        self._events.append(("decode", *self._to_host(toks)))
+        if self.speculative:
+            self._events.append(self._dispatch_spec())
+        else:
+            toks = self._guarded(self._decode_prog, *self._decode_args())
+            self._events.append(("decode", *self._to_host(toks)))
         self.stats["decode_calls"] += 1
         return True
 
@@ -683,66 +946,119 @@ class ServingEngine:
         return (self.module, self._cache, self._state, self.block,
                 self.max_pos, self._sample_fn, self._gen, pages)
 
+    def _dispatch_spec(self):
+        """One speculative round: the draft proposes ``spec_k`` tokens per
+        slot from its own lanes, then the target verifies the window in
+        one forward and commits on the device — two dispatches chained
+        through the device, no host read.  The draft tokens never leave
+        the device."""
+        t0 = time.perf_counter()
+        draft = self._guarded(self._propose_prog, *self._propose_args())
+        t1 = time.perf_counter()
+        self.stats["spec_draft_secs"] += t1 - t0
+        toks, accepted = self._guarded(self._verify_prog,
+                                       *self._verify_args(draft))
+        self.stats["spec_verify_secs"] += time.perf_counter() - t1
+        return ("spec", *self._to_host(toks, accepted))
+
+    def _propose_args(self):
+        return (self.draft_module, self._draft_cache, self._state,
+                self.spec_k, self.max_pos)
+
+    def _verify_args(self, draft):
+        pages = self._upload_table() if self.paged else None
+        return (self.module, self._cache, self._state, draft, self.spec_k,
+                self.max_pos, self._sample_fn, self._gen, pages)
+
     # ------------------------------------------------------------------ #
-    # Warmup: capture the decode block up front
+    # Warmup: capture the decode programs up front
     # ------------------------------------------------------------------ #
+    def _warmup_names(self):
+        """``warmup()``'s programs under the JAX engine's names."""
+        N, S, C, k = self.num_slots, self.cache_len, self.chunk, self.spec_k
+        pg, sfx = ("_paged", f"p{self.page}") if self.paged else ("", "")
+        names = {"prefill": f"serving_prefill{pg}:c{C}{sfx}"}
+        if self.speculative:
+            names.update(
+                verify=f"serving_spec_verify{pg}:n{N}s{S}k{k}{sfx}",
+                propose=f"serving_spec_propose:n{N}s{S}k{k}",
+                draft_prefill=f"serving_spec_draft_prefill:c{C}")
+        else:
+            names["decode"] = f"serving_decode{pg}:n{N}s{S}b{self.block}{sfx}"
+        return names
+
     @torch.no_grad()
     def warmup(self):
         """Run the admission-prefill chunk once and capture the decode
-        block before the first request, so that no request pays for them.
-        Returns ``{program: seconds}`` under the JAX engine's names
-        (``serving_prefill[_paged]:...``, ``serving_decode[_paged]:...``);
-        0.0 for both when the block was captured already.
+        block — or, speculative, run the draft's prefill chunk and capture
+        the propose and verify programs — before the first request, so
+        that no request pays for them.  Returns ``{program: seconds}``
+        under the JAX engine's names (``serving_prefill[_paged]:...``,
+        ``serving_decode[_paged]:...``, ``serving_spec_verify[_paged]:
+        ...``, ``serving_spec_propose:...``,
+        ``serving_spec_draft_prefill:...``); 0.0 for each once captured.
 
-        The prefill chunk runs eagerly (it has no graph): its seconds are a
-        first run's.  Unlike JAX's abstract AOT compile, the capture runs
-        a real block over the idle server's free lanes: their writes land
-        on the trash page (paged) or in free lanes' rows that every read
-        masks, the slot state is reset afterwards and the sampling
-        generator restored, so the served tokens are unchanged.  Raises
-        ``RuntimeError`` once requests are in flight."""
+        The prefill chunks run eagerly (they have no graph): their seconds
+        are a first run's.  Unlike JAX's abstract AOT compile, a capture
+        runs a real block (or round) over the idle server's free lanes:
+        their writes land on the trash page (paged) or in free lanes' rows
+        that every read masks and every admission overwrites, the slot
+        state is reset afterwards and the sampling generator restored, so
+        the served tokens are unchanged.  Raises ``RuntimeError`` once
+        requests are in flight."""
         if self._closed:
             raise RuntimeError("warmup() on a closed ServingEngine")
         if self.work_pending():
             raise RuntimeError("warmup() needs an idle server: call it "
                                "before submit()")
         self._ensure_workspace()
-        N, S, C = self.num_slots, self.cache_len, self.chunk
-        if self.paged:
-            names = (f"serving_prefill_paged:c{C}p{self.page}",
-                     f"serving_decode_paged:n{N}s{S}b{self.block}"
-                     f"p{self.page}")
+        names = self._warmup_names()
+        if self.speculative:
+            captured = (self._propose_prog.has_graph(*self._propose_args())
+                        and self._verify_prog.num_graphs > 0)
         else:
-            names = (f"serving_prefill:c{C}",
-                     f"serving_decode:n{N}s{S}b{self.block}")
-        args = self._decode_args()
-        if self._decode_prog.has_graph(*args):
-            return {name: 0.0 for name in names}
+            captured = self._decode_prog.has_graph(*self._decode_args())
+        if captured:
+            return {name: 0.0 for name in names.values()}
         accel = self.engine._accel
+        C = self.chunk
         ids = torch.zeros((1, C), dtype=torch.long, device=self.device)
         at = torch.full((1,), C - 1, dtype=torch.long, device=self.device)
         gen_state = self._gen.get_state()
         report = {}
-        try:
+
+        def timed(name, fn, *args):
             accel.synchronize(self.device)
             t0 = time.perf_counter()
+            out = self._guarded(fn, *args)
+            accel.synchronize(self.device)
+            report[names[name]] = time.perf_counter() - t0
+            return out
+
+        try:
             if self.paged:
                 # an all-trash table row: the chunk writes the trash page
                 row = torch.zeros((1, self.n_slot_pages), dtype=torch.int32,
                                   device=self.device)
-                self._guarded(slots.paged_chunk, self.module, self._cache,
-                              row, ids, 0, at)
+                timed("prefill", slots.paged_chunk, self.module, self._cache,
+                      row, ids, 0, at)
             else:
                 lane = self._lane_pool.take(self.cache_len,
                                             self.engine.compute_dtype)
-                self._guarded(slots.prefill_chunk, self.module, lane, ids, 0,
-                              at)
+                timed("prefill", slots.prefill_chunk, self.module, lane, ids,
+                      0, at)
                 self._lane_pool.give_back(lane)
-            accel.synchronize(self.device)
-            t1 = time.perf_counter()
-            self._guarded(self._decode_prog, *args)
-            accel.synchronize(self.device)
-            report = {names[0]: t1 - t0, names[1]: time.perf_counter() - t1}
+            if self.speculative:
+                lane = self._draft_lanes.take(self.cache_len,
+                                              self.engine.compute_dtype)
+                timed("draft_prefill", slots.draft_chunk, self.draft_module,
+                      lane, ids, 0)
+                self._draft_lanes.give_back(lane)
+                draft = timed("propose", self._propose_prog,
+                              *self._propose_args())
+                timed("verify", self._verify_prog, *self._verify_args(draft))
+            else:
+                timed("decode", self._decode_prog, *self._decode_args())
         finally:
             self._gen.set_state(gen_state)
             if self._state is not None:
@@ -759,13 +1075,24 @@ class ServingEngine:
             ev = self._events.popleft()
             if ev[0] == "admit":
                 self._process_admit(ev, finished)
+            elif ev[0] == "spec":
+                self._process_spec(ev, finished)
             else:
                 self._process_decode(ev, finished)
 
     def _process_admit(self, ev, finished):
-        _, req, slot, lane, first_host, event = ev
-        first = int(self._read(first_host, event))
+        _, req, slot, lane, draft_lane, hosts, event = ev
+        first = int(self._read(hosts, event)[0])
         self._lane_pool.give_back(lane)
+        if draft_lane is not None:
+            self._draft_lanes.give_back(draft_lane)
+        if req.status in TERMINAL_STATUSES:
+            # cancelled while its admit was in flight: free the slot now
+            # and drop the token (the lane was made inactive on the device)
+            self._slots[slot] = None
+            self._free.append(int(slot))
+            self._release_slot_pages(slot)
+            return
         if req.first_tok_t is None:
             req.first_tok_t = time.monotonic()
         req.tokens = [first]
@@ -775,6 +1102,7 @@ class ServingEngine:
             finished[req.rid] = self._finalize(req)
         else:
             self._mirror_active[slot] = True
+            self._publish_progress(req)
 
     def _free_slot(self, s):
         self._mirror_active[s] = False
@@ -782,20 +1110,59 @@ class ServingEngine:
         self._free.append(int(s))
         self._release_slot_pages(s)
 
+    def _mirror_commit_token(self, s, req, tok, finished):
+        """The per-token mirror rule of both decode paths (a block's
+        steps, a speculative window's committed tokens): append the
+        token, then retire the slot on its eos or budget (the in-program
+        rule) or push the token to the request's streams.  Returns True
+        when the slot retired."""
+        req.tokens.append(tok)
+        self.stats["decode_tokens"] += 1
+        if (req.eos >= 0 and tok == req.eos) \
+                or len(req.tokens) >= req.max_new:
+            self._free_slot(s)
+            finished[req.rid] = self._finalize(req)
+            return True
+        self._publish_progress(req)
+        return False
+
     def _process_decode(self, ev, finished):
-        toks = self._read(ev[1], ev[2])                  # [block, N]
-        # mirror the in-program retirement rule step by step: an emitted
-        # eos (or max_new reached) ends the request and frees its slot
+        toks = self._read(ev[1], ev[2])[0]               # [block, N]
         for row in toks:
             for s in np.nonzero(self._mirror_active)[0]:
-                req = self._slots[s]
-                tok = int(row[s])
-                req.tokens.append(tok)
-                self.stats["decode_tokens"] += 1
-                if (req.eos >= 0 and tok == req.eos) \
-                        or len(req.tokens) >= req.max_new:
-                    self._free_slot(s)
-                    finished[req.rid] = self._finalize(req)
+                self._mirror_commit_token(s, self._slots[s], int(row[s]),
+                                          finished)
+        self.occupancy_trace.append(
+            (self._it, int(self._mirror_active.sum())))
+
+    def _process_spec(self, ev, finished):
+        """Mirror one speculative round: per live slot, exactly the
+        ``accepted[s]`` committed tokens (rows past it are window
+        padding), each through the per-token rule — a round that commits
+        m tokens pushes m ordered stream events, and a mid-window
+        retirement cuts the stream at the terminal token."""
+        toks, acc = self._read(ev[1], ev[2])             # [k+1, N], [N]
+        st = self.stats
+        st["spec_rounds"] += 1
+        for s in np.nonzero(self._mirror_active)[0]:
+            req = self._slots[s]
+            m = int(acc[s])
+            st["spec_windows"] += 1
+            st["spec_committed_tokens"] += m
+            for i in range(m):
+                # the device stopped committing at exactly the token that
+                # retires here
+                if self._mirror_commit_token(s, req, int(toks[i, s]),
+                                             finished):
+                    break
+        w = st["spec_windows"]
+        if w:
+            committed = st["spec_committed_tokens"]
+            st["spec_accept_rate"] = (committed - w) / (w * self.spec_k)
+            st["spec_tokens_per_dispatch"] = committed / st["spec_rounds"]
+        d, v = st["spec_draft_secs"], st["spec_verify_secs"]
+        if d + v > 0:
+            st["spec_draft_fraction"] = d / (d + v)
         self.occupancy_trace.append(
             (self._it, int(self._mirror_active.sum())))
 
@@ -814,4 +1181,78 @@ class ServingEngine:
             rid=req.rid, status=RequestStatus.COMPLETED, output=out,
             submitted_it=req.submitted_it, finished_it=self._it,
             ttft_s=req.first_tok_t - req.submit_t)
+        self._publish_end(req, RequestStatus.COMPLETED)
         return out
+
+
+def _drop_counter(server):
+    """A stream's ``on_drop`` hook that counts into ``server``'s
+    ``stats["stream_bridge_drops"]``, holding the server weakly: a strong
+    reference from its own streams would keep a deleted server, its
+    caches and its graphs alive until the cycle collector ran."""
+    ref = weakref.ref(server)
+
+    def on_drop(rid, exc):
+        srv = ref()
+        if srv is not None:
+            srv.stats["stream_bridge_drops"] += 1
+
+    return on_drop
+
+
+def _draft_engine(engine, module):
+    """An inference engine over a draft module, on ``engine``'s device in
+    its compute dtype (its ``set_params`` casts float weights as the
+    target's does)."""
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    return InferenceEngine(module, DeepSpeedInferenceConfig(
+        dtype=engine._config.dtype), device=engine.device)
+
+
+def _resolve_draft(engine, cfg, draft_module, draft_params):
+    """The draft model behind ``serving.speculative`` (JAX
+    ``ServingEngine._resolve_draft``): an explicit ``(draft_module,
+    draft_params)`` pair wins; ``spec_draft_model="self"`` drafts with the
+    target's own module and weights, no copy; an OPT preset name builds
+    the architecture at the target's vocabulary with the given
+    ``draft_params`` — or seeded random weights with a loud warning (the
+    accept rate's floor).  Returns the module, on the engine's device in
+    its compute dtype."""
+    if draft_module is not None:
+        if draft_params is None:
+            raise ValueError("draft_module passed without draft_params")
+        draft = _draft_engine(engine, draft_module)
+        draft.set_params(draft_params)
+        return draft.module
+    name = (cfg.spec_draft_model or "").strip()
+    if name == "self":
+        if draft_params is not None:
+            raise ValueError(
+                "spec_draft_model='self' drafts with the TARGET model's own "
+                "weights, but draft_params was also passed — silently "
+                "ignoring them would run the wrong draft; pass draft_module "
+                "with those params, or drop one of the two")
+        return engine.module
+    if not name:
+        raise ValueError(
+            "serving.speculative=True needs a draft model: pass "
+            "engine.serve(draft_module=..., draft_params=...) or set "
+            "serving.spec_draft_model ('self' = the target drafts for "
+            "itself; docs/serving.md 'Speculative decoding')")
+    from deepspeed_tpu_torch.models.opt import opt_model
+    tcfg = engine.module.config
+    draft = _draft_engine(engine, opt_model(
+        name, vocab_size=tcfg.vocab_size,
+        max_seq_len=max(tcfg.max_seq_len, int(cfg.max_cache_len)),
+        dtype=tcfg.dtype))
+    if draft_params is not None:
+        draft.set_params(draft_params)
+    else:
+        logger.warning(
+            f"serving.spec_draft_model={name!r} with no draft_params — "
+            f"RANDOM draft weights: the accept rate will be ~0 and "
+            f"speculation will SLOW decode; pass trained weights via "
+            f"engine.serve(draft_params=...)")
+        draft.init_params(seed=0)
+    return draft.module

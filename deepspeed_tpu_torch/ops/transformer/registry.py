@@ -119,7 +119,9 @@ def _write_cache(cache, layer, rows, positions, start):
     positions, which the callers keep inside the cache from what the host
     already knows — ``generate`` sizes its cache from the prompt lengths
     and ``required_cache_len``, the serving engine clamps its lanes'
-    positions below ``max_pos``.  Nothing here reads the device back."""
+    positions below ``max_pos`` and a dead lane's speculative window
+    below ``max_pos - spec_k`` (JAX drops a scatter past the lane;
+    PyTorch faults on the card).  Nothing here reads the device back."""
     for key, new in rows.items():
         buf = cache[key][layer]
         if start is None:

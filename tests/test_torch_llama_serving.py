@@ -95,6 +95,16 @@ def _setup(twin):
     return dict(twin=twin, tree=tree, sd=sd, ids=ids)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """These tiny models run thousands of small ops: one intra-op thread
+    keeps a parallel test run's workers from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=sorted(TWINS))
 def setup(request):
     return _setup(request.param)

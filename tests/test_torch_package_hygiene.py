@@ -102,10 +102,15 @@ def test_unported_config_knobs_raise():
                  dict(strict_memory=True),
                  dict(fault={"bucket_downshift": True}),
                  dict(compile_cache={"enabled": True}),
-                 dict(serving={"speculative": True}),
+                 dict(serving={"tracing": True}),
                  dict(serving={"max_queue_depth": 4})):
         with pytest.raises(NotImplementedError):
             DeepSpeedInferenceConfig(**knob)
+    # speculative decoding is ported
+    spec = DeepSpeedInferenceConfig(serving={
+        "speculative": True, "spec_k": 3, "spec_draft_model": "self"}).serving
+    assert (spec.speculative, spec.spec_k, spec.spec_draft_model) \
+        == (True, 3, "self")
     # weight and KV-cache quantization are ported
     q = DeepSpeedInferenceConfig(quant={"enabled": True, "bits": 4,
                                         "group_size": 32,

@@ -304,7 +304,7 @@ def test_config_validation_and_lifecycle(setup):
     eng = s["eng"]
     assert isinstance(eng._config.serving, ServingConfig)
     assert eng._config.serving.num_slots == 3
-    for knob in (dict(speculative=True), dict(tracing=True),
+    for knob in (dict(default_deadline_s=1.0), dict(tracing=True),
                  dict(max_queue_depth=4), dict(priority_lanes=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             eng.serve(**knob)

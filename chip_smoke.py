@@ -135,7 +135,29 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    plain one); a profiled window of 3 rounds on the graphs (``profile``
    "m_graph"); and K3 / K7 at the verify shape against their plain
    versions, timed (``KV_SHAPE``, dead rows included);
-14. prints the card, a ``kernels`` JSON line and, last, the result line.
+14. drives the request lifecycle, run (n), on run (d)'s engine, requests
+   and outputs: (n-overload) run (d)'s server with a queue of 48 that
+   blocks the submitting thread (``queue_policy="block"``) and a breaker
+   at 3 consecutive failures — every 12th request already past its
+   deadline (16 shed, none holding a slot), each with index 5 mod 24
+   cancelled at its first token event (8), one ``raise`` injected at the
+   40th decode dispatch (``serving.pre_decode_dispatch``) that the
+   breaker absorbs (the requests in flight end ``ABORTED``, the pool is
+   allocated and the decode block captured again: 2 captures) — every
+   completed request bitwise run (d)'s, exact launches, every cancelled
+   or aborted stream ended with its status; (n-preempt) run (d)'s first
+   96 requests, admitted without a prefill budget, stepped until 32 hold
+   partial tokens and 16 have ended,
+   ``preempt(dir, drain_budget_s=0)`` (a manifest-valid snapshot) and
+   ``restore()`` + ``drain()`` on a fresh server — those that ended
+   before, or never started, bitwise run (d)'s, the resumed ones' token
+   agreement reported — then 16 of run (m)'s requests on an fp32 copy on
+   run (m)'s lanes, and (n-spec) run (m)'s self-draft server on 8,
+   preempted mid-speculation: every output equal to the uninterrupted
+   plain server's, every snapshotted token list a prefix of its output;
+   with the seconds of ``preempt()`` and ``restore()``, the first token
+   after the restore and the tokens prefilled again;
+15. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 Generation and serving run on the captured decode programs (CUDA graphs,
 ``enable_cuda_graph``'s default) after ``warmup()`` / ``srv.warmup()``,
@@ -325,6 +347,26 @@ KV_SHAPE = dict(L=24, B=16, C=5, S_max=384, H=32, D=64, page=64, dead=4)
 # speculative rounds with run (m)'s 16 slots live (profile line "m_graph")
 PROFILE_D_STEPS = 3
 PROFILE_M_ROUNDS = 3
+# the request lifecycle (n), on run (d)'s engine, requests and outputs:
+# (n-overload) SERVE_D with a queue of 48 that blocks the submitting
+# thread and a breaker at 3 failures; every 12th request already past its
+# deadline (16 shed), each request with index 5 mod 24 cancelled at its
+# first token event (8), one dispatch failure injected at the 40th decode
+# dispatch and absorbed.  (n-preempt) run (d)'s first 96 requests on
+# SERVE_D without its prefill budget (with two chunks a step, run (d)'s
+# traffic never has more than 16 requests partial at once), stepped until
+# 32 hold partial tokens and 16 have ended, preempted at once and restored
+# on a fresh server; then 16 of run (m)'s requests on an fp32 copy of the
+# weights on run (m)'s lanes, preempted with 8 partial and restored.
+# (n-spec) run (m)'s self-draft server on the fp32 copy's first 8
+# requests, preempted mid-speculation with 4 partial and restored
+RUN_N = dict(queue=48, shed_every=12, cancel_every=24, cancel_at=5,
+             fail_at=40, breaker=3, preempt_requests=96, partial=32,
+             finished=16, fp32_requests=16, fp32_partial=8, spec_requests=8,
+             spec_partial=4)
+SERVE_N = dict(SERVE_D, max_queue_depth=RUN_N["queue"], queue_policy="block",
+               breaker_threshold=RUN_N["breaker"])
+SERVE_N_PREEMPT = dict(SERVE_D, prefill_token_budget=0)
 # shared prefix (e): bench.py's 24 requests behind one 512-token prompt
 RUN_E = dict(system=512, tails=24, tail=16, new=32, seed=1)
 SERVE_E = dict(paged=True, page_size=64, max_cache_len=768,
@@ -2921,6 +2963,17 @@ SPEC_SERVERS = (("m", {}), ("m_self", SPEC_M),
                 ("m_draft", dict(SPEC_M, spec_draft_model=RUN_M["draft"])))
 
 
+def fp32_copy(eng):
+    """An OPT-1.3B engine over ``eng``'s weights cast to fp32."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import opt_model
+    eng32 = init_inference(opt_model(MODEL, dtype="float32"), dtype="float32",
+                           device=DEV)
+    eng32.set_params({k: v.float()
+                      for k, v in eng.module.state_dict().items()})
+    return eng32
+
+
 def spec_path(eng, eng_e):
     """Run (m): the four servers of ``SPEC_SERVERS`` on run (m)'s
     requests (after ``warmup()``, exact launches, time between tokens
@@ -2931,8 +2984,6 @@ def spec_path(eng, eng_e):
     speculative rounds on the graphs (``m_graph``)."""
     import numpy as np
     import torch
-    from deepspeed_tpu_torch import init_inference
-    from deepspeed_tpu_torch.models.opt import opt_model
     t0 = time.perf_counter()
     V = eng.module.config.vocab_size
     reqs = spec_traffic(V)
@@ -2958,10 +3009,7 @@ def spec_path(eng, eng_e):
         fail(f"run (m): {rec['requests_differing_from_graphs']} requests' "
              f"tokens differ between the captured spec programs and eager")
     # the fp32 gate: the same weights in fp32, the first 8 requests
-    eng32 = init_inference(opt_model(MODEL, dtype="float32"), dtype="float32",
-                           device=DEV)
-    eng32.set_params({k: v.float()
-                      for k, v in eng.module.state_dict().items()})
+    eng32 = fp32_copy(eng)
     reqs32 = reqs[:RUN_M["fp32_requests"]]
     ref = None
     gate = {"check": "run (m) fp32: speculative servers equal the plain "
@@ -3022,6 +3070,285 @@ def prefix_path(eng):
     if differ:
         fail(f"run (e): {differ} requests differ from the unshared run")
     return rec
+
+
+# --------------------------------------------------------------------- #
+# The request lifecycle: deadlines, the bounded queue, the breaker,
+# preempt -> snapshot -> restore, run (n)
+# --------------------------------------------------------------------- #
+def overload_run(eng, reqs, outs_d):
+    """Run (n-overload): run (d)'s requests submitted in order by this
+    thread into ``SERVE_N`` (the queue of 48 blocks it: ``submit()`` steps
+    the server), every 12th past its deadline, each with index 5 mod 24
+    cancelled at the first scheduling point after its first token event,
+    and one ``raise`` at the 40th decode dispatch that the breaker
+    absorbs.  Gates: every completed request bitwise run (d)'s, 16 shed
+    holding no slot, 8 cancelled, every cancelled or aborted stream ended
+    with its status, exactly the one failure absorbed, exact launches, and
+    two captures of the decode block (``warmup()`` and the one after the
+    failure)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.serving.slo import RequestStatus
+    from deepspeed_tpu_torch.runtime.fault import inject
+    n = RUN_N
+    srv = eng.serve(**SERVE_N)
+    warm = srv.warmup()
+    ends, flagged = {}, []
+
+    def on_event(i, rid):
+        def cb(ev):
+            if ev["event"] == "end":
+                ends[rid] = ev["status"]
+            elif ev["index"] == 0 and i % n["cancel_every"] == n["cancel_at"]:
+                flagged.append(rid)
+        return cb
+
+    def cancel_flagged():
+        while flagged:
+            srv.cancel(flagged.pop())
+
+    spec, = inject.configure_injection(
+        {"point": "serving.pre_decode_dispatch", "action": "raise",
+         "at": n["fail_at"]})
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rids, blocked, inline = [], 0, 0
+    try:
+        for i, (p, new) in enumerate(reqs):
+            it = srv.stats["iterations"]
+            rid = srv.submit(p, max_new_tokens=new, client_id=i,
+                             deadline_s=0.0 if i % n["shed_every"] == 0
+                             else None)
+            blocked += srv.stats["iterations"] > it
+            inline += srv.stats["iterations"] - it
+            srv.token_events(rid, on_event=on_event(i, rid))
+            rids.append(rid)
+            cancel_flagged()
+        while srv.work_pending():
+            srv.step()
+            cancel_flagged()
+    finally:
+        inject.reset_injection()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    st = srv.stats
+    by_status = {}
+    for rid in rids:
+        by_status[srv.status(rid)] = by_status.get(srv.status(rid), 0) + 1
+    completed = [i for i, r in enumerate(rids)
+                 if srv.status(r) == RequestStatus.COMPLETED]
+    shed = [i for i, r in enumerate(rids)
+            if srv.status(r) == RequestStatus.SHED_DEADLINE]
+    useful = sum(reqs[i][1] for i in completed)
+    rec = {"run": "n_overload", "requests": len(reqs),
+           "slots": srv.num_slots, "num_pages": srv.num_pages,
+           "max_queue_depth": SERVE_N["max_queue_depth"],
+           "queue_policy": SERVE_N["queue_policy"],
+           "breaker_threshold": SERVE_N["breaker_threshold"],
+           "statuses": by_status, "blocked_submits": blocked,
+           "steps_inside_submit": inline, "seconds": secs,
+           "completed_useful_tokens": useful,
+           "completed_tokens_per_s": useful / secs,
+           "dispatch_failures_absorbed": st["dispatch_failures"],
+           "injected_faults": spec.fired, "breaker_trips":
+           srv._breaker.trips, "decode_captures":
+           srv._decode_prog.captures, "decode_calls": st["decode_calls"],
+           "prefill_tokens": st["prefill_tokens"],
+           "iterations": st["iterations"], "warmup_seconds": warm,
+           "launches": counts}
+    emit(rec)
+    differ = sum(not np.array_equal(srv.result(rids[i]).output, outs_d[i])
+                 for i in completed)
+    rec["completed_differing_from_run_d"] = differ
+    want_shed = list(range(0, len(reqs), n["shed_every"]))
+    want_cancel = [i for i in range(len(reqs))
+                   if i % n["cancel_every"] == n["cancel_at"]]
+    cancelled = [i for i, r in enumerate(rids)
+                 if srv.status(r) == RequestStatus.CANCELLED]
+    aborted = [r for r in rids if srv.status(r) == RequestStatus.ABORTED]
+    if differ:
+        fail(f"run (n-overload): {differ} completed requests differ from "
+             f"run (d)")
+    if shed != want_shed or any(srv._requests[rids[i]].slot is not None
+                                for i in shed):
+        fail(f"run (n-overload): shed {shed}, expected {want_shed}, none "
+             f"holding a slot")
+    if cancelled != want_cancel:
+        fail(f"run (n-overload): cancelled {cancelled}, expected "
+             f"{want_cancel}")
+    if not aborted or sum(by_status.values()) != len(reqs) \
+            or set(by_status) - {RequestStatus.COMPLETED,
+                                 RequestStatus.SHED_DEADLINE,
+                                 RequestStatus.CANCELLED,
+                                 RequestStatus.ABORTED}:
+        fail(f"run (n-overload): statuses {by_status}: every request must "
+             f"end, and the failure must abort the requests in flight")
+    for rid in aborted + [rids[i] for i in cancelled]:
+        if ends.get(rid) != srv.status(rid):
+            fail(f"run (n-overload): request {rid} ended "
+                 f"{srv.status(rid)}, its stream's end event says "
+                 f"{ends.get(rid)}")
+    if (st["dispatch_failures"], spec.fired, srv._breaker.trips) != (1, 1, 0):
+        fail(f"run (n-overload): {st['dispatch_failures']} failures "
+             f"absorbed, {spec.fired} injected, {srv._breaker.trips} trips; "
+             f"expected 1, 1, 0")
+    if srv._decode_prog.captures != 2:
+        fail(f"run (n-overload): {srv._decode_prog.captures} captures of "
+             f"the decode block, expected 2 (warmup and after the failure)")
+    want = serve_expect(srv)
+    if counts != want:
+        fail(f"run (n-overload): launches {counts}, the path needs {want}")
+    srv.close()
+    return rec
+
+
+def step_until(srv, rids, partial, finished):
+    """Step ``srv`` until ``partial`` of ``rids`` hold some but not all of
+    their tokens and ``finished`` have ended; returns the outputs of those
+    that ended."""
+    early = {}
+    while sum(0 < len(srv._requests[r].tokens) < srv._requests[r].max_new
+              and srv.result(r) is None for r in rids) < partial \
+            or len(early) < finished:
+        if not srv.work_pending():
+            fail(f"the server drained before {partial} requests held "
+                 f"partial tokens with {finished} ended")
+        early.update(srv.step())
+    return early
+
+
+def preempt_and_restore(eng, reqs, serve, partial, finished, ckpt):
+    """``reqs`` into a server of ``serve``, stepped until ``partial`` hold
+    partial tokens and ``finished`` have ended, preempted at once into
+    ``ckpt`` and restored on a fresh server, which drains them. Returns
+    the outputs in order, the snapshot's requests and a record: seconds
+    of ``preempt()`` and of ``restore()``, the time from the restore to
+    the first token a resumed request streams, the generated tokens
+    prefilled again."""
+    import torch
+    from deepspeed_tpu_torch.inference.serving.snapshot import \
+        read_snapshot_tag
+    from deepspeed_tpu_torch.runtime.fault.manifest import verify_manifest
+    srv = eng.serve(**serve)
+    srv.warmup()
+    rids = [srv.submit(p, max_new_tokens=n, client_id=i)
+            for i, (p, n) in enumerate(reqs)]
+    outs = step_until(srv, rids, partial, finished)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tag, snapped, finished = srv.preempt(ckpt, drain_budget_s=0.0)
+    preempt_s = time.perf_counter() - t0
+    outs.update(finished)
+    problems = verify_manifest(os.path.join(ckpt, tag))
+    if problems:
+        fail(f"preempt(): the snapshot {tag} fails its manifest: {problems}")
+    snap = read_snapshot_tag(ckpt, tag)["requests"]
+    srv2 = eng.serve(**serve)
+    srv2.warmup()
+    first = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = srv2.restore(ckpt)
+    restore_s = time.perf_counter() - t0
+    if sorted(restored) != sorted(snapped):
+        fail(f"restore() queued {sorted(restored)}, the snapshot holds "
+             f"{sorted(snapped)}")
+    for rid in restored:
+        srv2.token_events(rid, on_event=lambda ev: first.append(
+            time.perf_counter()) if not first else None)
+    outs.update(srv2.drain())
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    rec = {"requests": len(reqs), "snapshotted": len(snapped),
+           "partial_at_preempt": sum(bool(r["tokens"]) for r in snap),
+           "finished_before_preempt": len(reqs) - len(snapped),
+           "preempt_seconds": preempt_s, "restore_seconds": restore_s,
+           "first_token_after_restore_s": first[0] - t0 if first else None,
+           "restore_to_drained_seconds": drain_s,
+           "tokens_prefilled_again": sum(len(r["tokens"]) for r in snap),
+           "prefill_tokens_after_restore": srv2.stats["prefill_tokens"]}
+    srv2.close()
+    return [outs[r] for r in rids], snap, rec
+
+
+def lifecycle_path(eng, outs_d):
+    """Run (n): the overload (above), preemption and restore in bf16 over
+    run (d)'s first 96 requests (those that ended before the preemption,
+    and those never started, bitwise run (d)'s; the resumed ones'
+    agreement with run (d) reported: re-prefilling a prefix runs GEMMs at
+    another M), then on an fp32 copy of the weights (16 of run (m)'s
+    requests on run (m)'s lanes, and its self-draft server on 8,
+    preempted mid-speculation): every resumed output equal to the
+    uninterrupted one, every snapshotted token list a prefix of the final
+    output."""
+    import tempfile
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    V = eng.module.config.vocab_size
+    reqs = serving_traffic(V)
+    runs = {"n_overload": overload_run(eng, reqs, outs_d)}
+    torch.cuda.empty_cache()
+    n = RUN_N
+    with tempfile.TemporaryDirectory() as tmp:
+        k = n["preempt_requests"]
+        got, snap, rec = preempt_and_restore(
+            eng, reqs[:k], SERVE_N_PREEMPT, n["partial"], n["finished"],
+            os.path.join(tmp, "bf16"))
+        resumed = {r["rid"] for r in snap if r["tokens"]}
+        fresh = [i for i in range(k) if i not in resumed]
+        differ = sum(not np.array_equal(got[i], outs_d[i]) for i in fresh)
+        idx = sorted(resumed)
+        rec.update(run="n_preempt", dtype="bfloat16",
+                   not_resumed_differing_from_run_d=differ,
+                   resumed_agreement_with_run_d=generated_agreement(
+                       [got[i] for i in idx], [outs_d[i] for i in idx],
+                       [reqs[i] for i in idx]))
+        emit(rec)
+        if differ:
+            fail(f"run (n-preempt): {differ} requests that finished before "
+                 f"the preemption or never started differ from run (d)")
+        runs["n_preempt"] = rec
+        torch.cuda.empty_cache()
+        eng32 = fp32_copy(eng)
+        reqs_m = spec_traffic(V)
+        k = n["fp32_requests"]
+        ref = eng32.serve(**SERVE_M)
+        rids = [ref.submit(p, max_new_tokens=m) for p, m in reqs_m[:k]]
+        outs = ref.drain()
+        ref.close()
+        want = [outs[r] for r in rids]
+        for run, serve, k, partial in (
+                ("n_preempt_fp32", SERVE_M, k, n["fp32_partial"]),
+                ("n_spec", {**SERVE_M, **SPEC_M}, n["spec_requests"],
+                 n["spec_partial"])):
+            got, snap, rec = preempt_and_restore(
+                eng32, reqs_m[:k], serve, partial, 0, os.path.join(tmp, run))
+            differ = sum(not np.array_equal(a, b)
+                         for a, b in zip(got, want[:k]))
+            not_prefix = sum(
+                r["tokens"] != [int(t) for t in got[r["rid"]][
+                    len(reqs_m[r["rid"]][0]):][:len(r["tokens"])]]
+                for r in snap)
+            rec.update(run=run, dtype="float32",
+                       speculative=bool(serve.get("speculative")),
+                       requests_differing_from_uninterrupted=differ,
+                       snapshots_not_a_prefix_of_the_output=not_prefix)
+            emit(rec)
+            if differ or not_prefix:
+                fail(f"run ({run}): {differ} resumed requests differ from "
+                     f"the uninterrupted plain server on fp32 weights, "
+                     f"{not_prefix} snapshots are not a prefix of their "
+                     f"output")
+            runs[run] = rec
+        del eng32
+    torch.cuda.empty_cache()
+    runs["n_seconds"] = time.perf_counter() - t0
+    emit({"run_n_seconds": runs["n_seconds"]})
+    return runs
 
 
 # --------------------------------------------------------------------- #
@@ -4194,6 +4521,7 @@ def main():
     serving_runs, outs_d = serving_path(eng, eng_e)
     runs.update(serving_runs)
     runs.update(spec_path(eng, eng_e))
+    runs.update(lifecycle_path(eng, outs_d))
     del eng_e
     eng_g, eng_ge, eng_m = int8_generate_path(eng, tokens, runs)
     del eng
@@ -4364,6 +4692,11 @@ def main():
             "launches_verify_run_" + run:
                 runs[run]["program_launches"]["verify"][name],
             "launches_run_" + run: runs[run]["launches"][name]}
+    # run (n-overload): K6 / K7 through deadlines, cancels, a blocking
+    # queue and one absorbed dispatch failure
+    for k, name in ((kernels[5], "paged_decode_attention"),
+                    (kernels[6], "paged_chunk_prefill_attention")):
+        k["launches_run_n_overload"] = runs["n_overload"]["launches"][name]
     kernels[1]["launches_run_m_self_draft"] = \
         runs["m_self"]["program_launches"]["propose"]["decode_attention"]
     kernels[1]["launches_run_m_draft_opt125m"] = \

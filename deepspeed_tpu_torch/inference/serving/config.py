@@ -2,17 +2,18 @@
 ``deepspeed_tpu/inference/serving/config.py``).
 
 The same keys and defaults as the JAX package's ``ServingConfig``, as a
-dataclass.  The continuous-batching core is ported: slots, the admission
-chunk and its token budget, the decode block, the admission order, the
-paged pool with prefix sharing, sampling and speculative decoding (a
-draft model proposes ``spec_k`` tokens per slot, the target verifies them
-in one forward).  Every other knob — the SLO / queue / breaker / drain
-knobs, priority lanes, fairness, tracing, the flight recorder, the
-profile endpoint and memory telemetry — raises ``NotImplementedError``
-when set away from its default, so a config never silently does
-nothing.  ``paged_kernel=False`` (the JAX package's A/B
-switch to a gather path) raises too: a page pool always runs the paged
-kernels K6 / K7.
+dataclass.  Ported: slots, the admission chunk and its token budget, the
+decode block, the admission order, the paged pool with prefix sharing,
+sampling, speculative decoding (a draft model proposes ``spec_k`` tokens
+per slot, the target verifies them in one forward), and the request
+lifecycle — the bounded queue (``max_queue_depth``, ``queue_policy``),
+default deadlines, the circuit breaker, the ``drain()`` timeout and the
+preemption drain budget.  Every other knob — priority lanes, fairness,
+tracing, the flight recorder, the profile endpoint and memory telemetry —
+raises ``NotImplementedError`` when set away from its default, so a
+config never silently does nothing.  ``paged_kernel=False`` (the JAX
+package's A/B switch to a gather path) raises too: a page pool always
+runs the paged kernels K6 / K7.
 """
 
 import dataclasses
@@ -22,10 +23,8 @@ from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
 # knobs whose feature is not ported yet (a value other than the default
 # raises)
 NOT_PORTED = (
-    "max_queue_depth", "queue_policy", "default_deadline_s",
-    "breaker_threshold", "breaker_cooldown_s", "drain_timeout_s",
     "priority_lanes", "priority_aging_s", "fairness_tokens_per_s",
-    "fairness_window_s", "drain_budget_s",
+    "fairness_window_s",
     "tracing", "trace_max_spans", "flight_recorder",
     "flight_recorder_events", "flight_recorder_dir", "profile_endpoint",
     "memory_telemetry", "memory_sample_interval_s",
@@ -76,18 +75,32 @@ class ServingConfig(DeepSpeedConfigModel):
     top_k: int = 0
     top_p: float = 1.0
     seed: int = 0
-    # ---- not ported (raise when set) ----
+    # ---- the request lifecycle ----
+    # bounded queue: submit() beyond this depth raises QueueFull
+    # ("reject") or runs scheduler iterations until a spot frees
+    # ("block"); 0 = unbounded
     max_queue_depth: int = 0
     queue_policy: str = "reject"
+    # default per-request deadline, seconds from submit (submit(
+    # deadline_s=...) overrides it); 0 = none.  Past it a queued request
+    # is shed before it takes a slot, a running one at the next step
     default_deadline_s: float = 0.0
+    # this many consecutive failed dispatches open the circuit breaker
+    # (submit() raises CircuitOpen, nothing dispatches) until a half-open
+    # probe after the cooldown succeeds; 0 = off, failures propagate
     breaker_threshold: int = 0
     breaker_cooldown_s: float = 30.0
+    # drain() wall-clock budget: past it DrainTimeout with per-slot
+    # diagnostics; 0 = no limit
     drain_timeout_s: float = 0.0
+    # preempt(): decode the slots in flight for up to this long, then
+    # snapshot the rest; 0 = snapshot at once
+    drain_budget_s: float = 30.0
+    # ---- not ported (raise when set) ----
     priority_lanes: int = 1
     priority_aging_s: float = 30.0
     fairness_tokens_per_s: float = 0.0
     fairness_window_s: float = 10.0
-    drain_budget_s: float = 30.0
     tracing: bool = False
     trace_max_spans: int = 100000
     flight_recorder: bool = False
@@ -110,6 +123,9 @@ class ServingConfig(DeepSpeedConfigModel):
                 "serving config: paged_kernel=False (the gather path) is not "
                 "offered by deepspeed_tpu_torch: a page pool always runs the "
                 "paged attention kernels")
+        if self.queue_policy not in ("reject", "block"):
+            raise ValueError(f"serving.queue_policy={self.queue_policy!r}: "
+                             f"one of 'reject', 'block'")
         if self.admission not in ("fcfs", "shortest_first"):
             raise ValueError(f"serving.admission={self.admission!r}: one of "
                              f"'fcfs', 'shortest_first'")

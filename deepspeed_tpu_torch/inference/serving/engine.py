@@ -60,20 +60,42 @@ commits m tokens pushes m events), then one typed ``end`` event.
 :meth:`ServingEngine.cancel` retires a request at once, giving back its
 slot, pages and lanes; :meth:`ServingEngine.status` reads its status.
 
+**The request lifecycle** (JAX's robustness / SLO layer).  Every request
+ends in a typed terminal status (:mod:`.slo`).  A request's deadline
+(``submit(deadline_s=...)`` or ``default_deadline_s``) sheds it from the
+queue before it takes a slot, or retires it at the next step once it
+holds one — its lane is then made inactive on the device, as
+:meth:`ServingEngine.cancel` makes it, so that it cannot write into pages
+the host hands on.  The queue is bounded (``max_queue_depth``, with
+``queue_policy`` ``"reject"``: :class:`~.slo.QueueFull`, or ``"block"``:
+``submit()`` runs scheduler steps until a spot frees).  With
+``breaker_threshold`` set, a failed dispatch is absorbed by ``step()``
+(the requests in flight end ``ABORTED``, the workspace is dropped and the
+next step allocates it and captures its graphs again) and that many
+consecutive failures open the :class:`~.slo.CircuitBreaker`.
+``drain(timeout_s)`` raises :class:`~.slo.DrainTimeout` with per-slot
+diagnostics.  :meth:`ServingEngine.preempt` decodes the slots in flight
+under a budget, then publishes every undrained request crash-atomically
+(:mod:`.snapshot`) and retires the server; :meth:`ServingEngine.restore`
+on a fresh server re-prefills ``prompt + tokens so far`` and decodes the
+rest, so greedy outputs equal an uninterrupted run's.  Fault-injection
+points (``runtime/fault/inject.py``) fire at JAX's seams.
+
 One thread drives the scheduler (``submit`` / ``step`` / ``drain`` /
-``cancel`` / ``close`` are not thread-safe; a stream may be read from
-any thread).  The JAX engine's SLO layer (deadlines, bounded queue,
-breaker, drain timeouts, preemption, snapshots), owner binding and
-instrumented lock, HTTP front end, fairness, priority lanes, tracing and
-memory telemetry are not ported yet.
+``cancel`` / ``preempt`` / ``close`` are not thread-safe; a stream may be
+read from any thread).  The JAX engine's owner binding and instrumented
+lock (and with them a ``"block"`` submit from another thread), HTTP front
+end, fairness, priority lanes, tracing and memory telemetry are not
+ported yet.
 """
 
+import json
 import math
 import time
 import weakref
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -84,18 +106,29 @@ from deepspeed_tpu_torch.model_implementations.features.cuda_graph import (
 from deepspeed_tpu_torch.inference.serving.config import ServingConfig
 from deepspeed_tpu_torch.inference.serving.paging import (PagePool,
                                                           PrefixIndex,
+                                                          compact_page_str,
                                                           pages_for)
-from deepspeed_tpu_torch.inference.serving.slo import (RequestResult,
+from deepspeed_tpu_torch.inference.serving.slo import (CircuitBreaker,
+                                                       DrainTimeout,
+                                                       QueueFull,
+                                                       RequestResult,
                                                        RequestStatus,
                                                        TERMINAL_STATUSES,
                                                        TokenStream)
+from deepspeed_tpu_torch.runtime.fault import inject
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
 @dataclass(eq=False)
 class ServeRequest:
-    """One queued / running request (host bookkeeping only); ``streamed``
-    counts the tokens already pushed to its streams."""
+    """One queued / running request (host bookkeeping only).  ``prefix``
+    holds tokens generated by an earlier server (a request restored from
+    a preemption snapshot, ``resumed``): admission prefills ``ids +
+    prefix`` and the device decodes only the rest of the budget.
+    ``deadline`` is a ``time.monotonic()`` instant (``None``: none);
+    ``priority`` is the admission lane (always 0: priority lanes are not
+    ported); ``streamed`` counts the tokens already pushed to its
+    streams."""
     rid: int
     ids: np.ndarray                  # [P] int32 prompt
     max_new: int
@@ -105,9 +138,21 @@ class ServeRequest:
     slot: Optional[int] = None
     finished_it: Optional[int] = None
     status: str = RequestStatus.QUEUED
+    deadline: Optional[float] = None
+    client_id: Any = None
+    prefix: list = field(default_factory=list)
     submit_t: float = 0.0
     first_tok_t: Optional[float] = None
+    priority: int = 0
     streamed: int = 0
+    resumed: bool = False
+
+    @property
+    def fill_ids(self):
+        """What admission prefills: the prompt plus any resumed tokens."""
+        if not self.prefix:
+            return self.ids
+        return np.concatenate([self.ids, np.asarray(self.prefix, np.int32)])
 
 
 class _PendingPrefill:
@@ -118,7 +163,7 @@ class _PendingPrefill:
         self.req, self.slot, self.lane = req, slot, lane
         self.ids_pad = ids_pad           # [1, n_chunks*C] int64
         self.n_chunks = n_chunks
-        self.fill_len = fill_len         # real prompt positions
+        self.fill_len = fill_len         # real positions, resumed prefix incl.
         self.ci = 0                      # chunks completed
         self.sel = None                  # last-real-position logits [1,1,V]
         # paged admission: prefill starts at the shared-prefix boundary
@@ -297,12 +342,22 @@ class ServingEngine:
         self._it = 0
         self._requests = {}
         self._results = {}
+        # non-COMPLETED terminal outcomes, returned by the next step()
+        self._pending_reports = {}
         self._streams = {}               # rid -> [TokenStream]
+        self._breaker = CircuitBreaker(cfg.breaker_threshold,
+                                       cfg.breaker_cooldown_s)
         self._closed = False
+        self._close_report = []          # the ids undrained at close
+        self._snap_seq = 0               # snapshot lineage
+        self._slot_last_dispatch = {}    # slot -> monotonic time
         self.stats = {"iterations": 0, "decode_calls": 0,
                       "decode_tokens": 0, "prefill_tokens": 0,
-                      "completed": 0, "admitted": 0, "cancelled": 0,
-                      "aborted": 0, "wall_secs": 0.0, "sync_secs": 0.0,
+                      "completed": 0, "admitted": 0, "shed": 0,
+                      "cancelled": 0, "aborted": 0, "resumed": 0,
+                      # dispatch failures step() absorbed (breaker on)
+                      "dispatch_failures": 0,
+                      "wall_secs": 0.0, "sync_secs": 0.0,
                       "prefix_lookups": 0, "prefix_hits": 0,
                       "prefix_tokens_reused": 0, "page_evictions": 0,
                       "admission_stalls": 0, "stream_bridge_drops": 0,
@@ -343,12 +398,25 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     # Public API
     # ------------------------------------------------------------------ #
-    def submit(self, input_ids, max_new_tokens=32, eos_token_id=-1):
+    def submit(self, input_ids, max_new_tokens=32, eos_token_id=-1,
+               deadline_s=None, client_id=None, priority=0):
         """Enqueue one prompt (1-D ids in the vocabulary: a list, numpy
         array or tensor); returns the request id.  A request must fit a slot:
         ``ceil(P/chunk)*chunk`` and ``P + max_new_tokens`` positions (plus
         ``spec_k - 1`` under speculation; and, paged, that many pages of
-        the pool) — one that never can is refused with ``ValueError``."""
+        the pool) — one that never can is refused with ``ValueError``.
+
+        ``deadline_s`` (seconds from now; ``None``: the config's
+        ``default_deadline_s``, ``0``: already expired): past it the
+        request is shed from the queue before it takes a slot, or retired
+        at the next step once in one — terminal status ``SHED_DEADLINE``.
+        ``client_id`` is an opaque value carried through results and
+        snapshots (stored as JSON there: a value JSON cannot hold is
+        stored as its ``str``).  ``priority`` must be 0 (priority lanes
+        are not ported).  Raises :class:`~.slo.CircuitOpen` while the
+        breaker is open, and :class:`~.slo.QueueFull` at
+        ``max_queue_depth`` under ``queue_policy="reject"`` (``"block"``
+        runs scheduler steps here until a spot frees)."""
         if self._closed:
             raise RuntimeError("submit() on a closed ServingEngine; create "
                                "a fresh server with engine.serve()")
@@ -364,12 +432,18 @@ class ServingEngine:
             raise ValueError(f"prompt token ids must lie in [0, {V})")
         if max_new < 1:
             raise ValueError(f"max_new_tokens={max_new}: need >= 1")
+        priority = int(priority)
+        lanes = int(self.config.priority_lanes)
+        if not 0 <= priority < lanes:
+            raise ValueError(
+                f"priority={priority}: need 0 <= priority < "
+                f"serving.priority_lanes={lanes} (0 = most urgent)")
         padded = -(-P // self.chunk) * self.chunk
         # speculative serving reserves spec_k - 1 tail positions per lane:
         # a live lane's last verify window writes K/V for up to spec_k
         # draft tokens past its final committed position (overwritten or
         # never attended, but inside the lane)
-        spec_tail = (self.spec_k - 1) if self.speculative else 0
+        spec_tail = self._spec_tail
         need = max(P + max_new + spec_tail, padded)
         if need > self.max_pos:
             raise ValueError(
@@ -387,12 +461,50 @@ class ServingEngine:
                 f"{self._pool.allocatable} allocatable pages (num_pages="
                 f"{self.num_pages} incl. trash) — raise serving.num_pages or "
                 f"split the request")
+        self._breaker.check_submit()     # refuse with the reason when open
+        self._apply_backpressure()
+        if deadline_s is None and self.config.default_deadline_s > 0:
+            deadline_s = self.config.default_deadline_s
+        deadline = None if deadline_s is None \
+            else time.monotonic() + float(deadline_s)
         req = ServeRequest(self._next_rid, ids, max_new, int(eos_token_id),
-                           submitted_it=self._it, submit_t=time.monotonic())
+                           submitted_it=self._it, deadline=deadline,
+                           client_id=client_id, submit_t=time.monotonic(),
+                           priority=priority)
         self._next_rid += 1
         self._queue.append(req)
         self._requests[req.rid] = req
         return req.rid
+
+    @property
+    def _spec_tail(self):
+        """Lane positions reserved past a request's last token: ``spec_k -
+        1`` under speculation, else 0."""
+        return (self.spec_k - 1) if self.speculative else 0
+
+    def _apply_backpressure(self):
+        depth = int(self.config.max_queue_depth)
+        if not depth or len(self._queue) < depth:
+            return
+        if self.config.queue_policy == "reject":
+            raise QueueFull(
+                f"serving queue at max_queue_depth={depth} "
+                f"(policy=reject) — retry later or raise the bound")
+        # block: run the scheduler here until a spot frees.  Progress is
+        # certain while anything can retire or admit; an open breaker
+        # with nothing in flight cannot make any — refuse then
+        while len(self._queue) >= depth:
+            if self._no_block_progress():
+                raise QueueFull(
+                    f"serving queue at max_queue_depth={depth} and the "
+                    f"blocked submit cannot make progress: "
+                    f"{self._breaker.last_error or 'circuit open'}")
+            self.step()
+
+    def _no_block_progress(self):
+        return self._breaker.open and not self._breaker.allow_dispatch() \
+            and not (self._events or self._mirror_active.any()
+                     or self._pending is not None)
 
     def _known(self, rid, what):
         req = self._requests.get(rid)
@@ -420,9 +532,10 @@ class ServingEngine:
         the slot and its pages, its lane is made inactive on the device
         (a write in stream order: nothing is read back), and its tokens
         still in flight are dropped.  Returns False for a request already
-        ended; ``KeyError`` for an id never issued."""
+        ended (or preempted); ``KeyError`` for an id never issued."""
         req = self._known(rid, "cancel()")
-        if req.status in TERMINAL_STATUSES:
+        if req.status in TERMINAL_STATUSES \
+                or req.status == RequestStatus.PREEMPTED:
             return False
         self.stats["cancelled"] += 1
         if req in self._queue:
@@ -440,15 +553,21 @@ class ServingEngine:
             return True
         self._record_terminal(req, RequestStatus.CANCELLED,
                               f"cancelled in slot {req.slot}")
-        # the lane stops on the device: it must not keep writing into a
-        # table row (or lane) the host hands to the slot's next occupant
-        # before that occupant's admit overwrites the state
+        self._retire_in_slot(req)
+        return True
+
+    def _retire_in_slot(self, req):
+        """Retire a request that holds a slot (cancelled, or shed at its
+        deadline): its lane stops on the device — it must not keep writing
+        into a table row (or lane) the host hands to the slot's next
+        occupant before that occupant's admit overwrites the state — by a
+        write in stream order, with nothing read back; and the host mirror
+        frees the slot and its pages.  While its admit is still in flight
+        (mirror not yet live), ``_process_admit`` frees the slot."""
         if self._state is not None:
             self._state["active"][req.slot] = False
         if self._mirror_active[req.slot]:
             self._free_slot(req.slot)
-        # else the admit is still in flight: _process_admit frees the slot
-        return True
 
     def token_events(self, rid, on_event=None):
         """Subscribe to the request's per-token stream: a
@@ -465,7 +584,8 @@ class ServingEngine:
         for i, t in enumerate(req.tokens):
             stream.push({"event": "token", "rid": rid, "index": i,
                          "token": int(t)})
-        if req.status in TERMINAL_STATUSES:
+        if req.status in TERMINAL_STATUSES \
+                or req.status == RequestStatus.PREEMPTED:
             res = self._results.get(rid)
             stream.push({"event": "end", "rid": rid, "status": req.status,
                          "detail": res.detail if res is not None else ""})
@@ -493,17 +613,41 @@ class ServingEngine:
                     "detail": detail})
 
     def step(self):
-        """One scheduler iteration: admission prefill under the token
-        budget, one decode-block dispatch, then the device results one
-        event behind.  Returns ``{rid: output}`` for every request that
-        finished in this iteration."""
+        """One scheduler iteration: deadline shedding, admission prefill
+        under the token budget, one decode-block dispatch, then the device
+        results one event behind.  Returns ``{rid: output}`` for every
+        request that reached a terminal status in this iteration: the
+        output for ``COMPLETED``, ``None`` for the others (their detail in
+        :meth:`result`)."""
         if self._closed:
             raise RuntimeError("step() on a closed ServingEngine")
         t0 = time.perf_counter()
+        inject.fire("serving.sigterm_at_iter")
         self._ensure_workspace()
         finished = {}
-        self._admit()
-        dispatched = self._dispatch_decode()
+        self._shed_expired()
+        if self._breaker.enabled:
+            # a failed dispatch is absorbed (the failing call already
+            # aborted the requests in flight and dropped the workspace)
+            # and counted; threshold consecutive ones open the breaker:
+            # nothing is dispatched until the cooldown's half-open probe
+            dispatched = False
+            try:
+                if self._breaker.allow_dispatch():
+                    self._admit()
+                    dispatched = self._dispatch_decode()
+            except Exception as e:
+                self._breaker.record_failure(e)
+                self.stats["dispatch_failures"] += 1
+                logger.warning(
+                    f"serving dispatch failure absorbed by the circuit "
+                    f"breaker ({self._breaker.consecutive_failures}"
+                    f"/{self._breaker.threshold} consecutive"
+                    f"{'; OPEN' if self._breaker.open else ''}): "
+                    f"{type(e).__name__}: {e}")
+        else:
+            self._admit()
+            dispatched = self._dispatch_decode()
         # lag-one: with fresh work in flight, leave the newest event unread
         # so the device keeps running while the host does bookkeeping; once
         # nothing new was dispatched, flush fully
@@ -511,7 +655,46 @@ class ServingEngine:
         self.stats["iterations"] += 1
         self.stats["wall_secs"] += time.perf_counter() - t0
         self._it += 1
+        finished.update(self._pending_reports)
+        self._pending_reports.clear()
         return finished
+
+    def _shed_expired(self):
+        """Deadlines at the scheduling point: expired queued requests are
+        shed before admission (they never take a slot); an expired
+        admission in progress gives back its slot, pages and lanes; an
+        expired request in a slot is retired there (:meth:`_retire_in_slot`:
+        its lane stops on the device too)."""
+        now = time.monotonic()
+        expired = [r for r in self._queue
+                   if r.deadline is not None and now >= r.deadline]
+        for req in expired:
+            self._queue.remove(req)
+            self.stats["shed"] += 1
+            self._record_terminal(
+                req, RequestStatus.SHED_DEADLINE,
+                f"deadline expired {now - req.deadline:.3f}s ago while "
+                f"queued (never occupied a slot)")
+        p = self._pending
+        if p is not None and p.req.deadline is not None \
+                and now >= p.req.deadline:
+            self._give_back_lanes(p)
+            self._free.append(int(p.slot))
+            self._release_slot_pages(p.slot)
+            self._pending = None
+            self.stats["shed"] += 1
+            self._record_terminal(p.req, RequestStatus.SHED_DEADLINE,
+                                  "deadline expired during admission "
+                                  "prefill")
+        for req in list(self._slots):
+            if req is None or req.deadline is None or now < req.deadline \
+                    or req.status in TERMINAL_STATUSES:
+                continue
+            self.stats["shed"] += 1
+            self._record_terminal(req, RequestStatus.SHED_DEADLINE,
+                                  f"deadline expired in slot {req.slot} "
+                                  f"after {len(req.tokens)} token(s)")
+            self._retire_in_slot(req)
 
     def work_pending(self):
         """True while anything submitted has not finished: queued,
@@ -519,24 +702,83 @@ class ServingEngine:
         return bool(self._queue or self._pending is not None or self._events
                     or self._mirror_active.any())
 
-    def drain(self):
-        """Run the scheduler until every submitted request has finished;
-        returns ``{rid: output}`` for everything that finished during the
-        call."""
+    def drain(self, timeout_s=None):
+        """Run the scheduler until every submitted request has reached a
+        terminal status; returns ``{rid: output}`` for everything that
+        ended during the call (``None`` for the non-``COMPLETED``).
+        ``timeout_s`` (default: the config's ``drain_timeout_s``; 0 or
+        None: no limit) bounds the wall clock: past it
+        :class:`~.slo.DrainTimeout` is raised with per-slot diagnostics
+        (slot, request, age of its last dispatch)."""
+        if timeout_s is None:
+            timeout = self.config.drain_timeout_s or None
+        else:
+            timeout = timeout_s or None      # an explicit 0: no limit
+        t0 = time.monotonic()
         results = {}
         while self.work_pending():
+            elapsed = time.monotonic() - t0
+            if timeout is not None and elapsed > timeout:
+                raise DrainTimeout(self._drain_diagnostics(timeout, elapsed))
+            if self._breaker.open and not self._breaker.allow_dispatch() \
+                    and not (self._events or self._mirror_active.any()):
+                # an open breaker with nothing in flight: wait out the
+                # cooldown instead of spinning on the queue
+                time.sleep(min(0.01,
+                               self._breaker.seconds_until_half_open()))
             results.update(self.step())
+        # outcomes recorded outside a step (a restore that did not fit)
+        results.update(self._pending_reports)
+        self._pending_reports.clear()
         return results
+
+    def _drain_diagnostics(self, timeout, elapsed):
+        now = time.monotonic()
+        lines = [f"drain() exceeded its {timeout:.1f}s wall-clock budget "
+                 f"({elapsed:.1f}s elapsed) with work outstanding: "
+                 f"queue={len(self._queue)}, "
+                 f"in_flight_events={len(self._events)}"]
+        for s, req in enumerate(self._slots):
+            if req is None:
+                continue
+            last = self._slot_last_dispatch.get(s)
+            age = f"{now - last:.1f}s ago" if last is not None else "never"
+            lines.append(f"  slot {s}: request {req.rid} "
+                         f"(status {req.status}, {len(req.tokens)} "
+                         f"token(s), last dispatch {age})")
+        if self._pending is not None:
+            lines.append(f"  pending prefill: request "
+                         f"{self._pending.req.rid} on slot "
+                         f"{self._pending.slot} "
+                         f"({self._pending.ci}/{self._pending.n_chunks} "
+                         f"chunks)")
+        if self._breaker.open:
+            lines.append(f"  circuit breaker OPEN "
+                         f"({self._breaker.consecutive_failures} "
+                         f"consecutive failures; last: "
+                         f"{self._breaker.last_error})")
+        if self.paged:
+            lines.append(f"  page pool: {self._pool.in_use}"
+                         f"/{self._pool.allocatable} in use, "
+                         f"{len(self._prefix)} prefix entries, "
+                         f"{self.stats['admission_stalls']} admission "
+                         f"stall(s)")
+        return "\n".join(lines)
 
     def close(self):
         """Retire the server: every undrained request ends ``ABORTED``, the
         KV workspaces are freed, and ``submit()`` / ``step()`` raise
-        afterwards.  Returns the sorted ids of the requests aborted
-        (idempotent: later calls return [])."""
+        afterwards.  Returns the sorted ids of the requests that were
+        undrained at the first call — the same list on every call (after
+        :meth:`preempt`, the snapshotted ids)."""
         if self._closed:
-            return []
+            return list(self._close_report)
         finished = {}
-        self._process_events(finished, keep=0)
+        try:
+            self._process_events(finished, keep=0)
+        except Exception as e:           # a failed device leaves them unread
+            logger.warning(f"serving close(): discarding unreadable "
+                           f"in-flight events ({type(e).__name__}: {e})")
         undrained = sorted(
             [r.rid for r in self._slots if r is not None]
             + ([self._pending.req.rid] if self._pending is not None else [])
@@ -551,7 +793,8 @@ class ServingEngine:
         if self.speculative:
             self._draft_lanes.release()
         self._closed = True
-        return undrained
+        self._close_report = undrained
+        return list(undrained)
 
     @property
     def queue_depth(self):
@@ -577,6 +820,254 @@ class ServingEngine:
         """Fraction of prefix lookups that matched >= 1 page."""
         n = self.stats["prefix_lookups"]
         return self.stats["prefix_hits"] / n if n else 0.0
+
+    # ------------------------------------------------------------------ #
+    # Graceful preemption: drain -> crash-atomic snapshot -> restore
+    # ------------------------------------------------------------------ #
+    def _undrained_requests(self):
+        """Every request that would be lost if the process died now:
+        in a slot, mid-admission and queued, in that order."""
+        reqs = [r for r in self._slots
+                if r is not None and r.status not in TERMINAL_STATUSES]
+        if self._pending is not None \
+                and self._pending.req.status not in TERMINAL_STATUSES:
+            reqs.append(self._pending.req)
+        reqs.extend(r for r in self._queue
+                    if r.status not in TERMINAL_STATUSES)
+        return reqs
+
+    def preempt(self, checkpoint_dir, drain_budget_s=None, tag=None):
+        """The SIGTERM path: stop admitting, keep decoding the slots in
+        flight for up to ``drain_budget_s`` seconds (default: the config's
+        ``drain_budget_s``; 0: snapshot at once), then snapshot every
+        undrained request — prompt, tokens committed so far, remaining
+        deadline — and the sampling generator's state crash-atomically
+        under ``checkpoint_dir``, and retire the server (closed afterwards;
+        the snapshotted requests end their streams ``PREEMPTED``).  Under
+        speculation only committed tokens reach the snapshot, and nothing
+        of the draft's.  Returns ``(tag, snapshotted_rids, finished)``,
+        ``finished`` holding the requests that ended during the drain.  A
+        fresh server resumes the snapshot with :meth:`restore`."""
+        if self._closed:
+            raise RuntimeError("preempt() on a closed ServingEngine")
+        budget = self.config.drain_budget_s if drain_budget_s is None \
+            else float(drain_budget_s)
+        t0 = time.monotonic()
+        finished = {}
+        self._shed_expired()
+        # the drain: decode-only iterations (no admission) under the budget
+        while (self._mirror_active.any()
+               or any(e[0] == "admit" for e in self._events)) \
+                and time.monotonic() - t0 < budget:
+            inject.fire("serving.mid_drain")
+            try:
+                dispatched = self._dispatch_decode()
+            except Exception as e:
+                # a sick device must not block the snapshot: the failed
+                # dispatch aborted the slots in flight; snapshot the rest
+                logger.error(f"serving preempt: drain dispatch failed "
+                             f"({type(e).__name__}: {e}) — snapshotting "
+                             f"the queue")
+                break
+            self._process_events(finished, keep=1 if dispatched else 0)
+        try:
+            # every dispatched round is processed: the snapshot holds the
+            # committed tokens, exactly
+            self._process_events(finished, keep=0)
+        except Exception as e:
+            logger.warning(f"serving preempt: discarding unreadable "
+                           f"in-flight events ({type(e).__name__}: {e})")
+            self._abort_in_flight("preempt event flush failed")
+        drain_secs = time.monotonic() - t0
+        self._shed_expired()                 # expired work is not resumed
+        undrained = self._undrained_requests()
+        tag = self.snapshot(checkpoint_dir, tag=tag)
+        for req in undrained:
+            req.status = RequestStatus.PREEMPTED
+            # open streams end with the typed event: the client knows its
+            # request resumes on a restarted server
+            self._publish_end(req, RequestStatus.PREEMPTED,
+                              f"preempted — snapshotted for resume "
+                              f"(tag {tag!r})")
+        snapped = [r.rid for r in undrained]
+        # retire without ABORTED accounting: the snapshotted requests are
+        # not lost, they resume elsewhere
+        if self._pending is not None:
+            self._give_back_lanes(self._pending)
+            self._pending = None
+        self._queue.clear()
+        self._events.clear()
+        self._slots = [None] * self.num_slots
+        self._free = deque(range(self.num_slots))
+        self._mirror_active[:] = False
+        self._state = None
+        self._cache = None
+        for prog in self._progs:
+            prog.reset()
+        self._lane_pool.release()
+        if self.speculative:
+            self._draft_cache = None
+            self._draft_lanes.release()
+        self._paging_reset()
+        self._closed = True
+        self._close_report = sorted(snapped)
+        self.stats["drain_secs"] = \
+            self.stats.get("drain_secs", 0.0) + drain_secs
+        self.stats["preempt_snapshotted"] = len(snapped)
+        finished.update(self._pending_reports)
+        self._pending_reports.clear()
+        logger.warning(f"serving preempt: drained {drain_secs:.2f}s, "
+                       f"{len(finished)} request(s) finished in drain, "
+                       f"{len(snapped)} snapshotted to {tag!r}")
+        return tag, snapped, finished
+
+    def snapshot(self, checkpoint_dir, tag=None):
+        """Publish the undrained requests and the sampling generator's
+        state crash-atomically under ``checkpoint_dir`` (staging dir,
+        manifest with checksums, fsync, atomic rename, ``latest`` swap;
+        :mod:`.snapshot`).  A pure write: the server's bookkeeping is
+        untouched.  Returns the tag.  The generator's state goes under
+        ``rng_torch``: the JAX engine's key data (``rng``) means nothing
+        to a ``torch.Generator``, and the JAX engine reads only ``rng``,
+        so the files stay interchangeable for greedy requests."""
+        from deepspeed_tpu_torch.inference.serving.snapshot import \
+            save_snapshot
+        self._snap_seq += 1
+        tag = tag or f"serving_{self._snap_seq}"
+        now = time.monotonic()
+        reqs = []
+        for r in self._undrained_requests():
+            cid = r.client_id
+            try:
+                json.dumps(cid)
+            except (TypeError, ValueError):
+                # a client_id JSON cannot hold must never cost the
+                # snapshot (and every undrained request with it)
+                logger.warning(
+                    f"serving snapshot: request {r.rid} client_id "
+                    f"{type(cid).__name__} is not JSON-serializable — "
+                    f"stored as str()")
+                cid = str(cid)
+            entry = {
+                "rid": int(r.rid),
+                "client_id": cid,
+                "prompt": [int(t) for t in r.ids],
+                # tokens generated so far (a queued resumed request has
+                # produced none here: its prefix)
+                "tokens": [int(t) for t in (r.tokens or r.prefix)],
+                "max_new": int(r.max_new),
+                "eos": int(r.eos),
+                "deadline_remaining_s":
+                    None if r.deadline is None else r.deadline - now,
+                "submitted_it": int(r.submitted_it),
+                "priority": int(r.priority),
+            }
+            if self.paged and r.slot is not None \
+                    and int(r.slot) in self._slot_pages:
+                # diagnostics only: restore re-prefills
+                entry["pages"] = compact_page_str(
+                    self._slot_pages[int(r.slot)])
+            reqs.append(entry)
+        state = {
+            "seq": int(self._snap_seq),
+            "iteration": int(self._it),
+            "next_rid": int(self._next_rid),
+            "rng_torch": self._gen.get_state().tolist(),
+            "requests": reqs,
+        }
+        return save_snapshot(checkpoint_dir, tag, state)
+
+    def restore(self, checkpoint_dir):
+        """Queue the newest valid snapshot's requests on this server with
+        their request ids, client ids and remaining deadlines, and restore
+        the sampling generator's state (a snapshot written by the JAX
+        engine has none the port can use: its key is ignored).  Each
+        resumed request re-prefills ``prompt + tokens so far`` through the
+        ordinary admission path and decodes the rest of its budget, so a
+        greedy output equals the uninterrupted run's.  A request that does
+        not fit this server's lanes or pool ends ``ABORTED`` with the
+        reason.  Returns the ids queued (empty when there is nothing to
+        resume)."""
+        from deepspeed_tpu_torch.inference.serving.snapshot import \
+            load_newest_snapshot
+        tag, state = load_newest_snapshot(checkpoint_dir)
+        if state is None:
+            return []
+        self._snap_seq = max(self._snap_seq, int(state.get("seq", 0)))
+        if state.get("rng_torch"):
+            self._gen.set_state(torch.tensor(state["rng_torch"],
+                                             dtype=torch.uint8))
+        elif state.get("rng"):
+            logger.warning(f"serving restore[{tag}]: the snapshot's RNG is "
+                           f"another framework's key — ignored (sampled "
+                           f"streams cannot match across RNGs; greedy "
+                           f"outputs are unaffected)")
+        now = time.monotonic()
+        spec_tail = self._spec_tail
+        rids = []
+        for r in state.get("requests", []):
+            if int(r["rid"]) in self._requests:
+                raise ValueError(
+                    f"restore(): request id {r['rid']} already exists on "
+                    f"this server — call restore() before submitting new "
+                    f"work (snapshotted ids are preserved verbatim)")
+            ids = np.asarray(r["prompt"], np.int32)
+            prefix = [int(t) for t in r.get("tokens", [])]
+            max_new, eos = int(r["max_new"]), int(r["eos"])
+            if len(prefix) >= max_new or (eos >= 0 and eos in prefix):
+                continue                 # finished: nothing to resume
+            deadline = None
+            if r.get("deadline_remaining_s") is not None:
+                deadline = now + float(r["deadline_remaining_s"])
+            req = ServeRequest(
+                int(r["rid"]), ids, max_new, eos, submitted_it=self._it,
+                deadline=deadline, client_id=r.get("client_id"),
+                prefix=prefix, submit_t=now, resumed=True)
+            # submit()'s capacity checks against THIS server (the snapshot
+            # may come from one with longer lanes or a bigger pool)
+            P = len(ids)
+            need = max(P + max_new + spec_tail,
+                       -(-P // self.chunk) * self.chunk)
+            why = None
+            if need > self.max_pos:
+                why = (f"restored request needs more than the "
+                       f"{self.max_pos} cache positions this server's "
+                       f"lanes hold (prompt {P} + new {max_new}) — raise "
+                       f"serving.max_cache_len to resume it")
+            elif self.paged and pages_for(need, self.page) \
+                    > self._pool.allocatable:
+                why = (f"restored request needs "
+                       f"{pages_for(need, self.page)} pages but this "
+                       f"server's pool holds {self._pool.allocatable} "
+                       f"allocatable (num_pages={self.num_pages} incl. "
+                       f"trash) — raise serving.num_pages to resume it")
+            self._requests[req.rid] = req
+            self._next_rid = max(self._next_rid, req.rid + 1)
+            if why is not None:
+                self._record_terminal(req, RequestStatus.ABORTED, why)
+                logger.warning(f"serving restore: request {req.rid} does "
+                               f"not fit this server — ABORTED")
+                continue
+            # the resumed fill (prompt + prefix) must still fit a lane;
+            # when its chunk-padded tail would not, drop the prefix and
+            # decode again from the prompt (the same tokens, at more cost)
+            fill = P + len(prefix)
+            padded = -(-fill // self.chunk) * self.chunk
+            if prefix and max(fill + (max_new - len(prefix)) + spec_tail,
+                              padded) > self.max_pos:
+                logger.warning(
+                    f"serving restore: request {req.rid} prefix "
+                    f"({len(prefix)} tokens) does not fit its lane "
+                    f"chunk-padded — re-decoding from the prompt")
+                req.prefix = []
+            self._queue.append(req)
+            rids.append(req.rid)
+        self._next_rid = max(self._next_rid, int(state.get("next_rid", 0)))
+        self.stats["resumed"] += len(rids)
+        if rids:
+            log_dist(f"serving restore[{tag}]: resumed {len(rids)} "
+                     f"request(s) {rids}", ranks=[0])
+        return rids
 
     # ------------------------------------------------------------------ #
     # Host <-> device without waiting on the device
@@ -653,9 +1144,10 @@ class ServingEngine:
         self._slot_pages.clear()
 
     def _record_terminal(self, req, status, detail):
-        """A terminal outcome other than ``COMPLETED`` (output None): the
-        result is recorded before the stream's ``end`` event, so a
-        subscriber woken by it can read ``result(rid)``."""
+        """A terminal outcome other than ``COMPLETED`` (output None),
+        reported by the next ``step()``: the result is recorded before the
+        stream's ``end`` event, so a subscriber woken by it can read
+        ``result(rid)``."""
         req.status = status
         req.finished_it = self._it
         if status == RequestStatus.ABORTED:
@@ -664,8 +1156,9 @@ class ServingEngine:
             if req.first_tok_t is not None else None
         self._results[req.rid] = RequestResult(
             rid=req.rid, status=status, detail=detail,
-            submitted_it=req.submitted_it, finished_it=self._it,
-            ttft_s=ttft)
+            client_id=req.client_id, submitted_it=req.submitted_it,
+            finished_it=self._it, ttft_s=ttft)
+        self._pending_reports[req.rid] = None
         self._publish_end(req, status, detail)
 
     def _give_back_lanes(self, p):
@@ -679,7 +1172,10 @@ class ServingEngine:
     def _abort_in_flight(self, why):
         """Drop every request past admission and restore the slot
         bookkeeping to all-free; queued requests survive.  The next step
-        starts on a fresh workspace (the draft's cache included)."""
+        starts on a fresh workspace (the draft's cache included).  The
+        aborted lanes stop on the device with the state they ran on: it is
+        dropped here (every lane of the next state is inactive), and so are
+        the graphs captured over it, so none of them runs again."""
         lost = [r for r in self._slots if r is not None]
         if self._pending is not None:
             lost.append(self._pending.req)
@@ -728,12 +1224,15 @@ class ServingEngine:
             self._state = slots.init_slot_state(self.num_slots, self.device)
             self._mirror_active[:] = False
 
-    def _guarded(self, fn, *args):
-        """Run one device call; on a failure the workspace may hold half a
-        step, so every request past admission is aborted (the queue
-        survives), the workspace and the decode graphs captured on it are
-        dropped, and the error propagates."""
+    def _guarded(self, fn, *args, point=None):
+        """Run one device call (after firing the fault-injection ``point``,
+        if any, so that an injected fault fails the call); on a failure the
+        workspace may hold half a step, so every request past admission is
+        aborted (the queue survives), the workspace and the decode graphs
+        captured on it are dropped, and the error propagates."""
         try:
+            if point is not None:
+                inject.fire(point)
             return fn(*args)
         except BaseException:
             self._cache = None
@@ -770,19 +1269,22 @@ class ServingEngine:
             done = self._run_prefill_chunk(self._pending)
             spent += self.chunk
             if done:
-                pend, self._pending = self._pending, None
-                self._dispatch_admit(pend)
+                # still pending while its admit runs: a failed admit
+                # aborts it with the requests in flight
+                self._dispatch_admit(self._pending)
+                self._pending = None
 
     def _start_prefill(self, req):
-        P = len(req.ids)
+        fill = req.fill_ids              # the prompt + any resumed tokens
+        P = len(fill)
         if self.paged:
-            return self._start_prefill_paged(req, P)
+            return self._start_prefill_paged(req, fill, P)
         slot = self._free.popleft()
         req.slot = slot
         req.status = RequestStatus.PREFILLING
         n = -(-P // self.chunk)
         ids_pad = np.zeros((1, n * self.chunk), np.int64)
-        ids_pad[0, :P] = req.ids
+        ids_pad[0, :P] = fill
         lane = self._lane_pool.take(self.cache_len, self.engine.compute_dtype)
         pend = _PendingPrefill(req, slot, lane, ids_pad, n, P)
         self._take_draft_lane(pend)
@@ -795,13 +1297,13 @@ class ServingEngine:
             pend.draft_lane = self._draft_lanes.take(
                 self.cache_len, self.engine.compute_dtype)
 
-    def _start_prefill_paged(self, req, P):
+    def _start_prefill_paged(self, req, fill, P):
         """Paged admission: map the longest indexed prefix (full pages,
         refcounted — prefilled ONCE per unique prefix), allocate private
         pages for the rest of the virtual lane, and prefill only from the
         shared boundary on.  Returns ``None`` (nothing popped, nothing
         allocated) when the pool cannot back the request yet."""
-        fill = req.ids
+        dev_new = req.max_new - len(req.prefix)
         matched = []
         # speculative serving shares no prefix: the draft's lanes have no
         # pool, so its prefill runs from position 0 anyway
@@ -826,10 +1328,10 @@ class ServingEngine:
             m = len(matched)
         s0 = m * self.page               # prefill start
         n_chunks = -(-(P - s0) // self.chunk)
-        # the slot's virtual extent: decode writes through P+max_new-1, the
+        # the slot's virtual extent: decode writes through P+dev_new-1, the
         # padded last chunk through s0+n_chunks*C-1 — those pages are the
         # slot's own
-        virt = max(P + req.max_new, s0 + n_chunks * self.chunk)
+        virt = max(P + dev_new, s0 + n_chunks * self.chunk)
         need_private = pages_for(virt, self.page) - m
         got = self._pool.alloc(need_private)
         if got is None and self.config.prefix_cache:
@@ -884,6 +1386,7 @@ class ServingEngine:
             self._guarded(slots.draft_chunk, self.draft_module, p.draft_lane,
                           ids, start)
             self.stats["spec_draft_secs"] += time.perf_counter() - t0
+        self._breaker.record_success()
         if (P - 1 - p.start) // C == p.ci:
             # this chunk holds the prompt's last real position: its logits
             # seed the first token (never read on the host here)
@@ -896,15 +1399,19 @@ class ServingEngine:
         """Prefill complete: one admit call samples the first token (and,
         monolithic, copies the lane into the slot) and writes the slot
         state on the device; the first token is read when the event is
-        processed."""
+        processed.  A resumed request admits with the rest of its budget
+        (its prefix already counts against ``max_new``)."""
         req = p.req
-        sample = (p.sel, p.slot, p.fill_len, req.max_new, req.eos,
+        dev_new = req.max_new - len(req.prefix)
+        sample = (p.sel, p.slot, p.fill_len, dev_new, req.eos,
                   self._sample_fn, self._gen)
         if self.paged:
-            first = self._guarded(slots.paged_admit, self._state, *sample)
+            first = self._guarded(slots.paged_admit, self._state, *sample,
+                                  point="serving.pre_admit")
         else:
             first = self._guarded(slots.admit, self._cache, self._state,
-                                  p.lane, *sample)
+                                  p.lane, *sample, point="serving.pre_admit")
+        self._breaker.record_success()
         if self.paged and self.config.prefix_cache and not self.speculative:
             # index this request's full-prompt pages as sharable: their
             # prefill writes were dispatched before this admit, and nothing
@@ -918,6 +1425,7 @@ class ServingEngine:
             self._guarded(slots.draft_admit, self._draft_cache, p.draft_lane,
                           p.slot)
             self.stats["spec_draft_secs"] += time.perf_counter() - t0
+        self._slot_last_dispatch[int(p.slot)] = time.monotonic()
         req.status = RequestStatus.RUNNING
         self._slots[p.slot] = req
         self._events.append(("admit", req, p.slot, p.lane, p.draft_lane,
@@ -936,8 +1444,14 @@ class ServingEngine:
         if self.speculative:
             self._events.append(self._dispatch_spec())
         else:
-            toks = self._guarded(self._decode_prog, *self._decode_args())
+            toks = self._guarded(self._decode_prog, *self._decode_args(),
+                                 point="serving.pre_decode_dispatch")
             self._events.append(("decode", *self._to_host(toks)))
+        self._breaker.record_success()
+        now = time.monotonic()
+        for s, r in enumerate(self._slots):
+            if r is not None:
+                self._slot_last_dispatch[s] = now
         self.stats["decode_calls"] += 1
         return True
 
@@ -953,7 +1467,8 @@ class ServingEngine:
         through the device, no host read.  The draft tokens never leave
         the device."""
         t0 = time.perf_counter()
-        draft = self._guarded(self._propose_prog, *self._propose_args())
+        draft = self._guarded(self._propose_prog, *self._propose_args(),
+                              point="serving.pre_decode_dispatch")
         t1 = time.perf_counter()
         self.stats["spec_draft_secs"] += t1 - t0
         toks, accepted = self._guarded(self._verify_prog,
@@ -1072,6 +1587,7 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     def _process_events(self, finished, keep=0):
         while len(self._events) > keep:
+            inject.fire("serving.mirror_drain")
             ev = self._events.popleft()
             if ev[0] == "admit":
                 self._process_admit(ev, finished)
@@ -1095,9 +1611,11 @@ class ServingEngine:
             return
         if req.first_tok_t is None:
             req.first_tok_t = time.monotonic()
-        req.tokens = [first]
-        # mirror the admit's activation rule
-        if (req.eos >= 0 and first == req.eos) or req.max_new == 1:
+        req.tokens = list(req.prefix) + [first]
+        # mirror the admit's activation rule (the device saw the rest of
+        # the budget, max_new - len(prefix))
+        if (req.eos >= 0 and first == req.eos) \
+                or req.max_new - len(req.prefix) == 1:
             self._free_slot(slot)
             finished[req.rid] = self._finalize(req)
         else:
@@ -1168,7 +1686,8 @@ class ServingEngine:
 
     def _finalize(self, req):
         """The ``generate()`` output contract: ``[prompt..., tokens...]`` of
-        length ``P + max_new_tokens``, eos-padded past an early stop."""
+        length ``P + max_new_tokens``, eos-padded past an early stop (a
+        resumed request's tokens begin with its prefix)."""
         req.finished_it = self._it
         req.status = RequestStatus.COMPLETED
         self.stats["completed"] += 1
@@ -1179,8 +1698,8 @@ class ServingEngine:
         out[P:P + len(req.tokens)] = np.asarray(req.tokens, np.int32)
         self._results[req.rid] = RequestResult(
             rid=req.rid, status=RequestStatus.COMPLETED, output=out,
-            submitted_it=req.submitted_it, finished_it=self._it,
-            ttft_s=req.first_tok_t - req.submit_t)
+            client_id=req.client_id, submitted_it=req.submitted_it,
+            finished_it=self._it, ttft_s=req.first_tok_t - req.submit_t)
         self._publish_end(req, RequestStatus.COMPLETED)
         return out
 

@@ -36,6 +36,23 @@ def pages_for(virtual_len, page_size):
     return -(-int(virtual_len) // int(page_size))
 
 
+def compact_page_str(pages):
+    """Range-compressed page list: ``[4,5,6,9,2]`` → ``"4-6,9,2"`` (how a
+    serving snapshot records a slot's pages, for diagnostics)."""
+    pages = [int(p) for p in pages]
+    if not pages:
+        return ""
+    parts, lo, prev = [], pages[0], pages[0]
+    for p in pages[1:]:
+        if p == prev + 1:
+            prev = p
+            continue
+        parts.append(f"{lo}-{prev}" if prev > lo else f"{lo}")
+        lo = prev = p
+    parts.append(f"{lo}-{prev}" if prev > lo else f"{lo}")
+    return ",".join(parts)
+
+
 class PagePool:
     """Refcounted free-list mirror of the device page pool.  A page is
     freed only when the retirement that releases it has been PROCESSED

@@ -117,6 +117,8 @@ class CompiledGraphModule:
         self.enable_cuda_graph = enable_cuda_graph
         self._donate = frozenset(donate_argnums)
         self.iter_count = 0
+        # graphs captured over this module's life (reset() keeps the count)
+        self.captures = 0
         self._graphs = {}
         self._pool = None
 
@@ -200,4 +202,5 @@ class CompiledGraphModule:
                 + after[len(before):]
             op_builder.add_launch_counts([-n for n in launches])
         self._graphs[key] = _Captured(graph, static, outputs, launches)
+        self.captures += 1
         return out

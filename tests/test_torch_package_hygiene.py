@@ -46,6 +46,10 @@ def test_import_leaves_jax_unloaded():
             "deepspeed_tpu_torch.ops.transformer.registry, "
             "deepspeed_tpu_torch.ops.transformer.paged_attention, "
             "deepspeed_tpu_torch.inference.serving.engine, "
+            "deepspeed_tpu_torch.inference.serving.snapshot, "
+            "deepspeed_tpu_torch.inference.serving.resilient, "
+            "deepspeed_tpu_torch.runtime.fault, "
+            "deepspeed_tpu_torch.elasticity, "
             "deepspeed_tpu_torch.runtime.engine, "
             "deepspeed_tpu_torch.runtime.dataloader, "
             "deepspeed_tpu_torch.runtime.weight_quantizer, "
@@ -103,9 +107,15 @@ def test_unported_config_knobs_raise():
                  dict(fault={"bucket_downshift": True}),
                  dict(compile_cache={"enabled": True}),
                  dict(serving={"tracing": True}),
-                 dict(serving={"max_queue_depth": 4})):
+                 dict(serving={"fairness_tokens_per_s": 4.0})):
         with pytest.raises(NotImplementedError):
             DeepSpeedInferenceConfig(**knob)
+    # the request lifecycle is ported
+    slo = DeepSpeedInferenceConfig(serving={
+        "max_queue_depth": 4, "queue_policy": "block",
+        "breaker_threshold": 2}).serving
+    assert (slo.max_queue_depth, slo.queue_policy, slo.breaker_threshold) \
+        == (4, "block", 2)
     # speculative decoding is ported
     spec = DeepSpeedInferenceConfig(serving={
         "speculative": True, "spec_k": 3, "spec_draft_model": "self"}).serving

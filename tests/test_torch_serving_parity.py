@@ -304,10 +304,12 @@ def test_config_validation_and_lifecycle(setup):
     eng = s["eng"]
     assert isinstance(eng._config.serving, ServingConfig)
     assert eng._config.serving.num_slots == 3
-    for knob in (dict(default_deadline_s=1.0), dict(tracing=True),
-                 dict(max_queue_depth=4), dict(priority_lanes=2)):
+    for knob in (dict(flight_recorder=True), dict(tracing=True),
+                 dict(fairness_tokens_per_s=4.0), dict(priority_lanes=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             eng.serve(**knob)
+    with pytest.raises(ValueError, match="queue_policy"):
+        eng.serve(queue_policy="drop")
     with pytest.raises(ValueError, match="admission"):
         eng.serve(admission="lifo")
     with pytest.raises(ValueError, match="num_pages"):

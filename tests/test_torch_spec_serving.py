@@ -525,7 +525,8 @@ def test_cancel_frees_slot_pages_and_lanes(opt, route):
             assert srv.status(rid) == res.status == end["status"] \
                 == RequestStatus.CANCELLED
             assert res.output is None and end["detail"] == res.detail
-            assert rid not in outs
+            # reported without an output, as JAX's step() reports it
+            assert outs.get(rid, None) is None
         else:
             np.testing.assert_array_equal(outs[rid], want)
     assert srv.stats["cancelled"] == 3

@@ -157,7 +157,22 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    plain server's, every snapshotted token list a prefix of its output;
    with the seconds of ``preempt()`` and ``restore()``, the first token
    after the restore and the tokens prefilled again;
-15. prints the card, a ``kernels`` JSON line and, last, the result line.
+15. drives checkpointing, run (c-ckpt): run (c)'s model and batch shape
+   with the ``fault`` block on (sha256 manifests, ``keep_last_n`` 1) — 2
+   steps, ``save_checkpoint`` (15.8 GB of fp32 masters and Adam moments,
+   written one tensor at a time), 2 more steps; then a fresh engine from
+   another seed, with the tag's files evicted from the page cache,
+   ``load_checkpoint`` takes the verified newest tag and the same 2 steps:
+   losses and digests of the parameters and both moments bitwise the
+   unbroken run's, 24 K1 / K4 / K5 launches a step; the tag
+   (``init_inference(config={"checkpoint": ...})``), the resumed weights
+   (``set_params``) and a ``save_16bit_model`` safetensors export each
+   generate run (a)'s shape with bitwise the same tokens and run (a)'s
+   launches; a ``ckpt`` line gives bytes, files, seconds and GB/s of the
+   save (write, manifest checksum, fsync + publish) and the load (verify,
+   read, copy to the card), the host's peak RSS growth of each, and the
+   export's bytes and seconds; it needs 32 GB free under ``build/``;
+16. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 Generation and serving run on the captured decode programs (CUDA graphs,
 ``enable_cuda_graph``'s default) after ``warmup()`` / ``srv.warmup()``,
@@ -406,6 +421,16 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": RUN_C["micro"],
                 "gradient_clipping": 1.0,
                 "zero_optimization": {"stage": 0},
                 "seed": 0}
+# run (c-ckpt): run (c)'s model, config and batch shape with the fault
+# block on (sha256 manifests, retention of 1 tag): 2 steps, save, 2 more
+# steps; then a fresh engine from another seed resumes from the newest
+# valid tag and takes the same 2 steps, bitwise; then the tag, the resumed
+# weights (set_params) and a safetensors export serve run (a)'s shape
+RUN_CKPT = dict(before=2, after=2, seed=7, fresh_seed=1,
+                min_free_bytes=32e9)
+TRAIN_CKPT_CONFIG = {**TRAIN_CONFIG,
+                     "fault": {"enabled": True, "keep_last_n": 1}}
+CKPT_DIR = os.path.join(ROOT, "build", "ckpt")
 # K4 / K5 in bf16 against the fp32 plain backward of the same bf16 inputs:
 # both sum in fp32, then the kernel rounds each gradient to bf16, which is
 # off by at most half an ulp (2^-8 of the value, <= 2^-8 of the largest
@@ -4254,6 +4279,282 @@ def train_path():
         "flash_attention_dkv": L}, route="train_batch")
 
 
+# --------------------------------------------------------------------- #
+# Checkpointing: save_checkpoint -> load_checkpoint on a fresh engine,
+# then serving from the tag and from a 16-bit export, run (c-ckpt)
+# --------------------------------------------------------------------- #
+class RssPeak:
+    """The host's resident set, sampled every 10 ms on a thread: the peak
+    growth over the value at ``start()``."""
+
+    def __init__(self):
+        import threading
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.base = self.peak = 0
+
+    @staticmethod
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self.rss())
+
+    def __enter__(self):
+        self.base = self.peak = self.rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+
+    @property
+    def growth(self):
+        return self.peak - self.base
+
+
+def digests(engine):
+    """Bitwise digests of the master parameters and both Adam moments:
+    per tensor, the int64 sum of its int32 view."""
+    import torch
+
+    def d(ts):
+        return torch.stack([t.view(torch.int32).sum(dtype=torch.int64)
+                            for t in ts]).tolist()
+
+    st = engine._opt_state
+    return {"params": d(engine.params), "exp_avg": d(st.exp_avg),
+            "exp_avg_sq": d(st.exp_avg_sq)}
+
+
+def evict_page_cache(root):
+    """Drop the (fsynced) files under ``root`` from the host's page cache,
+    so the load that follows reads them from the disk, as a resume after
+    a preemption does."""
+    for dirpath, _d, files in os.walk(root):
+        for name in files:
+            fd = os.open(os.path.join(dirpath, name), os.O_RDONLY)
+            try:
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+
+def tree_bytes(root):
+    n = files = 0
+    for dirpath, _d, names in os.walk(root):
+        for name in names:
+            n += os.path.getsize(os.path.join(dirpath, name))
+            files += 1
+    return n, files
+
+
+def ckpt_engine(seed):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.opt import opt_model
+    model = opt_model(MODEL, max_seq_len=RUN_C["seq"], loss_seq_chunks=RUN_C[
+        "loss_chunks"], remat=False, dtype="bfloat16")
+    engine, *_ = initialize(model=model,
+                            config={**TRAIN_CKPT_CONFIG, "seed": seed},
+                            device=DEV)
+    return engine
+
+
+def ckpt_batch(step, V):
+    """Run (c)'s batch shape, drawn from the step number alone."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(RUN_CKPT["seed"] + step)
+    return {"input_ids": torch.randint(0, V, (1, RUN_C["micro"],
+                                              RUN_C["seq"]),
+                                       generator=g, device=DEV)}
+
+
+def ckpt_steps(engine, V, steps):
+    import torch
+    losses = [engine.train_batch(batch=ckpt_batch(engine.global_steps + 1,
+                                                  V))
+              for _ in range(steps)]
+    torch.cuda.synchronize()
+    return torch.stack(losses).float().tolist()
+
+
+def served_tokens(tag, eng, ids, new, expect):
+    """Greedy tokens of run (a)'s shape on the decode graphs, with run
+    (a)'s launch counts."""
+    eng.warmup(ids.shape[1], new, batch_sizes=(ids.shape[0],))
+    out, dt, counts, _ = run_generate(eng, ids, new, expect)
+    return out, {"seconds": dt, "launches": {k: n for k, n in counts.items()
+                                             if n}}
+
+
+def ckpt_serve(engine, d, rec):
+    """The tag (``init_inference(config={"checkpoint": d})``), the resumed
+    engine's weights (``set_params``) and a ``save_16bit_model``
+    safetensors export (``load_checkpoint(file)``) each serve run (a)'s
+    shape: bitwise the same greedy tokens, K1 / K2 launches as in run
+    (a)."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import opt_model
+    L, V = engine.module.config.num_layers, engine.module.config.vocab_size
+    B, P, new = RUN_A["batch"], RUN_A["prompt"], RUN_A["new"]
+    g = torch.Generator(device=DEV).manual_seed(4)
+    ids = torch.randint(0, V, (B, P), generator=g, device=DEV)
+    expect = {"flash_attention": L, "decode_attention": L * (new - 1)}
+    serve = {}
+    t0 = time.perf_counter()
+    eng = init_inference(opt_model(MODEL, max_seq_len=RUN_C["seq"]), device=DEV,
+                         config={"dtype": "bfloat16", "checkpoint": d})
+    torch.cuda.synchronize()
+    serve["tag_load_seconds"] = time.perf_counter() - t0
+    want, serve["from_tag"] = served_tokens("tag", eng, ids, new, expect)
+    del eng
+    eng = init_inference(opt_model(MODEL, max_seq_len=RUN_C["seq"]), dtype="bfloat16", device=DEV)
+    eng.set_params(engine.module.state_dict())
+    got, serve["from_set_params"] = served_tokens("set_params", eng, ids,
+                                                  new, expect)
+    del eng
+    if not torch.equal(got, want):
+        fail("run (c-ckpt): tokens from set_params differ from the tag's")
+    name = "model.safetensors"
+    t0 = time.perf_counter()
+    engine.save_16bit_model(d, name)
+    serve["export_seconds"] = time.perf_counter() - t0
+    serve["export_bytes"] = os.path.getsize(os.path.join(d, name))
+    t0 = time.perf_counter()
+    eng = init_inference(opt_model(MODEL, max_seq_len=RUN_C["seq"]), dtype="bfloat16", device=DEV)
+    eng.load_checkpoint(os.path.join(d, name))
+    torch.cuda.synchronize()
+    serve["export_load_seconds"] = time.perf_counter() - t0
+    got, serve["from_export"] = served_tokens("export", eng, ids, new,
+                                              expect)
+    del eng
+    torch.cuda.empty_cache()
+    if not torch.equal(got, want):
+        fail("run (c-ckpt): tokens from the safetensors export differ from "
+             "the tag's")
+    serve["tokens_bitwise_equal"] = True
+    rec["serve"] = serve
+
+
+def ckpt_run(d):
+    import gc
+    import torch
+    from deepspeed_tpu_torch.runtime.fault.manifest import list_tags
+    engine = ckpt_engine(RUN_C["seed"])
+    L, V = engine.module.config.num_layers, engine.module.config.vocab_size
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      engine.params + engine._opt_state.exp_avg +
+                      engine._opt_state.exp_avg_sq)
+    ckpt_steps(engine, V, RUN_CKPT["before"])
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        engine.save_checkpoint(d)
+        save_s = time.perf_counter() - t0
+    tag = f"global_step{RUN_CKPT['before']}"
+    if list_tags(d) != [tag]:
+        fail(f"run (c-ckpt): tags {list_tags(d)} after the save, want "
+             f"[{tag}]")
+    nbytes, nfiles = tree_bytes(os.path.join(d, tag))
+    save = {"seconds": save_s, "bytes": nbytes, "files": nfiles,
+            "host_rss_growth_bytes": rss.growth,
+            **{k: engine.checkpoint_stats["save"][k] for k in (
+                "write_stage_s", "write_s", "manifest_s", "publish_s")}}
+    at_tag = digests(engine)
+    want_losses = ckpt_steps(engine, V, RUN_CKPT["after"])
+    want = {"digests": digests(engine), "global_steps": engine.global_steps,
+            "lr": engine.get_lr(),
+            "scale": float(engine._scaler_state.scale)}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    engine = ckpt_engine(RUN_CKPT["fresh_seed"])
+    if digests(engine)["params"] == at_tag["params"]:
+        fail("run (c-ckpt): the fresh engine already holds the tag's "
+             "weights")
+    evict_page_cache(d)
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        path, _ = engine.load_checkpoint(d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    if path is None or not path.startswith(os.path.join(d, tag)):
+        fail(f"run (c-ckpt): load_checkpoint took {path}, want {tag}")
+    stats = engine.checkpoint_stats["load"]
+    load = {"seconds": load_s, "host_rss_growth_bytes": rss.growth,
+            "bytes": stats["bytes"], "files": stats["files"],
+            "verify_s": stats["verify_s"], "read_s": stats["read_s"],
+            "copy_s": stats["copy_s"], "page_cache": "evicted"}
+    if digests(engine) != at_tag:
+        fail("run (c-ckpt): the loaded parameters / moments are not the "
+             "tag's bitwise")
+    rec = {"run": "c_ckpt", "layers": L, "micro_batch": RUN_C["micro"],
+           "seq": RUN_C["seq"], "checksum": "sha256",
+           "state_bytes": state_bytes, "save": save, "load": load}
+    for phase, n_s in (("save", ("write_s", "manifest_s", "publish_s",
+                                 "seconds")),
+                       ("load", ("verify_s", "read_s", "copy_s",
+                                 "seconds"))):
+        part = rec[phase]
+        part["gb_per_s"] = {k: part["bytes"] / part[k] / 1e9
+                            for k in n_s if part[k] > 0}
+    ckpt_serve(engine, d, rec)
+    reset_counts()
+    got_losses = ckpt_steps(engine, V, RUN_CKPT["after"])
+    counts = read_counts()
+    per_step = {k: n / RUN_CKPT["after"] for k, n in counts.items()}
+    expect = expect_only({"flash_attention": L, "flash_attention_dq": L,
+                          "flash_attention_dkv": L})
+    if per_step != expect:
+        fail(f"run (c-ckpt): launches per step {per_step} after the "
+             f"resume, the path needs {expect}")
+    got = {"digests": digests(engine), "global_steps": engine.global_steps,
+           "lr": engine.get_lr(), "scale": float(engine._scaler_state.scale)}
+    rec.update(losses=want_losses, resumed_losses=got_losses,
+               launches={k: n for k, n in counts.items() if n},
+               launches_per_step={k: n for k, n in per_step.items() if n},
+               global_steps=got["global_steps"], lr=got["lr"])
+    if got_losses != want_losses:
+        fail(f"run (c-ckpt): resumed losses {got_losses} are not the "
+             f"unbroken run's {want_losses} bitwise")
+    for key in want:
+        if got[key] != want[key]:
+            fail(f"run (c-ckpt): {key} after the resume differs from the "
+                 f"unbroken run's")
+    rec["bitwise"] = {"losses": True, "params": True, "exp_avg": True,
+                      "exp_avg_sq": True}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ckpt_path():
+    """Run (c-ckpt), in ``build/ckpt`` (removed at the end): needs free
+    disk for two tags of OPT-1.3B's fp32 state."""
+    import shutil
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    free = shutil.disk_usage(CKPT_DIR).free
+    emit({"run": "c_ckpt", "disk_free_bytes": free, "dir": os.path.relpath(
+        CKPT_DIR, ROOT)})
+    if free < RUN_CKPT["min_free_bytes"]:
+        fail(f"run (c-ckpt): {free} bytes free at {CKPT_DIR}, it needs "
+             f"{RUN_CKPT['min_free_bytes']:.0f} (two tags of OPT-1.3B's "
+             f"fp32 parameters and Adam moments)")
+    try:
+        rec = ckpt_run(CKPT_DIR)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit({"ckpt": rec})
+    return rec
+
+
 def sparse_train_path():
     """Run (f): OPT-1.3B at seq 8192 with the tutorial BigBird layout, K8
     twice per layer per step (the forward and remat's recompute)."""
@@ -4533,6 +4834,7 @@ def main():
     runs.update(llama_path())
     emit({"graphs_vs_eager": graphs_vs_eager(runs)})
     runs["c"] = train_path()
+    runs["c_ckpt"] = ckpt_path()
     grad_check()
     runs["f"] = sparse_train_path()
     sparse_grad_check()
@@ -4648,6 +4950,14 @@ def main():
     kernels[1]["launches_run_b"] = runs["b"]["launches"]["decode_attention"]
     # K1 also runs in every layer of run (c), with the LSE, at [2, 2048]
     kernels[0]["launches_run_c"] = train["flash_attention"]
+    # run (c-ckpt): the resumed engine's steps (K1 / K4 / K5) and the
+    # generation from the tag (K1 / K2)
+    ckpt = runs["c_ckpt"]
+    for k in (kernels[0], kernels[3], kernels[4]):
+        k["launches_run_c_ckpt"] = ckpt["launches"][k["name"]]
+    for k in kernels[:2]:
+        k["launches_run_c_ckpt_serve"] = \
+            ckpt["serve"]["from_tag"]["launches"][k["name"]]
     k1c = checks[("K1 train", "bfloat16")]
     kernels[0]["run_c_shape"] = {**timing(k1c), "tflops": k1c["tflops"]}
     d128 = checks[("K1 train d128", "bfloat16")]

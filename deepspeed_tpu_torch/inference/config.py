@@ -10,8 +10,10 @@ programs of ``inference/engine.py`` and the serving engine.  Knobs whose
 feature this port does not have yet raise
 ``NotImplementedError`` when set away from their default, so a config
 never silently does nothing: tensor parallelism, expert parallelism, the
-memory guard's ``strict_memory``, checkpoint loading, the fault block's
-``bucket_downshift`` and the persistent compile cache.  The
+memory guard's ``strict_memory``, the fault block's ``bucket_downshift``
+(it needs ``strict_memory``) and the persistent compile cache.
+``checkpoint`` (a training tag's directory or a ``save_16bit_model``
+file) is loaded when the engine is built.  The
 ``serving`` block parses into :class:`~deepspeed_tpu_torch.inference.
 serving.config.ServingConfig`, which raises for its own unported knobs.
 """
@@ -109,8 +111,6 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
             _not_ported("moe / ep_size (expert parallelism)")
         if self.strict_memory:
             _not_ported("strict_memory (the compiled-program memory guard)")
-        if self.checkpoint is not None:
-            _not_ported("checkpoint (load weights with set_params)")
         if self.fault.get("bucket_downshift"):
             _not_ported("fault.bucket_downshift")
         if self.compile_cache.get("enabled"):

@@ -35,6 +35,7 @@ retries.  Cache updates happen in place instead of by donation.
 
 import time
 import weakref
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -97,6 +98,8 @@ class InferenceEngine:
         self._gen = self._accel.manual_seed(0, self.device)
         log_dist(f"inference engine on {self._accel.device_name(self.device)}"
                  f", dtype={self.compute_dtype}", ranks=[0])
+        if self._config.checkpoint is not None:
+            self.load_checkpoint(self._config.checkpoint)
 
     # ------------------------------------------------------------------ #
     # Weights
@@ -120,6 +123,70 @@ class InferenceEngine:
                  f"dtype={dtype}", ranks=[0])
         if self._quantizer:
             self._quantize()
+
+    def load_checkpoint(self, path, tag=None):
+        """Weights from a checkpoint, then :meth:`set_params` (int8
+        quantization included with ``quant.enabled``).
+
+        * A directory: a training checkpoint's tag (``latest``'s when
+          ``tag`` is None) — its ``module`` group.
+        * A file: a ``save_16bit_model`` export with flax-path keys — a
+          ``.safetensors`` file, or a torch state dict read with
+          ``weights_only=True``.  A file that needs full (code-executing)
+          unpickling — a legacy pickled parameter tree, a torch file with
+          other objects — loads only with
+          ``DSTPU_ALLOW_PICKLE_CHECKPOINTS=1``, as in the JAX package.
+          HF-named exports (``hf_policy``) need ``module_inject``, which is
+          not ported."""
+        import os
+        path = str(path)
+        if os.path.isfile(path):
+            self.set_params(self._params_from_file(path))
+            return
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine \
+            import TorchCheckpointEngine
+        from deepspeed_tpu_torch.runtime.fault.manifest import read_latest
+        tag = tag or read_latest(path)
+        state_path = os.path.join(path, str(tag), "state") if tag else path
+        arrays, _ = TorchCheckpointEngine().load(state_path,
+                                                 groups=("module",))
+        if not arrays or arrays.get("module") is None:
+            from deepspeed_tpu_torch.runtime.fault.manifest import \
+                CheckpointCorrupt
+            raise CheckpointCorrupt(f"{state_path}: no 'module' arrays to "
+                                    "load")
+        self.set_params(arrays["module"])
+
+    def _params_from_file(self, path):
+        """A ``state_dict`` of this model from an export file (flax-path
+        keys) or a pickled parameter tree."""
+        import os
+        import pickle
+        from deepspeed_tpu_torch.models.transformer import params_from_flax
+        cfg = self.module.config
+        if path.endswith(".safetensors"):
+            from deepspeed_tpu_torch.checkpoint.safetensors_io import load_file
+            return params_from_flax(_flax_flat(load_file(path)), cfg)
+        try:
+            # weights_only: never execute pickled code while probing
+            tree = torch.load(path, map_location="cpu", weights_only=True)
+        except (pickle.UnpicklingError, RuntimeError):
+            if os.environ.get("DSTPU_ALLOW_PICKLE_CHECKPOINTS") != "1":
+                raise ValueError(
+                    f"{path}: not loadable with weights_only unpickling; "
+                    "full pickle execution is disabled for untrusted files. "
+                    "Set DSTPU_ALLOW_PICKLE_CHECKPOINTS=1 to load a legacy "
+                    "pickled parameter tree (or a torch file with "
+                    "non-allowlisted objects) you trust.") from None
+            try:                         # torch file with other objects
+                tree = torch.load(path, map_location="cpu",
+                                  weights_only=False)
+            except RuntimeError:         # a bare pickle stream
+                with open(path, "rb") as f:
+                    tree = pickle.load(f)
+        if not any(isinstance(v, Mapping) for v in tree.values()):
+            tree = _flax_flat(tree)            # flat flax-path keys
+        return params_from_flax(tree, cfg)
 
     def init_params(self, seed=0):
         """Random init from a ``torch.Generator`` seeded with ``seed``
@@ -415,6 +482,20 @@ class InferenceEngine:
         from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
         return ServingEngine(self, draft_module=draft_module,
                              draft_params=draft_params, **overrides)
+
+
+def _flax_flat(flat):
+    """``{flax path: tensor}`` of an export → float32 numpy leaves under
+    paths relative to the ``params`` collection (``params_from_flax``'s
+    input); HF-named keys (dots, no flax path) raise."""
+    if any("." in k and "/" not in k for k in flat):
+        raise ValueError(
+            "this file carries HF-named keys (an hf_policy export); loading "
+            "it needs module_inject, which is not ported to "
+            "deepspeed_tpu_torch yet")
+    return {(k[len("params/"):] if k.startswith("params/") else k):
+            (v.float().numpy() if torch.is_tensor(v) else np.asarray(v))
+            for k, v in flat.items()}
 
 
 def require_right_padded(attention_mask):

@@ -53,6 +53,7 @@ quantize the weights (:meth:`Transformer.quantize_weights_`, the JAX
 """
 
 import math
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Optional
 
@@ -964,3 +965,124 @@ def params_from_flax(tree, cfg):
     logger.debug(f"params_from_flax: {len(sd)} tensors from {len(flat)} "
                  f"leaves")
     return sd
+
+
+@torch.no_grad()
+def params_to_flax(state_dict, cfg, dtype=None):
+    """The inverse of :func:`params_from_flax`: this port's ``state_dict``
+    → ``{flax path: CPU tensor}`` with the JAX model's keys (without the
+    ``params/`` collection prefix, as the JAX ``save_16bit_model`` writes
+    them) and layouts — stacked ``layers/...`` leaves with
+    ``cfg.scan_layers``, ``layers_{i}/...`` otherwise; ``nn.Linear``
+    weights ``[out, in]`` become flax kernels ``[in, ...]``.  Floating
+    tensors are cast to ``dtype`` when it is given."""
+    check_supported(cfg)
+    L, h, H, KVH = cfg.num_layers, cfg.hidden_size, cfg.num_heads, \
+        cfg.kv_heads
+    D = cfg.head_dim
+    used = set()
+
+    def get(name):
+        if name not in state_dict:
+            raise KeyError(f"params_to_flax: missing {name!r}")
+        used.add(name)
+        t = state_dict[name].detach().to("cpu")
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t
+
+    out = {"embed_tokens/embedding": get("embed_tokens.weight"),
+           "final_norm/scale": get("final_norm.weight")}
+    if cfg.position_embedding == "learned":
+        out["embed_positions/embedding"] = get("embed_positions.weight")
+    if not cfg.rms_norm:
+        out["final_norm/bias"] = get("final_norm.bias")
+    layer = {}                  # flax leaf name -> [one tensor per layer]
+
+    def put(name, t):
+        layer.setdefault(name, []).append(t)
+
+    for i in range(L):
+        p = f"layers.{i}."
+        for proj, heads in (("q_proj", H), ("k_proj", KVH), ("v_proj", KVH)):
+            put(f"attn/{proj}/kernel",
+                get(p + f"attn.{proj}.weight").T.reshape(h, heads, D))
+            if cfg.attn_bias_enabled:
+                put(f"attn/{proj}/bias",
+                    get(p + f"attn.{proj}.bias").reshape(heads, D))
+        put("attn/o_proj/kernel", get(p + "attn.o_proj.weight").T.reshape(
+            H, D, h))
+        if cfg.attn_out_bias_enabled:
+            put("attn/o_proj/bias", get(p + "attn.o_proj.bias"))
+        for proj in ("gate_proj",) * cfg.gated_mlp + ("up_proj",
+                                                      "down_proj"):
+            put(f"mlp/{proj}/kernel", get(p + f"mlp.{proj}.weight").T)
+            if cfg.mlp_bias_enabled:
+                put(f"mlp/{proj}/bias", get(p + f"mlp.{proj}.bias"))
+        for norm in ("input_norm", "post_attn_norm"):
+            put(f"{norm}/scale", get(p + f"{norm}.weight"))
+            if not cfg.rms_norm:
+                put(f"{norm}/bias", get(p + f"{norm}.bias"))
+    for name, ts in layer.items():
+        if cfg.scan_layers:
+            out[f"layers/{name}"] = torch.stack(ts)
+        else:
+            out.update({f"layers_{i}/{name}": t.contiguous()
+                        for i, t in enumerate(ts)})
+    if not cfg.tie_word_embeddings:
+        out["lm_head/kernel"] = get("lm_head.weight").T.contiguous()
+        if cfg.lm_head_bias:
+            out["lm_head/bias"] = get("lm_head.bias")
+    unused = sorted(set(state_dict) - used)
+    if unused:
+        raise ValueError(f"params_to_flax: tensors not used: {unused}")
+    return out
+
+
+def opt_state_from_flax(opt_state, module):
+    """The JAX optimizer's state (a NamedTuple such as ``AdamState``, or
+    the dict an Orbax restore gives for one, whose fields are parameter
+    trees of numpy arrays or ``None``) → ``{field: [tensor, ...]}`` with
+    each list in ``engine.params`` order (the module's trainable
+    ``named_parameters``): what the port's engine holds under the same
+    field names.  Moment trees map through :func:`params_from_flax`: the
+    layout change is linear."""
+    fields = dict(opt_state) if isinstance(opt_state, Mapping) \
+        else opt_state._asdict()
+    names = [n for n, p in module.named_parameters() if p.requires_grad]
+
+    def field(tree):
+        if tree is None:
+            return None
+        sd = params_from_flax(tree, module.config)
+        return [sd[n] for n in names]
+
+    return {name: field(tree) for name, tree in fields.items()}
+
+
+def engine_state_from_flax(arrays, meta, module):
+    """A JAX engine tag's restored ``arrays`` (``module`` / ``optimizer``
+    / ``loss_scaler``, numpy leaves) and ``meta`` → the port's array
+    groups and metadata for :meth:`DeepSpeedEngine.load_state`: the
+    module's ``state_dict``, its optimizer state lists, the
+    ``LossScalerState`` and the step counters / LR schedule /
+    ``client_state`` (``rng_key_data`` is dropped: the port's engine draws
+    no random numbers after init)."""
+    from deepspeed_tpu_torch.runtime.fp16.loss_scaler import LossScalerState
+    sc = arrays.get("loss_scaler")
+    if sc is not None:
+        sc = sc if isinstance(sc, Mapping) else sc._asdict()
+        sc = LossScalerState(
+            scale=torch.tensor(np.asarray(sc["scale"]), dtype=torch.float32),
+            good_steps=torch.tensor(np.asarray(sc["good_steps"]),
+                                    dtype=torch.int32),
+            hysteresis=torch.tensor(np.asarray(sc["hysteresis"]),
+                                    dtype=torch.int32))
+    opt = arrays.get("optimizer")
+    out = {"module": params_from_flax(arrays["module"], module.config),
+           "optimizer": None if opt is None
+           else opt_state_from_flax(opt, module),
+           "loss_scaler": sc}
+    keys = ("global_steps", "global_samples", "micro_steps",
+            "skipped_steps", "lr_scheduler", "ds_config", "client_state")
+    return out, {k: meta[k] for k in keys if k in meta}

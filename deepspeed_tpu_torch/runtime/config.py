@@ -4,7 +4,9 @@ The same JSON/dict keys as the JAX package's ``DeepSpeedConfig`` drive the
 port's training engine at world size 1: the batch triple (completed and
 validated with the JAX package's errors), ``fp16`` (dynamic or static loss
 scale), ``bf16``, ``optimizer``, ``scheduler``, ``gradient_clipping``,
-``steps_per_print`` and ``seed``.  ``zero_optimization.stage`` 0-3 is
+``steps_per_print``, ``seed``, the ``fault`` block (crash-atomic
+checkpoints, retries, the supervisor) and ``nebula`` (the asynchronous
+checkpoint writer).  ``zero_optimization.stage`` 0-3 is
 accepted and trivially satisfied at world size 1 (there is nothing to
 partition).  The blocks are plain dataclasses: the card's machine has no
 pydantic.
@@ -13,8 +15,8 @@ Knobs that change behaviour but belong to later slices raise
 ``NotImplementedError`` when set (offload, MiCS, tensor / pipeline /
 sequence / expert parallelism, curriculum, compression, partitioned
 backward, bf16 master weights, a non-fp32 gradient accumulator, and the
-monitor, profiler, compile cache, fault and hybrid blocks), so a config
-never silently does nothing.
+monitor, profiler, compile cache and hybrid blocks), so a config never
+silently does nothing.
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ from typing import Any, Dict, Optional
 
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
+from deepspeed_tpu_torch.runtime.fault.config import FaultConfig
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
@@ -67,6 +70,14 @@ class OptimizerConfig(DeepSpeedConfigModel):
 class SchedulerConfig(DeepSpeedConfigModel):
     type: Optional[str] = None
     params: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclasses.dataclass(init=False)
+class NebulaConfig(DeepSpeedConfigModel):
+    """The ``nebula`` block: ``enabled`` selects the asynchronous
+    checkpoint writer (``NebulaCheckpointEngine``).  Its tiered-storage
+    keys are kept as given and, as in the JAX package, change nothing."""
+    enabled: bool = False
 
 
 def _offloaded(block):
@@ -116,8 +127,6 @@ _NOT_PORTED = (
      "the monitor (tensorboard / wandb / csv_monitor)"),
     (lambda pd: _enabled(pd, C.FLOPS_PROFILER), "the flops profiler"),
     (lambda pd: _enabled(pd, "compile_cache"), "the compile cache"),
-    (lambda pd: _enabled(pd, "fault"), "the fault block (checkpointing)"),
-    (lambda pd: _enabled(pd, "nebula"), "nebula checkpointing"),
     (lambda pd: _enabled(pd, "hybrid_engine"), "the hybrid engine"),
 )
 
@@ -169,6 +178,8 @@ class DeepSpeedConfig:
         self.steps_per_print = pd.get(C.STEPS_PER_PRINT,
                                       C.STEPS_PER_PRINT_DEFAULT)
         self.seed = pd.get("seed", 42)
+        self.nebula_config = NebulaConfig(**pd.get("nebula", {}))
+        self.fault = FaultConfig(**pd.get("fault", {}))
 
         self.train_batch_size = pd.get(C.TRAIN_BATCH_SIZE)
         self.train_micro_batch_size_per_gpu = pd.get(

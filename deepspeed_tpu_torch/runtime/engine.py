@@ -27,10 +27,23 @@ and the dynamic scaler updates from the same flag, so no step waits for
 the host.  With the static unit scale of bf16 / fp32 the overflow
 machinery is compiled out, as in the JAX engine's ``train_batch``.
 
-Not in this slice (ROADMAP.md, queue A): checkpoint save / load, the
-compile cache, the profiler, the monitor, offload, multi-GPU.
+**Checkpoints.**  ``save_checkpoint`` / ``load_checkpoint`` write and
+restore the fp32 master parameters, the optimizer state, the loss scaler,
+the LR schedule and the step counters in the port's tag format
+(``runtime/checkpoint_engine``), under the JAX engine's tag layout,
+``latest`` pointer and, with ``fault.enabled``, its crash-atomic protocol
+(``MANIFEST.json``, verified walk-back, retries, retention).  A load copies
+into the live tensors in place.  ``save_16bit_model`` exports the weights
+under the JAX export's flax-path keys.
+
+Not in this slice (ROADMAP.md, queue A): the compile cache, the profiler,
+the monitor, offload, multi-GPU.
 """
 
+import dataclasses
+import os
+import shutil
+import time
 from collections.abc import Mapping
 
 import numpy as np
@@ -38,12 +51,23 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.accelerator import get_accelerator, resolve_device
+from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
+    NebulaCheckpointEngine, TorchCheckpointEngine, copy_groups)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.fault import inject
+from deepspeed_tpu_torch.runtime.fault.atomic import (atomic_publish_dir,
+                                                      atomic_write_text)
+from deepspeed_tpu_torch.runtime.fault.manifest import (
+    CheckpointCorrupt, build_manifest, gc_checkpoints, is_reserved_tag,
+    list_tags, newest_valid_tag, read_latest, read_manifest,
+    verify_manifest, write_manifest)
+from deepspeed_tpu_torch.runtime.fault.retry import (retry_call,
+                                                     retry_policy_from_config)
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (StaticLossScaler,
                                                           create_loss_scaler)
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_scheduler
 from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float16: "float16"}
@@ -155,6 +179,12 @@ class DeepSpeedEngine:
         # a static unit scale cannot overflow: no flag, no skip
         self._static_unit = isinstance(self.loss_scaler, StaticLossScaler) \
             and self.loss_scaler.scale_value == 1.0
+        # the nebula block selects the asynchronous writer, as in JAX
+        self.checkpoint_engine = NebulaCheckpointEngine(
+            self._config.nebula_config) \
+            if self._config.nebula_config.enabled else TorchCheckpointEngine()
+        # the last save's and load's bytes, files and seconds by phase
+        self.checkpoint_stats = {}
 
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(
@@ -441,8 +471,356 @@ class DeepSpeedEngine:
     def max_memory_allocated(self):
         return self.accelerator.max_memory_allocated(self.device)
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(ROADMAP.md, queue A item 5)")
+    # ------------------------------------------------------------------ #
+    # Checkpointing (the JAX engine's save_checkpoint / load_checkpoint)
+    # ------------------------------------------------------------------ #
+    def _fault_config(self):
+        fcfg = self._config.fault
+        return fcfg if fcfg.enabled else None
 
-    load_checkpoint = save_checkpoint
+    def _checkpoint_arrays(self):
+        """The tag's array groups, as the live tensors: ``module`` (the
+        fp32 master ``state_dict``, detached views of the parameters),
+        ``optimizer`` (its state NamedTuple of per-parameter lists, in
+        ``engine.params`` order) and ``loss_scaler``."""
+        return {"module": self.module.state_dict(),
+                "optimizer": self._opt_state,
+                "loss_scaler": self._scaler_state}
+
+    def _checkpoint_meta(self, client_state):
+        """The JAX engine's ``meta.pkl`` keys.  There is no
+        ``rng_key_data``: the port's engine draws no random numbers after
+        its init (dropout is not ported), so a resumed run needs no RNG
+        state to be bitwise the uninterrupted one; loading a tag that has
+        the key ignores it."""
+        cfg = getattr(self.module, "config", None)
+        return {
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "lr_scheduler": self.lr_scheduler.state_dict()
+            if self.lr_scheduler else None,
+            "ds_config": self._config._param_dict,
+            "client_state": client_state or {},
+            # the port's own key: the model's config, for offline tools
+            # that rename the weights to flax paths (zero_to_fp32)
+            "model_config": dataclasses.asdict(cfg)
+            if dataclasses.is_dataclass(cfg) else None,
+        }
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True, exclude_frozen_parameters=False):
+        """Write the engine's state under ``<save_dir>/<tag>/state`` (tag
+        ``global_step<N>`` by default) and point ``latest`` at it; with
+        ``fault.enabled`` through the crash-atomic protocol.
+        ``exclude_frozen_parameters`` is accepted for the JAX signature and,
+        as there, changes nothing: every module tensor is saved."""
+        save_dir = str(save_dir)
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        tag = str(tag)
+        arrays = self._checkpoint_arrays()
+        fcfg = self._fault_config()
+        if fcfg is not None:
+            return self._save_checkpoint_atomic(save_dir, tag, arrays,
+                                                client_state, save_latest,
+                                                fcfg)
+        t0 = time.monotonic()
+        ckpt_dir = os.path.join(save_dir, tag)
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self.checkpoint_engine.create(tag)
+        self.checkpoint_engine.save(arrays, self._checkpoint_meta(
+            client_state), os.path.join(ckpt_dir, "state"))
+        # commit (the async engine: the arrays are on disk) BEFORE moving
+        # 'latest' — a crash mid-save leaves it on the previous checkpoint
+        self.checkpoint_engine.commit(tag)
+        if save_latest:
+            atomic_write_text(os.path.join(save_dir, "latest"), tag)
+        self.checkpoint_stats = {
+            "save": {**self.checkpoint_engine.stats.get("save", {}),
+                     "total_s": time.monotonic() - t0}}
+        log_dist(f"saved checkpoint {tag} to {save_dir}", ranks=[0])
+        return True
+
+    def _save_checkpoint_atomic(self, save_dir, tag, arrays, client_state,
+                                save_latest, fcfg):
+        """Crash-atomic checkpoint protocol (``fault.enabled``): stage into
+        ``<tag>.tmp/``, emit ``MANIFEST.json`` (sizes, checksums,
+        fingerprint, step metadata), fsync, rename to ``<tag>/``, swap
+        ``latest`` atomically, then GC per the retention policy.  A kill
+        at any instruction leaves the previous consistent state or the new
+        one, never a loadable partial.  Transient I/O during the write
+        stage retries with backoff."""
+        if is_reserved_tag(tag):
+            # '<x>.tmp' / '<x>.old.<pid>' are the protocol's staging
+            # namespace — the next GC pass would destroy such a tag
+            raise ValueError(
+                f"checkpoint tag {tag!r} collides with the crash-atomic "
+                "staging namespace ('*.tmp' / '*.old.<pid>'); pick "
+                "another tag")
+        t0 = time.monotonic()
+        os.makedirs(save_dir, exist_ok=True)
+        final_dir = os.path.join(save_dir, tag)
+        tmp_dir = final_dir + ".tmp"
+        meta = self._checkpoint_meta(client_state)
+
+        def write_stage():
+            if os.path.isdir(tmp_dir):      # stale orphan / failed attempt
+                shutil.rmtree(tmp_dir)
+            os.makedirs(tmp_dir)
+            inject.fire("ckpt.save_io", path=tmp_dir)
+            self.checkpoint_engine.create(tag)
+            self.checkpoint_engine.save(arrays, meta,
+                                        os.path.join(tmp_dir, "state"))
+            # the async engine's arrays and deferred metadata must be on
+            # disk before the manifest walks the staging dir
+            self.checkpoint_engine.commit(tag)
+
+        retry_call(write_stage, label=f"checkpoint write ({tag})",
+                   **retry_policy_from_config(fcfg))
+        t1 = time.monotonic()
+        inject.fire("ckpt.before_manifest", path=tmp_dir)
+        manifest = build_manifest(
+            tmp_dir, tag,
+            step_meta={"global_steps": self.global_steps,
+                       "global_samples": self.global_samples,
+                       "micro_steps": self.micro_steps},
+            checksum=fcfg.checksum, advance_latest=bool(save_latest))
+        write_manifest(tmp_dir, manifest)
+        t2 = time.monotonic()
+        inject.fire("ckpt.corrupt_shard", path=os.path.join(tmp_dir, "state"))
+        inject.fire("ckpt.before_commit_rename", path=tmp_dir)
+        atomic_publish_dir(tmp_dir, final_dir)
+        inject.fire("ckpt.before_latest_swap", path=save_dir)
+        if save_latest:
+            atomic_write_text(os.path.join(save_dir, "latest"), tag)
+        # retention never deletes this tag nor 'latest''s target (they
+        # differ under save_latest=False)
+        protect = {tag}
+        latest = read_latest(save_dir)
+        if latest:
+            protect.add(latest)
+        gc_checkpoints(save_dir, fcfg.keep_last_n, protect=tuple(protect))
+        t3 = time.monotonic()
+        self.checkpoint_stats = {"save": {
+            **self.checkpoint_engine.stats.get("save", {}),
+            "write_stage_s": t1 - t0, "manifest_s": t2 - t1,
+            "publish_s": t3 - t2, "total_s": t3 - t0}}
+        log_dist(f"saved checkpoint {tag} to {save_dir} "
+                 f"(manifest {len(manifest['files'])} files, "
+                 f"checksum {t2 - t1:.2f}s)", ranks=[0])
+        return True
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False):
+        """Restore a tag written by :meth:`save_checkpoint` into this
+        engine, in place.  Returns ``(path, client_state)``, or
+        ``(None, {})`` when there is nothing to load.  With
+        ``fault.enabled`` and ``tag=None`` the newest valid resume-eligible
+        tag is taken (verified against its manifest; a corrupt or partial
+        tag is walked past, a transient I/O error retries the same tag);
+        an explicitly requested tag that fails raises."""
+        load_dir = str(load_dir)
+        fcfg = self._fault_config()
+        requested = tag
+        knobs = (load_module_strict, load_optimizer_states,
+                 load_lr_scheduler_states, load_module_only)
+        if tag is None:
+            tag = read_latest(load_dir)
+            if tag is None and fcfg is None:
+                logger.warning(f"no 'latest' file at {load_dir}; "
+                               "nothing loaded")
+                return None, {}
+        if fcfg is None:
+            return self._load_checkpoint_tag(load_dir, tag, *knobs)
+        # fault-tolerant load: the manifest step order, not 'latest', is
+        # authoritative for resume-eligible tags (the pointer lags one tag
+        # when a crash lands between the tag rename and the pointer swap)
+        if requested is None:
+            tag = None
+        tried = []
+        t0 = time.monotonic()
+        verify_s = 0.0
+        pre_verified = False
+        while True:
+            if tag is None:
+                tv = time.monotonic()
+                tag = newest_valid_tag(load_dir,
+                                       checksum_verify=fcfg.verify_on_load,
+                                       skip=tried, for_resume=True)
+                verify_s += time.monotonic() - tv
+                # newest_valid_tag checksummed it already
+                pre_verified = fcfg.verify_on_load
+            if tag is None:
+                remaining = [t for t in list_tags(load_dir)
+                             if t not in tried]
+                # tags that should have been candidates but were rejected,
+                # apart from side checkpoints (advance_latest=false)
+                eligible = [t for t in remaining
+                            if (read_manifest(os.path.join(load_dir, t))
+                                or {}).get("advance_latest") is not False]
+                if tried or eligible:
+                    raise RuntimeError(
+                        f"no valid checkpoint in {load_dir}: every "
+                        "resume-eligible tag failed verification or load "
+                        f"(tried={tried or eligible})")
+                if remaining:
+                    logger.warning(
+                        f"{load_dir} holds only side checkpoints "
+                        f"(save_latest=False: {remaining}); nothing "
+                        "loaded — starting fresh")
+                else:
+                    logger.warning(f"no checkpoint found at {load_dir}; "
+                                   "nothing loaded")
+                return None, {}
+            ckpt_dir = os.path.join(load_dir, str(tag))
+            if fcfg.verify_on_load and not pre_verified \
+                    and read_manifest(ckpt_dir) is not None:
+                tv = time.monotonic()
+                problems = verify_manifest(ckpt_dir, deep=True)
+                verify_s += time.monotonic() - tv
+                if problems:
+                    if requested is not None:
+                        # an explicitly requested tag fails loudly: older
+                        # weights in its place would poison evals/exports
+                        raise CheckpointCorrupt(
+                            f"requested checkpoint {tag!r} in {load_dir} "
+                            f"failed verification: {problems[:5]}")
+                    logger.warning(
+                        f"[fault] checkpoint {tag} failed verification "
+                        f"({problems[:3]}) — walking back to the previous "
+                        "valid tag")
+                    tried.append(str(tag))
+                    tag = None
+                    continue
+            try:
+                # a transient I/O error retries the SAME tag first —
+                # walking back on a flake would discard committed steps
+                result = retry_call(self._load_checkpoint_tag, load_dir,
+                                    tag, *knobs,
+                                    label=f"checkpoint load ({tag})",
+                                    **retry_policy_from_config(fcfg))
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                if requested is not None:
+                    raise
+                logger.warning(f"[fault] tag {tag} failed to load "
+                               f"({type(e).__name__}: {e}); walking back")
+                tried.append(str(tag))
+                tag = None
+                continue
+            latest = read_latest(load_dir)
+            if requested is None and latest and latest != str(tag):
+                logger.warning(
+                    f"[fault] resuming from {tag} although 'latest' "
+                    f"points at {latest} (newest valid resume-eligible "
+                    "tag wins; for a manual rollback load an explicit tag "
+                    "or remove the newer tags)")
+            self.checkpoint_stats.setdefault("load", {}).update(
+                verify_s=verify_s, total_s=time.monotonic() - t0)
+            return result
+
+    def _restore_targets(self, load_optimizer_states, load_module_only):
+        """The live tensors a load writes into: the module always, the
+        optimizer state unless told not to, the loss scaler unless only
+        the module is loaded."""
+        live = self._checkpoint_arrays()
+        targets = {"module": live["module"]}
+        if not load_module_only:
+            if load_optimizer_states and live["optimizer"] is not None:
+                targets["optimizer"] = live["optimizer"]
+            targets["loss_scaler"] = live["loss_scaler"]
+        return targets
+
+    def _restore_meta(self, meta, load_lr_scheduler_states,
+                      load_module_only):
+        # the loaded state is a step boundary: no half-done window
+        self.zero_grad()
+        self._pending = None
+        if load_module_only:
+            return
+        self.global_steps = meta.get("global_steps", 0)
+        self.global_samples = meta.get("global_samples", 0)
+        self.micro_steps = meta.get("micro_steps", 0)
+        self.skipped_steps = meta.get("skipped_steps", 0)
+        if load_lr_scheduler_states and self.lr_scheduler \
+                and meta.get("lr_scheduler"):
+            self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+
+    def _load_checkpoint_tag(self, load_dir, tag, load_module_strict=True,
+                             load_optimizer_states=True,
+                             load_lr_scheduler_states=True,
+                             load_module_only=False):
+        """Copy one tag into the live tensors.  At world size 1 the JAX
+        engine's fresh-engine and metadata restore-target paths (which
+        reshard onto another mesh) reduce to this in-place ``copy_``: the
+        parameters and optimizer lists keep their identity."""
+        t0 = time.monotonic()
+        path = os.path.join(load_dir, str(tag), "state")
+        arrays, meta = self.checkpoint_engine.load(
+            path, targets=self._restore_targets(load_optimizer_states,
+                                                load_module_only),
+            strict=load_module_strict)
+        if arrays is None:
+            # permanent (not an OSError, which the retry policy would
+            # treat as transient); fault-enabled loads walk back past it
+            raise CheckpointCorrupt(
+                f"checkpoint {tag!r} at {path} has no loadable 'arrays' "
+                "payload (partial or corrupt save?) — cannot restore "
+                "module weights")
+        self._restore_meta(meta, load_lr_scheduler_states, load_module_only)
+        self.checkpoint_stats = {"load": {
+            **self.checkpoint_engine.stats.get("load", {}),
+            "tag_s": time.monotonic() - t0}}
+        log_dist(f"loaded checkpoint {tag} from {load_dir}", ranks=[0])
+        return path, meta.get("client_state", {})
+
+    def load_state(self, arrays, meta=None, load_module_strict=True,
+                   load_optimizer_states=True, load_lr_scheduler_states=True,
+                   load_module_only=False):
+        """Copy array groups held in memory (``module`` / ``optimizer`` /
+        ``loss_scaler``, e.g. from ``models.transformer.
+        engine_state_from_flax``) and a tag's ``meta`` into this engine in
+        place, with :meth:`load_checkpoint`'s knobs.  Returns the
+        ``client_state``."""
+        meta = meta or {}
+        copy_groups(self._restore_targets(load_optimizer_states,
+                                          load_module_only),
+                    {k: v for k, v in arrays.items() if v is not None},
+                    strict=load_module_strict)
+        self._restore_meta(meta, load_lr_scheduler_states, load_module_only)
+        return meta.get("client_state", {})
+
+    @torch.no_grad()
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin",
+                         hf_policy=None):
+        """The weights in 16 bits for serving, under the JAX export's
+        flax-path keys and layouts (``params_to_flax``; the compute dtype,
+        bf16 for an fp32 engine): a ``.safetensors`` file for that suffix,
+        a ``torch.save`` state dict otherwise.  Both load through either
+        package's ``InferenceEngine.load_checkpoint``."""
+        if hf_policy is not None:
+            raise NotImplementedError(
+                "save_16bit_model(hf_policy=...) renames to HF keys through "
+                "module_inject, which is not ported to deepspeed_tpu_torch "
+                "yet (see ROADMAP.md)")
+        from deepspeed_tpu_torch.checkpoint.safetensors_io import save_file
+        from deepspeed_tpu_torch.models.transformer import params_to_flax
+        save_dir = str(save_dir)
+        os.makedirs(save_dir, exist_ok=True)
+        dtype = self.compute_dtype if self.compute_dtype != torch.float32 \
+            else torch.bfloat16
+        flat = params_to_flax(self.module.state_dict(), self.module.config,
+                              dtype=dtype)
+        path = os.path.join(save_dir, save_filename)
+        if save_filename.endswith(".safetensors"):
+            save_file(flat, path)
+        else:
+            torch.save(flat, path)
+        log_dist(f"saved 16-bit model ({len(flat)} tensors, {dtype}) to "
+                 f"{path}", ranks=[0])
+        return True

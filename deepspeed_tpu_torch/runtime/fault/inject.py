@@ -1,9 +1,8 @@
 """Deterministic fault injection — kill the run at every seam, on purpose
 (port of ``deepspeed_tpu/runtime/fault/inject.py``: the same point names,
-the same ``DSTPU_FAULT_INJECT`` spec syntax, and its ``exit``, ``raise``
-and ``sigterm`` actions; ``hang``, ``corrupt`` and ``yield`` wait for the
-callers that need them — the supervisor's watchdog, checkpoint saves and
-the serving lock seams).
+the same ``DSTPU_FAULT_INJECT`` spec syntax, and its ``exit``, ``raise``,
+``sigterm``, ``hang`` and ``corrupt`` actions; ``yield`` waits for the
+serving lock seams that need it).
 
 Recovery code that has never seen a failure does not work; this registry
 lets tests (and chaos drills on real slices) trigger a precise failure at a
@@ -52,12 +51,14 @@ point                                 seam
                                       mirror's drain loop
 ====================================  ====================================
 
-In the port the serving engine fires ``serving.pre_admit``,
+In the port the training engine's checkpoint save fires the six
+``ckpt.*`` points, ``run_resilient`` fires ``train.step_begin``, and the
+serving engine fires ``serving.pre_admit``,
 ``serving.pre_decode_dispatch``, ``serving.mid_drain``,
 ``serving.sigterm_at_iter`` and ``serving.mirror_drain``; the four lock
 seams are registered names that nothing fires yet (the port's serving
-engine has no lock), and the ``ckpt.*``, ``train.*`` and ``infer.*``
-points wait for the ports of their callers.
+engine has no lock), and ``infer.executable_load`` has no caller (the
+port keeps no executable store).
 
 Arm points programmatically (:func:`configure_injection`) or via the
 ``DSTPU_FAULT_INJECT`` env var — specs separated by ``;``, fields by
@@ -66,9 +67,10 @@ Arm points programmatically (:func:`configure_injection`) or via the
     DSTPU_FAULT_INJECT="point=ckpt.before_latest_swap,action=exit,at=1"
 
 Spec fields: ``point`` (required), ``action`` (``exit`` | ``raise`` |
-``sigterm``; default ``raise``), ``at`` (fire on the Nth hit of the
-point, 1-based; default 1), ``times`` (how many consecutive hits fire,
-default 1; ``0`` = every hit from ``at`` on), ``exit_code`` (default 17).
+``sigterm`` | ``hang`` | ``corrupt``; default ``raise``), ``at`` (fire on
+the Nth hit of the point, 1-based; default 1), ``times`` (how many
+consecutive hits fire, default 1; ``0`` = every hit from ``at`` on),
+``seconds`` (hang duration, default 3600), ``exit_code`` (default 17).
 
 Actions:
 
@@ -78,6 +80,10 @@ Actions:
   failure the retry/backoff policy must absorb.
 * ``sigterm`` — deliver SIGTERM to self: the graceful-preemption path the
   elastic agent handles.
+* ``hang`` — sleep at the seam: what a stuck step looks like to the
+  heartbeat watchdog.
+* ``corrupt`` — flip bytes in the largest file under the ``path`` the seam
+  provides (an array file): manifest verification must catch it.
 
 ``fire()`` is a dict-lookup no-op when nothing is armed — it is safe on
 hot-ish paths like the supervisor step loop.
@@ -86,6 +92,7 @@ hot-ish paths like the supervisor step loop.
 import os
 import signal
 import threading
+import time
 
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -117,19 +124,21 @@ class InjectedFault(IOError):
 
 
 class _Spec:
-    __slots__ = ("point", "action", "at", "times", "exit_code", "hits",
-                 "fired")
+    __slots__ = ("point", "action", "at", "times", "seconds", "exit_code",
+                 "hits", "fired")
 
-    def __init__(self, point, action="raise", at=1, times=1, exit_code=17):
+    def __init__(self, point, action="raise", at=1, times=1, seconds=3600.0,
+                 exit_code=17):
         if point not in INJECTION_POINTS:
             raise ValueError(f"unknown injection point {point!r}; one of "
                              f"{INJECTION_POINTS}")
-        if action not in ("exit", "raise", "sigterm"):
+        if action not in ("exit", "raise", "sigterm", "hang", "corrupt"):
             raise ValueError(f"unknown injection action {action!r}")
         self.point = point
         self.action = action
         self.at = int(at)
         self.times = int(times)
+        self.seconds = float(seconds)
         self.exit_code = int(exit_code)
         self.hits = 0
         self.fired = 0
@@ -197,7 +206,7 @@ def active():
 _fire_lock = threading.Lock()
 
 
-def fire(point):
+def fire(point, path=None):
     """Hit an injection point.  No-op unless a spec is armed for it.  The
     spec bookkeeping (``hits`` / ``fired``) is locked, so that an
     ``at`` / ``times``-limited spec fires exactly as often as it says
@@ -218,10 +227,10 @@ def fire(point):
             spec.fired += 1
             to_run.append(spec)
     for spec in to_run:
-        _execute(spec)
+        _execute(spec, path)
 
 
-def _execute(spec):
+def _execute(spec, path):
     logger.warning(f"[fault] injection FIRING: {spec.point} -> "
                    f"{spec.action} (hit {spec.hits})")
     if spec.action == "exit":
@@ -232,3 +241,37 @@ def _execute(spec):
             f"injected transient fault at {spec.point} (hit {spec.hits})")
     if spec.action == "sigterm":
         os.kill(os.getpid(), signal.SIGTERM)
+        return
+    if spec.action == "hang":
+        time.sleep(spec.seconds)
+        return
+    if spec.action == "corrupt":
+        _corrupt_largest_file(path)
+
+
+def _corrupt_largest_file(path):
+    """Flip bytes in the middle of the largest regular file under ``path``
+    (a directory or a single file) — the bit-rot manifest verification
+    exists to catch.  The size is unchanged, so only checksums notice."""
+    if path is None:
+        raise ValueError("corrupt action needs the seam to provide a path")
+    target, size = None, -1
+    if os.path.isfile(path):
+        target, size = path, os.path.getsize(path)
+    else:
+        for dirpath, _d, filenames in os.walk(path):
+            for name in filenames:
+                if name == "MANIFEST.json":
+                    continue
+                p = os.path.join(dirpath, name)
+                s = os.path.getsize(p)
+                if s > size:
+                    target, size = p, s
+    if target is None or size <= 0:
+        raise ValueError(f"corrupt action: no file to corrupt under {path}")
+    with open(target, "r+b") as f:
+        f.seek(size // 2)
+        chunk = f.read(min(64, size - size // 2))
+        f.seek(size // 2)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+    logger.warning(f"[fault] corrupted {len(chunk)} bytes of {target}")

@@ -1,5 +1,8 @@
 """Checkpoint manifest: the integrity contract of a committed tag (port of
-``deepspeed_tpu/runtime/fault/manifest.py``; only the fingerprint differs).
+``deepspeed_tpu/runtime/fault/manifest.py``; the fingerprint differs, and
+the files of a tag are checksummed on up to ``CHECKSUM_THREADS`` threads —
+``hashlib`` and ``zlib`` release the interpreter lock on large buffers, so
+a tag of many large files hashes at several times one core's rate).
 
 A committed checkpoint directory ``<save_dir>/<tag>/`` carries a
 ``MANIFEST.json`` listing every file with its size and checksum, plus the
@@ -20,6 +23,7 @@ import os
 import re
 import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 from deepspeed_tpu_torch.runtime.fault.atomic import atomic_write_text, fsync_dir
 from deepspeed_tpu_torch.utils.logging import logger
@@ -27,6 +31,7 @@ from deepspeed_tpu_torch.utils.logging import logger
 MANIFEST_NAME = "MANIFEST.json"
 MANIFEST_VERSION = 1
 _CHUNK = 4 * 1024 * 1024
+CHECKSUM_THREADS = min(8, os.cpu_count() or 1)
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -49,6 +54,14 @@ def _checksum_file(path, algorithm="sha256"):
         while chunk := f.read(_CHUNK):
             h.update(chunk)
     return h.hexdigest()
+
+
+def _checksum_files(paths, algorithm):
+    """Each file's checksum, in the order of ``paths``."""
+    if len(paths) <= 1:
+        return [_checksum_file(p, algorithm) for p in paths]
+    with ThreadPoolExecutor(min(CHECKSUM_THREADS, len(paths))) as pool:
+        return list(pool.map(lambda p: _checksum_file(p, algorithm), paths))
 
 
 def runtime_fingerprint(mesh_shape=None):
@@ -74,7 +87,10 @@ def build_manifest(ckpt_dir, tag, step_meta=None, checksum="sha256",
     """Walk ``ckpt_dir`` and record every regular file (path relative to
     the tag dir, size, checksum).  Called on the fully-written staging
     directory, before the manifest itself is added."""
-    files = {}
+    if checksum not in ("sha256", "crc32"):
+        raise ValueError(f"unknown checksum algorithm {checksum!r} "
+                         "(expected 'sha256' or 'crc32')")
+    found = []
     root = os.path.abspath(ckpt_dir)
     for dirpath, _dirnames, filenames in os.walk(root):
         for name in sorted(filenames):
@@ -83,11 +99,10 @@ def build_manifest(ckpt_dir, tag, step_meta=None, checksum="sha256",
             p = os.path.join(dirpath, name)
             if not os.path.isfile(p) or os.path.islink(p):
                 continue
-            rel = os.path.relpath(p, root)
-            files[rel] = {
-                "size": os.path.getsize(p),
-                checksum: _checksum_file(p, checksum),
-            }
+            found.append((os.path.relpath(p, root), p))
+    sums = _checksum_files([p for _rel, p in found], checksum)
+    files = {rel: {"size": os.path.getsize(p), checksum: digest}
+             for (rel, p), digest in zip(found, sums)}
     return {
         "version": MANIFEST_VERSION,
         "tag": str(tag),
@@ -126,7 +141,7 @@ def verify_manifest(ckpt_dir, deep=True):
     if manifest is None:
         return [f"{MANIFEST_NAME} missing or unparseable"]
     algo = manifest.get("checksum_algorithm", "sha256")
-    problems = []
+    problems, deep_check = [], []
     for rel, want in manifest.get("files", {}).items():
         p = os.path.join(ckpt_dir, rel)
         if not os.path.isfile(p):
@@ -137,9 +152,10 @@ def verify_manifest(ckpt_dir, deep=True):
             problems.append(f"{rel}: size {size} != {want.get('size')}")
             continue
         if deep and algo in want:
-            got = _checksum_file(p, algo)
-            if got != want[algo]:
-                problems.append(f"{rel}: {algo} {got} != {want[algo]}")
+            deep_check.append((rel, p, want[algo]))
+    got = _checksum_files([p for _rel, p, _w in deep_check], algo)
+    problems += [f"{rel}: {algo} {g} != {w}"
+                 for (rel, _p, w), g in zip(deep_check, got) if g != w]
     return problems
 
 
@@ -187,6 +203,15 @@ def _tag_entries(save_dir):
         step = (manifest or {}).get("step", {}).get("global_steps")
         entries.append((name, step, os.path.getmtime(p), p))
     return _sort_entries(entries)
+
+
+def read_latest(save_dir):
+    """The tag ``<save_dir>/latest`` names, or None."""
+    try:
+        with open(os.path.join(save_dir, "latest")) as f:
+            return f.read().strip() or None
+    except FileNotFoundError:
+        return None
 
 
 def list_tags(save_dir):

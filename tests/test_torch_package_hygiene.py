@@ -49,6 +49,11 @@ def test_import_leaves_jax_unloaded():
             "deepspeed_tpu_torch.inference.serving.snapshot, "
             "deepspeed_tpu_torch.inference.serving.resilient, "
             "deepspeed_tpu_torch.runtime.fault, "
+            "deepspeed_tpu_torch.runtime.fault.ckpt_cli, "
+            "deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine, "
+            "deepspeed_tpu_torch.checkpoint, "
+            "deepspeed_tpu_torch.checkpoint.safetensors_io, "
+            "deepspeed_tpu_torch.utils.zero_to_fp32, "
             "deepspeed_tpu_torch.elasticity, "
             "deepspeed_tpu_torch.runtime.engine, "
             "deepspeed_tpu_torch.runtime.dataloader, "

@@ -428,7 +428,7 @@ def test_batch_triple_completion_matches_jax():
     {"csv_monitor": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
     {"compile_cache": {"enabled": True}},
-    {"fault": {"enabled": True}},
+    {"hybrid_engine": {"enabled": True}},
 ], ids=lambda k: next(iter(k)))
 def test_out_of_slice_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
@@ -444,6 +444,14 @@ def test_in_slice_config():
         "unknown_block": {"x": 1}})
     assert cfg.zero_optimization_stage == 3 and cfg.seed == 9
     assert cfg.fp16.hysteresis == 3 and cfg.gradient_clipping == 0.5
+    assert not cfg.fault.enabled and not cfg.nebula_config.enabled
+    ckpt = pconfig.DeepSpeedConfig({
+        "train_micro_batch_size_per_gpu": 1, "nebula": {"enabled": True},
+        "fault": {"enabled": True, "checksum": "crc32", "keep_last_n": 2}})
+    assert ckpt.nebula_config.enabled and ckpt.fault.keep_last_n == 2
+    assert (ckpt.fault.checksum, ckpt.fault.verify_on_load) == ("crc32", True)
+    with pytest.raises(ValueError, match="checksum"):
+        pconfig.DeepSpeedConfig({"fault": {"checksum": "md5"}})
     with pytest.raises(ValueError, match="mics_shard_size"):
         pconfig.DeepSpeedConfig({"zero_optimization":
                                  {"zero_hpz_partition_size": 4}})
@@ -532,7 +540,7 @@ def test_fp16_skip_in_groups_equals_one_group(monkeypatch, group_numel):
         torch.testing.assert_close(w, start[name], rtol=0, atol=0)
 
 
-def test_eval_mode_and_accessors(jmodel_tree):
+def test_eval_mode_and_accessors(jmodel_tree, tmp_path):
     _, tree = jmodel_tree
     eng = _port_engine(tree)
     ids = _batch(6)["input_ids"]
@@ -546,5 +554,5 @@ def test_eval_mode_and_accessors(jmodel_tree):
     assert eng.get_lr() == [1e-3] and eng.get_global_grad_norm() is None
     assert (eng.train_batch_size(), eng.train_micro_batch_size_per_gpu(),
             eng.gradient_accumulation_steps()) == (2 * B, B, 2)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        eng.save_checkpoint("unused")
+    assert eng.save_checkpoint(str(tmp_path)) is True
+    assert (tmp_path / "latest").read_text() == "global_step0"

@@ -172,7 +172,34 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    save (write, manifest checksum, fsync + publish) and the load (verify,
    read, copy to the card), the host's peak RSS growth of each, and the
    export's bytes and seconds; it needs 32 GB free under ``build/``;
-16. prints the card, a ``kernels`` JSON line and, last, the result line.
+16. brings OPT-350m's published layout in as an HF model, run (o): an
+   object with OPTConfig's attribute names (post-LN, no final norm, a
+   512-wide embedding with ``project_in`` / ``project_out``) and HF's
+   ``model.decoder.*`` state dict drawn from a seed, through
+   ``init_inference`` (``module_inject.convert_hf_model``): its
+   kernel-path logits against the plain path (cosine >= 0.999 in bf16
+   and on an fp32 copy; one pass, chunked, paged), generate() at run
+   (a)'s shape on the decode graphs and eager (tokens bitwise; K1, K2),
+   run (d)'s first 64 requests on 32 slots over a pool (K7, K6) and on
+   lanes (K3, K2; every request equal), the same requests on the fp32
+   copy each equal to its solo generate(), and
+   ``save_16bit_model(hf_policy="opt")`` from a training engine: exactly
+   HF's keys and shapes, converted back to run (o)'s tokens;
+17. trains OPT-1.3B at the JAX bench's long-context point, run (c-remat):
+   seq 8192, micro 1, the loss in 32 chunks, bf16, AdamW and clipping,
+   under ``remat=False`` and the policies ``nothing_saveable``,
+   ``flash_only_saveable``, ``dots_and_attn_saveable`` and
+   ``dots_with_no_batch_dims_saveable`` from the same weights and batch:
+   the first steps (loss, parameter and both moment digests) bitwise
+   equal, K1 24 launches a step where the policy keeps its output and LSE
+   and 48 where it recomputes it, K4 / K5 24, the device bytes the
+   forward keeps for the backward ordered nothing < flash_only <
+   dots_and_attn <= remat=False (and the peaks reported); step ms,
+   tokens/s and the bench's attention-aware MFU per
+   setting (a ``remat`` line), and profiles of the nothing and flash_only
+   steps; then K1 / K4 / K5 at its attention shape [1, 8192, 32, 64]
+   against their plain versions, timed;
+18. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 Generation and serving run on the captured decode programs (CUDA graphs,
 ``enable_cuda_graph``'s default) after ``warmup()`` / ``srv.warmup()``,
@@ -222,6 +249,7 @@ the package is missing, or when any phase fails.
 """
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -475,6 +503,35 @@ K8_VARIANTS = (
 # take 8.6 GB per layer), on a 2-layer cut
 SPARSE_GRAD_CHECK = dict(layers=2, batch=2, seq=2048, loss_rel=1e-2,
                          cosine=0.99)
+# run (o): OPT-350m in its published layout (facebook/opt-350m's config:
+# post-LN blocks with no final norm, a 512-wide embedding with project_in /
+# project_out, ReLU, tied; 331 M parameters) as an HF model — an object
+# with the config under OPTConfig's attribute names (the card has no
+# transformers) and the HF-named state dict, HF's init drawn from a seeded
+# generator — through module_inject's convert_hf_model and init_inference:
+# generation at run (a)'s shape (K1, K2), run (d)'s first 64 requests on
+# 32 slots at run (d)'s knobs on a pool (K7, K6) and on lanes (K3, K2),
+# the same requests on an fp32 copy each equal to a solo generate(), and
+# an HF-named export converted back
+OPT_350M_HF = dict(model_type="opt", vocab_size=50272, hidden_size=1024,
+                   num_hidden_layers=24, num_attention_heads=16, ffn_dim=4096,
+                   word_embed_proj_dim=512, do_layer_norm_before=False,
+                   max_position_embeddings=2048, activation_function="relu",
+                   tie_word_embeddings=True)
+RUN_O = dict(seed=17, requests=64, solo=4)
+SERVE_O = dict(SERVE_D, num_slots=32, num_pages=int(0.75 * 32 * 6) + 1)
+# run (c-remat): the JAX bench's long-context point (bench.py:1260-1283:
+# OPT-1.3B, seq 8192, micro 1, loss in 32 chunks) without ZeRO-3 at world
+# size 1, under each remat setting from the same seeded weights and batch
+# (None: remat=False), 1 warm-up and 2 timed steps each; K1 / K4 / K5 at
+# its attention shape
+RUN_C_REMAT = dict(micro=1, seq=8192, loss_chunks=32, warmup=1, steps=2,
+                   seed=13, trace="remat_{}_trace.json")
+REMAT_SETTINGS = (None, "nothing_saveable", "flash_only_saveable",
+                  "dots_and_attn_saveable", "dots_with_no_batch_dims_saveable")
+# the policies that keep K1's output and LSE: K1 once a layer a step
+REMAT_KEEPS_FLASH = (None, "flash_only_saveable", "dots_and_attn_saveable")
+KL_SHAPE = dict(B=1, S=8192, H=32, D=64)
 
 
 def fail(msg):
@@ -1690,7 +1747,8 @@ def check_flash_bwd(dtype, timed, shape=KB_SHAPE):
         def plain_backward():      # the plain version of K4 and K5 together
             fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, True, sc)
 
-        suffix = "" if shape is KB_SHAPE else f"_d{D}"
+        suffix = "" if shape is KB_SHAPE else \
+            f"_d{D}" if S == KB_SHAPE["S"] else f"_s{S}"
         with torch.no_grad():
             recs["K1"].update(time_all(
                 "k1_train" + suffix, "flash_fwd_kernel",
@@ -4700,6 +4758,385 @@ def sparse_grad_check():
     return rec
 
 
+# --------------------------------------------------------------------- #
+# OPT-350m from an HF-named state dict through module_inject, run (o)
+# --------------------------------------------------------------------- #
+def opt_hf_state(c, seed):
+    """The state dict of an HF ``OPTForCausalLM`` with config ``c`` under
+    HF's key names (``model.decoder.*``; the position table with its two
+    offset rows; ``lm_head.weight`` the tied alias of the embedding), in
+    HF's init: normal(0, 0.02) matrices and embeddings, zero biases, unit
+    norms, drawn on the host from a generator seeded with ``seed``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    h, f, V = c.hidden_size, c.ffn_dim, c.vocab_size
+    e = c.word_embed_proj_dim
+
+    def normal(*shape):
+        return torch.empty(*shape).normal_(0.0, 0.02, generator=g)
+
+    def norm(prefix):
+        return {prefix + ".weight": torch.ones(h),
+                prefix + ".bias": torch.zeros(h)}
+
+    p = "model.decoder."
+    sd = {p + "embed_tokens.weight": normal(V, e),
+          p + "embed_positions.weight": normal(c.max_position_embeddings + 2,
+                                               h)}
+    if e != h:
+        sd[p + "project_out.weight"] = normal(e, h)
+        sd[p + "project_in.weight"] = normal(h, e)
+    if c.do_layer_norm_before:
+        sd.update(norm(p + "final_layer_norm"))
+    for i in range(c.num_hidden_layers):
+        q = f"{p}layers.{i}."
+        for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
+            sd[f"{q}self_attn.{proj}.weight"] = normal(h, h)
+            sd[f"{q}self_attn.{proj}.bias"] = torch.zeros(h)
+        sd.update(norm(q + "self_attn_layer_norm"))
+        sd.update({q + "fc1.weight": normal(f, h), q + "fc1.bias":
+                   torch.zeros(f), q + "fc2.weight": normal(h, f),
+                   q + "fc2.bias": torch.zeros(h)})
+        sd.update(norm(q + "final_layer_norm"))
+    sd["lm_head.weight"] = sd[p + "embed_tokens.weight"]
+    return sd
+
+
+def hf_model(config, state):
+    """An HF model as ``module_inject`` reads one: ``.config`` and
+    ``.state_dict()``."""
+    import types
+    return types.SimpleNamespace(config=config, state_dict=lambda: state)
+
+
+def opt350m_path():
+    """Run (o): OPT-350m's published layout from an HF-named state dict,
+    converted by ``init_inference``: its kernel-path logits against the
+    plain path, generate() at run (a)'s shape on the decode graphs and
+    eager (tokens bitwise), run (d)'s first 64 requests on a 32-slot pool
+    and on lanes (every request equal), the same on an fp32 copy each
+    equal to its solo generate(), and ``save_16bit_model(hf_policy=
+    "opt")``: HF's key names and shapes, converted back to the same
+    tokens."""
+    import types
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import init_inference, initialize
+    from deepspeed_tpu_torch.checkpoint.safetensors_io import load_file
+    hf_cfg = types.SimpleNamespace(**OPT_350M_HF)
+    t0 = time.perf_counter()
+    hsd = opt_hf_state(hf_cfg, RUN_O["seed"])
+    hf = hf_model(hf_cfg, hsd)
+    eng = init_inference(hf, dtype="bfloat16", device=DEV)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    m, cfg = eng.module, eng.module.config
+    if (cfg.embed_proj_dim, cfg.pre_layer_norm, m.final_norm) != (
+            hf_cfg.word_embed_proj_dim, False, None):
+        fail(f"run (o): converted to embed_proj_dim={cfg.embed_proj_dim}, "
+             f"pre_layer_norm={cfg.pre_layer_norm}: not OPT-350m's layout")
+    eng32 = init_inference(hf, dtype="float32", device=DEV)
+    L, V = cfg.num_layers, cfg.vocab_size
+    n_params = sum(p.numel() for p in m.parameters())
+    g = torch.Generator(device=DEV).manual_seed(RUN_O["seed"])
+    B, P, new = RUN_A["batch"], RUN_A["prompt"], RUN_A["new"]
+    ids = torch.randint(0, V, (B, P), generator=g, device=DEV)
+    runs = {}
+    logits = {}
+    # the kernel path against the plain path, gated in bf16 (the served
+    # dtype: post-LN keeps 24 random layers at cosine 0.9999) and on the
+    # fp32 copy
+    for tag, kw in (("one pass", {}), ("chunked", dict(chunk=128)),
+                    ("paged", dict(chunk=128, paged=SERVE_O["page_size"]))):
+        logits[tag] = {
+            dtype: kernels_vs_plain(f"(o) {tag} {dtype}", model, ids, **kw)
+            for dtype, model in (("bf16", m), ("fp32", eng32.module))}
+
+    expect = {"flash_attention": L, "decode_attention": L * (new - 1)}
+    warm = eng.warmup(P, new, batch_sizes=(B,))
+    out, dt, cnt, peak = run_generate(eng, ids, new, expect)
+    runs["o"] = {"run": "o", "model": "opt-350m (HF layout, module_inject)",
+                 "params": n_params, "convert_seconds": convert_s,
+                 "batch": B, "prompt": P, "new_tokens": new, "seconds": dt,
+                 "tokens_per_s": B * new / dt, "launches": cnt,
+                 "peak_device_bytes": peak, "cuda_graphs": True,
+                 "warmup_seconds": warm, "logits": logits}
+    emit(runs["o"])
+    eng_e = eager_twin(eng)
+    eng_e.generate(ids, max_new_tokens=4)     # warm-up
+    out_e, dt, cnt, peak = run_generate(eng_e, ids, new, expect)
+    runs["o_eager"] = {"run": "o_eager", "cuda_graphs": False,
+                       "seconds": dt, "tokens_per_s": B * new / dt,
+                       "launches": cnt, "peak_device_bytes": peak,
+                       "tokens_equal_to_graphs": bool(torch.equal(out_e,
+                                                                  out))}
+    emit(runs["o_eager"])
+    if not runs["o_eager"]["tokens_equal_to_graphs"]:
+        fail("run (o): the eager engine's tokens differ from the decode "
+             "graphs'")
+    del eng_e
+    runs["o_graph_profile"] = profile_run(eng, ids, new, "o_graph",
+                                          "opt350m_graph_trace.json")
+
+    reqs = serving_traffic(V, RUN_O["requests"])
+    warm = eng.serve(**SERVE_O)               # warm-up (allocator, cuBLAS)
+    drive(warm, reqs[:4])
+    warm.close()
+    srv, outs, secs, peak, counts = serve_counted(eng, reqs, "run (o)",
+                                                  **SERVE_O)
+    runs["o_serve"] = serve_record("o_serve", srv, secs, peak, counts, reqs)
+    emit(runs["o_serve"])
+    mono, outs_m, secs_m, peak_m, counts_m = serve_counted(
+        eng, reqs, "run (o) monolithic", **{**SERVE_O, "paged": False})
+    rec = serve_record("o_mono", mono, secs_m, peak_m, counts_m, reqs)
+    rec["requests_differing_from_paged"] = sum(
+        not np.array_equal(a, b) for a, b in zip(outs, outs_m))
+    few = reqs[:RUN_O["solo"]]
+    solo_eng = init_inference(eng.module, {
+        "prefill_chunk_size": SERVE_O["prefill_chunk"],
+        "enable_cuda_graph": False}, dtype="bfloat16", device=DEV)
+    solo = [solo_eng.generate(torch.tensor(p[None], device=DEV),
+                              max_new_tokens=n)[0].cpu().numpy()
+            for p, n in few]
+    del solo_eng
+    rec["bf16_solo"] = {
+        "requests": len(few),
+        "requests_differing_from_paged": sum(
+            not np.array_equal(a, b) for a, b in zip(solo, outs)),
+        "greedy_agreement_with_paged": float(np.mean(np.concatenate(
+            [a[len(p):] == b[len(p):]
+             for a, b, (p, _) in zip(solo, outs, few)])))}
+    emit(rec)
+    runs["o_mono"] = rec
+    if rec["requests_differing_from_paged"]:
+        fail(f"run (o): {rec['requests_differing_from_paged']} of "
+             f"{len(reqs)} requests' tokens differ between the paged pool "
+             f"and the monolithic lanes")
+    runs["o_fp32"] = opt350m_fp32_solo(eng32, reqs)
+
+    # the HF-named export from a training engine over the fp32 copy's
+    # weights (compute fp32, so the export is bf16), then back through
+    # init_inference: the same bf16 weights, so run (o)'s tokens
+    engine, *_ = initialize(model=eng32.module, config={
+        "train_micro_batch_size_per_gpu": 1,
+        "optimizer": {"type": "SGD", "params": {"lr": 0.0}}}, device=DEV)
+    d = os.path.join(ROOT, "build", "opt350m_export")
+    t0 = time.perf_counter()
+    engine.save_16bit_model(d, "model.safetensors", hf_policy="opt")
+    export_s = time.perf_counter() - t0
+    del engine, eng32
+    path = os.path.join(d, "model.safetensors")
+    exported = load_file(path)
+    want_keys = set(hsd) - {"lm_head.weight"}     # the tied alias
+    bad = sorted(k for k in want_keys | set(exported)
+                 if k not in exported or k not in hsd
+                 or exported[k].shape != hsd[k].shape
+                 or exported[k].dtype != torch.bfloat16)
+    if set(exported) != want_keys or bad:
+        fail(f"run (o): the hf_policy export's keys / shapes differ from "
+             f"HF's: {bad[:8]}")
+    back = init_inference(hf_model(hf_cfg, exported), {
+        "enable_cuda_graph": False}, dtype="bfloat16", device=DEV)
+    out_b, _, cnt_b, _ = run_generate(back, ids, new, expect)
+    runs["o_export"] = {"run": "o_export", "hf_policy": "opt",
+                        "tensors": len(exported),
+                        "bytes": os.path.getsize(path),
+                        "seconds": export_s,
+                        "hf_keys_and_shapes_equal": True,
+                        "tokens_equal_to_run_o": bool(torch.equal(out_b,
+                                                                  out)),
+                        "launches": cnt_b}
+    emit(runs["o_export"])
+    if not runs["o_export"]["tokens_equal_to_run_o"]:
+        fail("run (o): the HF-named export converted back gives other "
+             "tokens than run (o)")
+    import shutil
+    shutil.rmtree(d, ignore_errors=True)
+    del back, eng
+    torch.cuda.empty_cache()
+    return runs
+
+
+def opt350m_fp32_solo(eng32, reqs):
+    """Run (o)'s requests on the fp32 copy's 32-slot pool, each equal to
+    its solo generate() (the server's prefill chunk, decode graphs
+    captured per prompt and length): fp32 rounding keeps a batch-of-one
+    GEMM's near-ties where the pool's 32-row decode block has them, which
+    bf16 need not (``bf16_solo``)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    srv, outs, secs, peak, counts = serve_counted(eng32, reqs,
+                                                  "run (o) fp32", **SERVE_O)
+    rec = serve_record("o_fp32", srv, secs, peak, counts, reqs)
+    solo_eng = init_inference(eng32.module, {
+        "prefill_chunk_size": SERVE_O["prefill_chunk"]}, dtype="float32",
+        device=DEV)
+    t0 = time.perf_counter()
+    solo = [solo_eng.generate(torch.tensor(p[None], device=DEV),
+                              max_new_tokens=n)[0].cpu().numpy()
+            for p, n in reqs]
+    rec["solo_seconds"] = time.perf_counter() - t0
+    del solo_eng
+    rec["requests_differing_from_solo"] = sum(
+        not np.array_equal(a, b) for a, b in zip(solo, outs))
+    emit(rec)
+    if rec["requests_differing_from_solo"]:
+        fail(f"run (o) fp32: {rec['requests_differing_from_solo']} of "
+             f"{len(reqs)} served requests differ from their solo "
+             f"generate()")
+    torch.cuda.empty_cache()
+    return rec
+
+
+# --------------------------------------------------------------------- #
+# The remat policies at the JAX long-context point, run (c-remat)
+# --------------------------------------------------------------------- #
+def remat_model(policy):
+    from deepspeed_tpu_torch.models.opt import opt_model
+    return opt_model(MODEL, max_seq_len=RUN_C_REMAT["seq"],
+                     loss_seq_chunks=RUN_C_REMAT["loss_chunks"],
+                     dtype="bfloat16", remat=policy is not None,
+                     remat_policy=policy or "nothing_saveable")
+
+
+def remat_run(policy, batch):
+    """One engine under ``policy`` (None: ``remat=False``): the first step
+    through ``engine(mb)`` / ``backward`` / ``step`` (``train_batch``'s
+    bits), its loss, the device bytes its forward leaves allocated for the
+    backward (what the policy keeps), the peak of its forward and backward
+    and the digests after it; then the timed steps with their launches per
+    step held exactly and the whole step's peak (set by the optimizer's
+    temporaries, the same for every policy); nothing_saveable and
+    flash_only_saveable also profile one step."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.profiling.trace import breakdown
+    cfg = RUN_C_REMAT
+    engine, *_ = initialize(model=remat_model(policy), config=TRAIN_F_CONFIG,
+                            device=DEV)
+    L = engine.module.config.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    before = torch.cuda.memory_allocated(DEV)
+    first = engine({"input_ids": batch["input_ids"][0]})
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(DEV) - before
+    engine.backward(first)
+    torch.cuda.synchronize()
+    fwd_bwd_peak = engine.max_memory_allocated()
+    engine.step()
+    first_digests = digests(engine)
+    for _ in range(cfg["warmup"] - 1):
+        engine.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch=batch) for _ in range(cfg["steps"])]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    peak = engine.max_memory_allocated()
+    per_step = {k: n / cfg["steps"] for k, n in counts.items()}
+    k1 = L if policy in REMAT_KEEPS_FLASH else 2 * L
+    want = expect_only({"flash_attention": k1, "flash_attention_dq": L,
+                        "flash_attention_dkv": L})
+    name = policy or "remat=False"
+    if per_step != want:
+        fail(f"run (c-remat) {name}: launches per step {per_step}, the "
+             f"path needs {want}")
+    n_params = sum(p.numel() for p in engine.params)
+    mcfg = engine.module.config
+    S = cfg["micro"] * cfg["seq"]
+    tok_s = cfg["steps"] * S / dt
+    # bench.py's attention-aware MFU: 6 N + 6 L S h flops a token
+    per_tok = 6.0 * mcfg.num_params() + 6.0 * L * cfg["seq"] * \
+        mcfg.hidden_size
+    rec = {"policy": name, "step_ms": dt / cfg["steps"] * 1e3,
+           "tokens_per_s": tok_s, "mfu_attn_aware":
+               tok_s * per_tok / PEAK_FLOPS["bfloat16"],
+           "mfu": 6 * n_params * tok_s / PEAK_FLOPS["bfloat16"],
+           "peak_device_bytes": peak,
+           "held_for_backward_bytes": held,
+           "peak_forward_backward_bytes": fwd_bwd_peak,
+           "first_loss": float(first),
+           "losses": [float(x) for x in losses],
+           "launches_per_step": {k: n for k, n in per_step.items() if n}}
+    if not all(math.isfinite(x) for x in [rec["first_loss"]]
+               + rec["losses"]):
+        fail(f"run (c-remat) {name}: non-finite loss {rec['losses']}")
+    if policy in ("nothing_saveable", "flash_only_saveable"):
+        wall = {}
+
+        def one_step():
+            t = time.perf_counter()
+            engine.train_batch(batch=batch)
+            torch.cuda.synchronize()
+            wall["s"] = time.perf_counter() - t
+
+        trace = os.path.join(ROOT, "build", "profiles",
+                             cfg["trace"].format(policy))
+        ks, held = counted_events(one_step, trace)
+        prof = {**breakdown(ks, wall["s"]), **held}
+        emit({"profile": f"c_remat_{policy}", **prof,
+              "trace": os.path.relpath(trace, ROOT)})
+        rec["profile_attention_ms_per_step"] = {
+            grp: ms for grp, ms in prof["device_ms_by_group"].items()
+            if grp.split()[0] in ("K1", "K4", "K5")}
+    emit({"run": "c_remat", **rec})
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, first.detach(), first_digests
+
+
+def remat_path():
+    """Run (c-remat): every setting of ``REMAT_SETTINGS`` from the same
+    seeded weights and batch; their first steps bitwise equal (loss,
+    parameters, both moments), K1 24 or 48 times a step as the policy
+    keeps its residuals or not, and the device bytes the forward keeps for
+    the backward ordered nothing_saveable < flash_only_saveable <
+    dots_and_attn_saveable <= remat=False (the forward / backward's peak
+    is reported: it comes late in the backward, where the gradients have
+    replaced what the smallest policies keep)."""
+    import torch
+    cfg = RUN_C_REMAT
+    gc.collect()
+    torch.cuda.empty_cache()
+    V = remat_model(None).config.vocab_size
+    g = torch.Generator(device=DEV).manual_seed(cfg["seed"])
+    batch = {"input_ids": torch.randint(0, V, (1, cfg["micro"], cfg["seq"]),
+                                        generator=g, device=DEV)}
+    recs, firsts = {}, {}
+    for policy in REMAT_SETTINGS:
+        rec, first, first_digests = remat_run(policy, batch)
+        recs[rec["policy"]] = rec
+        firsts[rec["policy"]] = (first, first_digests)
+    ref_loss, ref_digests = firsts["remat=False"]
+    bitwise = {name: bool(torch.equal(loss, ref_loss)) and d == ref_digests
+               for name, (loss, d) in firsts.items()}
+    held = {name: r["held_for_backward_bytes"] for name, r in recs.items()}
+    ordered = held["nothing_saveable"] < held["flash_only_saveable"] \
+        < held["dots_and_attn_saveable"] <= held["remat=False"]
+    out = {"model": MODEL, "seq": cfg["seq"], "micro_batch": cfg["micro"],
+           "loss_seq_chunks": cfg["loss_chunks"], "policies": recs,
+           "first_step_bitwise_equal_to_remat_off": bitwise,
+           "held_for_backward_ordered": ordered,
+           "flash_only_vs_nothing_step_ms": (
+               recs["flash_only_saveable"]["step_ms"]
+               - recs["nothing_saveable"]["step_ms"])}
+    emit({"remat": out})
+    if not all(bitwise.values()):
+        fail(f"run (c-remat): first steps not bitwise equal across the "
+             f"settings: {bitwise}")
+    if not ordered:
+        fail(f"run (c-remat): the bytes the forward keeps for the backward "
+             f"{held} are not ordered nothing < flash_only < dots_and_attn "
+             f"<= remat=False")
+    return out
+
+
 def main():
     try:
         import torch
@@ -4832,12 +5269,22 @@ def main():
     torch.cuda.empty_cache()
     runs.update(gpt_neo_path())
     runs.update(llama_path())
+    runs.update(opt350m_path())
     emit({"graphs_vs_eager": graphs_vs_eager(runs)})
     runs["c"] = train_path()
     runs["c_ckpt"] = ckpt_path()
     grad_check()
     runs["f"] = sparse_train_path()
     sparse_grad_check()
+    runs["c_remat"] = remat_path()
+    # K1 / K4 / K5 at run (c-remat)'s attention shape (the plain backward's
+    # [1, 32, 8192, 8192] fp32 scores need the card to itself)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd = check_flash_bwd("bfloat16", True, KL_SHAPE)
+    for key in ("K1", "K4", "K5"):
+        checks[(key + " run c-remat", "bfloat16")] = bwd[key]
+    torch.cuda.empty_cache()
 
     def timing(c):
         return {"max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
@@ -5020,6 +5467,27 @@ def main():
         k["d128_shape"] = {**timing(d128), "shape": d128["shape"],
                            "tflops": d128["tflops"],
                            "pair_ms": d128["pair_ms"]}
+    # run (o): OPT-350m (16 heads of 64) from an HF-named state dict —
+    # generate (K1, K2), the pool (K7, K6) and the lanes (K3, K2)
+    for k, run, name in ((kernels[0], "o", "flash_attention"),
+                         (kernels[1], "o", "decode_attention"),
+                         (kernels[1], "o_mono", "decode_attention"),
+                         (kernels[2], "o_mono", "chunk_prefill_attention"),
+                         (kernels[5], "o_serve", "paged_decode_attention"),
+                         (kernels[6], "o_serve",
+                          "paged_chunk_prefill_attention")):
+        k[f"launches_run_{run}"] = runs[run]["launches"][name]
+    # run (c-remat): K1 / K4 / K5 at [1, 8192, 32, 64], launches per step
+    # under each remat setting
+    for k, key in zip((kernels[0], kernels[3], kernels[4]),
+                      ("K1", "K4", "K5")):
+        check = checks[(key + " run c-remat", "bfloat16")]
+        k["run_c_remat_shape"] = {
+            **timing(check), "shape": check["shape"],
+            "tflops": check["tflops"],
+            "launches_per_step": {
+                policy: rec["launches_per_step"][k["name"]]
+                for policy, rec in runs["c_remat"]["policies"].items()}}
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,10 @@ Ported so far, for the OPT family: generation (:func:`init_inference` →
 on slot lanes or a paged KV pool), both with int8 weights and an int8 KV
 cache when the config's ``quant`` block asks for them, and single-device
 training (:func:`initialize` → ``engine.train_batch`` or ``engine(batch)``
-/ ``engine.backward(loss)`` / ``engine.step()``), dense or block-sparse.
+/ ``engine.backward(loss)`` / ``engine.step()``), dense or block-sparse,
+with the JAX remat policies and ``checkpointing`` (activation
+checkpointing); HF OPT / GPT-2 / Llama / Mistral / GPT-Neo models come in
+through ``module_inject``.
 """
 
 __version__ = "0.1.0"
@@ -18,6 +21,8 @@ __version__ = "0.1.0"
 from deepspeed_tpu_torch.accelerator import get_accelerator  # noqa: F401
 from deepspeed_tpu_torch.inference.serving import (  # noqa: F401
     ServingConfig, ServingEngine)
+from deepspeed_tpu_torch.runtime.activation_checkpointing import (  # noqa: F401
+    checkpointing)
 from deepspeed_tpu_torch.utils.logging import logger, log_dist  # noqa: F401
 
 
@@ -55,14 +60,18 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 def init_inference(model=None, config=None, device=None, **kwargs):
     """Initialize the inference engine (the JAX package's
     ``init_inference``).  ``model`` is a port ``Transformer`` (e.g.
-    ``models.opt.opt_model("opt-1.3b")``); ``config`` a dict or
+    ``models.opt.opt_model("opt-1.3b")``), an HF model (anything with
+    ``.config`` and ``.state_dict()``) or an HF model name, which are
+    converted in the config's dtype through ``module_inject``
+    (``convert_hf_model``); ``config`` a dict or
     ``DeepSpeedInferenceConfig``, with ``kwargs`` merged in.
     ``quant.kv_cache=True`` sets the model's ``kv_cache_quant`` (on the
     module itself, which keeps its weights), as the JAX package clones
     its model with it.  ``device``: ``None`` means ``"cuda"`` (a
     ``RuntimeError`` without a card); pass ``"cpu"`` for the plain PyTorch
     path."""
-    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.config import (
+        DeepSpeedInferenceConfig, normalize_dtype_str)
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     from deepspeed_tpu_torch.models.transformer import Transformer
     if isinstance(config, dict):
@@ -72,11 +81,17 @@ def init_inference(model=None, config=None, device=None, **kwargs):
     elif kwargs:
         raise TypeError("pass keyword overrides with a dict config, not "
                         "with a DeepSpeedInferenceConfig instance")
-    if isinstance(model, str) or not isinstance(model, Transformer):
-        raise NotImplementedError(
-            f"init_inference takes a deepspeed_tpu_torch Transformer; HF "
-            f"models and model names ({type(model).__name__}) come with the "
-            f"later module_inject slice")
+    if isinstance(model, str) or (not isinstance(model, Transformer)
+                                  and hasattr(model, "config")
+                                  and hasattr(model, "state_dict")):
+        from deepspeed_tpu_torch.module_inject import convert_hf_model
+        model = convert_hf_model(model,
+                                 dtype=normalize_dtype_str(config.dtype))
+    elif not isinstance(model, Transformer):
+        raise TypeError(
+            f"init_inference takes a deepspeed_tpu_torch Transformer, an HF "
+            f"model (with .config and .state_dict()) or an HF model name; "
+            f"got {type(model).__name__}")
     if config.quant.kv_cache and not model.config.kv_cache_quant:
         import dataclasses
         model.replace_config_(

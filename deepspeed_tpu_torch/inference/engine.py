@@ -136,8 +136,8 @@ class InferenceEngine:
           unpickling — a legacy pickled parameter tree, a torch file with
           other objects — loads only with
           ``DSTPU_ALLOW_PICKLE_CHECKPOINTS=1``, as in the JAX package.
-          HF-named exports (``hf_policy``) need ``module_inject``, which is
-          not ported."""
+          HF-named exports (``hf_policy``) raise, as in JAX: they load
+          through ``module_inject.convert_hf_model``."""
         import os
         path = str(path)
         if os.path.isfile(path):
@@ -490,9 +490,9 @@ def _flax_flat(flat):
     input); HF-named keys (dots, no flax path) raise."""
     if any("." in k and "/" not in k for k in flat):
         raise ValueError(
-            "this file carries HF-named keys (an hf_policy export); loading "
-            "it needs module_inject, which is not ported to "
-            "deepspeed_tpu_torch yet")
+            "this file carries HF-named keys (an hf_policy export); load it "
+            "through module_inject.convert_hf_model (an object with the HF "
+            "config and this state dict) instead")
     return {(k[len("params/"):] if k.startswith("params/") else k):
             (v.float().numpy() if torch.is_tensor(v) else np.asarray(v))
             for k, v in flat.items()}

@@ -24,9 +24,17 @@ parameters.  Weights from the JAX package convert with
 
 ``forward(batch)`` returns the causal-LM loss, as the JAX
 ``Transformer.__call__`` does; :meth:`Transformer.logits` gives logits.
-With ``remat=True`` each block runs under ``torch.utils.checkpoint``
-(the JAX ``nothing_saveable`` policy), and ``loss_seq_chunks`` computes
-the head and the loss one sequence chunk at a time.
+With ``remat=True`` each block is a remat region under ``remat_policy``
+(:func:`resolve_remat_policy`: the JAX names, the flash policies keeping
+K1's output and LSE), and ``loss_seq_chunks`` computes the head and the
+loss one sequence chunk at a time.
+
+OPT-350m's published layout runs as in JAX: ``pre_layer_norm=False``
+puts each norm after its residual add and drops the final norm, and
+``embed_proj_dim`` makes the embedding that wide, with bias-less
+``project_in`` / ``project_out`` around the trunk (the head chains
+``project_out`` before the tied embedding; the two are never folded into
+one [hidden, vocab] weight).
 
 GPT-Neo's alternating global / local layers (``attention_layers``, band
 ``window_size``) run as in JAX: a local layer attends to the trailing
@@ -44,14 +52,14 @@ come from the ``positions`` tensor on every forward, never from a table
 built once, so a captured CUDA graph recomputes them on each replay.
 
 Config features that these models do not use raise
-``NotImplementedError`` when a model is built (alibi, post-LN,
-``embed_proj_dim``, ``parallel_residual``, ``embedding_norm``,
-``fused_qkv``, MoE, ``sequence_parallel_impl``, remat policies other than
-``nothing_saveable``); ROADMAP.md lists them.  Inference engines
+``NotImplementedError`` when a model is built (alibi,
+``parallel_residual``, ``embedding_norm``, ``fused_qkv``, MoE,
+``sequence_parallel_impl``); ROADMAP.md lists them.  Inference engines
 quantize the weights (:meth:`Transformer.quantize_weights_`, the JAX
 ``WeightQuantization`` on the flax layout of each weight).
 """
 
+import functools
 import math
 from collections.abc import Mapping
 from dataclasses import dataclass
@@ -63,6 +71,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.utils import remat as ckpt
 from deepspeed_tpu_torch.utils.logging import logger, warning_once
 
 
@@ -195,16 +204,12 @@ class TransformerConfig:
 _NOT_PORTED = (
     (lambda c: c.position_embedding not in ("learned", "rope"),
      "position_embedding other than 'learned' or 'rope' (alibi)"),
-    (lambda c: not c.pre_layer_norm, "post-LN (pre_layer_norm=False)"),
-    (lambda c: c.embed_proj_dim is not None, "embed_proj_dim"),
     (lambda c: c.moe_num_experts > 0, "MoE (moe_num_experts > 0)"),
     (lambda c: c.parallel_residual, "parallel_residual"),
     (lambda c: c.embedding_norm, "embedding_norm"),
     (lambda c: c.fused_qkv, "fused_qkv"),
     (lambda c: c.sequence_parallel_impl is not None,
      "sequence_parallel_impl"),
-    (lambda c: c.remat and c.remat_policy != "nothing_saveable",
-     "remat_policy other than 'nothing_saveable'"),
 )
 
 _ACTIVATIONS = {"relu": F.relu,
@@ -212,6 +217,32 @@ _ACTIVATIONS = {"relu": F.relu,
                 "gelu_exact": F.gelu,
                 "silu": F.silu,
                 "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x)}
+
+
+def resolve_remat_policy(name):
+    """The op names whose outputs a remat'd block keeps under policy
+    ``name`` (the JAX names and meanings):
+
+    * the stock ``jax.checkpoint_policies`` names
+      (``utils.remat.CHECKPOINT_POLICIES``): ``nothing_saveable``,
+      ``everything_saveable``, ``dots_saveable`` / ``checkpoint_dots``
+      (every matrix product), ``dots_with_no_batch_dims_saveable`` (the
+      weight GEMMs only);
+    * ``flash_only_saveable``: K1's output and LSE only (its call site
+      ``FORWARD_OP``), so the backward never launches K1 again while
+      every projection and MLP product is recomputed;
+    * ``dots_and_attn_saveable`` = ``attn_residuals_saveable``: both the
+      weight GEMMs and K1's output and LSE.
+
+    An unknown name keeps nothing, as JAX's ``getattr`` gives None."""
+    from deepspeed_tpu_torch.ops.transformer.flash_attention import (
+        FORWARD_OP)
+    flash = frozenset({FORWARD_OP})
+    if name in ("dots_and_attn_saveable", "attn_residuals_saveable"):
+        return ckpt.DOTS_NO_BATCH | flash
+    if name == "flash_only_saveable":
+        return flash
+    return ckpt.CHECKPOINT_POLICIES.get(name, ckpt.NOTHING)
 
 
 def check_supported(cfg):
@@ -536,8 +567,10 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm decoder block (OPT-1.3B's, GPT-Neo's and Llama's layout),
-    layer ``layer_idx`` of the trunk."""
+    """Decoder block, layer ``layer_idx`` of the trunk: pre-norm
+    (OPT-1.3B's, GPT-Neo's and Llama's layout) or, with
+    ``pre_layer_norm=False``, post-norm (OPT-350m's: each norm after its
+    residual add)."""
 
     def __init__(self, config, device=None, layer_idx=None):
         super().__init__()
@@ -550,6 +583,10 @@ class Block(nn.Module):
     def forward(self, x, positions, mask=None, cache=None, layer=None,
                 start=None, prefill=False, rope=None):
         cfg = self.config
+        if not cfg.pre_layer_norm:
+            x = _norm(x + self.attn(x, positions, mask, cache, layer, start,
+                                    prefill, rope), self.input_norm, cfg)
+            return _norm(x + self.mlp(x), self.post_attn_norm, cfg)
         x = x + self.attn(_norm(x, self.input_norm, cfg), positions, mask,
                           cache, layer, start, prefill, rope)
         return x + self.mlp(_norm(x, self.post_attn_norm, cfg))
@@ -564,16 +601,26 @@ class Transformer(nn.Module):
         check_supported(config)
         self.config = cfg = config
         kw = dict(device=device, dtype=torch.float32)
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        embed_dim = cfg.embed_proj_dim or cfg.hidden_size
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, embed_dim, **kw)
+        # opt-350m: a narrower embedding, projected in and out of the trunk
+        self.project_in = self.project_out = None
+        if cfg.embed_proj_dim is not None:
+            self.project_in = nn.Linear(embed_dim, cfg.hidden_size,
+                                        bias=False, **kw)
+            self.project_out = nn.Linear(cfg.hidden_size, embed_dim,
+                                         bias=False, **kw)
         # rotary configs have no position table: positions enter as rope
         self.embed_positions = nn.Embedding(
             cfg.max_seq_len, cfg.hidden_size, **kw) \
             if cfg.position_embedding == "learned" else None
         self.layers = nn.ModuleList(Block(cfg, device=device, layer_idx=i)
                                     for i in range(cfg.num_layers))
-        self.final_norm = _make_norm(cfg, device)
+        # post-LN blocks end in a norm: no final norm
+        self.final_norm = _make_norm(cfg, device) if cfg.pre_layer_norm \
+            else None
         self.lm_head = None if cfg.tie_word_embeddings else nn.Linear(
-            cfg.hidden_size, cfg.vocab_size, bias=cfg.lm_head_bias, **kw)
+            embed_dim, cfg.vocab_size, bias=cfg.lm_head_bias, **kw)
 
     @property
     def device(self):
@@ -608,7 +655,8 @@ class Transformer(nn.Module):
 
     def hidden_states(self, input_ids, mask=None, cache=None, start_pos=0,
                       prefill=False):
-        """Final-norm hidden states [B, S, h].  With ``cache`` (the
+        """Final-norm hidden states [B, S, h] (the last block's output
+        for a post-LN model, which has no final norm).  With ``cache`` (the
         stacked ``{"k", "v"}`` of :meth:`init_cache`, or a pool of
         :meth:`init_paged_cache` plus its block table ``"pages"``), each
         layer writes its K/V rows at positions ``start_pos + arange(S)`` in
@@ -631,6 +679,8 @@ class Transformer(nn.Module):
         if prefill and start != 0:
             raise ValueError("prefill=True needs start_pos == 0")
         x = F.embedding(input_ids, self.embed_tokens.weight).to(cfg.torch_dtype)
+        if self.project_in is not None:
+            x = _linear(x, self.project_in, cfg.torch_dtype)
         rope = None
         if self.embed_positions is not None:
             x = x + F.embedding(positions, self.embed_positions.weight).to(
@@ -639,28 +689,37 @@ class Transformer(nn.Module):
             # the rotary angles once for every layer, from the positions
             rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                                cfg.rope_dim)
-        # remat (JAX nn.remat with nothing_saveable): each block keeps only
-        # its input and recomputes itself in the backward
+        # remat (JAX nn.remat with the config's policy): each block keeps
+        # its input and what the policy names, and recomputes the rest in
+        # the backward
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        keep = resolve_remat_policy(cfg.remat_policy) if remat else None
         for i, blk in enumerate(self.layers):
             if remat:
-                x = checkpoint(blk, x, positions, mask, rope=rope,
-                               use_reentrant=False)
+                x = ckpt.remat(functools.partial(
+                    blk, positions=positions, mask=mask, rope=rope), keep, x)
             else:
                 x = blk(x, positions, mask, cache, i, start, prefill, rope)
-        return _norm(x, self.final_norm, cfg)
+        return x if self.final_norm is None else \
+            _norm(x, self.final_norm, cfg)
 
     def _head_fn(self):
         """The LM head as a closure over weights cast once to the model
         dtype (the JAX ``_head_pure``), so a chunked loss does not cast the
-        [V, h] table per chunk."""
+        [V, h] table per chunk.  With ``embed_proj_dim``, ``project_out``
+        comes first as a matmul of its own: folding it into the vocab
+        weight would materialize a [hidden, vocab] matrix."""
         dt = self.config.torch_dtype
+        chain = (lambda x: x)
+        if self.project_out is not None:
+            pw = self.project_out.weight.to(dt)
+            chain = (lambda x: F.linear(x.to(dt), pw))
         if self.lm_head is None:
             w = self.embed_tokens.weight.to(dt)
-            return lambda x: x @ w.T
+            return lambda x: chain(x) @ w.T
         w = self.lm_head.weight.to(dt)
         b = None if self.lm_head.bias is None else self.lm_head.bias.to(dt)
-        return lambda x: F.linear(x.to(dt), w, b)
+        return lambda x: F.linear(chain(x).to(dt), w, b)
 
     def _head(self, x):
         return self._head_fn()(x)
@@ -761,9 +820,16 @@ class Transformer(nn.Module):
                 path = f"layers_{i}/" + name.replace(".", "/")
                 yield (f"layers.{i}.{name}", (path + "/kernel",
                                               path + "/bias"), shapes)
+        if self.project_in is not None:
+            e = cfg.embed_proj_dim
+            yield ("project_in", ("project_in/kernel", "project_in/bias"),
+                   ((e, h), (h,)))
+            yield ("project_out", ("project_out/kernel", "project_out/bias"),
+                   ((h, e), (e,)))
         if self.lm_head is not None:
+            e = cfg.embed_proj_dim or h
             yield ("lm_head", ("lm_head/kernel", "lm_head/bias"),
-                   ((h, cfg.vocab_size), (cfg.vocab_size,)))
+                   ((e, cfg.vocab_size), (cfg.vocab_size,)))
 
     @torch.no_grad()
     def quantize_weights_(self, quantizer, dtype):
@@ -883,13 +949,15 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def params_from_flax(tree, cfg):
+def params_from_flax(tree, cfg, unused="raise"):
     """The JAX model's parameter tree (numpy leaves) → this port's
     ``state_dict`` (float32 tensors).  Accepts the scanned layout
     (``params/layers/...`` stacked on axis 0, ``scan_layers=True``) and the
     unrolled one (``params/layers_{i}/...``).  Flax kernels are
     ``[in, out]`` and become ``nn.Linear`` weights ``[out, in]``.  Every
-    leaf of the tree must be used exactly once."""
+    leaf of the tree must be used exactly once; with ``unused="warn"`` (an
+    HF conversion, as the JAX ``_materialize``) a leaf no parameter takes
+    only warns."""
     check_supported(cfg)
     if "params" in tree:
         tree = tree["params"]
@@ -920,12 +988,16 @@ def params_from_flax(tree, cfg):
         return stacked_leaves[name][i]
 
     rms = cfg.rms_norm                   # RMS norms: a scale, no bias
-    sd = {"embed_tokens.weight": t(take("embed_tokens/embedding")),
-          "final_norm.weight": t(take("final_norm/scale"))}
+    sd = {"embed_tokens.weight": t(take("embed_tokens/embedding"))}
+    if cfg.pre_layer_norm:               # post-LN has no final norm
+        sd["final_norm.weight"] = t(take("final_norm/scale"))
+        if not rms:
+            sd["final_norm.bias"] = t(take("final_norm/bias"))
+    if cfg.embed_proj_dim is not None:
+        for proj in ("project_in", "project_out"):
+            sd[f"{proj}.weight"] = t(take(f"{proj}/kernel").T)
     if cfg.position_embedding == "learned":
         sd["embed_positions.weight"] = t(take("embed_positions/embedding"))
-    if not rms:
-        sd["final_norm.bias"] = t(take("final_norm/bias"))
     for i in range(L):
         p = f"layers.{i}."
         for proj in ("q_proj", "k_proj", "v_proj"):
@@ -953,9 +1025,11 @@ def params_from_flax(tree, cfg):
         sd["lm_head.weight"] = t(take("lm_head/kernel").T)
         if cfg.lm_head_bias:
             sd["lm_head.bias"] = t(take("lm_head/bias"))
-    unused = sorted(set(flat) - used)
-    if unused:
-        raise ValueError(f"params_from_flax: leaves not used: {unused}")
+    left = sorted(set(flat) - used)
+    if left and unused == "warn":
+        logger.warning(f"conversion produced unused tensors: {left}")
+    elif left:
+        raise ValueError(f"params_from_flax: leaves not used: {left}")
     if stacked:
         bad = [k for k, v in flat.items()
                if k.startswith("layers/") and v.shape[0] != L]
@@ -991,12 +1065,16 @@ def params_to_flax(state_dict, cfg, dtype=None):
             t = t.to(dtype)
         return t
 
-    out = {"embed_tokens/embedding": get("embed_tokens.weight"),
-           "final_norm/scale": get("final_norm.weight")}
+    out = {"embed_tokens/embedding": get("embed_tokens.weight")}
+    if cfg.pre_layer_norm:
+        out["final_norm/scale"] = get("final_norm.weight")
+        if not cfg.rms_norm:
+            out["final_norm/bias"] = get("final_norm.bias")
+    if cfg.embed_proj_dim is not None:
+        for proj in ("project_in", "project_out"):
+            out[f"{proj}/kernel"] = get(f"{proj}.weight").T.contiguous()
     if cfg.position_embedding == "learned":
         out["embed_positions/embedding"] = get("embed_positions.weight")
-    if not cfg.rms_norm:
-        out["final_norm/bias"] = get("final_norm.bias")
     layer = {}                  # flax leaf name -> [one tensor per layer]
 
     def put(name, t):

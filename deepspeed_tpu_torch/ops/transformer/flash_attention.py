@@ -17,7 +17,9 @@ for fp32 inputs fp32 FMAs; :class:`_FlashAttention` is the port of the
 JAX ``custom_vjp`` around them.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
-version only for CPU tensors; it never falls back.
+version only for CPU tensors; it never falls back.  K1's forward is the
+call site ``FORWARD_OP``, which a remat policy names to keep K1's output
+and LSE (``utils/remat.py``).
 """
 
 import math
@@ -26,6 +28,7 @@ import torch
 
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.op_builder import check_tma
+from deepspeed_tpu_torch.utils.remat import kept
 
 
 def _pow2(scale):
@@ -250,14 +253,27 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None):
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _forward(q, k, v, causal, kscale, with_lse):
-    """One K1 launch for CUDA tensors (counted), the plain forward for CPU
-    tensors.  Returns (out, lse or None on CUDA without ``with_lse``)."""
+# the name of K1's forward call site: a remat policy that keeps it keeps
+# K1's output and LSE, as JAX's names the kernel's flash_out / flash_lse,
+# and its recompute launches K1 no more
+FORWARD_OP = "flash_attention_fwd"
+
+
+def _launch_forward(q, k, v, causal, kscale, with_lse):
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, scale=kscale)
     out = launch_attention_kernel(q, k, v, causal, kscale, None, with_lse)
     flash_attention.launches += 1
     return out
+
+
+def _forward(q, k, v, causal, kscale, with_lse):
+    """One K1 launch for CUDA tensors (counted), the plain forward for CPU
+    tensors; in the recompute of a remat region whose policy keeps
+    ``FORWARD_OP``, the forward's output and LSE instead.  Returns (out,
+    lse or None on CUDA without ``with_lse``)."""
+    return kept(FORWARD_OP, _launch_forward, q, k, v, causal, kscale,
+                with_lse)
 
 
 class _FlashAttention(torch.autograd.Function):

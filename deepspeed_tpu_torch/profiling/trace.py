@@ -65,6 +65,9 @@ GROUPS = (("K6-i8mm decode_i8mm_kernel (paged)",
 # from 1 of 1,524 of this package's kernels in a window of ~25,000 to 49
 # of 240 in a window of 240 short launches
 PROFILE_ATTEMPTS = 3
+# an idle stretch of the device longer than this, between two kernels, is
+# reported as a gap (the device waiting on the host)
+GAP_US = 100
 
 
 def _group(name):
@@ -87,11 +90,30 @@ def _union_us(intervals):
     return total
 
 
+def _gaps_us(kernels):
+    """The device's idle stretches over ``GAP_US`` between one kernel's end
+    and the next one's start, as (length, the next kernel's group)."""
+    gaps, end = [], None
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        if end is not None and e["ts"] - end > GAP_US:
+            gaps.append((e["ts"] - end, _group(e["name"])))
+        end = e["ts"] + e["dur"] if end is None else \
+            max(end, e["ts"] + e["dur"])
+    return gaps
+
+
 def breakdown(kernels, wall_s, top=12):
     """Where a call's time went on the device: its wall time, the device's
     busy time (union of kernel intervals) and idle share, the kernel
-    launches, and device time by kernel group and by kernel name."""
+    launches, device time by kernel group and by kernel name, and the
+    idle stretches over ``GAP_US`` between kernels (the device waiting on
+    the host), with their time by the group of the kernel that ends
+    each."""
     busy_us = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
+    gaps = _gaps_us(kernels)
+    gap_by_next = {}
+    for us, grp in gaps:
+        gap_by_next[grp] = gap_by_next.get(grp, 0.0) + us / 1e3
     by_group, by_name = {}, {}
     for e in kernels:
         grp = _group(e["name"])
@@ -106,7 +128,11 @@ def breakdown(kernels, wall_s, top=12):
             "device_ms_by_group": dict(sorted(by_group.items(),
                                               key=lambda kv: -kv[1])),
             "top_kernels": [{"name": k[:90], "calls": n, "device_ms": t}
-                            for k, (n, t) in heaviest]}
+                            for k, (n, t) in heaviest],
+            "device_gaps_over_100us": len(gaps),
+            "device_gap_ms": sum(us for us, _ in gaps) / 1e3,
+            "device_gap_ms_by_next_group": dict(sorted(
+                gap_by_next.items(), key=lambda kv: -kv[1]))}
 
 
 def kernel_events(fn, path, expected=None):

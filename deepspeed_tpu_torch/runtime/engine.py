@@ -802,20 +802,32 @@ class DeepSpeedEngine:
         flax-path keys and layouts (``params_to_flax``; the compute dtype,
         bf16 for an fp32 engine): a ``.safetensors`` file for that suffix,
         a ``torch.save`` state dict otherwise.  Both load through either
-        package's ``InferenceEngine.load_checkpoint``."""
-        if hf_policy is not None:
-            raise NotImplementedError(
-                "save_16bit_model(hf_policy=...) renames to HF keys through "
-                "module_inject, which is not ported to deepspeed_tpu_torch "
-                "yet (see ROADMAP.md)")
+        package's ``InferenceEngine.load_checkpoint``.  ``hf_policy``: an
+        injection policy instance or an HF ``model_type`` string (``"opt"``)
+        whose ``export_convert`` renames the weights to that family's HF
+        checkpoint keys instead (``module_inject.convert_hf_model`` reads
+        them back)."""
         from deepspeed_tpu_torch.checkpoint.safetensors_io import save_file
         from deepspeed_tpu_torch.models.transformer import params_to_flax
         save_dir = str(save_dir)
         os.makedirs(save_dir, exist_ok=True)
         dtype = self.compute_dtype if self.compute_dtype != torch.float32 \
             else torch.bfloat16
-        flat = params_to_flax(self.module.state_dict(), self.module.config,
-                              dtype=dtype)
+        cfg = self.module.config
+        if hf_policy is None:
+            flat = params_to_flax(self.module.state_dict(), cfg, dtype=dtype)
+        else:
+            if isinstance(hf_policy, str):
+                from types import SimpleNamespace
+                from deepspeed_tpu_torch.module_inject import policy_for
+                hf_policy = policy_for(SimpleNamespace(model_type=hf_policy))
+            # rename in fp32 (numpy has no bf16; the renames only move
+            # elements), then round each tensor once to the 16-bit dtype
+            flat = hf_policy.export_convert(
+                {k: v.numpy() for k, v in params_to_flax(
+                    self.module.state_dict(), cfg).items()}, cfg)
+            flat = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dtype)
+                    for k, v in flat.items()}
         path = os.path.join(save_dir, save_filename)
         if save_filename.endswith(".safetensors"):
             save_file(flat, path)

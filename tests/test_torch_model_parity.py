@@ -126,18 +126,18 @@ def test_prefill_then_cached_decode_matches_jax(models):
 
 def test_unported_features_raise():
     for over in (dict(position_embedding="alibi"),
-                 dict(pre_layer_norm=False), dict(embed_proj_dim=32),
                  dict(parallel_residual=True), dict(embedding_norm=True),
                  dict(fused_qkv=True), dict(fused_qkv=True, num_kv_heads=2),
                  dict(moe_num_experts=2, scan_layers=False),
-                 dict(sequence_parallel_impl="ulysses"),
-                 dict(remat_policy="dots_saveable")):
+                 dict(sequence_parallel_impl="ulysses")):
         with pytest.raises(NotImplementedError):
             pt.Transformer(pt.TransformerConfig(**dict(CFG, **over)))
-    # the Llama layout is ported: rope, GQA, the gated MLP, RMS norms
+    # the Llama layout is ported: rope, GQA, the gated MLP, RMS norms; so
+    # are OPT-350m's post-LN and embed_proj_dim, and the remat policies
     for over in (dict(position_embedding="rope"), dict(num_kv_heads=2),
                  dict(gated_mlp=True, activation="silu"),
-                 dict(rms_norm=True)):
+                 dict(rms_norm=True), dict(pre_layer_norm=False),
+                 dict(embed_proj_dim=32), dict(remat_policy="dots_saveable")):
         pt.Transformer(pt.TransformerConfig(**dict(CFG, **over)))
     # int8 KV is ported; its int8 x int8 mode still needs it, as in JAX
     pt.Transformer(pt.TransformerConfig(**dict(CFG, kv_cache_quant=True)))

@@ -54,12 +54,18 @@ def test_import_leaves_jax_unloaded():
             "deepspeed_tpu_torch.checkpoint, "
             "deepspeed_tpu_torch.checkpoint.safetensors_io, "
             "deepspeed_tpu_torch.utils.zero_to_fp32, "
+            "deepspeed_tpu_torch.utils.remat, "
             "deepspeed_tpu_torch.elasticity, "
             "deepspeed_tpu_torch.runtime.engine, "
             "deepspeed_tpu_torch.runtime.dataloader, "
             "deepspeed_tpu_torch.runtime.weight_quantizer, "
             "deepspeed_tpu_torch.ops.quantizer.kernels, "
-            "deepspeed_tpu_torch.ops.sparse_attention; "
+            "deepspeed_tpu_torch.ops.sparse_attention, "
+            "deepspeed_tpu_torch.module_inject, "
+            "deepspeed_tpu_torch.module_inject.replace_module, "
+            "deepspeed_tpu_torch.runtime.activation_checkpointing, "
+            "deepspeed_tpu_torch.runtime.activation_checkpointing."
+            "checkpointing; "
             "bad = [m for m in ('jax', 'flax', 'pydantic', 'deepspeed_tpu') "
             "if m in sys.modules and m not in before]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -138,8 +144,37 @@ def test_unported_config_knobs_raise():
     assert cfg.unknown_key == 1
 
 
-def test_hf_models_and_names_raise():
+def test_hf_models_and_names_raise(monkeypatch):
+    """HF models and names go through ``module_inject``: an object that is
+    no model raises ``TypeError``; an HF family the port lacks raises
+    ``NotImplementedError`` naming what it lacks, given as a model or by
+    name (a name loads lazily through ``transformers``, faked here: no
+    download)."""
+    import types
     from deepspeed_tpu_torch import init_inference
-    for model in ("facebook/opt-125m", torch.nn.Linear(2, 2)):
-        with pytest.raises(NotImplementedError, match="module_inject"):
-            init_inference(model, device="cpu")
+    with pytest.raises(TypeError, match="HF model"):
+        init_inference(torch.nn.Linear(2, 2), device="cpu")
+    bloom = types.SimpleNamespace(
+        config=types.SimpleNamespace(model_type="bloom"), state_dict=dict)
+    with pytest.raises(NotImplementedError, match="alibi"):
+        init_inference(bloom, device="cpu")
+    fake = types.ModuleType("transformers")
+    fake.AutoModelForCausalLM = types.SimpleNamespace(
+        from_pretrained=lambda name: bloom)
+    monkeypatch.setitem(sys.modules, "transformers", fake)
+    with pytest.raises(NotImplementedError, match="alibi"):
+        init_inference("bigscience/bloom-560m", device="cpu")
+
+
+def test_module_inject_imports_no_transformers():
+    """The card's machine has no ``transformers``: importing the port's
+    conversion modules must not load it."""
+    code = ("import sys; before = set(sys.modules); "
+            "import deepspeed_tpu_torch.module_inject, "
+            "deepspeed_tpu_torch.runtime.activation_checkpointing; "
+            "sys.exit(1 if 'transformers' in set(sys.modules) - before "
+            "else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

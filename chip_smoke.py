@@ -199,7 +199,24 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    setting (a ``remat`` line), and profiles of the nothing and flash_only
    steps; then K1 / K4 / K5 at its attention shape [1, 8192, 32, 64]
    against their plain versions, timed;
-18. prints the card, a ``kernels`` JSON line and, last, the result line.
+18. trains Llama-7B at full width and depth on the one card, run
+    (c-llama), through the memory-lean levers (bf16 masters, bf16 Adam
+    moments, bf16 gradient accumulation: 8 B a parameter), micro 1 x 2048,
+    remat flash_only_saveable: every parameter and moment bf16, 32 K1 /
+    K4 / K5 launches a step, a falling loss, the peak beside the state
+    reckoned, one profiled step (the optimizer's share); run (c-offload),
+    ZeRO-Offload to page-locked host RAM at Llama-7B's width cut to 4
+    layers: the host C++ Adam (``csrc/adam/cpu_adam.cpp``, built with
+    ``g++`` beside ``nvcc``) against its plain version on the first step's
+    host gradients, the upload against its bf16 copy-out bitwise, the host
+    Adam's and both transfers' seconds and rates, and a window under
+    ``grad_partition_groups`` 2 against 1; run (c-nvme), the disk tier at
+    1 layer under the run's temporary directory (``csrc/aio/aio.cpp``):
+    masters bitwise the cpu tier's, swap rates, a checkpoint resumed
+    bitwise in a fresh engine; then K1 / K4 / K5 at Llama-7B's training
+    shape [1, 2048, 32, 128] against their plain versions, timed, and a
+    ``host_kernels`` line;
+19. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 Generation and serving run on the captured decode programs (CUDA graphs,
 ``enable_cuda_graph``'s default) after ``warmup()`` / ``srv.warmup()``,
@@ -532,6 +549,61 @@ REMAT_SETTINGS = (None, "nothing_saveable", "flash_only_saveable",
 # the policies that keep K1's output and LSE: K1 once a layer a step
 REMAT_KEEPS_FLASH = (None, "flash_only_saveable", "dots_and_attn_saveable")
 KL_SHAPE = dict(B=1, S=8192, H=32, D=64)
+OPTIMIZER_GROUP = "optimizer / grad norm (foreach)"
+# run (c-llama): Llama-7B at full width and depth (6.74 B parameters)
+# through the memory-lean levers — bf16 masters, bf16 Adam moments
+# (state_dtype), bf16 gradient accumulation — so parameters, moments and
+# gradients take 8 B a parameter (53.9 GB) on the 80 GB card; micro 1 x
+# 2048, the loss in 8 chunks, remat flash_only_saveable (K1's output and
+# LSE kept: 32 x 16.8 MB, and no K1 recompute); LLaMA's published peak
+# learning rate for 6.7B (3e-4): bf16 masters drop updates below half an
+# ulp, so run (c)'s 9.65e-6 would leave most weights where they are
+RUN_C_LLAMA = dict(micro=1, seq=2048, loss_chunks=8, warmup=1, steps=3,
+                   seed=21, policy="flash_only_saveable",
+                   trace="llama_train_trace.json")
+LLAMA_LR = 3e-4
+TRAIN_LLAMA_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+    "optimizer": {"type": "AdamW", "params": {
+        "lr": LLAMA_LR, "weight_decay": 0.1, "state_dtype": "bfloat16"}},
+    "bf16": {"enabled": True, "master_weights_in_bf16": True},
+    "data_types": {"grad_accum_dtype": "bf16"},
+    "gradient_clipping": 1.0, "seed": 0}
+# K1 / K4 / K5 at Llama-7B's training shape (32 heads of 128)
+KLT_SHAPE = dict(B=1, S=2048, H=32, D=128)
+# run (c-offload): ZeRO-Offload (cpu, page-locked) at Llama-7B's width cut
+# to 4 layers (1.07 B: 12.9 GB of host masters and moments, 4.3 GB of host
+# gradients), fp32 accumulation at gas 2; the first step's masters held to
+# the plain host Adam on the same host gradients (rtol 1e-6, atol 1e-7, as
+# the CPU tests hold the kernel: FMA contractions), the uploaded bf16
+# parameters to the kernel's own copy-out bitwise; one window under
+# grad_partition_groups 2 against groups 1 (the gradients, bitwise where
+# it holds, else within 2^-8 of max|g| a tensor)
+RUN_C_OFFLOAD = dict(layers=4, micro=1, gas=2, seq=2048, loss_chunks=8,
+                     steps=3, seed=22, policy="flash_only_saveable",
+                     plain_rtol=1e-6, plain_atol=1e-7, groups_rel=2.0 ** -8)
+TRAIN_OFFLOAD_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1,
+    "gradient_accumulation_steps": RUN_C_OFFLOAD["gas"],
+    "optimizer": {"type": "AdamW",
+                  "params": {"lr": LLAMA_LR, "weight_decay": 0.1}},
+    "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+    "zero_optimization": {"offload_optimizer": {"device": "cpu",
+                                                "pin_memory": True}},
+    "seed": 0}
+# run (c-nvme): the disk tier at 1 layer (464.5 M: 5.6 GB of swapped
+# state), swap files under the run's temporary directory, pipeline_read /
+# pipeline_write; 2 steps, masters bitwise the same steps' under
+# device: cpu; save_checkpoint -> a fresh engine -> load_checkpoint takes
+# the next step bitwise
+RUN_C_NVME = dict(layers=1, micro=1, seq=2048, loss_chunks=8, steps=2,
+                  seed=23, policy="flash_only_saveable",
+                  min_free_bytes=24e9)
+TRAIN_NVME_CONFIG = {
+    **TRAIN_OFFLOAD_CONFIG, "gradient_accumulation_steps": 1,
+    "zero_optimization": {"offload_optimizer": {
+        "device": "nvme", "pin_memory": True, "pipeline_read": True,
+        "pipeline_write": True}}}
 
 
 def fail(msg):
@@ -4248,11 +4320,13 @@ def llama_gqa_path():
 # Training: initialize -> train_batch for OPT-1.3B, dense (c) and
 # block-sparse (f)
 # --------------------------------------------------------------------- #
-def train_run(run, model, config, settings, want, **extra):
+def train_run(run, model, config, settings, want, inspect=None, **extra):
     """One training run on ``model``: ``initialize`` with ``config``,
     warm-up steps, timed steps on one seeded batch with every launch count
     held to ``want`` per step (kernels not named: 0), a finite falling
-    loss, and one profiled step.  Returns the run's record."""
+    loss, and one profiled step.  ``inspect(engine)``, when given, gates
+    the engine after the timed steps and returns entries for the record.
+    Returns the run's record."""
     import torch
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.profiling.trace import breakdown
@@ -4297,6 +4371,8 @@ def train_run(run, model, config, settings, want, **extra):
            "peak_device_bytes": peak, "losses": losses,
            "launches": counts, "launches_per_step": per_step,
            "init_seconds": init_s}
+    if inspect is not None:
+        rec.update(inspect(engine))
     emit(rec)
 
     wall = {}
@@ -4316,9 +4392,18 @@ def train_run(run, model, config, settings, want, **extra):
     rec["profile_attention_ms_per_step"] = {
         grp: ms for grp, ms in prof["device_ms_by_group"].items()
         if grp.split()[0] in ("K1", "K4", "K5", "K8")}
+    # the optimizer's share of the step: its foreach kernels (the update
+    # and the gradient norm) over the profiled step's wall time
+    opt_ms = prof["device_ms_by_group"].get(OPTIMIZER_GROUP, 0.0)
+    rec.update(profile_optimizer_ms=opt_ms,
+               profile_optimizer_share=opt_ms / prof["wall_ms"])
     emit({"run": run, "summary": True, "step_ms": rec["step_ms"],
           "tokens_per_s": tok_s, "mfu": rec["mfu"],
+          "peak_device_bytes": rec["peak_device_bytes"],
           "profile_wall_ms": prof["wall_ms"],
+          "profile_device_busy_ms": prof["device_busy_ms"],
+          "profile_optimizer_ms": opt_ms,
+          "profile_optimizer_share": rec["profile_optimizer_share"],
           "profile_attention_ms_per_step":
               rec["profile_attention_ms_per_step"]})
     del engine, batch
@@ -5137,6 +5222,410 @@ def remat_path():
     return out
 
 
+# --------------------------------------------------------------------- #
+# Llama-7B training through the single-device memory levers: runs
+# (c-llama), (c-offload), (c-nvme)
+# --------------------------------------------------------------------- #
+def host_info():
+    """The host's CPU model, logical CPUs and MemAvailable (every host-side
+    number is printed beside them)."""
+    model = ""
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    with open("/proc/meminfo") as f:
+        mem = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in f}
+    return {"cpu": model, "logical_cpus": os.cpu_count(),
+            "mem_total_bytes": mem.get("MemTotal"),
+            "mem_available_bytes": mem.get("MemAvailable")}
+
+
+def mount_of(path):
+    """The ``/proc/mounts`` entry whose mount point holds ``path``."""
+    path = os.path.realpath(path)
+    best = None
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, point, fstype = line.split()[:3]
+            if (path == point or path.startswith(point.rstrip("/") + "/")) \
+                    and (best is None or len(point) > len(best[1])):
+                best = (dev, point, fstype)
+    return dict(zip(("device", "mount_point", "fstype"), best or ()))
+
+
+def host_copy_gbps(nbytes=1 << 30):
+    """The host's copy rate (GB/s of bytes read and written) of one
+    ``copy_`` between two fp32 tensors of ``nbytes``, best of 3."""
+    import torch
+    src = torch.ones(nbytes // 4)
+    dst = torch.empty_like(src)
+    best = float("inf")
+    for _ in range(3):
+        t = time.perf_counter()
+        dst.copy_(src)
+        best = min(best, time.perf_counter() - t)
+    return 2 * nbytes / best / 1e9
+
+
+def llama_train_model(settings, **over):
+    """Llama-7B (``LLAMA``) for training at ``settings``' sequence length,
+    loss chunks and remat policy, bf16."""
+    from deepspeed_tpu_torch.models.opt import llama_model
+    return llama_model(LLAMA, max_seq_len=settings["seq"],
+                       loss_seq_chunks=settings["loss_chunks"],
+                       dtype="bfloat16", remat=True,
+                       remat_policy=settings["policy"], **over)
+
+
+def llama_train_path():
+    """Run (c-llama): Llama-7B at full width and depth on one card through
+    the lean levers: every parameter and moment bf16, K1 / K4 / K5 once a
+    layer a step (flash_only_saveable keeps K1's output), a falling loss,
+    the peak against the 8 B a parameter of state reckoned, one profiled
+    step (the optimizer's share)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = RUN_C_LLAMA
+    model = llama_train_model(cfg)
+    L = model.config.num_layers
+
+    def lean(engine):
+        dtypes = {str(p.dtype) for p in engine.params} | {
+            str(t.dtype) for f in engine._opt_state for t in f}
+        if dtypes != {"torch.bfloat16"}:
+            fail(f"run (c-llama): parameters and moments must be bf16, got "
+                 f"{sorted(dtypes)}")
+        n = sum(p.numel() for p in engine.params)
+        return {"dtypes": sorted(dtypes),
+                # bf16 parameters, m, v and gradients
+                "state_bytes_reckoned": 8 * n,
+                "peak_over_state": engine.max_memory_allocated() / (8 * n)}
+
+    return train_run("c_llama", model, TRAIN_LLAMA_CONFIG, cfg, {
+        "flash_attention": L, "flash_attention_dq": L,
+        "flash_attention_dkv": L}, inspect=lean, route="train_batch",
+        model_name=LLAMA, remat_policy=cfg["policy"],
+        levers="bf16 masters, bf16 moments, bf16 grad accumulation")
+
+
+def offload_window(engine, batch, gas):
+    """``gas`` micro steps (forward / backward) without the step; returns
+    the accumulated gradients (copies) and the window's peak bytes over
+    what was allocated when it began (the other window's copies
+    excluded)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    for i in range(gas):
+        loss = engine({"input_ids": batch["input_ids"][i]})
+        engine.backward(loss)
+    torch.cuda.synchronize()
+    peak = engine.max_memory_allocated() - base
+    return [g.clone() for g in engine._grads()], peak
+
+
+def offload_path():
+    """Run (c-offload): ZeRO-Offload to page-locked host RAM at Llama-7B's
+    width, 4 layers.  The first step's masters against the plain host
+    Adam on the same host gradients, its upload against the kernel's
+    copy-out bitwise; timed steps (host Adam, the two transfers); one
+    window under grad_partition_groups 2 against groups 1."""
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops.adam import cpu_adam
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = RUN_C_OFFLOAD
+    gas = cfg["gas"]
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=llama_train_model(
+        cfg, num_layers=cfg["layers"]), config=TRAIN_OFFLOAD_CONFIG,
+        device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host = engine._host_opt
+    L, V = engine.module.config.num_layers, engine.module.config.vocab_size
+    n = sum(p.numel() for p in engine.params)
+    g = torch.Generator(device=DEV).manual_seed(cfg["seed"])
+    batch = {"input_ids": torch.randint(0, V, (gas, cfg["micro"],
+                                               cfg["seq"]), generator=g,
+                                        device=DEV)}
+    masters0 = [m.clone() for m in host.masters]
+    reset_counts()
+    t = time.perf_counter()
+    losses = [engine.train_batch(batch=batch)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    per_step = {k: v for k, v in read_counts().items() if v}
+    want = {"flash_attention": L * gas, "flash_attention_dq": L * gas,
+            "flash_attention_dkv": L * gas}
+    if per_step != want:
+        fail(f"run (c-offload): launches in the first step {per_step}, the "
+             f"path needs {want}")
+    # the masters against the plain host Adam on the same host gradients
+    opt = engine.optimizer
+    err, top, t_plain = 0.0, 0.0, 0.0
+    for m0, grad, m in zip(masters0, engine._host_grads, host.masters):
+        z1, z2 = torch.zeros_like(m0), torch.zeros_like(m0)
+        t = time.perf_counter()
+        cpu_adam.adam_step_plain(m0, z1, z2, grad, opt.lr, opt.beta1,
+                                 opt.beta2, opt.eps, opt.weight_decay,
+                                 opt.adam_w_mode, opt.bias_correction, 1)
+        t_plain += time.perf_counter() - t
+        bad = (m - m0).abs() > cfg["plain_atol"] + cfg["plain_rtol"] * \
+            m0.abs()
+        if bool(bad.any()):
+            fail(f"run (c-offload): a master differs from the plain host "
+                 f"Adam beyond rtol {cfg['plain_rtol']}, atol "
+                 f"{cfg['plain_atol']}: {float((m - m0).abs().max())}")
+        err = max(err, float((m - m0).abs().max()))
+        top = max(top, float(m0.abs().max()))
+    del masters0
+    # the upload: the module's bf16 parameters are the kernel's copy-out
+    upload_bitwise = all(
+        torch.equal(p.detach().reshape(-1).view(torch.uint16).cpu(), up)
+        and torch.equal(up, cpu_adam.bf16_bits(m))
+        for p, up, m in zip(engine.params, engine._upload, host.masters))
+    if not upload_bitwise:
+        fail("run (c-offload): the uploaded bf16 parameters differ from "
+             "the C++ kernel's bf16 copy-out")
+    first = dict(engine.offload_stats)
+    stats = []
+    a0 = cpu_adam.adam_step.launches
+    t = time.perf_counter()
+    for _ in range(cfg["steps"]):
+        losses.append(engine.train_batch(batch=batch))
+        stats.append(dict(engine.offload_stats))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / cfg["steps"]
+    adam_calls = (cpu_adam.adam_step.launches - a0) / cfg["steps"]
+    losses = torch.stack(losses).float().tolist()
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"run (c-offload): the loss must be finite and fall: {losses}")
+
+    def mean(key):
+        return sum(s[key] for s in stats) / len(stats)
+
+    # the partitioned backward: one window at groups 1, then at 2, the
+    # gradients compared, then the grouped window's step
+    g1, peak1 = offload_window(engine, batch, gas)
+    engine.zero_grad()
+    engine.micro_steps -= gas
+    engine._config.zero_config.grad_partition_groups = 2
+    reset_counts()
+    g2, peak2 = offload_window(engine, batch, gas)
+    grouped_counts = {k: v for k, v in read_counts().items() if v}
+    bitwise = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(g1, g2))
+    del g1, g2
+    engine.step()
+    engine._config.zero_config.grad_partition_groups = 1
+    if not bitwise and worst > cfg["groups_rel"]:
+        fail(f"run (c-offload): grad_partition_groups 2 gives gradients "
+             f"{worst} of max|g| from groups 1's (bar {cfg['groups_rel']})")
+    adam_bytes = 30 * n     # p, m, v, g read; p, m, v, bf16 written
+    rec = {"run": "c_offload", "model": LLAMA, "layers": L, "params": n,
+           "micro_batch": cfg["micro"], "gas": gas, "seq": cfg["seq"],
+           "init_seconds": init_s, "first_step_s": first_s,
+           "step_ms": dt * 1e3, "losses": losses,
+           "launches_per_step": per_step,
+           "host_state_bytes": 12 * n, "host_grad_bytes": 4 * n,
+           "pin_memory": True,
+           "host_adam_s": mean("host_adam_s"),
+           "host_adam_launches_per_step": adam_calls,
+           "host_adam_gbps": adam_bytes / mean("host_adam_s") / 1e9,
+           "plain_host_adam_s": t_plain,
+           "d2h_s": mean("d2h_s"),
+           "d2h_gbps": mean("d2h_bytes") / mean("d2h_s") / 1e9,
+           "norm_clip_s": mean("norm_clip_s"),
+           "h2d_s": mean("h2d_s"),
+           "h2d_gbps": mean("h2d_bytes") / mean("h2d_s") / 1e9,
+           "first_step_stats": first,
+           "masters_vs_plain_max_abs_err": err,
+           "masters_max_abs": top,
+           "plain_tol": {"rtol": cfg["plain_rtol"],
+                         "atol": cfg["plain_atol"]},
+           "upload_bitwise_kernel_copy_out": upload_bitwise,
+           "groups2": {"bitwise_groups1": bitwise,
+                       "max_rel_err": worst, "bar": cfg["groups_rel"],
+                       "window_peak_over_start_bytes_groups1": peak1,
+                       "window_peak_over_start_bytes_groups2": peak2,
+                       "launches": grouped_counts},
+           "host": host_info(), "host_copy_gbps": host_copy_gbps()}
+    emit(rec)
+    del engine, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def master_digests(host):
+    """Per parameter, the int64 sum of the int32 view of the fp32 master
+    (read from disk on the nvme tier)."""
+    import torch
+    return [int(m.view(torch.int32).sum(dtype=torch.int64))
+            for _, m, _, _ in host._iter_states()]
+
+
+def nvme_engine(config, seed_cfg):
+    import torch
+    from deepspeed_tpu_torch import initialize
+    t = time.perf_counter()
+    engine, *_ = initialize(model=llama_train_model(
+        seed_cfg, num_layers=seed_cfg["layers"]), config=config, device=DEV)
+    torch.cuda.synchronize()
+    return engine, time.perf_counter() - t
+
+
+def nvme_path():
+    """Run (c-nvme): the disk tier at 1 layer.  2 steps whose masters
+    equal the same steps under device: cpu bitwise; the swap's read and
+    write rates; save_checkpoint -> a fresh engine -> load_checkpoint, the
+    next step bitwise the uninterrupted engine's."""
+    import shutil
+    import tempfile
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = RUN_C_NVME
+    base = tempfile.mkdtemp(prefix="dstpu_nvme_")
+    free = shutil.disk_usage(base).free
+    mount = mount_of(base)
+    emit({"run": "c_nvme", "swap_base": base, "disk_free_bytes": free,
+          "mount": mount})
+    if free < cfg["min_free_bytes"]:
+        fail(f"run (c-nvme): {free} bytes free at {base}, it needs "
+             f"{cfg['min_free_bytes']:.0f}")
+    try:
+        rec = nvme_run(base, cfg)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    rec["mount"] = mount
+    emit({"run": "c_nvme", **rec})
+    return rec
+
+
+def nvme_run(base, cfg):
+    import torch
+    nvme_cfg = {**TRAIN_NVME_CONFIG, "zero_optimization": {
+        "offload_optimizer": {**TRAIN_NVME_CONFIG["zero_optimization"][
+            "offload_optimizer"], "nvme_path": os.path.join(base, "swap")}}}
+    cpu_cfg = TRAIN_OFFLOAD_CONFIG | {"gradient_accumulation_steps": 1}
+    twin, _ = nvme_engine(cpu_cfg, cfg)
+    V = twin.module.config.vocab_size
+    g = torch.Generator(device=DEV).manual_seed(cfg["seed"])
+    batches = [{"input_ids": torch.randint(0, V, (1, cfg["micro"],
+                                                  cfg["seq"]), generator=g,
+                                           device=DEV)}
+               for _ in range(cfg["steps"] + 1)]
+    want = [float(twin.train_batch(batch=b)) for b in batches[:-1]]
+    want_d = master_digests(twin._host_opt)
+    del twin
+    gc.collect()
+    engine, init_s = nvme_engine(nvme_cfg, cfg)
+    host = engine._host_opt
+    n = sum(host.numels)
+    reset_counts()
+    got, steps = [], []
+    for b in batches[:-1]:
+        got.append(float(engine.train_batch(batch=b)))
+        steps.append(dict(engine.offload_stats))
+    counts = {k: v for k, v in read_counts().items() if v}
+    L = cfg["layers"] * cfg["steps"]
+    if counts != {"flash_attention": L, "flash_attention_dq": L,
+                  "flash_attention_dkv": L}:
+        fail(f"run (c-nvme): launches {counts}, the path needs {L} each of "
+             f"K1 / K4 / K5")
+    if got != want or master_digests(host) != want_d:
+        fail(f"run (c-nvme): the disk tier's steps differ from device: cpu "
+             f"({got} vs {want})")
+    # the swap's rates: every state file read once, then written once
+    t = time.perf_counter()
+    sd = host.state_dict()
+    read_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for name, m, a, v in zip(host.names, sd["masters"], sd["exp_avg"],
+                             sd["exp_avg_sq"]):
+        host.swapper.swap_out(name, m, a, v)
+    host.swapper.drain()
+    write_s = time.perf_counter() - t
+    del sd
+    ck = os.path.join(base, "ckpt")
+    t = time.perf_counter()
+    engine.save_checkpoint(ck)
+    save_s = time.perf_counter() - t
+    next_loss = float(engine.train_batch(batch=batches[-1]))
+    next_d = master_digests(host)
+    params_d = [int(p.detach().view(torch.int16).sum(dtype=torch.int64))
+                for p in engine.params]
+    del engine, host
+    gc.collect()
+    fresh, _ = nvme_engine(nvme_cfg | {"seed": 99}, cfg)
+    t = time.perf_counter()
+    fresh.load_checkpoint(ck)
+    load_s = time.perf_counter() - t
+    resumed = float(fresh.train_batch(batch=batches[-1]))
+    resumed_bitwise = resumed == next_loss and \
+        master_digests(fresh._host_opt) == next_d and params_d == [
+            int(p.detach().view(torch.int16).sum(dtype=torch.int64))
+            for p in fresh.params]
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not resumed_bitwise:
+        fail("run (c-nvme): the step after load_checkpoint differs from "
+             "the uninterrupted engine's")
+    state = 12 * n
+
+    def mean(key):
+        return sum(s[key] for s in steps) / len(steps)
+
+    return {"model": LLAMA, "layers": cfg["layers"], "params": n,
+            "swapped_state_bytes": state, "init_seconds": init_s,
+            "losses": got, "launches": counts,
+            "step_s": mean("step_s"),
+            "host_adam_and_swap_s": mean("host_adam_s"),
+            "swap_read_s": read_s, "swap_read_gbps": state / read_s / 1e9,
+            "swap_write_s": write_s,
+            "swap_write_gbps": state / write_s / 1e9,
+            "masters_bitwise_device_cpu": True,
+            "save_checkpoint_s": save_s, "load_checkpoint_s": load_s,
+            "resumed_step_bitwise": resumed_bitwise,
+            "host": host_info()}
+
+
+def host_kernel_rows(off, nvme):
+    """The host kernels' line: the C++ Adam (run (c-offload)'s steps) and
+    the aio thread pool (run (c-nvme)'s swap), each beside the host's
+    measured copy rate (their bound: bytes over that rate)."""
+    copy = off["host_copy_gbps"]
+    adam_bytes = 30 * off["params"]
+    return [
+        {"name": "ds_adam_step", "route": "cpu (g++ -O3 -march=native "
+         "-fopenmp)", "source": "csrc/adam/cpu_adam.cpp",
+         "binds": "deepspeed_tpu/ops/adam/cpu_adam.py:60",
+         "launches_per_step": off["host_adam_launches_per_step"],
+         "ms": off["host_adam_s"] * 1e3,
+         "plain_ms": off["plain_host_adam_s"] * 1e3,
+         "bound_ms": adam_bytes / copy / 1e6, "bound_by": "bytes (host copy)",
+         "gbps": off["host_adam_gbps"], "host_copy_gbps": copy,
+         "max_abs_err": off["masters_vs_plain_max_abs_err"],
+         "library_ms": None},
+        {"name": "aio pread / pwrite", "route": "cpu (g++ -O3 "
+         "-march=native, std::thread pool)", "source": "csrc/aio/aio.cpp",
+         "binds": "deepspeed_tpu/ops/aio/__init__.py:69",
+         "read_gbps": nvme["swap_read_gbps"],
+         "write_gbps": nvme["swap_write_gbps"],
+         "fstype": nvme["mount"].get("fstype"), "host_copy_gbps": copy},
+    ]
+
+
 def main():
     try:
         import torch
@@ -5152,13 +5641,34 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     from deepspeed_tpu_torch.ops import op_builder
 
+    # the host libraries of the offload tier (g++) build beside nvcc
+    import threading
+    host_build = {}
+
+    def build_host():
+        t = time.perf_counter()
+        try:
+            from deepspeed_tpu_torch.ops import aio
+            from deepspeed_tpu_torch.ops.adam import cpu_adam
+            cpu_adam.load()
+            aio.load()
+        except Exception as e:        # reported below, on the main thread
+            host_build["error"] = e
+        host_build["seconds"] = time.perf_counter() - t
+
+    host_thread = threading.Thread(target=build_host)
+    host_thread.start()
     t0 = time.perf_counter()
     logs = op_builder.build_all()
     build_s = time.perf_counter() - t0
+    host_thread.join()
+    if "error" in host_build:
+        fail(f"the host libraries (csrc/) did not build: "
+             f"{host_build['error']}")
     ptxas = sorted({line.strip() for log in logs.values()
                     for line in log.splitlines() if "registers" in line})
     emit({"build_seconds": build_s, "built": sorted(logs),
-          "ptxas": ptxas})
+          "host_build_seconds": host_build["seconds"], "ptxas": ptxas})
     if "flash_attention_bwd" in logs:   # K4 / K5: every instantiation
         bwd_lib = op_builder.FLASH_BWD.load()
 
@@ -5284,6 +5794,15 @@ def main():
     bwd = check_flash_bwd("bfloat16", True, KL_SHAPE)
     for key in ("K1", "K4", "K5"):
         checks[(key + " run c-remat", "bfloat16")] = bwd[key]
+    torch.cuda.empty_cache()
+    runs["c_llama"] = llama_train_path()
+    runs["c_offload"] = offload_path()
+    runs["c_nvme"] = nvme_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd = check_flash_bwd("bfloat16", True, KLT_SHAPE)
+    for key in ("K1", "K4", "K5"):
+        checks[(key + " run c-llama", "bfloat16")] = bwd[key]
     torch.cuda.empty_cache()
 
     def timing(c):
@@ -5488,6 +6007,22 @@ def main():
             "launches_per_step": {
                 policy: rec["launches_per_step"][k["name"]]
                 for policy, rec in runs["c_remat"]["policies"].items()}}
+    # runs (c-llama), (c-offload), (c-nvme): K1 / K4 / K5 at Llama-7B's
+    # training shape [1, 2048, 32, 128], launches per step in each run
+    for k, key in zip((kernels[0], kernels[3], kernels[4]),
+                      ("K1", "K4", "K5")):
+        check = checks[(key + " run c-llama", "bfloat16")]
+        k["llama_train_shape"] = {
+            **timing(check), "shape": check["shape"],
+            "tflops": check["tflops"],
+            **({"pair_ms": check["pair_ms"]} if "pair_ms" in check else {}),
+            "launches_per_step_run_c_llama":
+                runs["c_llama"]["launches_per_step"][k["name"]],
+            "launches_per_step_run_c_offload":
+                runs["c_offload"]["launches_per_step"][k["name"]],
+            "launches_run_c_nvme": runs["c_nvme"]["launches"][k["name"]]}
+    emit({"host_kernels": host_kernel_rows(runs["c_offload"],
+                                           runs["c_nvme"])})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1138,12 +1138,29 @@ def opt_state_from_flax(opt_state, module):
     return {name: field(tree) for name, tree in fields.items()}
 
 
+def offload_state_from_flax(state, module):
+    """The JAX ``HostOffloadedAdam``'s host state with its per-leaf lists
+    put back into parameter trees (``{"step", "masters", "exp_avg",
+    "exp_avg_sq"}``, trees of numpy arrays) → the port's
+    ``HostOffloadedAdam.state_dict()`` form: flat fp32 tensors in
+    ``engine.params`` order.  The layout change is linear, so the moments
+    map like the masters."""
+    names = [n for n, p in module.named_parameters() if p.requires_grad]
+    out = {"step": int(state["step"])}
+    for key in ("masters", "exp_avg", "exp_avg_sq"):
+        sd = params_from_flax(state[key], module.config)
+        out[key] = [sd[n].reshape(-1) for n in names]
+    return out
+
+
 def engine_state_from_flax(arrays, meta, module):
     """A JAX engine tag's restored ``arrays`` (``module`` / ``optimizer``
-    / ``loss_scaler``, numpy leaves) and ``meta`` → the port's array
-    groups and metadata for :meth:`DeepSpeedEngine.load_state`: the
-    module's ``state_dict``, its optimizer state lists, the
-    ``LossScalerState`` and the step counters / LR schedule /
+    / ``loss_scaler``, numpy leaves; ``host_optimizer``, an offload
+    engine's host state as trees, see :func:`offload_state_from_flax`) and
+    ``meta`` → the port's array groups and metadata for
+    :meth:`DeepSpeedEngine.load_state`: the module's ``state_dict``, its
+    optimizer state lists, the host state, the ``LossScalerState`` and the
+    step counters / LR schedule /
     ``client_state`` (``rng_key_data`` is dropped: the port's engine draws
     no random numbers after init)."""
     from deepspeed_tpu_torch.runtime.fp16.loss_scaler import LossScalerState
@@ -1157,10 +1174,13 @@ def engine_state_from_flax(arrays, meta, module):
             hysteresis=torch.tensor(np.asarray(sc["hysteresis"]),
                                     dtype=torch.int32))
     opt = arrays.get("optimizer")
+    host = arrays.get("host_optimizer")
     out = {"module": params_from_flax(arrays["module"], module.config),
            "optimizer": None if opt is None
            else opt_state_from_flax(opt, module),
            "loss_scaler": sc}
+    if host is not None:
+        out["host_optimizer"] = offload_state_from_flax(host, module)
     keys = ("global_steps", "global_samples", "micro_steps",
             "skipped_steps", "lr_scheduler", "ds_config", "client_state")
     return out, {k: meta[k] for k in keys if k in meta}

@@ -6,8 +6,12 @@ array code that XLA fuses.  The port keeps it plain tensor code too, with
 dozen launches, not a few per parameter.  The update is the JAX one:
 ``m = b1*m + (1-b1)*g``, ``v = b2*v + (1-b2)*g*g``,
 ``p -= lr * ((m/bc1) / (sqrt(v/bc2) + eps) [+ wd*p])`` with decoupled
-(``adam_w_mode``) or L2 weight decay, moments stored in ``state_dtype``
-and computed in fp32.
+(``adam_w_mode``) or L2 weight decay.  As in JAX, parameters, gradients
+and moments are cast to ``master_dtype`` (the arithmetic's dtype, fp32 by
+default), updated, and cast back to their own dtypes: bf16 parameters
+(``bf16.master_weights_in_bf16``) and ``state_dtype`` moments are stored
+narrow and computed in fp32.  Every step is elementwise, so updating the
+parameters a group at a time gives the same bits as one call.
 
 The protocol mirrors the JAX one, in place: ``init(params) -> state`` and
 ``update(grads, state, params, lr, step)`` updates ``params`` and
@@ -55,12 +59,9 @@ class FusedAdam:
         self.weight_decay = weight_decay
         self.adam_w_mode = adam_w_mode
         self.bias_correction = bias_correction
+        # the arithmetic's dtype
         self.master_dtype = to_dtype(master_dtype)
-        if self.master_dtype != torch.float32:
-            raise NotImplementedError(
-                "FusedAdam: master_dtype other than float32 is not ported "
-                "yet (see ROADMAP.md)")
-        # moment STORAGE dtype; arithmetic stays fp32
+        # moment STORAGE dtype; arithmetic stays master_dtype
         self.state_dtype = to_dtype(state_dtype) if state_dtype is not None \
             else self.master_dtype
 
@@ -79,19 +80,21 @@ class FusedAdam:
             bc2 = 1.0 - b2 ** step
         else:
             bc1 = bc2 = 1.0
-        stored = self.state_dtype != torch.float32
-        m = [x.float() for x in state.exp_avg] if stored \
-            else list(state.exp_avg)
-        v = [x.float() for x in state.exp_avg_sq] if stored \
-            else list(state.exp_avg_sq)
-        g = list(grads)
+        math = self.master_dtype
+
+        def cast(xs):        # the tensors themselves when already in math
+            return [x if x.dtype == math else x.to(math) for x in xs]
+
+        p, m, v, g = (cast(xs) for xs in (params, state.exp_avg,
+                                          state.exp_avg_sq, grads))
         if wd != 0.0 and not self.adam_w_mode:
-            g = torch._foreach_add(g, params, alpha=wd)
+            g = torch._foreach_add(g, p, alpha=wd)
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - b1))
         torch._foreach_mul_(v, b2)
         torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g),
                                                   1.0 - b2))
+        del g
         denom = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
@@ -99,12 +102,16 @@ class FusedAdam:
         torch._foreach_div_(upd, denom)
         del denom
         if wd != 0.0 and self.adam_w_mode:
-            torch._foreach_add_(upd, torch._foreach_mul(params, wd))
+            torch._foreach_add_(upd, torch._foreach_mul(p, wd))
         torch._foreach_mul_(upd, lr)
-        torch._foreach_sub_(params, upd)
-        if stored:
-            torch._foreach_copy_(state.exp_avg, m)
-            torch._foreach_copy_(state.exp_avg_sq, v)
+        torch._foreach_sub_(p, upd)
+        del upd
+        for dst, src in ((params, p), (state.exp_avg, m),
+                         (state.exp_avg_sq, v)):
+            narrow = [(d, s) for d, s in zip(dst, src) if d is not s]
+            if narrow:
+                torch._foreach_copy_([d for d, _ in narrow],
+                                     [s for _, s in narrow])
         return params, state
 
 

@@ -5,18 +5,21 @@ port's training engine at world size 1: the batch triple (completed and
 validated with the JAX package's errors), ``fp16`` (dynamic or static loss
 scale), ``bf16``, ``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``steps_per_print``, ``seed``, the ``fault`` block (crash-atomic
-checkpoints, retries, the supervisor) and ``nebula`` (the asynchronous
-checkpoint writer).  ``zero_optimization.stage`` 0-3 is
+checkpoints, retries, the supervisor), ``nebula`` (the asynchronous
+checkpoint writer) and the single-device memory levers:
+``zero_optimization.offload_optimizer`` (ZeRO-Offload to ``cpu`` or
+``nvme``), ``zero_optimization.grad_partition_groups`` (the partitioned
+backward), ``bf16.master_weights_in_bf16`` and
+``data_types.grad_accum_dtype``.  ``zero_optimization.stage`` 0-3 is
 accepted and trivially satisfied at world size 1 (there is nothing to
 partition).  The blocks are plain dataclasses: the card's machine has no
 pydantic.
 
 Knobs that change behaviour but belong to later slices raise
-``NotImplementedError`` when set (offload, MiCS, tensor / pipeline /
-sequence / expert parallelism, curriculum, compression, partitioned
-backward, bf16 master weights, a non-fp32 gradient accumulator, and the
-monitor, profiler, compile cache and hybrid blocks), so a config never
-silently does nothing.
+``NotImplementedError`` when set (``offload_param``, which no JAX engine
+path reads either, MiCS, tensor / pipeline / sequence / expert
+parallelism, curriculum, compression, and the monitor, profiler, compile
+cache and hybrid blocks), so a config never silently does nothing.
 """
 
 import dataclasses
@@ -49,15 +52,35 @@ class BF16Config(DeepSpeedConfigModel):
 
 
 @dataclasses.dataclass(init=False)
+class OffloadOptimizerConfig(DeepSpeedConfigModel):
+    """``zero_optimization.offload_optimizer`` (the JAX
+    ``DeepSpeedZeroOffloadOptimizerConfig``): ``device`` ``none`` / ``cpu``
+    / ``nvme``; the swap directory's base, staging buffers and pipelining
+    of the disk tier; page-locked host state."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+
+
+@dataclasses.dataclass(init=False)
 class ZeroConfig(DeepSpeedConfigModel):
     """The keys of the JAX ``ZeroConfig`` this slice reads; the others are
     kept as attributes."""
     stage: int = 0
     offload_param: Optional[Dict[str, Any]] = None
-    offload_optimizer: Optional[Dict[str, Any]] = None
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
     zero_hpz_partition_size: int = 1
     mics_shard_size: int = -1
     grad_partition_groups: int = 1
+
+    def validate(self):
+        if isinstance(self.offload_optimizer, dict):
+            self.offload_optimizer = OffloadOptimizerConfig(
+                **self.offload_optimizer)
 
 
 @dataclasses.dataclass(init=False)
@@ -98,13 +121,10 @@ def _size(pd, key, sub):
 # knobs of later slices: (predicate on the raw dict, what to say)
 _NOT_PORTED = (
     (lambda pd: _offloaded(pd.get(C.ZERO_OPTIMIZATION, {}).get(
-        "offload_param")) or _offloaded(pd.get(C.ZERO_OPTIMIZATION, {}).get(
-            "offload_optimizer")), "ZeRO offload (offload_param / "
-     "offload_optimizer)"),
+        "offload_param")), "zero_optimization.offload_param (no JAX engine "
+     "path reads it either)"),
     (lambda pd: (pd.get(C.ZERO_OPTIMIZATION, {}).get("mics_shard_size") or 0)
      > 0, "zero_optimization.mics_shard_size (MiCS)"),
-    (lambda pd: (pd.get(C.ZERO_OPTIMIZATION, {}).get("grad_partition_groups")
-                 or 1) > 1, "zero_optimization.grad_partition_groups > 1"),
     (lambda pd: _size(pd, C.TENSOR_PARALLEL, "tp_size") > 1,
      "tensor parallelism (tp_size > 1)"),
     (lambda pd: _size(pd, C.PIPELINE_PARALLEL, "stages") > 1,
@@ -117,11 +137,6 @@ _NOT_PORTED = (
      "curriculum_learning"),
     (lambda pd: any(pd.get(C.COMPRESSION_TRAINING, {}) or {}),
      "compression_training"),
-    (lambda pd: pd.get(C.BF16, {}).get("master_weights_in_bf16", False),
-     "bf16.master_weights_in_bf16"),
-    (lambda pd: (pd.get("data_types", {}).get("grad_accum_dtype")
-                 or "fp32") not in ("fp32", "float32"),
-     "data_types.grad_accum_dtype other than fp32"),
     (lambda pd: any(_enabled(pd, k) for k in (
         C.MONITOR_TENSORBOARD, C.MONITOR_WANDB, C.MONITOR_CSV)),
      "the monitor (tensorboard / wandb / csv_monitor)"),
@@ -178,6 +193,8 @@ class DeepSpeedConfig:
         self.steps_per_print = pd.get(C.STEPS_PER_PRINT,
                                       C.STEPS_PER_PRINT_DEFAULT)
         self.seed = pd.get("seed", 42)
+        self.gradient_accumulation_dtype = pd.get("data_types", {}).get(
+            "grad_accum_dtype", None)
         self.nebula_config = NebulaConfig(**pd.get("nebula", {}))
         self.fault = FaultConfig(**pd.get("fault", {}))
 

@@ -14,7 +14,30 @@ the port runs eagerly on one device.  fp32 master parameters stay on the
 module (the model casts each weight to its compute dtype at use, which is
 the JAX ``_apply_model`` cast), gradients accumulate in their fp32
 ``.grad``, and the optimizer updates the parameter list in place with
-``torch._foreach_*`` ops.
+``torch._foreach_*`` ops, a group of ``SKIP_GROUP_NUMEL`` parameter
+elements at a time (every optimizer is elementwise, so the groups give one
+call's bits while its temporaries stay one group's).
+
+**The single-device memory levers** (the JAX engine's):
+
+- ``bf16.master_weights_in_bf16`` (with ``bf16.enabled``): the module's
+  parameters are cast to bf16 after the init and are the masters; the
+  optimizer computes in fp32 and stores its moments in ``state_dtype``.
+- ``data_types.grad_accum_dtype``: the accumulation dtype (fp32 by
+  default).  Where a parameter's dtype differs from it, each micro step's
+  ``.grad`` is cast and added into an accumulator of that dtype and
+  cleared (JAX casts every micro step's gradients before the sum);
+  otherwise autograd accumulates in ``.grad``.
+- ``zero_optimization.grad_partition_groups`` N > 1: each micro step runs
+  N forward + backward sweeps inside ``forward()``, each with only its
+  group of parameters (contiguous, of about equal bytes) requiring grad.
+- ``zero_optimization.offload_optimizer``: the fp32 masters and Adam
+  moments move to the host (``runtime/zero/offload.py``), the module's
+  parameters are cast to the compute dtype, and the step brings each
+  accumulated gradient down into a host buffer (freeing it on the card),
+  unscales, takes the norm and clips on the host in fp32, runs the C++
+  Adam and uploads the new parameters in one pass.  The tag of a
+  checkpoint holds the host state under ``host_optimizer/``.
 
 ``step`` unscales by the loss scale, computes the global gradient norm and
 clips (the JAX ``_unscale_and_clip``, ``1e-6`` included), updates, and
@@ -37,7 +60,7 @@ into the live tensors in place.  ``save_16bit_model`` exports the weights
 under the JAX export's flax-path keys.
 
 Not in this slice (ROADMAP.md, queue A): the compile cache, the profiler,
-the monitor, offload, multi-GPU.
+the monitor, parameter offload, multi-GPU.
 """
 
 import dataclasses
@@ -73,8 +96,9 @@ _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float16: "float16"}
 
 
-# parameter elements per group of the fp16 overflow skip: only one group's
-# parameters and optimizer state are held twice at a time
+# parameter elements per group of the device step: only one group's fp32
+# temporaries of the update (and, for the fp16 overflow skip, one group's
+# parameters and optimizer state held twice) exist at a time
 SKIP_GROUP_NUMEL = 1 << 26
 
 
@@ -90,6 +114,19 @@ def _state_tensors(state):
 def _state_slice(state, sl):
     """The optimizer state of the parameters ``sl`` (the same tensors)."""
     return type(state)(*(None if f is None else f[sl] for f in state))
+
+
+def _accum_dtype(name):
+    """``data_types.grad_accum_dtype`` → a torch dtype (the JAX
+    ``_accum_dtype`` table; None means fp32)."""
+    table = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+             "fp16": torch.float16, "float16": torch.float16,
+             "fp32": torch.float32, "float32": torch.float32}
+    want = name or "fp32"
+    if want not in table:
+        raise ValueError(f"data_types.grad_accum_dtype={want!r}: expected "
+                         f"one of {sorted(table)} (or null = fp32)")
+    return table[want]
 
 
 def _skip_groups(params):
@@ -112,6 +149,14 @@ def _map(fn, batch):
     if isinstance(batch, (tuple, list)):
         return type(batch)(_map(fn, v) for v in batch)
     return fn(batch)
+
+
+class _Accumulated:
+    """The pending forward of a grouped micro step: its gradients are in
+    the running sum already; ``backward`` only closes the micro step."""
+
+    def __init__(self, loss):
+        self.loss = loss
 
 
 class DeepSpeedEngine:
@@ -163,6 +208,25 @@ class DeepSpeedEngine:
                 f"blocks); build the model with "
                 f"dtype={_DTYPE_NAMES[self.compute_dtype]!r}")
 
+        # the persistent master parameters' dtype: fp32 unless the
+        # memory-lean bf16 masters are on (the optimizer computes in fp32
+        # either way)
+        bf16 = self._config.bf16
+        self._master_dtype = torch.bfloat16 \
+            if bf16.enabled and bf16.master_weights_in_bf16 else torch.float32
+        if bf16.master_weights_in_bf16 and not bf16.enabled:
+            logger.warning(
+                "bf16.master_weights_in_bf16 is set but bf16.enabled is "
+                "false — masters stay fp32; the memory-lean mode requires "
+                "bf16 compute")
+        self._accum_dtype = _accum_dtype(
+            self._config.gradient_accumulation_dtype)
+        off = self._config.zero_config.offload_optimizer
+        self._offload_cfg = off if off is not None and off.device != "none" \
+            else None
+        self._host_opt = None
+        self._grad_acc = None      # accumulators where .grad cannot be one
+
         self._place_module(model_parameters)
         self._params = [p for p in self.module.parameters()
                         if p.requires_grad]
@@ -171,7 +235,19 @@ class DeepSpeedEngine:
             raise ValueError(f"master parameters must be float32, got {bad}")
 
         self.optimizer = optimizer or build_optimizer(self._config.optimizer)
-        self._opt_state = self.optimizer.init(self._params)
+        if self._offload_cfg is not None and \
+                "adam" not in type(self.optimizer).__name__.lower():
+            # the host kernel is Adam / AdamW only: replacing another
+            # optimizer would change the training trajectory
+            raise ValueError(
+                "zero_optimization.offload_optimizer requires an Adam-family "
+                f"optimizer, got {type(self.optimizer).__name__}")
+        if self._offload_cfg is not None:
+            self._init_host_optimizer()
+            self._opt_state = None
+        else:
+            self._cast_params(self._master_dtype)
+            self._opt_state = self.optimizer.init(self._params)
         self.lr_scheduler = lr_scheduler or build_lr_scheduler(
             self._config.scheduler, self.optimizer)
         self.loss_scaler = create_loss_scaler(self._config.fp16)
@@ -221,10 +297,49 @@ class DeepSpeedEngine:
                                                         self.device))
 
     @torch.no_grad()
+    def _cast_params(self, dtype):
+        """Cast the module's floating parameters to ``dtype`` one at a
+        time (each fp32 storage is freed as its cast lands)."""
+        for p in self.module.parameters():
+            if p.is_floating_point() and p.dtype != dtype:
+                p.data = p.data.to(dtype)
+
+    def _init_host_optimizer(self):
+        """ZeRO-Offload's init (the JAX ``_init_opt_state``): seed the host
+        fp32 masters from the fp32 parameters, then cast the module's
+        parameters to the compute dtype, the card's saving."""
+        from deepspeed_tpu_torch.runtime.zero.offload import \
+            HostOffloadedAdam
+        opt = self.optimizer
+        # page-locked host buffers only with a card to copy to
+        pin = bool(self._offload_cfg.pin_memory) and self.device.type == "cuda"
+        self._host_opt = HostOffloadedAdam(
+            self._params, self._offload_cfg, lr=getattr(opt, "lr", 1e-3),
+            betas=(getattr(opt, "beta1", 0.9), getattr(opt, "beta2", 0.999)),
+            eps=getattr(opt, "eps", 1e-8),
+            weight_decay=getattr(opt, "weight_decay", 0.0),
+            adamw_mode=getattr(opt, "adam_w_mode", True),
+            bias_correction=getattr(opt, "bias_correction", True), pin=pin)
+        self._host_opt.init_from_params(self._params)
+        self._cast_params(self.compute_dtype)
+        # the step's host buffers, made once: fp32 gradients and the bf16
+        # bits of the upload (page-locked with pin_memory)
+        self._host_grads = [torch.empty(p.numel(), dtype=torch.float32,
+                                        pin_memory=pin)
+                            for p in self._params]
+        self._upload = None if self.compute_dtype != torch.bfloat16 else [
+            torch.empty(p.numel(), dtype=torch.uint16, pin_memory=pin)
+            for p in self._params]
+        self.offload_stats = {}
+
+    @torch.no_grad()
     def load_params(self, tree):
         """Replace the master parameters: a ``state_dict``-like mapping of
         this module, or a JAX parameter tree (nested dicts, converted with
-        the model's ``params_from_flax``)."""
+        the model's ``params_from_flax``).  Each value is cast to its
+        parameter's dtype; under offload the host masters are re-seeded
+        from the result (values only: the moments and the step count
+        stay)."""
         if any(isinstance(v, Mapping) for v in tree.values()):
             from deepspeed_tpu_torch.models.transformer import (
                 params_from_flax)
@@ -233,6 +348,8 @@ class DeepSpeedEngine:
                                  else v).to(torch.float32)
               for k, v in tree.items()}
         self.module.load_state_dict(sd)
+        if getattr(self, "_host_opt", None) is not None:
+            self._host_opt.reseed_masters(self._params)
 
     def put_batch(self, batch):
         """``batch`` (tensors or arrays, nested in dicts / lists) on the
@@ -315,10 +432,56 @@ class DeepSpeedEngine:
                 "forward() called twice without backward() inside an "
                 "accumulation window — call backward(loss) after each "
                 "forward")
+        n_groups = int(self._config.zero_config.grad_partition_groups or 1)
+        if n_groups > 1:
+            if self._pending is not None:
+                # the grouped passes add into the running sum on the
+                # first micro step too
+                raise RuntimeError(
+                    "forward() called twice without backward() (grouped "
+                    "accumulation adds into the running buffer)")
+            loss = self._forward_grouped(n_groups, args, kwargs)
+            self._pending = _Accumulated(loss)
+            self._last_loss = loss
+            return loss
         loss = self._loss_of(args, kwargs)
         self._pending = loss
         self._last_loss = loss.detach()
         return loss
+
+    def _group_bounds(self, n_groups):
+        """Contiguous ``engine.params`` index ranges of about equal bytes
+        for the partitioned backward (the JAX ``_group_bounds``' rule)."""
+        sizes = [p.numel() * p.element_size() for p in self._params]
+        total = sum(sizes)
+        bounds, lo, acc = [], 0, 0
+        for i, s in enumerate(sizes):
+            acc += s
+            if acc >= total * (len(bounds) + 1) / n_groups \
+                    and len(bounds) < n_groups - 1:
+                bounds.append((lo, i + 1))
+                lo = i + 1
+        bounds.append((lo, len(sizes)))
+        return [b for b in bounds if b[0] < b[1]]
+
+    def _forward_grouped(self, n_groups, args, kwargs):
+        """One micro step of the partitioned backward: a forward and
+        backward sweep a group, each with only that group's parameters
+        requiring grad, so autograd makes the others' gradients in none of
+        them (FLOPs for memory, as in JAX).  Returns the last sweep's loss,
+        detached."""
+        gas = self.gradient_accumulation_steps()
+        try:
+            for lo, hi in self._group_bounds(n_groups):
+                for i, p in enumerate(self._params):
+                    p.requires_grad_(lo <= i < hi)
+                loss = self._loss_of(args, kwargs)
+                (loss.float() * self._scaler_state.scale / gas).backward()
+                self._fold_grads()
+        finally:
+            for p in self._params:
+                p.requires_grad_(True)
+        return loss.detach()
 
     __call__ = forward
 
@@ -332,9 +495,11 @@ class DeepSpeedEngine:
         if self._pending is None:
             raise RuntimeError("backward called without a prior forward")
         pending, self._pending = self._pending, None
-        gas = self.gradient_accumulation_steps()
-        scaled = pending.float() * self._scaler_state.scale / gas
-        scaled.backward(retain_graph=retain_graph)
+        if not isinstance(pending, _Accumulated):
+            gas = self.gradient_accumulation_steps()
+            scaled = pending.float() * self._scaler_state.scale / gas
+            scaled.backward(retain_graph=retain_graph)
+            self._fold_grads()
         if not self._static_unit:
             # non-finite values are sticky under addition, so the running
             # sum is non-finite iff some micro step's gradients were
@@ -351,29 +516,67 @@ class DeepSpeedEngine:
     def zero_grad(self):
         for p in self._params:
             p.grad = None
+        self._grad_acc = None
         self._window_open = False
         self._found_inf = None
 
+    @torch.no_grad()
+    def _fold_grads(self):
+        """Add this backward's ``.grad`` of every parameter whose dtype is
+        not the accumulation dtype into its accumulator of that dtype (cast
+        first, as JAX casts each micro step's gradients), and clear it."""
+        acc_dt = self._accum_dtype
+        for i, p in enumerate(self._params):
+            g = p.grad
+            if g is None or p.dtype == acc_dt:
+                continue
+            if self._grad_acc is None:
+                self._grad_acc = [None] * len(self._params)
+            if self._grad_acc[i] is None:
+                self._grad_acc[i] = g.to(acc_dt)
+            else:
+                self._grad_acc[i].add_(g.to(acc_dt))
+            p.grad = None
+
     def _grads(self):
-        return [p.grad if p.grad is not None else torch.zeros_like(p)
-                for p in self._params]
+        """The accumulated gradient of every parameter (zeros where it got
+        none)."""
+        acc = self._grad_acc or [None] * len(self._params)
+        out = []
+        for p, a in zip(self._params, acc):
+            g = a if a is not None else p.grad
+            out.append(g if g is not None
+                       else torch.zeros_like(p, dtype=self._accum_dtype))
+        return out
 
     @staticmethod
     def _grad_norm(grads):
+        # in fp32 whatever the gradients' dtype (JAX squares fp32 casts)
         return torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+            torch._foreach_norm(grads, 2, dtype=torch.float32)))
 
     def _unscale_and_clip(self, grads):
-        """Unscale by the loss scale, take the global grad norm and clip
-        (the JAX ``_unscale_and_clip``)."""
+        """Unscale by the loss scale and take the global grad norm (the
+        JAX ``_unscale_and_clip``); returns ``(gnorm, factor)``, the clip
+        factor (a device scalar, None without clipping) that
+        :meth:`_clipped` applies a group at a time."""
         if not self._static_unit:
             torch._foreach_mul_(grads, 1.0 / self._scaler_state.scale)
         gnorm = self._grad_norm(grads)
         clip = float(self.gradient_clipping() or 0.0)
-        if clip > 0.0:
-            factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
-            torch._foreach_mul_(grads, factor)
-        return gnorm
+        factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0) \
+            if clip > 0.0 else None
+        return gnorm, factor
+
+    @staticmethod
+    def _clipped(grads, factor):
+        """``grads`` times the clip factor, in fp32: 16-bit gradients get
+        fp32 copies first (JAX's 16-bit gradient times an fp32 factor is
+        fp32), fp32 ones are scaled in place."""
+        out = [g if g.dtype == torch.float32 else g.float() for g in grads]
+        if factor is not None:
+            torch._foreach_mul_(out, factor)
+        return out
 
     @torch.no_grad()
     def step(self, lr_kwargs=None):
@@ -382,29 +585,10 @@ class DeepSpeedEngine:
             return
         if not self._window_open:
             raise RuntimeError("step called with no accumulated gradients")
-        grads = self._grads()
-        lr, step_no = self.get_lr()[0], self.global_steps + 1
-        gnorm = self._unscale_and_clip(grads)
-        if self._static_unit:
-            self.optimizer.update(grads, self._opt_state, self._params,
-                                  lr=lr, step=step_no)
+        if self._host_opt is not None:
+            self._offload_step()
         else:
-            # branch-free overflow skip, one group at a time: every
-            # optimizer of the port updates each tensor on its own
-            found = self._found_inf
-            for sl in _skip_groups(self._params):
-                state = _state_slice(self._opt_state, sl)
-                live = self._params[sl] + _state_tensors(state)
-                old = torch._foreach_clone(live)
-                self.optimizer.update(grads[sl], state, self._params[sl],
-                                      lr=lr, step=step_no)
-                for o, n in zip(old, live):
-                    torch.where(found, o, n, out=n)
-                del old
-            self._scaler_state = self.loss_scaler.update(self._scaler_state,
-                                                         found)
-            self._pending_inf_flags.append(found)
-        self._last_global_grad_norm = gnorm
+            self._device_step()
         self.zero_grad()
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
@@ -418,6 +602,105 @@ class DeepSpeedEngine:
                 log_dist(f"overflow: skipped {skipped - before} recent "
                          f"step(s), loss scale "
                          f"{float(self._scaler_state.scale)}", ranks=[0])
+
+    def _device_step(self):
+        """The optimizer on the card, a group of ``SKIP_GROUP_NUMEL``
+        parameter elements at a time: every optimizer of the port updates
+        each tensor on its own, so the groups give one call's bits while
+        the update's fp32 temporaries stay one group's."""
+        grads = self._grads()
+        lr, step_no = self.get_lr()[0], self.global_steps + 1
+        gnorm, factor = self._unscale_and_clip(grads)
+        found = None if self._static_unit else self._found_inf
+        for sl in _skip_groups(self._params):
+            state = _state_slice(self._opt_state, sl)
+            gs = self._clipped(grads[sl], factor)
+            if found is None:
+                self.optimizer.update(gs, state, self._params[sl], lr=lr,
+                                      step=step_no)
+                continue
+            # branch-free overflow skip: the group's old values are kept
+            # and selected back on the device flag
+            live = self._params[sl] + _state_tensors(state)
+            old = torch._foreach_clone(live)
+            self.optimizer.update(gs, state, self._params[sl], lr=lr,
+                                  step=step_no)
+            for o, n in zip(old, live):
+                torch.where(found, o, n, out=n)
+            del old
+        if found is not None:
+            self._scaler_state = self.loss_scaler.update(self._scaler_state,
+                                                         found)
+            self._pending_inf_flags.append(found)
+        self._last_global_grad_norm = gnorm
+
+    @torch.no_grad()
+    def _offload_step(self):
+        """ZeRO-Offload's step (the JAX ``_offload_step``): each
+        accumulated gradient comes down into its host buffer and is freed
+        on the card as it is queued; on the host, in fp32, the unscale, the
+        global norm and the clip; the C++ Adam; one upload of the new
+        parameters (bf16 bits, or the fp32 masters when the compute is not
+        bf16) into the module's.  An overflow skips the update (norm
+        ``inf``).  Two syncs a step: after the downloads, after the
+        uploads.  ``offload_stats`` holds the step's seconds and bytes."""
+        sync = self.accelerator.synchronize
+        t0 = time.perf_counter()
+        found = bool(self._found_inf) if self._found_inf is not None \
+            else False
+        grads = self._grads()
+        acc = self._grad_acc
+        self._grad_acc = None
+        stats = {"found_inf": found}
+        if found:
+            self.skipped_steps += 1
+            # the skipped step's norm is the honest value for telemetry
+            self._last_global_grad_norm = float("inf")
+        else:
+            host = self._host_grads
+            nbytes = 0
+            for i, p in enumerate(self._params):
+                g = grads[i]
+                g = g if g.dtype == torch.float32 else g.float()
+                host[i].copy_(g.reshape(-1), non_blocking=True)
+                nbytes += g.numel() * g.element_size()
+                # freed as queued: the card never holds the accumulated
+                # gradients and a second copy of them
+                grads[i] = g = None
+                p.grad = None
+                if acc is not None:
+                    acc[i] = None
+            sync(self.device)
+            t1 = time.perf_counter()
+            inv = 1.0 / float(self._scaler_state.scale)
+            sq = sum(float(np.dot(h.numpy(), h.numpy())) for h in host)
+            gnorm = float(np.sqrt(sq)) * inv
+            clip = float(self.gradient_clipping() or 0.0)
+            factor = inv * (min(1.0, clip / (gnorm + 1e-6)) if clip > 0.0
+                            else 1.0)
+            if factor != 1.0:
+                for h in host:
+                    np.multiply(h.numpy(), np.float32(factor), out=h.numpy())
+            self._last_global_grad_norm = gnorm
+            t2 = time.perf_counter()
+            fp32_out = self.compute_dtype != torch.bfloat16
+            outs = self._host_opt.step(host, lr=self.get_lr()[0],
+                                       fp32_out=fp32_out, outs=self._upload)
+            t3 = time.perf_counter()
+            up = 0
+            for p, o in zip(self._params, outs):
+                src = o if fp32_out else o.view(torch.bfloat16)
+                p.data.copy_(src.view(p.shape), non_blocking=True)
+                up += src.numel() * src.element_size()
+            sync(self.device)
+            t4 = time.perf_counter()
+            stats.update(d2h_s=t1 - t0, d2h_bytes=nbytes, norm_clip_s=t2 - t1,
+                         host_adam_s=t3 - t2, h2d_s=t4 - t3, h2d_bytes=up)
+        del grads, acc
+        self._scaler_state = self.loss_scaler.update(
+            self._scaler_state, torch.tensor(found, device=self.device))
+        stats["step_s"] = time.perf_counter() - t0
+        self.offload_stats = stats
 
     def train_batch(self, data_iter=None, batch=None):
         """One global batch: ``batch`` stacked ``[gas, micro, ...]`` (or
@@ -480,9 +763,11 @@ class DeepSpeedEngine:
 
     def _checkpoint_arrays(self):
         """The tag's array groups, as the live tensors: ``module`` (the
-        fp32 master ``state_dict``, detached views of the parameters),
-        ``optimizer`` (its state NamedTuple of per-parameter lists, in
-        ``engine.params`` order) and ``loss_scaler``."""
+        master ``state_dict``, detached views of the parameters; the
+        compute-dtype parameters under offload), ``optimizer`` (its state
+        NamedTuple of per-parameter lists, in ``engine.params`` order; None
+        under offload, whose host state goes to ``host_optimizer/``) and
+        ``loss_scaler``."""
         return {"module": self.module.state_dict(),
                 "optimizer": self._opt_state,
                 "loss_scaler": self._scaler_state}
@@ -530,6 +815,9 @@ class DeepSpeedEngine:
         ckpt_dir = os.path.join(save_dir, tag)
         os.makedirs(ckpt_dir, exist_ok=True)
         self.checkpoint_engine.create(tag)
+        if self._host_opt is not None:
+            # one .npy file a tensor, never one pickle of the whole state
+            self._host_opt.save(os.path.join(ckpt_dir, "host_optimizer"))
         self.checkpoint_engine.save(arrays, self._checkpoint_meta(
             client_state), os.path.join(ckpt_dir, "state"))
         # commit (the async engine: the arrays are on disk) BEFORE moving
@@ -571,6 +859,8 @@ class DeepSpeedEngine:
             os.makedirs(tmp_dir)
             inject.fire("ckpt.save_io", path=tmp_dir)
             self.checkpoint_engine.create(tag)
+            if self._host_opt is not None:
+                self._host_opt.save(os.path.join(tmp_dir, "host_optimizer"))
             self.checkpoint_engine.save(arrays, meta,
                                         os.path.join(tmp_dir, "state"))
             # the async engine's arrays and deferred metadata must be on
@@ -772,6 +1062,10 @@ class DeepSpeedEngine:
                 f"checkpoint {tag!r} at {path} has no loadable 'arrays' "
                 "payload (partial or corrupt save?) — cannot restore "
                 "module weights")
+        host_dir = os.path.join(load_dir, str(tag), "host_optimizer")
+        self._restore_host_optimizer(
+            load_optimizer_states and not load_module_only
+            and os.path.isdir(host_dir), lambda: self._host_opt.load(host_dir))
         self._restore_meta(meta, load_lr_scheduler_states, load_module_only)
         self.checkpoint_stats = {"load": {
             **self.checkpoint_engine.stats.get("load", {}),
@@ -788,12 +1082,30 @@ class DeepSpeedEngine:
         place, with :meth:`load_checkpoint`'s knobs.  Returns the
         ``client_state``."""
         meta = meta or {}
+        host = arrays.get("host_optimizer")
         copy_groups(self._restore_targets(load_optimizer_states,
                                           load_module_only),
-                    {k: v for k, v in arrays.items() if v is not None},
+                    {k: v for k, v in arrays.items()
+                     if v is not None and k != "host_optimizer"},
                     strict=load_module_strict)
+        self._restore_host_optimizer(
+            load_optimizer_states and not load_module_only
+            and host is not None,
+            lambda: self._host_opt.load_state_dict(host))
         self._restore_meta(meta, load_lr_scheduler_states, load_module_only)
         return meta.get("client_state", {})
+
+    def _restore_host_optimizer(self, have_state, load):
+        """Under offload, after the module is restored: the saved host
+        state when ``have_state`` (``load()``); otherwise fresh masters from
+        the loaded parameters with zero moments — stale masters would
+        overwrite the loaded weights at the next step."""
+        if self._host_opt is None:
+            return
+        if have_state:
+            load()
+        else:
+            self._host_opt.init_from_params(self._params)
 
     @torch.no_grad()
     def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin",

@@ -65,7 +65,13 @@ def test_import_leaves_jax_unloaded():
             "deepspeed_tpu_torch.module_inject.replace_module, "
             "deepspeed_tpu_torch.runtime.activation_checkpointing, "
             "deepspeed_tpu_torch.runtime.activation_checkpointing."
-            "checkpointing; "
+            "checkpointing, "
+            "deepspeed_tpu_torch.ops.native_build, "
+            "deepspeed_tpu_torch.ops.adam.cpu_adam, "
+            "deepspeed_tpu_torch.ops.adagrad, deepspeed_tpu_torch.ops.aio, "
+            "deepspeed_tpu_torch.runtime.swap_tensor, "
+            "deepspeed_tpu_torch.runtime.zero.offload, "
+            "deepspeed_tpu_torch.runtime.bf16_optimizer; "
             "bad = [m for m in ('jax', 'flax', 'pydantic', 'deepspeed_tpu') "
             "if m in sys.modules and m not in before]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -73,6 +79,30 @@ def test_import_leaves_jax_unloaded():
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_host_libraries_build_into_build_dir():
+    """The offload tier's host libraries build from ``csrc/`` into
+    ``build/torch_kernels/`` (beside the CUDA ones, ignored by git), in a
+    process that loads no JAX."""
+    code = ("import sys, os; before = set(sys.modules); "
+            "from deepspeed_tpu_torch.ops import native_build, op_builder; "
+            "from deepspeed_tpu_torch.ops.adam import cpu_adam; "
+            "from deepspeed_tpu_torch.ops import aio; "
+            "cpu_adam.load(); aio.load(); "
+            "paths = [native_build.lib_path(n, [native_build.csrc_path(*s)], "
+            "o) for n, s, o in (('ds_cpu_adam', ('adam', 'cpu_adam.cpp'), "
+            "True), ('ds_aio', ('aio', 'aio.cpp'), False))]; "
+            "ok = all(os.path.dirname(p) == str(op_builder.BUILD_DIR) and "
+            "os.path.exists(p) for p in paths); "
+            "bad = [m for m in ('jax', 'deepspeed_tpu') "
+            "if m in sys.modules and m not in before]; print(paths, bad); "
+            "sys.exit(0 if ok and not bad else 1)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "build/torch_kernels" in res.stdout
 
 
 def _tiny_model():

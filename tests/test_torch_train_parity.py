@@ -14,7 +14,8 @@ the same numpy inputs.
   the port's 3-call path gives bitwise what its ``train_batch`` gives;
 - the optimizers' updates, every LR schedule and the dynamic loss scaler
   against the JAX ones (schedules and scaler exactly), and the config's
-  batch-triple errors and out-of-slice refusals.
+  batch-triple errors, the single-device memory knobs it parses and the
+  out-of-slice refusals.
 """
 
 import numpy as np
@@ -413,18 +414,14 @@ def test_batch_triple_completion_matches_jax():
 
 
 @pytest.mark.parametrize("knob", [
-    {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
     {"zero_optimization": {"offload_param": {"device": "nvme"}}},
     {"zero_optimization": {"mics_shard_size": 2}},
-    {"zero_optimization": {"grad_partition_groups": 2}},
     {"tensor_parallel": {"tp_size": 2}},
     {"pipeline": {"stages": 2}},
     {"sequence_parallel": {"sp_size": 2}},
     {"moe": {"ep_size": 2}},
     {"curriculum_learning": {"enabled": True}},
     {"compression_training": {"weight_quantization": {"shared": 1}}},
-    {"bf16": {"enabled": True, "master_weights_in_bf16": True}},
-    {"data_types": {"grad_accum_dtype": "bf16"}},
     {"csv_monitor": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
     {"compile_cache": {"enabled": True}},
@@ -433,6 +430,32 @@ def test_batch_triple_completion_matches_jax():
 def test_out_of_slice_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
         pconfig.DeepSpeedConfig(dict(knob, train_micro_batch_size_per_gpu=1))
+
+
+# the single-device memory levers: parsed, no longer refused
+MEMORY_KNOBS = {
+    "offload_optimizer_cpu": (
+        {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+        lambda c: (c.zero_config.offload_optimizer.device,
+                   c.zero_config.offload_optimizer.pin_memory), ("cpu", False)),
+    "grad_partition_groups": (
+        {"zero_optimization": {"grad_partition_groups": 2}},
+        lambda c: c.zero_config.grad_partition_groups, 2),
+    "master_weights_in_bf16": (
+        {"bf16": {"enabled": True, "master_weights_in_bf16": True}},
+        lambda c: (c.bf16.enabled, c.bf16.master_weights_in_bf16),
+        (True, True)),
+    "grad_accum_dtype": (
+        {"data_types": {"grad_accum_dtype": "bf16"}},
+        lambda c: c.gradient_accumulation_dtype, "bf16"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MEMORY_KNOBS))
+def test_single_device_memory_knobs_parse(name):
+    knob, field, want = MEMORY_KNOBS[name]
+    cfg = pconfig.DeepSpeedConfig(dict(knob, train_micro_batch_size_per_gpu=1))
+    assert field(cfg) == want
 
 
 def test_in_slice_config():

@@ -157,6 +157,32 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    plain server's, every snapshotted token list a prefix of its output;
    with the seconds of ``preempt()`` and ``restore()``, the first token
    after the restore and the tokens prefilled again;
+14b. serves over HTTP, run (p), on run (d)'s engine and server:
+   ``serve_http(srv, port=0)`` over run (d)'s paged server with 3
+   priority lanes, a fairness budget, span tracing, the flight recorder,
+   device-memory samples and the profile endpoint; 8 client threads post
+   run (d)'s first 64 requests (half NDJSON streams, clients ``a``, ``b``
+   and ``heavy``, the heavy client's second wave over its budget), read
+   ``/healthz`` and ``/metrics``, cancel two streams with ``DELETE`` and
+   take ``POST /debug/profile?secs=1``; the decode block is captured by
+   the scheduler thread while they do.  Gates: every completed request
+   bitwise run (d)'s, every stream's tokens its output with one ``end``
+   line, only the heavy client refused (HTTP 429), ``/metrics`` parsed
+   back with ``# HELP`` / ``# TYPE`` on every series, K6 and K7 in the
+   profile's trace, exact launches, the same requests with tracing,
+   telemetry and the recorder off giving the same tokens and captures,
+   ``release_owner()`` handing the engine back and ``close()`` ending
+   it; the same traffic again without the profile (``p_on``) and without
+   the observability (``p_off``), twice in turns, then the requests that
+   completed every way directly (``p_direct``); then one injected
+   dispatch failure under ``breaker_threshold=1`` must dump the flight
+   recorder (``p_fault``).  The lines give tokens/s over HTTP against
+   direct ``submit`` / ``step``, observability on against off, TTFT and
+   time between tokens p50 / p99 from the histograms, lock-wait seconds
+   per thread class, spans per request (traces in
+   ``build/profiles/serving_http_trace*.json``), the memory sampler's
+   bytes against ``torch.cuda.memory_allocated`` and the profile's
+   device busy time;
 15. drives checkpointing, run (c-ckpt): run (c)'s model and batch shape
    with the ``fault`` block on (sha256 manifests, ``keep_last_n`` 1) — 2
    steps, ``save_checkpoint`` (15.8 GB of fp32 masters and Adam moments,
@@ -270,6 +296,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -427,6 +454,23 @@ RUN_N = dict(queue=48, shed_every=12, cancel_every=24, cancel_at=5,
 SERVE_N = dict(SERVE_D, max_queue_depth=RUN_N["queue"], queue_policy="block",
                breaker_threshold=RUN_N["breaker"])
 SERVE_N_PREEMPT = dict(SERVE_D, prefill_token_budget=0)
+# the HTTP front end (p), on run (d)'s engine and server: run (d)'s first
+# 64 requests posted by 8 client threads, request i by thread i % 8 (all of
+# a thread's requests in flight at once); clients "a" (i % 8 == 0) and "b"
+# (i % 8 == 4), 8 requests each, and "heavy", 48 in two waves of 24, the
+# second posted once every request of the first is admitted; rows i // 8
+# odd stream (NDJSON); priority i % 3 over 3 lanes.  The fairness budget
+# lies midway between a light client's whole charge (prompts + new tokens)
+# and the heavy client's first wave's prompts, over a 600 s window: the
+# second wave is refused (429), the light clients never.  Two streams of
+# the first wave (the first heavy requests with 128 new tokens) are
+# cancelled at their first token.
+RUN_P = dict(requests=64, threads=8, light={0: "a", 4: "b"}, wave=24,
+             cancels=2, window_s=600.0, profile_secs=1.0, fault_requests=8,
+             fault_at=3, watchdog_s=300)
+SERVE_P = dict(SERVE_D, priority_lanes=3)
+OBSERVE_P = dict(tracing=True, flight_recorder=True, memory_telemetry=True,
+                 memory_sample_interval_s=0.25, profile_endpoint=True)
 # shared prefix (e): bench.py's 24 requests behind one 512-token prompt
 RUN_E = dict(system=512, tails=24, tail=16, new=32, seed=1)
 SERVE_E = dict(paged=True, page_size=64, max_cache_len=768,
@@ -3507,6 +3551,432 @@ def lifecycle_path(eng, outs_d):
 
 
 # --------------------------------------------------------------------- #
+# The HTTP front end: serve_http, run (p)
+# --------------------------------------------------------------------- #
+def p_client(i):
+    return RUN_P["light"].get(i % RUN_P["threads"], "heavy")
+
+
+def p_fairness(reqs):
+    """The fairness budget of run (p): midway between the most a light
+    client can be charged (its prompts and new tokens) and what the heavy
+    client's first wave is charged at admission (its prompts); returns
+    (budget, the heavy wave's indices)."""
+    light = {}
+    for i, (p, n) in enumerate(reqs):
+        if p_client(i) != "heavy":
+            light[p_client(i)] = light.get(p_client(i), 0) + len(p) + n
+    heavy = [i for i in range(len(reqs)) if p_client(i) == "heavy"]
+    first = heavy[:RUN_P["wave"]]
+    charged = sum(len(reqs[i][0]) for i in first)
+    if charged < 1.2 * max(light.values()):
+        fail(f"run (p): the heavy wave's prompts ({charged} tokens) do not "
+             f"clear the light clients' charge ({light}) by 20 %")
+    return (charged + max(light.values())) / 2, first
+
+
+PROM_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? '
+                         r'(-?[0-9.eE+-]+|\+Inf|NaN)$')
+PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_prometheus(text):
+    """The Prometheus text format, back: ``(types, helps, samples)``; any
+    line that is neither a comment nor a well-formed sample fails."""
+    types, helps, samples = {}, {}, []
+    for line in text.rstrip("\n").split("\n"):
+        if line.startswith("# HELP "):
+            helps[line.split(" ", 3)[2]] = line.split(" ", 3)[3]
+        elif line.startswith("# TYPE "):
+            types[line.split(" ", 3)[2]] = line.split(" ", 3)[3]
+        elif not line.startswith("#"):
+            m = PROM_SAMPLE.match(line)
+            if not m:
+                fail(f"run (p): /metrics line {line!r} does not parse")
+            samples.append((m.group(1),
+                            dict(PROM_LABEL.findall(m.group(2) or "")),
+                            float(m.group(3))))
+    for name, _, _ in samples:
+        fam = next((f for f in (name, name.rsplit("_", 1)[0])
+                    if f in types), None)
+        if fam is None or fam not in helps:
+            fail(f"run (p): /metrics series {name} has no # HELP / # TYPE")
+    return types, helps, samples
+
+
+def hist_quantile(snap, buckets, q):
+    """The upper bound of the bucket holding quantile ``q`` of a histogram
+    snapshot (None when it is empty; inf past the last bucket)."""
+    n = snap["count"]
+    if not n:
+        return None
+    cum = 0
+    for b, c in zip(buckets, snap["counts"]):
+        cum += c
+        if cum >= q * n:
+            return b
+    return math.inf
+
+
+def http_get(port, path, method="GET"):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request(method, path)
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    return resp.status, body
+
+
+def http_traffic(srv, reqs, first, profile_dir=None):
+    """Run (p)'s traffic through ``serve_http(srv)`` (``first``: the heavy
+    client's first wave): returns ``{i: (HTTP status, output or None,
+    stream end event or None, end events)}``, the seconds from the first
+    POST to the last answer, the /metrics text (scraped at the end), the
+    answer of a ``/debug/profile`` taken into ``profile_dir`` (None
+    without one) and the requests cancelled."""
+    import http.client
+    import threading
+    import numpy as np
+    from deepspeed_tpu_torch.inference.serving import serve_http
+    cancel = [i for i in first if reqs[i][1] == max(RUN_D["new"])
+              and (i // RUN_P["threads"]) % 2][:RUN_P["cancels"]]
+    wave2 = threading.Event()
+    got, errors = {}, []
+    fe = serve_http(srv, port=0, profile_dir=profile_dir)
+
+    def post(i):
+        p, n = reqs[i]
+        conn = http.client.HTTPConnection("127.0.0.1", fe.port, timeout=300)
+        conn.request("POST", "/v1/generate", json.dumps({
+            "input_ids": [int(t) for t in p], "max_new_tokens": n,
+            "client_id": p_client(i), "priority": i % 3,
+            "stream": bool((i // RUN_P["threads"]) % 2)}))
+        return conn
+
+    def answer(i, conn):
+        resp = conn.getresponse()
+        p, n = reqs[i]
+        if resp.status != 200 or not (i // RUN_P["threads"]) % 2:
+            body = json.loads(resp.read())
+            out = np.asarray(body["output"], np.int32) \
+                if resp.status == 200 and body["output"] is not None \
+                else None
+            got[i] = (resp.status, out, None, 0)
+            conn.close()
+            return
+        toks, end, n_end = [], None, 0
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            ev = json.loads(line)
+            if ev["event"] == "token":
+                toks.append(ev["token"])
+                if i in cancel and ev["index"] == 0:
+                    http_get(fe.port, f"/v1/requests/{ev['rid']}", "DELETE")
+            else:
+                end, n_end = ev, n_end + 1
+        got[i] = (200, np.concatenate([p, np.asarray(toks, np.int32)]), end,
+                  n_end)
+        conn.close()
+
+    def client(t):
+        try:
+            mine = [i for i in range(len(reqs))
+                    if i % RUN_P["threads"] == t]
+            now = [i for i in mine if p_client(i) != "heavy" or i in first]
+            later = [i for i in mine if i not in now]
+            conns = [(i, post(i)) for i in now]
+            if later:
+                if not wave2.wait(timeout=300):
+                    raise TimeoutError("the first wave was never admitted")
+                conns += [(i, post(i)) for i in later]
+            for i, conn in conns:
+                answer(i, conn)
+        except Exception as e:        # reported on the main thread
+            errors.append(f"client {t}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,), name=f"client {t}",
+                                daemon=True)
+               for t in range(RUN_P["threads"])]
+    for t in threads:
+        t.start()
+    n_first = sum(1 for i in range(len(reqs))
+                  if p_client(i) != "heavy" or i in first)
+    prof = None
+    if profile_dir is not None:
+        # profile from the first queued request on: the admissions (K7)
+        # and the decode blocks (K6) both fall in its second
+        deadline = time.monotonic() + 300
+        while srv.health_snapshot()["queue_depth"] == 0 \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        status, body = http_get(fe.port, f"/debug/profile?secs="
+                                         f"{RUN_P['profile_secs']}", "POST")
+        if status != 200:
+            fail(f"run (p): POST /debug/profile answered {status}: {body}")
+        prof = json.loads(body)
+    # the second wave once every request of the first is admitted or
+    # refused (a heavy request of the first wave is refused when its
+    # client's admitted requests were charged past the budget before it
+    # came in: the second wave is refused either way)
+    deadline = time.monotonic() + 300
+    health = []
+    while time.monotonic() < deadline:
+        with srv._lock:
+            settled = srv.stats["admitted"] + srv.stats["fairness_rejected"]
+        if settled >= n_first:
+            break
+        health.append(http_get(fe.port, "/healthz")[0])
+        time.sleep(0.02)
+    wave2.set()
+    health.append(http_get(fe.port, "/metrics")[0])
+    for t in threads:
+        t.join(timeout=300)
+    secs = time.perf_counter() - t0
+    status, metrics = http_get(fe.port, "/metrics")
+    fe.shutdown()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"run (p): the HTTP clients failed: {errors}")
+    if any(h != 200 for h in health):
+        fail(f"run (p): /healthz answered {sorted(set(health))}")
+    return got, secs, metrics.decode(), prof, cancel
+
+
+def http_path(eng, outs_d):
+    """Run (p): run (d)'s first 64 requests over the HTTP front end, with
+    and without the observability, then directly; and one injected
+    dispatch failure that must dump the flight recorder.  A run that
+    stalls (threads waiting on each other) dumps every thread's stack and
+    exits non-zero after ``RUN_P["watchdog_s"]``."""
+    import faulthandler
+    faulthandler.dump_traceback_later(RUN_P["watchdog_s"], exit=True)
+    try:
+        return _http_path(eng, outs_d)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _http_path(eng, outs_d):
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.serving.slo import RequestStatus
+    from deepspeed_tpu_torch.monitor.trace import (LATENCY_BUCKETS_S,
+                                                   LOCK_WAIT_BUCKETS_S)
+    from deepspeed_tpu_torch.profiling.trace import breakdown
+    from deepspeed_tpu_torch.runtime.fault import inject
+    t_run = time.perf_counter()
+    V = eng.module.config.vocab_size
+    reqs = serving_traffic(V, RUN_P["requests"])
+    prof_dir = os.path.join(ROOT, "build", "profiles")
+    os.makedirs(prof_dir, exist_ok=True)
+    budget, first = p_fairness(reqs)
+    runs, outs = {}, {}
+    # p: the whole load, the profile included; p_on: the same without the
+    # profile (its stop takes seconds of the GIL), for the numbers of the
+    # observability itself; p_off: none of it; on and off twice, in turns
+    order = (("p", True, True), ("p_on", True, False),
+             ("p_off", False, False), ("p_off2", False, False),
+             ("p_on2", True, False))
+    for tag, observe, profile in order:
+        srv = eng.serve(**SERVE_P, **(OBSERVE_P if observe else {}),
+                        fairness_tokens_per_s=budget / RUN_P["window_s"],
+                        fairness_window_s=RUN_P["window_s"])
+        torch.cuda.synchronize()
+        reset_counts()
+        got, secs, metrics, prof, cancel = http_traffic(
+            srv, reqs, first, prof_dir if profile else None)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = serve_expect(srv)
+        if counts != want:
+            fail(f"run ({tag}): launches {counts}, the path needs {want}")
+        for name in serve_kernels(srv):
+            if counts[name] == 0:
+                fail(f"run ({tag}): {name} was never launched")
+        completed, refused, by_status = [], {}, {}
+        for i, (status, out, end, n_end) in sorted(got.items()):
+            if status == 429:
+                refused[p_client(i)] = refused.get(p_client(i), 0) + 1
+                continue
+            if status != 200:
+                fail(f"run ({tag}): request {i} answered HTTP {status}")
+            st = end["status"] if end is not None else RequestStatus.COMPLETED
+            by_status[st] = by_status.get(st, 0) + 1
+            if end is not None and n_end != 1:
+                fail(f"run ({tag}): stream {i} ended with {n_end} end lines")
+            if st == RequestStatus.COMPLETED:
+                completed.append(i)
+                if not np.array_equal(out, outs_d[i]):
+                    fail(f"run ({tag}): request {i}'s tokens differ from run "
+                         f"(d)'s")
+            elif i not in cancel or st != RequestStatus.CANCELLED:
+                fail(f"run ({tag}): request {i} ended {st}")
+        if set(refused) != {"heavy"}:
+            fail(f"run ({tag}): HTTP 429 went to {refused}, only the heavy "
+                 f"client's second wave may be refused")
+        types, helps, samples = parse_prometheus(metrics)
+        useful = sum(reqs[i][1] for i in completed)
+        rec = {"run": tag, "requests": len(reqs), "observability": observe,
+               "profiled": profile,
+               "completed": len(completed), "refused_429": refused,
+               "statuses": by_status, "cancelled_by_delete": cancel,
+               "fairness_budget_tokens": budget, "seconds": secs,
+               "useful_tokens": useful, "tokens_per_s": useful / secs,
+               "decode_captures": srv._decode_prog.captures,
+               "decode_calls": srv.stats["decode_calls"],
+               "iterations": srv.stats["iterations"],
+               "sync_secs": srv.stats["sync_secs"],
+               "wall_secs": srv.stats["wall_secs"],
+               "metrics_series": len(types), "metrics_samples": len(samples),
+               "lock_wait_s": dict(srv._lock.wait_s),
+               "lock_acquires": dict(srv._lock.acquires),
+               "launches": counts}
+        if observe:
+            h = srv.histograms()
+            rec.update({
+                f"{name}_{q}_s": hist_quantile(getattr(h, name).snapshot(),
+                                               LATENCY_BUCKETS_S, x)
+                for name in ("ttft", "tbt", "queue_wait")
+                for q, x in (("p50", 0.5), ("p99", 0.99))})
+            ttfts = sorted(srv.result(r).ttft_s for r in srv._results
+                           if srv.result(r).ttft_s is not None)
+            rec["ttft_exact_p50_s"] = float(np.percentile(ttfts, 50))
+            rec["ttft_exact_p99_s"] = float(np.percentile(ttfts, 99))
+            rec["lock_wait_p99_s"] = {
+                cls: hist_quantile(child.snapshot(), LOCK_WAIT_BUCKETS_S,
+                                   0.99)
+                for cls, child in h.lock_wait._children.items()}
+            # the longest host dispatches hold the engine lock longest (the
+            # first decode block's is its capture)
+            rec["dispatch_max_bucket_s"] = {
+                prog: hist_quantile(child.snapshot(), LATENCY_BUCKETS_S, 1.0)
+                for prog, child in h.dispatch._children.items()}
+            trace = srv.dump_trace(os.path.join(
+                prof_dir, f"serving_http_trace{tag[1:]}.json"))
+            spans = srv._tracer.added
+            rec.update(spans=spans, spans_per_request=spans / len(reqs),
+                       trace=os.path.relpath(trace, ROOT))
+            mem = srv._memwatch.last
+            torch.cuda.synchronize()
+            rec["memory"] = {
+                "bytes_in_use": mem["bytes_in_use"],
+                "peak_bytes_in_use": mem["peak_bytes_in_use"],
+                "owned_bytes": mem["owned_bytes"], "owners": mem["owners"],
+                "unattributed_bytes": mem["unattributed_bytes"],
+                "samples": srv._memwatch.samples,
+                "torch_memory_allocated": torch.cuda.memory_allocated(DEV)}
+            for fam in ("dstpu_serving_ttft_seconds",
+                        "dstpu_device_memory_unattributed_bytes",
+                        "dstpu_serving_fairness_window_tokens"):
+                if fam not in types:
+                    fail(f"run ({tag}): /metrics lacks {fam}")
+        if profile:
+            with open(prof["trace"]) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            rec["profile"] = {**breakdown(kernels, prof["secs"]),
+                              "trace": os.path.relpath(prof["trace"], ROOT),
+                              **{k: prof[k] for k in ("start_s", "stop_s",
+                                                      "export_s")}}
+            groups = rec["profile"]["device_ms_by_group"]
+            for g in ("K6 decode_kernel (paged)",
+                      "K7 flash_fwd_kernel (paged)"):
+                if not groups.get(g):
+                    fail(f"run (p): the /debug/profile trace has no {g} "
+                         f"launch ({groups})")
+        # the owner's role goes back with the scheduler thread; this
+        # thread may take it, and close() ends the server
+        srv.bind_owner()
+        srv.release_owner()
+        if srv.close() != [] or not srv.health_snapshot()["closed"]:
+            fail(f"run ({tag}): close() left work behind")
+        rec["released_and_closed"] = True
+        emit(rec)
+        runs[tag] = rec
+        outs[tag] = completed
+        del srv
+        torch.cuda.empty_cache()
+    # with the observability off: the same captures, and the requests that
+    # completed both ways (each already bitwise run (d)'s) the same tokens
+    captures = {tag: runs[tag]["decode_captures"] for tag, _, _ in order}
+    both = sorted(set.intersection(*(set(outs[tag]) for tag, _, _ in order)))
+    if len(set(captures.values())) != 1 or not both:
+        fail(f"run (p): decode captures {captures}, {len(both)} requests "
+             f"completed every way")
+    # the same requests directly: submit() / step() on this thread
+    done = [reqs[i] for i in both]
+    srv = eng.serve(**SERVE_D)
+    got_d, secs_d, _ = drive(srv, done)
+    for i, out in zip(both, got_d):
+        if not np.array_equal(out, outs_d[i]):
+            fail(f"run (p_direct): request {i} differs from run (d)")
+    useful = sum(n for _, n in done)
+    runs["p_direct"] = {"run": "p_direct", "requests": len(done),
+                        "seconds": secs_d, "useful_tokens": useful,
+                        "tokens_per_s": useful / secs_d,
+                        "decode_captures": srv._decode_prog.captures}
+    srv.close()
+    emit(runs["p_direct"])
+    # one injected dispatch failure under breaker_threshold=1: the breaker
+    # opens, the flight recorder dumps, the cooldown's probe captures the
+    # decode block again
+    fr_dir = os.path.join(ROOT, "build", "flightrec")
+    srv = eng.serve(**SERVE_D, breaker_threshold=1, breaker_cooldown_s=0.2,
+                    flight_recorder=True, flight_recorder_dir=fr_dir)
+    k = RUN_P["fault_requests"]
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs[:k]]
+    spec, = inject.configure_injection(
+        {"point": "serving.pre_decode_dispatch", "action": "raise",
+         "at": RUN_P["fault_at"]})
+    try:
+        srv.drain(timeout_s=300)
+    finally:
+        inject.reset_injection()
+    path = srv._flightrec.last_dump_path
+    if spec.fired != 1 or path is None:
+        fail(f"run (p_fault): the injected failure fired {spec.fired} times, "
+             f"dump {path}")
+    with open(path) as f:
+        dump = json.load(f)
+    kinds = [e["ev"] for e in dump["events"]]
+    statuses = {}
+    for i, r in enumerate(rids):
+        st = srv.status(r)
+        statuses[st] = statuses.get(st, 0) + 1
+        if st == RequestStatus.COMPLETED and \
+                not np.array_equal(srv.result(r).output, outs_d[i]):
+            fail(f"run (p_fault): request {i} differs from run (d)")
+    if dump["reason"] != "breaker_open" or kinds[-1] != "breaker_open" \
+            or "fault_injection" not in kinds:
+        fail(f"run (p_fault): the dump ({dump['reason']}) ends {kinds[-4:]}")
+    runs["p_fault"] = {
+        "run": "p_fault", "requests": k, "statuses": statuses,
+        "dump": os.path.relpath(path, ROOT), "dump_reason": dump["reason"],
+        "dump_events": len(kinds), "dump_recorded": dump["recorded"],
+        "dump_tail": kinds[-6:],
+        "decode_captures": srv._decode_prog.captures,
+        "breaker_trips": srv._breaker.trips}
+    srv.close()
+    emit(runs["p_fault"])
+    torch.cuda.empty_cache()
+    runs["p_seconds"] = time.perf_counter() - t_run
+    direct = runs["p_direct"]["tokens_per_s"]
+    emit({"run_p_seconds": runs["p_seconds"],
+          "completed_every_way": len(both),
+          "http_vs_direct_tokens_per_s": {
+              tag: runs[tag]["tokens_per_s"] / direct for tag, _, _ in order},
+          "observability_on_vs_off_tokens_per_s": [
+              runs[on]["tokens_per_s"] / runs[off]["tokens_per_s"]
+              for on, off in (("p_on", "p_off"), ("p_on2", "p_off2"))],
+          "profiled_vs_not_tokens_per_s":
+              runs["p"]["tokens_per_s"] / runs["p_on"]["tokens_per_s"]})
+    return runs
+
+
+# --------------------------------------------------------------------- #
 # int8 serving: generate() (g) and serve() (h) with int8 weights and KV
 # --------------------------------------------------------------------- #
 @contextlib.contextmanager
@@ -5770,6 +6240,7 @@ def main():
     runs.update(serving_runs)
     runs.update(spec_path(eng, eng_e))
     runs.update(lifecycle_path(eng, outs_d))
+    runs.update(http_path(eng, outs_d))
     del eng_e
     eng_g, eng_ge, eng_m = int8_generate_path(eng, tokens, runs)
     del eng
@@ -5973,6 +6444,9 @@ def main():
     for k, name in ((kernels[5], "paged_decode_attention"),
                     (kernels[6], "paged_chunk_prefill_attention")):
         k["launches_run_n_overload"] = runs["n_overload"]["launches"][name]
+        # run (p): over the HTTP front end, with and without observability
+        k["launches_run_p"] = runs["p"]["launches"][name]
+        k["launches_run_p_off"] = runs["p_off"]["launches"][name]
     kernels[1]["launches_run_m_self_draft"] = \
         runs["m_self"]["program_launches"]["propose"]["decode_attention"]
     kernels[1]["launches_run_m_draft_opt125m"] = \

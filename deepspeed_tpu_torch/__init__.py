@@ -7,7 +7,9 @@ It imports nothing of JAX and nothing of ``deepspeed_tpu``.
 Ported so far, for the OPT family: generation (:func:`init_inference` →
 ``InferenceEngine.generate``), continuous-batching serving
 (``InferenceEngine.serve`` → :class:`ServingEngine` ``submit`` / ``drain``,
-on slot lanes or a paged KV pool), both with int8 weights and an int8 KV
+on slot lanes or a paged KV pool, thread-safe, behind the HTTP front end
+:func:`serve_http`, with priority lanes, fairness, span tracing, the
+flight recorder and device-memory telemetry), both with int8 weights and an int8 KV
 cache when the config's ``quant`` block asks for them, and single-device
 training (:func:`initialize` → ``engine.train_batch`` or ``engine(batch)``
 / ``engine.backward(loss)`` / ``engine.step()``), dense or block-sparse,
@@ -20,7 +22,7 @@ __version__ = "0.1.0"
 
 from deepspeed_tpu_torch.accelerator import get_accelerator  # noqa: F401
 from deepspeed_tpu_torch.inference.serving import (  # noqa: F401
-    ServingConfig, ServingEngine)
+    ServingConfig, ServingEngine, ServingHTTPFrontend, serve_http)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import (  # noqa: F401
     checkpointing)
 from deepspeed_tpu_torch.utils.logging import logger, log_dist  # noqa: F401

@@ -465,7 +465,8 @@ class InferenceEngine:
                     names[1]: t1 - timings["prefill"]}
         return {names[0]: t1 - t0}
 
-    def serve(self, draft_module=None, draft_params=None, **overrides):
+    def serve(self, monitor=None, draft_module=None, draft_params=None,
+              **overrides):
         """A continuous-batching :class:`~deepspeed_tpu_torch.inference.
         serving.ServingEngine` over this engine: ``submit()`` requests,
         ``drain()`` results; requests join freed slots between decode blocks
@@ -477,10 +478,14 @@ class InferenceEngine:
         speculatively (greedy) with the draft ``spec_draft_model`` names
         (``"self"`` or an OPT preset) or the ``draft_module`` /
         ``draft_params`` pair given here (a port ``Transformer`` and its
-        float ``state_dict``, e.g. from ``params_from_flax``).  Runs on
-        this engine's device."""
+        float ``state_dict``, e.g. from ``params_from_flax``).  ``monitor``
+        (a :class:`~deepspeed_tpu_torch.monitor.monitor.Monitor`) receives
+        the ``Serving/*`` events every scheduler iteration and is flushed at
+        ``close()`` / ``preempt()``.  Runs on this engine's device; put an
+        HTTP front end on it with
+        :func:`~deepspeed_tpu_torch.inference.serving.serve_http`."""
         from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
-        return ServingEngine(self, draft_module=draft_module,
+        return ServingEngine(self, monitor=monitor, draft_module=draft_module,
                              draft_params=draft_params, **overrides)
 
 

@@ -8,27 +8,17 @@ sampling, speculative decoding (a draft model proposes ``spec_k`` tokens
 per slot, the target verifies them in one forward), and the request
 lifecycle — the bounded queue (``max_queue_depth``, ``queue_policy``),
 default deadlines, the circuit breaker, the ``drain()`` timeout and the
-preemption drain budget.  Every other knob — priority lanes, fairness,
-tracing, the flight recorder, the profile endpoint and memory telemetry —
-raises ``NotImplementedError`` when set away from its default, so a
-config never silently does nothing.  ``paged_kernel=False`` (the JAX
-package's A/B switch to a gather path) raises too: a page pool always
-runs the paged kernels K6 / K7.
+preemption drain budget — and the front end and its observability:
+priority lanes with aging, per-client fairness, span tracing and
+histograms, the flight recorder, the profile endpoint and device-memory
+telemetry.  ``paged_kernel=False`` (the JAX package's A/B switch to a
+gather path) raises ``NotImplementedError``: a page pool always runs the
+paged kernels K6 / K7.
 """
 
 import dataclasses
 
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
-
-# knobs whose feature is not ported yet (a value other than the default
-# raises)
-NOT_PORTED = (
-    "priority_lanes", "priority_aging_s", "fairness_tokens_per_s",
-    "fairness_window_s",
-    "tracing", "trace_max_spans", "flight_recorder",
-    "flight_recorder_events", "flight_recorder_dir", "profile_endpoint",
-    "memory_telemetry", "memory_sample_interval_s",
-)
 
 
 @dataclasses.dataclass(init=False)
@@ -96,28 +86,41 @@ class ServingConfig(DeepSpeedConfigModel):
     # preempt(): decode the slots in flight for up to this long, then
     # snapshot the rest; 0 = snapshot at once
     drain_budget_s: float = 30.0
-    # ---- not ported (raise when set) ----
+    # ---- the front end ----
+    # admission lanes: submit(priority=p), 0 <= p < priority_lanes, 0 the
+    # most urgent; 1 = no lanes
     priority_lanes: int = 1
+    # a queued request moves up one lane per this many seconds waited; 0 =
+    # strict lanes (low priority can starve)
     priority_aging_s: float = 30.0
+    # per-client_id token budget: submit() from a client whose decaying
+    # balance reaches fairness_tokens_per_s * fairness_window_s raises
+    # QueueFull (HTTP 429); 0 = off
     fairness_tokens_per_s: float = 0.0
+    # the balance's decay time constant (seconds)
     fairness_window_s: float = 10.0
+    # ---- observability (host bookkeeping only; tokens and graph
+    # captures are the same either way) ----
+    # per-request span trees (srv.dump_trace(path): Chrome trace JSON),
+    # the latency breakdown on every RequestResult, and the TTFT / time
+    # between tokens / queue wait / dispatch / lock wait histograms
     tracing: bool = False
     trace_max_spans: int = 100000
+    # a bounded ring of recent scheduler events, dumped to JSON on
+    # breaker-open, DrainTimeout, ConcurrencyViolation, scheduler-thread
+    # death, GET /debug/flightrec, SIGUSR2 or srv.dump_flightrec()
     flight_recorder: bool = False
     flight_recorder_events: int = 2048
+    # where dumps land; "" = <tmpdir>/dstpu_flightrec
     flight_recorder_dir: str = ""
+    # POST /debug/profile?secs=N: a torch.profiler Chrome trace
     profile_endpoint: bool = False
+    # device-memory samples at the scheduler's seams on its owner thread,
+    # reconciled against the engine's known owners
     memory_telemetry: bool = False
     memory_sample_interval_s: float = 10.0
 
     def validate(self):
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for knob in NOT_PORTED:
-            if getattr(self, knob) != defaults[knob]:
-                raise NotImplementedError(
-                    f"serving config: {knob}={getattr(self, knob)!r} is not "
-                    f"ported to deepspeed_tpu_torch yet (see ROADMAP.md, "
-                    f"queue A item 6)")
         if not self.paged_kernel:
             raise NotImplementedError(
                 "serving config: paged_kernel=False (the gather path) is not "

@@ -81,19 +81,39 @@ on a fresh server re-prefills ``prompt + tokens so far`` and decodes the
 rest, so greedy outputs equal an uninterrupted run's.  Fault-injection
 points (``runtime/fault/inject.py``) fire at JAX's seams.
 
-One thread drives the scheduler (``submit`` / ``step`` / ``drain`` /
-``cancel`` / ``preempt`` / ``close`` are not thread-safe; a stream may be
-read from any thread).  The JAX engine's owner binding and instrumented
-lock (and with them a ``"block"`` submit from another thread), HTTP front
-end, fairness, priority lanes, tracing and memory telemetry are not
-ported yet.
+**Threads.**  One :class:`~.concurrency.InstrumentedRLock` guards every
+piece of mutable scheduler state (``concurrency.GUARDED_FIELDS``;
+``DSTPU_CONCURRENCY_CHECKS=1`` asserts it at every access), so
+``submit`` / ``cancel`` / ``status`` / ``result`` / ``token_events`` /
+``close`` are safe from any thread.  ``step`` / ``drain`` / ``preempt``
+are bound to one scheduler owner: the first thread that drives the
+engine, or the one that calls :meth:`ServingEngine.bind_owner` (the HTTP
+front end's scheduler thread does, before it takes requests); any other
+thread's call raises.  A ``"block"`` submit from another thread waits on
+the lock's condition while the owner steps.  Every CUDA call runs on the
+owner thread: ``submit`` is host-only, a lane that another thread
+cancels is made inactive on the device at the owner's next dispatch, and
+the owner lets go of the lock while it waits on a device event, so the
+other threads' lock wait does not grow with the decode time.  A CUDA
+graph capture therefore never meets a CUDA call of another thread.
+
+**The front end** (``frontend/``): priority lanes with aging
+(``priority_lanes``, ``priority_aging_s``), per-client fairness
+(``fairness_tokens_per_s``: an over-budget client's ``submit`` raises
+:class:`~.slo.QueueFull`), and :func:`~.frontend.serve_http`, the asyncio
+HTTP/1.1 server.  **Observability**, all host bookkeeping and off by
+default: span tracing and histograms (``tracing``), the flight recorder
+(``flight_recorder``), device-memory samples at the owner's scheduler
+seams (``memory_telemetry``), and ``Serving/*`` events to a ``monitor``.
 """
 
 import json
 import math
+import threading
 import time
 import weakref
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -103,7 +123,10 @@ import torch
 from deepspeed_tpu_torch.inference.serving import slots
 from deepspeed_tpu_torch.model_implementations.features.cuda_graph import (
     CompiledGraphModule)
+from deepspeed_tpu_torch.inference.serving.concurrency import (
+    InstrumentedRLock, checks_enabled, install_concurrency_checks)
 from deepspeed_tpu_torch.inference.serving.config import ServingConfig
+from deepspeed_tpu_torch.inference.serving.flightrec import FlightRecorder
 from deepspeed_tpu_torch.inference.serving.paging import (PagePool,
                                                           PrefixIndex,
                                                           compact_page_str,
@@ -115,6 +138,7 @@ from deepspeed_tpu_torch.inference.serving.slo import (CircuitBreaker,
                                                        RequestStatus,
                                                        TERMINAL_STATUSES,
                                                        TokenStream)
+from deepspeed_tpu_torch.monitor.trace import ServingHistograms, SpanTracer
 from deepspeed_tpu_torch.runtime.fault import inject
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
@@ -126,9 +150,12 @@ class ServeRequest:
     a preemption snapshot, ``resumed``): admission prefills ``ids +
     prefix`` and the device decodes only the rest of the budget.
     ``deadline`` is a ``time.monotonic()`` instant (``None``: none);
-    ``priority`` is the admission lane (always 0: priority lanes are not
-    ported); ``streamed`` counts the tokens already pushed to its
-    streams."""
+    ``priority`` is the admission lane (0 the most urgent); ``streamed``
+    counts the tokens already pushed to its streams.  The ``t_*`` stamps
+    (``serving.tracing`` only, on the tracer's clock) bound its span
+    tree: submit, admission start, admit dispatched, first token
+    processed; ``t_last_tok`` feeds the time-between-tokens histogram,
+    stamped once per token where the host mirror drains."""
     rid: int
     ids: np.ndarray                  # [P] int32 prompt
     max_new: int
@@ -146,6 +173,11 @@ class ServeRequest:
     priority: int = 0
     streamed: int = 0
     resumed: bool = False
+    t_trace: Optional[float] = None
+    t_admit_start: Optional[float] = None
+    t_prefill_done: Optional[float] = None
+    t_first_tok: Optional[float] = None
+    t_last_tok: Optional[float] = None
 
     @property
     def fill_ids(self):
@@ -205,8 +237,8 @@ class ServingEngine:
     ``generate()`` contract ``[prompt..., generated...]`` of length
     ``len(prompt) + max_new_tokens`` (eos-padded past an early stop)."""
 
-    def __init__(self, engine, draft_module=None, draft_params=None,
-                 **overrides):
+    def __init__(self, engine, monitor=None, draft_module=None,
+                 draft_params=None, **overrides):
         engine._require_params()
         cfg = engine._config.serving
         if overrides:
@@ -215,9 +247,24 @@ class ServingEngine:
         self.module = engine.module
         self.device = engine.device
         self.config = cfg
+        self.monitor = monitor
         self.num_slots = int(cfg.num_slots)
         if self.num_slots < 1:
             raise ValueError(f"serving.num_slots={cfg.num_slots}: need >= 1")
+        # priority lanes and fairness
+        self.priority_lanes = int(cfg.priority_lanes)
+        if self.priority_lanes < 1:
+            raise ValueError(f"serving.priority_lanes="
+                             f"{cfg.priority_lanes}: need >= 1")
+        if float(cfg.priority_aging_s) < 0:
+            raise ValueError(f"serving.priority_aging_s="
+                             f"{cfg.priority_aging_s}: need >= 0")
+        self._fairness = None
+        if float(cfg.fairness_tokens_per_s) > 0:
+            from deepspeed_tpu_torch.inference.serving.frontend.fairness \
+                import FairnessTracker
+            self._fairness = FairnessTracker(float(cfg.fairness_tokens_per_s),
+                                             float(cfg.fairness_window_s))
         # lane length: a multiple of 8, as in the JAX package
         self.cache_len = -(-int(cfg.max_cache_len) // 8) * 8
         # admission chunk: multiple of 8, floor 8, cap 512 (the chunk
@@ -337,6 +384,9 @@ class ServingEngine:
         # ("admit", req, slot, lane, first, event), the tensors on the host
         # once their event has fired
         self._events = deque()
+        # slots retired by a thread that may not touch the device: their
+        # lanes are made inactive at the owner's next dispatch
+        self._deactivate = []
         self._gen = engine._accel.manual_seed(int(cfg.seed), self.device)
         self._next_rid = 0
         self._it = 0
@@ -345,6 +395,13 @@ class ServingEngine:
         # non-COMPLETED terminal outcomes, returned by the next step()
         self._pending_reports = {}
         self._streams = {}               # rid -> [TokenStream]
+        # the threads (see the module docstring): one lock, its condition
+        # for blocked submits, the scheduler owner, and an event that
+        # submit() / restore() set to wake an idle scheduler thread
+        self._lock = InstrumentedRLock()
+        self._cond = threading.Condition(self._lock)
+        self._owner_thread = None
+        self.wake = threading.Event()
         self._breaker = CircuitBreaker(cfg.breaker_threshold,
                                        cfg.breaker_cooldown_s)
         self._closed = False
@@ -361,9 +418,13 @@ class ServingEngine:
                       "prefix_lookups": 0, "prefix_hits": 0,
                       "prefix_tokens_reused": 0, "page_evictions": 0,
                       "admission_stalls": 0, "stream_bridge_drops": 0,
+                      "fairness_rejected": 0,
                       # the JAX key for paged decodes that skipped the
                       # paged kernel: always 0, a pool always runs K6/K7
-                      "paged_attention_fallback": 0}
+                      "paged_attention_fallback": 0,
+                      # seconds threads waited on the engine lock
+                      "lock_wait_scheduler_s": 0.0,
+                      "lock_wait_handler_s": 0.0}
         if self.speculative:
             # windows: (round x live slot) verify opportunities, each
             # committing 1..spec_k+1 tokens; accept_rate = accepted draft
@@ -376,6 +437,40 @@ class ServingEngine:
                 "spec_draft_secs": 0.0, "spec_verify_secs": 0.0,
                 "spec_draft_fraction": 0.0})
         self.occupancy_trace = []        # (it, n_active)
+        # observability, all off by default and all host bookkeeping
+        self.tracing = bool(cfg.tracing)
+        self._tracer = self._hist = None
+        if self.tracing:
+            self._tracer = SpanTracer(int(cfg.trace_max_spans))
+            # the histograms lock themselves: /metrics renders them
+            # without the engine lock; every lock acquire feeds the
+            # lock-wait family
+            self._hist = ServingHistograms()
+            self._lock.on_wait = self._hist.lock_wait.observe
+        self._flightrec = self._inject_observer = None
+        if cfg.flight_recorder:
+            self._flightrec = FlightRecorder(
+                int(cfg.flight_recorder_events),
+                dump_dir=cfg.flight_recorder_dir or None)
+            fr = self._flightrec
+            self._inject_observer = inject.add_fire_observer(
+                lambda point, action, hit: fr.record(
+                    "fault_injection", point=point, action=action,
+                    hit=hit))
+        self._memwatch = None
+        if cfg.memory_telemetry:
+            from deepspeed_tpu_torch.monitor.memwatch import \
+                DeviceMemorySampler
+            self._memwatch = DeviceMemorySampler(
+                interval_s=float(cfg.memory_sample_interval_s),
+                owners_fn=_weakly(self, "_device_memory_owners"),
+                flightrec=self._flightrec, device=self.device)
+            self.stats.update({
+                "hbm_bytes_in_use": 0, "hbm_peak_bytes": 0,
+                "hbm_limit_bytes": 0, "hbm_owned_bytes": 0,
+                "hbm_unattributed_bytes": 0, "memory_samples": 0})
+        # the lock sorts its waiters into scheduler and handler by this
+        self._lock._owner_ref = _weakly(self, "_owner_thread")
         log_dist(f"serving engine: {self.num_slots} slots x "
                  f"{self.cache_len} positions, "
                  + (f"paged ({self.num_pages} pages of {self.page})"
@@ -383,6 +478,10 @@ class ServingEngine:
                  + (f", speculative k={self.spec_k}"
                     if self.speculative else "")
                  + f", kernels {self.kernel_modes}", ranks=[0])
+        if checks_enabled():
+            # DSTPU_CONCURRENCY_CHECKS=1: every guarded-field access now
+            # asserts that the lock is held
+            install_concurrency_checks(self)
 
     @property
     def _progs(self):
@@ -396,15 +495,232 @@ class ServingEngine:
         return sum(p.pool_bytes() for p in self._progs)
 
     # ------------------------------------------------------------------ #
+    # Observability: spans, histograms, the flight recorder, device memory
+    # ------------------------------------------------------------------ #
+    def _observed(self, program, fn, **args):
+        """``fn`` run inside :meth:`_observe_dispatch` (``fn`` itself when
+        tracing and the flight recorder are off); :meth:`_guarded` fires
+        its fault-injection point before it, as the JAX engine does."""
+        if self._tracer is None and self._flightrec is None:
+            return fn
+
+        def observed(*a):
+            with self._observe_dispatch(program, **args):
+                return fn(*a)
+
+        return observed
+
+    @contextmanager
+    def _observe_dispatch(self, program, **args):
+        """One device dispatch at its scheduler seam: a span on the
+        scheduler track and a dispatch-time sample (tracing), a
+        ``dispatch_begin`` / ``dispatch_end`` (or ``dispatch_error``) pair
+        (flight recorder).  The time is the host's dispatch call; nothing
+        waits on the device.  A pass-through when both are off."""
+        tr, fr = self._tracer, self._flightrec
+        if tr is None and fr is None:
+            yield
+            return
+        t0 = tr.now() if tr is not None else time.monotonic()
+        if fr is not None:
+            fr.record("dispatch_begin", program=program, **args)
+        try:
+            yield
+        except BaseException as e:
+            if fr is not None:
+                fr.record("dispatch_error", program=program,
+                          error=f"{type(e).__name__}: {e}"[:200], **args)
+            raise
+        t1 = tr.now() if tr is not None else time.monotonic()
+        if tr is not None:
+            tr.add(program, "dispatch", t0, t1, track="scheduler", **args)
+            self._hist.dispatch.observe(program, t1 - t0)
+        if fr is not None:
+            fr.record("dispatch_end", program=program,
+                      dur_s=round(t1 - t0, 6), **args)
+
+    def _trace_done(self, req, status):
+        """At a request's end: its latency breakdown (the
+        :class:`~.slo.RequestResult` fields, the last phase reached taking
+        the rest, so the phases sum to ``latency_s``) and its span tree on
+        its slot's track (the ``queue`` track if it never had a slot).
+        ``{}`` with tracing off."""
+        tr = self._tracer
+        if tr is None or req.t_trace is None:
+            return {}
+        t_end = tr.now()
+        t_sub = req.t_trace
+        bd = {"latency_s": max(t_end - t_sub, 0.0)}
+        prev = t_sub
+        for name, nxt in (("queue_s", req.t_admit_start),
+                          ("prefill_s", req.t_prefill_done),
+                          ("host_s", req.t_first_tok),
+                          ("decode_s", t_end)):
+            if nxt is None:              # ended mid-phase: it takes the rest
+                bd[name] = max(t_end - prev, 0.0)
+                break
+            bd[name] = max(nxt - prev, 0.0)
+            prev = nxt
+        track = req.slot if req.slot is not None else "queue"
+        cid = None if req.client_id is None else str(req.client_id)
+        tr.add("request", "request", t_sub, t_end, track=track,
+               rid=req.rid, client_id=cid, slot=req.slot,
+               priority=req.priority, status=status,
+               tokens=len(req.tokens))
+        tr.add("queue", "phase", t_sub,
+               t_end if req.t_admit_start is None else req.t_admit_start,
+               track=track, rid=req.rid, phase="queue")
+        if req.t_admit_start is not None:
+            tr.add("prefill", "phase", req.t_admit_start,
+                   t_end if req.t_prefill_done is None
+                   else req.t_prefill_done,
+                   track=track, rid=req.rid, phase="prefill")
+        if req.t_first_tok is not None:
+            tr.add("decode", "phase", req.t_first_tok, t_end,
+                   track=track, rid=req.rid, phase="decode",
+                   tokens=len(req.tokens))
+        return bd
+
+    def _flight_dump(self, reason):
+        """A dump that never masks the distress it records; returns the
+        path or ``None``."""
+        fr = self._flightrec
+        if fr is None:
+            return None
+        try:
+            path = fr.dump(reason)
+            logger.warning(f"serving flight recorder dumped to {path} "
+                           f"({reason})")
+            return path
+        except Exception as e:           # noqa: BLE001
+            logger.warning(f"serving flight-recorder dump failed "
+                           f"({reason}): {type(e).__name__}: {e}")
+            return None
+
+    def _detach_observability(self):
+        """At retirement (close / preempt): unhook the fault-injection
+        observer and flush the monitor, so a short-lived serving process
+        keeps its last events."""
+        if self._inject_observer is not None:
+            inject.remove_fire_observer(self._inject_observer)
+            self._inject_observer = None
+        flush = getattr(self.monitor, "flush", None)
+        if callable(flush):
+            try:
+                flush()
+            except Exception as e:       # noqa: BLE001
+                logger.warning(f"serving monitor flush on retirement "
+                               f"failed: {type(e).__name__}: {e}")
+
+    def dump_trace(self, path):
+        """Write the span ring as Chrome trace-event JSON to ``path`` (one
+        track per slot plus the scheduler / queue / handler tracks);
+        returns ``path``.  Raises with ``serving.tracing`` off.  Only the
+        copy of the ring is taken under the engine lock."""
+        with self._lock:
+            if self._tracer is None:
+                raise RuntimeError("dump_trace(): serving.tracing is off — "
+                                   "enable it to record spans")
+            tracer = self._tracer
+            snap = tracer.span_snapshot()
+        return tracer.dump(path, spans=snap)
+
+    def histograms(self):
+        """The :class:`~deepspeed_tpu_torch.monitor.trace.ServingHistograms`
+        (``None`` with tracing off); they lock themselves."""
+        return self._hist
+
+    def _device_memory_owners(self):
+        """Device bytes of every buffer this engine can name: what the
+        sampler reconciles against the device's total (the gap is the
+        unattributed figure).  Sizes only, nothing is read."""
+        from deepspeed_tpu_torch.monitor.memwatch import tree_device_bytes
+        module = self.module
+        owners = {"params": tree_device_bytes(
+            list(module.parameters()) + list(module.buffers()))}
+        owners["page_pool" if self.paged else "kv_slots"] = \
+            tree_device_bytes(self._cache)
+        owners["slot_state"] = tree_device_bytes(self._state)
+        lanes = tree_device_bytes(self._lane_pool._lanes)
+        if self._pending is not None:
+            lanes += tree_device_bytes(self._pending.lane)
+        owners["prefill_lanes"] = lanes
+        if self.speculative:
+            owners["draft_kv"] = tree_device_bytes(self._draft_cache) \
+                + tree_device_bytes(self._draft_lanes._lanes)
+            if self.draft_module is not self.module:
+                owners["draft_params"] = tree_device_bytes(
+                    list(self.draft_module.parameters()))
+        owners["graph_pool"] = \
+            self.graph_pool_bytes() if self.device.type == "cuda" else 0
+        return owners
+
+    def _sample_memory(self):
+        """The scheduler seam's sample (owner thread, interval-gated),
+        folded into ``stats``."""
+        if self._memwatch is None:
+            return
+        sample = self._memwatch.maybe_sample()
+        if sample is not None:
+            self._sample_memory_into_stats(sample)
+
+    def memory_snapshot(self):
+        """One device-memory sample now (``None`` with
+        ``serving.memory_telemetry`` off).  It reads the device, so it runs
+        on the scheduler owner's thread (or before there is one)."""
+        self._check_driver("memory_snapshot()")
+        with self._lock:
+            if self._memwatch is None:
+                return None
+            sample = self._memwatch.sample()
+            self._sample_memory_into_stats(sample)
+            return sample
+
+    def _sample_memory_into_stats(self, sample):
+        st = self.stats
+        st["hbm_bytes_in_use"] = sample["bytes_in_use"]
+        st["hbm_peak_bytes"] = max(st["hbm_peak_bytes"],
+                                   sample["peak_bytes_in_use"],
+                                   sample["bytes_in_use"])
+        st["hbm_limit_bytes"] = sample["bytes_limit"]
+        st["hbm_owned_bytes"] = sample["owned_bytes"]
+        st["hbm_unattributed_bytes"] = sample["unattributed_bytes"]
+        st["memory_samples"] = self._memwatch.samples
+
+    @property
+    def flightrec_enabled(self):
+        """Whether ``serving.flight_recorder`` is on (a cheap test; the
+        snapshot copies the ring)."""
+        return self._flightrec is not None
+
+    def flightrec_snapshot(self):
+        """A copy of the flight-recorder ring (``None`` when it is off).
+        Never takes the engine lock."""
+        fr = self._flightrec
+        return None if fr is None else fr.snapshot()
+
+    def dump_flightrec(self, reason="manual", path=None):
+        """Dump the flight-recorder ring to a JSON file (default: under
+        ``serving.flight_recorder_dir``); returns the path.  Raises with
+        the recorder off.  Never takes the engine lock, so a signal
+        handler may call it."""
+        fr = self._flightrec
+        if fr is None:
+            raise RuntimeError("dump_flightrec(): serving.flight_recorder "
+                               "is off — enable it to record events")
+        return fr.dump(reason, path=path)
+
+    # ------------------------------------------------------------------ #
     # Public API
     # ------------------------------------------------------------------ #
     def submit(self, input_ids, max_new_tokens=32, eos_token_id=-1,
                deadline_s=None, client_id=None, priority=0):
         """Enqueue one prompt (1-D ids in the vocabulary: a list, numpy
-        array or tensor); returns the request id.  A request must fit a slot:
-        ``ceil(P/chunk)*chunk`` and ``P + max_new_tokens`` positions (plus
-        ``spec_k - 1`` under speculation; and, paged, that many pages of
-        the pool) — one that never can is refused with ``ValueError``.
+        array or host tensor); returns the request id.  A request must fit
+        a slot: ``ceil(P/chunk)*chunk`` and ``P + max_new_tokens``
+        positions (plus ``spec_k - 1`` under speculation; and, paged, that
+        many pages of the pool) — one that never can is refused with
+        ``ValueError``.
 
         ``deadline_s`` (seconds from now; ``None``: the config's
         ``default_deadline_s``, ``0``: already expired): past it the
@@ -412,16 +728,33 @@ class ServingEngine:
         at the next step once in one — terminal status ``SHED_DEADLINE``.
         ``client_id`` is an opaque value carried through results and
         snapshots (stored as JSON there: a value JSON cannot hold is
-        stored as its ``str``).  ``priority`` must be 0 (priority lanes
-        are not ported).  Raises :class:`~.slo.CircuitOpen` while the
-        breaker is open, and :class:`~.slo.QueueFull` at
-        ``max_queue_depth`` under ``queue_policy="reject"`` (``"block"``
-        runs scheduler steps here until a spot frees)."""
+        stored as its ``str``); with ``fairness_tokens_per_s`` set it is
+        also the accounting key, and an over-budget client's submit
+        raises :class:`~.slo.QueueFull`.  ``priority`` is the admission
+        lane, ``0 <= priority < priority_lanes``, 0 the most urgent; a
+        queued request moves up one lane per ``priority_aging_s``.
+
+        Any thread may submit; nothing here touches the device.  Raises
+        :class:`~.slo.CircuitOpen` while the breaker is open, and
+        :class:`~.slo.QueueFull` at ``max_queue_depth`` under
+        ``queue_policy="reject"`` (``"block"`` runs scheduler steps here
+        on the owner's thread, and waits for the owner's steps on any
+        other)."""
+        if isinstance(input_ids, torch.Tensor):
+            input_ids = input_ids.cpu().numpy()
+        inject.fire("serving.pre_submit_lock")
+        with self._lock:
+            rid = self._submit_locked(input_ids, max_new_tokens,
+                                      eos_token_id, deadline_s, client_id,
+                                      priority)
+        self.wake.set()                  # rouse an idle scheduler thread
+        return rid
+
+    def _submit_locked(self, input_ids, max_new_tokens, eos_token_id,
+                       deadline_s, client_id, priority):
         if self._closed:
             raise RuntimeError("submit() on a closed ServingEngine; create "
                                "a fresh server with engine.serve()")
-        if isinstance(input_ids, torch.Tensor):
-            input_ids = input_ids.cpu().numpy()
         ids = np.asarray(input_ids, np.int32).reshape(-1)
         P, max_new = int(ids.shape[0]), int(max_new_tokens)
         if P < 1:
@@ -433,11 +766,11 @@ class ServingEngine:
         if max_new < 1:
             raise ValueError(f"max_new_tokens={max_new}: need >= 1")
         priority = int(priority)
-        lanes = int(self.config.priority_lanes)
-        if not 0 <= priority < lanes:
+        if not 0 <= priority < self.priority_lanes:
             raise ValueError(
                 f"priority={priority}: need 0 <= priority < "
-                f"serving.priority_lanes={lanes} (0 = most urgent)")
+                f"serving.priority_lanes={self.priority_lanes} (0 = most "
+                f"urgent)")
         padded = -(-P // self.chunk) * self.chunk
         # speculative serving reserves spec_k - 1 tail positions per lane:
         # a live lane's last verify window writes K/V for up to spec_k
@@ -462,6 +795,17 @@ class ServingEngine:
                 f"{self.num_pages} incl. trash) — raise serving.num_pages or "
                 f"split the request")
         self._breaker.check_submit()     # refuse with the reason when open
+        if self._fairness is not None and not self._fairness.allow(client_id):
+            self.stats["fairness_rejected"] += 1
+            if self._flightrec is not None:
+                self._flightrec.record(
+                    "fairness_reject", client_id=None if client_id is None
+                    else str(client_id))
+            raise QueueFull(
+                f"client {client_id!r} is over its fairness budget "
+                f"({self._fairness.usage(client_id):.0f} window tokens >= "
+                f"{self._fairness.budget:.0f}) — retry after the window "
+                f"decays (HTTP 429)")
         self._apply_backpressure()
         if deadline_s is None and self.config.default_deadline_s > 0:
             deadline_s = self.config.default_deadline_s
@@ -474,6 +818,20 @@ class ServingEngine:
         self._next_rid += 1
         self._queue.append(req)
         self._requests[req.rid] = req
+        if self._tracer is not None:
+            # the span tree's root; submissions come from client threads,
+            # so the instant lands on the handler track
+            req.t_trace = self._tracer.now()
+            self._tracer.add("submit", "request", req.t_trace,
+                             track="handler", rid=req.rid,
+                             priority=priority,
+                             client_id=None if client_id is None
+                             else str(client_id))
+        if self._flightrec is not None:
+            self._flightrec.record(
+                "submit", rid=req.rid, prompt_len=P, max_new=max_new,
+                priority=priority,
+                client_id=None if client_id is None else str(client_id))
         return req.rid
 
     @property
@@ -490,9 +848,26 @@ class ServingEngine:
             raise QueueFull(
                 f"serving queue at max_queue_depth={depth} "
                 f"(policy=reject) — retry later or raise the bound")
-        # block: run the scheduler here until a spot frees.  Progress is
-        # certain while anything can retire or admit; an open breaker
-        # with nothing in flight cannot make any — refuse then
+        if not self._on_driver_thread():
+            # block, on a thread that is not the owner (an HTTP handler):
+            # wait for the owner's steps to free a spot; the condition lets
+            # go of the lock while it waits
+            while len(self._queue) >= depth:
+                if self._closed:
+                    raise RuntimeError(
+                        "submit() on a closed ServingEngine — close() "
+                        "retired it while this submit was blocked")
+                if self._no_block_progress():
+                    raise QueueFull(
+                        f"serving queue at max_queue_depth={depth} and the "
+                        f"blocked submit cannot make progress: "
+                        f"{self._breaker.last_error or 'circuit open'}")
+                self._cond.wait(timeout=0.05)
+            return
+        # block, on the owner's thread (or before there is one): run the
+        # scheduler here until a spot frees.  Progress is certain while
+        # anything can retire or admit; an open breaker with nothing in
+        # flight cannot make any — refuse then
         while len(self._queue) >= depth:
             if self._no_block_progress():
                 raise QueueFull(
@@ -516,45 +891,53 @@ class ServingEngine:
 
     def result(self, rid):
         """The :class:`~.slo.RequestResult` of a finished request, or None
-        while it runs.  Raises ``KeyError`` for an id never issued."""
-        self._known(rid, "result()")
-        return self._results.get(rid)
+        while it runs.  Raises ``KeyError`` for an id never issued.  Any
+        thread."""
+        with self._lock:
+            self._known(rid, "result()")
+            return self._results.get(rid)
 
     def status(self, rid):
         """The request's :class:`~.slo.RequestStatus` string; ``KeyError``
-        for an id never issued."""
-        return self._known(rid, "status()").status
+        for an id never issued.  Any thread."""
+        with self._lock:
+            return self._known(rid, "status()").status
 
     def cancel(self, rid):
         """Retire a request now, with terminal status ``CANCELLED``: a
         queued one never takes a slot; one in its admission prefill gives
         back its slot, pages and prefill lanes; one in a slot gives back
         the slot and its pages, its lane is made inactive on the device
-        (a write in stream order: nothing is read back), and its tokens
-        still in flight are dropped.  Returns False for a request already
-        ended (or preempted); ``KeyError`` for an id never issued."""
-        req = self._known(rid, "cancel()")
-        if req.status in TERMINAL_STATUSES \
-                or req.status == RequestStatus.PREEMPTED:
-            return False
-        self.stats["cancelled"] += 1
-        if req in self._queue:
-            self._queue.remove(req)
+        (a write in stream order, at once on the owner's thread, at the
+        owner's next dispatch from any other; nothing is read back), and
+        its tokens still in flight are dropped.  Returns False for a
+        request already ended (or preempted); ``KeyError`` for an id never
+        issued.  Any thread."""
+        inject.fire("serving.pre_cancel_lock")
+        with self._lock:
+            req = self._known(rid, "cancel()")
+            if req.status in TERMINAL_STATUSES \
+                    or req.status == RequestStatus.PREEMPTED:
+                return False
+            self.stats["cancelled"] += 1
+            if req in self._queue:
+                self._queue.remove(req)
+                self._record_terminal(req, RequestStatus.CANCELLED,
+                                      "cancelled while queued")
+                self._cond.notify_all()  # a queue spot freed
+                return True
+            if self._pending is not None and self._pending.req is req:
+                self._give_back_lanes(self._pending)
+                self._free.append(int(self._pending.slot))
+                self._release_slot_pages(self._pending.slot)
+                self._pending = None
+                self._record_terminal(req, RequestStatus.CANCELLED,
+                                      "cancelled during admission prefill")
+                return True
             self._record_terminal(req, RequestStatus.CANCELLED,
-                                  "cancelled while queued")
+                                  f"cancelled in slot {req.slot}")
+            self._retire_in_slot(req)
             return True
-        if self._pending is not None and self._pending.req is req:
-            self._give_back_lanes(self._pending)
-            self._free.append(int(self._pending.slot))
-            self._release_slot_pages(self._pending.slot)
-            self._pending = None
-            self._record_terminal(req, RequestStatus.CANCELLED,
-                                  "cancelled during admission prefill")
-            return True
-        self._record_terminal(req, RequestStatus.CANCELLED,
-                              f"cancelled in slot {req.slot}")
-        self._retire_in_slot(req)
-        return True
 
     def _retire_in_slot(self, req):
         """Retire a request that holds a slot (cancelled, or shed at its
@@ -562,12 +945,34 @@ class ServingEngine:
         into a table row (or lane) the host hands to the slot's next
         occupant before that occupant's admit overwrites the state — by a
         write in stream order, with nothing read back; and the host mirror
-        frees the slot and its pages.  While its admit is still in flight
-        (mirror not yet live), ``_process_admit`` frees the slot."""
+        frees the slot and its pages.  On a thread other than the owner's
+        the write waits for the owner's next dispatch
+        (:meth:`_flush_deactivations`), which comes before anything that
+        can use the freed slot or pages.  While its admit is still in
+        flight (mirror not yet live), ``_process_admit`` frees the
+        slot."""
         if self._state is not None:
-            self._state["active"][req.slot] = False
+            if self._on_driver_thread():
+                self._state["active"][req.slot] = False
+            else:
+                self._deactivate.append(int(req.slot))
         if self._mirror_active[req.slot]:
             self._free_slot(req.slot)
+
+    def _flush_deactivations(self):
+        """The owner's half of a cancel from another thread: make those
+        lanes inactive on the device, before this dispatch."""
+        if self._deactivate:
+            if self._state is not None:
+                for s in self._deactivate:
+                    self._state["active"][s] = False
+            self._deactivate.clear()
+
+    def _on_driver_thread(self):
+        """True on the scheduler owner's thread, or before there is one:
+        where the engine may call the device."""
+        owner = self._owner_thread
+        return owner is None or owner is threading.current_thread()
 
     def token_events(self, rid, on_event=None):
         """Subscribe to the request's per-token stream: a
@@ -576,22 +981,26 @@ class ServingEngine:
         token).  Subscribing replays every token already generated and,
         for an ended request, its ``end`` event, so the stream is
         lossless whenever it attaches.  ``on_event`` is called with each
-        event as it is pushed and must not block.  ``KeyError`` for an id
-        never issued."""
-        req = self._known(rid, "token_events()")
-        stream = TokenStream(rid, on_event=on_event,
-                             on_drop=_drop_counter(self))
-        for i, t in enumerate(req.tokens):
-            stream.push({"event": "token", "rid": rid, "index": i,
-                         "token": int(t)})
-        if req.status in TERMINAL_STATUSES \
-                or req.status == RequestStatus.PREEMPTED:
-            res = self._results.get(rid)
-            stream.push({"event": "end", "rid": rid, "status": req.status,
-                         "detail": res.detail if res is not None else ""})
-        else:
-            self._streams.setdefault(rid, []).append(stream)
-        return stream
+        event as it is pushed, under the engine lock, and must not block.
+        ``KeyError`` for an id never issued.  Any thread."""
+        inject.fire("serving.pre_subscribe_lock")
+        with self._lock:
+            req = self._known(rid, "token_events()")
+            stream = TokenStream(rid, on_event=on_event,
+                                 on_drop=_drop_counter(self))
+            for i, t in enumerate(req.tokens):
+                stream.push({"event": "token", "rid": rid, "index": i,
+                             "token": int(t)})
+            if req.status in TERMINAL_STATUSES \
+                    or req.status == RequestStatus.PREEMPTED:
+                res = self._results.get(rid)
+                stream.push({"event": "end", "rid": rid,
+                             "status": req.status,
+                             "detail": res.detail if res is not None
+                             else ""})
+            else:
+                self._streams.setdefault(rid, []).append(stream)
+            return stream
 
     def _publish_progress(self, req):
         """Push the request's tokens not yet streamed to its
@@ -612,16 +1021,80 @@ class ServingEngine:
             s.push({"event": "end", "rid": req.rid, "status": status,
                     "detail": detail})
 
+    # ------------------------------------------------------------------ #
+    # The scheduler owner
+    # ------------------------------------------------------------------ #
+    def _check_owner(self, what):
+        """Bind the scheduler owner to the first thread that drives the
+        engine and refuse every other thread afterwards: the host mirror,
+        the in-flight events and the device buffers are stateful across
+        calls (the lag-one protocol), so two drivers would corrupt the
+        slot bookkeeping even with every call locked."""
+        me = threading.current_thread()
+        with self._lock:
+            if self._owner_thread is None:
+                self._owner_thread = me
+                return
+            if self._owner_thread is not me:
+                raise RuntimeError(
+                    f"{what} from thread {me.name!r} but this "
+                    f"ServingEngine's scheduler owner is "
+                    f"{self._owner_thread.name!r} — exactly one thread may "
+                    f"drive step()/drain()/preempt() (the host mirror is "
+                    f"stateful across calls); other threads use "
+                    f"submit()/result()/cancel()/token_events()")
+
+    def _check_driver(self, what):
+        """Refuse a device-touching call from a thread other than the
+        owner's (``warmup``, ``memory_snapshot``) without binding one."""
+        with self._lock:
+            if not self._on_driver_thread():
+                raise RuntimeError(
+                    f"{what} from thread {threading.current_thread().name!r}"
+                    f" but the scheduler owner is "
+                    f"{self._owner_thread.name!r}: it calls the device, so "
+                    f"it runs on the owner's thread")
+
+    def bind_owner(self):
+        """Claim the scheduler owner's role for this thread now
+        (idempotent for the owner; raises on any other thread once bound).
+        A dedicated scheduler thread calls it before work can arrive, so a
+        blocked ``"block"`` submit cannot bind itself first."""
+        self._check_owner("bind_owner()")
+
+    def release_owner(self):
+        """Give up the owner's binding (an exiting scheduler thread does),
+        so another thread may drive the engine after it.  A no-op when
+        there is no owner; raises on any thread but the owner's."""
+        me = threading.current_thread()
+        with self._lock:
+            if self._owner_thread is None:
+                return
+            if self._owner_thread is not me:
+                raise RuntimeError(
+                    f"release_owner() from thread {me.name!r} but the "
+                    f"scheduler owner is {self._owner_thread.name!r} — only "
+                    f"the owner thread may release its binding")
+            self._owner_thread = None
+
     def step(self):
         """One scheduler iteration: deadline shedding, admission prefill
         under the token budget, one decode-block dispatch, then the device
         results one event behind.  Returns ``{rid: output}`` for every
         request that reached a terminal status in this iteration: the
         output for ``COMPLETED``, ``None`` for the others (their detail in
-        :meth:`result`)."""
+        :meth:`result`).  Owner-bound (the first thread to drive the
+        engine becomes its owner; any other thread's call raises)."""
+        self._check_owner("step()")
+        inject.fire("serving.pre_step_lock")
+        with self._lock:
+            return self._step_locked()
+
+    def _step_locked(self):
         if self._closed:
             raise RuntimeError("step() on a closed ServingEngine")
         t0 = time.perf_counter()
+        t0_tr = self._tracer.now() if self._tracer is not None else None
         inject.fire("serving.sigterm_at_iter")
         self._ensure_workspace()
         finished = {}
@@ -631,6 +1104,7 @@ class ServingEngine:
             # aborted the requests in flight and dropped the workspace)
             # and counted; threshold consecutive ones open the breaker:
             # nothing is dispatched until the cooldown's half-open probe
+            was_open = self._breaker.open
             dispatched = False
             try:
                 if self._breaker.allow_dispatch():
@@ -639,24 +1113,56 @@ class ServingEngine:
             except Exception as e:
                 self._breaker.record_failure(e)
                 self.stats["dispatch_failures"] += 1
+                fr = self._flightrec
+                if fr is not None:
+                    fr.record("breaker_failure",
+                              consecutive=self._breaker.consecutive_failures,
+                              threshold=self._breaker.threshold,
+                              error=f"{type(e).__name__}: {e}"[:200])
+                    if self._breaker.open and not was_open:
+                        # the server stops trusting its device: keep what
+                        # led here
+                        fr.record("breaker_open", trips=self._breaker.trips,
+                                  last_error=self._breaker.last_error[:200])
+                        self._flight_dump("breaker_open")
                 logger.warning(
                     f"serving dispatch failure absorbed by the circuit "
                     f"breaker ({self._breaker.consecutive_failures}"
                     f"/{self._breaker.threshold} consecutive"
                     f"{'; OPEN' if self._breaker.open else ''}): "
                     f"{type(e).__name__}: {e}")
+            if was_open and not self._breaker.open \
+                    and self._flightrec is not None:
+                self._flightrec.record("breaker_close",
+                                       trips=self._breaker.trips)
         else:
             self._admit()
             dispatched = self._dispatch_decode()
         # lag-one: with fresh work in flight, leave the newest event unread
         # so the device keeps running while the host does bookkeeping; once
         # nothing new was dispatched, flush fully
-        self._process_events(finished, keep=1 if dispatched else 0)
+        self._process_events(finished, keep=1 if dispatched else 0,
+                             unlocked_wait=True)
+        self.stats["lock_wait_scheduler_s"] = self._lock.wait_s["scheduler"]
+        self.stats["lock_wait_handler_s"] = self._lock.wait_s["handler"]
+        if self._flightrec is not None and self.stats["iterations"] % 32 == 0:
+            self._flightrec.record(
+                "lock_wait",
+                scheduler_s=round(self.stats["lock_wait_scheduler_s"], 6),
+                handler_s=round(self.stats["lock_wait_handler_s"], 6))
+        self._sample_memory()
+        self._emit_metrics()
         self.stats["iterations"] += 1
         self.stats["wall_secs"] += time.perf_counter() - t0
+        if self._tracer is not None:
+            self._tracer.add("step", "scheduler", t0_tr, self._tracer.now(),
+                             track="scheduler", it=self._it)
         self._it += 1
         finished.update(self._pending_reports)
         self._pending_reports.clear()
+        # retirements and admissions may have freed queue spots: wake the
+        # blocked submits of other threads
+        self._cond.notify_all()
         return finished
 
     def _shed_expired(self):
@@ -698,9 +1204,15 @@ class ServingEngine:
 
     def work_pending(self):
         """True while anything submitted has not finished: queued,
-        mid-prefill, dispatched or live on the host mirror."""
-        return bool(self._queue or self._pending is not None or self._events
-                    or self._mirror_active.any())
+        mid-prefill, dispatched or live on the host mirror.  Any
+        thread."""
+        with self._lock:
+            return bool(self._queue or self._pending is not None
+                        or self._events or self._mirror_active.any())
+
+    def _anything_in_flight(self):
+        with self._lock:
+            return bool(self._events or self._mirror_active.any())
 
     def drain(self, timeout_s=None):
         """Run the scheduler until every submitted request has reached a
@@ -709,7 +1221,8 @@ class ServingEngine:
         ``timeout_s`` (default: the config's ``drain_timeout_s``; 0 or
         None: no limit) bounds the wall clock: past it
         :class:`~.slo.DrainTimeout` is raised with per-slot diagnostics
-        (slot, request, age of its last dispatch)."""
+        (slot, request, age of its last dispatch).  Owner-bound."""
+        self._check_owner("drain()")
         if timeout_s is None:
             timeout = self.config.drain_timeout_s or None
         else:
@@ -719,17 +1232,25 @@ class ServingEngine:
         while self.work_pending():
             elapsed = time.monotonic() - t0
             if timeout is not None and elapsed > timeout:
-                raise DrainTimeout(self._drain_diagnostics(timeout, elapsed))
+                with self._lock:
+                    diag = self._drain_diagnostics(timeout, elapsed)
+                if self._flightrec is not None:
+                    # the dump's tail is the dispatch sequence that led
+                    # into the wedge
+                    self._flightrec.record("drain_timeout", diag=diag[:400])
+                    self._flight_dump("drain_timeout")
+                raise DrainTimeout(diag)
             if self._breaker.open and not self._breaker.allow_dispatch() \
-                    and not (self._events or self._mirror_active.any()):
+                    and not self._anything_in_flight():
                 # an open breaker with nothing in flight: wait out the
                 # cooldown instead of spinning on the queue
                 time.sleep(min(0.01,
                                self._breaker.seconds_until_half_open()))
             results.update(self.step())
-        # outcomes recorded outside a step (a restore that did not fit)
-        results.update(self._pending_reports)
-        self._pending_reports.clear()
+        with self._lock:
+            # outcomes recorded outside a step (a restore that did not fit)
+            results.update(self._pending_reports)
+            self._pending_reports.clear()
         return results
 
     def _drain_diagnostics(self, timeout, elapsed):
@@ -770,7 +1291,11 @@ class ServingEngine:
         KV workspaces are freed, and ``submit()`` / ``step()`` raise
         afterwards.  Returns the sorted ids of the requests that were
         undrained at the first call — the same list on every call (after
-        :meth:`preempt`, the snapshotted ids)."""
+        :meth:`preempt`, the snapshotted ids).  Any thread."""
+        with self._lock:
+            return self._close_locked()
+
+    def _close_locked(self):
         if self._closed:
             return list(self._close_report)
         finished = {}
@@ -792,34 +1317,69 @@ class ServingEngine:
         self._lane_pool.release()
         if self.speculative:
             self._draft_lanes.release()
+        self._detach_observability()
         self._closed = True
         self._close_report = undrained
+        # blocked submits see the close, an idle scheduler thread wakes
+        self._cond.notify_all()
+        self.wake.set()
         return list(undrained)
 
+    # the monitoring properties take the (re-entrant) lock: an unlocked
+    # read would race the scheduler
     @property
     def queue_depth(self):
-        return len(self._queue) + (1 if self._pending is not None else 0)
+        with self._lock:
+            return len(self._queue) + (1 if self._pending is not None else 0)
 
     @property
     def active_slots(self):
         """Live slots as of the last PROCESSED event (the host mirror)."""
-        return int(np.sum(self._mirror_active))
+        with self._lock:
+            return int(np.sum(self._mirror_active))
 
     @property
     def in_flight(self):
         """Dispatched device events not yet processed."""
-        return len(self._events)
+        with self._lock:
+            return len(self._events)
 
     @property
     def page_pool_utilization(self):
         """Allocated fraction of the page pool (0.0 when not paged)."""
-        return self._pool.utilization() if self.paged else 0.0
+        with self._lock:
+            return self._pool.utilization() if self.paged else 0.0
 
     @property
     def prefix_hit_rate(self):
         """Fraction of prefix lookups that matched >= 1 page."""
-        n = self.stats["prefix_lookups"]
-        return self.stats["prefix_hits"] / n if n else 0.0
+        with self._lock:
+            n = self.stats["prefix_lookups"]
+            return self.stats["prefix_hits"] / n if n else 0.0
+
+    def health_snapshot(self):
+        """One locked view of the scheduler for health endpoints
+        (``/healthz``): queue depth, mirror occupancy, in-flight events,
+        the breaker, the closed flag.  Any thread."""
+        with self._lock:
+            snap = {
+                "closed": self._closed,
+                "queue_depth": self.queue_depth,
+                "active_slots": self.active_slots,
+                "num_slots": self.num_slots,
+                "in_flight_events": self.in_flight,
+                "breaker": {
+                    "open": self._breaker.open,
+                    "consecutive_failures":
+                        self._breaker.consecutive_failures,
+                    "trips": self._breaker.trips,
+                    "last_error": self._breaker.last_error,
+                },
+            }
+            snap["slot_occupancy"] = snap["active_slots"] / self.num_slots
+            if self.paged:
+                snap["page_pool_utilization"] = self.page_pool_utilization
+            return snap
 
     # ------------------------------------------------------------------ #
     # Graceful preemption: drain -> crash-atomic snapshot -> restore
@@ -847,7 +1407,13 @@ class ServingEngine:
         speculation only committed tokens reach the snapshot, and nothing
         of the draft's.  Returns ``(tag, snapshotted_rids, finished)``,
         ``finished`` holding the requests that ended during the drain.  A
-        fresh server resumes the snapshot with :meth:`restore`."""
+        fresh server resumes the snapshot with :meth:`restore`.
+        Owner-bound."""
+        self._check_owner("preempt()")
+        with self._lock:
+            return self._preempt_locked(checkpoint_dir, drain_budget_s, tag)
+
+    def _preempt_locked(self, checkpoint_dir, drain_budget_s, tag):
         if self._closed:
             raise RuntimeError("preempt() on a closed ServingEngine")
         budget = self.config.drain_budget_s if drain_budget_s is None \
@@ -909,8 +1475,11 @@ class ServingEngine:
             self._draft_cache = None
             self._draft_lanes.release()
         self._paging_reset()
+        self._detach_observability()
         self._closed = True
         self._close_report = sorted(snapped)
+        self._cond.notify_all()
+        self.wake.set()
         self.stats["drain_secs"] = \
             self.stats.get("drain_secs", 0.0) + drain_secs
         self.stats["preempt_snapshotted"] = len(snapped)
@@ -929,7 +1498,12 @@ class ServingEngine:
         untouched.  Returns the tag.  The generator's state goes under
         ``rng_torch``: the JAX engine's key data (``rng``) means nothing
         to a ``torch.Generator``, and the JAX engine reads only ``rng``,
-        so the files stay interchangeable for greedy requests."""
+        so the files stay interchangeable for greedy requests.  The
+        fairness balances ride along.  Any thread."""
+        with self._lock:
+            return self._snapshot_locked(checkpoint_dir, tag)
+
+    def _snapshot_locked(self, checkpoint_dir, tag):
         from deepspeed_tpu_torch.inference.serving.snapshot import \
             save_snapshot
         self._snap_seq += 1
@@ -975,6 +1549,8 @@ class ServingEngine:
             "rng_torch": self._gen.get_state().tolist(),
             "requests": reqs,
         }
+        if self._fairness is not None:
+            state["fairness"] = self._fairness.state_dict()
         return save_snapshot(checkpoint_dir, tag, state)
 
     def restore(self, checkpoint_dir):
@@ -986,14 +1562,24 @@ class ServingEngine:
         ordinary admission path and decodes the rest of its budget, so a
         greedy output equals the uninterrupted run's.  A request that does
         not fit this server's lanes or pool ends ``ABORTED`` with the
-        reason.  Returns the ids queued (empty when there is nothing to
-        resume)."""
+        reason.  The snapshot's priorities (held below this server's
+        ``priority_lanes``) and fairness balances are restored too.
+        Returns the ids queued (empty when there is nothing to resume).
+        Any thread."""
         from deepspeed_tpu_torch.inference.serving.snapshot import \
             load_newest_snapshot
         tag, state = load_newest_snapshot(checkpoint_dir)
         if state is None:
             return []
+        with self._lock:
+            rids = self._restore_locked(tag, state)
+        self.wake.set()                  # rouse an idle scheduler thread
+        return rids
+
+    def _restore_locked(self, tag, state):
         self._snap_seq = max(self._snap_seq, int(state.get("seq", 0)))
+        if self._fairness is not None and state.get("fairness"):
+            self._fairness.load_state(state["fairness"])
         if state.get("rng_torch"):
             self._gen.set_state(torch.tensor(state["rng_torch"],
                                              dtype=torch.uint8))
@@ -1022,7 +1608,9 @@ class ServingEngine:
             req = ServeRequest(
                 int(r["rid"]), ids, max_new, eos, submitted_it=self._it,
                 deadline=deadline, client_id=r.get("client_id"),
-                prefix=prefix, submit_t=now, resumed=True)
+                prefix=prefix, submit_t=now, resumed=True,
+                priority=min(int(r.get("priority", 0)),
+                             self.priority_lanes - 1))
             # submit()'s capacity checks against THIS server (the snapshot
             # may come from one with longer lanes or a bigger pool)
             P = len(ids)
@@ -1060,6 +1648,8 @@ class ServingEngine:
                     f"({len(prefix)} tokens) does not fit its lane "
                     f"chunk-padded — re-decoding from the prompt")
                 req.prefix = []
+            if self._tracer is not None:
+                req.t_trace = self._tracer.now()
             self._queue.append(req)
             rids.append(req.rid)
         self._next_rid = max(self._next_rid, int(state.get("next_rid", 0)))
@@ -1107,10 +1697,23 @@ class ServingEngine:
         ev.record(torch.cuda.current_stream(ts[0].device))
         return tuple(hosts), ev
 
-    def _read(self, hosts, ev):
+    def _read(self, hosts, ev, unlocked_wait=False):
+        """Wait for ``ev`` and return the host arrays.  ``unlocked_wait``
+        (a step's processing on the owner's thread): the engine lock is let
+        go for the wait (fully, whatever its depth, as a condition's wait
+        does), so the other threads' lock wait does not grow with the
+        decode time; the event is already off the queue, and what they
+        change meanwhile the mirror reads after."""
         t0 = time.perf_counter()
-        if ev is not None:
-            ev.synchronize()
+        if ev is not None and not ev.query():
+            if unlocked_wait:
+                saved = self._lock._release_save()
+                try:
+                    ev.synchronize()
+                finally:
+                    self._lock._acquire_restore(saved)
+            else:
+                ev.synchronize()
         out = [h.numpy() for h in hosts]
         self.stats["sync_secs"] += time.perf_counter() - t0
         return out
@@ -1157,7 +1760,11 @@ class ServingEngine:
         self._results[req.rid] = RequestResult(
             rid=req.rid, status=status, detail=detail,
             client_id=req.client_id, submitted_it=req.submitted_it,
-            finished_it=self._it, ttft_s=ttft)
+            finished_it=self._it, ttft_s=ttft,
+            **self._trace_done(req, status))
+        if self._flightrec is not None:
+            self._flightrec.record("terminal", rid=req.rid, status=status,
+                                   detail=detail[:200])
         self._pending_reports[req.rid] = None
         self._publish_end(req, status, detail)
 
@@ -1190,12 +1797,16 @@ class ServingEngine:
         self._free = deque(range(self.num_slots))
         self._mirror_active[:] = False
         self._state = None
+        self._deactivate.clear()
         for prog in self._progs:
             prog.reset()
         if self.speculative:
             self._draft_cache = None
         self._paging_reset()
         if lost:
+            if self._flightrec is not None:
+                self._flightrec.record("abort_in_flight", why=why[:200],
+                                       rids=[r.rid for r in lost])
             logger.warning(f"serving {why}: aborted {len(lost)} in-flight "
                            f"request(s) {sorted(r.rid for r in lost)}")
 
@@ -1223,6 +1834,7 @@ class ServingEngine:
         if self._state is None:
             self._state = slots.init_slot_state(self.num_slots, self.device)
             self._mirror_active[:] = False
+            self._deactivate.clear()
 
     def _guarded(self, fn, *args, point=None):
         """Run one device call (after firing the fault-injection ``point``,
@@ -1243,13 +1855,40 @@ class ServingEngine:
     # Admission: queue -> prefill chunks -> admit
     # ------------------------------------------------------------------ #
     def _pop_request(self):
+        if self.priority_lanes > 1:
+            return self._pop_request_priority()
         if self.config.admission == "shortest_first":
             req = min(self._queue, key=lambda r: (len(r.ids), r.rid))
             self._queue.remove(req)
             return req
         return self._queue.popleft()
 
+    def _pop_request_priority(self):
+        """Priority lanes over the admission order: pop the lowest
+        effective lane, ties broken by the policy (queue position for
+        fcfs, prompt length for shortest_first).  Effective lane =
+        ``priority - floor(waited / priority_aging_s)``, at least 0, so a
+        lane-k request reaches lane 0 within ``k * priority_aging_s``
+        seconds queued (0: strict lanes)."""
+        now = time.monotonic()
+        aging = float(self.config.priority_aging_s)
+
+        def lane(r):
+            if aging <= 0:
+                return r.priority
+            return max(0, r.priority - int((now - r.submit_t) / aging))
+
+        if self.config.admission == "shortest_first":
+            req = min(self._queue, key=lambda r: (lane(r), len(r.ids), r.rid))
+        else:
+            req = min(enumerate(self._queue),
+                      key=lambda ir: (lane(ir[1]), ir[0]))[1]
+        self._queue.remove(req)
+        return req
+
     def _admit(self):
+        # lanes another thread retired stop before anything reuses them
+        self._flush_deactivations()
         limit = self.config.prefill_token_budget or math.inf
         spent = 0
         while spent < limit:
@@ -1264,7 +1903,27 @@ class ServingEngine:
                     # at the queue head until retirements free pages
                     self._queue.appendleft(req)
                     self.stats["admission_stalls"] += 1
+                    if self._flightrec is not None:
+                        self._flightrec.record(
+                            "admission_stall", rid=req.rid,
+                            pool_in_use=self._pool.in_use
+                            if self.paged else None)
                     return
+                if self._tracer is not None and req.t_trace is not None:
+                    # the queue phase ends: the slot is reserved and the
+                    # prefill chunks start
+                    req.t_admit_start = self._tracer.now()
+                    self._hist.queue_wait.observe(
+                        req.t_admit_start - req.t_trace)
+                if self._flightrec is not None:
+                    self._flightrec.record(
+                        "admit_start", rid=req.rid, slot=req.slot,
+                        fill_len=pend.fill_len, chunks=pend.n_chunks)
+                if self._fairness is not None and not req.resumed:
+                    # the prompt is charged once, when admission starts (a
+                    # stalled retry above charged nothing); a resumed
+                    # request's tokens were charged before its snapshot
+                    self._fairness.charge(req.client_id, len(req.fill_ids))
                 self._pending = pend
             done = self._run_prefill_chunk(self._pending)
             spent += self.chunk
@@ -1372,19 +2031,25 @@ class ServingEngine:
         ids = self._to_device(p.ids_pad[:, p.ci * C:(p.ci + 1) * C])
         at = torch.full((1,), local, dtype=torch.long, device=self.device)
         start = p.start + p.ci * C
+        obs = {"rid": p.req.rid, "slot": p.slot, "chunk": p.ci,
+               "phase": "prefill"}
         if self.paged:
             row = self._to_device(self._page_table[p.slot:p.slot + 1])
-            logits = self._guarded(slots.paged_chunk, self.module,
-                                   self._cache, row, ids, start, at)
+            logits = self._guarded(
+                self._observed("prefill_chunk", slots.paged_chunk, **obs),
+                self.module, self._cache, row, ids, start, at)
         else:
-            logits = self._guarded(slots.prefill_chunk, self.module, p.lane,
-                                   ids, start, at)
+            logits = self._guarded(
+                self._observed("prefill_chunk", slots.prefill_chunk, **obs),
+                self.module, p.lane, ids, start, at)
         if self.speculative:
             # the same chunk into the draft's lane (start is 0-based: no
             # prefix sharing under speculation)
             t0 = time.perf_counter()
-            self._guarded(slots.draft_chunk, self.draft_module, p.draft_lane,
-                          ids, start)
+            self._guarded(
+                self._observed("draft_prefill_chunk", slots.draft_chunk,
+                               **obs),
+                self.draft_module, p.draft_lane, ids, start)
             self.stats["spec_draft_secs"] += time.perf_counter() - t0
         self._breaker.record_success()
         if (P - 1 - p.start) // C == p.ci:
@@ -1405,12 +2070,15 @@ class ServingEngine:
         dev_new = req.max_new - len(req.prefix)
         sample = (p.sel, p.slot, p.fill_len, dev_new, req.eos,
                   self._sample_fn, self._gen)
+        obs = {"rid": req.rid, "slot": int(p.slot), "phase": "admit"}
         if self.paged:
-            first = self._guarded(slots.paged_admit, self._state, *sample,
-                                  point="serving.pre_admit")
+            first = self._guarded(
+                self._observed("admit", slots.paged_admit, **obs),
+                self._state, *sample, point="serving.pre_admit")
         else:
-            first = self._guarded(slots.admit, self._cache, self._state,
-                                  p.lane, *sample, point="serving.pre_admit")
+            first = self._guarded(
+                self._observed("admit", slots.admit, **obs), self._cache,
+                self._state, p.lane, *sample, point="serving.pre_admit")
         self._breaker.record_success()
         if self.paged and self.config.prefix_cache and not self.speculative:
             # index this request's full-prompt pages as sharable: their
@@ -1422,8 +2090,9 @@ class ServingEngine:
                                   p.fill_len // self.page)
         if self.speculative:
             t0 = time.perf_counter()
-            self._guarded(slots.draft_admit, self._draft_cache, p.draft_lane,
-                          p.slot)
+            self._guarded(self._observed("draft_admit", slots.draft_admit,
+                                         **obs),
+                          self._draft_cache, p.draft_lane, p.slot)
             self.stats["spec_draft_secs"] += time.perf_counter() - t0
         self._slot_last_dispatch[int(p.slot)] = time.monotonic()
         req.status = RequestStatus.RUNNING
@@ -1431,6 +2100,10 @@ class ServingEngine:
         self._events.append(("admit", req, p.slot, p.lane, p.draft_lane,
                              *self._to_host(first)))
         self.stats["admitted"] += 1
+        if self._tracer is not None and req.t_admit_start is not None:
+            # the prefill phase ends with the admit's dispatch; until the
+            # first token is processed is the lag-one host window
+            req.t_prefill_done = self._tracer.now()
 
     # ------------------------------------------------------------------ #
     # Decode: one block over every slot
@@ -1441,11 +2114,15 @@ class ServingEngine:
         if not (self._mirror_active.any()
                 or any(e[0] == "admit" for e in self._events)):
             return False
+        self._flush_deactivations()
         if self.speculative:
             self._events.append(self._dispatch_spec())
         else:
-            toks = self._guarded(self._decode_prog, *self._decode_args(),
-                                 point="serving.pre_decode_dispatch")
+            live = int(self._mirror_active.sum())
+            toks = self._guarded(
+                self._observed("decode", self._decode_prog, phase="decode",
+                               live_slots=live),
+                *self._decode_args(), point="serving.pre_decode_dispatch")
             self._events.append(("decode", *self._to_host(toks)))
         self._breaker.record_success()
         now = time.monotonic()
@@ -1467,12 +2144,15 @@ class ServingEngine:
         through the device, no host read.  The draft tokens never leave
         the device."""
         t0 = time.perf_counter()
-        draft = self._guarded(self._propose_prog, *self._propose_args(),
-                              point="serving.pre_decode_dispatch")
+        obs = {"phase": "decode", "live_slots": int(self._mirror_active.sum())}
+        draft = self._guarded(
+            self._observed("spec_propose", self._propose_prog, **obs),
+            *self._propose_args(), point="serving.pre_decode_dispatch")
         t1 = time.perf_counter()
         self.stats["spec_draft_secs"] += t1 - t0
-        toks, accepted = self._guarded(self._verify_prog,
-                                       *self._verify_args(draft))
+        toks, accepted = self._guarded(
+            self._observed("spec_verify", self._verify_prog, **obs),
+            *self._verify_args(draft))
         self.stats["spec_verify_secs"] += time.perf_counter() - t1
         return ("spec", *self._to_host(toks, accepted))
 
@@ -1521,6 +2201,11 @@ class ServingEngine:
         state is reset afterwards and the sampling generator restored, so
         the served tokens are unchanged.  Raises ``RuntimeError`` once
         requests are in flight."""
+        self._check_driver("warmup()")
+        with self._lock:
+            return self._warmup_locked()
+
+    def _warmup_locked(self):
         if self._closed:
             raise RuntimeError("warmup() on a closed ServingEngine")
         if self.work_pending():
@@ -1585,20 +2270,23 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     # Event processing (the host's lagging mirror of the device)
     # ------------------------------------------------------------------ #
-    def _process_events(self, finished, keep=0):
+    def _process_events(self, finished, keep=0, unlocked_wait=False):
+        """Process the dispatched events, oldest first, until ``keep`` are
+        left.  ``unlocked_wait`` (a step's processing, on the owner's
+        thread): let go of the lock while waiting on each event."""
         while len(self._events) > keep:
             inject.fire("serving.mirror_drain")
             ev = self._events.popleft()
             if ev[0] == "admit":
-                self._process_admit(ev, finished)
+                self._process_admit(ev, finished, unlocked_wait)
             elif ev[0] == "spec":
-                self._process_spec(ev, finished)
+                self._process_spec(ev, finished, unlocked_wait)
             else:
-                self._process_decode(ev, finished)
+                self._process_decode(ev, finished, unlocked_wait)
 
-    def _process_admit(self, ev, finished):
+    def _process_admit(self, ev, finished, unlocked_wait):
         _, req, slot, lane, draft_lane, hosts, event = ev
-        first = int(self._read(hosts, event)[0])
+        first = int(self._read(hosts, event, unlocked_wait)[0])
         self._lane_pool.give_back(lane)
         if draft_lane is not None:
             self._draft_lanes.give_back(draft_lane)
@@ -1611,7 +2299,17 @@ class ServingEngine:
             return
         if req.first_tok_t is None:
             req.first_tok_t = time.monotonic()
+        if self._tracer is not None and req.t_first_tok is None \
+                and req.t_trace is not None:
+            # stamped once, where the first token is processed: a stream's
+            # replay re-reads req.tokens and never comes back here
+            req.t_first_tok = req.t_last_tok = self._tracer.now()
+            self._hist.ttft.observe(req.t_first_tok - req.t_trace)
         req.tokens = list(req.prefix) + [first]
+        if self._fairness is not None:
+            # the admission's sampled token (the prompt was charged when
+            # admission started)
+            self._fairness.charge(req.client_id, 1)
         # mirror the admit's activation rule (the device saw the rest of
         # the budget, max_new - len(prefix))
         if (req.eos >= 0 and first == req.eos) \
@@ -1636,6 +2334,14 @@ class ServingEngine:
         when the slot retired."""
         req.tokens.append(tok)
         self.stats["decode_tokens"] += 1
+        if self._tracer is not None and req.t_trace is not None:
+            # time between tokens, stamped once per token here
+            now = self._tracer.now()
+            if req.t_last_tok is not None:
+                self._hist.tbt.observe(now - req.t_last_tok)
+            req.t_last_tok = now
+        if self._fairness is not None:
+            self._fairness.charge(req.client_id, 1)
         if (req.eos >= 0 and tok == req.eos) \
                 or len(req.tokens) >= req.max_new:
             self._free_slot(s)
@@ -1644,22 +2350,37 @@ class ServingEngine:
         self._publish_progress(req)
         return False
 
-    def _process_decode(self, ev, finished):
-        toks = self._read(ev[1], ev[2])[0]               # [block, N]
+    def _process_decode(self, ev, finished, unlocked_wait):
+        t0c = self._tracer.now() if self._tracer is not None else None
+        n0 = self.stats["decode_tokens"]
+        toks = self._read(ev[1], ev[2], unlocked_wait)[0]   # [block, N]
         for row in toks:
             for s in np.nonzero(self._mirror_active)[0]:
                 self._mirror_commit_token(s, self._slots[s], int(row[s]),
                                           finished)
+        self._observe_commit("decode", t0c,
+                             self.stats["decode_tokens"] - n0)
         self.occupancy_trace.append(
             (self._it, int(self._mirror_active.sum())))
 
-    def _process_spec(self, ev, finished):
+    def _observe_commit(self, kind, t0c, committed):
+        """The mirror's commit of one event: a span and a ring event."""
+        if self._tracer is not None:
+            self._tracer.add("commit", "mirror", t0c, self._tracer.now(),
+                             track="scheduler", kind=kind, tokens=committed)
+        if self._flightrec is not None:
+            self._flightrec.record("commit", kind=kind, tokens=committed)
+
+    def _process_spec(self, ev, finished, unlocked_wait):
         """Mirror one speculative round: per live slot, exactly the
         ``accepted[s]`` committed tokens (rows past it are window
         padding), each through the per-token rule — a round that commits
         m tokens pushes m ordered stream events, and a mid-window
         retirement cuts the stream at the terminal token."""
-        toks, acc = self._read(ev[1], ev[2])             # [k+1, N], [N]
+        t0c = self._tracer.now() if self._tracer is not None else None
+        n0 = self.stats["spec_committed_tokens"]
+        # [k+1, N], [N]
+        toks, acc = self._read(ev[1], ev[2], unlocked_wait)
         st = self.stats
         st["spec_rounds"] += 1
         for s in np.nonzero(self._mirror_active)[0]:
@@ -1681,6 +2402,7 @@ class ServingEngine:
         d, v = st["spec_draft_secs"], st["spec_verify_secs"]
         if d + v > 0:
             st["spec_draft_fraction"] = d / (d + v)
+        self._observe_commit("spec", t0c, st["spec_committed_tokens"] - n0)
         self.occupancy_trace.append(
             (self._it, int(self._mirror_active.sum())))
 
@@ -1699,9 +2421,74 @@ class ServingEngine:
         self._results[req.rid] = RequestResult(
             rid=req.rid, status=RequestStatus.COMPLETED, output=out,
             client_id=req.client_id, submitted_it=req.submitted_it,
-            finished_it=self._it, ttft_s=req.first_tok_t - req.submit_t)
+            finished_it=self._it, ttft_s=req.first_tok_t - req.submit_t,
+            **self._trace_done(req, RequestStatus.COMPLETED))
+        if self._flightrec is not None:
+            self._flightrec.record("terminal", rid=req.rid,
+                                   status=RequestStatus.COMPLETED,
+                                   tokens=len(req.tokens))
         self._publish_end(req, RequestStatus.COMPLETED)
         return out
+
+
+    def _emit_metrics(self):
+        """The ``Serving/*`` monitor events of this iteration (the JAX
+        engine's series)."""
+        mon = self.monitor
+        if mon is None or not getattr(mon, "enabled", True):
+            return
+        st, it = self.stats, self._it
+        wall = st["wall_secs"]
+        events = [
+            ("Serving/queue_depth", self.queue_depth, it),
+            ("Serving/slot_occupancy", self.active_slots / self.num_slots,
+             it),
+            ("Serving/decode_tok_s",
+             st["decode_tokens"] / wall if wall > 0 else 0.0, it),
+            ("Serving/prefill_decode_ratio",
+             st["prefill_tokens"] / max(st["decode_tokens"], 1), it),
+            ("Serving/completed", st["completed"], it),
+            ("Serving/shed", st["shed"], it),
+            ("Serving/cancelled", st["cancelled"], it),
+            ("Serving/aborted", st["aborted"], it),
+            ("Serving/breaker_open", 1.0 if self._breaker.open else 0.0, it),
+            ("Serving/lock_wait_scheduler_s", st["lock_wait_scheduler_s"],
+             it),
+            ("Serving/lock_wait_handler_s", st["lock_wait_handler_s"], it),
+        ]
+        if self._fairness is not None:
+            events.append(("Serving/fairness_rejected",
+                           st["fairness_rejected"], it))
+        if self.paged:
+            events += [("Serving/page_pool_util",
+                        self.page_pool_utilization, it),
+                       ("Serving/prefix_hit_rate", self.prefix_hit_rate, it)]
+        if self._memwatch is not None:
+            events += [(f"Serving/{k}", st[k], it) for k in (
+                "hbm_bytes_in_use", "hbm_peak_bytes",
+                "hbm_unattributed_bytes")]
+        if self.speculative:
+            events += [(f"Serving/{k}", st[k], it) for k in (
+                "spec_accept_rate", "spec_tokens_per_dispatch",
+                "spec_draft_fraction")]
+        mon.write_events(events)
+
+
+def _weakly(server, name):
+    """A callable that reads ``server``'s attribute ``name`` (calling it if
+    it is a method) through a weak reference, past the concurrency
+    checks: what the server's own lock and sampler hold of it must not
+    keep a deleted server alive until the cycle collector runs."""
+    ref = weakref.ref(server)
+
+    def read():
+        srv = ref()
+        if srv is None:
+            return None
+        value = object.__getattribute__(srv, name)
+        return value() if callable(value) else value
+
+    return read
 
 
 def _drop_counter(server):

@@ -51,7 +51,14 @@ class RequestResult:
     ``detail`` says why a request was shed, cancelled or aborted;
     ``client_id`` is the caller's correlation value from ``submit()``;
     ``ttft_s`` is submit-to-first-token wall time as the host saw it
-    (``None`` when no token was produced)."""
+    (``None`` when no token was produced).
+
+    With ``serving.tracing`` on, the latency breakdown comes from the
+    request's span tree: ``queue_s`` (submit → admission start),
+    ``prefill_s`` (→ admit dispatched), ``host_s`` (→ first token
+    processed: the lag-one event plus host bookkeeping), ``decode_s`` (→
+    terminal) and ``latency_s`` (submit → terminal); the phases sum to
+    ``latency_s``, and a phase never reached stays ``None``."""
     rid: int
     status: str
     output: Optional[np.ndarray] = None
@@ -60,6 +67,11 @@ class RequestResult:
     submitted_it: int = 0
     finished_it: Optional[int] = None
     ttft_s: Optional[float] = None
+    queue_s: Optional[float] = None
+    prefill_s: Optional[float] = None
+    decode_s: Optional[float] = None
+    host_s: Optional[float] = None
+    latency_s: Optional[float] = None
 
 
 class QueueFull(RuntimeError):

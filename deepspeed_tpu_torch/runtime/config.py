@@ -4,7 +4,9 @@ The same JSON/dict keys as the JAX package's ``DeepSpeedConfig`` drive the
 port's training engine at world size 1: the batch triple (completed and
 validated with the JAX package's errors), ``fp16`` (dynamic or static loss
 scale), ``bf16``, ``optimizer``, ``scheduler``, ``gradient_clipping``,
-``steps_per_print``, ``seed``, the ``fault`` block (crash-atomic
+``steps_per_print``, ``seed``, the monitor blocks (``tensorboard``,
+``wandb``, ``csv_monitor``: ``Train/Samples/*`` events every
+``steps_per_print`` steps), the ``fault`` block (crash-atomic
 checkpoints, retries, the supervisor), ``nebula`` (the asynchronous
 checkpoint writer) and the single-device memory levers:
 ``zero_optimization.offload_optimizer`` (ZeRO-Offload to ``cpu`` or
@@ -18,8 +20,8 @@ pydantic.
 Knobs that change behaviour but belong to later slices raise
 ``NotImplementedError`` when set (``offload_param``, which no JAX engine
 path reads either, MiCS, tensor / pipeline / sequence / expert
-parallelism, curriculum, compression, and the monitor, profiler, compile
-cache and hybrid blocks), so a config never silently does nothing.
+parallelism, curriculum, compression, and the profiler, compile cache and
+hybrid blocks), so a config never silently does nothing.
 """
 
 import dataclasses
@@ -96,6 +98,41 @@ class SchedulerConfig(DeepSpeedConfigModel):
 
 
 @dataclasses.dataclass(init=False)
+class TensorBoardConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass(init=False)
+class WandbConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: str = "deepspeed_tpu"
+
+
+@dataclasses.dataclass(init=False)
+class CSVConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass(init=False)
+class MonitorConfig(DeepSpeedConfigModel):
+    """The three monitor blocks (the JAX ``MonitorConfig``)."""
+    tensorboard: TensorBoardConfig = field(default_factory=TensorBoardConfig)
+    wandb: WandbConfig = field(default_factory=WandbConfig)
+    csv_monitor: CSVConfig = field(default_factory=CSVConfig)
+
+    @property
+    def enabled(self):
+        return (self.tensorboard.enabled or self.wandb.enabled
+                or self.csv_monitor.enabled)
+
+
+@dataclasses.dataclass(init=False)
 class NebulaConfig(DeepSpeedConfigModel):
     """The ``nebula`` block: ``enabled`` selects the asynchronous
     checkpoint writer (``NebulaCheckpointEngine``).  Its tiered-storage
@@ -137,9 +174,6 @@ _NOT_PORTED = (
      "curriculum_learning"),
     (lambda pd: any(pd.get(C.COMPRESSION_TRAINING, {}) or {}),
      "compression_training"),
-    (lambda pd: any(_enabled(pd, k) for k in (
-        C.MONITOR_TENSORBOARD, C.MONITOR_WANDB, C.MONITOR_CSV)),
-     "the monitor (tensorboard / wandb / csv_monitor)"),
     (lambda pd: _enabled(pd, C.FLOPS_PROFILER), "the flops profiler"),
     (lambda pd: _enabled(pd, "compile_cache"), "the compile cache"),
     (lambda pd: _enabled(pd, "hybrid_engine"), "the hybrid engine"),
@@ -196,6 +230,10 @@ class DeepSpeedConfig:
         self.gradient_accumulation_dtype = pd.get("data_types", {}).get(
             "grad_accum_dtype", None)
         self.nebula_config = NebulaConfig(**pd.get("nebula", {}))
+        self.monitor_config = MonitorConfig(
+            tensorboard=TensorBoardConfig(**pd.get(C.MONITOR_TENSORBOARD, {})),
+            wandb=WandbConfig(**pd.get(C.MONITOR_WANDB, {})),
+            csv_monitor=CSVConfig(**pd.get(C.MONITOR_CSV, {})))
         self.fault = FaultConfig(**pd.get("fault", {}))
 
         self.train_batch_size = pd.get(C.TRAIN_BATCH_SIZE)

@@ -59,8 +59,14 @@ the LR schedule and the step counters in the port's tag format
 into the live tensors in place.  ``save_16bit_model`` exports the weights
 under the JAX export's flax-path keys.
 
+**Monitor.**  With a ``tensorboard`` / ``wandb`` / ``csv_monitor`` block
+enabled, ``step`` writes the JAX engine's ``Train/Samples/lr`` and
+``Train/Samples/train_loss`` events (and, on a card, the device-memory
+watermark ``Train/Samples/hbm_*``) every ``steps_per_print`` steps, at
+``global_samples``; the loss read waits for the device only then.
+
 Not in this slice (ROADMAP.md, queue A): the compile cache, the profiler,
-the monitor, parameter offload, multi-GPU.
+parameter offload, multi-GPU.
 """
 
 import dataclasses
@@ -88,6 +94,7 @@ from deepspeed_tpu_torch.runtime.fault.retry import (retry_call,
                                                      retry_policy_from_config)
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (StaticLossScaler,
                                                           create_loss_scaler)
+from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_scheduler
 from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
@@ -252,6 +259,7 @@ class DeepSpeedEngine:
             self._config.scheduler, self.optimizer)
         self.loss_scaler = create_loss_scaler(self._config.fp16)
         self._scaler_state = self.loss_scaler.init(self.device)
+        self.monitor = MonitorMaster(self._config.monitor_config)
         # a static unit scale cannot overflow: no flag, no skip
         self._static_unit = isinstance(self.loss_scaler, StaticLossScaler) \
             and self.loss_scaler.scale_value == 1.0
@@ -602,6 +610,27 @@ class DeepSpeedEngine:
                 log_dist(f"overflow: skipped {skipped - before} recent "
                          f"step(s), loss scale "
                          f"{float(self._scaler_state.scale)}", ranks=[0])
+        if self.monitor.enabled and \
+                self.global_steps % self.steps_per_print() == 0:
+            events = [("Train/Samples/lr", self.get_lr()[0],
+                       self.global_samples)]
+            if self._last_loss is not None:
+                # print-gated: the one read of the loss on the host
+                events.append(("Train/Samples/train_loss",
+                               float(self._last_loss), self.global_samples))
+            self.monitor.write_events(events + self._hbm_events())
+
+    def _hbm_events(self):
+        """The device-memory watermark events, print-gated like the loss
+        read; none where the device reports no memory (the CPU)."""
+        from deepspeed_tpu_torch.monitor.memwatch import device_memory_record
+        wm = device_memory_record(self.device)
+        if not wm.get("peak_bytes_in_use"):
+            return []
+        return [("Train/Samples/hbm_bytes_in_use", wm["bytes_in_use"],
+                 self.global_samples),
+                ("Train/Samples/hbm_peak_bytes", wm["peak_bytes_in_use"],
+                 self.global_samples)]
 
     def _device_step(self):
         """The optimizer on the card, a group of ``SKIP_GROUP_NUMEL``

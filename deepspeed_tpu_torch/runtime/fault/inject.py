@@ -1,8 +1,7 @@
 """Deterministic fault injection — kill the run at every seam, on purpose
 (port of ``deepspeed_tpu/runtime/fault/inject.py``: the same point names,
 the same ``DSTPU_FAULT_INJECT`` spec syntax, and its ``exit``, ``raise``,
-``sigterm``, ``hang`` and ``corrupt`` actions; ``yield`` waits for the
-serving lock seams that need it).
+``sigterm``, ``hang``, ``corrupt`` and ``yield`` actions).
 
 Recovery code that has never seen a failure does not work; this registry
 lets tests (and chaos drills on real slices) trigger a precise failure at a
@@ -55,10 +54,9 @@ In the port the training engine's checkpoint save fires the six
 ``ckpt.*`` points, ``run_resilient`` fires ``train.step_begin``, and the
 serving engine fires ``serving.pre_admit``,
 ``serving.pre_decode_dispatch``, ``serving.mid_drain``,
-``serving.sigterm_at_iter`` and ``serving.mirror_drain``; the four lock
-seams are registered names that nothing fires yet (the port's serving
-engine has no lock), and ``infer.executable_load`` has no caller (the
-port keeps no executable store).
+``serving.sigterm_at_iter``, ``serving.mirror_drain`` and the four lock
+seams; ``infer.executable_load`` has no caller (the port keeps no
+executable store).
 
 Arm points programmatically (:func:`configure_injection`) or via the
 ``DSTPU_FAULT_INJECT`` env var — specs separated by ``;``, fields by
@@ -67,10 +65,11 @@ Arm points programmatically (:func:`configure_injection`) or via the
     DSTPU_FAULT_INJECT="point=ckpt.before_latest_swap,action=exit,at=1"
 
 Spec fields: ``point`` (required), ``action`` (``exit`` | ``raise`` |
-``sigterm`` | ``hang`` | ``corrupt``; default ``raise``), ``at`` (fire on
-the Nth hit of the point, 1-based; default 1), ``times`` (how many
-consecutive hits fire, default 1; ``0`` = every hit from ``at`` on),
-``seconds`` (hang duration, default 3600), ``exit_code`` (default 17).
+``sigterm`` | ``hang`` | ``corrupt`` | ``yield``; default ``raise``),
+``at`` (fire on the Nth hit of the point, 1-based; default 1), ``times``
+(how many consecutive hits fire, default 1; ``0`` = every hit from ``at``
+on), ``seconds`` (hang duration, default 3600; a yield's longest sleep),
+``exit_code`` (default 17), ``seed`` (the yield draws, default 0).
 
 Actions:
 
@@ -84,12 +83,20 @@ Actions:
   heartbeat watchdog.
 * ``corrupt`` — flip bytes in the largest file under the ``path`` the seam
   provides (an array file): manifest verification must catch it.
+* ``yield`` — sleep a random ``[0, seconds]`` interval drawn from a
+  per-thread RNG seeded by ``seed`` and the thread's name: armed at the
+  serving lock seams, it forces other thread schedules while staying
+  reproducible.
+
+Observers (:func:`add_fire_observer`) are told of every spec that fires,
+before its action runs; the serving flight recorder registers one.
 
 ``fire()`` is a dict-lookup no-op when nothing is armed — it is safe on
 hot-ish paths like the supervisor step loop.
 """
 
 import os
+import random
 import signal
 import threading
 import time
@@ -125,14 +132,15 @@ class InjectedFault(IOError):
 
 class _Spec:
     __slots__ = ("point", "action", "at", "times", "seconds", "exit_code",
-                 "hits", "fired")
+                 "seed", "rng", "hits", "fired")
 
     def __init__(self, point, action="raise", at=1, times=1, seconds=3600.0,
-                 exit_code=17):
+                 exit_code=17, seed=0):
         if point not in INJECTION_POINTS:
             raise ValueError(f"unknown injection point {point!r}; one of "
                              f"{INJECTION_POINTS}")
-        if action not in ("exit", "raise", "sigterm", "hang", "corrupt"):
+        if action not in ("exit", "raise", "sigterm", "hang", "corrupt",
+                          "yield"):
             raise ValueError(f"unknown injection action {action!r}")
         self.point = point
         self.action = action
@@ -140,8 +148,20 @@ class _Spec:
         self.times = int(times)
         self.seconds = float(seconds)
         self.exit_code = int(exit_code)
+        self.seed = int(seed)
+        # yield draws: one RNG per firing thread, so the draws do not
+        # depend on the order the threads reach the seam
+        self.rng = {}
         self.hits = 0
         self.fired = 0
+
+    def yield_rng(self):
+        name = threading.current_thread().name
+        rng = self.rng.get(name)
+        if rng is None:
+            rng = self.rng.setdefault(name,
+                                      random.Random(f"{self.seed}:{name}"))
+        return rng
 
 
 _armed = {}          # point -> list[_Spec]
@@ -205,6 +225,32 @@ def active():
 
 _fire_lock = threading.Lock()
 
+# observers ``cb(point, action, hit_no)``, told of every spec that fires
+# before its action runs; they must be cheap, and what they raise is
+# swallowed
+_observers = []
+
+
+def add_fire_observer(cb):
+    """Register ``cb(point, action, hit_no)``; returns ``cb``."""
+    _observers.append(cb)
+    return cb
+
+
+def remove_fire_observer(cb):
+    try:
+        _observers.remove(cb)
+    except ValueError:
+        pass
+
+
+def _notify(point, spec):
+    for cb in list(_observers):
+        try:
+            cb(point, spec.action, spec.hits)
+        except Exception:                # noqa: BLE001 — observer only
+            pass
+
 
 def fire(point, path=None):
     """Hit an injection point.  No-op unless a spec is armed for it.  The
@@ -227,10 +273,15 @@ def fire(point, path=None):
             spec.fired += 1
             to_run.append(spec)
     for spec in to_run:
+        _notify(point, spec)
         _execute(spec, path)
 
 
 def _execute(spec, path):
+    if spec.action == "yield":
+        # fires on every hit of a hot seam: no log line per fire
+        time.sleep(spec.yield_rng().random() * spec.seconds)
+        return
     logger.warning(f"[fault] injection FIRING: {spec.point} -> "
                    f"{spec.action} (hit {spec.hits})")
     if spec.action == "exit":

@@ -71,7 +71,13 @@ def test_import_leaves_jax_unloaded():
             "deepspeed_tpu_torch.ops.adagrad, deepspeed_tpu_torch.ops.aio, "
             "deepspeed_tpu_torch.runtime.swap_tensor, "
             "deepspeed_tpu_torch.runtime.zero.offload, "
-            "deepspeed_tpu_torch.runtime.bf16_optimizer; "
+            "deepspeed_tpu_torch.runtime.bf16_optimizer, "
+            "deepspeed_tpu_torch.inference.serving.concurrency, "
+            "deepspeed_tpu_torch.inference.serving.flightrec, "
+            "deepspeed_tpu_torch.inference.serving.frontend.transport, "
+            "deepspeed_tpu_torch.monitor.monitor, "
+            "deepspeed_tpu_torch.monitor.memwatch, "
+            "deepspeed_tpu_torch.monitor.trace; "
             "bad = [m for m in ('jax', 'flax', 'pydantic', 'deepspeed_tpu') "
             "if m in sys.modules and m not in before]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -147,10 +153,15 @@ def test_unported_config_knobs_raise():
                  dict(strict_memory=True),
                  dict(fault={"bucket_downshift": True}),
                  dict(compile_cache={"enabled": True}),
-                 dict(serving={"tracing": True}),
-                 dict(serving={"fairness_tokens_per_s": 4.0})):
+                 dict(serving={"paged_kernel": False})):
         with pytest.raises(NotImplementedError):
             DeepSpeedInferenceConfig(**knob)
+    # the serving front end and its observability are ported
+    fe = DeepSpeedInferenceConfig(serving={
+        "tracing": True, "fairness_tokens_per_s": 4.0,
+        "priority_lanes": 3}).serving
+    assert (fe.tracing, fe.fairness_tokens_per_s, fe.priority_lanes) \
+        == (True, 4.0, 3)
     # the request lifecycle is ported
     slo = DeepSpeedInferenceConfig(serving={
         "max_queue_depth": 4, "queue_policy": "block",

@@ -296,8 +296,8 @@ def test_shortest_first_admission_keeps_tokens(setup):
 
 
 def test_config_validation_and_lifecycle(setup):
-    """The serving block parses into ServingConfig; unported knobs and bad
-    values raise; a request that never fits is refused; close() aborts
+    """The serving block parses into ServingConfig; the front-end knobs
+    build servers and bad values raise; a request that never fits is refused; close() aborts
     what is undrained and retires the server; prefill_plan names the
     paged kernels."""
     s = setup
@@ -306,8 +306,11 @@ def test_config_validation_and_lifecycle(setup):
     assert eng._config.serving.num_slots == 3
     for knob in (dict(flight_recorder=True), dict(tracing=True),
                  dict(fairness_tokens_per_s=4.0), dict(priority_lanes=2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            eng.serve(**knob)
+        eng.serve(**knob).close()        # the front-end knobs are ported
+    with pytest.raises(ValueError, match="priority_lanes"):
+        eng.serve(priority_lanes=0)
+    with pytest.raises(ValueError, match="fairness_window_s"):
+        eng.serve(fairness_tokens_per_s=4.0, fairness_window_s=0.0)
     with pytest.raises(ValueError, match="queue_policy"):
         eng.serve(queue_policy="drop")
     with pytest.raises(ValueError, match="admission"):

@@ -32,8 +32,8 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch.inference.serving.config import (NOT_PORTED,
-                                                          ServingConfig)
+from deepspeed_tpu_torch.inference.serving import config as serving_config
+from deepspeed_tpu_torch.inference.serving.config import ServingConfig
 from deepspeed_tpu_torch.inference.serving.slo import (CircuitOpen,
                                                        DrainTimeout,
                                                        QueueFull,
@@ -51,10 +51,15 @@ SERVING = {"enabled": True, "num_slots": 3, "max_cache_len": 64,
            "decode_block": 2}
 POOL = dict(paged=True, page_size=8)
 SELF = dict(speculative=True, spec_draft_model="self")
-# the knobs this slice took out of NOT_PORTED
+# the lifecycle knobs, and the front end's (ported since)
 LIFECYCLE = ("max_queue_depth", "queue_policy", "default_deadline_s",
              "breaker_threshold", "breaker_cooldown_s", "drain_timeout_s",
              "drain_budget_s")
+FRONT_END = ("priority_lanes", "priority_aging_s", "fairness_tokens_per_s",
+             "fairness_window_s", "tracing", "trace_max_spans",
+             "flight_recorder", "flight_recorder_events",
+             "flight_recorder_dir", "profile_endpoint", "memory_telemetry",
+             "memory_sample_interval_s")
 
 
 def _jax():
@@ -648,22 +653,19 @@ def test_close_reports_the_same_ids_every_call(eng):
 
 
 def test_lifecycle_knobs_ported_and_the_rest_raise():
-    """This slice took exactly the seven lifecycle knobs out of
-    ``NOT_PORTED``; each remaining knob still raises away from its
-    default."""
+    """The seven lifecycle knobs parse, and so do the twelve front-end
+    knobs, ported since: no serving knob raises ``NotImplementedError``
+    any more but ``paged_kernel=False`` (the gather path the port does not
+    offer)."""
     defaults = {k: v for k, v in ServingConfig().to_dict().items()}
-    assert not set(LIFECYCLE) & set(NOT_PORTED)
-    assert set(NOT_PORTED) == {
-        "priority_lanes", "priority_aging_s", "fairness_tokens_per_s",
-        "fairness_window_s", "tracing", "trace_max_spans",
-        "flight_recorder", "flight_recorder_events", "flight_recorder_dir",
-        "profile_endpoint", "memory_telemetry", "memory_sample_interval_s"}
-    for knob in NOT_PORTED:
+    assert not hasattr(serving_config, "NOT_PORTED")
+    for knob in FRONT_END:
         d = defaults[knob]
         off = (not d) if isinstance(d, bool) else \
             (d + "x" if isinstance(d, str) else d + 1)
-        with pytest.raises(NotImplementedError, match=knob):
-            ServingConfig(**{knob: off})
+        assert getattr(ServingConfig(**{knob: off}), knob) == off
+    with pytest.raises(NotImplementedError, match="paged_kernel=False"):
+        ServingConfig(paged_kernel=False)
     cfg = ServingConfig(max_queue_depth=4, queue_policy="block",
                         default_deadline_s=1.5, breaker_threshold=2,
                         breaker_cooldown_s=0.5, drain_timeout_s=3.0,
@@ -702,7 +704,13 @@ def test_fault_modules_stand_alone(tmp_path, monkeypatch):
         with pytest.raises(inject.InjectedFault):
             inject.fire("serving.pre_admit")
     with pytest.raises(ValueError, match="unknown injection action"):
-        inject.configure_injection("point=serving.mid_drain,action=yield")
+        inject.configure_injection("point=serving.mid_drain,action=nap")
+    # the serving lock seams' yield is ported: a seeded random sleep
+    (spec,) = inject.configure_injection(
+        "point=serving.mid_drain,action=yield,seconds=0.001,times=0")
+    inject.fire("serving.mid_drain")
+    assert spec.fired == 1
+    inject.reset_injection()
     assert DSElasticAgent({}).world_size == 1
 
 

@@ -422,7 +422,6 @@ def test_batch_triple_completion_matches_jax():
     {"moe": {"ep_size": 2}},
     {"curriculum_learning": {"enabled": True}},
     {"compression_training": {"weight_quantization": {"shared": 1}}},
-    {"csv_monitor": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
     {"compile_cache": {"enabled": True}},
     {"hybrid_engine": {"enabled": True}},

@@ -242,6 +242,23 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
     bitwise in a fresh engine; then K1 / K4 / K5 at Llama-7B's training
     shape [1, 2048, 32, 128] against their plain versions, timed, and a
     ``host_kernels`` line;
+18b. trains data-parallel, run (q) — run (c)'s model and batch shape
+   (OPT-1.3B, seq 2048, micro 2 a rank, ``gradient_accumulation_steps``
+   2, 3 steps) on every visible card, one rank a card over NCCL, started
+   through the port's launcher (``python -m
+   deepspeed_tpu_torch.launcher.runner``, this script in its ``--q-rank``
+   mode): ZeRO stages 0, 1 and 2, each in one group, with 48 K1 / K4 / K5
+   launches a rank a step; at world size 1 every stage's losses and final
+   parameters bitwise those of the same steps on an engine without a
+   group; at dp > 1 stage 1 bitwise stage 0, stage 2 within its stated
+   tolerance of stage 0, the losses within bf16's 2e-2 of one card's
+   engine on the same global batch (micro 2, gas 2 · dp); per rank the
+   peak and the persistent state at the boundary beside the prediction,
+   step ms, and one more step under the comms logger (the reduce-scatter,
+   all-reduce and all-gather seconds); with 4 cards or more, Llama-7B
+   with fp32 masters and fp32 moments under ZeRO-2 (bf16 accumulation),
+   2 steps, its peak a rank, step ms and tokens/s (or its failure with
+   the bytes).  ``python3 chip_smoke.py --only q`` runs this alone;
 19. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 Generation and serving run on the captured decode programs (CUDA graphs,
@@ -648,6 +665,34 @@ TRAIN_NVME_CONFIG = {
     "zero_optimization": {"offload_optimizer": {
         "device": "nvme", "pin_memory": True, "pipeline_read": True,
         "pipeline_write": True}}}
+
+
+# run (q): data-parallel training at run (c)'s shape on every visible card
+# (one rank a card, NCCL, through the port's launcher); stages 0, 1, 2 in
+# turn, each from the same seeded init; step 1 is excluded from the step
+# time; one more step runs under the comms logger for the collectives'
+# seconds (it syncs around each collective)
+RUN_Q = dict(micro=2, gas=2, seq=2048, loss_chunks=8, steps=3, seed=6,
+             stages=(0, 1, 2))
+TRAIN_Q_CONFIG = {**TRAIN_CONFIG, "gradient_accumulation_steps": RUN_Q["gas"]}
+# stage 2 against stage 0 at dp > 1: the reduce-scatter sums the bf16
+# model's fp32 gradients in another order than the all-reduce, so the
+# losses agree to fp32 roundoff (1e-5 relative) and a parameter moves by
+# at most Adam's step per step either way (2 · lr · steps)
+Q_STAGE2_LOSS_RTOL = 1e-5
+# the losses at dp > 1 against one card's engine on the same global batch
+Q_WORLD1_LOSS_RTOL = TOL["bfloat16"]
+# Llama-7B with fp32 masters and fp32 moments, ZeRO-2, bf16 accumulation,
+# run (c-llama)'s shape: 4 cards or more only (about 108 GB of state on one)
+RUN_Q_LLAMA = dict(micro=1, gas=1, seq=2048, loss_chunks=8, steps=2, seed=21,
+                   policy="flash_only_saveable", min_cards=4)
+TRAIN_Q_LLAMA_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+    "optimizer": {"type": "AdamW", "params": {
+        "lr": LLAMA_LR, "weight_decay": 0.1}},
+    "bf16": {"enabled": True}, "data_types": {"grad_accum_dtype": "bf16"},
+    "zero_optimization": {"stage": 2}, "gradient_clipping": 1.0, "seed": 0}
+Q_TIMEOUT_S = 900
 
 
 def fail(msg):
@@ -6096,7 +6141,487 @@ def host_kernel_rows(off, nvme):
     ]
 
 
+# --------------------------------------------------------------------- #
+# Data-parallel training, run (q): the launcher starts this script once a
+# card in its --q-rank mode; each rank writes a JSON record the parent
+# gates
+# --------------------------------------------------------------------- #
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def q_predictions(n, dp, grad_bytes=4, master_bytes=4, moment_bytes=8):
+    """The persistent state a rank holds at the accumulation boundary,
+    by stage: masters whole, moments (stage >= 1) and gradients (stage 2)
+    a dp-th each."""
+    return {0: n * (master_bytes + moment_bytes + grad_bytes),
+            1: n * (master_bytes + moment_bytes / dp + grad_bytes),
+            2: n * (master_bytes + (moment_bytes + grad_bytes) / dp)}
+
+
+def q_param_digest(params):
+    """Per tensor, the int64 sum of its int32 view (bitwise digests)."""
+    import torch
+    return torch.stack([p.detach().view(torch.int32).sum(dtype=torch.int64)
+                        for p in params]).tolist()
+
+
+def q_sync(engine):
+    """Wait for the card and, in a group, for every rank: each rank's
+    clock then starts and stops with the others'."""
+    import torch
+    torch.cuda.synchronize()
+    if engine.dp_group is not None:
+        from deepspeed_tpu_torch import comm
+        comm.barrier(engine.dp_group)
+        torch.cuda.synchronize()
+
+
+def q_train(engine, batch, steps, boundary):
+    """``steps`` train_batch calls; the first alone, the rest timed.
+    ``boundary`` collects ``memory_allocated`` as each step begins (the
+    persistent state and the accumulated gradients).  Returns the losses,
+    the first step's and the mean later step's ms, and the launch counts
+    over all steps."""
+    import torch
+    inner = engine._device_step
+
+    def probe():
+        torch.cuda.synchronize()
+        boundary.append(torch.cuda.memory_allocated())
+        inner()
+
+    engine._device_step = probe
+    reset_counts()
+    losses = []
+    q_sync(engine)
+    t0 = time.perf_counter()
+    losses.append(engine.train_batch(batch=batch))
+    q_sync(engine)
+    t1 = time.perf_counter()
+    for _ in range(steps - 1):
+        losses.append(engine.train_batch(batch=batch))
+    q_sync(engine)
+    t2 = time.perf_counter()
+    counts = read_counts()
+    engine._device_step = inner
+    return ([float(x) for x in torch.stack(losses).float().tolist()],
+            (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(steps - 1, 1), counts)
+
+
+def q_comm_step(engine, batch):
+    """One more step with the comms logger on: seconds and bytes of each
+    collective (the logger syncs the card around each)."""
+    from deepspeed_tpu_torch import comm
+    comm.comms_logger.reset()
+    comm.configure(enabled=True)
+    try:
+        engine.train_batch(batch=batch)
+    finally:
+        comm.configure(enabled=False)
+    return comm.comms_logger.totals()
+
+
+def q_profile_step(engine, batch, rank, stage):
+    """One more step on every rank, under ``torch.profiler`` on rank 0
+    (one window, no retake: every rank must take the same steps); rank 0
+    returns the step's device breakdown, the others None."""
+    import torch
+    from deepspeed_tpu_torch.profiling.trace import breakdown
+    q_sync(engine)
+    if rank != 0:
+        engine.train_batch(batch=batch)
+        q_sync(engine)
+        return None
+    path = os.path.join(ROOT, "build", "profiles",
+                        f"zero_dp_stage{stage}_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(batch=batch)
+        q_sync(engine)
+    wall = time.perf_counter() - t
+    prof.export_chrome_trace(path)
+    events = json.load(open(path))
+    events = events.get("traceEvents", events) \
+        if isinstance(events, dict) else events
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    return {**breakdown(kernels, wall), "trace": os.path.relpath(path, ROOT)}
+
+
+def q_opt_model():
+    from deepspeed_tpu_torch.models.opt import opt_model
+    return opt_model(MODEL, max_seq_len=RUN_Q["seq"],
+                     loss_seq_chunks=RUN_Q["loss_chunks"], remat=False,
+                     dtype="bfloat16")
+
+
+def q_rank_device():
+    """A rank's device: None (its own card, ``cuda:LOCAL_RANK``, over NCCL)
+    on the card; ``DEV`` otherwise."""
+    return None if DEV == "cuda" else DEV
+
+
+def q_opt_rank(rank, world, rec):
+    """Run (q) on this rank: the reference without a group, then stages 0,
+    1, 2 in one NCCL group."""
+    import torch
+    from deepspeed_tpu_torch import comm, initialize
+    cfg = RUN_Q
+    micro, gas, S = cfg["micro"], cfg["gas"], cfg["seq"]
+    V = q_opt_model().config.vocab_size
+    g = torch.Generator(device=DEV).manual_seed(cfg["seed"])
+    batch = {"input_ids": torch.randint(0, V, (gas, micro * world, S),
+                                        generator=g, device=DEV)}
+    ref = None
+    if rank == 0:
+        # the same global batch on one card, no group: at world size 1 the
+        # same steps (bitwise), else micro 2 at gas 2 · dp
+        one = {**TRAIN_Q_CONFIG, "gradient_accumulation_steps": gas * world}
+        engine, *_ = initialize(model=q_opt_model(), config=one, device=DEV)
+        flat = {"input_ids": batch["input_ids"].reshape(
+            gas * world, micro, S)}
+        losses, first_ms, step_ms, _ = q_train(engine, flat, cfg["steps"],
+                                               [])
+        ref = {"losses": losses, "step_ms": step_ms, "first_step_ms": first_ms,
+               "params": [p.detach().clone() for p in engine.params]
+               if world == 1 else None}
+        rec["reference"] = {k: v for k, v in ref.items() if k != "params"}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    comm.init_distributed(timeout=600, device=q_rank_device())
+    rec["backend"] = comm.get_backend()
+    n = sum(p.numel() for p in q_opt_model().parameters())
+    rec["params"] = n
+    rec["predicted_boundary_bytes"] = q_predictions(n, world)
+    s0 = None
+    rec["stages"] = {}
+    for stage in cfg["stages"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        config = {**TRAIN_Q_CONFIG, "zero_optimization": {"stage": stage}}
+        t0 = time.perf_counter()
+        engine, *_ = initialize(model=q_opt_model(), config=config,
+                                device=q_rank_device())
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        boundary = []
+        losses, first_ms, step_ms, counts = q_train(engine, batch,
+                                                    cfg["steps"], boundary)
+        peak = torch.cuda.max_memory_allocated()
+        after = torch.cuda.memory_allocated()
+        params = engine.params
+        # the reference's and stage 0's parameter copies this rank holds
+        held = sum(t.numel() * t.element_size() for t in
+                   ((ref or {}).get("params") or []) + (s0 or []))
+        st = {"losses": losses, "first_step_ms": first_ms, "step_ms": step_ms,
+              "held_bytes": held,
+              "state_bytes": max(boundary) - held,
+              "tokens_per_s": world * micro * gas * S / (step_ms / 1e3),
+              "init_seconds": init_s, "peak_bytes": peak,
+              "boundary_bytes": max(boundary), "after_step_bytes": after,
+              "launches": counts,
+              "launches_per_step": {k: v / cfg["steps"]
+                                    for k, v in counts.items() if v},
+              "digest": q_param_digest(params),
+              "device": str(engine.device), "dp": engine.dp_world}
+        if ref is not None and ref["params"] is not None:
+            st["bitwise_no_group"] = losses == ref["losses"] and all(
+                torch.equal(a, b) for a, b in zip(params, ref["params"]))
+        if stage == 0:
+            s0 = [p.detach().clone() for p in params]
+            s0_losses = losses
+        else:
+            diffs = [float((a.detach() - b).abs().max())
+                     for a, b in zip(params, s0)]
+            st["bitwise_stage0"] = losses == s0_losses and all(
+                torch.equal(a, b) for a, b in zip(params, s0))
+            st["max_abs_diff_stage0"] = max(diffs)
+            st["tensors_differing_stage0"] = sum(d > 0 for d in diffs)
+            st["elements_differing_stage0"] = int(sum(
+                int((a.detach() != b).sum()) for a, b in zip(params, s0)))
+        st["comm"] = q_comm_step(engine, batch)
+        st["profile"] = q_profile_step(engine, batch, rank, stage)
+        rec["stages"][stage] = st
+        del engine, params
+    del s0
+    comm.destroy_process_group()
+
+
+def q_llama_rank(rank, world, rec):
+    """Llama-7B with fp32 masters and fp32 moments under ZeRO-2 on every
+    card: a finite, falling loss over 2 steps, the peak a rank, step ms;
+    an out-of-memory failure is recorded with the bytes."""
+    import torch
+    from deepspeed_tpu_torch import comm, initialize
+    cfg = RUN_Q_LLAMA
+    comm.init_distributed(timeout=600, device=q_rank_device())
+    model = llama_train_model(cfg)
+    V, L = model.config.vocab_size, model.config.num_layers
+    n = sum(p.numel() for p in model.parameters())
+    rec.update(params=n, layers=L, predicted_boundary_bytes=q_predictions(
+        n, world, grad_bytes=2)[2], policy=cfg["policy"],
+        levers="fp32 masters, fp32 moments, bf16 grad accumulation, ZeRO-2")
+    g = torch.Generator(device=DEV).manual_seed(cfg["seed"])
+    batch = {"input_ids": torch.randint(0, V, (cfg["gas"],
+                                               cfg["micro"] * world,
+                                               cfg["seq"]), generator=g,
+                                        device=DEV)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=model, config=TRAIN_Q_LLAMA_CONFIG,
+                            device=q_rank_device())
+    torch.cuda.synchronize()
+    rec["init_seconds"] = time.perf_counter() - t0
+    rec["after_init_bytes"] = torch.cuda.memory_allocated()
+    boundary = []
+    losses, first_ms, step_ms, counts = q_train(engine, batch, cfg["steps"],
+                                                boundary)
+    tok = world * cfg["micro"] * cfg["gas"] * cfg["seq"]
+    rec.update(losses=losses, first_step_ms=first_ms, step_ms=step_ms,
+               tokens_per_s=tok / (step_ms / 1e3),
+               mfu=6 * n * tok / (step_ms / 1e3) / (
+                   world * PEAK_FLOPS["bfloat16"]),
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               boundary_bytes=max(boundary),
+               launches_per_step={k: v / cfg["steps"]
+                                  for k, v in counts.items() if v},
+               state_dtypes=sorted({str(t.dtype) for f in engine._opt_state
+                                    for t in f} | {
+                   str(p.dtype) for p in engine.params}))
+    comm.destroy_process_group()
+
+
+def q_rank_main(out_dir, llama):
+    """``--q-rank`` mode: one rank of run (q), its record in
+    ``out_dir/q.rank<r>.json`` (``llama.rank<r>.json`` with ``llama``)."""
+    import traceback
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if DEV == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    rec = {"rank": rank, "world": world}
+    name = "llama" if llama else "q"
+    code = 0
+    try:
+        (q_llama_rank if llama else q_opt_rank)(rank, world, rec)
+    except BaseException as e:       # recorded for the parent, then exit 1
+        rec["error"] = f"{type(e).__name__}: {e}"[:2000]
+        rec["traceback"] = traceback.format_exc()[-4000:]
+        rec["oom"] = isinstance(e, torch.cuda.OutOfMemoryError)
+        rec["allocated_bytes"] = torch.cuda.memory_allocated()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["reserved_bytes"] = torch.cuda.memory_reserved()
+        free, total = torch.cuda.mem_get_info()
+        rec["free_bytes"], rec["total_bytes"] = free, total
+        code = 1
+    with open(os.path.join(out_dir, f"{name}.rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    sys.stdout.flush()
+    os._exit(code)
+
+
+def q_launch(world, out_dir, llama=False):
+    """The launcher over ``world`` cards running this script's ``--q-rank``
+    mode; returns ``(rc, output tail, records)``.  The launcher's whole
+    process group is killed if it outlives ``Q_TIMEOUT_S``."""
+    import signal
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner",
+           "--num_gpus", str(world), "--master_port", str(free_port()),
+           os.path.abspath(__file__), "--q-rank", out_dir] + \
+        (["--q-llama"] if llama else [])
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=Q_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail(f"run (q): the ranks outlived {Q_TIMEOUT_S} s:\n{out[-3000:]}")
+    name = "llama" if llama else "q"
+    recs = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"{name}.rank{r}.json")
+        recs.append(json.load(open(path)) if os.path.exists(path) else None)
+    return proc.returncode, out[-3000:], recs
+
+
+def zero_dp_path():
+    """Run (q): ZeRO stages 0 / 1 / 2 at OPT-1.3B's run (c) shape on every
+    card, then (4 cards or more) Llama-7B with fp32 state under ZeRO-2."""
+    import shutil
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    out_dir = os.path.join(ROOT, "build", "zero_dp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    start = t0 = time.perf_counter()
+    rc, tail, recs = q_launch(world, out_dir)
+    secs = time.perf_counter() - t0
+    if rc != 0 or any(r is None or "error" in r for r in recs):
+        errs = [r.get("error") if r else "no record" for r in recs]
+        fail(f"run (q): the ranks failed (rc {rc}): {errs}\n{tail}")
+    L = q_opt_model().config.num_layers
+    gas, steps = RUN_Q["gas"], RUN_Q["steps"]
+    want = {"flash_attention": L * gas, "flash_attention_dq": L * gas,
+            "flash_attention_dkv": L * gas}
+    ref = recs[0]["reference"]
+    rows = {}
+    for stage in RUN_Q["stages"]:
+        st = [r["stages"][str(stage)] for r in recs]
+        for r, s in enumerate(st):
+            if s["launches_per_step"] != want:
+                fail(f"run (q) stage {stage} rank {r}: launches per step "
+                     f"{s['launches_per_step']}, the path needs {want}")
+            if not all(math.isfinite(x) for x in s["losses"]):
+                fail(f"run (q) stage {stage}: non-finite loss {s['losses']}")
+            own = f"cuda:{r}" if DEV == "cuda" else DEV
+            if s["dp"] != world or s["device"] != own:
+                fail(f"run (q) rank {r}: dp {s['dp']} on {s['device']}")
+        if len({json.dumps(s["digest"]) for s in st}) != 1:
+            fail(f"run (q) stage {stage}: the ranks' parameters differ")
+        if world == 1 and not st[0]["bitwise_no_group"]:
+            fail(f"run (q) stage {stage}: at world size 1 the losses / "
+                 f"parameters are not bitwise the engine's without a group "
+                 f"({st[0]['losses']} vs {ref['losses']})")
+        if world > 1:
+            for a, b in zip(st[0]["losses"], ref["losses"]):
+                if abs(a - b) > Q_WORLD1_LOSS_RTOL * abs(b):
+                    fail(f"run (q) stage {stage}: losses {st[0]['losses']} "
+                         f"vs one card's {ref['losses']}")
+            if stage == 1 and not st[0]["bitwise_stage0"]:
+                fail("run (q): stage 1 is not bitwise stage 0")
+            if stage == 2:
+                s0 = recs[0]["stages"]["0"]["losses"]
+                bad = [(a, b) for a, b in zip(st[0]["losses"], s0)
+                       if abs(a - b) > Q_STAGE2_LOSS_RTOL * abs(b)]
+                lr = TRAIN_CONFIG["optimizer"]["params"]["lr"]
+                if bad or st[0]["max_abs_diff_stage0"] > 2 * lr * steps:
+                    fail(f"run (q): stage 2 off stage 0: losses {bad}, max "
+                         f"|param diff| {st[0]['max_abs_diff_stage0']}")
+        rows[stage] = st
+        emit({"run": "q", "stage": stage, "world": world, "seq": RUN_Q["seq"],
+              "micro_per_rank": RUN_Q["micro"], "gas": gas,
+              "losses": st[0]["losses"], "reference_losses": ref["losses"],
+              "step_ms": [s["step_ms"] for s in st],
+              "first_step_ms": [s["first_step_ms"] for s in st],
+              "tokens_per_s": st[0]["tokens_per_s"],
+              "peak_bytes": [s["peak_bytes"] for s in st],
+              "boundary_bytes": [s["boundary_bytes"] for s in st],
+              "held_copies_bytes": [s["held_bytes"] for s in st],
+              "state_bytes": [s["state_bytes"] for s in st],
+              "predicted_boundary_bytes":
+                  recs[0]["predicted_boundary_bytes"][str(stage)],
+              "after_step_bytes": [s["after_step_bytes"] for s in st],
+              "launches_per_step": st[0]["launches_per_step"],
+              **{k: st[0][k] for k in ("bitwise_no_group", "bitwise_stage0",
+                                      "max_abs_diff_stage0",
+                                      "tensors_differing_stage0",
+                                      "elements_differing_stage0")
+                 if k in st[0]},
+              "comm": st[0]["comm"], "init_seconds": st[0]["init_seconds"]})
+        prof = st[0]["profile"]
+        emit({"profile": f"q_stage{stage}",
+              **{k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                      "device_idle_share",
+                                      "device_ms_by_group", "top_kernels",
+                                      "trace")}})
+    rec = {"world": world, "seconds": secs, "reference": ref,
+           "params": recs[0]["params"],
+           "launches_per_step": {
+               stage: {name: [s["launches_per_step"].get(name, 0)
+                              for s in rows[stage]] for name in want}
+               for stage in RUN_Q["stages"]}}
+    if world >= RUN_Q_LLAMA["min_cards"]:
+        t0 = time.perf_counter()
+        rc, tail, lrecs = q_launch(world, out_dir, llama=True)
+        lrec = {"rc": rc, "seconds": time.perf_counter() - t0,
+                "ranks": lrecs}
+        ok = rc == 0 and all(r is not None and "error" not in r
+                             for r in lrecs)
+        if ok:
+            losses = lrecs[0]["losses"]
+            if not all(math.isfinite(x) for x in losses) or \
+                    not losses[-1] < losses[0]:
+                fail(f"run (q-llama): loss not finite and falling: {losses}")
+        else:
+            lrec["tail"] = tail
+        emit({"run": "q_llama", "world": world, "trained": ok,
+              **({k: lrecs[0][k] for k in (
+                  "losses", "step_ms", "first_step_ms", "tokens_per_s", "mfu",
+                  "params", "predicted_boundary_bytes", "state_dtypes",
+                  "launches_per_step", "levers", "init_seconds")}
+                 if ok else {"errors": [r and r.get("error") for r in lrecs],
+                             "tail": tail[-1500:]}),
+              "peak_bytes": [r and r.get("peak_bytes") for r in lrecs],
+              "boundary_bytes": [r and r.get("boundary_bytes") for r in lrecs],
+              "free_bytes": [r and r.get("free_bytes") for r in lrecs]})
+        rec["llama"] = lrec
+    emit({"run_q_seconds": time.perf_counter() - start})
+    return rec
+
+
+def q_launch_rows(q, name):
+    """``{"stage <s>": [launches a step, per rank]}`` of one kernel."""
+    return {f"stage {stage}": ranks[name]
+            for stage, ranks in q["launches_per_step"].items()}
+
+
+def only_q(card):
+    """``--only q``: run (q) alone, then K1 / K4 / K5 held and timed at its
+    attention shape (the rows of the ``kernels`` line, with run (q)'s
+    launches), the card and the result line."""
+    import torch
+    q = zero_dp_path()
+    bwd = check_flash_bwd("bfloat16", True)
+    csrc = "deepspeed_tpu_torch/ops/csrc/"
+    pallas = "deepspeed_tpu/ops/transformer/flash_attention.py:"
+    kernels = []
+    for key, name, source, line in (
+            ("K1", "flash_attention", "flash_attention.cu", 175),
+            ("K4", "flash_attention_dq", "flash_attention_bwd.cu", 388),
+            ("K5", "flash_attention_dkv", "flash_attention_bwd.cu", 421)):
+        c = bwd[key]
+        per_step = q_launch_rows(q, name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + source,
+            "replaces": pallas + str(line),
+            "launches": sum(sum(v) for v in per_step.values())
+            * RUN_Q["steps"],
+            "launches_per_step_run_q": per_step,
+            "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    print(card, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
 def main():
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=["q"],
+                        help="run one phase alone (q: data-parallel "
+                             "training on every visible card)")
+    parser.add_argument("--q-rank", metavar="DIR",
+                        help=argparse.SUPPRESS)   # a rank of run (q)
+    parser.add_argument("--q-llama", action="store_true",
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -6107,6 +6632,8 @@ def main():
         fail("deepspeed_tpu_torch/ is missing: run from a checkout of the "
              "repository")
     sys.path.insert(0, ROOT)
+    if args.q_rank:
+        q_rank_main(args.q_rank, args.q_llama)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from deepspeed_tpu_torch.ops import op_builder
@@ -6188,6 +6715,8 @@ def main():
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else f"nvidia-smi unavailable ({smi.returncode})"
     print(card, flush=True)
+    if args.only == "q":
+        return only_q(card)
 
     checks = {}
     for dtype in ("float32", "bfloat16"):
@@ -6269,6 +6798,7 @@ def main():
     runs["c_llama"] = llama_train_path()
     runs["c_offload"] = offload_path()
     runs["c_nvme"] = nvme_path()
+    runs["q"] = zero_dp_path()
     gc.collect()
     torch.cuda.empty_cache()
     bwd = check_flash_bwd("bfloat16", True, KLT_SHAPE)
@@ -6495,6 +7025,9 @@ def main():
             "launches_per_step_run_c_offload":
                 runs["c_offload"]["launches_per_step"][k["name"]],
             "launches_run_c_nvme": runs["c_nvme"]["launches"][k["name"]]}
+    # run (q): K1 / K4 / K5 launches a rank a step at each ZeRO stage
+    for k in (kernels[0], kernels[3], kernels[4]):
+        k["launches_per_step_run_q"] = q_launch_rows(runs["q"], k["name"])
     emit({"host_kernels": host_kernel_rows(runs["c_offload"],
                                            runs["c_nvme"])})
     print(card, flush=True)

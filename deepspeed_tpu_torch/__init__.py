@@ -15,12 +15,19 @@ training (:func:`initialize` → ``engine.train_batch`` or ``engine(batch)``
 / ``engine.backward(loss)`` / ``engine.step()``), dense or block-sparse,
 with the JAX remat policies and ``checkpointing`` (activation
 checkpointing); HF OPT / GPT-2 / Llama / Mistral / GPT-Neo models come in
-through ``module_inject``.
+through ``module_inject``.  Data-parallel training across GPUs (ZeRO
+stages 0, 1, 2): start one process a GPU with ``python -m
+deepspeed_tpu_torch.launcher.runner --num_gpus N script.py``, call
+:func:`init_distributed` in the script, then :func:`initialize` as
+usual — the engine trains one global batch across the group (``comm``:
+the collectives over ``torch.distributed``, NCCL or gloo).
 """
 
 __version__ = "0.1.0"
 
+from deepspeed_tpu_torch import comm  # noqa: F401
 from deepspeed_tpu_torch.accelerator import get_accelerator  # noqa: F401
+from deepspeed_tpu_torch.comm import init_distributed  # noqa: F401
 from deepspeed_tpu_torch.inference.serving import (  # noqa: F401
     ServingConfig, ServingEngine, ServingHTTPFrontend, serve_http)
 from deepspeed_tpu_torch.runtime.activation_checkpointing import (  # noqa: F401
@@ -38,9 +45,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     is allocated on the device and initialised from ``config["seed"]``
     unless ``model_parameters`` (a state dict, or a JAX parameter tree)
     are given.  ``config`` is a dict or a JSON path.  ``device``: ``None``
-    means ``"cuda"`` (a ``RuntimeError`` without a card); pass ``"cpu"``
-    for the plain PyTorch path.  Returns ``(engine, optimizer,
-    training_dataloader, lr_scheduler)``."""
+    means ``"cuda"`` (a ``RuntimeError`` without a card; on a rank of a
+    CUDA group, ``cuda:LOCAL_RANK``); pass ``"cpu"`` for the plain PyTorch
+    path (over gloo in a group).  With a live process group
+    (:func:`init_distributed`) the engine is one rank of the topology built
+    from it (``parallel.topology``) and trains data-parallel.  Returns
+    ``(engine, optimizer, training_dataloader, lr_scheduler)``."""
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     if config is None and config_params is not None:
         config = config_params

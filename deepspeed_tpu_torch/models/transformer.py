@@ -59,6 +59,8 @@ quantize the weights (:meth:`Transformer.quantize_weights_`, the JAX
 ``WeightQuantization`` on the flax layout of each weight).
 """
 
+import contextlib
+import contextvars
 import functools
 import math
 from collections.abc import Mapping
@@ -724,6 +726,42 @@ class Transformer(nn.Module):
     def _head(self, x):
         return self._head_fn()(x)
 
+    def jax_layouts(self):
+        """``{parameter name: (view, unview, shape)}`` for every parameter
+        the JAX model stores in another layout (``params_from_flax``):
+        ``view(t)`` is that layout as a view of the port's tensor (q / k / v
+        kernels ``[h, heads, D]``, o ``[heads, D, h]``, q / k / v biases
+        ``[heads, D]``, dense kernels ``[in, out]``), ``unview`` the
+        inverse.  ZeRO's rule runs on these layouts, so a data-parallel
+        rank holds the elements of the JAX engine's shard (per-layer trees,
+        ``scan_layers=False``)."""
+        cfg = self.config
+        h, D = cfg.hidden_size, cfg.head_dim
+        out = {}
+        for name, p in self.named_parameters():
+            parts = name.split(".")
+            if len(parts) >= 2 and parts[-3:-2] == ["attn"]:
+                proj, kind = parts[-2], parts[-1]
+                heads = cfg.kv_heads if proj in ("k_proj", "v_proj") \
+                    else cfg.num_heads
+                if proj == "o_proj" and kind == "weight":
+                    out[name] = (lambda w, n=heads: w.t().view(n, D, h),
+                                 lambda x: x.reshape(-1, h).t(),
+                                 (heads, D, h))
+                elif proj != "o_proj" and kind == "weight":
+                    out[name] = (lambda w, n=heads: w.t().view(h, n, D),
+                                 lambda x: x.reshape(h, -1).t(),
+                                 (h, heads, D))
+                elif proj != "o_proj" and kind == "bias":
+                    out[name] = (lambda b, n=heads: b.view(n, D),
+                                 lambda x: x.reshape(-1), (heads, D))
+            elif parts[-1] == "weight" and p.dim() == 2 and (
+                    "mlp" in parts or parts[0] in ("lm_head", "project_in",
+                                                   "project_out")):
+                out[name] = (lambda w: w.t(), lambda x: x.t(),
+                             tuple(reversed(p.shape)))
+        return out
+
     def logits(self, input_ids, mask=None):
         return self._head(self.hidden_states(input_ids, mask))
 
@@ -903,10 +941,42 @@ def _nll_sum(logits, labels, ignore_index):
     return ((logz - gold) * valid).sum(), valid.sum(), logz * valid
 
 
+# set by the data-parallel engine around a micro step's forward: how to
+# sum the valid-token count over the ranks, and their number
+_TOKEN_COUNT = contextvars.ContextVar("global_token_count", default=None)
+
+
+@contextlib.contextmanager
+def global_token_count(reduce_fn, world):
+    """Within this context the causal-LM loss is normalised by the valid
+    tokens of the whole global batch, as the JAX loss is
+    (``models/transformer.py``: the summed NLL over the global count):
+    ``reduce_fn(count)`` sums the rank's count over the data-parallel
+    group (on the device, before the backward), and each rank's loss is its
+    share of the global mean times ``world`` — so the ranks' average is
+    the global mean, and so is the average of their gradients, however
+    unequally padding splits the tokens."""
+    token = _TOKEN_COUNT.set((reduce_fn, world))
+    try:
+        yield
+    finally:
+        _TOKEN_COUNT.reset(token)
+
+
+def _mean_nll(total, count):
+    """``total / count``, the count summed over the data-parallel group
+    under :func:`global_token_count`."""
+    ctx = _TOKEN_COUNT.get()
+    if ctx is None:
+        return total / count.clamp(min=1)
+    reduce_fn, world = ctx
+    return total / reduce_fn(count).clamp(min=1) * world
+
+
 def cross_entropy_loss(logits, labels, ignore_index=-100, z_loss=0.0):
     """Causal-LM loss with ignore-index masking, computed in fp32."""
     total, count, logz = _nll_sum(logits, labels, ignore_index)
-    loss = total / count.clamp(min=1)
+    loss = _mean_nll(total, count)
     if z_loss > 0.0:
         loss = loss + z_loss * (logz ** 2).mean()
     return loss
@@ -932,7 +1002,7 @@ def chunked_cross_entropy_loss(h, labels, head_fn, n_chunks,
                                     labels[:, i * csz:(i + 1) * csz],
                                     use_reentrant=False)
                          for i in range(n_chunks)))
-    return torch.stack(sums).sum() / torch.stack(counts).sum().clamp(min=1)
+    return _mean_nll(torch.stack(sums).sum(), torch.stack(counts).sum())
 
 
 # --------------------------------------------------------------------- #

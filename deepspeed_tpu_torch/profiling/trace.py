@@ -39,6 +39,8 @@ GROUPS = (("K6-i8mm decode_i8mm_kernel (paged)",
           ("K2 decode_kernel", ("decode_kernel",)),
           # K8: wgmma_sparse_fwd_kernel (16-bit), block_sparse_fwd_kernel
           ("K8 sparse_fwd_kernel", ("sparse_fwd_kernel",)),
+          # the data-parallel collectives' kernels (ncclDevKernel_...)
+          ("NCCL collectives", ("nccl",)),
           ("GEMM (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                              "splitKreduce")),
           # advanced-indexing gathers and their scatter-add backward: in a

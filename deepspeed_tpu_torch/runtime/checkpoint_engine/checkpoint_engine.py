@@ -61,7 +61,10 @@ def flatten_groups(arrays):
     leaves = []
 
     def walk(path, node):
-        if node is None or torch.is_tensor(node):
+        # ``ckpt_leaf`` objects stand in for tensors (the data-parallel
+        # engine's sharded state: gathered on write, scattered on load)
+        if node is None or torch.is_tensor(node) or \
+                getattr(node, "ckpt_leaf", False):
             leaves.append((path, node))
         elif _is_namedtuple(node):
             for name, child in zip(node._fields, node):

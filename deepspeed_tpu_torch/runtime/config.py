@@ -1,8 +1,9 @@
 """Training config (port of ``deepspeed_tpu/runtime/config.py``).
 
 The same JSON/dict keys as the JAX package's ``DeepSpeedConfig`` drive the
-port's training engine at world size 1: the batch triple (completed and
-validated with the JAX package's errors), ``fp16`` (dynamic or static loss
+port's training engine: the batch triple (completed and validated against
+the data-parallel world, ``mesh_world_size``, with the JAX package's
+errors), ``fp16`` (dynamic or static loss
 scale), ``bf16``, ``optimizer``, ``scheduler``, ``gradient_clipping``,
 ``steps_per_print``, ``seed``, the monitor blocks (``tensorboard``,
 ``wandb``, ``csv_monitor``: ``Train/Samples/*`` events every
@@ -12,10 +13,13 @@ checkpoint writer) and the single-device memory levers:
 ``zero_optimization.offload_optimizer`` (ZeRO-Offload to ``cpu`` or
 ``nvme``), ``zero_optimization.grad_partition_groups`` (the partitioned
 backward), ``bf16.master_weights_in_bf16`` and
-``data_types.grad_accum_dtype``.  ``zero_optimization.stage`` 0-3 is
-accepted and trivially satisfied at world size 1 (there is nothing to
-partition).  The blocks are plain dataclasses: the card's machine has no
-pydantic.
+``data_types.grad_accum_dtype``, and ``comms_logger`` (the collectives'
+log).  ``zero_optimization.stage`` 0-3 is accepted; at world size 1 every
+stage is the single-device layout, at data-parallel size > 1 stages 0, 1
+and 2 partition as the JAX package does (``runtime/zero/partition.py``)
+and stage 3, ``offload_optimizer`` and ``grad_partition_groups`` raise
+``NotImplementedError``.  The blocks are plain dataclasses: the card's
+machine has no pydantic.
 
 Knobs that change behaviour but belong to later slices raise
 ``NotImplementedError`` when set (``offload_param``, which no JAX engine
@@ -78,6 +82,9 @@ class ZeroConfig(DeepSpeedConfigModel):
     zero_hpz_partition_size: int = 1
     mics_shard_size: int = -1
     grad_partition_groups: int = 1
+    # elements a gradient bucket holds before its collective (stage 0 / 1:
+    # the boundary's all-reduce; stage 2: the backward's reduce-scatter)
+    reduce_bucket_size: int = 500_000_000
 
     def validate(self):
         if isinstance(self.offload_optimizer, dict):
@@ -95,6 +102,16 @@ class OptimizerConfig(DeepSpeedConfigModel):
 class SchedulerConfig(DeepSpeedConfigModel):
     type: Optional[str] = None
     params: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclasses.dataclass(init=False)
+class CommsLoggerConfig(DeepSpeedConfigModel):
+    """The ``comms_logger`` block (the JAX ``CommsLoggerConfig``)."""
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: list = field(default_factory=list)
 
 
 @dataclasses.dataclass(init=False)
@@ -180,11 +197,17 @@ _NOT_PORTED = (
 )
 
 
-class DeepSpeedConfig:
-    """Parse and validate the training config dict (or JSON path) at
-    world size 1."""
+def _dp_not_ported(what):
+    raise NotImplementedError(
+        f"training config: {what} at data-parallel size > 1 is not ported "
+        f"to deepspeed_tpu_torch yet (see ROADMAP.md, queue A)")
 
-    def __init__(self, config):
+
+class DeepSpeedConfig:
+    """Parse and validate the training config dict (or JSON path) for a
+    data-parallel world of ``mesh_world_size`` ranks (default 1)."""
+
+    def __init__(self, config, mesh_world_size=None):
         if isinstance(config, str):
             if not os.path.exists(config):
                 raise FileNotFoundError(
@@ -213,7 +236,19 @@ class DeepSpeedConfig:
         if self.zero_config.stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_optimization.stage must be 0-3, got "
                              f"{self.zero_config.stage}")
-        if self.zero_config.stage > 0:
+        self._mesh_world_size = mesh_world_size
+        dp = mesh_world_size or 1
+        if dp > 1:
+            zc = self.zero_config
+            if zc.stage >= 3:
+                _dp_not_ported("zero_optimization.stage 3 (ZeRO-3)")
+            if zc.offload_optimizer is not None and \
+                    zc.offload_optimizer.device not in (None, "none"):
+                _dp_not_ported("zero_optimization.offload_optimizer "
+                               "(ZeRO-Offload)")
+            if int(zc.grad_partition_groups or 1) > 1:
+                _dp_not_ported("zero_optimization.grad_partition_groups")
+        elif self.zero_config.stage > 0:
             log_dist(f"zero_optimization.stage {self.zero_config.stage} at "
                      f"world size 1: there is nothing to partition, every "
                      f"stage is the single-device layout", ranks=[0])
@@ -235,6 +270,7 @@ class DeepSpeedConfig:
             wandb=WandbConfig(**pd.get(C.MONITOR_WANDB, {})),
             csv_monitor=CSVConfig(**pd.get(C.MONITOR_CSV, {})))
         self.fault = FaultConfig(**pd.get("fault", {}))
+        self.comms_config = CommsLoggerConfig(**pd.get(C.COMMS_LOGGER, {}))
 
         self.train_batch_size = pd.get(C.TRAIN_BATCH_SIZE)
         self.train_micro_batch_size_per_gpu = pd.get(
@@ -248,9 +284,9 @@ class DeepSpeedConfig:
         return self.zero_config.stage
 
     def _configure_train_batch_size(self):
-        """Complete / validate the triple (the JAX package's checks, with
-        its error messages) at data-parallel world size 1."""
-        dp_world = 1
+        """Complete / validate the triple against the data-parallel world
+        (the JAX package's checks, with its error messages)."""
+        dp_world = self._mesh_world_size or 1
         tbs, mbs, gas = (self.train_batch_size,
                          self.train_micro_batch_size_per_gpu,
                          self.gradient_accumulation_steps)
@@ -275,6 +311,9 @@ class DeepSpeedConfig:
         elif tbs is not None:
             mbs = tbs // dp_world
             gas = 1
+            if mbs * dp_world != tbs:
+                raise ValueError(f"train_batch_size {tbs} not divisible by "
+                                 f"dp world {dp_world}")
         else:
             mbs, gas = 1, 1
             tbs = dp_world

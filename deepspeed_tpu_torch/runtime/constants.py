@@ -38,6 +38,7 @@ ZERO_OPTIMIZATION = "zero_optimization"
 
 # Logging
 STEPS_PER_PRINT = "steps_per_print"
+COMMS_LOGGER = "comms_logger"
 STEPS_PER_PRINT_DEFAULT = 10
 
 # Subsystems whose enabling is refused by this slice

@@ -1,8 +1,14 @@
 """Data loading (port of ``deepspeed_tpu/runtime/dataloader.py``).
 
 ``DeepSpeedDataLoader`` batches an indexable dataset (numpy arrays,
-dicts of arrays, torch Datasets or any sequence) on the host at world
-size 1; with an engine it places each batch on the engine's device.
+dicts of arrays, torch Datasets or any sequence) on the host; with an
+engine it places each batch on the engine's device.  Batches are
+*global*, as in the JAX package: ``batch_size`` samples a batch over the
+whole data-parallel group.  With an engine of ``dp`` ranks each rank
+collates only its rows of each global batch — rank r's ``[r * n, (r + 1)
+* n)``, ``n = batch_size / dp``, the rows JAX's data sharding gives dp
+index r — and the engine takes them as they are (``put_batch``'s
+``rank_rows``).
 """
 
 import numpy as np
@@ -30,14 +36,22 @@ class DeepSpeedDataLoader:
         self.collate_fn = collate_fn or default_collate
         self.engine = engine
         self.len = len(dataset) // batch_size
+        dp = getattr(engine, "dp_world", 1) if engine is not None else 1
+        if batch_size % dp:
+            raise ValueError(f"a global batch of {batch_size} samples does "
+                             f"not split over {dp} data-parallel ranks")
+        self.rank_batch = batch_size // dp
+        self.rank_offset = (getattr(engine, "dp_rank", 0) if dp > 1 else 0) \
+            * self.rank_batch
 
     def __len__(self):
         return self.len
 
     def __iter__(self):
         for start in range(0, self.len * self.batch_size, self.batch_size):
+            lo = start + self.rank_offset
             batch = self.collate_fn([self.dataset[i] for i in
-                                     range(start, start + self.batch_size)])
+                                     range(lo, lo + self.rank_batch)])
             if self.engine is not None:
-                batch = self.engine.put_batch(batch)
+                batch = self.engine.put_batch(batch, rank_rows=True)
             yield batch

@@ -65,11 +65,50 @@ enabled, ``step`` writes the JAX engine's ``Train/Samples/lr`` and
 watermark ``Train/Samples/hbm_*``) every ``steps_per_print`` steps, at
 ``global_samples``; the loss read waits for the device only then.
 
+**Data parallelism** (ZeRO stages 0, 1, 2).  With a live process group
+(``comm.init_distributed``, one process a GPU, started by ``python -m
+deepspeed_tpu_torch.launcher.runner``) the engine is one rank of the
+topology's data-parallel group and trains one global batch across it, as
+the JAX engine does across its mesh: a micro step's batch is the *global*
+micro batch (``micro × dp`` rows) and rank r computes on rows ``[r ·
+micro, (r + 1) · micro)``; the causal-LM loss divides by the valid
+tokens of the whole global batch (``models.transformer.
+global_token_count``: the count is all-reduced on the device before the
+backward).  The parameters (the fp32, or lean bf16, masters) stay whole
+on every rank; ``runtime/zero/partition.py`` places the rest:
+
+- stage 0 and 1: the accumulated gradients are averaged over the group at
+  the boundary (all-reduce, a ``reduce_bucket_size`` bucket at a time);
+- stage 1: each rank holds its shard of the optimizer state and steps its
+  shard of the masters (copied out, contiguous), then the updated shards
+  are all-gathered into every rank's parameters (a ``SKIP_GROUP_NUMEL``
+  group at a time) — elementwise, so stage 1 is bitwise stage 0;
+- stage 2: in addition, the backward reduce-scatters (averaging) each
+  gradient bucket into the rank's shard from
+  ``register_post_accumulate_grad_hook`` and frees the full ``.grad`` at
+  once; over a window the shards accumulate in ``grad_accum_dtype``.
+  Buckets are fixed in reverse parameter order, each reduced once all its
+  gradients are in, so every rank issues the same collectives whatever
+  order autograd produces the gradients in.
+
+A leaf with no dim divisible by dp stays whole (and is averaged whole).
+The global gradient norm sums each shard's squared norm over the group
+(one all-reduce), counting a whole leaf once; the fp16 overflow flag is
+all-reduced with MAX, so every rank skips together; the loss the engine
+reports (``_last_loss``, ``Train/Samples/*``) is the global loss.  A
+checkpoint tag holds global tensors, as Orbax's do: rank 0 writes, the
+sharded optimizer state gathered one tensor at a time, and a load takes
+each rank's shard, so a tag moves between world sizes.  At world size 1
+every collective is an identity and each stage gives the bits of the
+engine without a group.
+
 Not in this slice (ROADMAP.md, queue A): the compile cache, the profiler,
-parameter offload, multi-GPU.
+parameter offload, ZeRO-3, the offload and the partitioned backward at
+data-parallel size > 1.
 """
 
 import dataclasses
+import functools
 import os
 import shutil
 import time
@@ -79,9 +118,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
-    NebulaCheckpointEngine, TorchCheckpointEngine, copy_groups)
+    NebulaCheckpointEngine, TorchCheckpointEngine, copy_groups,
+    flatten_groups)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.fault import inject
 from deepspeed_tpu_torch.runtime.fault.atomic import (atomic_publish_dir,
@@ -102,6 +143,9 @@ from deepspeed_tpu_torch.utils.logging import log_dist, logger
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float16: "float16"}
 
+
+# the attribute that marks a batch tensor as this rank's rows already
+_RANK_ROWS = "_dstt_rank_rows"
 
 # parameter elements per group of the device step: only one group's fp32
 # temporaries of the update (and, for the fp16 overflow skip, one group's
@@ -150,6 +194,21 @@ def _skip_groups(params):
     return groups
 
 
+def _buckets(idx, tensors, size):
+    """Consecutive runs of ``idx``, each closed when its element count
+    reaches ``size``."""
+    out, cur, n = [], [], 0
+    for i in idx:
+        cur.append(i)
+        n += tensors[i].numel()
+        if n >= size:
+            out.append(cur)
+            cur, n = [], 0
+    if cur:
+        out.append(cur)
+    return out
+
+
 def _map(fn, batch):
     if isinstance(batch, Mapping):
         return {k: _map(fn, v) for k, v in batch.items()}
@@ -166,8 +225,55 @@ class _Accumulated:
         self.loss = loss
 
 
+class _GlobalLeaf:
+    """A sharded optimizer tensor as the checkpoint writer sees it: the
+    global tensor, all-gathered when the writer reaches it (``to``) or
+    when a rank that writes nothing walks past it (``drain``) — every rank
+    gathers each tensor once, in the same order."""
+
+    ckpt_leaf = True
+
+    def __init__(self, part):
+        self.part = part
+        self.shape = torch.Size(part.leaf.full_shape)
+        self.dtype = part.shard.dtype
+        self.done = False
+
+    def detach(self):
+        return self
+
+    def to(self, device, copy=False):
+        if self.done:
+            raise RuntimeError("a sharded tensor is gathered once a save: a "
+                               "save at data-parallel size > 1 is not "
+                               "retried")
+        self.done = True
+        return self.part.gather().to(device)
+
+    def drain(self):
+        if not self.done:
+            self.to("cpu")
+
+
+class _ShardTarget:
+    """A sharded optimizer tensor as a load's target: it takes its shard
+    of the global tensor read from the tag."""
+
+    ckpt_leaf = True
+
+    def __init__(self, part):
+        self.part = part
+        self.shape = torch.Size(part.leaf.full_shape)
+        self.is_cuda = part.shard.is_cuda
+        self.device = part.shard.device
+
+    def copy_(self, full):
+        self.part.scatter_from(full.to(self.part.shard.device))
+        return self
+
+
 class DeepSpeedEngine:
-    """Training engine at world size 1."""
+    """Training engine: one device, or one rank of a data-parallel group."""
 
     def __init__(self, model=None, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, collate_fn=None,
@@ -182,8 +288,11 @@ class DeepSpeedEngine:
                              f"{type(model).__name__}")
         self.device = resolve_device(device)
         self.accelerator = get_accelerator(self.device)
+        self._init_data_parallel()
         self._config = config if isinstance(config, DeepSpeedConfig) \
-            else DeepSpeedConfig(config if config is not None else {})
+            else DeepSpeedConfig(config if config is not None else {},
+                                 mesh_world_size=self.dp_world)
+        comm.configure(self._config)
         self.module = model
         self.loss_fn = loss_fn
         self.training_dataloader = None
@@ -240,6 +349,10 @@ class DeepSpeedEngine:
         bad = [p.dtype for p in self._params if p.dtype != torch.float32]
         if bad:
             raise ValueError(f"master parameters must be float32, got {bad}")
+        self._plan = None
+        self._stage2 = False
+        if self._dp:
+            self._init_zero()
 
         self.optimizer = optimizer or build_optimizer(self._config.optimizer)
         if self._offload_cfg is not None and \
@@ -254,7 +367,7 @@ class DeepSpeedEngine:
             self._opt_state = None
         else:
             self._cast_params(self._master_dtype)
-            self._opt_state = self.optimizer.init(self._params)
+            self._opt_state = self.optimizer.init(self._opt_templates())
         self.lr_scheduler = lr_scheduler or build_lr_scheduler(
             self._config.scheduler, self.optimizer)
         self.loss_scaler = create_loss_scaler(self._config.fp16)
@@ -263,6 +376,11 @@ class DeepSpeedEngine:
         # a static unit scale cannot overflow: no flag, no skip
         self._static_unit = isinstance(self.loss_scaler, StaticLossScaler) \
             and self.loss_scaler.scale_value == 1.0
+        if self._config.nebula_config.enabled and self.dp_world > 1:
+            raise NotImplementedError(
+                "nebula (the asynchronous checkpoint writer) at data-parallel "
+                "size > 1 is not ported to deepspeed_tpu_torch yet (see "
+                "ROADMAP.md, queue A)")
         # the nebula block selects the asynchronous writer, as in JAX
         self.checkpoint_engine = NebulaCheckpointEngine(
             self._config.nebula_config) \
@@ -273,10 +391,12 @@ class DeepSpeedEngine:
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(
                 training_data, collate_fn=collate_fn)
+        if self._stage2:
+            self._register_reduce_hooks()
         n = sum(p.numel() for p in self._params)
         log_dist(f"DeepSpeedEngine configured: device={self.device} "
                  f"dtype={_DTYPE_NAMES[self.compute_dtype]} "
-                 f"params={n / 1e6:.2f}M "
+                 f"params={n / 1e6:.2f}M dp={self.dp_world} "
                  f"zero_stage={self.zero_optimization_stage()} "
                  f"micro_bs={self.train_micro_batch_size_per_gpu()} "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
@@ -303,6 +423,86 @@ class DeepSpeedEngine:
                                  "generator) or model_parameters")
             m.init_weights(self.accelerator.manual_seed(self._config.seed,
                                                         self.device))
+
+    def _init_data_parallel(self):
+        """With a live process group this engine is one rank of the
+        topology's data-parallel group (the topology is built over the
+        live world unless one with groups is set); without one it is the
+        single-device engine (``dp_world`` 1, no collectives)."""
+        self._dp = comm.is_initialized()
+        self.topology, self.dp_group = None, None
+        self.dp_world, self.dp_rank = 1, 0
+        if not self._dp:
+            return
+        want = "nccl" if self.device.type == "cuda" else "gloo"
+        backend = comm.get_backend()
+        if backend is None:
+            import torch.distributed as dist
+            backend = dist.get_backend()
+        if backend != want:
+            raise ValueError(
+                f"the process group runs {backend} but the engine's device "
+                f"is {self.device}: the port trains over nccl on CUDA and "
+                f"gloo on the CPU, never one for the other")
+        if self.device.type == "cuda" and comm.get_device() is not None \
+                and self.device != comm.get_device():
+            raise ValueError(f"rank {comm.get_rank()} owns "
+                             f"{comm.get_device()}, not {self.device}")
+        from deepspeed_tpu_torch.parallel import topology as topo_mod
+        topo = topo_mod._TOPOLOGY
+        if topo is None or topo.groups is None or \
+                topo.world_size != comm.get_world_size():
+            topo = topo_mod.initialize_topology()
+        self.topology = topo
+        self.dp_group = topo.get_data_parallel_group()
+        self.dp_world = topo.get_data_parallel_world_size()
+        self.dp_rank = topo.get_data_parallel_rank(comm.get_rank())
+        self._dp_src = comm.get_global_rank(self.dp_group, 0)
+
+    @torch.no_grad()
+    def _init_zero(self):
+        """Every rank starts from dp rank 0's parameters (a broadcast, an
+        identity when they are equal already), then the ZeRO plan of the
+        configured stage over the group."""
+        from deepspeed_tpu_torch.runtime.zero.partition import \
+            build_sharding_plan
+        for p in self._params:
+            comm.broadcast(p.data, src=self._dp_src, group=self.dp_group,
+                           log_name="broadcast_params")
+        stage = self.zero_optimization_stage()
+        # the JAX model's layouts where the module gives them, so the
+        # shards hold the JAX engine's elements
+        lay = getattr(self.module, "jax_layouts", dict)()
+        names = [n for n, p in self.module.named_parameters()
+                 if p.requires_grad]
+        self._plan = build_sharding_plan(
+            [p.shape for p in self._params], self.dp_world, self.dp_rank,
+            stage, [lay.get(n) for n in names])
+        self._stage2 = stage >= 2
+
+    def _opt_templates(self):
+        """The tensors the optimizer state is made like: each parameter,
+        or its shard's shape (moved layout) where the plan shards the
+        optimizer state."""
+        if self._plan is None:
+            return self._params
+        return [p if not leaf.sharded else
+                torch.empty(leaf.shard_shape, dtype=p.dtype, device=p.device)
+                for p, leaf in zip(self._params, self._plan.opt)]
+
+    def _global_loss(self, loss):
+        """The group's average of a detached per-rank loss (each rank's
+        loss is its share of the global mean times dp)."""
+        if not self._dp:
+            return loss
+        out = loss.detach().clone()
+        return comm.all_reduce(out, op=comm.ReduceOp.AVG,
+                               group=self.dp_group, log_name="loss")
+
+    def _sum_over_dp(self, count):
+        out = count.clone()
+        return comm.all_reduce(out, group=self.dp_group,
+                               log_name="token_count")
 
     @torch.no_grad()
     def _cast_params(self, dtype):
@@ -359,21 +559,46 @@ class DeepSpeedEngine:
         if getattr(self, "_host_opt", None) is not None:
             self._host_opt.reseed_masters(self._params)
 
-    def put_batch(self, batch):
+    def put_batch(self, batch, rank_rows=False):
         """``batch`` (tensors or arrays, nested in dicts / lists) on the
-        engine's device."""
+        engine's device.  A batch is global: at data-parallel size dp each
+        leaf's dim 0 splits into dp equal parts and this rank keeps part
+        ``dp_rank`` (JAX's data sharding), unless ``rank_rows`` says the
+        batch holds this rank's rows already (the loader's batches, which
+        stay marked so a second ``put_batch`` keeps them whole)."""
         def put(x):
+            if torch.is_tensor(x) and getattr(x, _RANK_ROWS, False):
+                return x
             if not torch.is_tensor(x):
-                x = torch.as_tensor(np.asarray(x))
-            return x.to(self.device, non_blocking=True)
+                x = np.asarray(x)
+            if self.dp_world > 1 and not rank_rows and x.ndim > 0:
+                n = x.shape[0]
+                if n % self.dp_world:
+                    raise ValueError(
+                        f"a global batch of {n} rows does not split over "
+                        f"{self.dp_world} data-parallel ranks")
+                m = n // self.dp_world
+                x = x[self.dp_rank * m:(self.dp_rank + 1) * m]
+            given = x
+            if not torch.is_tensor(x):
+                x = torch.as_tensor(np.ascontiguousarray(x))
+            x = x.to(self.device, non_blocking=True)
+            if rank_rows and self.dp_world > 1:
+                if x is given:          # mark an alias, not the caller's
+                    x = x.view_as(x)
+                setattr(x, _RANK_ROWS, True)
+            return x
         return _map(put, batch)
 
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None):
-        """The training loader (micro batches, placed on the device)."""
+        """The training loader: global batches of ``batch_size`` samples
+        (default ``micro × dp``), of which this rank collates and places
+        its rows."""
         from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
         return DeepSpeedDataLoader(
             dataset,
-            batch_size=batch_size or self.train_micro_batch_size_per_gpu(),
+            batch_size=batch_size or
+            self.train_micro_batch_size_per_gpu() * self.dp_world,
             collate_fn=collate_fn, engine=self)
 
     # ------------------------------------------------------------------ #
@@ -425,7 +650,13 @@ class DeepSpeedEngine:
     def _loss_of(self, args, kwargs):
         args = tuple(self.put_batch(a) for a in args)
         kwargs = {k: self.put_batch(v) for k, v in kwargs.items()}
-        out = self.module(*args, **kwargs)
+        if self._dp:
+            from deepspeed_tpu_torch.models.transformer import \
+                global_token_count
+            with global_token_count(self._sum_over_dp, self.dp_world):
+                out = self.module(*args, **kwargs)
+        else:
+            out = self.module(*args, **kwargs)
         return out[0] if isinstance(out, tuple) else out
 
     def forward(self, *args, **kwargs):
@@ -433,7 +664,7 @@ class DeepSpeedEngine:
         for :meth:`backward`."""
         if not self.training:
             with torch.no_grad():
-                return self._loss_of(args, kwargs)
+                return self._global_loss(self._loss_of(args, kwargs))
         if self._pending is not None and self._window_open:
             # this window's gradients would be computed on the wrong sum
             raise RuntimeError(
@@ -454,7 +685,8 @@ class DeepSpeedEngine:
             return loss
         loss = self._loss_of(args, kwargs)
         self._pending = loss
-        self._last_loss = loss.detach()
+        # the global loss (the group's average of the ranks' shares)
+        self._last_loss = self._global_loss(loss.detach())
         return loss
 
     def _group_bounds(self, n_groups):
@@ -506,8 +738,17 @@ class DeepSpeedEngine:
         if not isinstance(pending, _Accumulated):
             gas = self.gradient_accumulation_steps()
             scaled = pending.float() * self._scaler_state.scale / gas
-            scaled.backward(retain_graph=retain_graph)
-            self._fold_grads()
+            if self._stage2:
+                # the hooks reduce-scatter each bucket as its gradients land
+                self._reducing = True
+                try:
+                    scaled.backward(retain_graph=retain_graph)
+                finally:
+                    self._reducing = False
+                self._flush_buckets()
+            else:
+                scaled.backward(retain_graph=retain_graph)
+                self._fold_grads()
         if not self._static_unit:
             # non-finite values are sticky under addition, so the running
             # sum is non-finite iff some micro step's gradients were
@@ -525,6 +766,7 @@ class DeepSpeedEngine:
         for p in self._params:
             p.grad = None
         self._grad_acc = None
+        self._grad_shards = None
         self._window_open = False
         self._found_inf = None
 
@@ -546,9 +788,100 @@ class DeepSpeedEngine:
                 self._grad_acc[i].add_(g.to(acc_dt))
             p.grad = None
 
+    # ------------------------------------------------------------------ #
+    # ZeRO-2: the backward's bucketed reduce-scatter
+    # ------------------------------------------------------------------ #
+    def _register_reduce_hooks(self):
+        """Fixed buckets, in reverse parameter order (the order the
+        backward produces most gradients in), of about
+        ``reduce_bucket_size`` elements; a hook on each parameter marks its
+        gradient in and reduces every complete bucket, in bucket order."""
+        size = int(self._config.zero_config.reduce_bucket_size)
+        buckets, cur, n = [], [], 0
+        for i in reversed(range(len(self._params))):
+            cur.append(i)
+            n += self._params[i].numel()
+            if n >= size:
+                buckets.append(cur)
+                cur, n = [], 0
+        if cur:
+            buckets.append(cur)
+        self._buckets = buckets
+        self._bucket_of = {i: b for b, idx in enumerate(buckets)
+                           for i in idx}
+        self._reducing = False
+        self._grad_shards = None
+        self._reset_buckets()
+        self._hooks = [p.register_post_accumulate_grad_hook(
+            functools.partial(self._grad_ready, i))
+            for i, p in enumerate(self._params)]
+
+    def _reset_buckets(self):
+        self._bucket_missing = [len(b) for b in self._buckets]
+        self._next_bucket = 0
+
+    def _grad_ready(self, i, p):
+        if not self._reducing:
+            return
+        self._bucket_missing[self._bucket_of[i]] -= 1
+        while self._next_bucket < len(self._buckets) and \
+                self._bucket_missing[self._next_bucket] == 0:
+            self._reduce_bucket(self._next_bucket)
+            self._next_bucket += 1
+
+    def _flush_buckets(self):
+        """After the backward: reduce the buckets not reduced yet (a
+        parameter that got no gradient contributes zeros)."""
+        while self._next_bucket < len(self._buckets):
+            self._reduce_bucket(self._next_bucket)
+            self._next_bucket += 1
+        self._reset_buckets()
+
+    @torch.no_grad()
+    def _reduce_bucket(self, b):
+        from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import (
+            all_reduce_coalesced, reduce_scatter_coalesced)
+        idx = self._buckets[b]
+        if self._grad_shards is None:
+            self._grad_shards = [None] * len(self._params)
+        grads = {}
+        for i in idx:
+            p = self._params[i]
+            grads[i] = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+        plan = self._plan.grad
+        split = [i for i in idx if plan[i].sharded]
+        whole = [i for i in idx if not plan[i].sharded]
+        avg = comm.ReduceOp.AVG
+        if split:
+            outs = reduce_scatter_coalesced(
+                [plan[i].moved(grads[i]) for i in split], self.dp_group, avg)
+            for i, o in zip(split, outs):
+                self._accumulate(i, o.view(plan[i].shard_shape))
+        if whole:
+            all_reduce_coalesced([grads[i] for i in whole], self.dp_group,
+                                 avg)
+            for i in whole:
+                self._accumulate(i, grads[i])
+
+    def _accumulate(self, i, g):
+        """Add a reduced gradient (shard) into the window's sum, in the
+        accumulation dtype (cast first, as ``_fold_grads``)."""
+        g = g if g.dtype == self._accum_dtype else g.to(self._accum_dtype)
+        cur = self._grad_shards[i]
+        if cur is None:
+            self._grad_shards[i] = g
+        else:
+            cur.add_(g)
+
     def _grads(self):
         """The accumulated gradient of every parameter (zeros where it got
-        none)."""
+        none); under ZeRO-2 each rank's reduced shard."""
+        if self._stage2:
+            shards = self._grad_shards or [None] * len(self._params)
+            return [g if g is not None else torch.zeros(
+                leaf.shard_shape, dtype=self._accum_dtype, device=self.device)
+                for g, leaf in zip(shards, self._plan.grad)]
         acc = self._grad_acc or [None] * len(self._params)
         out = []
         for p, a in zip(self._params, acc):
@@ -563,6 +896,25 @@ class DeepSpeedEngine:
         return torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm(grads, 2, dtype=torch.float32)))
 
+    def _global_norm(self, grads):
+        """The global gradient norm.  Stage 0 / 1: the averaged gradients
+        are whole and equal on every rank.  Stage 2: each leaf's squared
+        shard norms summed over the group (one all-reduce; a whole leaf on
+        dp rank 0 only), the root of each, then the norm of those — at
+        world size 1 the single-device formula's bits, as sqrt(x * x) is x
+        in IEEE arithmetic."""
+        if not self._stage2:
+            return self._grad_norm(grads)
+        norms = torch.stack(torch._foreach_norm(grads, 2,
+                                                dtype=torch.float32))
+        if self.dp_rank != 0:
+            keep = torch.tensor([leaf.sharded for leaf in self._plan.grad],
+                                device=norms.device)
+            norms = torch.where(keep, norms, torch.zeros_like(norms))
+        sq = norms * norms
+        comm.all_reduce(sq, group=self.dp_group, log_name="grad_norm")
+        return torch.linalg.vector_norm(torch.sqrt(sq))
+
     def _unscale_and_clip(self, grads):
         """Unscale by the loss scale and take the global grad norm (the
         JAX ``_unscale_and_clip``); returns ``(gnorm, factor)``, the clip
@@ -570,7 +922,7 @@ class DeepSpeedEngine:
         :meth:`_clipped` applies a group at a time."""
         if not self._static_unit:
             torch._foreach_mul_(grads, 1.0 / self._scaler_state.scale)
-        gnorm = self._grad_norm(grads)
+        gnorm = self._global_norm(grads)
         clip = float(self.gradient_clipping() or 0.0)
         factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0) \
             if clip > 0.0 else None
@@ -610,7 +962,7 @@ class DeepSpeedEngine:
                 log_dist(f"overflow: skipped {skipped - before} recent "
                          f"step(s), loss scale "
                          f"{float(self._scaler_state.scale)}", ranks=[0])
-        if self.monitor.enabled and \
+        if self.monitor.enabled and self.dp_rank == 0 and \
                 self.global_steps % self.steps_per_print() == 0:
             events = [("Train/Samples/lr", self.get_lr()[0],
                        self.global_samples)]
@@ -632,31 +984,99 @@ class DeepSpeedEngine:
                 ("Train/Samples/hbm_peak_bytes", wm["peak_bytes_in_use"],
                  self.global_samples)]
 
+    @torch.no_grad()
+    def _allreduce_grads(self, grads):
+        """Stage 0 / 1: average the accumulated gradients over the group in
+        place, a ``reduce_bucket_size`` bucket at a time."""
+        from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import \
+            all_reduce_coalesced
+        size = int(self._config.zero_config.reduce_bucket_size)
+        for bucket in _buckets(range(len(grads)), grads, size):
+            all_reduce_coalesced([grads[i] for i in bucket], self.dp_group,
+                                 comm.ReduceOp.AVG)
+
+    def _any_rank(self, flag):
+        """A device flag raised on any rank of the group (MAX)."""
+        f = flag.to(torch.uint8)
+        comm.all_reduce(f, op=comm.ReduceOp.MAX, group=self.dp_group,
+                        log_name="overflow")
+        return f.bool()
+
+    def _step_views(self, sl, grads):
+        """The step's targets and gradients for the parameters ``sl``:
+        whole parameters and gradients where the optimizer state is whole;
+        where it is sharded, contiguous copies of this rank's master shard
+        (written back by :meth:`_gather_masters`) and its gradient shard
+        (stage 1 takes it from the averaged whole gradient; stage 2 holds
+        it already)."""
+        if self._plan is None:
+            return self._params[sl], grads[sl]
+        targets, gs = [], []
+        for i in range(sl.start, sl.stop):
+            leaf, p, g = self._plan.opt[i], self._params[i], grads[i]
+            if not leaf.sharded:
+                targets.append(p)
+                gs.append(g)
+                continue
+            targets.append(leaf.take(p.data).contiguous())
+            gs.append(g if self._stage2 else leaf.take(g).contiguous())
+        return targets, gs
+
+    @torch.no_grad()
+    def _gather_masters(self, sl, targets):
+        """All-gather the updated master shards of ``sl`` into every rank's
+        parameters (one collective for the group)."""
+        from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import \
+            gathered_views
+        idx = [i for i in range(sl.start, sl.stop)
+               if self._plan.opt[i].sharded]
+        if not idx:
+            return
+        W, views = gathered_views(
+            [targets[i - sl.start].reshape(-1) for i in idx], self.dp_group)
+        for i, rows in zip(idx, views):
+            leaf = self._plan.opt[i]
+            full = leaf.moved(self._params[i].data).unflatten(
+                0, (W, leaf.rows))
+            full.copy_(rows.view(W, *leaf.shard_shape))
+
     def _device_step(self):
         """The optimizer on the card, a group of ``SKIP_GROUP_NUMEL``
         parameter elements at a time: every optimizer of the port updates
         each tensor on its own, so the groups give one call's bits while
-        the update's fp32 temporaries stay one group's."""
+        the update's fp32 temporaries stay one group's.  Under ZeRO each
+        rank steps its shards, then the group's master shards are
+        all-gathered."""
         grads = self._grads()
+        if self._dp and not self._stage2:
+            self._allreduce_grads(grads)
         lr, step_no = self.get_lr()[0], self.global_steps + 1
-        gnorm, factor = self._unscale_and_clip(grads)
         found = None if self._static_unit else self._found_inf
+        if found is not None and self._dp:
+            found = self._any_rank(found)
+        gnorm, factor = self._unscale_and_clip(grads)
+        sharded = self._plan is not None and any(
+            leaf.sharded for leaf in self._plan.opt)
         for sl in _skip_groups(self._params):
             state = _state_slice(self._opt_state, sl)
-            gs = self._clipped(grads[sl], factor)
+            targets, gs = self._step_views(sl, grads)
+            gs = self._clipped(gs, factor)
             if found is None:
-                self.optimizer.update(gs, state, self._params[sl], lr=lr,
+                self.optimizer.update(gs, state, targets, lr=lr,
                                       step=step_no)
-                continue
-            # branch-free overflow skip: the group's old values are kept
-            # and selected back on the device flag
-            live = self._params[sl] + _state_tensors(state)
-            old = torch._foreach_clone(live)
-            self.optimizer.update(gs, state, self._params[sl], lr=lr,
-                                  step=step_no)
-            for o, n in zip(old, live):
-                torch.where(found, o, n, out=n)
-            del old
+            else:
+                # branch-free overflow skip: the group's old values are
+                # kept and selected back on the device flag
+                live = list(targets) + _state_tensors(state)
+                old = [t.clone() for t in live]
+                self.optimizer.update(gs, state, targets, lr=lr,
+                                      step=step_no)
+                for o, n in zip(old, live):
+                    torch.where(found, o, n, out=n)
+                del old
+            if sharded:
+                self._gather_masters(sl, targets)
+            del targets, gs
         if found is not None:
             self._scaler_state = self.loss_scaler.update(self._scaler_state,
                                                          found)
@@ -745,7 +1165,8 @@ class DeepSpeedEngine:
         for mb in micro:
             loss = self.forward(mb)
             self.backward(loss)
-            losses.append(loss.detach())
+            # the micro step's global loss (this rank's own without a group)
+            losses.append(self._last_loss)
         # set before step() so the step logs this batch's loss
         self._last_loss = torch.stack(losses).float().mean()
         self.step()
@@ -790,15 +1211,27 @@ class DeepSpeedEngine:
         fcfg = self._config.fault
         return fcfg if fcfg.enabled else None
 
-    def _checkpoint_arrays(self):
+    def _checkpoint_arrays(self, sharded_as=None):
         """The tag's array groups, as the live tensors: ``module`` (the
         master ``state_dict``, detached views of the parameters; the
         compute-dtype parameters under offload), ``optimizer`` (its state
         NamedTuple of per-parameter lists, in ``engine.params`` order; None
         under offload, whose host state goes to ``host_optimizer/``) and
-        ``loss_scaler``."""
+        ``loss_scaler``.  A tag holds global tensors: ``sharded_as``
+        (``_GlobalLeaf`` for a save, ``_ShardTarget`` for a load) stands in
+        for each sharded optimizer tensor at data-parallel size > 1."""
+        state = self._opt_state
+        if sharded_as is not None and state is not None and \
+                self._plan is not None and self.dp_world > 1:
+            from deepspeed_tpu_torch.runtime.zero import Partitioned
+            state = type(state)(*(
+                None if field is None else
+                [t if not leaf.sharded else
+                 sharded_as(Partitioned(t, leaf, self.dp_group))
+                 for t, leaf in zip(field, self._plan.opt)]
+                for field in state))
         return {"module": self.module.state_dict(),
-                "optimizer": self._opt_state,
+                "optimizer": state,
                 "loss_scaler": self._scaler_state}
 
     def _checkpoint_meta(self, client_state):
@@ -834,7 +1267,45 @@ class DeepSpeedEngine:
         if tag is None:
             tag = f"global_step{self.global_steps}"
         tag = str(tag)
-        arrays = self._checkpoint_arrays()
+        if self.dp_world > 1:
+            return self._save_checkpoint_dp(save_dir, tag, client_state,
+                                            save_latest)
+        return self._save_checkpoint_arrays(save_dir, tag,
+                                            self._checkpoint_arrays(),
+                                            client_state, save_latest)
+
+    def _save_checkpoint_dp(self, save_dir, tag, client_state, save_latest):
+        """A save at data-parallel size > 1: dp rank 0 writes the tag (its
+        own protocol, no retries) while every rank gathers each sharded
+        optimizer tensor in the same order; then rank 0's outcome is
+        broadcast, so every rank returns or raises alike."""
+        arrays = self._checkpoint_arrays(sharded_as=_GlobalLeaf)
+        lazy = [t for _, t in flatten_groups(arrays)
+                if isinstance(t, _GlobalLeaf)]
+        ok = torch.ones((), dtype=torch.int32, device=self.device)
+        error = None
+        try:
+            if self.dp_rank == 0:
+                try:
+                    self._save_checkpoint_arrays(save_dir, tag, arrays,
+                                                 client_state, save_latest)
+                except Exception as e:      # raised after the others know
+                    error = e
+                    ok.zero_()
+        finally:
+            for t in lazy:
+                t.drain()
+        comm.broadcast(ok, src=self._dp_src, group=self.dp_group,
+                       log_name="checkpoint_status")
+        if error is not None:
+            raise error
+        if not int(ok):
+            raise RuntimeError(f"checkpoint {tag}: the save failed on data-"
+                               f"parallel rank 0")
+        return True
+
+    def _save_checkpoint_arrays(self, save_dir, tag, arrays, client_state,
+                                save_latest):
         fcfg = self._fault_config()
         if fcfg is not None:
             return self._save_checkpoint_atomic(save_dir, tag, arrays,
@@ -896,8 +1367,10 @@ class DeepSpeedEngine:
             # disk before the manifest walks the staging dir
             self.checkpoint_engine.commit(tag)
 
-        retry_call(write_stage, label=f"checkpoint write ({tag})",
-                   **retry_policy_from_config(fcfg))
+        # the gathers of a data-parallel save happen once: no retry there
+        policy = retry_policy_from_config(fcfg) if self.dp_world == 1 \
+            else retry_policy_from_config(None)
+        retry_call(write_stage, label=f"checkpoint write ({tag})", **policy)
         t1 = time.monotonic()
         inject.fire("ckpt.before_manifest", path=tmp_dir)
         manifest = build_manifest(
@@ -1047,7 +1520,7 @@ class DeepSpeedEngine:
         """The live tensors a load writes into: the module always, the
         optimizer state unless told not to, the loss scaler unless only
         the module is loaded."""
-        live = self._checkpoint_arrays()
+        live = self._checkpoint_arrays(sharded_as=_ShardTarget)
         targets = {"module": live["module"]}
         if not load_module_only:
             if load_optimizer_states and live["optimizer"] is not None:
@@ -1148,6 +1621,16 @@ class DeepSpeedEngine:
         whose ``export_convert`` renames the weights to that family's HF
         checkpoint keys instead (``module_inject.convert_hf_model`` reads
         them back)."""
+        if self.dp_world > 1:
+            # the parameters are whole on every rank: dp rank 0 writes
+            if self.dp_rank == 0:
+                self._save_16bit_model(save_dir, save_filename, hf_policy)
+            comm.barrier(self.dp_group)
+            return True
+        return self._save_16bit_model(save_dir, save_filename, hf_policy)
+
+    @torch.no_grad()
+    def _save_16bit_model(self, save_dir, save_filename, hf_policy):
         from deepspeed_tpu_torch.checkpoint.safetensors_io import save_file
         from deepspeed_tpu_torch.models.transformer import params_to_flax
         save_dir = str(save_dir)

@@ -1,0 +1,75 @@
+"""Process-group registry (port of ``deepspeed_tpu/utils/groups.py``,
+reference ``deepspeed/utils/groups.py``).
+
+The getters answer from the live :class:`ParallelTopology`: each returns
+the ``torch.distributed`` ``ProcessGroup`` of its axes (JAX returns the
+axis names).  Only data parallelism is accepted in this slice, so the
+``_create_*`` builders raise for an expert or tensor size above 1.
+"""
+
+from deepspeed_tpu_torch.parallel import topology as _topo
+
+
+def _require_topo():
+    t = _topo.get_topology()
+    if t is None:
+        raise RuntimeError("topology not initialized; call "
+                           "deepspeed_tpu_torch.initialize or "
+                           "initialize_topology")
+    return t
+
+
+def _create_expert_and_data_parallel(expert_parallel_size):
+    """Reference ``groups.py:108``: a topology rebuild."""
+    return _topo.initialize_topology(ep=expert_parallel_size)
+
+
+def _create_expert_data_and_model_parallel(expert_parallel_size, mpu=None,
+                                           tensor_parallel_size=1):
+    """Reference ``groups.py:202``."""
+    return _topo.initialize_topology(ep=expert_parallel_size,
+                                     tp=tensor_parallel_size)
+
+
+# cached getters (reference groups.py:280-392)
+def _get_data_parallel_group():
+    return _require_topo().group_for(_topo.DP_AXES)
+
+
+def _get_model_parallel_group():
+    return _require_topo().group_for((_topo.TP_AXIS,))
+
+
+def _get_expert_parallel_group(name=None):
+    return _require_topo().group_for((_topo.EP_AXIS,))
+
+
+def _get_expert_data_parallel_group(name=None):
+    return _require_topo().group_for(
+        _require_topo().get_expert_data_parallel_axes())
+
+
+def _get_sequence_parallel_group():
+    return _require_topo().group_for((_topo.SP_AXIS,))
+
+
+def _get_data_parallel_world_size():
+    return _require_topo().get_data_parallel_world_size()
+
+
+def _get_model_parallel_world_size():
+    return _require_topo().get_model_parallel_world_size()
+
+
+def _get_expert_parallel_world_size(name=None):
+    return _require_topo().get_expert_parallel_world_size()
+
+
+def _get_data_parallel_rank():
+    return _require_topo().get_data_parallel_rank()
+
+
+def _get_expert_model_parallel_world_size():
+    t = _require_topo()
+    return t.get_expert_parallel_world_size() * \
+        t.get_model_parallel_world_size()

@@ -77,7 +77,15 @@ def test_import_leaves_jax_unloaded():
             "deepspeed_tpu_torch.inference.serving.frontend.transport, "
             "deepspeed_tpu_torch.monitor.monitor, "
             "deepspeed_tpu_torch.monitor.memwatch, "
-            "deepspeed_tpu_torch.monitor.trace; "
+            "deepspeed_tpu_torch.monitor.trace, "
+            "deepspeed_tpu_torch.comm, deepspeed_tpu_torch.comm.backend, "
+            "deepspeed_tpu_torch.parallel.topology, "
+            "deepspeed_tpu_torch.utils.groups, "
+            "deepspeed_tpu_torch.utils.comms_logging, "
+            "deepspeed_tpu_torch.launcher.runner, "
+            "deepspeed_tpu_torch.runtime.comm, "
+            "deepspeed_tpu_torch.runtime.zero, "
+            "deepspeed_tpu_torch.runtime.zero.partition; "
             "bad = [m for m in ('jax', 'flax', 'pydantic', 'deepspeed_tpu') "
             "if m in sys.modules and m not in before]; print(bad); "
             "sys.exit(1 if bad else 0)")

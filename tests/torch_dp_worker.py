@@ -1,0 +1,381 @@
+"""One rank of the port's data-parallel CPU tests (gloo).  It imports no
+JAX: the tests start it through the port's launcher,
+
+    python -m deepspeed_tpu_torch.launcher.runner --num_gpus N \\
+        tests/torch_dp_worker.py SUITE OUT_DIR [INPUT]
+
+and each rank writes ``OUT_DIR/SUITE.rank<r>.pt`` (``torch.save`` of a
+dict), which the tests read and hold against numpy and the JAX package.
+
+Suites: ``comm`` (every collective of ``deepspeed_tpu_torch.comm``, the
+coalesced collectives, the live topology and ``GatheredParameters``),
+``zero`` (the engine at ZeRO stages 0 / 1 / 2 from the weights and
+batches in INPUT, a ``torch.save`` dict the test writes; with a ``ckpt``
+entry it then loads the tag ``ckpt`` wrote), ``ckpt`` (a tag saved at
+this world size), ``fail`` (rank 1 exits 3 at once, the others sleep: the
+launcher's exit code).  ``WORKER_DEVICE=cuda`` runs the ranks on their
+cards over NCCL (the card tests), otherwise on the CPU over gloo.
+"""
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import deepspeed_tpu_torch as ds  # noqa: E402
+from deepspeed_tpu_torch import comm  # noqa: E402
+from deepspeed_tpu_torch.comm import ReduceOp  # noqa: E402
+
+# "cpu" (gloo) or "cuda" (NCCL, each rank on cuda:LOCAL_RANK)
+CUDA = os.environ.get("WORKER_DEVICE", "cpu") == "cuda"
+DEV = None if CUDA else "cpu"
+
+
+def _save(out_dir, suite, rank, rec):
+    tmp = os.path.join(out_dir, f"{suite}.rank{rank}.pt.tmp")
+    torch.save(rec, tmp)
+    os.replace(tmp, os.path.join(out_dir, f"{suite}.rank{rank}.pt"))
+
+
+# --------------------------------------------------------------------- #
+# comm
+# --------------------------------------------------------------------- #
+VERBS = ("all_reduce_sum", "all_reduce_avg", "all_reduce_max",
+         "all_reduce_min", "all_reduce_product", "all_reduce_bf16",
+         "inference_all_reduce", "all_gather_into_tensor",
+         "reduce_scatter_tensor", "reduce_scatter_avg", "all_to_all_single",
+         "broadcast", "reduce", "all_gather", "scatter", "send_recv")
+
+
+def comm_inputs(world):
+    """Every rank's inputs to the comm suite."""
+    return {
+        "x": [np.arange(8.0) + 10 * r for r in range(world)],
+        "src": [np.arange(8.0 * world) * (r + 1) for r in range(world)],
+        "a2a": [np.arange(4.0 * world) + 100 * r for r in range(world)],
+    }
+
+
+def comm_expected(name, world, r):
+    """What numpy says rank r holds after verb ``name`` (for ``reduce``
+    only rank 0's tensor is defined, torch's rule)."""
+    inp = comm_inputs(world)
+    x = np.stack(inp["x"])
+    if name.startswith("all_reduce_"):
+        op = name[len("all_reduce_"):]
+        if op == "bf16":
+            return x.sum(0)
+        return {"sum": np.sum, "avg": np.mean, "max": np.max, "min": np.min,
+                "product": np.prod}[op](x + 1, axis=0)
+    if name in ("inference_all_reduce", "reduce"):
+        return x.sum(0)
+    if name == "all_gather_into_tensor":
+        return x.reshape(-1)
+    if name == "reduce_scatter_tensor":
+        return np.stack(inp["src"]).sum(0).reshape(world, 8)[r]
+    if name == "reduce_scatter_avg":
+        return np.stack(inp["src"]).mean(0).reshape(world, 8)[r]
+    if name == "all_to_all_single":
+        a = np.stack(inp["a2a"]).reshape(world, world, 4)
+        return a[:, r].reshape(-1)
+    if name == "broadcast":
+        return x[world - 1]
+    if name == "all_gather":
+        return x
+    if name == "scatter":
+        return np.arange(3.0 * world).reshape(world, 3)[r]
+    if name == "send_recv":
+        return x[(r - 1) % world]
+    raise KeyError(name)
+
+def comm_suite(rank, world):
+    from deepspeed_tpu_torch.parallel import topology as topo_mod
+    from deepspeed_tpu_torch.runtime import zero
+    from deepspeed_tpu_torch.runtime.comm import (all_gather_coalesced,
+                                                  all_reduce_coalesced,
+                                                  reduce_scatter_coalesced)
+    from deepspeed_tpu_torch.utils import groups
+    rec = {"rank": comm.get_rank(), "world": comm.get_world_size(),
+           "local_rank": comm.get_local_rank(), "backend": comm.get_backend()}
+    x = torch.arange(8.0) + 10 * rank
+    for name, op in (("sum", ReduceOp.SUM), ("avg", ReduceOp.AVG),
+                     ("max", ReduceOp.MAX), ("min", ReduceOp.MIN),
+                     ("product", ReduceOp.PRODUCT)):
+        rec["all_reduce_" + name] = comm.all_reduce(x.clone() + 1, op=op)
+    rec["all_reduce_bf16"] = comm.all_reduce(x.to(torch.bfloat16))
+    rec["inference_all_reduce"] = comm.inference_all_reduce(x.clone())
+    rec["all_gather_into_tensor"] = comm.all_gather_into_tensor(
+        torch.empty(8 * world), x)
+    src = torch.arange(8.0 * world).view(world, 8) * (rank + 1)
+    rec["reduce_scatter_tensor"] = comm.reduce_scatter_tensor(
+        torch.empty(8), src.reshape(-1))
+    rec["reduce_scatter_avg"] = comm.reduce_scatter_tensor(
+        torch.empty(8), src.reshape(-1), op=ReduceOp.AVG)
+    a2a = torch.arange(4.0 * world) + 100 * rank
+    rec["all_to_all_single"] = comm.all_to_all_single(
+        torch.empty(4 * world), a2a)
+    rec["broadcast"] = comm.broadcast(x.clone(), src=world - 1)
+    rec["reduce"] = comm.reduce(x.clone(), dst=0)
+    rec["all_gather"] = torch.stack(comm.all_gather(
+        [torch.empty(8) for _ in range(world)], x))
+    gl = [torch.empty(8) for _ in range(world)] if rank == 0 else None
+    got = comm.gather(x.clone(), gl, dst=0)
+    rec["gather"] = torch.stack(got) if rank == 0 else None
+    sl = list(torch.arange(3.0 * world).view(world, 3)) if rank == 0 \
+        else None
+    rec["scatter"] = comm.scatter(torch.empty(3), sl, src=0)
+    nxt, prv = (rank + 1) % world, (rank - 1) % world
+    buf = torch.empty(8)
+    if rank % 2 == 0:
+        comm.send(x.clone(), dst=nxt)
+        comm.recv(buf, src=prv)
+    else:
+        comm.recv(buf, src=prv)
+        comm.send(x.clone(), dst=nxt)
+    rec["send_recv"] = buf
+    comm.barrier()
+    comm.monitored_barrier(timeout=60)
+    # the comms logger
+    comm.configure(enabled=True)
+    comm.all_reduce(torch.ones(16))
+    rec["comms_log"] = comm.log_summary()
+    rec["comms_totals"] = comm.comms_logger.totals()
+    comm.configure(enabled=False)
+    # coalesced: every rank holds the same tensors
+    a, b = torch.arange(16.0), torch.ones(3, 5)
+    rec["reduce_scatter_coalesced"] = reduce_scatter_coalesced([a, b])
+    shard = torch.tensor([float(rank)])
+    rec["all_gather_coalesced"] = all_gather_coalesced([shard])[0]
+    t1, t2 = torch.full((2, 3), float(rank)), torch.arange(4.0) * rank
+    rec["all_reduce_coalesced"] = all_reduce_coalesced(
+        [t1, t2], op=ReduceOp.AVG)
+    # the live topology and the group getters
+    topo = topo_mod.initialize_topology()
+    dp_group = groups._get_data_parallel_group()
+    rec["topology"] = {
+        "dp": topo.dp, "world_size": topo.world_size,
+        "dp_rank": groups._get_data_parallel_rank(),
+        "dp_group_size": comm.get_world_size(dp_group),
+        "tp_group_size": comm.get_world_size(
+            groups._get_model_parallel_group()),
+        "rows": topo.data_spec(8 * world),
+        "group_axes": comm.get_world_size(comm.new_group(axes=("edp",)))}
+    rec["dp_group_sum"] = comm.all_reduce(torch.ones(1), group=dp_group)
+    try:
+        topo_mod.initialize_topology(tp=2)
+        rec["tp_raises"] = False
+    except NotImplementedError:
+        rec["tp_raises"] = True
+    topo_mod.set_topology(topo)
+    # GatheredParameters: a partitioned tensor and a plain one; rank 0's
+    # edit wins everywhere
+    plan = zero.build_sharding_plan([(4, 6)], world, rank, 1)
+    leaf = plan.opt[0]
+    full = torch.arange(24.0).view(4, 6)
+    part = zero.Partitioned(leaf.take(full).contiguous(), leaf)
+    plain = torch.full((3,), float(rank))
+    with zero.GatheredParameters({"w": part, "b": plain},
+                                 modifier_rank=0) as g:
+        rec["gathered_full"] = g.full["w"].clone()
+        g.full["w"][:] = 0.25 if rank == 0 else 9.0
+        g.full["b"][:] = 7.0 if rank == 0 else -1.0
+    rec["gathered_shard"] = part.shard.clone()
+    rec["gathered_leaf"] = (leaf.dim, leaf.shard_shape)
+    rec["gathered_plain"] = plain.clone()
+    untouched = torch.full((2,), float(rank))
+    with zero.GatheredParameters(untouched, modifier_rank=None) as g:
+        g.full.add_(1)
+    rec["gathered_none"] = untouched.clone()
+    try:
+        zero.Init()
+        rec["init_raises"] = False
+    except NotImplementedError:
+        rec["init_raises"] = True
+    return rec
+
+
+# --------------------------------------------------------------------- #
+# zero
+# --------------------------------------------------------------------- #
+def _engine(inp, stage, dtype, gas, micro, **extra):
+    from deepspeed_tpu_torch.models import transformer as pt
+    cfg = dict(inp["cfg"], dtype=dtype)
+    config = {"train_micro_batch_size_per_gpu": micro,
+              "gradient_accumulation_steps": gas,
+              "optimizer": {"type": "AdamW", "params": {
+                  "lr": inp["lr"], "weight_decay": 0.01}},
+              "gradient_clipping": 1.0,
+              "zero_optimization": {"stage": stage,
+                                    "reduce_bucket_size": 3000},
+              **extra}
+    if dtype == "bfloat16":
+        config["bf16"] = {"enabled": True}
+    if dtype == "float16":
+        config["fp16"] = {"enabled": True, "initial_scale_power": 8,
+                          "hysteresis": 1}
+    eng, *_ = ds.initialize(model=pt.Transformer(pt.TransformerConfig(**cfg)),
+                            model_parameters=inp["weights"], config=config,
+                            device=DEV)
+    return eng
+
+
+def _names(eng):
+    return [n for n, p in eng.module.named_parameters() if p.requires_grad]
+
+
+def _moments(eng):
+    """Each moment's shard, in the JAX layout's dim order (whole where
+    the plan keeps it whole, in the port's layout)."""
+    out = {}
+    for field in ("exp_avg", "exp_avg_sq"):
+        tensors = getattr(eng._opt_state, field)
+        for name, t, leaf in zip(_names(eng), tensors, eng._plan.opt):
+            out[f"{field}/{name}"] = (leaf.to_natural(t).float().clone(),
+                                      leaf.sharded)
+    return out
+
+
+def zero_suite(rank, world, inp, out_dir):
+    rec = {"runs": {}}
+    for key in inp["runs"][world]:
+        stage, dtype, gas = key
+        micro = inp["global_micro"] // world
+        eng = _engine(inp, stage, dtype, gas, micro)
+        losses = [float(eng.train_batch(batch=b))
+                  for b in inp["batches"][gas]]
+        sd = {k: v.float().clone() for k, v in
+              eng.module_state_dict().items()}
+        rec["runs"][key] = {
+            "losses": losses, "params": sd if rank == 0 else None,
+            "digest": sum(float(v.double().sum()) for v in sd.values()),
+            "moments": _moments(eng),
+            "grad_norm": float(eng.get_global_grad_norm())}
+        del eng
+    # the 3-call path and the loader give train_batch's bits
+    batch = inp["batches"][2][0]
+    a = _engine(inp, 2, "float32", 2, inp["global_micro"] // world)
+    want = float(a.train_batch(batch=batch))
+    b = _engine(inp, 2, "float32", 2, inp["global_micro"] // world)
+    three = []
+    for i in range(2):
+        loss = b({"input_ids": batch["input_ids"][i]})
+        three.append(float(b._last_loss))
+        b.backward(loss)
+        b.step()
+    samples = [{"input_ids": row} for row in
+               batch["input_ids"].reshape(-1, batch["input_ids"].shape[-1])]
+    c = _engine(inp, 2, "float32", 2, inp["global_micro"] // world)
+    loader = c.deepspeed_io(samples)
+    got_loader = float(c.train_batch(data_iter=iter(loader)))
+    first = next(iter(loader))["input_ids"]
+    rec["paths"] = {
+        "train_batch": want, "three_call": float(np.mean(three)),
+        "loader": got_loader, "loader_rows": tuple(first.shape),
+        "equal_3call": all(torch.equal(x, y) for x, y in zip(
+            a.module.parameters(), b.module.parameters())),
+        "equal_loader": all(torch.equal(x, y) for x, y in zip(
+            a.module.parameters(), c.module.parameters()))}
+    del a, b, c
+    # unequal padding across the ranks: the global-token mean
+    rec["padded"] = {}
+    for stage in (0, 2):
+        eng = _engine(inp, stage, "float32", 1, inp["global_micro"] // world)
+        loss = float(eng.train_batch(batch=inp["padded"]))
+        rec["padded"][stage] = {"loss": loss,
+                                "grad_norm": float(eng.get_global_grad_norm())}
+        del eng
+    # fp16: rank 1's gradients overflow, every rank skips
+    rec["fp16"] = {}
+    for stage in (0, 2):
+        eng = _engine(inp, stage, "float16", 1, inp["global_micro"] // world)
+        before = [p.detach().clone() for p in eng.module.parameters()]
+        handle = None
+        if rank == 1:
+            emb = eng.module.embed_tokens.weight
+            handle = emb.register_hook(lambda g: g * float("inf"))
+        scale0 = float(eng._scaler_state.scale)
+        eng.train_batch(batch=inp["batches"][1][0])
+        if handle is not None:
+            handle.remove()
+        rec["fp16"][stage] = {
+            "unchanged": all(torch.equal(x, y) for x, y in zip(
+                before, eng.module.parameters())),
+            "skipped": eng.skipped_steps, "scale0": scale0,
+            "scale": float(eng._scaler_state.scale)}
+        del eng
+    if "ckpt" in inp:
+        rec["ckpt"] = ckpt_load(inp, world)
+    return rec
+
+
+def ckpt_save(inp, rank, world):
+    """dp 2, stage 2 (sharded moments), crash-atomic: 2 steps, a tag, one
+    more step; then a marker file for the ranks that load it."""
+    ck = inp["ckpt"]
+    eng = _engine(inp, 2, "float32", 1, inp["global_micro"] // world,
+                  fault={"enabled": True})
+    for b in ck["batches"][:2]:
+        eng.train_batch(batch=b)
+    eng.save_checkpoint(ck["dir"], tag="dp2")
+    loss = float(eng.train_batch(batch=ck["batches"][2]))
+    rec = {"loss_after": loss,
+           "params": {k: v.clone() for k, v in
+                      eng.module_state_dict().items()} if rank == 0 else None}
+    comm.barrier()
+    if rank == 0:
+        open(os.path.join(ck["dir"], "dp2.done"), "w").close()
+    return rec
+
+
+def ckpt_load(inp, world):
+    """Once dp 2's tag is there: load it at stage 1 and take the step dp 2
+    took after its save."""
+    ck = inp["ckpt"]
+    done = os.path.join(ck["dir"], "dp2.done")
+    deadline = time.monotonic() + 300
+    while not os.path.exists(done):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{done} never appeared")
+        time.sleep(0.2)
+    eng = _engine(inp, 1, "float32", 1, inp["global_micro"] // world,
+                  fault={"enabled": True})
+    path, _ = eng.load_checkpoint(ck["dir"], tag="dp2")
+    return {"path": path, "global_steps": eng.global_steps,
+            "loss_after": float(eng.train_batch(batch=ck["batches"][2]))}
+
+
+def main():
+    suite, out_dir = sys.argv[1], sys.argv[2]
+    rank = int(os.environ["RANK"])
+    if suite == "fail":
+        if rank == 1:
+            sys.exit(3)
+        time.sleep(120)
+        return
+    torch.set_num_threads(1)
+    ds.init_distributed(device=DEV, timeout=240)
+    world = comm.get_world_size()
+    if CUDA:
+        # the comm suite's tensors go to this rank's card
+        torch.set_default_device(comm.get_device())
+    if suite == "comm":
+        rec = comm_suite(rank, world)
+    elif suite == "zero":
+        inp = torch.load(sys.argv[3], weights_only=False)
+        rec = zero_suite(rank, world, inp, out_dir)
+    elif suite == "ckpt":
+        inp = torch.load(sys.argv[3], weights_only=False)
+        rec = ckpt_save(inp, rank, world)
+    else:
+        raise SystemExit(f"unknown suite {suite!r}")
+    _save(out_dir, suite, rank, rec)
+    comm.barrier()
+    comm.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

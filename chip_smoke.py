@@ -328,6 +328,10 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_TOL = TOL["float32"]
 DEV = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# a run that outlives this many seconds dumps every thread's stack to the
+# standard error (and goes on): below the 1,200 s a caller gives the script
+WATCHDOG_S = 1150
+_WATCHDOG_DEADLINE = []
 MODEL = "opt-1.3b"
 # kernel checks at the shapes OPT-1.3B's serving path gives each kernel
 K1_SHAPE = dict(B=16, S=256, H=32, D=64)
@@ -668,12 +672,15 @@ TRAIN_NVME_CONFIG = {
 
 
 # run (q): data-parallel training at run (c)'s shape on every visible card
-# (one rank a card, NCCL, through the port's launcher); stages 0, 1, 2 in
-# turn, each from the same seeded init; step 1 is excluded from the step
-# time; one more step runs under the comms logger for the collectives'
-# seconds (it syncs around each collective)
+# (one rank a card, NCCL, through the port's launcher); stages 0, 1, 2, 3
+# in turn, each from the same seeded init (stage 3's partitioned at birth);
+# on 4 cards or more also MiCS (stage 3 in shard groups of ``mics``
+# cards, "3m") and stage 3 with the optimizer offloaded to pinned host RAM
+# ("3o"); step 1 is excluded from the step time; one more step runs under
+# the comms logger for the collectives' seconds (it syncs around each
+# collective)
 RUN_Q = dict(micro=2, gas=2, seq=2048, loss_chunks=8, steps=3, seed=6,
-             stages=(0, 1, 2))
+             stages=(0, 1, 2, 3), mics=2, wide_min_cards=4)
 TRAIN_Q_CONFIG = {**TRAIN_CONFIG, "gradient_accumulation_steps": RUN_Q["gas"]}
 # stage 2 against stage 0 at dp > 1: the reduce-scatter sums the bf16
 # model's fp32 gradients in another order than the all-reduce, so the
@@ -682,10 +689,17 @@ TRAIN_Q_CONFIG = {**TRAIN_CONFIG, "gradient_accumulation_steps": RUN_Q["gas"]}
 Q_STAGE2_LOSS_RTOL = 1e-5
 # the losses at dp > 1 against one card's engine on the same global batch
 Q_WORLD1_LOSS_RTOL = TOL["bfloat16"]
-# Llama-7B with fp32 masters and fp32 moments, ZeRO-2, bf16 accumulation,
-# run (c-llama)'s shape: 4 cards or more only (about 108 GB of state on one)
+# the offloaded step against stage 3's on the card: the host Adam rounds
+# its denominator otherwise than the device AdamW, and the bf16 upload
+Q_OFFLOAD_LOSS_RTOL = TOL["bfloat16"]
+# Llama-7B with fp32 masters and fp32 moments, bf16 accumulation, run
+# (c-llama)'s shape, under ZeRO-2 and then ZeRO-3 (the model built on
+# ``meta`` through ``OnDevice`` and partitioned at birth by ``zero.Init``),
+# one profiled step each: 4 cards or more only (about 108 GB of state on
+# one)
 RUN_Q_LLAMA = dict(micro=1, gas=1, seq=2048, loss_chunks=8, steps=2, seed=21,
-                   policy="flash_only_saveable", min_cards=4)
+                   policy="flash_only_saveable", min_cards=4,
+                   stages=(2, 3))
 TRAIN_Q_LLAMA_CONFIG = {
     "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
     "optimizer": {"type": "AdamW", "params": {
@@ -698,6 +712,24 @@ Q_TIMEOUT_S = 900
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def arm_watchdog():
+    """Dump every thread's stack once the run reaches ``WATCHDOG_S``
+    seconds (``faulthandler``, without exiting): a hang shows where each
+    thread waits before a caller kills the run.  Re-armed after a phase
+    that arms its own timer (faulthandler keeps one)."""
+    import faulthandler
+    if not _WATCHDOG_DEADLINE:
+        _WATCHDOG_DEADLINE.append(time.monotonic() + WATCHDOG_S)
+    left = _WATCHDOG_DEADLINE[0] - time.monotonic()
+    if left > 0:
+        faulthandler.dump_traceback_later(left, exit=False)
+
+
+def disarm_watchdog():
+    import faulthandler
+    faulthandler.cancel_dump_traceback_later()
 
 
 def emit(obj):
@@ -3802,6 +3834,7 @@ def http_path(eng, outs_d):
         return _http_path(eng, outs_d)
     finally:
         faulthandler.cancel_dump_traceback_later()
+        arm_watchdog()
 
 
 def _http_path(eng, outs_d):
@@ -6153,13 +6186,39 @@ def free_port():
         return s.getsockname()[1]
 
 
-def q_predictions(n, dp, grad_bytes=4, master_bytes=4, moment_bytes=8):
+def q_predictions(n, dp, grad_bytes=4, master_bytes=4, moment_bytes=8,
+                  mics=2, compute_bytes=2):
     """The persistent state a rank holds at the accumulation boundary,
-    by stage: masters whole, moments (stage >= 1) and gradients (stage 2)
-    a dp-th each."""
-    return {0: n * (master_bytes + moment_bytes + grad_bytes),
-            1: n * (master_bytes + moment_bytes / dp + grad_bytes),
-            2: n * (master_bytes + (moment_bytes + grad_bytes) / dp)}
+    by stage: masters whole, moments (stage >= 1), gradients (stage 2) and
+    masters (stage 3) a dp-th each; MiCS's a ``mics``-th; offloaded, the
+    card holds the compute-dtype shard and the gradient shard (the host
+    the masters and moments, ``host`` below)."""
+    full = master_bytes + moment_bytes + grad_bytes
+    return {"0": n * full,
+            "1": n * (master_bytes + moment_bytes / dp + grad_bytes),
+            "2": n * (master_bytes + (moment_bytes + grad_bytes) / dp),
+            "3": n * full / dp, "3m": n * full / min(mics, dp),
+            "3o": n * (compute_bytes + grad_bytes) / dp,
+            "host_3o": n * (master_bytes + moment_bytes) / dp}
+
+
+def q_variants(world):
+    """Run (q)'s settings on ``world`` cards: ``(key, zero_optimization
+    extras)``."""
+    out = [(str(s), {"stage": s}) for s in RUN_Q["stages"]]
+    if world >= RUN_Q["wide_min_cards"] and world % RUN_Q["mics"] == 0:
+        out.append(("3m", {"stage": 3, "mics_shard_size": RUN_Q["mics"]}))
+        out.append(("3o", {"stage": 3, "offload_optimizer": {
+            "device": "cpu", "pin_memory": True}}))
+    return out
+
+
+def q_full_params(engine):
+    """The engine's parameters, whole (at stage 3 each gathered from the
+    shards; every rank takes part)."""
+    if engine._masters is None:
+        return list(engine.params)
+    return list(engine.module_state_dict().values())
 
 
 def q_param_digest(params):
@@ -6187,14 +6246,16 @@ def q_train(engine, batch, steps, boundary):
     the first step's and the mean later step's ms, and the launch counts
     over all steps."""
     import torch
-    inner = engine._device_step
+    name = "_offload_step" if engine._host_opt is not None \
+        else "_device_step"
+    inner = getattr(engine, name)
 
     def probe():
         torch.cuda.synchronize()
         boundary.append(torch.cuda.memory_allocated())
         inner()
 
-    engine._device_step = probe
+    setattr(engine, name, probe)
     reset_counts()
     losses = []
     q_sync(engine)
@@ -6207,7 +6268,7 @@ def q_train(engine, batch, steps, boundary):
     q_sync(engine)
     t2 = time.perf_counter()
     counts = read_counts()
-    engine._device_step = inner
+    setattr(engine, name, inner)
     return ([float(x) for x in torch.stack(losses).float().tolist()],
             (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(steps - 1, 1), counts)
 
@@ -6225,7 +6286,7 @@ def q_comm_step(engine, batch):
     return comm.comms_logger.totals()
 
 
-def q_profile_step(engine, batch, rank, stage):
+def q_profile_step(engine, batch, rank, stage, tag="zero_dp"):
     """One more step on every rank, under ``torch.profiler`` on rank 0
     (one window, no retake: every rank must take the same steps); rank 0
     returns the step's device breakdown, the others None."""
@@ -6237,7 +6298,7 @@ def q_profile_step(engine, batch, rank, stage):
         q_sync(engine)
         return None
     path = os.path.join(ROOT, "build", "profiles",
-                        f"zero_dp_stage{stage}_trace.json")
+                        f"{tag}_stage{stage}_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     t = time.perf_counter()
     with torch.profiler.profile(
@@ -6301,22 +6362,24 @@ def q_opt_rank(rank, world, rec):
     rec["predicted_boundary_bytes"] = q_predictions(n, world)
     s0 = None
     rec["stages"] = {}
-    for stage in cfg["stages"]:
+    for key, zero in q_variants(world):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        config = {**TRAIN_Q_CONFIG, "zero_optimization": {"stage": stage}}
+        config = {**TRAIN_Q_CONFIG, "zero_optimization": zero}
         t0 = time.perf_counter()
         engine, *_ = initialize(model=q_opt_model(), config=config,
                                 device=q_rank_device())
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
         boundary = []
         losses, first_ms, step_ms, counts = q_train(engine, batch,
                                                     cfg["steps"], boundary)
         peak = torch.cuda.max_memory_allocated()
         after = torch.cuda.memory_allocated()
-        params = engine.params
+        hooks = dict(engine._coord.stats) if engine._coord else None
+        params = q_full_params(engine)
         # the reference's and stage 0's parameter copies this rank holds
         held = sum(t.numel() * t.element_size() for t in
                    ((ref or {}).get("params") or []) + (s0 or []))
@@ -6324,21 +6387,34 @@ def q_opt_rank(rank, world, rec):
               "held_bytes": held,
               "state_bytes": max(boundary) - held,
               "tokens_per_s": world * micro * gas * S / (step_ms / 1e3),
-              "init_seconds": init_s, "peak_bytes": peak,
+              "init_seconds": init_s, "init_peak_bytes": init_peak,
+              "peak_bytes": peak,
               "boundary_bytes": max(boundary), "after_step_bytes": after,
               "launches": counts,
               "launches_per_step": {k: v / cfg["steps"]
                                     for k, v in counts.items() if v},
               "digest": q_param_digest(params),
-              "device": str(engine.device), "dp": engine.dp_world}
+              "device": str(engine.device), "dp": engine.dp_world,
+              "shard_world": engine.shard_world}
+        if hooks is not None:
+            # the stage-3 hooks a step: units gathered in the forward and
+            # in the backward, all-gathers, bytes gathered, units reduced
+            st["zero3_hooks_per_step"] = {k: v / cfg["steps"]
+                                          for k, v in hooks.items()}
+        if engine._host_opt is not None:
+            host = engine._host_opt.state_dict()
+            st["host_state_bytes"] = sum(
+                t.numel() * t.element_size() for f in
+                ("masters", "exp_avg", "exp_avg_sq") for t in host[f])
+            st["offload_stats"] = engine.offload_stats
         if ref is not None and ref["params"] is not None:
             st["bitwise_no_group"] = losses == ref["losses"] and all(
                 torch.equal(a, b) for a, b in zip(params, ref["params"]))
-        if stage == 0:
+        if key == "0":
             s0 = [p.detach().clone() for p in params]
             s0_losses = losses
         else:
-            diffs = [float((a.detach() - b).abs().max())
+            diffs = [float((a.detach().float() - b.float()).abs().max())
                      for a, b in zip(params, s0)]
             st["bitwise_stage0"] = losses == s0_losses and all(
                 torch.equal(a, b) for a, b in zip(params, s0))
@@ -6346,55 +6422,97 @@ def q_opt_rank(rank, world, rec):
             st["tensors_differing_stage0"] = sum(d > 0 for d in diffs)
             st["elements_differing_stage0"] = int(sum(
                 int((a.detach() != b).sum()) for a, b in zip(params, s0)))
-        st["comm"] = q_comm_step(engine, batch)
-        st["profile"] = q_profile_step(engine, batch, rank, stage)
-        rec["stages"][stage] = st
-        del engine, params
+        del params
+        # over one card stages 1 and 2 are stage 0's layout (bitwise): one
+        # synced step and one profile of stages 0 and 3 say it all there
+        extra = key not in ("1", "2") or world > 1
+        st["comm"] = q_comm_step(engine, batch) if extra else None
+        st["profile"] = q_profile_step(engine, batch, rank, key) \
+            if extra and key != "3o" else None
+        rec["stages"][key] = st
+        del engine
     del s0
     comm.destroy_process_group()
 
 
+def q_llama_model(stage):
+    """Llama-7B for (q-llama): under ZeRO-3 built on ``meta`` through
+    ``OnDevice`` and partitioned at birth by ``zero.Init`` (each rank's
+    shards, a submodule at a time); under ZeRO-2 built on ``meta`` and
+    initialised whole by the engine."""
+    import torch
+    from deepspeed_tpu_torch.runtime import zero
+    from deepspeed_tpu_torch.utils.init_on_device import OnDevice
+    with OnDevice(dtype=torch.float32, device="meta"):
+        model = llama_train_model(RUN_Q_LLAMA)
+    if stage == 3:
+        zero.Init(config=q_llama_config(3),
+                  device=q_rank_device()).materialize(model)
+    return model
+
+
+def q_llama_config(stage):
+    return {**TRAIN_Q_LLAMA_CONFIG, "zero_optimization": {"stage": stage}}
+
+
 def q_llama_rank(rank, world, rec):
-    """Llama-7B with fp32 masters and fp32 moments under ZeRO-2 on every
-    card: a finite, falling loss over 2 steps, the peak a rank, step ms;
-    an out-of-memory failure is recorded with the bytes."""
+    """Llama-7B with fp32 masters and fp32 moments under ZeRO-2, then
+    ZeRO-3, on every card: a finite, falling loss over 2 steps, the peak a
+    rank (and ZeRO-3's before its first step), step ms, one profiled step
+    each; an out-of-memory failure is recorded with the bytes."""
     import torch
     from deepspeed_tpu_torch import comm, initialize
     cfg = RUN_Q_LLAMA
     comm.init_distributed(timeout=600, device=q_rank_device())
-    model = llama_train_model(cfg)
-    V, L = model.config.vocab_size, model.config.num_layers
-    n = sum(p.numel() for p in model.parameters())
-    rec.update(params=n, layers=L, predicted_boundary_bytes=q_predictions(
-        n, world, grad_bytes=2)[2], policy=cfg["policy"],
-        levers="fp32 masters, fp32 moments, bf16 grad accumulation, ZeRO-2")
+    probe = llama_train_model(cfg)
+    V, L = probe.config.vocab_size, probe.config.num_layers
+    n = sum(p.numel() for p in probe.parameters())
+    del probe
+    pred = q_predictions(n, world, grad_bytes=2)
+    rec.update(params=n, layers=L, policy=cfg["policy"],
+               levers="fp32 masters, fp32 moments, bf16 grad accumulation")
     g = torch.Generator(device=DEV).manual_seed(cfg["seed"])
     batch = {"input_ids": torch.randint(0, V, (cfg["gas"],
                                                cfg["micro"] * world,
                                                cfg["seq"]), generator=g,
                                         device=DEV)}
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine, *_ = initialize(model=model, config=TRAIN_Q_LLAMA_CONFIG,
-                            device=q_rank_device())
-    torch.cuda.synchronize()
-    rec["init_seconds"] = time.perf_counter() - t0
-    rec["after_init_bytes"] = torch.cuda.memory_allocated()
-    boundary = []
-    losses, first_ms, step_ms, counts = q_train(engine, batch, cfg["steps"],
-                                                boundary)
-    tok = world * cfg["micro"] * cfg["gas"] * cfg["seq"]
-    rec.update(losses=losses, first_step_ms=first_ms, step_ms=step_ms,
-               tokens_per_s=tok / (step_ms / 1e3),
-               mfu=6 * n * tok / (step_ms / 1e3) / (
-                   world * PEAK_FLOPS["bfloat16"]),
-               peak_bytes=torch.cuda.max_memory_allocated(),
-               boundary_bytes=max(boundary),
-               launches_per_step={k: v / cfg["steps"]
-                                  for k, v in counts.items() if v},
-               state_dtypes=sorted({str(t.dtype) for f in engine._opt_state
-                                    for t in f} | {
-                   str(p.dtype) for p in engine.params}))
+    rec["stages"] = {}
+    for stage in cfg["stages"]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = {"predicted_boundary_bytes": pred[str(stage)]}
+        rec["stages"][str(stage)] = st
+        t0 = time.perf_counter()
+        model = q_llama_model(stage)
+        engine, *_ = initialize(model=model, config=q_llama_config(stage),
+                                device=q_rank_device())
+        torch.cuda.synchronize()
+        st["init_seconds"] = time.perf_counter() - t0
+        st["after_init_bytes"] = torch.cuda.memory_allocated()
+        st["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+        boundary = []
+        losses, first_ms, step_ms, counts = q_train(engine, batch,
+                                                    cfg["steps"], boundary)
+        tok = world * cfg["micro"] * cfg["gas"] * cfg["seq"]
+        st.update(losses=losses, first_step_ms=first_ms, step_ms=step_ms,
+                  tokens_per_s=tok / (step_ms / 1e3),
+                  mfu=6 * n * tok / (step_ms / 1e3) / (
+                      world * PEAK_FLOPS["bfloat16"]),
+                  peak_bytes=torch.cuda.max_memory_allocated(),
+                  boundary_bytes=max(boundary),
+                  launches_per_step={k: v / cfg["steps"]
+                                     for k, v in counts.items() if v},
+                  state_dtypes=sorted(
+                      {str(t.dtype) for f in engine._opt_state for t in f}
+                      | {str(p.dtype) for p in engine._step_targets()}))
+        if engine._coord is not None:
+            st["zero3_hooks_per_step"] = {
+                k: v / cfg["steps"] for k, v in engine._coord.stats.items()}
+        st["comm"] = q_comm_step(engine, batch)
+        st["profile"] = q_profile_step(engine, batch, rank, stage,
+                                       tag="zero_dp_llama")
+        del engine, model
     comm.destroy_process_group()
 
 
@@ -6457,8 +6575,9 @@ def q_launch(world, out_dir, llama=False):
 
 
 def zero_dp_path():
-    """Run (q): ZeRO stages 0 / 1 / 2 at OPT-1.3B's run (c) shape on every
-    card, then (4 cards or more) Llama-7B with fp32 state under ZeRO-2."""
+    """Run (q): ZeRO stages 0 / 1 / 2 / 3 at OPT-1.3B's run (c) shape on
+    every card (4 cards or more: MiCS and the offload at stage 3 too), then
+    (4 cards or more) Llama-7B with fp32 state under ZeRO-2 and ZeRO-3."""
     import shutil
     import torch
     gc.collect()
@@ -6475,99 +6594,132 @@ def zero_dp_path():
         fail(f"run (q): the ranks failed (rc {rc}): {errs}\n{tail}")
     L = q_opt_model().config.num_layers
     gas, steps = RUN_Q["gas"], RUN_Q["steps"]
+    lr = TRAIN_CONFIG["optimizer"]["params"]["lr"]
     want = {"flash_attention": L * gas, "flash_attention_dq": L * gas,
             "flash_attention_dkv": L * gas}
     ref = recs[0]["reference"]
     rows = {}
-    for stage in RUN_Q["stages"]:
-        st = [r["stages"][str(stage)] for r in recs]
+    keys = [k for k, _ in q_variants(world)]
+    for key in keys:
+        st = [r["stages"][key] for r in recs]
         for r, s in enumerate(st):
             if s["launches_per_step"] != want:
-                fail(f"run (q) stage {stage} rank {r}: launches per step "
+                fail(f"run (q) stage {key} rank {r}: launches per step "
                      f"{s['launches_per_step']}, the path needs {want}")
             if not all(math.isfinite(x) for x in s["losses"]):
-                fail(f"run (q) stage {stage}: non-finite loss {s['losses']}")
+                fail(f"run (q) stage {key}: non-finite loss {s['losses']}")
             own = f"cuda:{r}" if DEV == "cuda" else DEV
             if s["dp"] != world or s["device"] != own:
                 fail(f"run (q) rank {r}: dp {s['dp']} on {s['device']}")
         if len({json.dumps(s["digest"]) for s in st}) != 1:
-            fail(f"run (q) stage {stage}: the ranks' parameters differ")
+            fail(f"run (q) stage {key}: the ranks' parameters differ")
+        if key == "3" and not st[0]["zero3_hooks_per_step"]["gathers"]:
+            fail("run (q) stage 3: no unit was gathered")
         if world == 1 and not st[0]["bitwise_no_group"]:
-            fail(f"run (q) stage {stage}: at world size 1 the losses / "
+            fail(f"run (q) stage {key}: at world size 1 the losses / "
                  f"parameters are not bitwise the engine's without a group "
                  f"({st[0]['losses']} vs {ref['losses']})")
         if world > 1:
             for a, b in zip(st[0]["losses"], ref["losses"]):
                 if abs(a - b) > Q_WORLD1_LOSS_RTOL * abs(b):
-                    fail(f"run (q) stage {stage}: losses {st[0]['losses']} "
+                    fail(f"run (q) stage {key}: losses {st[0]['losses']} "
                          f"vs one card's {ref['losses']}")
-            if stage == 1 and not st[0]["bitwise_stage0"]:
+            if key == "1" and not st[0]["bitwise_stage0"]:
                 fail("run (q): stage 1 is not bitwise stage 0")
-            if stage == 2:
-                s0 = recs[0]["stages"]["0"]["losses"]
-                bad = [(a, b) for a, b in zip(st[0]["losses"], s0)
-                       if abs(a - b) > Q_STAGE2_LOSS_RTOL * abs(b)]
-                lr = TRAIN_CONFIG["optimizer"]["params"]["lr"]
-                if bad or st[0]["max_abs_diff_stage0"] > 2 * lr * steps:
-                    fail(f"run (q): stage 2 off stage 0: losses {bad}, max "
-                         f"|param diff| {st[0]['max_abs_diff_stage0']}")
-        rows[stage] = st
-        emit({"run": "q", "stage": stage, "world": world, "seq": RUN_Q["seq"],
+            # stage 2 and 3 against stage 0, MiCS against flat stage 3:
+            # fp32 roundoff; the offload against stage 3: the host Adam
+            against = {"2": ("0", Q_STAGE2_LOSS_RTOL),
+                       "3": ("2", Q_STAGE2_LOSS_RTOL),
+                       "3m": ("3", Q_STAGE2_LOSS_RTOL),
+                       "3o": ("3", Q_OFFLOAD_LOSS_RTOL)}.get(key)
+            if against is not None:
+                base = recs[0]["stages"][against[0]]["losses"]
+                bad = [(a, b) for a, b in zip(st[0]["losses"], base)
+                       if abs(a - b) > against[1] * abs(b)]
+                moved = st[0]["max_abs_diff_stage0"]
+                if bad or (key != "3o" and moved > 2 * lr * steps):
+                    fail(f"run (q): stage {key} off stage {against[0]}: "
+                         f"losses {bad}, max |param diff| from stage 0 "
+                         f"{moved}")
+        rows[key] = st
+        emit({"run": "q", "stage": key, "world": world, "seq": RUN_Q["seq"],
               "micro_per_rank": RUN_Q["micro"], "gas": gas,
+              "shard_world": st[0]["shard_world"],
               "losses": st[0]["losses"], "reference_losses": ref["losses"],
               "step_ms": [s["step_ms"] for s in st],
               "first_step_ms": [s["first_step_ms"] for s in st],
               "tokens_per_s": st[0]["tokens_per_s"],
               "peak_bytes": [s["peak_bytes"] for s in st],
+              "init_peak_bytes": [s["init_peak_bytes"] for s in st],
               "boundary_bytes": [s["boundary_bytes"] for s in st],
               "held_copies_bytes": [s["held_bytes"] for s in st],
               "state_bytes": [s["state_bytes"] for s in st],
               "predicted_boundary_bytes":
-                  recs[0]["predicted_boundary_bytes"][str(stage)],
+                  recs[0]["predicted_boundary_bytes"][key],
               "after_step_bytes": [s["after_step_bytes"] for s in st],
               "launches_per_step": st[0]["launches_per_step"],
               **{k: st[0][k] for k in ("bitwise_no_group", "bitwise_stage0",
                                       "max_abs_diff_stage0",
                                       "tensors_differing_stage0",
-                                      "elements_differing_stage0")
+                                      "elements_differing_stage0",
+                                      "zero3_hooks_per_step",
+                                      "host_state_bytes", "offload_stats")
                  if k in st[0]},
+              **({"predicted_host_state_bytes":
+                  recs[0]["predicted_boundary_bytes"]["host_3o"]}
+                 if key == "3o" else {}),
               "comm": st[0]["comm"], "init_seconds": st[0]["init_seconds"]})
         prof = st[0]["profile"]
-        emit({"profile": f"q_stage{stage}",
-              **{k: prof[k] for k in ("wall_ms", "device_busy_ms",
-                                      "device_idle_share",
-                                      "device_ms_by_group", "top_kernels",
-                                      "trace")}})
+        if prof is not None:
+            emit({"profile": f"q_stage{key}",
+                  **{k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                          "device_idle_share",
+                                          "device_ms_by_group",
+                                          "top_kernels", "trace")}})
     rec = {"world": world, "seconds": secs, "reference": ref,
            "params": recs[0]["params"],
            "launches_per_step": {
-               stage: {name: [s["launches_per_step"].get(name, 0)
-                              for s in rows[stage]] for name in want}
-               for stage in RUN_Q["stages"]}}
+               key: {name: [s["launches_per_step"].get(name, 0)
+                            for s in rows[key]] for name in want}
+               for key in keys}}
     if world >= RUN_Q_LLAMA["min_cards"]:
         t0 = time.perf_counter()
         rc, tail, lrecs = q_launch(world, out_dir, llama=True)
         lrec = {"rc": rc, "seconds": time.perf_counter() - t0,
                 "ranks": lrecs}
-        ok = rc == 0 and all(r is not None and "error" not in r
-                             for r in lrecs)
-        if ok:
-            losses = lrecs[0]["losses"]
-            if not all(math.isfinite(x) for x in losses) or \
-                    not losses[-1] < losses[0]:
-                fail(f"run (q-llama): loss not finite and falling: {losses}")
-        else:
-            lrec["tail"] = tail
-        emit({"run": "q_llama", "world": world, "trained": ok,
-              **({k: lrecs[0][k] for k in (
-                  "losses", "step_ms", "first_step_ms", "tokens_per_s", "mfu",
-                  "params", "predicted_boundary_bytes", "state_dtypes",
-                  "launches_per_step", "levers", "init_seconds")}
-                 if ok else {"errors": [r and r.get("error") for r in lrecs],
-                             "tail": tail[-1500:]}),
-              "peak_bytes": [r and r.get("peak_bytes") for r in lrecs],
-              "boundary_bytes": [r and r.get("boundary_bytes") for r in lrecs],
-              "free_bytes": [r and r.get("free_bytes") for r in lrecs]})
+        for stage in RUN_Q_LLAMA["stages"]:
+            sts = [((r or {}).get("stages") or {}).get(str(stage))
+                   for r in lrecs]
+            ok = all(s is not None and "losses" in s for s in sts)
+            if ok:
+                losses = sts[0]["losses"]
+                if not all(math.isfinite(x) for x in losses) or \
+                        not losses[-1] < losses[0]:
+                    fail(f"run (q-llama) stage {stage}: loss not finite "
+                         f"and falling: {losses}")
+            emit({"run": "q_llama", "stage": stage, "world": world,
+                  "trained": ok, "params": lrecs[0] and
+                  lrecs[0].get("params"),
+                  **({k: sts[0][k] for k in (
+                      "losses", "step_ms", "first_step_ms", "tokens_per_s",
+                      "mfu", "predicted_boundary_bytes", "state_dtypes",
+                      "launches_per_step", "init_seconds", "comm")
+                      if k in sts[0]} if ok else
+                     {"errors": [r and r.get("error") for r in lrecs],
+                      "tail": tail[-1500:]}),
+                  **({"zero3_hooks_per_step": sts[0]["zero3_hooks_per_step"]}
+                     if ok and "zero3_hooks_per_step" in sts[0] else {}),
+                  **{k: [s and s.get(k) for s in sts] for k in (
+                      "peak_bytes", "init_peak_bytes", "after_init_bytes",
+                      "boundary_bytes")},
+                  "free_bytes": [r and r.get("free_bytes") for r in lrecs]})
+            prof = sts[0] and sts[0].get("profile")
+            if prof:
+                emit({"profile": f"q_llama_stage{stage}",
+                      **{k: prof[k] for k in (
+                          "wall_ms", "device_busy_ms", "device_idle_share",
+                          "device_ms_by_group", "top_kernels",
+                          "device_gap_ms", "trace")}})
         rec["llama"] = lrec
     emit({"run_q_seconds": time.perf_counter() - start})
     return rec
@@ -6606,6 +6758,7 @@ def only_q(card):
             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     print(card, flush=True)
     emit({"kernels": kernels})
+    disarm_watchdog()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -6634,6 +6787,7 @@ def main():
     sys.path.insert(0, ROOT)
     if args.q_rank:
         q_rank_main(args.q_rank, args.q_llama)
+    arm_watchdog()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from deepspeed_tpu_torch.ops import op_builder
@@ -7032,6 +7186,7 @@ def main():
                                            runs["c_nvme"])})
     print(card, flush=True)
     emit({"kernels": kernels})
+    disarm_watchdog()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -639,12 +639,15 @@ class Transformer(nn.Module):
         return self
 
     @torch.no_grad()
-    def init_weights(self, generator):
+    def init_weights(self, generator, module=None):
         """Random init from ``generator`` (a ``torch.Generator`` on the
         parameters' device): normal(0, 0.02) matrices and embeddings, zero
-        biases, unit norm scales (an RMS norm has no bias)."""
+        biases, unit norm scales (an RMS norm has no bias).  The draws run
+        a submodule at a time in ``modules()`` order, so ``module`` (one
+        submodule) takes the values the whole init gives it when every
+        submodule before it was drawn first (ZeRO-3's init at birth)."""
         std = 0.02
-        for mod in self.modules():
+        for mod in self.modules() if module is None else (module,):
             if isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
             elif isinstance(mod, nn.LayerNorm):
@@ -654,6 +657,72 @@ class Transformer(nn.Module):
                 mod.weight.normal_(0.0, std, generator=generator)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
+
+    # ZeRO-3's parameter coordinator (``runtime/zero/stage3.py``), set by a
+    # stage-3 engine; None runs every unit as plain code
+    _zero3 = None
+
+    def _unit(self, name, fn, *args):
+        """``fn(*args)``, the part of the model that reads the parameters of
+        ZeRO-3's unit ``name`` outside a block: under a stage-3 engine its
+        parameters are whole inside, and again for its backward."""
+        z = self._zero3
+        return fn(*args) if z is None else z.run(name, fn, *args)
+
+    def zero3_units(self):
+        """ZeRO-3's gather units in forward order: ``(name, module, owned,
+        used)``, ``owned`` the parameter names whose gradients the unit
+        completes, ``used`` those it reads (the tied head reads the input
+        embedding).  A block is a module (its hooks gather); the input
+        embeddings (``embed``), the final norm (``norm``) and the head
+        (``head``) run through :meth:`_unit`."""
+        def names(*mods):
+            out = []
+            for prefix in mods:
+                mod = self.get_submodule(prefix) if prefix else None
+                if mod is not None:
+                    out += [f"{prefix}.{n}" for n, _ in
+                            mod.named_parameters()]
+            return out
+
+        embed = names("embed_tokens",
+                      *(["embed_positions"] if self.embed_positions
+                        is not None else []),
+                      *(["project_in"] if self.project_in is not None
+                        else []))
+        units = [("embed", None, embed, embed)]
+        for i in range(len(self.layers)):
+            own = names(f"layers.{i}")
+            units.append((f"layers.{i}", self.layers[i], own, own))
+        if self.final_norm is not None:
+            own = names("final_norm")
+            units.append(("norm", None, own, own))
+        head = names(*(["project_out"] if self.project_out is not None
+                       else []),
+                     *(["lm_head"] if self.lm_head is not None else []))
+        used = head + ([] if self.lm_head is not None
+                       else ["embed_tokens.weight"])
+        units.append(("head", None, head, used))
+        return units
+
+    def zero3_own_dtype_params(self):
+        """The parameters the model reads in their own dtype: the embedding
+        tables (an fp32 lookup whose gradient sums in fp32) and the RMS
+        norms' fp32 scales.  ZeRO-3 gathers these in the module's dtype and
+        every other one in the compute dtype its use casts it to."""
+        return {f"{n}.weight" for n, m in self.named_modules()
+                if isinstance(m, (nn.Embedding, RMSNorm))}
+
+    def _embed(self, input_ids, positions):
+        cfg = self.config
+        x = F.embedding(input_ids, self.embed_tokens.weight).to(
+            cfg.torch_dtype)
+        if self.project_in is not None:
+            x = _linear(x, self.project_in, cfg.torch_dtype)
+        if self.embed_positions is not None:
+            x = x + F.embedding(positions, self.embed_positions.weight).to(
+                cfg.torch_dtype)
+        return x
 
     def hidden_states(self, input_ids, mask=None, cache=None, start_pos=0,
                       prefill=False):
@@ -680,14 +749,9 @@ class Transformer(nn.Module):
             positions = (start + steps)[None].expand(B, S)
         if prefill and start != 0:
             raise ValueError("prefill=True needs start_pos == 0")
-        x = F.embedding(input_ids, self.embed_tokens.weight).to(cfg.torch_dtype)
-        if self.project_in is not None:
-            x = _linear(x, self.project_in, cfg.torch_dtype)
+        x = self._unit("embed", self._embed, input_ids, positions)
         rope = None
-        if self.embed_positions is not None:
-            x = x + F.embedding(positions, self.embed_positions.weight).to(
-                cfg.torch_dtype)
-        else:
+        if self.embed_positions is None:
             # the rotary angles once for every layer, from the positions
             rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                                cfg.rope_dim)
@@ -703,7 +767,7 @@ class Transformer(nn.Module):
             else:
                 x = blk(x, positions, mask, cache, i, start, prefill, rope)
         return x if self.final_norm is None else \
-            _norm(x, self.final_norm, cfg)
+            self._unit("norm", _norm, x, self.final_norm, cfg)
 
     def _head_fn(self):
         """The LM head as a closure over weights cast once to the model
@@ -763,7 +827,8 @@ class Transformer(nn.Module):
         return out
 
     def logits(self, input_ids, mask=None):
-        return self._head(self.hidden_states(input_ids, mask))
+        return self._unit("head", self._head,
+                          self.hidden_states(input_ids, mask))
 
     def forward(self, batch):
         """Causal-LM loss of ``batch``: a dict with ``input_ids`` and
@@ -785,6 +850,9 @@ class Transformer(nn.Module):
                 f"(materializes the [B,S,V] tensor)")
             C = 0
         h = self.hidden_states(input_ids, mask)
+        return self._unit("head", self._loss, h, labels, C)
+
+    def _loss(self, h, labels, C):
         if C > 1:
             return chunked_cross_entropy_loss(h, labels, self._head_fn(), C)
         return cross_entropy_loss(self._head(h), labels)
@@ -800,7 +868,7 @@ class Transformer(nn.Module):
         if logits_at is not None:
             rows = torch.arange(h.shape[0], device=h.device)
             h = h[rows, logits_at.to(h.device).long()][:, None]
-        return self._head(h), cache
+        return self._unit("head", self._head, h), cache
 
     def init_cache(self, batch_size, max_len, dtype=None, device=None):
         """Zero KV cache: ``{"k", "v"}`` each [L, B, max_len, KVH*D]

@@ -43,6 +43,22 @@ def load():
     return _lib
 
 
+def set_threads(n):
+    """Run the host kernels on ``n`` OpenMP threads (``omp_set_num_threads``
+    of the OpenMP the library links, for the calling thread).  Ranks that
+    share a host split its cores: left at OpenMP's default each would start
+    a thread a core and they would spin against one another at every
+    parallel region's barrier.  Returns False when the library was built
+    without OpenMP."""
+    try:
+        fn = load().omp_set_num_threads
+    except AttributeError:
+        return False
+    fn.argtypes = [ctypes.c_int]
+    fn(max(1, int(n)))
+    return True
+
+
 def _f32(name, t, n=None):
     if not (torch.is_tensor(t) and t.device.type == "cpu"
             and t.dtype == torch.float32 and t.is_contiguous()):

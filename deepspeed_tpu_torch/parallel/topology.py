@@ -13,9 +13,12 @@ Each group becomes a ``torch.distributed`` ``ProcessGroup`` (the world's
 group when it spans the world).  The data-parallel group is the compound
 ``DP_AXES = (mdp, edp, ep)``, as in JAX.
 
-This slice accepts data parallelism only: ``tp``, ``pp``, ``sp``, ``ep``
-> 1 and ``mics`` > 0 raise ``NotImplementedError`` (ROADMAP.md, queue A).
-The rank algebra covers every axis already.
+The port accepts data parallelism, split by MiCS (``mics`` > 0) into
+``mdp`` replica groups of ``mics`` sharding ranks each, as JAX's
+``initialize_topology(..., mics=)`` splits its mesh: ZeRO shards within a
+group (``edp``) and replicates across groups (``mdp``).  ``tp``, ``pp``,
+``sp`` and ``ep`` > 1 raise ``NotImplementedError`` (ROADMAP.md, queue
+A).  The rank algebra covers every axis already.
 """
 
 from dataclasses import dataclass, field
@@ -200,6 +203,26 @@ class ParallelTopology:
     def get_data_parallel_rank(self, rank=None):
         return self.index_in(DP_AXES, self._me(rank))
 
+    def get_zero_shard_axes(self):
+        """The axes ZeRO shards over: ``edp`` alone with MiCS (each
+        replica group holds the whole state), else the data-parallel
+        group."""
+        return (EDP_AXIS,) if self.mdp > 1 else DP_AXES
+
+    def get_zero_shard_group(self):
+        return self.group_for(self.get_zero_shard_axes())
+
+    def get_zero_shard_world_size(self):
+        return self.edp if self.mdp > 1 else self.dp
+
+    def get_zero_shard_rank(self, rank=None):
+        return self.index_in(self.get_zero_shard_axes(), self._me(rank))
+
+    def get_zero_replica_group(self):
+        """MiCS's replica group (``mdp``: the ranks holding the same
+        shard), None without MiCS."""
+        return self.group_for((MDP_AXIS,)) if self.mdp > 1 else None
+
     def get_model_parallel_world_size(self):
         return self.tp
 
@@ -242,9 +265,11 @@ _TOPOLOGY = None
 def initialize_topology(dp=None, tp=1, pp=1, ep=1, sp=1, mics=0,
                         world_size=None):
     """The topology of the live world (``world_size``: the process group's
-    size, 1 without one).  ``dp`` defaults to the whole world.  With a
-    live process group the groups are built.  Only ``dp`` may exceed 1 in
-    this slice."""
+    size, 1 without one).  ``dp`` defaults to the whole world.  ``mics`` >
+    0 sizes the ZeRO shard group (the JAX ``mics_shard_size``): the
+    data-parallel world splits into ``mdp`` replica groups of ``mics``
+    ranks each.  With a live process group the groups are built.  Only
+    ``dp`` (and its MiCS split) may exceed 1."""
     global _TOPOLOGY
     for name, size in (("tensor parallelism (tp)", tp),
                        ("pipeline parallelism (pp)", pp),
@@ -252,8 +277,6 @@ def initialize_topology(dp=None, tp=1, pp=1, ep=1, sp=1, mics=0,
                        ("sequence parallelism (sp)", sp)):
         if size != 1:
             _not_ported(f"{name} = {size}")
-    if mics and mics > 0:
-        _not_ported(f"MiCS (mics_shard_size = {mics})")
     from deepspeed_tpu_torch import comm
     live = comm.is_initialized()
     if world_size is None:
@@ -264,7 +287,15 @@ def initialize_topology(dp=None, tp=1, pp=1, ep=1, sp=1, mics=0,
             raise ValueError(f"world size {world_size} not divisible by "
                              f"tp*pp*ep*sp={denom}")
         dp = (world_size // denom) * ep
-    topo = ParallelTopology(dp=dp, tp=tp, pp=pp, ep=ep, sp=sp,
+    mdp = 1
+    if mics and mics > 0:
+        edp_world = dp // ep
+        if edp_world % mics != 0:
+            raise ValueError(
+                f"mics_shard_size={mics} must divide the expert-data-"
+                f"parallel world {edp_world} (dp={dp} / ep={ep})")
+        mdp = edp_world // mics
+    topo = ParallelTopology(dp=dp, tp=tp, pp=pp, ep=ep, sp=sp, mdp=mdp,
                             ranks=list(range(world_size)))
     if live:
         topo.build_groups()

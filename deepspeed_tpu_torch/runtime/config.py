@@ -13,19 +13,24 @@ checkpoint writer) and the single-device memory levers:
 ``zero_optimization.offload_optimizer`` (ZeRO-Offload to ``cpu`` or
 ``nvme``), ``zero_optimization.grad_partition_groups`` (the partitioned
 backward), ``bf16.master_weights_in_bf16`` and
-``data_types.grad_accum_dtype``, and ``comms_logger`` (the collectives'
-log).  ``zero_optimization.stage`` 0-3 is accepted; at world size 1 every
-stage is the single-device layout, at data-parallel size > 1 stages 0, 1
-and 2 partition as the JAX package does (``runtime/zero/partition.py``)
-and stage 3, ``offload_optimizer`` and ``grad_partition_groups`` raise
-``NotImplementedError``.  The blocks are plain dataclasses: the card's
-machine has no pydantic.
+``data_types.grad_accum_dtype``, ``comms_logger`` (the collectives'
+log) and ``wall_clock_breakdown`` (the engine's forward / backward / step
+timers).  ``zero_optimization.stage`` 0-3 is accepted; at world size 1
+stages 0-2 are the single-device layout, at data-parallel size > 1 every
+stage partitions as the JAX package does (``runtime/zero/partition.py``),
+within groups of ``mics_shard_size`` ranks with MiCS, and
+``offload_optimizer`` offloads each rank's shard.
+``grad_partition_groups`` at data-parallel size > 1 raises
+``NotImplementedError``.  The ``stage3_*`` knobs are parsed and, as in
+the JAX package, change nothing: a leaf with no dim divisible by the
+group stays whole whatever ``stage3_param_persistence_threshold`` says.
+The blocks are plain dataclasses: the card's machine has no pydantic.
 
 Knobs that change behaviour but belong to later slices raise
 ``NotImplementedError`` when set (``offload_param``, which no JAX engine
-path reads either, MiCS, tensor / pipeline / sequence / expert
-parallelism, curriculum, compression, and the profiler, compile cache and
-hybrid blocks), so a config never silently does nothing.
+path reads either, tensor / pipeline / sequence / expert parallelism,
+curriculum, compression, and the profiler, compile cache and hybrid
+blocks), so a config never silently does nothing.
 """
 
 import dataclasses
@@ -74,17 +79,25 @@ class OffloadOptimizerConfig(DeepSpeedConfigModel):
 
 @dataclasses.dataclass(init=False)
 class ZeroConfig(DeepSpeedConfigModel):
-    """The keys of the JAX ``ZeroConfig`` this slice reads; the others are
-    kept as attributes."""
+    """The keys of the JAX ``ZeroConfig`` the port reads; the others are
+    kept as attributes.  The ``stage3_*`` knobs are parsed as in JAX and,
+    as there, change no placement."""
     stage: int = 0
     offload_param: Optional[Dict[str, Any]] = None
     offload_optimizer: Optional[OffloadOptimizerConfig] = None
     zero_hpz_partition_size: int = 1
+    # MiCS: the size of the group a parameter is sharded within (the
+    # JAX ``mics_shard_size``; -1 or 0 shards over the whole group)
     mics_shard_size: int = -1
     grad_partition_groups: int = 1
     # elements a gradient bucket holds before its collective (stage 0 / 1:
     # the boundary's all-reduce; stage 2: the backward's reduce-scatter)
     reduce_bucket_size: int = 500_000_000
+    stage3_max_live_parameters: int = 1_000_000_000
+    stage3_max_reuse_distance: int = 1_000_000_000
+    stage3_prefetch_bucket_size: int = 50_000_000
+    stage3_param_persistence_threshold: int = 100_000
+    stage3_gather_16bit_weights_on_model_save: bool = False
 
     def validate(self):
         if isinstance(self.offload_optimizer, dict):
@@ -177,8 +190,6 @@ _NOT_PORTED = (
     (lambda pd: _offloaded(pd.get(C.ZERO_OPTIMIZATION, {}).get(
         "offload_param")), "zero_optimization.offload_param (no JAX engine "
      "path reads it either)"),
-    (lambda pd: (pd.get(C.ZERO_OPTIMIZATION, {}).get("mics_shard_size") or 0)
-     > 0, "zero_optimization.mics_shard_size (MiCS)"),
     (lambda pd: _size(pd, C.TENSOR_PARALLEL, "tp_size") > 1,
      "tensor parallelism (tp_size > 1)"),
     (lambda pd: _size(pd, C.PIPELINE_PARALLEL, "stages") > 1,
@@ -239,14 +250,7 @@ class DeepSpeedConfig:
         self._mesh_world_size = mesh_world_size
         dp = mesh_world_size or 1
         if dp > 1:
-            zc = self.zero_config
-            if zc.stage >= 3:
-                _dp_not_ported("zero_optimization.stage 3 (ZeRO-3)")
-            if zc.offload_optimizer is not None and \
-                    zc.offload_optimizer.device not in (None, "none"):
-                _dp_not_ported("zero_optimization.offload_optimizer "
-                               "(ZeRO-Offload)")
-            if int(zc.grad_partition_groups or 1) > 1:
+            if int(self.zero_config.grad_partition_groups or 1) > 1:
                 _dp_not_ported("zero_optimization.grad_partition_groups")
         elif self.zero_config.stage > 0:
             log_dist(f"zero_optimization.stage {self.zero_config.stage} at "
@@ -261,6 +265,8 @@ class DeepSpeedConfig:
                                         C.GRADIENT_CLIPPING_DEFAULT)
         self.steps_per_print = pd.get(C.STEPS_PER_PRINT,
                                       C.STEPS_PER_PRINT_DEFAULT)
+        self.wall_clock_breakdown = bool(pd.get(C.WALL_CLOCK_BREAKDOWN,
+                                                False))
         self.seed = pd.get("seed", 42)
         self.gradient_accumulation_dtype = pd.get("data_types", {}).get(
             "grad_accum_dtype", None)

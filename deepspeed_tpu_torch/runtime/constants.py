@@ -40,6 +40,7 @@ ZERO_OPTIMIZATION = "zero_optimization"
 STEPS_PER_PRINT = "steps_per_print"
 COMMS_LOGGER = "comms_logger"
 STEPS_PER_PRINT_DEFAULT = 10
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
 
 # Subsystems whose enabling is refused by this slice
 FLOPS_PROFILER = "flops_profiler"

@@ -112,6 +112,7 @@ import functools
 import os
 import shutil
 import time
+import weakref
 from collections.abc import Mapping
 
 import numpy as np
@@ -139,6 +140,11 @@ from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_scheduler
 from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
+from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
+                                             FORWARD_GLOBAL_TIMER,
+                                             STEP_GLOBAL_TIMER,
+                                             SynchronizedWallClockTimer,
+                                             ThroughputTimer)
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float16: "float16"}
@@ -207,6 +213,12 @@ def _buckets(idx, tensors, size):
     if cur:
         out.append(cur)
     return out
+
+
+def _live_dp_world():
+    """The data-parallel world of the live process group (its whole world:
+    the port trains data-parallel only), 1 without one."""
+    return comm.get_world_size() if comm.is_initialized() else 1
 
 
 def _map(fn, batch):
@@ -288,11 +300,15 @@ class DeepSpeedEngine:
                              f"{type(model).__name__}")
         self.device = resolve_device(device)
         self.accelerator = get_accelerator(self.device)
-        self._init_data_parallel()
         self._config = config if isinstance(config, DeepSpeedConfig) \
             else DeepSpeedConfig(config if config is not None else {},
-                                 mesh_world_size=self.dp_world)
+                                 mesh_world_size=_live_dp_world())
+        self._init_data_parallel(self._config.zero_config.mics_shard_size)
         comm.configure(self._config)
+        self.timers = SynchronizedWallClockTimer(self.device)
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_batch_size(),
+            steps_per_output=self.steps_per_print())
         self.module = model
         self.loss_fn = loss_fn
         self.training_dataloader = None
@@ -343,16 +359,27 @@ class DeepSpeedEngine:
         self._host_opt = None
         self._grad_acc = None      # accumulators where .grad cannot be one
 
-        self._place_module(model_parameters)
+        stage = self.zero_optimization_stage()
+        self._stage3 = self._dp and stage >= 3
+        # the dtype of the module's parameters without a group (what
+        # autograd's .grad has): the compute dtype under offload, else the
+        # masters'
+        self._module_dtype = self.compute_dtype if self._offload_cfg \
+            is not None else self._master_dtype
+        on_meta = self._place_module(model_parameters)
         self._params = [p for p in self.module.parameters()
                         if p.requires_grad]
         bad = [p.dtype for p in self._params if p.dtype != torch.float32]
         if bad:
             raise ValueError(f"master parameters must be float32, got {bad}")
+        n_params = sum(p.numel() for p in self._params)
         self._plan = None
         self._stage2 = False
+        self._masters = None        # stage 3: each sharded leaf's shard
+        self._coord = None
+        self._grad_shards = None
         if self._dp:
-            self._init_zero()
+            self._init_zero(model_parameters, on_meta)
 
         self.optimizer = optimizer or build_optimizer(self._config.optimizer)
         if self._offload_cfg is not None and \
@@ -368,6 +395,8 @@ class DeepSpeedEngine:
         else:
             self._cast_params(self._master_dtype)
             self._opt_state = self.optimizer.init(self._opt_templates())
+        if self._stage3:
+            self._init_coordinator()
         self.lr_scheduler = lr_scheduler or build_lr_scheduler(
             self._config.scheduler, self.optimizer)
         self.loss_scaler = create_loss_scaler(self._config.fp16)
@@ -391,12 +420,11 @@ class DeepSpeedEngine:
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(
                 training_data, collate_fn=collate_fn)
-        if self._stage2:
+        if self._stage2 and not self._stage3:
             self._register_reduce_hooks()
-        n = sum(p.numel() for p in self._params)
         log_dist(f"DeepSpeedEngine configured: device={self.device} "
                  f"dtype={_DTYPE_NAMES[self.compute_dtype]} "
-                 f"params={n / 1e6:.2f}M dp={self.dp_world} "
+                 f"params={n_params / 1e6:.2f}M dp={self.dp_world} "
                  f"zero_stage={self.zero_optimization_stage()} "
                  f"micro_bs={self.train_micro_batch_size_per_gpu()} "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
@@ -407,10 +435,15 @@ class DeepSpeedEngine:
     def _place_module(self, model_parameters):
         """Put the module on the device.  A ``meta``-built module gets
         storage there and, unless ``model_parameters`` are given, a random
-        init from ``config["seed"]`` through an explicit generator."""
+        init from ``config["seed"]`` through an explicit generator; under
+        ZeRO-3 in a group it stays on ``meta`` here and each rank takes its
+        shards at birth (:meth:`_partition_params`).  Returns whether the
+        module was built on ``meta``."""
         m = self.module
         on_meta = any(t.is_meta for t in
                       list(m.parameters()) + list(m.buffers()))
+        if on_meta and self._stage3:
+            return True
         if on_meta:
             m.to_empty(device=self.device)
         else:
@@ -423,15 +456,22 @@ class DeepSpeedEngine:
                                  "generator) or model_parameters")
             m.init_weights(self.accelerator.manual_seed(self._config.seed,
                                                         self.device))
+        return on_meta
 
-    def _init_data_parallel(self):
+    def _init_data_parallel(self, mics=0):
         """With a live process group this engine is one rank of the
         topology's data-parallel group (the topology is built over the
-        live world unless one with groups is set); without one it is the
-        single-device engine (``dp_world`` 1, no collectives)."""
+        live world, split by ``mics`` > 0 into MiCS's groups, unless one
+        with groups and that split is set); without one it is the
+        single-device engine (``dp_world`` 1, no collectives).  ZeRO
+        shards over ``shard_group`` (MiCS's shard group, else the
+        data-parallel group) and, with MiCS, reduces across
+        ``replica_group``."""
         self._dp = comm.is_initialized()
         self.topology, self.dp_group = None, None
         self.dp_world, self.dp_rank = 1, 0
+        self.shard_group, self.replica_group = None, None
+        self.shard_world, self.shard_rank = 1, 0
         if not self._dp:
             return
         want = "nccl" if self.device.type == "cuda" else "gloo"
@@ -450,35 +490,161 @@ class DeepSpeedEngine:
                              f"{comm.get_device()}, not {self.device}")
         from deepspeed_tpu_torch.parallel import topology as topo_mod
         topo = topo_mod._TOPOLOGY
+        mics = int(mics or 0)
+        mdp = comm.get_world_size() // mics if mics > 0 else 1
         if topo is None or topo.groups is None or \
-                topo.world_size != comm.get_world_size():
-            topo = topo_mod.initialize_topology()
+                topo.world_size != comm.get_world_size() or topo.mdp != mdp:
+            topo = topo_mod.initialize_topology(mics=mics)
         self.topology = topo
         self.dp_group = topo.get_data_parallel_group()
         self.dp_world = topo.get_data_parallel_world_size()
         self.dp_rank = topo.get_data_parallel_rank(comm.get_rank())
         self._dp_src = comm.get_global_rank(self.dp_group, 0)
+        self.shard_group = topo.get_zero_shard_group()
+        self.replica_group = topo.get_zero_replica_group()
+        self.shard_world = topo.get_zero_shard_world_size()
+        self.shard_rank = topo.get_zero_shard_rank(comm.get_rank())
 
     @torch.no_grad()
-    def _init_zero(self):
+    def _init_zero(self, model_parameters=None, on_meta=False):
         """Every rank starts from dp rank 0's parameters (a broadcast, an
         identity when they are equal already), then the ZeRO plan of the
-        configured stage over the group."""
+        configured stage over the shard group; at stage 3 the parameters
+        are partitioned (:meth:`_partition_params`)."""
         from deepspeed_tpu_torch.runtime.zero.partition import \
             build_sharding_plan
-        for p in self._params:
-            comm.broadcast(p.data, src=self._dp_src, group=self.dp_group,
-                           log_name="broadcast_params")
+        if not on_meta:
+            for p in self._params:
+                comm.broadcast(p.data, src=self._dp_src, group=self.dp_group,
+                               log_name="broadcast_params")
         stage = self.zero_optimization_stage()
         # the JAX model's layouts where the module gives them, so the
         # shards hold the JAX engine's elements
         lay = getattr(self.module, "jax_layouts", dict)()
-        names = [n for n, p in self.module.named_parameters()
-                 if p.requires_grad]
+        self._names = [n for n, p in self.module.named_parameters()
+                       if p.requires_grad]
+        # a module zero.Init partitioned holds its whole shapes there
+        given = getattr(self.module, "_zero_init_shards", None) or {}
+        shapes = [given[n].shape if n in given else p.shape
+                  for n, p in zip(self._names, self._params)]
+        layouts = [lay.get(n) for n in self._names]
+        for k, n in enumerate(self._names):
+            leaf = getattr(given.get(n), "leaf", None)
+            if leaf is not None:
+                layouts[k] = None if leaf.view is None else (
+                    leaf.view, leaf.unview, leaf.shape)
         self._plan = build_sharding_plan(
-            [p.shape for p in self._params], self.dp_world, self.dp_rank,
-            stage, [lay.get(n) for n in names])
+            shapes, self.shard_world, self.shard_rank, stage, layouts)
         self._stage2 = stage >= 2
+        if self._stage3:
+            self._partition_params(model_parameters, on_meta)
+
+    @torch.no_grad()
+    def _partition_params(self, model_parameters, on_meta):
+        """ZeRO-3's parameters at birth: each sharded leaf's rank shard
+        becomes its master (moved layout, contiguous, master dtype) and
+        the whole tensor is dropped; a leaf with no divisible dim stays
+        whole on the module.  The whole tensors come from
+        ``model_parameters``, from the module's own (after the broadcast),
+        or, for a ``meta`` module, from the model's init run a submodule
+        at a time from ``config["seed"]`` on the device — the values the
+        whole init gives, while no rank holds more than one submodule's
+        whole tensors (``zero.partition_at_birth``).  A module that
+        ``zero.Init`` materialized brings its shards."""
+        from deepspeed_tpu_torch.runtime.zero import (Partitioned,
+                                                      partition_at_birth)
+        leaves = self._plan.param
+        index = {id(p): i for i, p in enumerate(self._params)}
+        self._masters = [None] * len(self._params)
+
+        def keep(p, full):
+            i = index.get(id(p))
+            if i is None:
+                p.data = full
+                return
+            leaf = leaves[i]
+            if not leaf.sharded:
+                p.data = full
+                return
+            shard = torch.empty(leaf.shard_shape, dtype=self._master_dtype,
+                                device=self.device)
+            shard.copy_(leaf.take(full))
+            self._masters[i] = shard
+            p.data = torch.empty(0, dtype=full.dtype, device=self.device)
+
+        if isinstance(model_parameters, Mapping):
+            tree = model_parameters
+            if any(isinstance(v, Mapping) for v in tree.values()):
+                from deepspeed_tpu_torch.models.transformer import (
+                    params_from_flax)
+                tree = params_from_flax(tree, self.module.config)
+            tree = {k: v if torch.is_tensor(v) else torch.as_tensor(
+                np.asarray(v)) for k, v in tree.items()}
+            if on_meta:
+                self._masters = partition_at_birth(
+                    self.module, self._names, leaves, self.device,
+                    self._master_dtype, None, values=tree)
+            else:
+                for name, p in self.module.named_parameters():
+                    keep(p, tree[name].to(self.device, torch.float32))
+        elif getattr(self.module, "_zero_init_shards", None) is not None:
+            given = self.module.__dict__.pop("_zero_init_shards")
+            for i, name in enumerate(self._names):
+                v, leaf = given[name], leaves[i]
+                if isinstance(v, Partitioned) != leaf.sharded or (
+                        leaf.sharded and tuple(v.shard.shape) !=
+                        tuple(leaf.shard_shape)):
+                    raise ValueError(
+                        f"zero.Init placed {name} otherwise than this "
+                        f"engine's stage-3 plan: build both from the same "
+                        f"config")
+                if leaf.sharded:
+                    self._masters[i] = v.shard.to(self.device,
+                                                  self._master_dtype)
+                else:
+                    self._params[i].data = v.data.to(self.device)
+        elif on_meta:
+            m = self.module
+            if not hasattr(m, "init_weights"):
+                raise ValueError("a meta-built module needs init_weights("
+                                 "generator) or model_parameters")
+            gen = self.accelerator.manual_seed(self._config.seed,
+                                               self.device)
+            self._masters = partition_at_birth(
+                m, self._names, leaves, self.device, self._master_dtype, gen)
+        else:
+            for p in self._params:
+                keep(p, p.data)
+        # a meta module's storage came with new Parameter objects
+        self._params = [p for p in self.module.parameters()
+                        if p.requires_grad]
+
+    def _init_coordinator(self):
+        """ZeRO-3's hooks on the module (``runtime/zero/stage3.py``): each
+        sharded leaf is gathered in the compute dtype where the model
+        casts it to that dtype at use, else in the module's dtype."""
+        from deepspeed_tpu_torch.runtime.zero.stage3 import \
+            ZeroParamCoordinator
+        if not hasattr(self.module, "zero3_units"):
+            raise NotImplementedError(
+                f"ZeRO-3 at data-parallel size > 1 gathers a unit at a time "
+                f"and needs the model's units (zero3_units): "
+                f"{type(self.module).__name__} has none")
+        own = getattr(self.module, "zero3_own_dtype_params", set)()
+        dtypes = [None if m is None else
+                  (self._module_dtype if name in own else self.compute_dtype)
+                  for name, m in zip(self._names, self._masters)]
+        self._coord = ZeroParamCoordinator(
+            self.module, self._names, self._params, self._plan.param,
+            self._masters, dtypes, self.compute_dtype, self.shard_group,
+            self._reduce_indices, self._set_grad_shard,
+            torch.promote_types(self._module_dtype, self._accum_dtype),
+            self._accum_dtype, self.replica_group)
+        # weakly, as the hooks: GatheredParameters finds the coordinator
+        me = weakref.ref(self._coord)
+        for i, p in enumerate(self._params):
+            if self._masters[i] is not None:
+                p._zero3 = (me, i)
 
     def _opt_templates(self):
         """The tensors the optimizer state is made like: each parameter,
@@ -486,6 +652,8 @@ class DeepSpeedEngine:
         optimizer state."""
         if self._plan is None:
             return self._params
+        if self._stage3:
+            return self._step_targets()
         return [p if not leaf.sharded else
                 torch.empty(leaf.shard_shape, dtype=p.dtype, device=p.device)
                 for p, leaf in zip(self._params, self._plan.opt)]
@@ -512,32 +680,53 @@ class DeepSpeedEngine:
             if p.is_floating_point() and p.dtype != dtype:
                 p.data = p.data.to(dtype)
 
+    def _host_views(self):
+        """The device tensors the host optimizer steps, one a parameter:
+        each parameter, or in a group this rank's shard of it where the
+        optimizer state is sharded (the master shard at stage 3, a view of
+        the whole parameter at stages 1 and 2)."""
+        if self._plan is None or self._stage3:
+            return self._step_targets()
+        return [leaf.take(p.data) if leaf.sharded else p
+                for p, leaf in zip(self._params, self._plan.opt)]
+
     def _init_host_optimizer(self):
         """ZeRO-Offload's init (the JAX ``_init_opt_state``): seed the host
-        fp32 masters from the fp32 parameters, then cast the module's
-        parameters to the compute dtype, the card's saving."""
+        fp32 masters from the fp32 parameters — in a group, from this
+        rank's shards, so a rank's host state is its shard's — then cast
+        the module's parameters (at stage 3, the master shards) to the
+        compute dtype, the card's saving."""
         from deepspeed_tpu_torch.runtime.zero.offload import \
             HostOffloadedAdam
+        if self.dp_world > 1 and self.device.type == "cuda":
+            # the ranks on this host split its cores for the host Adam (on
+            # the CPU the ranks' own torch threads share that OpenMP)
+            from deepspeed_tpu_torch.ops.adam import cpu_adam
+            cores = len(os.sched_getaffinity(0))
+            cpu_adam.set_threads(cores // comm.get_world_size())
         opt = self.optimizer
         # page-locked host buffers only with a card to copy to
         pin = bool(self._offload_cfg.pin_memory) and self.device.type == "cuda"
+        views = self._host_views()
         self._host_opt = HostOffloadedAdam(
-            self._params, self._offload_cfg, lr=getattr(opt, "lr", 1e-3),
+            views, self._offload_cfg, lr=getattr(opt, "lr", 1e-3),
             betas=(getattr(opt, "beta1", 0.9), getattr(opt, "beta2", 0.999)),
             eps=getattr(opt, "eps", 1e-8),
             weight_decay=getattr(opt, "weight_decay", 0.0),
             adamw_mode=getattr(opt, "adam_w_mode", True),
             bias_correction=getattr(opt, "bias_correction", True), pin=pin)
-        self._host_opt.init_from_params(self._params)
+        self._host_opt.init_from_params(views)
         self._cast_params(self.compute_dtype)
+        if self._masters is not None:
+            self._masters = [None if m is None else m.to(self.compute_dtype)
+                             for m in self._masters]
         # the step's host buffers, made once: fp32 gradients and the bf16
         # bits of the upload (page-locked with pin_memory)
-        self._host_grads = [torch.empty(p.numel(), dtype=torch.float32,
-                                        pin_memory=pin)
-                            for p in self._params]
+        self._host_grads = [torch.empty(v.numel(), dtype=torch.float32,
+                                        pin_memory=pin) for v in views]
         self._upload = None if self.compute_dtype != torch.bfloat16 else [
-            torch.empty(p.numel(), dtype=torch.uint16, pin_memory=pin)
-            for p in self._params]
+            torch.empty(v.numel(), dtype=torch.uint16, pin_memory=pin)
+            for v in views]
         self.offload_stats = {}
 
     @torch.no_grad()
@@ -555,9 +744,20 @@ class DeepSpeedEngine:
         sd = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                  else v).to(torch.float32)
               for k, v in tree.items()}
-        self.module.load_state_dict(sd)
+        if getattr(self, "_masters", None) is not None:
+            # stage 3: each rank takes its shards
+            index = {n: i for i, n in enumerate(self._names)}
+            for name, v in sd.items():
+                i = index.get(name)
+                m = None if i is None else self._masters[i]
+                if m is None:
+                    self.module.get_parameter(name).data.copy_(v)
+                else:
+                    m.copy_(self._plan.param[i].take(v.to(self.device)))
+        else:
+            self.module.load_state_dict(sd)
         if getattr(self, "_host_opt", None) is not None:
-            self._host_opt.reseed_masters(self._params)
+            self._host_opt.reseed_masters(self._host_views())
 
     def put_batch(self, batch, rank_rows=False):
         """``batch`` (tensors or arrays, nested in dicts / lists) on the
@@ -659,12 +859,27 @@ class DeepSpeedEngine:
             out = self.module(*args, **kwargs)
         return out[0] if isinstance(out, tuple) else out
 
+    def wall_clock_breakdown(self):
+        return self._config.wall_clock_breakdown
+
     def forward(self, *args, **kwargs):
         """The loss of a micro batch; in training mode its graph is kept
-        for :meth:`backward`."""
+        for :meth:`backward`.  With ``wall_clock_breakdown`` the forward
+        timer spans it (synced on the card)."""
+        timed = self.wall_clock_breakdown()
+        if timed:
+            self.timers(FORWARD_GLOBAL_TIMER).start()
+        try:
+            return self._forward(args, kwargs)
+        finally:
+            if timed:
+                self.timers(FORWARD_GLOBAL_TIMER).stop()
+
+    def _forward(self, args, kwargs):
         if not self.training:
             with torch.no_grad():
                 return self._global_loss(self._loss_of(args, kwargs))
+        self.tput_timer.start()
         if self._pending is not None and self._window_open:
             # this window's gradients would be computed on the wrong sum
             raise RuntimeError(
@@ -734,11 +949,29 @@ class DeepSpeedEngine:
             raise RuntimeError("backward called in eval mode")
         if self._pending is None:
             raise RuntimeError("backward called without a prior forward")
+        timed = self.wall_clock_breakdown()
+        if timed:
+            self.timers(BACKWARD_GLOBAL_TIMER).start()
+        try:
+            return self._backward(loss, retain_graph)
+        finally:
+            if timed:
+                self.timers(BACKWARD_GLOBAL_TIMER).stop()
+
+    def _backward(self, loss, retain_graph):
         pending, self._pending = self._pending, None
         if not isinstance(pending, _Accumulated):
             gas = self.gradient_accumulation_steps()
             scaled = pending.float() * self._scaler_state.scale / gas
-            if self._stage2:
+            if self._stage3:
+                # the hooks gather each unit for its backward and reduce-
+                # scatter its gradients once they are in, in unit order
+                self._coord.begin_backward()
+                try:
+                    scaled.backward(retain_graph=retain_graph)
+                finally:
+                    self._coord.end_backward()
+            elif self._stage2:
                 # the hooks reduce-scatter each bucket as its gradients land
                 self._reducing = True
                 try:
@@ -767,6 +1000,8 @@ class DeepSpeedEngine:
             p.grad = None
         self._grad_acc = None
         self._grad_shards = None
+        if self._coord is not None:
+            self._coord.zero_grad()
         self._window_open = False
         self._found_inf = None
 
@@ -812,8 +1047,12 @@ class DeepSpeedEngine:
         self._reducing = False
         self._grad_shards = None
         self._reset_buckets()
+        from deepspeed_tpu_torch.runtime.zero.stage3 import _weak_hook
+        # weakly: a parameter's hook that held the engine would keep it
+        # alive forever (the hook lives in C++, out of the collector's view)
+        me = weakref.ref(self)
         self._hooks = [p.register_post_accumulate_grad_hook(
-            functools.partial(self._grad_ready, i))
+            functools.partial(_weak_hook, me, "_grad_ready", i))
             for i, p in enumerate(self._params)]
 
     def _reset_buckets(self):
@@ -837,25 +1076,49 @@ class DeepSpeedEngine:
             self._next_bucket += 1
         self._reset_buckets()
 
-    @torch.no_grad()
     def _reduce_bucket(self, b):
-        from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import (
-            all_reduce_coalesced, reduce_scatter_coalesced)
-        idx = self._buckets[b]
+        self._reduce_indices(self._buckets[b])
+
+    def _set_grad_shard(self, i, g):
+        """Take parameter ``i``'s gradient shard of the window (ZeRO-3's
+        coordinator reduces into its own flat buffers)."""
         if self._grad_shards is None:
             self._grad_shards = [None] * len(self._params)
+        self._grad_shards[i] = g
+
+    @torch.no_grad()
+    def _reduce_indices(self, idx):
+        """Average the ``.grad`` of the parameters ``idx`` over the group
+        into the window's sums: a sharded gradient reduce-scattered into
+        the rank's shard (within MiCS's shard group, then across its
+        replica group), in the wider of the module's and the accumulation
+        dtype (a stage-3 gradient of a leaf gathered in the compute dtype
+        is cast first, as autograd casts it without a group); a whole one
+        all-reduced.  The full
+        ``.grad`` is freed."""
+        from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import (
+            all_reduce_coalesced, reduce_scatter_two_hop)
+        if not idx:
+            return
+        if self._grad_shards is None:
+            self._grad_shards = [None] * len(self._params)
+        plan = self._plan.grad
         grads = {}
         for i in idx:
             p = self._params[i]
-            grads[i] = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[i] = p.grad if p.grad is not None else torch.zeros(
+                plan[i].full_shape, dtype=self._module_dtype,
+                device=self.device)
             p.grad = None
-        plan = self._plan.grad
         split = [i for i in idx if plan[i].sharded]
         whole = [i for i in idx if not plan[i].sharded]
         avg = comm.ReduceOp.AVG
         if split:
-            outs = reduce_scatter_coalesced(
-                [plan[i].moved(grads[i]) for i in split], self.dp_group, avg)
+            wide = torch.promote_types(self._module_dtype,
+                                       self._accum_dtype)
+            outs = reduce_scatter_two_hop(
+                [plan[i].moved(grads[i]) for i in split], self.shard_group,
+                self.replica_group, avg, reduce_dtype=wide, out_dtype=wide)
             for i, o in zip(split, outs):
                 self._accumulate(i, o.view(plan[i].shard_shape))
         if whole:
@@ -900,19 +1163,19 @@ class DeepSpeedEngine:
         """The global gradient norm.  Stage 0 / 1: the averaged gradients
         are whole and equal on every rank.  Stage 2: each leaf's squared
         shard norms summed over the group (one all-reduce; a whole leaf on
-        dp rank 0 only), the root of each, then the norm of those — at
+        shard rank 0 only), the root of each, then the norm of those — at
         world size 1 the single-device formula's bits, as sqrt(x * x) is x
         in IEEE arithmetic."""
         if not self._stage2:
             return self._grad_norm(grads)
         norms = torch.stack(torch._foreach_norm(grads, 2,
                                                 dtype=torch.float32))
-        if self.dp_rank != 0:
+        if self.shard_rank != 0:
             keep = torch.tensor([leaf.sharded for leaf in self._plan.grad],
                                 device=norms.device)
             norms = torch.where(keep, norms, torch.zeros_like(norms))
         sq = norms * norms
-        comm.all_reduce(sq, group=self.dp_group, log_name="grad_norm")
+        comm.all_reduce(sq, group=self.shard_group, log_name="grad_norm")
         return torch.linalg.vector_norm(torch.sqrt(sq))
 
     def _unscale_and_clip(self, grads):
@@ -940,11 +1203,27 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def step(self, lr_kwargs=None):
-        """Optimizer step at the accumulation boundary."""
+        """Optimizer step at the accumulation boundary.  With
+        ``wall_clock_breakdown`` the step timer spans it, and every
+        ``steps_per_print`` steps the forward / backward / step timers are
+        logged (ms summed since the last log); without it the step waits
+        for nothing."""
         if not self.is_gradient_accumulation_boundary():
             return
         if not self._window_open:
             raise RuntimeError("step called with no accumulated gradients")
+        timed = self.wall_clock_breakdown()
+        if timed:
+            self.timers(STEP_GLOBAL_TIMER).start()
+        self._step(lr_kwargs)
+        self.tput_timer.stop(global_step=True)
+        if timed:
+            self.timers(STEP_GLOBAL_TIMER).stop()
+            if self.global_steps % self.steps_per_print() == 0:
+                self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER,
+                                 STEP_GLOBAL_TIMER])
+
+    def _step(self, lr_kwargs):
         if self._host_opt is not None:
             self._offload_step()
         else:
@@ -1002,15 +1281,25 @@ class DeepSpeedEngine:
                         log_name="overflow")
         return f.bool()
 
+    def _step_targets(self):
+        """What the optimizer updates: the module's parameters, or at stage
+        3 each sharded leaf's master shard (whole leaves stay on the
+        module)."""
+        if self._masters is None:
+            return self._params
+        return [p if m is None else m
+                for p, m in zip(self._params, self._masters)]
+
     def _step_views(self, sl, grads):
         """The step's targets and gradients for the parameters ``sl``:
         whole parameters and gradients where the optimizer state is whole;
         where it is sharded, contiguous copies of this rank's master shard
         (written back by :meth:`_gather_masters`) and its gradient shard
         (stage 1 takes it from the averaged whole gradient; stage 2 holds
-        it already)."""
-        if self._plan is None:
-            return self._params[sl], grads[sl]
+        it already); at stage 3 the master shards themselves, which no
+        gather follows."""
+        if self._plan is None or self._stage3:
+            return self._step_targets()[sl], grads[sl]
         targets, gs = [], []
         for i in range(sl.start, sl.stop):
             leaf, p, g = self._plan.opt[i], self._params[i], grads[i]
@@ -1033,7 +1322,8 @@ class DeepSpeedEngine:
         if not idx:
             return
         W, views = gathered_views(
-            [targets[i - sl.start].reshape(-1) for i in idx], self.dp_group)
+            [targets[i - sl.start].reshape(-1) for i in idx],
+            self.shard_group)
         for i, rows in zip(idx, views):
             leaf = self._plan.opt[i]
             full = leaf.moved(self._params[i].data).unflatten(
@@ -1055,9 +1345,9 @@ class DeepSpeedEngine:
         if found is not None and self._dp:
             found = self._any_rank(found)
         gnorm, factor = self._unscale_and_clip(grads)
-        sharded = self._plan is not None and any(
+        sharded = self._plan is not None and not self._stage3 and any(
             leaf.sharded for leaf in self._plan.opt)
-        for sl in _skip_groups(self._params):
+        for sl in _skip_groups(self._step_targets()):
             state = _state_slice(self._opt_state, sl)
             targets, gs = self._step_views(sl, grads)
             gs = self._clipped(gs, factor)
@@ -1095,9 +1385,17 @@ class DeepSpeedEngine:
         uploads.  ``offload_stats`` holds the step's seconds and bytes."""
         sync = self.accelerator.synchronize
         t0 = time.perf_counter()
-        found = bool(self._found_inf) if self._found_inf is not None \
-            else False
+        found = self._found_inf
+        if found is not None and self._dp:
+            found = self._any_rank(found)
+        found = bool(found) if found is not None else False
         grads = self._grads()
+        if self._dp and not self._stage2:
+            self._allreduce_grads(grads)
+        if self._plan is not None and not self._stage2:
+            # stage 1: this rank steps the shard of the averaged gradient
+            grads = [leaf.take(g) if leaf.sharded else g
+                     for g, leaf in zip(grads, self._plan.opt)]
         acc = self._grad_acc
         self._grad_acc = None
         stats = {"found_inf": found}
@@ -1122,7 +1420,15 @@ class DeepSpeedEngine:
             sync(self.device)
             t1 = time.perf_counter()
             inv = 1.0 / float(self._scaler_state.scale)
-            sq = sum(float(np.dot(h.numpy(), h.numpy())) for h in host)
+            sq = sum(float(np.dot(h.numpy(), h.numpy())) for h in
+                     self._norm_leaves(host))
+            if self._plan is not None:
+                # each shard's square over the shard group (a whole leaf
+                # counted on shard rank 0)
+                t = torch.tensor(sq, dtype=torch.float64, device=self.device)
+                comm.all_reduce(t, group=self.shard_group,
+                                log_name="grad_norm")
+                sq = float(t)
             gnorm = float(np.sqrt(sq)) * inv
             clip = float(self.gradient_clipping() or 0.0)
             factor = inv * (min(1.0, clip / (gnorm + 1e-6)) if clip > 0.0
@@ -1137,10 +1443,22 @@ class DeepSpeedEngine:
                                        fp32_out=fp32_out, outs=self._upload)
             t3 = time.perf_counter()
             up = 0
-            for p, o in zip(self._params, outs):
+            views = self._host_views()
+            gather = self._plan is not None and not self._stage3 and any(
+                leaf.sharded for leaf in self._plan.opt)
+            targets = []
+            for v, o in zip(views, outs):
                 src = o if fp32_out else o.view(torch.bfloat16)
-                p.data.copy_(src.view(p.shape), non_blocking=True)
+                if gather and not v.is_contiguous():
+                    # a shard of a whole parameter: a contiguous upload,
+                    # all-gathered into every rank's parameters below
+                    v = torch.empty(v.shape, dtype=v.dtype,
+                                    device=self.device)
+                v.copy_(src.view(v.shape), non_blocking=True)
+                targets.append(v)
                 up += src.numel() * src.element_size()
+            if gather:
+                self._gather_masters(slice(0, len(targets)), targets)
             sync(self.device)
             t4 = time.perf_counter()
             stats.update(d2h_s=t1 - t0, d2h_bytes=nbytes, norm_clip_s=t2 - t1,
@@ -1150,6 +1468,13 @@ class DeepSpeedEngine:
             self._scaler_state, torch.tensor(found, device=self.device))
         stats["step_s"] = time.perf_counter() - t0
         self.offload_stats = stats
+
+    def _norm_leaves(self, host):
+        """The host gradients the global norm counts on this rank: every
+        one, but a whole leaf only on shard rank 0 (each rank holds it)."""
+        if self._plan is None or self.shard_rank == 0:
+            return host
+        return [h for h, leaf in zip(host, self._plan.opt) if leaf.sharded]
 
     def train_batch(self, data_iter=None, batch=None):
         """One global batch: ``batch`` stacked ``[gas, micro, ...]`` (or
@@ -1199,7 +1524,17 @@ class DeepSpeedEngine:
         return self._params
 
     def module_state_dict(self):
-        return self.module.state_dict()
+        """The module's state dict; at stage 3 with each sharded master
+        gathered whole (every rank of the shard group takes part, one
+        tensor at a time)."""
+        sd = self.module.state_dict()
+        if self._masters is not None:
+            from deepspeed_tpu_torch.runtime.zero import Partitioned
+            for name, m, leaf in zip(self._names, self._masters,
+                                     self._plan.param):
+                if m is not None:
+                    sd[name] = Partitioned(m, leaf, self.shard_group).gather()
+        return sd
 
     def max_memory_allocated(self):
         return self.accelerator.max_memory_allocated(self.device)
@@ -1220,17 +1555,27 @@ class DeepSpeedEngine:
         ``loss_scaler``.  A tag holds global tensors: ``sharded_as``
         (``_GlobalLeaf`` for a save, ``_ShardTarget`` for a load) stands in
         for each sharded optimizer tensor at data-parallel size > 1."""
+        from deepspeed_tpu_torch.runtime.zero import Partitioned
         state = self._opt_state
-        if sharded_as is not None and state is not None and \
-                self._plan is not None and self.dp_world > 1:
-            from deepspeed_tpu_torch.runtime.zero import Partitioned
+        split = sharded_as is not None and self._plan is not None and \
+            self.shard_world > 1
+        if split and state is not None:
             state = type(state)(*(
                 None if field is None else
                 [t if not leaf.sharded else
-                 sharded_as(Partitioned(t, leaf, self.dp_group))
+                 sharded_as(Partitioned(t, leaf, self.shard_group))
                  for t, leaf in zip(field, self._plan.opt)]
                 for field in state))
-        return {"module": self.module.state_dict(),
+        module = self.module.state_dict()
+        if self._masters is not None:
+            # stage 3: the masters (over one rank, a view of the whole)
+            for name, m, leaf in zip(self._names, self._masters,
+                                     self._plan.param):
+                if m is not None:
+                    module[name] = sharded_as(Partitioned(
+                        m, leaf, self.shard_group)) if split else \
+                        leaf.from_moved(m)
+        return {"module": module,
                 "optimizer": state,
                 "loss_scaler": self._scaler_state}
 
@@ -1268,6 +1613,12 @@ class DeepSpeedEngine:
             tag = f"global_step{self.global_steps}"
         tag = str(tag)
         if self.dp_world > 1:
+            if self._host_opt is not None:
+                raise NotImplementedError(
+                    "save_checkpoint of an offloaded optimizer at data-"
+                    "parallel size > 1 is not ported to deepspeed_tpu_torch "
+                    "yet: each rank's host state is its shard (see "
+                    "ROADMAP.md, queue A)")
             return self._save_checkpoint_dp(save_dir, tag, client_state,
                                             save_latest)
         return self._save_checkpoint_arrays(save_dir, tag,
@@ -1605,9 +1956,14 @@ class DeepSpeedEngine:
         if self._host_opt is None:
             return
         if have_state:
+            if self.dp_world > 1:
+                raise NotImplementedError(
+                    "loading an offloaded optimizer's host state at data-"
+                    "parallel size > 1 is not ported to deepspeed_tpu_torch "
+                    "yet (see ROADMAP.md, queue A)")
             load()
         else:
-            self._host_opt.init_from_params(self._params)
+            self._host_opt.init_from_params(self._host_views())
 
     @torch.no_grad()
     def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin",
@@ -1622,24 +1978,30 @@ class DeepSpeedEngine:
         checkpoint keys instead (``module_inject.convert_hf_model`` reads
         them back)."""
         if self.dp_world > 1:
-            # the parameters are whole on every rank: dp rank 0 writes
+            # the parameters are whole on every rank (at stage 3, gathered
+            # on every rank): dp rank 0 writes
+            sd = self.module_state_dict()
             if self.dp_rank == 0:
-                self._save_16bit_model(save_dir, save_filename, hf_policy)
+                self._save_16bit_model(save_dir, save_filename, hf_policy,
+                                       sd)
+            del sd
             comm.barrier(self.dp_group)
             return True
         return self._save_16bit_model(save_dir, save_filename, hf_policy)
 
     @torch.no_grad()
-    def _save_16bit_model(self, save_dir, save_filename, hf_policy):
+    def _save_16bit_model(self, save_dir, save_filename, hf_policy,
+                          sd=None):
         from deepspeed_tpu_torch.checkpoint.safetensors_io import save_file
         from deepspeed_tpu_torch.models.transformer import params_to_flax
+        sd = self.module_state_dict() if sd is None else sd
         save_dir = str(save_dir)
         os.makedirs(save_dir, exist_ok=True)
         dtype = self.compute_dtype if self.compute_dtype != torch.float32 \
             else torch.bfloat16
         cfg = self.module.config
         if hf_policy is None:
-            flat = params_to_flax(self.module.state_dict(), cfg, dtype=dtype)
+            flat = params_to_flax(sd, cfg, dtype=dtype)
         else:
             if isinstance(hf_policy, str):
                 from types import SimpleNamespace
@@ -1649,7 +2011,7 @@ class DeepSpeedEngine:
             # elements), then round each tensor once to the 16-bit dtype
             flat = hf_policy.export_convert(
                 {k: v.numpy() for k, v in params_to_flax(
-                    self.module.state_dict(), cfg).items()}, cfg)
+                    sd, cfg).items()}, cfg)
             flat = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dtype)
                     for k, v in flat.items()}
         path = os.path.join(save_dir, save_filename)

@@ -8,12 +8,18 @@ data-parallel group —
 * stage >= 1: the optimizer state (moments, and the master slice the step
   updates);
 * stage >= 2: the gradient (reduce-scattered into the rank's shard);
-* stage >= 3: the parameter itself (not in this slice: it raises at dp > 1).
+* stage >= 3: the parameter itself (the master shard, gathered a layer at
+  a time where the model uses it: ``runtime/zero/stage3.py``).
 
 The dim is JAX's ``choose_zero_dim``: the largest dim divisible by dp (the
-last of equal sizes); a leaf with no such dim stays replicated.  Rank r
-holds the r-th contiguous chunk of that dim, as ``NamedSharding`` places
-it, so each rank's state is JAX's addressable shard at dp index r.
+last of equal sizes); a leaf with no such dim stays replicated (JAX's
+persisted leaves).  Rank r holds the r-th contiguous chunk of that dim, as
+``NamedSharding`` places it, so each rank's state is JAX's addressable
+shard at dp index r.  With MiCS the group is the shard group (``edp``) and
+r the rank in it (the JAX plan's ``zero_axes = (EDP_AXIS,)``): the state
+is replicated across the replica groups.  At stage 3 over a group of one
+rank every leaf is its own whole shard (dim 0 of its own layout), so the
+gathers and releases run, as identities, where nothing is split.
 
 The shard is kept in the **moved layout**: the chosen dim first
 (``movedim(d, 0)``), rows ``[r * c, (r + 1) * c)``, contiguous.  Flattened,
@@ -149,6 +155,10 @@ def build_sharding_plan(shapes, dp, rank, stage, layouts=None):
         out = []
         for own, lay in zip(shapes, layouts):
             own = tuple(int(s) for s in own)
+            if shard and stage >= 3 and dp == 1 and own:
+                # one rank: the whole leaf is the shard, in its own layout
+                out.append(LeafShard(own, 0, 1, 0))
+                continue
             view, unview, shape = (None, None, own) if lay is None else lay
             shape = tuple(int(s) for s in shape)
             d = choose_zero_dim(shape, [None] * len(shape), dp) \

@@ -3,7 +3,9 @@ reference ``deepspeed/utils/groups.py``).
 
 The getters answer from the live :class:`ParallelTopology`: each returns
 the ``torch.distributed`` ``ProcessGroup`` of its axes (JAX returns the
-axis names).  Only data parallelism is accepted in this slice, so the
+axis names).  MiCS's two groups are the shard group (``edp``: the ranks
+that split a parameter) and the replica group (``mdp``: the ranks that
+hold the same shard).  Only data parallelism is accepted, so the
 ``_create_*`` builders raise for an expert or tensor size above 1.
 """
 
@@ -73,3 +75,18 @@ def _get_expert_model_parallel_world_size():
     t = _require_topo()
     return t.get_expert_parallel_world_size() * \
         t.get_model_parallel_world_size()
+
+
+def _get_zero_shard_group():
+    """The group ZeRO shards over: MiCS's shard group (``edp``), or the
+    data-parallel group without MiCS."""
+    return _require_topo().get_zero_shard_group()
+
+
+def _get_zero_replica_group():
+    """MiCS's replica group (``mdp``); None without MiCS."""
+    return _require_topo().get_zero_replica_group()
+
+
+def _get_mics_shard_world_size():
+    return _require_topo().get_zero_shard_world_size()

@@ -433,7 +433,9 @@ def test_elastic_agent_checkpoint_if_preempted(tmp_path):
 
 def test_run_resilient_hang_watchdog_recovers(tmp_path):
     losses, step = _recording()
-    engine = make_engine(heartbeat_timeout_secs=0.5)
+    # a heartbeat far above a loaded CPU step (about 1 s) and far below
+    # the injected 30 s hang: only the hang can trip it
+    engine = make_engine(heartbeat_timeout_secs=6.0)
     inject.configure_injection(
         {"point": "train.step_begin", "action": "hang", "at": 2,
          "times": 1, "seconds": 30})

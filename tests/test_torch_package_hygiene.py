@@ -85,7 +85,14 @@ def test_import_leaves_jax_unloaded():
             "deepspeed_tpu_torch.launcher.runner, "
             "deepspeed_tpu_torch.runtime.comm, "
             "deepspeed_tpu_torch.runtime.zero, "
-            "deepspeed_tpu_torch.runtime.zero.partition; "
+            "deepspeed_tpu_torch.runtime.zero.partition, "
+            "deepspeed_tpu_torch.runtime.zero.stage3, "
+            "deepspeed_tpu_torch.runtime.zero.linear, "
+            "deepspeed_tpu_torch.runtime.zero.tiling, "
+            "deepspeed_tpu_torch.runtime.zero.contiguous_memory_allocator, "
+            "deepspeed_tpu_torch.utils.timer, "
+            "deepspeed_tpu_torch.utils.init_on_device, "
+            "deepspeed_tpu_torch.utils.tensor_fragment; "
             "bad = [m for m in ('jax', 'flax', 'pydantic', 'deepspeed_tpu') "
             "if m in sys.modules and m not in before]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -111,6 +111,15 @@ def test_invalid_topologies_raise():
                                   dict(ep=2), dict(mics=2)],
                          ids=lambda k: next(iter(k)))
 def test_only_data_parallelism_is_accepted(knob):
+    if "mics" in knob:
+        # MiCS splits data parallelism (ported with ZeRO-3): replica
+        # groups of mics sharding ranks
+        try:
+            t = ptopo.initialize_topology(dp=4, world_size=8, **knob)
+            assert (t.mdp, t.edp, t.dp) == (2, 2, 4)
+        finally:
+            ptopo.reset_topology()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ptopo.initialize_topology(dp=4, world_size=8, **knob)
 

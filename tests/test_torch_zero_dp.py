@@ -22,8 +22,9 @@ clipping 1.0, 3 steps at gas 2, fp32 and bf16, each at stages 0, 1, 2:
   which a mean of per-rank means is not;
 - fp16 with rank 1's gradients overflowing: every rank skips the step
   (parameters untouched, one skipped step, the scale halved), stages 0, 2;
-- the config's refusals at dp > 1 and the batch triple against the dp
-  world, with the JAX errors.
+- the config at dp > 1 (ZeRO-3, the offload and MiCS taken, the
+  partitioned backward and tensor parallelism refused) and the batch
+  triple against the dp world, with the JAX errors.
 """
 
 import pytest
@@ -105,9 +106,19 @@ def test_batch_triple_completion_at_dp_matches_jax():
     {"zero_optimization": {"mics_shard_size": 2}},
 ], ids=["stage3", "offload", "grad_partition_groups", "tp", "mics"])
 def test_dp_refusals(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pconfig.DeepSpeedConfig(dict(knob, train_micro_batch_size_per_gpu=1),
-                                mesh_world_size=2)
-    if "tensor_parallel" not in knob and "mics_shard_size" not in str(knob):
+    # ZeRO-3, the offload and MiCS are ported at dp > 1 (the ZeRO-3
+    # tests): the config takes them; the rest still raises
+    accepted = "stage" in str(knob) or "mics_shard_size" in str(knob)
+    cfg = dict(knob, train_micro_batch_size_per_gpu=1)
+    if accepted:
+        got = pconfig.DeepSpeedConfig(cfg, mesh_world_size=2)
+        want = knob["zero_optimization"]
+        assert got.zero_config.stage == want.get("stage", 0)
+        assert got.zero_config.mics_shard_size == \
+            want.get("mics_shard_size", -1)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pconfig.DeepSpeedConfig(cfg, mesh_world_size=2)
+    if "tensor_parallel" not in knob:
         # at world size 1 they are the single-device layouts and levers
         pconfig.DeepSpeedConfig(dict(knob, train_micro_batch_size_per_gpu=1))

@@ -8,7 +8,13 @@ and each rank writes ``OUT_DIR/SUITE.rank<r>.pt`` (``torch.save`` of a
 dict), which the tests read and hold against numpy and the JAX package.
 
 Suites: ``comm`` (every collective of ``deepspeed_tpu_torch.comm``, the
-coalesced collectives, the live topology and ``GatheredParameters``),
+coalesced collectives, the live topology, ``GatheredParameters`` and
+``zero.Init``), ``zero3`` (ZeRO-3 and MiCS from INPUT: the runs, shards
+and moments, ``tensor_fragment``, ``zero.Init`` / ``OnDevice`` /
+``GatheredParameters`` on an engine, the offload, a ``TiledLinear``, the
+fp16 skip, and at dp 4 the stage-3 and MiCS checkpoints), ``zero3_cuda``
+(on the cards: stage 3's peak against stage 2's, the collectives in
+order, the fp16 skip),
 ``zero`` (the engine at ZeRO stages 0 / 1 / 2 from the weights and
 batches in INPUT, a ``torch.save`` dict the test writes; with a ``ckpt``
 entry it then loads the tag ``ckpt`` wrote), ``ckpt`` (a tag saved at
@@ -190,27 +196,29 @@ def comm_suite(rank, world):
     with zero.GatheredParameters(untouched, modifier_rank=None) as g:
         g.full.add_(1)
     rec["gathered_none"] = untouched.clone()
-    try:
-        zero.Init()
-        rec["init_raises"] = False
-    except NotImplementedError:
-        rec["init_raises"] = True
+    # zero.Init partitions at birth: each rank keeps its shard
+    got = zero.Init().materialize(
+        lambda: {"w": torch.arange(24.0).view(4, 6)})["w"]
+    rec["init_partitions"] = isinstance(got, zero.Partitioned) and \
+        torch.equal(got.shard, got.leaf.take(torch.arange(24.0).view(4, 6)))
     return rec
 
 
 # --------------------------------------------------------------------- #
 # zero
 # --------------------------------------------------------------------- #
-def _engine(inp, stage, dtype, gas, micro, **extra):
+def _engine(inp, stage, dtype, gas, micro, clip=1.0, zero_extra=None,
+            **extra):
     from deepspeed_tpu_torch.models import transformer as pt
     cfg = dict(inp["cfg"], dtype=dtype)
     config = {"train_micro_batch_size_per_gpu": micro,
               "gradient_accumulation_steps": gas,
               "optimizer": {"type": "AdamW", "params": {
                   "lr": inp["lr"], "weight_decay": 0.01}},
-              "gradient_clipping": 1.0,
+              "gradient_clipping": clip,
               "zero_optimization": {"stage": stage,
-                                    "reduce_bucket_size": 3000},
+                                    "reduce_bucket_size": 3000,
+                                    **(zero_extra or {})},
               **extra}
     if dtype == "bfloat16":
         config["bf16"] = {"enabled": True}
@@ -348,6 +356,318 @@ def ckpt_load(inp, world):
             "loss_after": float(eng.train_batch(batch=ck["batches"][2]))}
 
 
+# --------------------------------------------------------------------- #
+# zero3
+# --------------------------------------------------------------------- #
+def _natural_masters(eng):
+    """Each parameter's master as this rank holds it: the shard in the JAX
+    layout's dim order (``(tensor, True)``), or the whole tensor."""
+    out = {}
+    for name, m, leaf in zip(eng._names, eng._masters, eng._plan.param):
+        if m is not None:
+            out[name] = (leaf.to_natural(m).float().clone(), True)
+        else:
+            out[name] = (eng.module.get_parameter(name).detach().float()
+                         .clone(), False)
+    return out
+
+
+def _stage3_run(inp, key, world, rank):
+    stage, dtype, gas, mics = key
+    extra = {"mics_shard_size": mics} if mics > 0 else {}
+    eng = _engine(inp, stage, dtype, gas, inp["global_micro"] // world,
+                  zero_extra=extra)
+    rec = {"shards0": _natural_masters(eng) if stage == 3 else None}
+    losses = [float(eng.train_batch(batch=b)) for b in inp["batches"][gas]]
+    sd = {k: v.float().clone() for k, v in eng.module_state_dict().items()}
+    rec.update(losses=losses, params=sd if rank == 0 else None,
+               digest=sum(float(v.double().sum()) for v in sd.values()),
+               moments=_moments(eng),
+               shards=_natural_masters(eng) if stage == 3 else None,
+               stats=dict(eng._coord.stats) if eng._coord else None,
+               shard_world=eng.shard_world, shard_rank=eng.shard_rank)
+    return rec, eng
+
+
+def _fragments(eng, inp):
+    """tensor_fragment's whole views, and a gradient in mid-window."""
+    from deepspeed_tpu_torch.utils import tensor_fragment as tf
+    rec = {"fp32": {n: tf.safe_get_full_fp32_param(eng, n)
+                    for n in eng._names},
+           "exp_avg": {n: tf.safe_get_full_optimizer_state(eng, n, "exp_avg")
+                       for n in eng._names},
+           "local": {n: tf.get_local_fragment(eng, n) for n in eng._names}}
+    loss = eng(inp["mid_batch"])
+    eng.backward(loss)
+    rec["grad"] = {n: tf.safe_get_full_grad(eng, n) for n in eng._names}
+    return rec
+
+
+def _init_suite(inp, world, rank):
+    """zero.Init at birth, the engine from a meta module, and
+    GatheredParameters on the engine's live parameters."""
+    from deepspeed_tpu_torch.models import transformer as pt
+    from deepspeed_tpu_torch.runtime import zero
+    from deepspeed_tpu_torch.utils import tensor_fragment as tf
+    from deepspeed_tpu_torch.utils.init_on_device import OnDevice
+    cfg = pt.TransformerConfig(**inp["cfg"])
+    config = {"zero_optimization": {"stage": 3}, "seed": 5}
+    with OnDevice(dtype=torch.float32, device="meta"):
+        model = pt.Transformer(cfg, device="cpu")
+    with zero.Init(config=config, device=DEV) as zi:
+        shards = zi.materialize(model)
+    rec = {"init": {n: (v.leaf.to_natural(v.shard).clone(), True)
+                    if isinstance(v, zero.Partitioned)
+                    else (v.detach().clone(), False)
+                    for n, v in shards.items()},
+           "storage": {n: p.numel() for n, p in model.named_parameters()}}
+    eng, *_ = ds.initialize(model=model, device=DEV, config={
+        "train_micro_batch_size_per_gpu": inp["global_micro"] // world,
+        "optimizer": {"type": "AdamW", "params": {"lr": inp["lr"]}},
+        **config})
+    rec["engine_masters"] = _natural_masters(eng)
+    name = "layers.0.mlp.up_proj.weight"
+    p = eng.module.get_parameter(name)
+    rec["released"] = p.numel()
+    with zero.GatheredParameters([p], modifier_rank=0) as g:
+        rec["inside_shape"] = tuple(g.full[0].shape)
+        g.full[0].data.fill_(0.25 if rank == 0 else 9.0)
+    rec["after_exit"] = p.numel()
+    rec["written_back"] = tf.safe_get_full_fp32_param(eng, name)
+    rec["loss_after"] = float(eng.train_batch(batch=inp["batches"][1][0]))
+    # a meta module straight into initialize: the same shards at birth
+    with OnDevice(device="meta"):
+        m2 = pt.Transformer(cfg, device="cpu")
+    e2, *_ = ds.initialize(model=m2, device=DEV, config={
+        "train_micro_batch_size_per_gpu": inp["global_micro"] // world,
+        "optimizer": {"type": "AdamW", "params": {"lr": inp["lr"]}},
+        **config})
+    rec["birth_masters"] = _natural_masters(e2)
+    return rec
+
+
+def _offload_suite(inp, world, rank):
+    """ZeRO-Offload at dp > 1, no clipping: each rank's host state."""
+    out = {}
+    for stage in (2, 3):
+        eng = _engine(inp, stage, "float32", 1, inp["global_micro"] // world,
+                      clip=0.0, zero_extra={"offload_optimizer": {
+                          "device": "cpu"}})
+        losses = [float(eng.train_batch(batch=b))
+                  for b in inp["batches"][1]]
+        host = eng._host_opt.state_dict()
+        leaves = eng._plan.param if stage == 3 else eng._plan.opt
+        nat = {}
+        for field in ("masters", "exp_avg", "exp_avg_sq"):
+            for name, t, leaf in zip(eng._names, host[field], leaves):
+                shape = leaf.shard_shape
+                nat[f"{field}/{name}"] = (
+                    leaf.to_natural(t.view(shape)).clone(), leaf.sharded)
+        out[stage] = {"losses": losses, "host": nat,
+                      "host_numel": sum(t.numel() for f in ("masters",
+                                                            "exp_avg",
+                                                            "exp_avg_sq")
+                                        for t in host[f])}
+    return out
+
+
+def _tiled_suite(inp, world, rank):
+    """A TiledLinear under ZeRO-3: each tile gathers on its own."""
+    from deepspeed_tpu_torch.runtime.zero.tiling import TiledLinear
+
+    class TiledLM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.tiled = TiledLinear(8, 12, in_splits=2, out_splits=3,
+                                     device=DEV or "cpu")
+
+        def zero3_units(self):
+            return [(n, m, [f"tiled.{x}" for x in own],
+                     [f"tiled.{x}" for x in used])
+                    for n, m, own, used in self.tiled.zero3_units()]
+
+        def forward(self, batch):
+            return (self.tiled(batch["x"]) - batch["y"]).square().mean()
+
+    torch.manual_seed(0)
+    want = TiledLM().state_dict()
+    rng = np.random.default_rng(7)
+    batches = [{"x": rng.standard_normal((2, 4, 8)).astype(np.float32),
+                "y": rng.standard_normal((2, 4, 12)).astype(np.float32)}
+               for _ in range(3)]
+    out = {}
+    for stage in (0, 3):
+        model = TiledLM()
+        model.load_state_dict(want)
+        eng, *_ = ds.initialize(model=model, device=DEV, config={
+            "train_micro_batch_size_per_gpu": 2,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-2}},
+            "zero_optimization": {"stage": stage}})
+        out[stage] = {"losses": [float(eng.train_batch(batch=b))
+                                 for b in batches],
+                      "stats": dict(eng._coord.stats) if eng._coord
+                      else None}
+    return out
+
+
+def zero3_suite(rank, world, inp, out_dir):
+    rec = {"runs": {}}
+    frag_eng = None
+    for key in inp["zero3_runs"][world]:
+        r, eng = _stage3_run(inp, key, world, rank)
+        rec["runs"][key] = r
+        if key == inp["fragment_run"].get(world):
+            frag_eng = eng
+        else:
+            del eng
+    if frag_eng is not None:
+        rec["fragments"] = _fragments(frag_eng, inp)
+        del frag_eng
+    if world == 2:
+        rec["init"] = _init_suite(inp, world, rank)
+        rec["offload"] = _offload_suite(inp, world, rank)
+        rec["tiled"] = _tiled_suite(inp, world, rank)
+        # fp16: rank 1's gradients overflow, every rank skips
+        eng = _engine(inp, 3, "float16", 1, inp["global_micro"] // world)
+        before = _natural_masters(eng)
+        if rank == 1:
+            eng.module.embed_tokens.weight.register_hook(
+                lambda g: g * float("inf"))
+        scale0 = float(eng._scaler_state.scale)
+        eng.train_batch(batch=inp["batches"][1][0])
+        after = _natural_masters(eng)
+        rec["fp16"] = {"unchanged": all(torch.equal(before[n][0],
+                                                    after[n][0])
+                                        for n in before),
+                       "skipped": eng.skipped_steps, "scale0": scale0,
+                       "scale": float(eng._scaler_state.scale)}
+        del eng
+    if "ckpt3" in inp and world == 4:
+        rec["ckpt3"] = ckpt3_suite(inp, world, rank)
+    return rec
+
+
+def ckpt3_suite(inp, world, rank):
+    """Stage 3 at dp 4: a tag (2 steps) the test loads at world size 1;
+    then the test's world-size-1 tag loaded at stage 3; and a MiCS tag
+    loaded flat, the flat tag loaded under MiCS."""
+    ck = inp["ckpt3"]
+    out = {}
+    eng = _engine(inp, 3, "float32", 1, inp["global_micro"] // world)
+    for b in ck["batches"][:2]:
+        eng.train_batch(batch=b)
+    eng.save_checkpoint(ck["dir"], tag="dp4s3")
+    # the 16-bit export gathers the shards (every rank; rank 0 writes)
+    eng.save_16bit_model(os.path.join(ck["dir"], "export_dp4"),
+                         "model.safetensors")
+    out["loss_after"] = float(eng.train_batch(batch=ck["batches"][2]))
+    # every rank gathers (a collective), rank 0 keeps the result
+    sd = {k: v.clone() for k, v in eng.module_state_dict().items()}
+    out["params_after"] = sd if rank == 0 else None
+    del eng
+    comm.barrier()
+    if rank == 0:
+        open(os.path.join(ck["dir"], "dp4s3.done"), "w").close()
+    # the world-size-1 tag the test wrote meanwhile, at stage 3 here
+    done = os.path.join(ck["dir"], "w1.done")
+    deadline = time.monotonic() + 300
+    while not os.path.exists(done):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{done} never appeared")
+        time.sleep(0.2)
+    eng = _engine(inp, 3, "float32", 1, inp["global_micro"] // world)
+    eng.load_checkpoint(ck["dir"], tag="w1")
+    out["w1_steps"] = eng.global_steps
+    out["w1_loss_after"] = float(eng.train_batch(batch=ck["batches"][2]))
+    del eng
+    # MiCS -> flat -> MiCS
+    mics = _engine(inp, 3, "float32", 1, inp["global_micro"] // world,
+                   zero_extra={"mics_shard_size": 2})
+    for b in ck["batches"][:2]:
+        mics.train_batch(batch=b)
+    mics.save_checkpoint(ck["dir"], tag="mics")
+    before = {k: v.clone() for k, v in mics.module_state_dict().items()}
+    del mics
+    flat = _engine(inp, 3, "float32", 1, inp["global_micro"] // world)
+    flat.load_checkpoint(ck["dir"], tag="mics")
+    got = flat.module_state_dict()
+    out["mics_to_flat_equal"] = all(torch.equal(before[k], got[k])
+                                    for k in before)
+    out["mics_to_flat_steps"] = flat.global_steps
+    flat.train_batch(batch=ck["batches"][2])
+    flat.save_checkpoint(ck["dir"], tag="flat")
+    before = {k: v.clone() for k, v in flat.module_state_dict().items()}
+    del flat
+    back = _engine(inp, 3, "float32", 1, inp["global_micro"] // world,
+                   zero_extra={"mics_shard_size": 2})
+    back.load_checkpoint(ck["dir"], tag="flat")
+    got = back.module_state_dict()
+    out["flat_to_mics_equal"] = all(torch.equal(before[k], got[k])
+                                    for k in before)
+    out["flat_to_mics_steps"] = back.global_steps
+    out["flat_to_mics_loss"] = float(back.train_batch(
+        batch=ck["batches"][3]))
+    return out
+
+
+def zero3_cuda_suite(rank, world, inp):
+    """The card tests of ZeRO-3 (``tests/test_torch_zero3_cuda.py``): the
+    peak of a train step at stages 2 and 3, the collectives each rank
+    issues at stage 3 in order, the fp16 skip at stage 3."""
+    rec = {"peak": {}}
+    for stage in (2, 3):
+        torch.cuda.empty_cache()
+        eng = _engine(inp, stage, "bfloat16", 1,
+                      inp["global_micro"] // world)
+        eng.train_batch(batch=inp["batches"][1][0])     # settle the state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eng.train_batch(batch=inp["batches"][1][1])
+        torch.cuda.synchronize()
+        rec["peak"][stage] = {"peak": torch.cuda.max_memory_allocated(),
+                              "before": base,
+                              "n": sum(int(np.prod(leaf.full_shape))
+                                       for leaf in eng._plan.param)}
+        if stage == 3:
+            # every collective this rank issues in one step, in order
+            seq = []
+            names = ("all_gather_into_tensor", "reduce_scatter_tensor",
+                     "all_reduce")
+            saved = {n: getattr(comm, n) for n in names}
+
+            def logged(name, fn):
+                def call(*args, **kwargs):
+                    t = args[1] if name != "all_reduce" else args[0]
+                    seq.append((name, int(t.numel()), str(t.dtype)))
+                    return fn(*args, **kwargs)
+                return call
+            for n in names:
+                setattr(comm, n, logged(n, saved[n]))
+            try:
+                eng.train_batch(batch=inp["batches"][1][2])
+            finally:
+                for n in names:
+                    setattr(comm, n, saved[n])
+            rec["collectives"] = seq
+            rec["stats"] = dict(eng._coord.stats)
+        del eng
+    # fp16: rank 1's gradients overflow, every rank skips the stage-3 step
+    eng = _engine(inp, 3, "float16", 1, inp["global_micro"] // world)
+    before = _natural_masters(eng)
+    if rank == 1:
+        eng.module.embed_tokens.weight.register_hook(
+            lambda g: g * float("inf"))
+    scale0 = float(eng._scaler_state.scale)
+    eng.train_batch(batch=inp["batches"][1][0])
+    after = _natural_masters(eng)
+    rec["fp16"] = {"unchanged": all(torch.equal(before[n][0], after[n][0])
+                                    for n in before),
+                   "skipped": eng.skipped_steps, "scale0": scale0,
+                   "scale": float(eng._scaler_state.scale)}
+    return rec
+
+
 def main():
     suite, out_dir = sys.argv[1], sys.argv[2]
     rank = int(os.environ["RANK"])
@@ -370,6 +690,12 @@ def main():
     elif suite == "ckpt":
         inp = torch.load(sys.argv[3], weights_only=False)
         rec = ckpt_save(inp, rank, world)
+    elif suite == "zero3":
+        inp = torch.load(sys.argv[3], weights_only=False)
+        rec = zero3_suite(rank, world, inp, out_dir)
+    elif suite == "zero3_cuda":
+        inp = torch.load(sys.argv[3], weights_only=False)
+        rec = zero3_cuda_suite(rank, world, inp)
     else:
         raise SystemExit(f"unknown suite {suite!r}")
     _save(out_dir, suite, rank, rec)

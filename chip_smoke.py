@@ -111,7 +111,7 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    and on an eager engine (tokens bitwise), with ``profile`` lines "k"
    and "k_graph" and a ``llama_elementwise`` line (device ms of rope,
    RMSNorm and SwiGLU), then prompt 512 in 128-token chunks (K3, K2);
-   run (l) serves run (d)'s first 64 requests on a 32-slot page pool (K7,
+   run (l) serves run (d)'s first 32 requests on a 32-slot page pool (K7,
    K6) and on an eager engine, with ``profile`` lines "l" and "l_graph",
    then on monolithic lanes (K3, K2), every request equal, the first 4
    also through solo ``generate()``; run (k-gqa) takes a 2-layer cut with
@@ -206,7 +206,7 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    kernel-path logits against the plain path (cosine >= 0.999 in bf16
    and on an fp32 copy; one pass, chunked, paged), generate() at run
    (a)'s shape on the decode graphs and eager (tokens bitwise; K1, K2),
-   run (d)'s first 64 requests on 32 slots over a pool (K7, K6) and on
+   run (d)'s first 32 requests on 32 slots over a pool (K7, K6) and on
    lanes (K3, K2; every request equal), the same requests on the fp32
    copy each equal to its solo generate(), and
    ``save_16bit_model(hf_policy="opt")`` from a training engine: exactly
@@ -411,14 +411,14 @@ WINDOW_LIBRARY_NOTE = ("F.scaled_dot_product_attention over the window's "
 # heads of 128, SwiGLU ffn 11008, rope, RMSNorm, vocab 32000, an untied
 # head; seeded random bf16 weights): run (k), generation at run (a)'s
 # shape (one pass: K1, K2) and run (b)'s (prompt 512 in 128-token chunks:
-# K3, K2); run (l), run (d)'s first 64 requests on 32 slots over a pool of
+# K3, K2); run (l), run (d)'s first 32 requests on 32 slots over a pool of
 # 0.75 of the worst case, as run (d) sizes its own (K7, K6), then on
 # monolithic lanes (K3, K2); run (k-gqa), a cut that is not a published
 # config: 2 layers with 8 kv heads (G = 4 at 128-wide heads)
 LLAMA = "llama-7b"
 RUN_K = dict(batch=16, prompt=256, new=64)
 RUN_K_CHUNKED = dict(batch=16, prompt=512, new=16, chunk=128)
-RUN_L = dict(requests=64, solo=4)
+RUN_L = dict(requests=32, solo=4)
 SERVE_L = dict(SERVE_D, num_slots=32, num_pages=int(0.75 * 32 * 6) + 1)
 RUN_K_GQA = dict(num_kv_heads=8, num_layers=2, batch=16, prompt=256, new=16,
                  requests=8)
@@ -504,6 +504,7 @@ SERVE_E = dict(paged=True, page_size=64, max_cache_len=768,
 # requests and server on the int8 engine, with its monolithic twin; run
 # (h-i8mm): run (d)'s first 24 requests with decode_int8_matmuls, paged
 QUANT = {"enabled": True, "bits": 8, "per_channel": True, "kv_cache": True}
+RUN_H = dict(requests=96)
 RUN_H_I8MM = dict(requests=24)
 INT8_LIBRARY_NOTE = ("F.scaled_dot_product_attention over the int8 cache "
                      "dequantized to bf16 beforehand (dequantization "
@@ -591,7 +592,7 @@ SPARSE_GRAD_CHECK = dict(layers=2, batch=2, seq=2048, loss_rel=1e-2,
 # with the config under OPTConfig's attribute names (the card has no
 # transformers) and the HF-named state dict, HF's init drawn from a seeded
 # generator — through module_inject's convert_hf_model and init_inference:
-# generation at run (a)'s shape (K1, K2), run (d)'s first 64 requests on
+# generation at run (a)'s shape (K1, K2), run (d)'s first 32 requests on
 # 32 slots at run (d)'s knobs on a pool (K7, K6) and on lanes (K3, K2),
 # the same requests on an fp32 copy each equal to a solo generate(), and
 # an HF-named export converted back
@@ -600,7 +601,7 @@ OPT_350M_HF = dict(model_type="opt", vocab_size=50272, hidden_size=1024,
                    word_embed_proj_dim=512, do_layer_norm_before=False,
                    max_position_embeddings=2048, activation_function="relu",
                    tie_word_embeddings=True)
-RUN_O = dict(seed=17, requests=64, solo=4)
+RUN_O = dict(seed=17, requests=32, solo=4)
 SERVE_O = dict(SERVE_D, num_slots=32, num_pages=int(0.75 * 32 * 6) + 1)
 # run (c-remat): the JAX bench's long-context point (bench.py:1260-1283:
 # OPT-1.3B, seq 8192, micro 1, loss in 32 chunks) without ZeRO-3 at world
@@ -707,6 +708,25 @@ TRAIN_Q_LLAMA_CONFIG = {
     "bf16": {"enabled": True}, "data_types": {"grad_accum_dtype": "bf16"},
     "zero_optimization": {"stage": 2}, "gradient_clipping": 1.0, "seed": 0}
 Q_TIMEOUT_S = 900
+# run (r): tensor parallelism.  On one card (the driver's): the topology
+# API at tp 1 (initialize(topology=initialize_topology(tp=1))) bitwise run
+# (q)'s stage-0 engine, init_inference at tensor_parallel.tp_size 1 bitwise
+# run (a), and K1 / K4 / K5 and K2 / K3 at the heads a tp rank of OPT-1.3B
+# holds at tp 2 and 4 (16 and 8 of its 32).  On 2 cards or more, through
+# the launcher: OPT-1.3B at tp 2 at run (q)'s shape (micro 2 x 2048, gas
+# 2) against one card's engine on the same batch, then generate at (a)'s
+# shape (fp32 weights: tokens equal one card's; bf16: the agreement share);
+# on 4 cards or more tp 4, tp 2 x dp 2 under ZeRO-2 and ZeRO-3, and
+# (r-llama): Llama-7B at tp 4, generate at (k)'s shape and 2 steps at
+# (c-llama)'s shape with fp32 masters and moments
+RUN_R = dict(steps=3, min_cards=2, wide_min_cards=4, tp=2,
+             wide=(("tp4", 4, 0), ("tp2_dp2_z2", 2, 2),
+                   ("tp2_dp2_z3", 2, 3)))
+RUN_R_LLAMA = dict(RUN_Q_LLAMA, tp=4, steps=2, min_cards=4)
+KR_SHAPES = (dict(KB_SHAPE, H=16), dict(KB_SHAPE, H=8))
+K2R_SHAPES = (dict(K2_SHAPE, H=16), dict(K2_SHAPE, H=8))
+K3R_SHAPES = (dict(K3_SHAPE, H=16), dict(K3_SHAPE, H=8))
+R_TIMEOUT_S = 900
 
 
 def fail(msg):
@@ -734,6 +754,24 @@ def disarm_watchdog():
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+# each phase's wall seconds, in the order they ran (the ``phase_seconds``
+# line before the last), and when the script started
+PHASES = {}
+T_START = time.perf_counter()
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Time a phase of the script: its wall seconds go into ``PHASES`` and
+    onto a ``{"phase": ..., "seconds": ...}`` line as it ends."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASES[name] = time.perf_counter() - t0
+        emit({"phase": name, "seconds": PHASES[name]})
 
 
 def time_all(tag, kernel_name, kernel_fn, plain_fn, library_fn, iters):
@@ -2863,7 +2901,8 @@ def eager_twin(eng, **config):
 # Continuous-batching serving: engine.serve -> submit / drain, (d) and (e)
 # --------------------------------------------------------------------- #
 def serving_traffic(V, n=RUN_D["requests"]):
-    """Run (d)'s requests (the first ``n``: run (l) takes 64): numpy seed
+    """Run (d)'s requests (the first ``n``: runs (l), (o) take 32, (h)
+    96): numpy seed
     0, prompt lengths and new tokens drawn from RUN_D's sets, prompt ids
     uniform over the vocabulary."""
     import numpy as np
@@ -4279,7 +4318,8 @@ def int8_generate_path(eng, tokens, runs):
 
 
 def int8_serving_path(eng_g, eng_ge, eng_m, outs_d, runs):
-    """Run (h): run (d)'s requests and server on the int8 engine (K7-int8
+    """Run (h): run (d)'s first ``RUN_H`` requests and server on the int8
+    engine (K7-int8
     admission, K6-int8 decode) with the captured decode block, again on
     the eager engine ``eng_ge`` (every request equal), a decode-window
     profile each way, its monolithic twin (K3-int8, K2-int8) with every
@@ -4288,7 +4328,7 @@ def int8_serving_path(eng_g, eng_ge, eng_m, outs_d, runs):
     import numpy as np
     import torch
     V = eng_g.module.config.vocab_size
-    reqs = serving_traffic(V)
+    reqs = serving_traffic(V, RUN_H["requests"])
     # the paged logits check's batch: the first 4 prompts cut to the
     # shortest of them
     P = min(len(p) for p, _ in reqs[:4])
@@ -4670,7 +4710,7 @@ def llama_path():
 
 
 def llama_serving_path(eng, eng_e):
-    """Run (l): run (d)'s first 64 requests on a 32-slot page pool (K7
+    """Run (l): run (d)'s first 32 requests on a 32-slot page pool (K7
     admission, K6 decode) on the captured decode block, again on the
     eager engine ``eng_e`` (every request equal), a decode-window profile
     each way, then the same requests on monolithic lanes (K3, K2: every
@@ -5446,7 +5486,7 @@ def opt350m_path():
     """Run (o): OPT-350m's published layout from an HF-named state dict,
     converted by ``init_inference``: its kernel-path logits against the
     plain path, generate() at run (a)'s shape on the decode graphs and
-    eager (tokens bitwise), run (d)'s first 64 requests on a 32-slot pool
+    eager (tokens bitwise), run (d)'s first 32 requests on a 32-slot pool
     and on lanes (every request equal), the same on an fp32 copy each
     equal to its solo generate(), and ``save_16bit_model(hf_policy=
     "opt")``: HF's key names and shapes, converted back to the same
@@ -6678,6 +6718,7 @@ def zero_dp_path():
                                           "top_kernels", "trace")}})
     rec = {"world": world, "seconds": secs, "reference": ref,
            "params": recs[0]["params"],
+           "stage0": {k: rows["0"][0][k] for k in ("losses", "digest")},
            "launches_per_step": {
                key: {name: [s["launches_per_step"].get(name, 0)
                             for s in rows[key]] for name in want}
@@ -6731,6 +6772,66 @@ def q_launch_rows(q, name):
             for stage, ranks in q["launches_per_step"].items()}
 
 
+def only_r(card):
+    """``--only r``: run (r) alone on every visible card (its multi-card
+    runs; the one-card checks against runs (q) and (a) need those runs),
+    the local-head kernel rows, the card and the result line."""
+    import torch
+    checks = {}
+    with phase("r"):
+        rec = tp_path(None, None, checks)
+    emit({"phase_seconds": PHASES})
+    print(card, flush=True)
+    emit({"kernels": r_kernel_rows(checks, rec=rec)})
+    disarm_watchdog()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def r_kernel_rows(checks, base=None, rec=None):
+    """K1 / K4 / K5 / K2 / K3 rows with their local-head shapes (``tp2`` /
+    ``tp4`` columns); ``base`` the full rows to add them to, else new rows
+    with the tp-2 shape's numbers and the launches of run (r)'s multi-card
+    runs (``rec``; a row with no such run has no ``launches``)."""
+    csrc = "deepspeed_tpu_torch/ops/csrc/"
+    pallas = "deepspeed_tpu/ops/transformer/"
+    names = {"K1": ("flash_attention", "flash_attention.cu",
+                    "flash_attention.py:175"),
+             "K4": ("flash_attention_dq", "flash_attention_bwd.cu",
+                    "flash_attention.py:388"),
+             "K5": ("flash_attention_dkv", "flash_attention_bwd.cu",
+                    "flash_attention.py:421"),
+             "K2": ("decode_attention", "decode_attention.cu",
+                    "decode_attention.py:630"),
+             "K3": ("chunk_prefill_attention", "flash_attention.cu",
+                    "decode_attention.py:448")}
+    rows = {r["name"]: r for r in (base or [])}
+    out = []
+    for key, (name, src, site) in names.items():
+        cols = {}
+        for tp in (2, 4):
+            c = checks[(f"{key} tp{tp}", "bfloat16")]
+            cols[f"tp{tp}_local_heads"] = {
+                "shape": c.get("shape") or c.get("cache") or c.get("q"),
+                "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+        if name in rows:
+            rows[name].update(cols)
+            continue
+        t2 = cols["tp2_local_heads"]
+        row = {"name": name, "route": "cuda", "source": csrc + src,
+               "replaces": pallas + site}
+        n = r_launches(rec or {}, name)
+        if n is not None:
+            row["launches"] = n
+        out.append({**row, **{k: t2[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}, **cols})
+    return out if base is None else base
+
+
 def only_q(card):
     """``--only q``: run (q) alone, then K1 / K4 / K5 held and timed at its
     attention shape (the rows of the ``kernels`` line, with run (q)'s
@@ -6764,16 +6865,515 @@ def only_q(card):
                                  "count": torch.cuda.device_count()}})
 
 
+# --------------------------------------------------------------------- #
+# run (r): tensor parallelism
+# --------------------------------------------------------------------- #
+def r_batch(world_rows, seed=RUN_Q["seed"]):
+    """Run (q)'s batch: ``[gas, micro * rows, S]`` random ids."""
+    import torch
+    V = q_opt_model().config.vocab_size
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return {"input_ids": torch.randint(
+        0, V, (RUN_Q["gas"], RUN_Q["micro"] * world_rows, RUN_Q["seq"]),
+        generator=g, device=DEV)}
+
+
+def r_train(rec, key, tp, stage, batch, ref=None):
+    """One tp engine (OPT-1.3B, run (q)'s config and shape) for
+    ``RUN_R["steps"]`` steps: losses, step ms, the state a rank holds at
+    the boundary, launches a step, one synced step's collectives."""
+    import torch
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.parallel.topology import initialize_topology
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    world = comm.get_world_size()
+    topo = initialize_topology(tp=tp)
+    config = {**TRAIN_Q_CONFIG, "zero_optimization": {"stage": stage}}
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=q_opt_model(), config=config,
+                            device=q_rank_device(), topology=topo)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    boundary = []
+    losses, first_ms, step_ms, counts = q_train(engine, batch,
+                                                RUN_R["steps"], boundary)
+    st = {"tp": tp, "dp": engine.dp_world, "stage": stage,
+          "losses": losses, "first_step_ms": first_ms, "step_ms": step_ms,
+          "tokens_per_s": engine.dp_world * RUN_Q["micro"] * RUN_Q["gas"]
+          * RUN_Q["seq"] / (step_ms / 1e3),
+          "state_bytes": max(boundary), "peak_bytes":
+          torch.cuda.max_memory_allocated(), "init_seconds": init_s,
+          "launches_per_step": {k: v / RUN_R["steps"]
+                                for k, v in counts.items() if v},
+          "device": str(engine.device), "world": world,
+          "digest": q_param_digest(q_full_params(engine))}
+    if ref is not None:
+        st["reference_losses"], st["reference_step_ms"] = ref
+    st["comm"] = q_comm_step(engine, batch)
+    rec.setdefault("runs", {})[key] = st
+    del engine
+    return st
+
+
+def r_generate(rec, tp, ref_tokens):
+    """``generate`` at (a)'s shape at ``tp``: on fp32 weights the greedy
+    tokens against one card's (``ref_tokens["float32"]``), on bf16 the
+    agreement share and tokens/s, with the captured decode graphs (the
+    collectives inside them) and eagerly."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import opt_model
+    B, P, new = RUN_A["batch"], RUN_A["prompt"], RUN_A["new"]
+    ids = ref_tokens["ids"].to(DEV)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        for graphs in (True, False):
+            eng = init_inference(opt_model(MODEL, dtype=dtype), dtype=dtype,
+                                 device=q_rank_device(),
+                                 tensor_parallel={"tp_size": tp},
+                                 enable_cuda_graph=graphs)
+            eng.init_params(seed=0)
+            name = f"{dtype}_{'graph' if graphs else 'eager'}"
+            eng.generate(ids, max_new_tokens=4)          # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            toks = eng.generate(ids, max_new_tokens=new)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_counts()
+            want = ref_tokens[dtype].to(toks.device)
+            out[name] = {
+                "seconds": dt, "tokens_per_s": B * new / dt,
+                "equal_to_one_card": bool(torch.equal(toks, want)),
+                "agreement": float((toks[:, P:] == want[:, P:]).float()
+                                   .mean()),
+                "launches": {k: v for k, v in counts.items() if v},
+                "tokens": toks.cpu()}
+            del eng
+    rec["generate"] = {k: {x: y for x, y in v.items() if x != "tokens"}
+                       for k, v in out.items()}
+    rec["generate"]["graph_bitwise_eager"] = bool(torch.equal(
+        out["float32_graph"]["tokens"], out["float32_eager"]["tokens"]))
+
+
+def r_reference(rec, batches, tokens):
+    """One card's engines, no group (rank 0, before the group exists): the
+    same global batches at micro 2 (gas scaled by the dp world), and with
+    ``tokens`` (a)'s tokens in fp32 and bf16."""
+    import torch
+    from deepspeed_tpu_torch import init_inference, initialize
+    from deepspeed_tpu_torch.models.opt import opt_model
+    out = {}
+    for key, batch in batches.items():
+        rows = batch["input_ids"].shape[1] // RUN_Q["micro"]
+        one = {**TRAIN_Q_CONFIG,
+               "gradient_accumulation_steps": RUN_Q["gas"] * rows}
+        engine, *_ = initialize(model=q_opt_model(), config=one, device=DEV)
+        flat = {"input_ids": batch["input_ids"].reshape(
+            RUN_Q["gas"] * rows, RUN_Q["micro"], RUN_Q["seq"])}
+        out[key], _, out[key + "_step_ms"], _ = q_train(
+            engine, flat, RUN_R["steps"], [])
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["reference"] = dict(out)
+    if not tokens:
+        return out, None
+    V = q_opt_model().config.vocab_size
+    g = torch.Generator(device=DEV).manual_seed(4)
+    ids = torch.randint(0, V, (RUN_A["batch"], RUN_A["prompt"]),
+                        generator=g, device=DEV)
+    toks = {"ids": ids.cpu()}
+    for dtype in ("float32", "bfloat16"):
+        eng = init_inference(opt_model(MODEL, dtype=dtype), dtype=dtype,
+                             device=DEV)
+        eng.init_params(seed=0)
+        toks[dtype] = eng.generate(ids, max_new_tokens=RUN_A["new"]).cpu()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, toks
+
+
+def r_llama(rec):
+    """(r-llama): Llama-7B at tp 4 — generate at (k)'s shape in bf16, then
+    2 steps at (c-llama)'s shape with fp32 masters and moments."""
+    import torch
+    from deepspeed_tpu_torch import init_inference, initialize
+    from deepspeed_tpu_torch.models.opt import llama_model
+    from deepspeed_tpu_torch.parallel.topology import initialize_topology
+    tp = RUN_R_LLAMA["tp"]
+    B, P, new = RUN_K["batch"], RUN_K["prompt"], RUN_K["new"]
+    eng = init_inference(llama_model(LLAMA), dtype="bfloat16",
+                         device=q_rank_device(),
+                         tensor_parallel={"tp_size": tp})
+    eng.init_params(seed=0)
+    V = eng.module.config.vocab_size
+    g = torch.Generator(device=DEV).manual_seed(9)
+    ids = torch.randint(0, V, (B, P), generator=g, device=DEV)
+    eng.generate(ids, max_new_tokens=4)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = eng.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec["generate"] = {"seconds": dt, "tokens_per_s": B * new / dt,
+                       "launches": {k: v for k, v in read_counts().items()
+                                    if v},
+                       "in_vocab": bool(int(toks.min()) >= 0
+                                        and int(toks.max()) < V)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    topo = initialize_topology(tp=tp)
+    cfg = {**TRAIN_Q_LLAMA_CONFIG, "zero_optimization": {"stage": 0}}
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=llama_train_model(RUN_R_LLAMA),
+                            config=cfg, device=q_rank_device(),
+                            topology=topo)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device=DEV).manual_seed(RUN_R_LLAMA["seed"])
+    batch = {"input_ids": torch.randint(
+        0, V, (1, RUN_R_LLAMA["micro"], RUN_R_LLAMA["seq"]), generator=g,
+        device=DEV)}
+    boundary = []
+    losses, first_ms, step_ms, counts = q_train(
+        engine, batch, RUN_R_LLAMA["steps"], boundary)
+    n = sum(p.numel() for p in llama_train_model(RUN_R_LLAMA).parameters())
+    rec["train"] = {"losses": losses, "first_step_ms": first_ms,
+                    "step_ms": step_ms, "init_seconds": init_s,
+                    "state_bytes": max(boundary),
+                    "predicted_state_bytes": 16 * n / tp, "params": n,
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "launches_per_step": {
+                        k: v / RUN_R_LLAMA["steps"]
+                        for k, v in counts.items() if v}}
+    del engine
+
+
+def r_rank(rank, world, rec, job):
+    """One rank of run (r): ``job`` "world1" (one card: the topology API
+    at tp 1, against run (q)'s stage 0), "tp2" (2 cards: tp 2, then
+    generate), "wide" (4 cards: tp 4, tp 2 x dp 2 at ZeRO-2 and ZeRO-3) or
+    "llama" (4 cards)."""
+    import torch
+    from deepspeed_tpu_torch import comm
+    batches = {"tp": r_batch(1)}
+    if job == "wide":
+        batches["dp2"] = r_batch(2)
+    ref, toks = None, None
+    if job in ("tp2", "wide") and rank == 0:
+        ref, toks = r_reference(rec, batches, tokens=job == "tp2")
+    comm.init_distributed(timeout=600, device=q_rank_device())
+    rec["backend"] = comm.get_backend()
+    if job == "world1":
+        r_train(rec, "tp1", 1, 0, batches["tp"])
+    elif job == "llama":
+        r_llama(rec)
+    elif job == "tp2":
+        r_train(rec, "tp2", 2, 0, batches["tp"],
+                ref and (ref["tp"], ref["tp_step_ms"]))
+        # rank 0's one-card tokens reach every rank
+        box = [toks]
+        torch.distributed.broadcast_object_list(box, src=0)
+        r_generate(rec, 2, box[0])
+    else:
+        for key, tp, stage in RUN_R["wide"]:
+            which = "tp" if tp == world else "dp2"
+            r_train(rec, key, tp, stage, batches[which],
+                    ref and (ref[which], ref[which + "_step_ms"]))
+    comm.destroy_process_group()
+
+
+def r_launch(world, out_dir, job):
+    """The launcher over ``world`` cards running this script's
+    ``--r-rank`` mode; returns ``(rc, output tail, records)``."""
+    import signal
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner",
+           "--num_gpus", str(world), "--master_port", str(free_port()),
+           os.path.abspath(__file__), "--r-rank", out_dir, "--r-job", job]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=R_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail(f"run (r): the ranks outlived {R_TIMEOUT_S} s:\n{out[-3000:]}")
+    recs = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"{job}.rank{r}.json")
+        recs.append(json.load(open(path)) if os.path.exists(path) else None)
+    if proc.returncode != 0 or any(r is None or "error" in r for r in recs):
+        errs = [r.get("error") if r else "no record" for r in recs]
+        fail(f"run (r) {job}: the ranks failed (rc {proc.returncode}): "
+             f"{errs}\n{out[-3000:]}")
+    return recs
+
+
+def r_rank_main(out_dir, job):
+    """``--r-rank`` mode: one rank of run (r), its record in
+    ``out_dir/<job>.rank<r>.json``."""
+    import traceback
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if DEV == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    rec = {"rank": rank, "world": world}
+    code = 0
+    try:
+        r_rank(rank, world, rec, job)
+    except BaseException as e:       # recorded for the parent, then exit 1
+        rec["error"] = f"{type(e).__name__}: {e}"[:2000]
+        rec["traceback"] = traceback.format_exc()[-4000:]
+        code = 1
+    with open(os.path.join(out_dir, f"{job}.rank{rank}.json"), "w") as f:
+        json.dump(rec, f, default=str)
+    sys.stdout.flush()
+    os._exit(code)
+
+
+def r_kernel_checks(checks):
+    """K1 / K4 / K5 at 16 and 8 heads of 64 (a tp-2 and a tp-4 rank's
+    share of OPT-1.3B's 32) at run (c)'s [2, 2048], and K2 / K3 at 16 and
+    8 kv heads at run (a)'s and (b)'s caches, each against its plain
+    version, timed beside the library call."""
+    import torch
+    for shape, tp in zip(KR_SHAPES, (2, 4)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        bwd = check_flash_bwd("bfloat16", True, shape)
+        for key in ("K1", "K4", "K5"):
+            checks[(f"{key} tp{tp}", "bfloat16")] = bwd[key]
+    for shape, tp in zip(K2R_SHAPES, (2, 4)):
+        checks[(f"K2 tp{tp}", "bfloat16")] = check_decode("bfloat16", True,
+                                                          shape)
+    torch.cuda.empty_cache()
+    for shape, tp in zip(K3R_SHAPES, (2, 4)):
+        checks[(f"K3 tp{tp}", "bfloat16")] = check_chunk("bfloat16", True,
+                                                         shape)
+    torch.cuda.empty_cache()
+
+
+def r_train_rows(recs):
+    """Check and emit a launch's training runs (every rank's K1 / K4 / K5
+    launches a step, finite losses within bf16's 2e-2 of one card's) and
+    its generate record; returns the runs by key."""
+    n = sum(p.numel() for p in q_opt_model().parameters())
+    L = q_opt_model().config.num_layers
+    want = {"flash_attention": L * RUN_Q["gas"],
+            "flash_attention_dq": L * RUN_Q["gas"],
+            "flash_attention_dkv": L * RUN_Q["gas"]}
+    out = {}
+    for key in recs[0]["runs"]:
+        st = [r["runs"][key] for r in recs]
+        ref = st[0]["reference_losses"]
+        for r, x in enumerate(st):
+            if x["launches_per_step"] != want:
+                fail(f"run (r) {key} rank {r}: launches a step "
+                     f"{x['launches_per_step']}, the path needs {want}")
+            if not all(math.isfinite(v) for v in x["losses"]):
+                fail(f"run (r) {key}: non-finite losses {x['losses']}")
+        bad = [(a, b) for a, b in zip(st[0]["losses"], ref)
+               if abs(a - b) > TOL["bfloat16"] * abs(b)]
+        if bad:
+            fail(f"run (r) {key}: losses {st[0]['losses']} off one card's "
+                 f"{ref}")
+        # 16 B a parameter (fp32 masters, gradients, moments) of a tp
+        # rank's slice, the ZeRO stage's share of it over dp
+        pred = q_predictions(n / st[0]["tp"], st[0]["dp"])[str(st[0]["stage"])]
+        emit({"run": "r", "config": key, "tp": st[0]["tp"], "dp": st[0]["dp"],
+              "stage": st[0]["stage"], "losses": st[0]["losses"],
+              "one_card_losses": ref,
+              "step_ms": [x["step_ms"] for x in st],
+              "tokens_per_s": st[0]["tokens_per_s"],
+              "state_bytes": [x["state_bytes"] for x in st],
+              "predicted_state_bytes": pred,
+              "one_card_step_ms": st[0].get("reference_step_ms"),
+              "peak_bytes": [x["peak_bytes"] for x in st],
+              "launches_per_step": st[0]["launches_per_step"],
+              "comm": st[0]["comm"], "init_seconds": st[0]["init_seconds"]})
+        out[key] = st
+    gen = recs[0].get("generate")
+    if gen is not None:
+        for name in ("float32_graph", "float32_eager"):
+            if not gen[name]["equal_to_one_card"]:
+                fail(f"run (r): greedy tokens at tp 2 ({name}) differ from "
+                     f"one card's: {gen}")
+        if not gen["graph_bitwise_eager"]:
+            fail("run (r): the captured decode graphs' tokens at tp 2 are "
+                 "not the eager loop's")
+        emit({"run": "r_generate", "tp": RUN_R["tp"], **gen})
+        out["generate"] = gen
+        out["generate_ranks"] = [r["generate"] for r in recs]
+    return out
+
+
+def r_launches(rec, name):
+    """Launches of kernel ``name`` in run (r)'s multi-card runs (``rec``
+    :func:`tp_path`'s record): every rank's training steps and measured
+    ``generate`` calls; None where no multi-card run took place."""
+    if "tp" not in rec:
+        return None
+    n = 0
+    for key, st in rec["tp"].items():
+        if key == "generate_ranks":
+            n += sum(g["launches"].get(name, 0) for gen in st
+                     for g in gen.values() if isinstance(g, dict))
+        elif key != "generate":
+            n += sum(x["launches_per_step"].get(name, 0)
+                     for x in st) * RUN_R["steps"]
+    for r in rec.get("llama", []):
+        n += r["train"]["launches_per_step"].get(name, 0) \
+            * RUN_R_LLAMA["steps"] + r["generate"]["launches"].get(name, 0)
+    return int(round(n))
+
+
+def tp_path(q, tokens_a, checks):
+    """Run (r).  ``q``: run (q)'s record (its stage 0 at world size 1, the
+    bitwise reference of the topology API at tp 1; None alone on several
+    cards), ``tokens_a``: run (a)'s ids and tokens (None likewise)."""
+    import shutil
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import opt_model
+    start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    out_dir = os.path.join(ROOT, "build", "tp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    rec = {"world": world}
+    if q is not None:
+        one = r_launch(1, out_dir, "world1")[0]["runs"]["tp1"]
+        s0 = q["stage0"]
+        bitwise = one["losses"] == s0["losses"] and \
+            one["digest"] == s0["digest"]
+        rec["world1"] = {"losses": one["losses"], "q_stage0": s0["losses"],
+                         "bitwise_losses_and_params": bitwise,
+                         "step_ms": one["step_ms"],
+                         "launches_per_step": one["launches_per_step"]}
+        if not bitwise:
+            fail(f"run (r): initialize(topology=initialize_topology(tp=1)) "
+                 f"losses {one['losses']} / parameters are not run (q)'s "
+                 f"stage 0 ({s0['losses']}) bitwise")
+    if tokens_a is not None:
+        ids, want = tokens_a
+        eng = init_inference(opt_model(MODEL), dtype="bfloat16", device=DEV,
+                             tensor_parallel={"tp_size": 1})
+        eng.init_params(seed=0)
+        got = eng.generate(ids, max_new_tokens=RUN_A["new"])
+        rec["tp1_generate_bitwise_run_a"] = bool(torch.equal(got, want))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not rec["tp1_generate_bitwise_run_a"]:
+            fail("run (r): init_inference(tensor_parallel={'tp_size': 1}) "
+                 "does not give run (a)'s tokens bitwise")
+    emit({"run": "r", "world": world, **rec})
+    r_kernel_checks(checks)
+    if world >= RUN_R["min_cards"]:
+        rec["tp"] = r_train_rows(r_launch(RUN_R["tp"], out_dir, "tp2"))
+    if world >= RUN_R["wide_min_cards"]:
+        rec["tp"].update(r_train_rows(r_launch(world, out_dir, "wide")))
+    if world >= RUN_R_LLAMA["min_cards"]:
+        lrecs = r_launch(RUN_R_LLAMA["tp"], out_dir, "llama")
+        tr = lrecs[0]["train"]
+        if not all(math.isfinite(x) for x in tr["losses"]) or \
+                not tr["losses"][-1] < tr["losses"][0]:
+            fail(f"run (r-llama): losses not finite and falling: "
+                 f"{tr['losses']}")
+        if not lrecs[0]["generate"]["in_vocab"]:
+            fail("run (r-llama): generate left the vocabulary")
+        emit({"run": "r_llama", "tp": RUN_R_LLAMA["tp"],
+              "generate": lrecs[0]["generate"], **tr,
+              "state_bytes_ranks": [r["train"]["state_bytes"]
+                                    for r in lrecs],
+              "q_llama_zero3_dp4_state_bytes": 23.88e9})
+        rec["llama"] = lrecs
+    rec["seconds"] = time.perf_counter() - start
+    emit({"run_r_seconds": rec["seconds"]})
+    return rec
+
+
+def kernel_checks(checks):
+    """Every kernel against its plain version in fp32 and bf16 (timed in
+    bf16) at the main path's shapes, and K1 / K2 / K3 / K6 / K7 at
+    Llama-7B's width."""
+    import torch
+    for dtype in ("float32", "bfloat16"):
+        timed = dtype == "bfloat16"
+        checks[("K1", dtype)] = check_flash(dtype, timed)
+        checks[("K2", dtype)] = check_decode(dtype, timed)
+        torch.cuda.empty_cache()
+        checks[("K3", dtype)] = check_chunk(dtype, timed)
+        torch.cuda.empty_cache()
+        bwd = check_flash_bwd(dtype, timed)
+        for key in ("K4", "K5"):
+            checks[(key, dtype)] = bwd[key]
+        checks[("K1 train", dtype)] = bwd["K1"]
+        torch.cuda.empty_cache()
+        bwd = check_flash_bwd(dtype, timed, KB_D128_SHAPE)
+        for key in ("K4", "K5"):
+            checks[(key + " d128", dtype)] = bwd[key]
+        checks[("K1 train d128", dtype)] = bwd["K1"]
+        torch.cuda.empty_cache()
+        checks[("K6", dtype)] = check_paged_decode(dtype, timed)
+        checks[("K7", dtype)] = check_paged_chunk(dtype, timed)
+        checks[("K3 verify", dtype)], checks[("K7 verify", dtype)] = \
+            check_verify(dtype, timed)
+        checks[("K8", dtype)] = check_block_sparse(dtype, timed)
+        checks[("K2-int8", dtype)], checks[("K2-i8mm", dtype)] = \
+            check_decode_int8(dtype, timed)
+        checks[("K3-int8", dtype)] = check_chunk_int8(dtype, timed)
+        checks[("K6-int8", dtype)], checks[("K6-i8mm", dtype)] = \
+            check_paged_decode_int8(dtype, timed)
+        checks[("K7-int8", dtype)] = check_paged_chunk_int8(dtype, timed)
+        checks[("nan tail", dtype)] = check_nan_tail(dtype)
+        checks[("K1 run i", dtype)] = check_flash(dtype, False, K1I_SHAPE)
+        for key, rec in {**check_decode_window(dtype, timed),
+                         **check_paged_decode_window(dtype, timed)}.items():
+            checks[(key, dtype)] = rec
+    # K1 / K2 / K3 / K6 / K7 at Llama-7B's width (runs (k), (l)), in bf16
+    dtype = "bfloat16"
+    checks[("K1 run k", dtype)] = check_flash(dtype, True, K1K_SHAPE)
+    checks[("K2 run k", dtype)] = check_decode(dtype, True, K2K_SHAPE)
+    torch.cuda.empty_cache()
+    checks[("K3 run k", dtype)] = check_chunk(dtype, True, K3K_SHAPE)
+    torch.cuda.empty_cache()
+    checks[("K6 run l", dtype)] = check_paged_decode(dtype, True, K6L_SHAPE)
+    checks[("K7 run l", dtype)] = check_paged_chunk(
+        dtype, True, K7L_SHAPE, pool=K6L_SHAPE, extra=())
+    torch.cuda.empty_cache()
+
+
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["q"],
+    parser.add_argument("--only", choices=["q", "r"],
                         help="run one phase alone (q: data-parallel "
-                             "training on every visible card)")
+                             "training on every visible card; r: tensor "
+                             "parallelism on every visible card)")
     parser.add_argument("--q-rank", metavar="DIR",
                         help=argparse.SUPPRESS)   # a rank of run (q)
     parser.add_argument("--q-llama", action="store_true",
                         help=argparse.SUPPRESS)
+    parser.add_argument("--r-rank", metavar="DIR",
+                        help=argparse.SUPPRESS)   # a rank of run (r)
+    parser.add_argument("--r-job", help=argparse.SUPPRESS)
     args = parser.parse_args()
     try:
         import torch
@@ -6787,6 +7387,10 @@ def main():
     sys.path.insert(0, ROOT)
     if args.q_rank:
         q_rank_main(args.q_rank, args.q_llama)
+    if args.r_rank:
+        r_rank_main(args.r_rank, args.r_job)
+    global T_START
+    T_START = time.perf_counter()
     arm_watchdog()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6871,94 +7475,76 @@ def main():
     print(card, flush=True)
     if args.only == "q":
         return only_q(card)
+    if args.only == "r":
+        return only_r(card)
 
+    PHASES["build"] = build_s
     checks = {}
-    for dtype in ("float32", "bfloat16"):
-        timed = dtype == "bfloat16"
-        checks[("K1", dtype)] = check_flash(dtype, timed)
-        checks[("K2", dtype)] = check_decode(dtype, timed)
-        torch.cuda.empty_cache()
-        checks[("K3", dtype)] = check_chunk(dtype, timed)
-        torch.cuda.empty_cache()
-        bwd = check_flash_bwd(dtype, timed)
-        for key in ("K4", "K5"):
-            checks[(key, dtype)] = bwd[key]
-        checks[("K1 train", dtype)] = bwd["K1"]
-        torch.cuda.empty_cache()
-        bwd = check_flash_bwd(dtype, timed, KB_D128_SHAPE)
-        for key in ("K4", "K5"):
-            checks[(key + " d128", dtype)] = bwd[key]
-        checks[("K1 train d128", dtype)] = bwd["K1"]
-        torch.cuda.empty_cache()
-        checks[("K6", dtype)] = check_paged_decode(dtype, timed)
-        checks[("K7", dtype)] = check_paged_chunk(dtype, timed)
-        checks[("K3 verify", dtype)], checks[("K7 verify", dtype)] = \
-            check_verify(dtype, timed)
-        checks[("K8", dtype)] = check_block_sparse(dtype, timed)
-        checks[("K2-int8", dtype)], checks[("K2-i8mm", dtype)] = \
-            check_decode_int8(dtype, timed)
-        checks[("K3-int8", dtype)] = check_chunk_int8(dtype, timed)
-        checks[("K6-int8", dtype)], checks[("K6-i8mm", dtype)] = \
-            check_paged_decode_int8(dtype, timed)
-        checks[("K7-int8", dtype)] = check_paged_chunk_int8(dtype, timed)
-        checks[("nan tail", dtype)] = check_nan_tail(dtype)
-        checks[("K1 run i", dtype)] = check_flash(dtype, False, K1I_SHAPE)
-        for key, rec in {**check_decode_window(dtype, timed),
-                         **check_paged_decode_window(dtype, timed)}.items():
-            checks[(key, dtype)] = rec
-    # K1 / K2 / K3 / K6 / K7 at Llama-7B's width (runs (k), (l)), in bf16
-    dtype = "bfloat16"
-    checks[("K1 run k", dtype)] = check_flash(dtype, True, K1K_SHAPE)
-    checks[("K2 run k", dtype)] = check_decode(dtype, True, K2K_SHAPE)
-    torch.cuda.empty_cache()
-    checks[("K3 run k", dtype)] = check_chunk(dtype, True, K3K_SHAPE)
-    torch.cuda.empty_cache()
-    checks[("K6 run l", dtype)] = check_paged_decode(dtype, True, K6L_SHAPE)
-    checks[("K7 run l", dtype)] = check_paged_chunk(
-        dtype, True, K7L_SHAPE, pool=K6L_SHAPE, extra=())
-    torch.cuda.empty_cache()
-
-    runs, eng, eng_e, tokens = main_path()
-    serving_runs, outs_d = serving_path(eng, eng_e)
-    runs.update(serving_runs)
-    runs.update(spec_path(eng, eng_e))
-    runs.update(lifecycle_path(eng, outs_d))
-    runs.update(http_path(eng, outs_d))
+    with phase("kernel checks"):
+        kernel_checks(checks)
+    with phase("a, b"):
+        runs, eng, eng_e, tokens = main_path()
+    with phase("d, e"):
+        serving_runs, outs_d = serving_path(eng, eng_e)
+        runs.update(serving_runs)
+    with phase("m"):
+        runs.update(spec_path(eng, eng_e))
+    with phase("n"):
+        runs.update(lifecycle_path(eng, outs_d))
+    with phase("p"):
+        runs.update(http_path(eng, outs_d))
     del eng_e
-    eng_g, eng_ge, eng_m = int8_generate_path(eng, tokens, runs)
+    with phase("g"):
+        eng_g, eng_ge, eng_m = int8_generate_path(eng, tokens, runs)
     del eng
     torch.cuda.empty_cache()
-    int8_serving_path(eng_g, eng_ge, eng_m, outs_d, runs)
+    with phase("h"):
+        int8_serving_path(eng_g, eng_ge, eng_m, outs_d, runs)
     del eng_g, eng_ge, eng_m
     torch.cuda.empty_cache()
-    runs.update(gpt_neo_path())
-    runs.update(llama_path())
-    runs.update(opt350m_path())
+    with phase("i, j"):
+        runs.update(gpt_neo_path())
+    with phase("k, l"):
+        runs.update(llama_path())
+    with phase("o"):
+        runs.update(opt350m_path())
     emit({"graphs_vs_eager": graphs_vs_eager(runs)})
-    runs["c"] = train_path()
-    runs["c_ckpt"] = ckpt_path()
-    grad_check()
-    runs["f"] = sparse_train_path()
-    sparse_grad_check()
-    runs["c_remat"] = remat_path()
-    # K1 / K4 / K5 at run (c-remat)'s attention shape (the plain backward's
-    # [1, 32, 8192, 8192] fp32 scores need the card to itself)
-    gc.collect()
-    torch.cuda.empty_cache()
-    bwd = check_flash_bwd("bfloat16", True, KL_SHAPE)
-    for key in ("K1", "K4", "K5"):
-        checks[(key + " run c-remat", "bfloat16")] = bwd[key]
-    torch.cuda.empty_cache()
-    runs["c_llama"] = llama_train_path()
-    runs["c_offload"] = offload_path()
-    runs["c_nvme"] = nvme_path()
-    runs["q"] = zero_dp_path()
-    gc.collect()
-    torch.cuda.empty_cache()
-    bwd = check_flash_bwd("bfloat16", True, KLT_SHAPE)
-    for key in ("K1", "K4", "K5"):
-        checks[(key + " run c-llama", "bfloat16")] = bwd[key]
-    torch.cuda.empty_cache()
+    with phase("c"):
+        runs["c"] = train_path()
+    with phase("c-ckpt"):
+        runs["c_ckpt"] = ckpt_path()
+    with phase("grad check"):
+        grad_check()
+    with phase("f"):
+        runs["f"] = sparse_train_path()
+        sparse_grad_check()
+    with phase("c-remat"):
+        runs["c_remat"] = remat_path()
+        # K1 / K4 / K5 at run (c-remat)'s attention shape (the plain
+        # backward's [1, 32, 8192, 8192] fp32 scores need the card to
+        # itself)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bwd = check_flash_bwd("bfloat16", True, KL_SHAPE)
+        for key in ("K1", "K4", "K5"):
+            checks[(key + " run c-remat", "bfloat16")] = bwd[key]
+        torch.cuda.empty_cache()
+    with phase("c-llama"):
+        runs["c_llama"] = llama_train_path()
+    with phase("c-offload"):
+        runs["c_offload"] = offload_path()
+    with phase("c-nvme"):
+        runs["c_nvme"] = nvme_path()
+    with phase("q"):
+        runs["q"] = zero_dp_path()
+        gc.collect()
+        torch.cuda.empty_cache()
+        bwd = check_flash_bwd("bfloat16", True, KLT_SHAPE)
+        for key in ("K1", "K4", "K5"):
+            checks[(key + " run c-llama", "bfloat16")] = bwd[key]
+        torch.cuda.empty_cache()
+    with phase("r"):
+        runs["r"] = tp_path(runs["q"], tokens["a"], checks)
 
     def timing(c):
         return {"max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
@@ -7182,8 +7768,17 @@ def main():
     # run (q): K1 / K4 / K5 launches a rank a step at each ZeRO stage
     for k in (kernels[0], kernels[3], kernels[4]):
         k["launches_per_step_run_q"] = q_launch_rows(runs["q"], k["name"])
+    # run (r): the same kernels at a tp rank's local heads (16 and 8 of
+    # OPT-1.3B's 32), and the launches of the world-size-1 checks
+    r_kernel_rows(checks, base=kernels)
+    one = runs["r"].get("world1")
+    for k in (kernels[0], kernels[3], kernels[4]):
+        k["launches_per_step_run_r_tp1"] = one and \
+            one["launches_per_step"].get(k["name"], 0)
     emit({"host_kernels": host_kernel_rows(runs["c_offload"],
                                            runs["c_nvme"])})
+    emit({"phase_seconds": PHASES,
+          "total_seconds": time.perf_counter() - T_START})
     print(card, flush=True)
     emit({"kernels": kernels})
     disarm_watchdog()

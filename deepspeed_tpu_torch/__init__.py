@@ -20,7 +20,12 @@ stages 0, 1, 2): start one process a GPU with ``python -m
 deepspeed_tpu_torch.launcher.runner --num_gpus N script.py``, call
 :func:`init_distributed` in the script, then :func:`initialize` as
 usual — the engine trains one global batch across the group (``comm``:
-the collectives over ``torch.distributed``, NCCL or gloo).
+the collectives over ``torch.distributed``, NCCL or gloo), ZeRO stages 0
+to 3 and MiCS.  Tensor parallelism splits the model's heads, ffn columns
+and vocabulary over the ranks of a ``tp`` group (the JAX package's
+``DEFAULT_TP_RULES``; ``parallel/tensor_parallel.py``): the config's
+``tensor_parallel.tp_size``, ``initialize(topology=initialize_topology(
+tp=2))`` or a Megatron ``mpu``, in training and in ``init_inference``.
 """
 
 __version__ = "0.1.0"
@@ -30,14 +35,23 @@ from deepspeed_tpu_torch.accelerator import get_accelerator  # noqa: F401
 from deepspeed_tpu_torch.comm import init_distributed  # noqa: F401
 from deepspeed_tpu_torch.inference.serving import (  # noqa: F401
     ServingConfig, ServingEngine, ServingHTTPFrontend, serve_http)
+from deepspeed_tpu_torch.parallel import topology  # noqa: F401
+from deepspeed_tpu_torch.parallel.topology import (  # noqa: F401
+    ParallelTopology, initialize_topology)
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig  # noqa: F401
+from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine  # noqa: F401
+from deepspeed_tpu_torch.runtime import zero  # noqa: F401
 from deepspeed_tpu_torch.runtime.activation_checkpointing import (  # noqa: F401
     checkpointing)
+from deepspeed_tpu_torch.ops.adam.fused_adam import (  # noqa: F401
+    FusedAdam, FusedAdamW)
 from deepspeed_tpu_torch.utils.logging import logger, log_dist  # noqa: F401
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
-               training_data=None, lr_scheduler=None, collate_fn=None,
-               config=None, config_params=None, loss_fn=None, device=None):
+               training_data=None, lr_scheduler=None, mpu=None,
+               dist_init_required=None, collate_fn=None, config=None,
+               config_params=None, loss_fn=None, topology=None, device=None):
     """Initialize the training engine (the JAX package's ``initialize``).
 
     ``model`` is an ``nn.Module`` whose ``forward(batch)`` returns the loss
@@ -48,10 +62,15 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     means ``"cuda"`` (a ``RuntimeError`` without a card; on a rank of a
     CUDA group, ``cuda:LOCAL_RANK``); pass ``"cpu"`` for the plain PyTorch
     path (over gloo in a group).  With a live process group
-    (:func:`init_distributed`) the engine is one rank of the topology built
-    from it (``parallel.topology``) and trains data-parallel.  Returns
+    (:func:`init_distributed`) the engine is one rank of a topology
+    (``parallel.topology``), chosen as JAX's ``initialize`` chooses it: an
+    explicit ``topology`` wins, else one built from ``mpu`` (a Megatron
+    model-parallel unit: its legacy ``get_model_parallel_world_size`` /
+    ``get_pipe_parallel_world_size`` or Megatron-Core's tensor / pipeline
+    names), else one from the config (``tensor_parallel.tp_size``).
+    ``dist_init_required`` True joins the process group first
+    (:func:`init_distributed` from the launcher's environment).  Returns
     ``(engine, optimizer, training_dataloader, lr_scheduler)``."""
-    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     if config is None and config_params is not None:
         config = config_params
     if config is None and args is not None and \
@@ -59,12 +78,19 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         config = args.deepspeed_config
     if config is None:
         raise ValueError("DeepSpeed requires --deepspeed_config or config=")
+    if dist_init_required and not comm.is_initialized():
+        init_distributed(device="cpu" if str(device).startswith("cpu")
+                         else None)
+    if topology is None and mpu is not None:
+        from deepspeed_tpu_torch.utils.groups import topology_from_mpu
+        topology = topology_from_mpu(mpu)
     engine = DeepSpeedEngine(model=model, optimizer=optimizer,
                              model_parameters=model_parameters,
                              training_data=training_data,
                              lr_scheduler=lr_scheduler,
                              collate_fn=collate_fn, config=config,
-                             loss_fn=loss_fn, device=device)
+                             loss_fn=loss_fn, device=device,
+                             topology=topology)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 
@@ -109,3 +135,18 @@ def init_inference(model=None, config=None, device=None, **kwargs):
         model.replace_config_(
             dataclasses.replace(model.config, kv_cache_quant=True))
     return InferenceEngine(model, config, device=device)
+
+
+def add_config_arguments(parser):
+    """Add the ``--deepspeed`` / ``--deepspeed_config`` arguments (the JAX
+    package's ``add_config_arguments``)."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag to launcher)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to DeepSpeed json configuration")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help="Deprecated alias of --deepspeed")
+    group.add_argument("--local_rank", type=int, default=-1,
+                       help="local rank passed by the launcher")
+    return parser

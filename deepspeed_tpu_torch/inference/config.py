@@ -6,10 +6,13 @@ carries over: ``enabled`` quantizes the weights when they are loaded
 (``bits`` 4 / 8, ``group_size``, ``per_channel``), ``kv_cache`` makes the
 KV cache int8 (``init_inference`` sets the model's ``kv_cache_quant``).
 ``enable_cuda_graph`` (default True) selects the captured decode
-programs of ``inference/engine.py`` and the serving engine.  Knobs whose
+programs of ``inference/engine.py`` and the serving engine.
+``tensor_parallel.tp_size`` (or the legacy ``mp_size``) > 1 splits the
+model over the ranks of a tp group (``parallel/tensor_parallel.py``).
+Knobs whose
 feature this port does not have yet raise
 ``NotImplementedError`` when set away from their default, so a config
-never silently does nothing: tensor parallelism, expert parallelism, the
+never silently does nothing: expert parallelism, the
 memory guard's ``strict_memory``, the fault block's ``bucket_downshift``
 (it needs ``strict_memory``) and the persistent compile cache.
 ``checkpoint`` (a training tag's directory or a ``save_16bit_model``
@@ -105,8 +108,6 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         if self.mp_size is not None and self.tensor_parallel.tp_size == 1:
             self.tensor_parallel.tp_size = self.mp_size
         normalize_dtype_str(self.dtype)
-        if self.tensor_parallel.tp_size > 1:
-            _not_ported("tensor_parallel.tp_size > 1")
         if self.ep_size != 1 or self.moe:
             _not_ported("moe / ep_size (expert parallelism)")
         if self.strict_memory:

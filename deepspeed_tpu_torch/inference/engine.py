@@ -28,6 +28,17 @@ workspace's buffers and are dropped when it grows or is released.
 ``enable_cuda_graph=False`` keeps the eager per-step loop; an engine on
 the CPU runs the same decode programs directly (no graph there).
 
+**Tensor parallelism.**  With ``tensor_parallel.tp_size`` > 1 (a live
+process group of tp ranks or more) the model is split as the JAX engine
+places it (``DEFAULT_TP_RULES``, ``parallel/tensor_parallel.py``): each
+rank holds its heads, ffn columns and vocabulary rows, its KV cache holds
+its kv heads, and the logits are gathered before sampling, so every rank
+draws the same tokens from its identically seeded generator.  ``set_params``
+/ ``load_checkpoint`` take global weights and keep each rank's slices;
+``init_params`` draws the world-size-1 init and cuts it.  Quantized weights
+at tp > 1 stay whole on every rank, as in JAX (a warning).  The captured
+decode graphs capture the collectives; ``serve()`` at tp > 1 raises.
+
 What has no counterpart here: the JAX engine's persistent executable
 cache, its compiled-program memory guard and the ``_run_guarded``
 retries.  Cache updates happen in place instead of by donation.
@@ -76,6 +87,7 @@ class InferenceEngine:
             bits=q.bits, group_size=q.group_size, per_channel=q.per_channel)
         # a quantizing engine holds fp32 weights until they are quantized
         dtype = torch.float32 if self._quantizer else self.compute_dtype
+        self._init_tensor_parallel(model)
         on_meta = any(p.is_meta for p in model.parameters())
         if on_meta:
             # cast on meta (free), then allocate once on the device
@@ -101,6 +113,37 @@ class InferenceEngine:
         if self._config.checkpoint is not None:
             self.load_checkpoint(self._config.checkpoint)
 
+    def _init_tensor_parallel(self, model):
+        """At ``tensor_parallel.tp_size`` > 1: the topology of the live
+        world and ``model`` cut to this tp rank (on ``meta``: the local
+        shapes; with weights: the slices), unless the weights are to be
+        quantized (JAX keeps them whole on every rank)."""
+        from deepspeed_tpu_torch import comm
+        self.topology, self._tp, self._tp_plan = None, None, None
+        tp = int(self._config.tensor_parallel.tp_size or 1)
+        if tp == 1:
+            return
+        if not comm.is_initialized():
+            raise ValueError(
+                f"tensor parallelism (tp {tp}) needs a process group of tp "
+                f"ranks or more: start the ranks with python -m "
+                f"deepspeed_tpu_torch.launcher.runner and call "
+                f"init_distributed() first")
+        from deepspeed_tpu_torch.parallel import topology as topo_mod
+        from deepspeed_tpu_torch.parallel.tensor_parallel import (
+            TensorParallel, shard_module_)
+        topo = topo_mod._TOPOLOGY
+        if topo is None or topo.groups is None or topo.tp != tp or \
+                topo.world_size != comm.get_world_size():
+            topo = topo_mod.initialize_topology(tp=tp)
+        self.topology = topo
+        if self._quantizer is not None:
+            warning_once("weight quantization with tp>1: quantized "
+                         "payloads are replicated, not TP-sharded")
+            return
+        self._tp = TensorParallel.from_topology(topo)
+        self._tp_plan = shard_module_(model, self._tp)
+
     # ------------------------------------------------------------------ #
     # Weights
     # ------------------------------------------------------------------ #
@@ -115,6 +158,10 @@ class InferenceEngine:
         dtype = torch.float32 if self._quantizer else self.compute_dtype
         sd = {k: v.to(dtype) if v.is_floating_point() else v
               for k, v in sd.items()}
+        if self._tp_plan is not None:
+            from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                slice_state_dict)
+            sd = slice_state_dict(sd, self._tp_plan)
         self._float_layout()
         self.module.load_state_dict(sd, strict=True)
         self._has_params = True
@@ -194,7 +241,12 @@ class InferenceEngine:
         quantized with ``quant.enabled``."""
         gen = self._accel.manual_seed(seed, self.device)
         self._float_layout()
-        self.module.init_weights(gen)
+        if self._tp_plan is not None:
+            from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                init_sharded_)
+            init_sharded_(self.module, self._tp_plan, gen)
+        else:
+            self.module.init_weights(gen)
         self._has_params = True
         if self._quantizer:
             self._quantize()
@@ -319,10 +371,20 @@ class InferenceEngine:
             attention_mask = self._ids(attention_mask)
         if seed is not None:
             self._gen.manual_seed(int(seed))
-        return self._generate_once(input_ids, int(max_new_tokens),
-                                   bool(do_sample), float(temperature),
-                                   int(top_k), float(top_p),
-                                   int(eos_token_id), attention_mask)
+        try:
+            return self._generate_once(input_ids, int(max_new_tokens),
+                                       bool(do_sample), float(temperature),
+                                       int(top_k), float(top_p),
+                                       int(eos_token_id), attention_mask)
+        except RuntimeError as e:
+            if self._tp is not None and self._config.enable_cuda_graph and \
+                    self.device.type == "cuda" and "captur" in str(e).lower():
+                raise RuntimeError(
+                    f"enable_cuda_graph at tensor-parallel size "
+                    f"{self._tp.size}: capturing the decode graph's "
+                    f"collectives failed ({e}); set enable_cuda_graph="
+                    f"False for the eager loop") from e
+            raise
 
     def _generate_once(self, input_ids, max_new_tokens, do_sample,
                        temperature, top_k, top_p, eos_token_id,
@@ -485,6 +547,12 @@ class InferenceEngine:
         HTTP front end on it with
         :func:`~deepspeed_tpu_torch.inference.serving.serve_http`."""
         from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
+        if self.topology is not None and self.topology.tp > 1:
+            raise NotImplementedError(
+                "serving (InferenceEngine.serve) at tensor-parallel size > 1 "
+                "is not ported to deepspeed_tpu_torch yet: every rank would "
+                "have to take the same scheduling decisions (see ROADMAP.md, "
+                "queue A)")
         return ServingEngine(self, monitor=monitor, draft_module=draft_module,
                              draft_params=draft_params, **overrides)
 

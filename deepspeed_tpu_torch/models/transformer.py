@@ -265,6 +265,40 @@ def _linear(x, layer, dtype):
                     None if b is None else b.to(dtype))
 
 
+def _col_linear(x, layer, dtype, t, lo, n, w_whole=False):
+    """A column-parallel linear at tp layout ``t``: output features ``[lo,
+    lo + n)`` of ``layer`` (its weight this rank's slice, or held whole
+    with ``w_whole``; its bias whole with ``t.in_bias_whole``, sliced)."""
+    from deepspeed_tpu_torch.parallel.tensor_parallel import slice_of_whole
+    w, b = layer.weight, layer.bias
+    if w_whole:
+        w = slice_of_whole(w, t.tp, 0, lo, n)
+    if b is not None and (w_whole or t.in_bias_whole):
+        b = slice_of_whole(b, t.tp, 0, lo, n)
+    return F.linear(x.to(dtype), w.to(dtype),
+                    None if b is None else b.to(dtype))
+
+
+def _out_linear(x, layer, dtype, t):
+    """The linear closing a branch at tp layout ``t``: row-parallel (its
+    weight this rank's input features; the partial products all-reduced)
+    when ``t.sharded``, and its bias added once after that — gathered
+    first where the rules shard it (JAX's "row" rule on a 1-D bias)."""
+    from deepspeed_tpu_torch.parallel.tensor_parallel import (
+        gather_from_tp, reduce_from_tp)
+    if t is None:
+        return _linear(x, layer, dtype)
+    out = F.linear(x.to(dtype), layer.weight.to(dtype))
+    if t.sharded:
+        out = reduce_from_tp(out, t.tp)
+    b = layer.bias
+    if b is None:
+        return out
+    if t.out_bias_sharded:
+        b = gather_from_tp(b, t.tp, 0)
+    return out + b.to(dtype)
+
+
 def _layer_norm(x, norm, eps):
     """LayerNorm in the activation dtype; PyTorch's kernels keep the
     statistics in fp32 for bf16 / fp16 inputs, as flax's LayerNorm does."""
@@ -487,6 +521,9 @@ class Attention(nn.Module):
     """Self-attention of layer ``layer_idx`` (JAX ``Attention.layer_idx``),
     which picks its window (``window_for_layer``)."""
 
+    # tensor parallelism's TPLayout of this layer (None at tp 1)
+    tp = None
+
     def __init__(self, config, device=None, layer_idx=None):
         super().__init__()
         self.config = cfg = config
@@ -511,9 +548,24 @@ class Attention(nn.Module):
         B, S, _ = x.shape
         H, D, KVH = cfg.num_heads, cfg.head_dim, cfg.kv_heads
         window = cfg.window_for_layer(self.layer_idx)
-        q = _linear(x, self.q_proj, dt).view(B, S, H, D)
-        k = _linear(x, self.k_proj, dt).view(B, S, KVH, D)
-        v = _linear(x, self.v_proj, dt).view(B, S, KVH, D)
+        t = self.tp
+        if t is not None and t.sharded:
+            # this rank's query heads [lo, lo + n) and the kv heads they
+            # read, the input's gradient summed over the tp ranks
+            from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                copy_to_tp)
+            x = copy_to_tp(x, t.tp)
+            H, KVH = t.n, t.kv_n
+            q = _col_linear(x, self.q_proj, dt, t, t.lo * D, H * D)
+            kv = (t.kv_lo * D, KVH * D, t.kv_whole)
+            k = _col_linear(x, self.k_proj, dt, t, *kv)
+            v = _col_linear(x, self.v_proj, dt, t, *kv)
+            q, k, v = (q.view(B, S, H, D), k.view(B, S, KVH, D),
+                       v.view(B, S, KVH, D))
+        else:
+            q = _linear(x, self.q_proj, dt).view(B, S, H, D)
+            k = _linear(x, self.k_proj, dt).view(B, S, KVH, D)
+            v = _linear(x, self.v_proj, dt).view(B, S, KVH, D)
         if rope is not None:
             # before the scale fold and before any cache write: every cache
             # and pool holds rotated keys (JAX Attention.__call__)
@@ -538,12 +590,15 @@ class Attention(nn.Module):
                                    window=window)
         else:
             out = _attention(q, k, v, cfg, mask=mask, window=window)
-        return _linear(out.reshape(B, S, H * D), self.o_proj, dt)
+        return _out_linear(out.reshape(B, S, H * D), self.o_proj, dt, t)
 
 
 class MLP(nn.Module):
     """``down(act(up(x)))``, or with ``gated_mlp`` (Llama's SwiGLU)
     ``down(act(gate(x)) * up(x))``."""
+
+    # tensor parallelism's TPLayout of this layer (None at tp 1)
+    tp = None
 
     def __init__(self, config, device=None):
         super().__init__()
@@ -560,12 +615,21 @@ class MLP(nn.Module):
     def forward(self, x):
         dt = self.config.torch_dtype
         act = _ACTIVATIONS[self.config.activation]
+        t = self.tp
+        lin = _linear
+        if t is not None and t.sharded:
+            # this rank's ffn columns [lo, lo + n)
+            from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                copy_to_tp)
+            x = copy_to_tp(x, t.tp)
+
+            def lin(x, layer, dtype):
+                return _col_linear(x, layer, dtype, t, t.lo, t.n)
         if self.config.gated_mlp:
-            h = act(_linear(x, self.gate_proj, dt)) * _linear(x, self.up_proj,
-                                                             dt)
+            h = act(lin(x, self.gate_proj, dt)) * lin(x, self.up_proj, dt)
         else:
-            h = act(_linear(x, self.up_proj, dt))
-        return _linear(h, self.down_proj, dt)
+            h = act(lin(x, self.up_proj, dt))
+        return _out_linear(h, self.down_proj, dt, t)
 
 
 class Block(nn.Module):
@@ -627,6 +691,46 @@ class Transformer(nn.Module):
     @property
     def device(self):
         return self.embed_tokens.weight.device
+
+    # tensor parallelism (``parallel/tensor_parallel.py``): the group, the
+    # placement of each leaf and the model's TPLayout; None at tp 1
+    _tp = None
+    _tp_plan = None
+    _tp_layout = None
+    _tp_embed = None
+
+    def set_tensor_parallel_(self, tp, plan, layouts):
+        """Take ``shard_module_``'s placement: each attention and MLP its
+        layout, the model its own (the head's vocabulary, the position
+        table's rows) and the input embedding's."""
+        self._tp, self._tp_plan = tp, plan
+        self._tp_layout, self._tp_embed = layouts[self], layouts["embed"]
+        for blk in self.layers:
+            blk.attn.tp, blk.mlp.tp = layouts[blk.attn], layouts[blk.mlp]
+        return self
+
+    def flax_paths(self):
+        """``{parameter name: the JAX model's leaf path}`` in the unrolled
+        (``scan_layers=False``) tree, ``params/`` prefix included: what
+        the TP rules match, as on the JAX engine's tree."""
+        out = {}
+        for name, _ in self.named_parameters():
+            parts = name.split(".")
+            leaf = {"weight": "kernel", "bias": "bias"}[parts[-1]]
+            if parts[0] == "layers":
+                mod = "/".join(parts[2:-1])
+                if "norm" in parts[2]:
+                    leaf = "scale" if parts[-1] == "weight" else "bias"
+                path = f"layers_{parts[1]}/{mod}/{leaf}"
+            elif parts[0] in ("embed_tokens", "embed_positions"):
+                path = f"{parts[0]}/embedding"
+            elif parts[0] == "final_norm":
+                path = "final_norm/" + ("scale" if parts[-1] == "weight"
+                                        else "bias")
+            else:
+                path = f"{parts[0]}/{leaf}"
+            out[name] = "params/" + path
+        return out
 
     def replace_config_(self, config):
         """Swap in ``config`` (same architecture; e.g. ``kv_cache_quant``
@@ -715,13 +819,27 @@ class Transformer(nn.Module):
 
     def _embed(self, input_ids, positions):
         cfg = self.config
-        x = F.embedding(input_ids, self.embed_tokens.weight).to(
-            cfg.torch_dtype)
+        dt = cfg.torch_dtype
+        te, t = self._tp_embed, self._tp_layout
+        if te is not None and te.sharded:
+            from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                vocab_parallel_embedding)
+            x = vocab_parallel_embedding(input_ids, self.embed_tokens.weight,
+                                         te.lo, te.tp, dt)
+        else:
+            x = F.embedding(input_ids, self.embed_tokens.weight).to(dt)
         if self.project_in is not None:
-            x = _linear(x, self.project_in, cfg.torch_dtype)
+            x = _linear(x, self.project_in, dt)
         if self.embed_positions is not None:
-            x = x + F.embedding(positions, self.embed_positions.weight).to(
-                cfg.torch_dtype)
+            if t is not None and t.pos_sharded:
+                from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                    vocab_parallel_embedding)
+                x = x + vocab_parallel_embedding(
+                    positions, self.embed_positions.weight, t.pos_lo, t.tp,
+                    dt)
+            else:
+                x = x + F.embedding(positions,
+                                    self.embed_positions.weight).to(dt)
         return x
 
     def hidden_states(self, input_ids, mask=None, cache=None, start_pos=0,
@@ -780,15 +898,34 @@ class Transformer(nn.Module):
         if self.project_out is not None:
             pw = self.project_out.weight.to(dt)
             chain = (lambda x: F.linear(x.to(dt), pw))
+        t = self._tp_layout
+        if t is not None and t.sharded:
+            # this rank's vocabulary columns [lo, lo + n): the input's
+            # gradient summed over the tp ranks
+            from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                copy_to_tp, slice_of_whole)
+            inner = chain
+            chain = (lambda x: copy_to_tp(inner(x), t.tp))
         if self.lm_head is None:
             w = self.embed_tokens.weight.to(dt)
             return lambda x: chain(x) @ w.T
         w = self.lm_head.weight.to(dt)
-        b = None if self.lm_head.bias is None else self.lm_head.bias.to(dt)
+        b = self.lm_head.bias
+        if b is not None and t is not None and t.sharded:
+            b = slice_of_whole(b, t.tp, 0, t.lo, t.n)
+        b = None if b is None else b.to(dt)
         return lambda x: F.linear(chain(x).to(dt), w, b)
 
     def _head(self, x):
-        return self._head_fn()(x)
+        """The whole vocabulary's logits (gathered over the tp ranks where
+        the head is vocab-parallel)."""
+        out = self._head_fn()(x)
+        t = self._tp_layout
+        if t is not None and t.sharded:
+            from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                gather_from_tp)
+            out = gather_from_tp(out, t.tp, -1)
+        return out
 
     def jax_layouts(self):
         """``{parameter name: (view, unview, shape)}`` for every parameter
@@ -805,19 +942,25 @@ class Transformer(nn.Module):
         for name, p in self.named_parameters():
             parts = name.split(".")
             if len(parts) >= 2 and parts[-3:-2] == ["attn"]:
+                # a tp rank holds its own heads (the views take any count)
                 proj, kind = parts[-2], parts[-1]
-                heads = cfg.kv_heads if proj in ("k_proj", "v_proj") \
-                    else cfg.num_heads
+                t = self.get_submodule(".".join(parts[:-2])).tp
+                kv = proj in ("k_proj", "v_proj")
+                heads = cfg.kv_heads if kv else cfg.num_heads
+                if t is not None and t.sharded and (kind == "weight" or
+                                                    not t.in_bias_whole):
+                    heads = heads if kv and t.kv_whole else (
+                        t.kv_n if kv else t.n)
                 if proj == "o_proj" and kind == "weight":
-                    out[name] = (lambda w, n=heads: w.t().view(n, D, h),
+                    out[name] = (lambda w: w.t().view(-1, D, h),
                                  lambda x: x.reshape(-1, h).t(),
                                  (heads, D, h))
                 elif proj != "o_proj" and kind == "weight":
-                    out[name] = (lambda w, n=heads: w.t().view(h, n, D),
+                    out[name] = (lambda w: w.t().view(h, -1, D),
                                  lambda x: x.reshape(h, -1).t(),
                                  (h, heads, D))
                 elif proj != "o_proj" and kind == "bias":
-                    out[name] = (lambda b, n=heads: b.view(n, D),
+                    out[name] = (lambda b: b.view(-1, D),
                                  lambda x: x.reshape(-1), (heads, D))
             elif parts[-1] == "weight" and p.dim() == 2 and (
                     "mlp" in parts or parts[0] in ("lm_head", "project_in",
@@ -853,8 +996,21 @@ class Transformer(nn.Module):
         return self._unit("head", self._loss, h, labels, C)
 
     def _loss(self, h, labels, C):
+        t = self._tp_layout
+        nll = None
+        if t is not None and t.sharded:
+            # vocab-parallel: each rank's logits columns, the softmax's sums
+            # all-reduced
+            from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                vocab_parallel_nll_sum)
+            nll = functools.partial(vocab_parallel_nll_sum, lo=t.lo,
+                                    tp=t.tp)
         if C > 1:
-            return chunked_cross_entropy_loss(h, labels, self._head_fn(), C)
+            return chunked_cross_entropy_loss(h, labels, self._head_fn(), C,
+                                              nll_sum=nll)
+        if nll is not None:
+            return cross_entropy_loss(self._head_fn()(h), labels,
+                                      nll_sum=nll)
         return cross_entropy_loss(self._head(h), labels)
 
     def decode(self, input_ids, cache, start_pos, logits_at=None,
@@ -891,12 +1047,20 @@ class Transformer(nn.Module):
         return self._zero_cache((self.config.num_layers, int(num_pages),
                                  int(page_size)), dtype, device)
 
+    def kv_heads_local(self):
+        """The kv heads a cache of this rank holds: the config's, or the
+        tp rank's where the heads are sharded."""
+        t = self.layers[0].attn.tp if len(self.layers) else None
+        return t.kv_n if t is not None and t.sharded else \
+            self.config.kv_heads
+
     def _zero_cache(self, lead, dtype, device):
         cfg = self.config
-        shape = lead + (cfg.kv_heads * cfg.head_dim,)
+        KVH = self.kv_heads_local()
+        shape = lead + (KVH * cfg.head_dim,)
         device = device or self.device
         if cfg.kv_cache_quant:
-            sshape = lead + (cfg.kv_heads,)
+            sshape = lead + (KVH,)
             kw = dict(dtype=torch.float32, device=device)
             return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                     "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -1041,9 +1205,12 @@ def _mean_nll(total, count):
     return total / reduce_fn(count).clamp(min=1) * world
 
 
-def cross_entropy_loss(logits, labels, ignore_index=-100, z_loss=0.0):
-    """Causal-LM loss with ignore-index masking, computed in fp32."""
-    total, count, logz = _nll_sum(logits, labels, ignore_index)
+def cross_entropy_loss(logits, labels, ignore_index=-100, z_loss=0.0,
+                       nll_sum=None):
+    """Causal-LM loss with ignore-index masking, computed in fp32.
+    ``nll_sum``: the vocab-parallel ``_nll_sum`` of a tp rank's logits."""
+    total, count, logz = (nll_sum or _nll_sum)(logits, labels,
+                                               ignore_index=ignore_index)
     loss = _mean_nll(total, count)
     if z_loss > 0.0:
         loss = loss + z_loss * (logz ** 2).mean()
@@ -1051,7 +1218,7 @@ def cross_entropy_loss(logits, labels, ignore_index=-100, z_loss=0.0):
 
 
 def chunked_cross_entropy_loss(h, labels, head_fn, n_chunks,
-                               ignore_index=-100):
+                               ignore_index=-100, nll_sum=None):
     """Sequence-chunked causal-LM loss: the head matmul and the loss run
     per chunk under ``torch.utils.checkpoint``, so only one chunk's
     [B, S/C, V] logits is live (forward or backward); the backward
@@ -1062,8 +1229,10 @@ def chunked_cross_entropy_loss(h, labels, head_fn, n_chunks,
         raise ValueError(f"seq_len {S} not divisible by n_chunks {n_chunks}")
     csz = S // n_chunks
 
+    nll_sum = nll_sum or _nll_sum
+
     def one(hb, lb):
-        total, count, _ = _nll_sum(head_fn(hb), lb, ignore_index)
+        total, count, _ = nll_sum(head_fn(hb), lb, ignore_index=ignore_index)
         return total, count
 
     sums, counts = zip(*(checkpoint(one, h[:, i * csz:(i + 1) * csz],

@@ -16,9 +16,12 @@ group when it spans the world).  The data-parallel group is the compound
 The port accepts data parallelism, split by MiCS (``mics`` > 0) into
 ``mdp`` replica groups of ``mics`` sharding ranks each, as JAX's
 ``initialize_topology(..., mics=)`` splits its mesh: ZeRO shards within a
-group (``edp``) and replicates across groups (``mdp``).  ``tp``, ``pp``,
-``sp`` and ``ep`` > 1 raise ``NotImplementedError`` (ROADMAP.md, queue
-A).  The rank algebra covers every axis already.
+group (``edp``) and replicates across groups (``mdp``); and tensor
+parallelism (``tp``, the innermost axis, so a tp group's ranks are
+adjacent, as a JAX mesh's tp devices are; ``parallel/tensor_parallel.py``).
+Every tp rank of one data-parallel index takes the same batch rows.
+``pp``, ``sp`` and ``ep`` > 1 raise ``NotImplementedError`` (ROADMAP.md,
+queue A).  The rank algebra covers every axis already.
 """
 
 from dataclasses import dataclass, field
@@ -48,8 +51,8 @@ GROUP_AXES = tuple((a,) for a in AXIS_ORDER) + (
 
 def _not_ported(what):
     raise NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet: this slice runs "
-        f"data parallelism only (see ROADMAP.md, queue A)")
+        f"{what} is not ported to deepspeed_tpu_torch yet: the port runs "
+        f"data and tensor parallelism (see ROADMAP.md, queue A)")
 
 
 @dataclass
@@ -226,6 +229,12 @@ class ParallelTopology:
     def get_model_parallel_world_size(self):
         return self.tp
 
+    def get_model_parallel_group(self):
+        return self.group_for((TP_AXIS,))
+
+    def get_model_parallel_rank(self, rank=None):
+        return self.index_in((TP_AXIS,), self._me(rank))
+
     def get_pipe_parallel_world_size(self):
         return self.pp
 
@@ -269,10 +278,9 @@ def initialize_topology(dp=None, tp=1, pp=1, ep=1, sp=1, mics=0,
     0 sizes the ZeRO shard group (the JAX ``mics_shard_size``): the
     data-parallel world splits into ``mdp`` replica groups of ``mics``
     ranks each.  With a live process group the groups are built.  Only
-    ``dp`` (and its MiCS split) may exceed 1."""
+    ``dp`` (and its MiCS split) and ``tp`` may exceed 1."""
     global _TOPOLOGY
-    for name, size in (("tensor parallelism (tp)", tp),
-                       ("pipeline parallelism (pp)", pp),
+    for name, size in (("pipeline parallelism (pp)", pp),
                        ("expert parallelism (ep)", ep),
                        ("sequence parallelism (sp)", sp)):
         if size != 1:

@@ -19,16 +19,19 @@ timers).  ``zero_optimization.stage`` 0-3 is accepted; at world size 1
 stages 0-2 are the single-device layout, at data-parallel size > 1 every
 stage partitions as the JAX package does (``runtime/zero/partition.py``),
 within groups of ``mics_shard_size`` ranks with MiCS, and
-``offload_optimizer`` offloads each rank's shard.
-``grad_partition_groups`` at data-parallel size > 1 raises
-``NotImplementedError``.  The ``stage3_*`` knobs are parsed and, as in
+``offload_optimizer`` offloads each rank's shard; ``grad_partition_groups``
+runs at every data-parallel size at stages 0-2 (under ZeRO-3 in a group it
+raises ``NotImplementedError``).  ``tensor_parallel.tp_size`` > 1 splits
+the model over tp ranks (``parallel/tensor_parallel.py``) and the batch
+triple counts the data-parallel world, world / tp, as JAX's mesh does
+(the engine passes it).  The ``stage3_*`` knobs are parsed and, as in
 the JAX package, change nothing: a leaf with no dim divisible by the
 group stays whole whatever ``stage3_param_persistence_threshold`` says.
 The blocks are plain dataclasses: the card's machine has no pydantic.
 
 Knobs that change behaviour but belong to later slices raise
 ``NotImplementedError`` when set (``offload_param``, which no JAX engine
-path reads either, tensor / pipeline / sequence / expert parallelism,
+path reads either, pipeline / sequence / expert parallelism,
 curriculum, compression, and the profiler, compile cache and hybrid
 blocks), so a config never silently does nothing.
 """
@@ -190,8 +193,6 @@ _NOT_PORTED = (
     (lambda pd: _offloaded(pd.get(C.ZERO_OPTIMIZATION, {}).get(
         "offload_param")), "zero_optimization.offload_param (no JAX engine "
      "path reads it either)"),
-    (lambda pd: _size(pd, C.TENSOR_PARALLEL, "tp_size") > 1,
-     "tensor parallelism (tp_size > 1)"),
     (lambda pd: _size(pd, C.PIPELINE_PARALLEL, "stages") > 1,
      "pipeline parallelism (pipeline.stages > 1)"),
     (lambda pd: _size(pd, C.SEQUENCE_PARALLEL, "sp_size") > 1,
@@ -208,10 +209,25 @@ _NOT_PORTED = (
 )
 
 
-def _dp_not_ported(what):
-    raise NotImplementedError(
-        f"training config: {what} at data-parallel size > 1 is not ported "
-        f"to deepspeed_tpu_torch yet (see ROADMAP.md, queue A)")
+@dataclasses.dataclass(init=False)
+class TensorParallelConfig(DeepSpeedConfigModel):
+    """The tp axis's size (the rules come from the flax parameter names;
+    the JAX block's ``autotp``, which nothing reads there either, parses
+    as an extra)."""
+    tp_size: int = 1
+
+
+def load_param_dict(config):
+    """The config's dict: a copy of a dict, or a JSON path's contents."""
+    if isinstance(config, str):
+        if not os.path.exists(config):
+            raise FileNotFoundError(
+                f"DeepSpeed config path does not exist: {config}")
+        with open(config) as f:
+            return json.load(f)
+    if isinstance(config, dict):
+        return dict(config)
+    raise ValueError(f"config must be a dict or path, got {type(config)}")
 
 
 class DeepSpeedConfig:
@@ -219,17 +235,7 @@ class DeepSpeedConfig:
     data-parallel world of ``mesh_world_size`` ranks (default 1)."""
 
     def __init__(self, config, mesh_world_size=None):
-        if isinstance(config, str):
-            if not os.path.exists(config):
-                raise FileNotFoundError(
-                    f"DeepSpeed config path does not exist: {config}")
-            with open(config) as f:
-                self._param_dict = json.load(f)
-        elif isinstance(config, dict):
-            self._param_dict = dict(config)
-        else:
-            raise ValueError(f"config must be a dict or path, got "
-                             f"{type(config)}")
+        self._param_dict = load_param_dict(config)
         pd = self._param_dict
         for bad, what in _NOT_PORTED:
             if bad(pd):
@@ -248,11 +254,17 @@ class DeepSpeedConfig:
             raise ValueError(f"zero_optimization.stage must be 0-3, got "
                              f"{self.zero_config.stage}")
         self._mesh_world_size = mesh_world_size
+        self.tensor_parallel = TensorParallelConfig(
+            **pd.get(C.TENSOR_PARALLEL, {}))
         dp = mesh_world_size or 1
-        if dp > 1:
-            if int(self.zero_config.grad_partition_groups or 1) > 1:
-                _dp_not_ported("zero_optimization.grad_partition_groups")
-        elif self.zero_config.stage > 0:
+        if dp > 1 and self.zero_config.stage >= 3 and \
+                int(self.zero_config.grad_partition_groups or 1) > 1:
+            raise NotImplementedError(
+                "training config: zero_optimization.grad_partition_groups "
+                "under ZeRO-3 at data-parallel size > 1 is not ported to "
+                "deepspeed_tpu_torch yet: ZeRO-3's unit gathers are its "
+                "memory lever (see ROADMAP.md, queue A)")
+        if dp == 1 and self.zero_config.stage > 0:
             log_dist(f"zero_optimization.stage {self.zero_config.stage} at "
                      f"world size 1: there is nothing to partition, every "
                      f"stage is the single-device layout", ranks=[0])

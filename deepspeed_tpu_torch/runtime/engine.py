@@ -1,4 +1,4 @@
-"""DeepSpeedEngine — the training engine at world size 1 (port of
+"""DeepSpeedEngine — the training engine (port of
 ``deepspeed_tpu/runtime/engine.py``).
 
 The imperative 3-call API and the whole-batch call of the JAX engine::
@@ -102,9 +102,31 @@ each rank's shard, so a tag moves between world sizes.  At world size 1
 every collective is an identity and each stage gives the bits of the
 engine without a group.
 
+The partitioned backward (``grad_partition_groups``) runs in a group at
+stages 0 - 2 (stage 2 reduce-scatters each micro step's buckets once its
+sweeps are done); an offloaded optimizer's tag holds its host state
+gathered into global tensors, and each rank takes its piece on load; the
+asynchronous (nebula) writer writes the synchronous save's tag, the
+gathers done on every rank before its thread starts.
+
+**Tensor parallelism.**  With ``tensor_parallel.tp_size`` > 1 (or a
+``topology`` / Megatron ``mpu`` given to ``initialize``) the module is cut
+over the tp group by the JAX engine's ``DEFAULT_TP_RULES``
+(``parallel/tensor_parallel.py``): each rank holds its heads, ffn columns
+and vocabulary rows — a ``meta`` model is drawn whole a submodule at a
+time from the seeded init and cut, so every rank holds the chunks of the
+world-size-1 init.  The data-parallel group is world / tp; gradients are
+reduced over it only.  ZeRO shards each rank's slices (the dim chosen on
+the global layout, the tp dim excluded, as JAX's ``apply_zero_to_spec``).
+The global norm sums the squares of tp-sharded leaves over the tp group
+and counts a leaf every tp rank holds whole once.  A tag holds global
+tensors (gathered over the ZeRO shard group, then the tp group; tp rank 0
+of dp rank 0 writes), and a load takes each rank's slice, so a tag moves
+between any ``tp × dp``.
+
 Not in this slice (ROADMAP.md, queue A): the compile cache, the profiler,
-parameter offload, ZeRO-3, the offload and the partitioned backward at
-data-parallel size > 1.
+parameter offload, ``zero.Init`` at tp > 1, the partitioned backward under
+ZeRO-3 in a group.
 """
 
 import dataclasses
@@ -124,7 +146,7 @@ from deepspeed_tpu_torch.accelerator import get_accelerator, resolve_device
 from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
     NebulaCheckpointEngine, TorchCheckpointEngine, copy_groups,
     flatten_groups)
-from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, load_param_dict
 from deepspeed_tpu_torch.runtime.fault import inject
 from deepspeed_tpu_torch.runtime.fault.atomic import (atomic_publish_dir,
                                                       atomic_write_text)
@@ -215,10 +237,18 @@ def _buckets(idx, tensors, size):
     return out
 
 
-def _live_dp_world():
-    """The data-parallel world of the live process group (its whole world:
-    the port trains data-parallel only), 1 without one."""
-    return comm.get_world_size() if comm.is_initialized() else 1
+def _map_leaves(fn, tree, is_leaf):
+    """``tree`` (dicts, lists, tuples, NamedTuples) with each leaf for
+    which ``is_leaf`` holds replaced by ``fn(leaf)``."""
+    if is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, Mapping):
+        return {k: _map_leaves(fn, v, is_leaf) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(fn, v, is_leaf) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_leaves(fn, v, is_leaf) for v in tree)
+    return tree
 
 
 def _map(fn, batch):
@@ -267,6 +297,33 @@ class _GlobalLeaf:
             self.to("cpu")
 
 
+class _TPPart:
+    """A tensor-parallel leaf's slice (a tensor, or a ZeRO ``Partitioned``
+    shard of it) as :class:`_GlobalLeaf` / :class:`_ShardTarget` see it:
+    ``gather`` makes the global tensor (the ZeRO gather over the shard
+    group, then the tp gather), ``scatter_from`` takes this rank's piece
+    of it."""
+
+    def __init__(self, inner, tpleaf, tp):
+        from types import SimpleNamespace
+        self.inner, self.tpleaf, self.tp = inner, tpleaf, tp
+        self.shard = getattr(inner, "shard", inner)
+        self.leaf = SimpleNamespace(full_shape=tpleaf.full_shape)
+
+    def gather(self):
+        local = self.inner.gather() if hasattr(self.inner, "scatter_from") \
+            else self.inner.detach()
+        return self.tpleaf.gather(local, self.tp)
+
+    @torch.no_grad()
+    def scatter_from(self, full):
+        local = self.tpleaf.take(full)
+        if hasattr(self.inner, "scatter_from"):
+            self.inner.scatter_from(local)
+        else:
+            self.inner.copy_(local)
+
+
 class _ShardTarget:
     """A sharded optimizer tensor as a load's target: it takes its shard
     of the global tensor read from the tag."""
@@ -285,11 +342,12 @@ class _ShardTarget:
 
 
 class DeepSpeedEngine:
-    """Training engine: one device, or one rank of a data-parallel group."""
+    """Training engine: one device, or one rank of a data- and
+    tensor-parallel group."""
 
     def __init__(self, model=None, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, collate_fn=None,
-                 config=None, loss_fn=None, device=None):
+                 config=None, loss_fn=None, device=None, topology=None):
         if model is None:
             raise NotImplementedError(
                 "the port's engine takes an nn.Module whose forward(batch) "
@@ -300,10 +358,17 @@ class DeepSpeedEngine:
                              f"{type(model).__name__}")
         self.device = resolve_device(device)
         self.accelerator = get_accelerator(self.device)
+        # the topology first (JAX's order): the config's batch triple
+        # counts its data-parallel world, world / tp
+        raw = config._param_dict if isinstance(config, DeepSpeedConfig) \
+            else {} if config is None else load_param_dict(config)
+        tp = topology.tp if topology is not None else int(
+            (raw.get("tensor_parallel") or {}).get("tp_size", 1) or 1)
+        self._init_data_parallel(
+            (raw.get("zero_optimization") or {}).get("mics_shard_size", 0),
+            tp, topology)
         self._config = config if isinstance(config, DeepSpeedConfig) \
-            else DeepSpeedConfig(config if config is not None else {},
-                                 mesh_world_size=_live_dp_world())
-        self._init_data_parallel(self._config.zero_config.mics_shard_size)
+            else DeepSpeedConfig(raw, mesh_world_size=self.dp_world)
         comm.configure(self._config)
         self.timers = SynchronizedWallClockTimer(self.device)
         self.tput_timer = ThroughputTimer(
@@ -366,6 +431,11 @@ class DeepSpeedEngine:
         # masters'
         self._module_dtype = self.compute_dtype if self._offload_cfg \
             is not None else self._master_dtype
+        self._tp_plan = None
+        if self._tp is not None:
+            # the weights are in once the module is cut
+            self._shard_tensor_parallel(model_parameters)
+            model_parameters = None
         on_meta = self._place_module(model_parameters)
         self._params = [p for p in self.module.parameters()
                         if p.requires_grad]
@@ -405,11 +475,6 @@ class DeepSpeedEngine:
         # a static unit scale cannot overflow: no flag, no skip
         self._static_unit = isinstance(self.loss_scaler, StaticLossScaler) \
             and self.loss_scaler.scale_value == 1.0
-        if self._config.nebula_config.enabled and self.dp_world > 1:
-            raise NotImplementedError(
-                "nebula (the asynchronous checkpoint writer) at data-parallel "
-                "size > 1 is not ported to deepspeed_tpu_torch yet (see "
-                "ROADMAP.md, queue A)")
         # the nebula block selects the asynchronous writer, as in JAX
         self.checkpoint_engine = NebulaCheckpointEngine(
             self._config.nebula_config) \
@@ -458,21 +523,30 @@ class DeepSpeedEngine:
                                                         self.device))
         return on_meta
 
-    def _init_data_parallel(self, mics=0):
+    def _init_data_parallel(self, mics=0, tp=1, topology=None):
         """With a live process group this engine is one rank of the
-        topology's data-parallel group (the topology is built over the
-        live world, split by ``mics`` > 0 into MiCS's groups, unless one
-        with groups and that split is set); without one it is the
+        topology's data-parallel group (``topology`` when given, else the
+        live one if it has groups, ``tp`` and MiCS's split ``mics`` > 0,
+        else one built over the live world); without one it is the
         single-device engine (``dp_world`` 1, no collectives).  ZeRO
         shards over ``shard_group`` (MiCS's shard group, else the
         data-parallel group) and, with MiCS, reduces across
-        ``replica_group``."""
+        ``replica_group``; at tp > 1 the model is split over ``tp_group``
+        (``_tp``)."""
         self._dp = comm.is_initialized()
         self.topology, self.dp_group = None, None
         self.dp_world, self.dp_rank = 1, 0
         self.shard_group, self.replica_group = None, None
         self.shard_world, self.shard_rank = 1, 0
+        self.tp_world, self.tp_rank, self.tp_group = 1, 0, None
+        self._tp = None
         if not self._dp:
+            if tp > 1:
+                raise ValueError(
+                    f"tensor parallelism (tp {tp}) needs a process group of "
+                    f"tp ranks or more: start the ranks with python -m "
+                    f"deepspeed_tpu_torch.launcher.runner and call "
+                    f"init_distributed() first")
             return
         want = "nccl" if self.device.type == "cuda" else "gloo"
         backend = comm.get_backend()
@@ -489,13 +563,25 @@ class DeepSpeedEngine:
             raise ValueError(f"rank {comm.get_rank()} owns "
                              f"{comm.get_device()}, not {self.device}")
         from deepspeed_tpu_torch.parallel import topology as topo_mod
-        topo = topo_mod._TOPOLOGY
         mics = int(mics or 0)
-        mdp = comm.get_world_size() // mics if mics > 0 else 1
-        if topo is None or topo.groups is None or \
-                topo.world_size != comm.get_world_size() or topo.mdp != mdp:
-            topo = topo_mod.initialize_topology(mics=mics)
+        if topology is not None:
+            topo = topo_mod.set_topology(topology)
+            if topo.groups is None:
+                topo.build_groups()
+        else:
+            topo = topo_mod._TOPOLOGY
+            mdp = comm.get_world_size() // tp // mics if mics > 0 else 1
+            if topo is None or topo.groups is None or \
+                    topo.world_size != comm.get_world_size() or \
+                    topo.mdp != mdp or topo.tp != tp:
+                topo = topo_mod.initialize_topology(tp=tp, mics=mics)
         self.topology = topo
+        if topo.tp > 1:
+            from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                TensorParallel)
+            self._tp = TensorParallel.from_topology(topo)
+            self.tp_world, self.tp_rank = self._tp.size, self._tp.rank
+            self.tp_group = self._tp.group
         self.dp_group = topo.get_data_parallel_group()
         self.dp_world = topo.get_data_parallel_world_size()
         self.dp_rank = topo.get_data_parallel_rank(comm.get_rank())
@@ -504,6 +590,52 @@ class DeepSpeedEngine:
         self.replica_group = topo.get_zero_replica_group()
         self.shard_world = topo.get_zero_shard_world_size()
         self.shard_rank = topo.get_zero_shard_rank(comm.get_rank())
+
+    def _shard_tensor_parallel(self, model_parameters):
+        """Split the module over the tp group (``shard_module_``, the JAX
+        engine's ``DEFAULT_TP_RULES``): a ``meta`` module is materialized
+        a submodule at a time from ``model_parameters`` or the seeded init
+        (the world-size-1 init's values) and cut; a module with weights is
+        cut where it is."""
+        from deepspeed_tpu_torch.parallel.tensor_parallel import (
+            shard_module_)
+        m = self.module
+        if getattr(m, "_zero_init_shards", None) is not None:
+            raise NotImplementedError(
+                "zero.Init at tensor-parallel size > 1 is not ported to "
+                "deepspeed_tpu_torch yet: build the model on meta and let "
+                "the engine materialize it (see ROADMAP.md, queue A)")
+        if not hasattr(m, "flax_paths"):
+            raise NotImplementedError(
+                f"tensor parallelism places a model by its flax parameter "
+                f"paths: {type(m).__name__} has none (flax_paths)")
+        values = None
+        if isinstance(model_parameters, Mapping):
+            values = model_parameters
+            if any(isinstance(v, Mapping) for v in values.values()):
+                from deepspeed_tpu_torch.models.transformer import (
+                    params_from_flax)
+                values = params_from_flax(values, m.config)
+            values = {k: v if torch.is_tensor(v) else torch.as_tensor(
+                np.asarray(v)) for k, v in values.items()}
+        on_meta = any(t.is_meta for t in m.parameters())
+        gen = None
+        if on_meta and values is None:
+            if not hasattr(m, "init_weights"):
+                raise ValueError("a meta-built module needs init_weights("
+                                 "generator) or model_parameters")
+            gen = self.accelerator.manual_seed(self._config.seed, self.device)
+        self._tp_plan = shard_module_(m, self._tp, device=self.device,
+                                      values=values, generator=gen)
+
+    def _tp_leaves(self):
+        """Each trainable parameter's ``TPLeaf`` (None: whole over tp), in
+        ``engine.params`` order."""
+        if self._tp_plan is None:
+            return [None] * len(self._params)
+        names = [n for n, p in self.module.named_parameters()
+                 if p.requires_grad]
+        return [self._tp_plan.get(n) for n in names]
 
     @torch.no_grad()
     def _init_zero(self, model_parameters=None, on_meta=False):
@@ -533,8 +665,10 @@ class DeepSpeedEngine:
             if leaf is not None:
                 layouts[k] = None if leaf.view is None else (
                     leaf.view, leaf.unview, leaf.shape)
+        tp_dims = [None if t is None else t.dim for t in self._tp_leaves()]
         self._plan = build_sharding_plan(
-            shapes, self.shard_world, self.shard_rank, stage, layouts)
+            shapes, self.shard_world, self.shard_rank, stage, layouts,
+            tp_dims)
         self._stage2 = stage >= 2
         if self._stage3:
             self._partition_params(model_parameters, on_meta)
@@ -744,6 +878,11 @@ class DeepSpeedEngine:
         sd = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                  else v).to(torch.float32)
               for k, v in tree.items()}
+        if getattr(self, "_tp_plan", None) is not None:
+            # global tensors: this tp rank's slices
+            from deepspeed_tpu_torch.parallel.tensor_parallel import (
+                slice_state_dict)
+            sd = slice_state_dict(sd, self._tp_plan)
         if getattr(self, "_masters", None) is not None:
             # stage 3: each rank takes its shards
             index = {n: i for i, n in enumerate(self._names)}
@@ -923,8 +1062,17 @@ class DeepSpeedEngine:
         """One micro step of the partitioned backward: a forward and
         backward sweep a group, each with only that group's parameters
         requiring grad, so autograd makes the others' gradients in none of
-        them (FLOPs for memory, as in JAX).  Returns the last sweep's loss,
-        detached."""
+        them (FLOPs for memory, as in JAX).  In a group the gradients are
+        reduced as the stage reduces them: at stages 0 and 1 at the step
+        (all-reduce), at stage 2 once the micro step's sweeps are done
+        (every bucket reduce-scattered, in bucket order: each parameter's
+        ``.grad`` holds this micro step's gradient alone).  Returns the last
+        sweep's loss, detached."""
+        if self._stage3:
+            raise NotImplementedError(
+                "zero_optimization.grad_partition_groups under ZeRO-3 in a "
+                "group is not ported to deepspeed_tpu_torch yet (ZeRO-3's "
+                "unit gathers are its memory lever; see ROADMAP.md, queue A)")
         gas = self.gradient_accumulation_steps()
         try:
             for lo, hi in self._group_bounds(n_groups):
@@ -932,11 +1080,15 @@ class DeepSpeedEngine:
                     p.requires_grad_(lo <= i < hi)
                 loss = self._loss_of(args, kwargs)
                 (loss.float() * self._scaler_state.scale / gas).backward()
-                self._fold_grads()
+                if not self._stage2:
+                    self._fold_grads()
         finally:
             for p in self._params:
                 p.requires_grad_(True)
-        return loss.detach()
+        if self._stage2:
+            self._flush_buckets()
+        # the global loss (the group's average of the ranks' shares)
+        return self._global_loss(loss.detach())
 
     __call__ = forward
 
@@ -1159,23 +1311,43 @@ class DeepSpeedEngine:
         return torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm(grads, 2, dtype=torch.float32)))
 
+    def _norm_counted(self, zero_sharded):
+        """Which leaves this rank's squares count toward the global norm:
+        every logical element once — a leaf whole over the ZeRO shard group
+        (``zero_sharded`` False) on shard rank 0 only, a leaf whole over the
+        tp group on tp rank 0 only.  None: every leaf."""
+        keep = None
+        if self._stage2 and self.shard_rank != 0:
+            keep = list(zero_sharded)
+        if self.tp_world > 1 and self.tp_rank != 0:
+            tp = [t is not None for t in self._tp_leaves()]
+            keep = tp if keep is None else [a and b for a, b in
+                                            zip(keep, tp)]
+        return keep
+
     def _global_norm(self, grads):
         """The global gradient norm.  Stage 0 / 1: the averaged gradients
         are whole and equal on every rank.  Stage 2: each leaf's squared
         shard norms summed over the group (one all-reduce; a whole leaf on
         shard rank 0 only), the root of each, then the norm of those — at
         world size 1 the single-device formula's bits, as sqrt(x * x) is x
-        in IEEE arithmetic."""
-        if not self._stage2:
+        in IEEE arithmetic.  At tp > 1 the squares are also summed over the
+        tp group, a leaf every tp rank holds whole counted once."""
+        if not self._stage2 and self.tp_world == 1:
             return self._grad_norm(grads)
         norms = torch.stack(torch._foreach_norm(grads, 2,
                                                 dtype=torch.float32))
-        if self.shard_rank != 0:
-            keep = torch.tensor([leaf.sharded for leaf in self._plan.grad],
-                                device=norms.device)
+        keep = self._norm_counted(
+            [leaf.sharded for leaf in self._plan.grad] if self._stage2
+            else [])
+        if keep is not None:
+            keep = torch.tensor(keep, device=norms.device)
             norms = torch.where(keep, norms, torch.zeros_like(norms))
         sq = norms * norms
-        comm.all_reduce(sq, group=self.shard_group, log_name="grad_norm")
+        if self._stage2:
+            comm.all_reduce(sq, group=self.shard_group, log_name="grad_norm")
+        if self.tp_world > 1:
+            comm.all_reduce(sq, group=self.tp_group, log_name="grad_norm_tp")
         return torch.linalg.vector_norm(torch.sqrt(sq))
 
     def _unscale_and_clip(self, grads):
@@ -1424,10 +1596,14 @@ class DeepSpeedEngine:
                      self._norm_leaves(host))
             if self._plan is not None:
                 # each shard's square over the shard group (a whole leaf
-                # counted on shard rank 0)
+                # counted on shard rank 0) and the tp group (a leaf whole
+                # over tp counted on tp rank 0)
                 t = torch.tensor(sq, dtype=torch.float64, device=self.device)
                 comm.all_reduce(t, group=self.shard_group,
                                 log_name="grad_norm")
+                if self.tp_world > 1:
+                    comm.all_reduce(t, group=self.tp_group,
+                                    log_name="grad_norm_tp")
                 sq = float(t)
             gnorm = float(np.sqrt(sq)) * inv
             clip = float(self.gradient_clipping() or 0.0)
@@ -1471,10 +1647,17 @@ class DeepSpeedEngine:
 
     def _norm_leaves(self, host):
         """The host gradients the global norm counts on this rank: every
-        one, but a whole leaf only on shard rank 0 (each rank holds it)."""
-        if self._plan is None or self.shard_rank == 0:
+        one, but a leaf whole over the shard group only on shard rank 0
+        and one whole over the tp group only on tp rank 0 (each rank holds
+        it)."""
+        if self._plan is None:
             return host
-        return [h for h, leaf in zip(host, self._plan.opt) if leaf.sharded]
+        keep = [leaf.sharded or self.shard_rank == 0 for leaf in
+                self._plan.opt]
+        if self.tp_world > 1 and self.tp_rank != 0:
+            keep = [k and t is not None for k, t in
+                    zip(keep, self._tp_leaves())]
+        return [h for h, k in zip(host, keep) if k]
 
     def train_batch(self, data_iter=None, batch=None):
         """One global batch: ``batch`` stacked ``[gas, micro, ...]`` (or
@@ -1526,7 +1709,8 @@ class DeepSpeedEngine:
     def module_state_dict(self):
         """The module's state dict; at stage 3 with each sharded master
         gathered whole (every rank of the shard group takes part, one
-        tensor at a time)."""
+        tensor at a time), at tp > 1 each tp slice gathered into the global
+        tensor (every rank of the tp group takes part)."""
         sd = self.module.state_dict()
         if self._masters is not None:
             from deepspeed_tpu_torch.runtime.zero import Partitioned
@@ -1534,6 +1718,10 @@ class DeepSpeedEngine:
                                      self._plan.param):
                 if m is not None:
                     sd[name] = Partitioned(m, leaf, self.shard_group).gather()
+        if self._tp_plan is not None:
+            for name, leaf in self._tp_plan.items():
+                if leaf is not None:
+                    sd[name] = leaf.gather(sd[name], self._tp)
         return sd
 
     def max_memory_allocated(self):
@@ -1559,22 +1747,41 @@ class DeepSpeedEngine:
         state = self._opt_state
         split = sharded_as is not None and self._plan is not None and \
             self.shard_world > 1
-        if split and state is not None:
+        tps = self._tp_leaves() if sharded_as is not None else \
+            [None] * len(self._params)
+
+        def part(t, leaf, tpleaf):
+            # the global tensor behind this rank's piece: the ZeRO shard
+            # over the shard group, then the tp slice over the tp group
+            inner = Partitioned(t, leaf, self.shard_group) \
+                if split and leaf is not None and leaf.sharded else None
+            if tpleaf is not None:
+                return sharded_as(_TPPart(
+                    inner if inner is not None else t, tpleaf, self._tp))
+            return t if inner is None else sharded_as(inner)
+
+        if (split or self.tp_world > 1) and state is not None:
             state = type(state)(*(
                 None if field is None else
-                [t if not leaf.sharded else
-                 sharded_as(Partitioned(t, leaf, self.shard_group))
-                 for t, leaf in zip(field, self._plan.opt)]
+                [part(t, leaf, tpl) for t, leaf, tpl in
+                 zip(field, self._plan.opt, tps)]
                 for field in state))
         module = self.module.state_dict()
+        if self.tp_world > 1 and sharded_as is not None:
+            names = [n for n, p in self.module.named_parameters()
+                     if p.requires_grad]
+            for name, tpl in zip(names, tps):
+                if tpl is not None and (self._masters is None or
+                                        self._masters[names.index(name)]
+                                        is None):
+                    module[name] = part(module[name], None, tpl)
         if self._masters is not None:
             # stage 3: the masters (over one rank, a view of the whole)
-            for name, m, leaf in zip(self._names, self._masters,
-                                     self._plan.param):
+            for name, m, leaf, tpl in zip(self._names, self._masters,
+                                          self._plan.param, tps):
                 if m is not None:
-                    module[name] = sharded_as(Partitioned(
-                        m, leaf, self.shard_group)) if split else \
-                        leaf.from_moved(m)
+                    module[name] = part(m, leaf, tpl) if split or \
+                        tpl is not None else leaf.from_moved(m)
         return {"module": module,
                 "optimizer": state,
                 "loss_scaler": self._scaler_state}
@@ -1612,42 +1819,61 @@ class DeepSpeedEngine:
         if tag is None:
             tag = f"global_step{self.global_steps}"
         tag = str(tag)
-        if self.dp_world > 1:
-            if self._host_opt is not None:
-                raise NotImplementedError(
-                    "save_checkpoint of an offloaded optimizer at data-"
-                    "parallel size > 1 is not ported to deepspeed_tpu_torch "
-                    "yet: each rank's host state is its shard (see "
-                    "ROADMAP.md, queue A)")
+        if self._grouped_save():
             return self._save_checkpoint_dp(save_dir, tag, client_state,
                                             save_latest)
         return self._save_checkpoint_arrays(save_dir, tag,
                                             self._checkpoint_arrays(),
                                             client_state, save_latest)
 
+    def _grouped_save(self):
+        """A save or load that every rank of the group takes part in: at
+        data- or tensor-parallel size > 1."""
+        return self._dp and (self.dp_world > 1 or self.tp_world > 1)
+
+    def _writer(self):
+        """Whether this rank writes a tag: data-parallel rank 0 of tp
+        rank 0 (world rank 0 of the topology)."""
+        return self.dp_rank == 0 and self.tp_rank == 0
+
     def _save_checkpoint_dp(self, save_dir, tag, client_state, save_latest):
-        """A save at data-parallel size > 1: dp rank 0 writes the tag (its
-        own protocol, no retries) while every rank gathers each sharded
-        optimizer tensor in the same order; then rank 0's outcome is
-        broadcast, so every rank returns or raises alike."""
+        """A save at data- or tensor-parallel size > 1: one rank writes the
+        tag (its own protocol, no retries) while every rank gathers each
+        sharded tensor (over the ZeRO shard group, then the tp group) in
+        the same order — under offload each rank's host state too; then
+        the writer's outcome is broadcast, so every rank returns or raises
+        alike."""
         arrays = self._checkpoint_arrays(sharded_as=_GlobalLeaf)
+        host = self._host_state_global() if self._host_opt is not None \
+            else None
+        if getattr(self.checkpoint_engine, "use_async", False):
+            # the asynchronous writer's thread takes no part in the
+            # gathers: every rank gathers here, the writer keeps host copies
+            arrays = _map_leaves(
+                lambda t: t.to("cpu") if self._writer() else t.drain(),
+                arrays, lambda t: isinstance(t, _GlobalLeaf))
         lazy = [t for _, t in flatten_groups(arrays)
                 if isinstance(t, _GlobalLeaf)]
         ok = torch.ones((), dtype=torch.int32, device=self.device)
         error = None
         try:
-            if self.dp_rank == 0:
+            if self._writer():
                 try:
                     self._save_checkpoint_arrays(save_dir, tag, arrays,
-                                                 client_state, save_latest)
+                                                 client_state, save_latest,
+                                                 host=host)
                 except Exception as e:      # raised after the others know
                     error = e
                     ok.zero_()
         finally:
             for t in lazy:
                 t.drain()
-        comm.broadcast(ok, src=self._dp_src, group=self.dp_group,
-                       log_name="checkpoint_status")
+        if self.tp_world > 1:
+            comm.broadcast(ok, src=self.topology.ranks[0],
+                           log_name="checkpoint_status")
+        else:
+            comm.broadcast(ok, src=self._dp_src, group=self.dp_group,
+                           log_name="checkpoint_status")
         if error is not None:
             raise error
         if not int(ok):
@@ -1655,20 +1881,74 @@ class DeepSpeedEngine:
                                f"parallel rank 0")
         return True
 
+    @torch.no_grad()
+    def _host_state_global(self):
+        """The offloaded optimizer's host state as global tensors (flat
+        fp32, ``engine.params`` order): each rank's shards gathered over
+        the shard group, then the tp group, one leaf at a time, on every
+        rank; the writer keeps them, the others None."""
+        from deepspeed_tpu_torch.runtime.zero import Partitioned
+        sd = self._host_opt.state_dict()
+        tps = self._tp_leaves()
+        out = {"step": sd["step"]}
+        for key in ("masters", "exp_avg", "exp_avg_sq"):
+            full = []
+            for i, flat in enumerate(sd[key]):
+                leaf = self._plan.opt[i] if self._plan is not None else None
+                t = flat.to(self.device)
+                if leaf is not None and leaf.sharded:
+                    t = Partitioned(t.view(leaf.shard_shape), leaf,
+                                    self.shard_group).gather()
+                if tps[i] is not None:
+                    t = tps[i].gather(t.view(tps[i].local_shape()), self._tp)
+                full.append(t.reshape(-1).cpu() if self._writer() else None)
+            out[key] = full
+        return out
+
+    def _host_slicer(self):
+        """``cut(i, flat global tensor)`` → this rank's flat host piece of
+        leaf ``i`` (the tp slice, then the ZeRO shard); None in a world of
+        one rank."""
+        if not self._grouped_save():
+            return None
+        tps = self._tp_leaves()
+        plan = self._plan
+
+        def cut(i, flat):
+            tpl = tps[i]
+            t = flat.view(tpl.full_shape) if tpl is not None else flat
+            if tpl is not None:
+                t = tpl.take(t)
+            leaf = plan.opt[i] if plan is not None else None
+            if leaf is not None and leaf.sharded:
+                t = leaf.take(t.view(leaf.full_shape))
+            return t.contiguous().reshape(-1)
+        return cut
+
+    def _save_host(self, path, host):
+        """The offloaded optimizer's host state under ``path``: this
+        engine's own, or ``host`` (a state dict of global tensors)."""
+        if host is None:
+            self._host_opt.save(path)
+        else:
+            from deepspeed_tpu_torch.runtime.zero.offload import \
+                save_host_state
+            save_host_state(path, host)
+
     def _save_checkpoint_arrays(self, save_dir, tag, arrays, client_state,
-                                save_latest):
+                                save_latest, host=None):
         fcfg = self._fault_config()
         if fcfg is not None:
             return self._save_checkpoint_atomic(save_dir, tag, arrays,
                                                 client_state, save_latest,
-                                                fcfg)
+                                                fcfg, host=host)
         t0 = time.monotonic()
         ckpt_dir = os.path.join(save_dir, tag)
         os.makedirs(ckpt_dir, exist_ok=True)
         self.checkpoint_engine.create(tag)
         if self._host_opt is not None:
             # one .npy file a tensor, never one pickle of the whole state
-            self._host_opt.save(os.path.join(ckpt_dir, "host_optimizer"))
+            self._save_host(os.path.join(ckpt_dir, "host_optimizer"), host)
         self.checkpoint_engine.save(arrays, self._checkpoint_meta(
             client_state), os.path.join(ckpt_dir, "state"))
         # commit (the async engine: the arrays are on disk) BEFORE moving
@@ -1683,7 +1963,7 @@ class DeepSpeedEngine:
         return True
 
     def _save_checkpoint_atomic(self, save_dir, tag, arrays, client_state,
-                                save_latest, fcfg):
+                                save_latest, fcfg, host=None):
         """Crash-atomic checkpoint protocol (``fault.enabled``): stage into
         ``<tag>.tmp/``, emit ``MANIFEST.json`` (sizes, checksums,
         fingerprint, step metadata), fsync, rename to ``<tag>/``, swap
@@ -1711,7 +1991,8 @@ class DeepSpeedEngine:
             inject.fire("ckpt.save_io", path=tmp_dir)
             self.checkpoint_engine.create(tag)
             if self._host_opt is not None:
-                self._host_opt.save(os.path.join(tmp_dir, "host_optimizer"))
+                self._save_host(os.path.join(tmp_dir, "host_optimizer"),
+                                host)
             self.checkpoint_engine.save(arrays, meta,
                                         os.path.join(tmp_dir, "state"))
             # the async engine's arrays and deferred metadata must be on
@@ -1719,8 +2000,8 @@ class DeepSpeedEngine:
             self.checkpoint_engine.commit(tag)
 
         # the gathers of a data-parallel save happen once: no retry there
-        policy = retry_policy_from_config(fcfg) if self.dp_world == 1 \
-            else retry_policy_from_config(None)
+        policy = retry_policy_from_config(fcfg) \
+            if not self._grouped_save() else retry_policy_from_config(None)
         retry_call(write_stage, label=f"checkpoint write ({tag})", **policy)
         t1 = time.monotonic()
         inject.fire("ckpt.before_manifest", path=tmp_dir)
@@ -1918,7 +2199,8 @@ class DeepSpeedEngine:
         host_dir = os.path.join(load_dir, str(tag), "host_optimizer")
         self._restore_host_optimizer(
             load_optimizer_states and not load_module_only
-            and os.path.isdir(host_dir), lambda: self._host_opt.load(host_dir))
+            and os.path.isdir(host_dir), lambda: self._host_opt.load(
+                host_dir, cut=self._host_slicer()))
         self._restore_meta(meta, load_lr_scheduler_states, load_module_only)
         self.checkpoint_stats = {"load": {
             **self.checkpoint_engine.stats.get("load", {}),
@@ -1944,7 +2226,8 @@ class DeepSpeedEngine:
         self._restore_host_optimizer(
             load_optimizer_states and not load_module_only
             and host is not None,
-            lambda: self._host_opt.load_state_dict(host))
+            lambda: self._host_opt.load_state_dict(
+                host, cut=self._host_slicer()))
         self._restore_meta(meta, load_lr_scheduler_states, load_module_only)
         return meta.get("client_state", {})
 
@@ -1956,11 +2239,6 @@ class DeepSpeedEngine:
         if self._host_opt is None:
             return
         if have_state:
-            if self.dp_world > 1:
-                raise NotImplementedError(
-                    "loading an offloaded optimizer's host state at data-"
-                    "parallel size > 1 is not ported to deepspeed_tpu_torch "
-                    "yet (see ROADMAP.md, queue A)")
             load()
         else:
             self._host_opt.init_from_params(self._host_views())
@@ -1977,15 +2255,15 @@ class DeepSpeedEngine:
         whose ``export_convert`` renames the weights to that family's HF
         checkpoint keys instead (``module_inject.convert_hf_model`` reads
         them back)."""
-        if self.dp_world > 1:
-            # the parameters are whole on every rank (at stage 3, gathered
-            # on every rank): dp rank 0 writes
+        if self._grouped_save():
+            # the parameters are whole on every rank (at stage 3 and over
+            # tp, gathered on every rank): one rank writes
             sd = self.module_state_dict()
-            if self.dp_rank == 0:
+            if self._writer():
                 self._save_16bit_model(save_dir, save_filename, hf_policy,
                                        sd)
             del sd
-            comm.barrier(self.dp_group)
+            comm.barrier()
             return True
         return self._save_16bit_model(save_dir, save_filename, hf_policy)
 

@@ -202,12 +202,15 @@ class HostOffloadedAdam:
                 np.save(os.path.join(ckpt_dir, f"leaf{i}.{field}.npy"),
                         t.numpy())
 
-    def load(self, ckpt_dir):
+    def load(self, ckpt_dir, cut=None):
+        """Read :meth:`save`'s files; ``cut(i, flat)`` takes this rank's
+        piece of leaf ``i`` where the files hold a group's global state."""
         self.step_count = int(np.load(os.path.join(ckpt_dir, "step.npy")))
 
         def read(i, field):
-            return torch.from_numpy(np.ascontiguousarray(np.load(
+            t = torch.from_numpy(np.ascontiguousarray(np.load(
                 os.path.join(ckpt_dir, f"leaf{i}.{field}.npy")), np.float32))
+            return t if cut is None else cut(i, t)
 
         for i, (name, n) in enumerate(zip(self.names, self.numels)):
             m, a, v = (read(i, f) for f in ("master", "exp_avg",
@@ -235,11 +238,13 @@ class HostOffloadedAdam:
         return {"step": self.step_count, "masters": ms, "exp_avg": avs,
                 "exp_avg_sq": vs}
 
-    def load_state_dict(self, sd):
+    def load_state_dict(self, sd, cut=None):
+        """:meth:`state_dict`'s form back; ``cut`` as in :meth:`load`."""
         self.step_count = int(sd["step"])
 
         pin = self.pin and not self.nvme
-        ms, avs, vs = ([host_copy(t, pin) for t in sd[k]]
+        ms, avs, vs = ([host_copy(t if cut is None else cut(i, t), pin)
+                        for i, t in enumerate(sd[k])]
                        for k in ("masters", "exp_avg", "exp_avg_sq"))
         if self.nvme:
             for name, n, m, a, v in zip(self.names, self.numels, ms, avs,
@@ -258,3 +263,15 @@ class HostOffloadedAdam:
         """The fp32 masters, shaped as the parameters (copies)."""
         return [m.clone().reshape(s)
                 for (_, m, _, _), s in zip(self._iter_states(), self.shapes)]
+
+
+def save_host_state(ckpt_dir, sd):
+    """:meth:`HostOffloadedAdam.save`'s files from a ``state_dict``-form
+    dict (a data-parallel group's state gathered to global tensors)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    np.save(os.path.join(ckpt_dir, "step.npy"), np.int64(sd["step"]))
+    for i, tensors in enumerate(zip(sd["masters"], sd["exp_avg"],
+                                    sd["exp_avg_sq"])):
+        for field, t in zip(("master", "exp_avg", "exp_avg_sq"), tensors):
+            np.save(os.path.join(ckpt_dir, f"leaf{i}.{field}.npy"),
+                    t.numpy())

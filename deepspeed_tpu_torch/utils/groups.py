@@ -5,8 +5,10 @@ The getters answer from the live :class:`ParallelTopology`: each returns
 the ``torch.distributed`` ``ProcessGroup`` of its axes (JAX returns the
 axis names).  MiCS's two groups are the shard group (``edp``: the ranks
 that split a parameter) and the replica group (``mdp``: the ranks that
-hold the same shard).  Only data parallelism is accepted, so the
-``_create_*`` builders raise for an expert or tensor size above 1.
+hold the same shard).  The model-parallel getters answer over the ``tp``
+group; :func:`topology_from_mpu` adopts a Megatron model-parallel unit's
+sizes (both its naming schemes, as JAX's ``initialize`` reads them).  The
+``_create_*`` builders raise for an expert size above 1.
 """
 
 from deepspeed_tpu_torch.parallel import topology as _topo
@@ -61,6 +63,38 @@ def _get_data_parallel_world_size():
 
 def _get_model_parallel_world_size():
     return _require_topo().get_model_parallel_world_size()
+
+
+def _get_model_parallel_rank():
+    return _require_topo().get_model_parallel_rank()
+
+
+# Megatron-Core's names for the same groups
+_get_tensor_model_parallel_group = _get_model_parallel_group
+_get_tensor_model_parallel_world_size = _get_model_parallel_world_size
+_get_tensor_model_parallel_rank = _get_model_parallel_rank
+
+
+def _mpu_size(mpu, *names):
+    for n in names:
+        fn = getattr(mpu, n, None)
+        if callable(fn):
+            return int(fn())
+    return 1
+
+
+def topology_from_mpu(mpu):
+    """The topology of a Megatron-style model-parallel unit: its tensor
+    and pipeline sizes, read through the legacy names
+    (``get_model_parallel_world_size``, ``get_pipe_parallel_world_size``)
+    or Megatron-Core's (``get_tensor_model_parallel_world_size``,
+    ``get_pipeline_model_parallel_world_size``), data parallelism over the
+    rest of the live world (JAX ``initialize``)."""
+    tp = _mpu_size(mpu, "get_model_parallel_world_size",
+                   "get_tensor_model_parallel_world_size")
+    pp = _mpu_size(mpu, "get_pipe_parallel_world_size",
+                   "get_pipeline_model_parallel_world_size")
+    return _topo.initialize_topology(tp=tp, pp=pp)
 
 
 def _get_expert_parallel_world_size(name=None):

@@ -12,7 +12,7 @@ integers; the JAX PRODUCT (``exp(psum(log))``) at 1e-5.
 
 Also: the live topology and the group getters, ``GatheredParameters``
 (rank 0's edit wins, a partitioned tensor keeps its shard of it),
-``zero.Init`` partitioning and ``tp`` refusing at dp > 1, the comms logger, the
+``zero.Init`` partitioning and a ``tp`` group of 2, the comms logger, the
 launcher's exit code when one rank fails, the errors of
 ``init_distributed`` (no ``WORLD_SIZE``, NCCL without CUDA, gloo with a
 CUDA device), and a group of one: stages 0, 1, 2 bitwise the engine
@@ -203,7 +203,7 @@ def test_identity_topology_and_groups(results, world):
         assert topo["group_axes"] == world
         assert topo["rows"] == slice(8 * r, 8 * (r + 1))
         assert float(rec["dp_group_sum"]) == world
-        assert rec["tp_raises"] and rec["init_partitions"]
+        assert rec["tp_group_size"] == 2 and rec["init_partitions"]
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -164,8 +164,11 @@ def test_training_default_device_is_cuda(monkeypatch):
 
 def test_unported_config_knobs_raise():
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
-    for knob in (dict(tp={"tp_size": 2}), dict(mp_size=2),
-                 dict(strict_memory=True),
+    # tensor parallelism is ported: the config takes tp / mp_size
+    assert DeepSpeedInferenceConfig(tp={"tp_size": 2}).tensor_parallel \
+        .tp_size == 2
+    assert DeepSpeedInferenceConfig(mp_size=2).tensor_parallel.tp_size == 2
+    for knob in (dict(strict_memory=True),
                  dict(fault={"bucket_downshift": True}),
                  dict(compile_cache={"enabled": True}),
                  dict(serving={"paged_kernel": False})):

@@ -120,6 +120,17 @@ def test_only_data_parallelism_is_accepted(knob):
         finally:
             ptopo.reset_topology()
         return
+    if "tp" in knob:
+        # tensor parallelism is ported (the TP slice): tp 2 over 8 ranks
+        # leaves dp 4, the tp pairs adjacent as in JAX's mesh
+        try:
+            t = ptopo.initialize_topology(world_size=8, **knob)
+            assert (t.dp, t.tp) == (4, 2)
+            assert t.group_ranks(("tp",)) == [[0, 1], [2, 3], [4, 5], [6, 7]]
+            assert [t.data_spec(8, r) for r in (0, 1)] == [slice(0, 2)] * 2
+        finally:
+            ptopo.reset_topology()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ptopo.initialize_topology(dp=4, world_size=8, **knob)
 

@@ -433,6 +433,17 @@ def test_out_of_slice_knobs_raise(knob):
                                            train_micro_batch_size_per_gpu=1))
         assert cfg.zero_config.mics_shard_size == 2
         return
+    if "tensor_parallel" in knob:
+        # tensor parallelism is ported (the TP slice): the config takes it;
+        # an engine without a process group of tp ranks refuses it
+        cfg = pconfig.DeepSpeedConfig(dict(knob,
+                                           train_micro_batch_size_per_gpu=1))
+        assert cfg.tensor_parallel.tp_size == 2
+        with pytest.raises(ValueError, match="process group"):
+            deepspeed_tpu_torch.initialize(
+                model=pt.Transformer(pt.TransformerConfig(**CFG)), config=dict(
+                    knob, train_micro_batch_size_per_gpu=1), device="cpu")
+        return
     with pytest.raises(NotImplementedError):
         pconfig.DeepSpeedConfig(dict(knob, train_micro_batch_size_per_gpu=1))
 

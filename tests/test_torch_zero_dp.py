@@ -22,9 +22,14 @@ clipping 1.0, 3 steps at gas 2, fp32 and bf16, each at stages 0, 1, 2:
   which a mean of per-rank means is not;
 - fp16 with rank 1's gradients overflowing: every rank skips the step
   (parameters untouched, one skipped step, the scale halved), stages 0, 2;
-- the config at dp > 1 (ZeRO-3, the offload and MiCS taken, the
-  partitioned backward and tensor parallelism refused) and the batch
-  triple against the dp world, with the JAX errors.
+- the data-parallel remainder: the partitioned backward
+  (``grad_partition_groups`` 2, stages 0 and 2) against JAX; the nebula
+  writer's tag byte-equal to the synchronous one of the same state; an
+  offloaded optimizer's tag resumed bitwise by a fresh dp-2 engine and
+  loaded by an engine at world size 1;
+- the config at dp > 1 (ZeRO-3, the offload, MiCS, the partitioned
+  backward and tensor parallelism taken) and the batch triple against the
+  dp world, with the JAX errors.
 """
 
 import pytest
@@ -69,6 +74,18 @@ def test_fp16_overflow_on_one_rank_skips_on_all(results):
     common.check_fp16_skip(results)
 
 
+def test_partitioned_backward_at_dp2_matches_jax(results):
+    common.check_grouped(results)
+
+
+def test_nebula_tag_at_dp2_is_the_synchronous_tag(results):
+    common.check_nebula(results)
+
+
+def test_offloaded_optimizer_tag_at_dp2_resumes_and_loads_alone(results):
+    common.check_offload(results)
+
+
 @pytest.mark.parametrize("triple", [
     dict(train_batch_size=8, train_micro_batch_size_per_gpu=2,
          gradient_accumulation_steps=2),
@@ -106,19 +123,19 @@ def test_batch_triple_completion_at_dp_matches_jax():
     {"zero_optimization": {"mics_shard_size": 2}},
 ], ids=["stage3", "offload", "grad_partition_groups", "tp", "mics"])
 def test_dp_refusals(knob):
-    # ZeRO-3, the offload and MiCS are ported at dp > 1 (the ZeRO-3
-    # tests): the config takes them; the rest still raises
-    accepted = "stage" in str(knob) or "mics_shard_size" in str(knob)
+    # ZeRO-3, the offload and MiCS (the ZeRO-3 slice), the partitioned
+    # backward and tensor parallelism (the TP slice) are ported at dp > 1:
+    # the config takes every one of them
     cfg = dict(knob, train_micro_batch_size_per_gpu=1)
-    if accepted:
-        got = pconfig.DeepSpeedConfig(cfg, mesh_world_size=2)
-        want = knob["zero_optimization"]
-        assert got.zero_config.stage == want.get("stage", 0)
-        assert got.zero_config.mics_shard_size == \
-            want.get("mics_shard_size", -1)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pconfig.DeepSpeedConfig(cfg, mesh_world_size=2)
-    if "tensor_parallel" not in knob:
-        # at world size 1 they are the single-device layouts and levers
-        pconfig.DeepSpeedConfig(dict(knob, train_micro_batch_size_per_gpu=1))
+    got = pconfig.DeepSpeedConfig(cfg, mesh_world_size=2)
+    want = knob.get("zero_optimization", {})
+    assert got.zero_config.stage == want.get("stage", 0)
+    assert got.zero_config.mics_shard_size == want.get("mics_shard_size", -1)
+    assert got.zero_config.grad_partition_groups == \
+        want.get("grad_partition_groups", got.zero_config.grad_partition_groups)
+    assert got.tensor_parallel.tp_size == \
+        knob.get("tensor_parallel", {}).get("tp_size", 1)
+    # the JAX config takes them alike; at world size 1 they are the
+    # single-device layouts and levers (tp: the world size is the engine's)
+    jconfig.DeepSpeedConfig(dict(cfg), mesh_world_size=2)
+    pconfig.DeepSpeedConfig(dict(knob, train_micro_batch_size_per_gpu=1))

@@ -107,7 +107,7 @@ def test_nccl_coalesced_topology_and_gathered(comm_ranks, world):
         assert rec["topology"]["dp_rank"] == r
         np.testing.assert_array_equal(_np(rec["gathered_shard"]), 0.25)
         np.testing.assert_array_equal(_np(rec["gathered_plain"]), 7.0)
-        assert rec["tp_raises"] and rec["init_partitions"]
+        assert rec["tp_group_size"] == 2 and rec["init_partitions"]
 
 
 @pytest.fixture(scope="module")

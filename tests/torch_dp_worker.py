@@ -16,8 +16,10 @@ fp16 skip, and at dp 4 the stage-3 and MiCS checkpoints), ``zero3_cuda``
 (on the cards: stage 3's peak against stage 2's, the collectives in
 order, the fp16 skip),
 ``zero`` (the engine at ZeRO stages 0 / 1 / 2 from the weights and
-batches in INPUT, a ``torch.save`` dict the test writes; with a ``ckpt``
-entry it then loads the tag ``ckpt`` wrote), ``ckpt`` (a tag saved at
+batches in INPUT, a ``torch.save`` dict the test writes; with a
+``remainder`` entry at dp 2 the partitioned backward, the nebula writer
+and an offloaded optimizer's tag; with a ``ckpt`` entry it then loads the
+tag ``ckpt`` wrote), ``ckpt`` (a tag saved at
 this world size), ``fail`` (rank 1 exits 3 at once, the others sleep: the
 launcher's exit code).  ``WORKER_DEVICE=cuda`` runs the ranks on their
 cards over NCCL (the card tests), otherwise on the CPU over gloo.
@@ -171,11 +173,10 @@ def comm_suite(rank, world):
         "rows": topo.data_spec(8 * world),
         "group_axes": comm.get_world_size(comm.new_group(axes=("edp",)))}
     rec["dp_group_sum"] = comm.all_reduce(torch.ones(1), group=dp_group)
-    try:
-        topo_mod.initialize_topology(tp=2)
-        rec["tp_raises"] = False
-    except NotImplementedError:
-        rec["tp_raises"] = True
+    # tensor parallelism (ported): tp 2 over the world, its group of 2
+    tp_topo = topo_mod.initialize_topology(tp=2)
+    rec["tp_group_size"] = comm.get_world_size(
+        tp_topo.get_model_parallel_group())
     topo_mod.set_topology(topo)
     # GatheredParameters: a partitioned tensor and a plain one; rank 0's
     # edit wins everywhere
@@ -315,9 +316,68 @@ def zero_suite(rank, world, inp, out_dir):
             "skipped": eng.skipped_steps, "scale0": scale0,
             "scale": float(eng._scaler_state.scale)}
         del eng
+    if world == 2 and "remainder" in inp:
+        rec["remainder"] = remainder_suite(inp, rank, world)
     if "ckpt" in inp:
         rec["ckpt"] = ckpt_load(inp, world)
     return rec
+
+
+def remainder_suite(inp, rank, world):
+    """The data-parallel remainder at dp 2: the partitioned backward
+    (``grad_partition_groups`` 2) at stages 0 and 2; one engine's state
+    written by the synchronous and by the asynchronous (nebula) writer;
+    an offloaded optimizer's tag, resumed in a fresh engine."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine \
+        import NebulaCheckpointEngine
+    from deepspeed_tpu_torch.runtime.config import NebulaConfig
+    rem = inp["remainder"]
+    micro = inp["global_micro"] // world
+    out = {"grouped": {}}
+    for stage in (0, 2):
+        eng = _engine(inp, stage, "float32", 2, micro,
+                      zero_extra={"grad_partition_groups": 2})
+        losses = [float(eng.train_batch(batch=b))
+                  for b in inp["batches"][2]]
+        sd = {k: v.float().clone() for k, v in
+              eng.module_state_dict().items()}
+        out["grouped"][stage] = {"losses": losses,
+                                 "params": sd if rank == 0 else None}
+        del eng
+    # nebula: the same engine's state through both writers
+    eng = _engine(inp, 2, "float32", 1, micro)
+    for b in inp["batches"][1][:2]:
+        eng.train_batch(batch=b)
+    eng.save_checkpoint(rem["sync_dir"], tag="t")
+    eng.checkpoint_engine = NebulaCheckpointEngine(NebulaConfig(
+        enabled=True))
+    eng.save_checkpoint(rem["nebula_dir"], tag="t")
+    del eng
+    # the offloaded optimizer: a tag after 2 steps, then a third step; a
+    # fresh engine loads the tag and takes the same third step
+    off = {"offload_optimizer": {"device": "cpu"}}
+    a = _engine(inp, 2, "float32", 1, micro, clip=0.0, zero_extra=off)
+    for b in inp["batches"][1][:2]:
+        a.train_batch(batch=b)
+    a.save_checkpoint(rem["offload_dir"], tag="off")
+    saved = {k: v.clone() for k, v in a.module_state_dict().items()}
+    a.train_batch(batch=inp["batches"][1][2])
+    want = {k: v.clone() for k, v in a.module_state_dict().items()}
+    host = a._host_opt.state_dict()
+    del a
+    b = _engine(inp, 2, "float32", 1, micro, clip=0.0, zero_extra=off)
+    b.load_checkpoint(rem["offload_dir"], tag="off")
+    b.train_batch(batch=inp["batches"][1][2])
+    got = b.module_state_dict()
+    host_b = b._host_opt.state_dict()
+    out["offload"] = {
+        "resumed_bitwise": all(torch.equal(got[k], v)
+                               for k, v in want.items()),
+        "host_bitwise": all(torch.equal(x, y) for key in (
+            "masters", "exp_avg", "exp_avg_sq")
+            for x, y in zip(host[key], host_b[key])),
+        "saved": saved if rank == 0 else None}
+    return out
 
 
 def ckpt_save(inp, rank, world):

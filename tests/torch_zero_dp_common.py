@@ -146,6 +146,9 @@ def zero_results(tmp, dp, with_ckpt=False):
     if with_ckpt:
         inp["ckpt"] = {"dir": str(tmp / "ckpt"), "batches": _batches(40, 1)}
         os.makedirs(inp["ckpt"]["dir"])
+    if dp == 2:
+        inp["remainder"] = {k: str(tmp / k) for k in
+                            ("sync_dir", "nebula_dir", "offload_dir")}
     torch.save(inp, tmp / "input.pt")
     jobs = {("zero", dp): dp}
     if with_ckpt:
@@ -294,3 +297,65 @@ def check_fp16_skip(results):
             assert rec["unchanged"], (r, stage)
             assert rec["skipped"] == 1, (r, stage)
             assert rec["scale"] == rec["scale0"] / 2, (r, stage)
+
+
+def check_grouped(results):
+    """The partitioned backward at dp 2 (stages 0 and 2): JAX's losses and
+    parameters at the same dp."""
+    want = results["ref"][(results["dp"], "float32")]
+    for rank in results["ranks"]:
+        for stage, rec in rank["remainder"]["grouped"].items():
+            np.testing.assert_allclose(rec["losses"], want["losses"],
+                                       rtol=1e-5, err_msg=f"stage {stage}")
+    for stage, rec in results["ranks"][0]["remainder"]["grouped"].items():
+        _assert_params(rec["params"], want["params"], "float32",
+                       f"grouped stage {stage}: ")
+
+
+def _files(root):
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(d, n)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def check_nebula(results):
+    """The asynchronous writer's tag at dp 2 is the synchronous one's,
+    byte for byte."""
+    rem = results["inp"]["remainder"]
+    sync = _files(rem["sync_dir"])
+    neb = _files(rem["nebula_dir"])
+    assert sorted(sync) == sorted(neb)
+    assert any(k.endswith(".pt") for k in sync)
+    for k in sync:
+        assert sync[k] == neb[k], k
+
+
+def check_offload(results):
+    """An offloaded optimizer's tag at dp 2: each rank's host shard
+    gathered into global tensors; a fresh dp-2 engine resumes bitwise, and
+    an engine at world size 1 loads it (the parameters bitwise the saved
+    ones, the host masters theirs)."""
+    import deepspeed_tpu_torch as ds
+    for rank in results["ranks"]:
+        off = rank["remainder"]["offload"]
+        assert off["resumed_bitwise"] and off["host_bitwise"]
+    saved = results["ranks"][0]["remainder"]["offload"]["saved"]
+    cfg = {"train_micro_batch_size_per_gpu": GM, "optimizer": {
+        "type": "AdamW", "params": {"lr": LR, "weight_decay": 0.01}},
+        "zero_optimization": {"stage": 2,
+                              "offload_optimizer": {"device": "cpu"}}}
+    eng, *_ = ds.initialize(model=pt.Transformer(pt.TransformerConfig(
+        **CFG)), config=cfg, device="cpu")
+    eng.load_checkpoint(results["inp"]["remainder"]["offload_dir"],
+                        tag="off")
+    got = eng.module_state_dict()
+    names = [n for n, p in eng.module.named_parameters()]
+    for name, want in saved.items():
+        assert torch.equal(got[name], want), name
+    for name, m in zip(names, eng._host_opt.master_params()):
+        assert torch.equal(m, saved[name]), name
+    assert eng.global_steps == 2

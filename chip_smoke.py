@@ -73,7 +73,7 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    (K1, K2-int8), run (b)'s (K3-int8, K2-int8) and run (a)'s with
    ``decode_int8_matmuls`` (K2-i8mm); run (h) serves run (d)'s requests
    on an int8 pool (K7-int8, K6-int8) and on int8 lanes (K3-int8,
-   K2-int8), every request's tokens equal, and (h-i8mm) 24 of them with
+   K2-int8), every request's tokens equal, and (h-i8mm) 16 of them with
    K6-i8mm; each with exact launch counts, its kernel-path logits
    against the plain path on the card (``plain_kernels``), weight, KV
    and peak bytes against the bf16 runs', and the share of greedy tokens
@@ -109,9 +109,9 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    RMSNorm, SwiGLU, seeded random bf16 weights): run (k) generates 16 ×
    prompt 256 × 64 new tokens in one pass (K1, K2) on the decode graphs
    and on an eager engine (tokens bitwise), with ``profile`` lines "k"
-   and "k_graph" and a ``llama_elementwise`` line (device ms of rope,
-   RMSNorm and SwiGLU), then prompt 512 in 128-token chunks (K3, K2);
-   run (l) serves run (d)'s first 32 requests on a 32-slot page pool (K7,
+   and "k_graph" over 16 new tokens and a ``llama_elementwise`` line
+   (device ms of rope, RMSNorm and SwiGLU), then prompt 512 in 128-token chunks (K3, K2);
+   run (l) serves run (d)'s first 16 requests on a 32-slot page pool (K7,
    K6) and on an eager engine, with ``profile`` lines "l" and "l_graph",
    then on monolithic lanes (K3, K2), every request equal, the first 4
    also through solo ``generate()``; run (k-gqa) takes a 2-layer cut with
@@ -121,7 +121,7 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    (cosine ≥ 0.999);
 13. drives speculative serving, run (m) — the JAX bench's
    ``serving_spec_bench`` point at 16 slots and ``spec_k`` 4: OPT-1.3B
-   with run (a)'s weights, 32 greedy requests on slot lanes of 384 —
+   with run (a)'s weights, 16 greedy requests on slot lanes of 384 —
    plain (K3, K2), with a self-draft (``spec_draft_model="self"``: K2 in
    the draft's 5 steps a round, K3 in the verify at B = 16, C = 5 and in
    both prefills), the same over a worst-case page pool (K7 in the verify
@@ -185,19 +185,19 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    device busy time;
 15. drives checkpointing, run (c-ckpt): run (c)'s model and batch shape
    with the ``fault`` block on (sha256 manifests, ``keep_last_n`` 1) — 2
-   steps, ``save_checkpoint`` (15.8 GB of fp32 masters and Adam moments,
-   written one tensor at a time), 2 more steps; then a fresh engine from
-   another seed, with the tag's files evicted from the page cache,
-   ``load_checkpoint`` takes the verified newest tag and the same 2 steps:
-   losses and digests of the parameters and both moments bitwise the
-   unbroken run's, 24 K1 / K4 / K5 launches a step; the tag
+   steps on a 12-layer cut, ``save_checkpoint`` (8.5 GB of fp32 masters
+   and Adam moments, written one tensor at a time), 2 more steps; then a
+   fresh engine from another seed, with the tag's files evicted from the
+   page cache, ``load_checkpoint`` takes the verified newest tag and the
+   same 2 steps: losses and digests of the parameters and both moments
+   bitwise the unbroken run's, 12 K1 / K4 / K5 launches a step; the tag
    (``init_inference(config={"checkpoint": ...})``), the resumed weights
    (``set_params``) and a ``save_16bit_model`` safetensors export each
    generate run (a)'s shape with bitwise the same tokens and run (a)'s
    launches; a ``ckpt`` line gives bytes, files, seconds and GB/s of the
    save (write, manifest checksum, fsync + publish) and the load (verify,
    read, copy to the card), the host's peak RSS growth of each, and the
-   export's bytes and seconds; it needs 32 GB free under ``build/``;
+   export's bytes and seconds; it needs 20 GB free under ``build/``;
 16. brings OPT-350m's published layout in as an HF model, run (o): an
    object with OPTConfig's attribute names (post-LN, no final norm, a
    512-wide embedding with ``project_in`` / ``project_out``) and HF's
@@ -206,7 +206,7 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    kernel-path logits against the plain path (cosine >= 0.999 in bf16
    and on an fp32 copy; one pass, chunked, paged), generate() at run
    (a)'s shape on the decode graphs and eager (tokens bitwise; K1, K2),
-   run (d)'s first 32 requests on 32 slots over a pool (K7, K6) and on
+   run (d)'s first 16 requests on 32 slots over a pool (K7, K6) and on
    lanes (K3, K2; every request equal), the same requests on the fp32
    copy each equal to its solo generate(), and
    ``save_16bit_model(hf_policy="opt")`` from a training engine: exactly
@@ -259,6 +259,31 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
    with fp32 masters and fp32 moments under ZeRO-2 (bf16 accumulation),
    2 steps, its peak a rank, step ms and tokens/s (or its failure with
    the bytes).  ``python3 chip_smoke.py --only q`` runs this alone;
+18c. run (s) — Megatron-LM checkpoints across tensor-parallel degrees and
+   serving through the tensor-parallel path: (s-megatron) a seeded init
+   of Megatron-LM's 345M GPT (24 layers, hidden 1024, 16 heads, 1,024
+   positions, vocabulary 50,304) written as a v2 checkpoint in 2 TP
+   shard files with a description json, merged by ``MegatronSDLoader``
+   and loaded through ``load_megatron_model`` (its weights the fp16
+   init's bitwise; 2 → 4 → 1 shard files bitwise the unsharded dict),
+   fp32 greedy tokens at run (a)'s shape (K1, K2) equal to the model
+   built from the unsharded dict, bf16 tokens/s on the decode graphs;
+   (s-universal) its first 6 layers (the depth cut) trained 2 steps (K1
+   / K4 / K5), saved, converted to a universal directory and loaded into
+   a fresh engine: parameters, moments and the next step bitwise;
+   (s-serve) run (d)'s first 32 requests through ``tensor_parallel=
+   {"tp_size": 1}`` bitwise run (d)'s (K7, K6); K6 / K7 at a tp rank's
+   kv heads (16 and 8 of OPT-1.3B's 32) against their plain versions and
+   SDPA over the gathered view.  ``python3 chip_smoke.py --only s`` runs
+   it alone and, on every visible card, OPT-1.3B ``serve()`` at tp 2 and
+   4 over run (d)'s first 96 requests (fp32 tokens one card's; bf16
+   tokens/s, TTFT, host seconds in ``step()`` and in the plan link, and
+   wall, busy, idle share and NCCL ms a decode block, beside one card's
+   bf16 ``serve()`` of the same requests), ``serve_http`` at tp 2, the
+   universal directory at tp 2 and tp 2 x dp 2 under ZeRO-3 (parameters
+   bitwise, the step's loss within 1e-5 of one card's) and the Megatron
+   checkpoint at tp 4 (one card's tokens); ``--only s-serve`` runs the
+   serving part of that alone (with the K6 / K7 rows);
 19. prints the card, a ``kernels`` JSON line and, last, the result line.
 
 Generation and serving run on the captured decode programs (CUDA graphs,
@@ -309,6 +334,7 @@ the package is missing, or when any phase fails.
 """
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -411,14 +437,16 @@ WINDOW_LIBRARY_NOTE = ("F.scaled_dot_product_attention over the window's "
 # heads of 128, SwiGLU ffn 11008, rope, RMSNorm, vocab 32000, an untied
 # head; seeded random bf16 weights): run (k), generation at run (a)'s
 # shape (one pass: K1, K2) and run (b)'s (prompt 512 in 128-token chunks:
-# K3, K2); run (l), run (d)'s first 32 requests on 32 slots over a pool of
+# K3, K2); run (l), run (d)'s first 16 requests on 32 slots over a pool of
 # 0.75 of the worst case, as run (d) sizes its own (K7, K6), then on
 # monolithic lanes (K3, K2); run (k-gqa), a cut that is not a published
 # config: 2 layers with 8 kv heads (G = 4 at 128-wide heads)
 LLAMA = "llama-7b"
-RUN_K = dict(batch=16, prompt=256, new=64)
+# profile_new: the new tokens of the profiled generate() windows "k" /
+# "k_graph" (a depth cut: 64 steps traced 114,000 kernels a window)
+RUN_K = dict(batch=16, prompt=256, new=64, profile_new=16)
 RUN_K_CHUNKED = dict(batch=16, prompt=512, new=16, chunk=128)
-RUN_L = dict(requests=32, solo=4)
+RUN_L = dict(requests=16, solo=2)
 SERVE_L = dict(SERVE_D, num_slots=32, num_pages=int(0.75 * 32 * 6) + 1)
 RUN_K_GQA = dict(num_kv_heads=8, num_layers=2, batch=16, prompt=256, new=16,
                  requests=8)
@@ -433,14 +461,14 @@ K6L_SHAPE = dict(K6_SHAPE, L=32, pages=SERVE_L["num_pages"], B=32, D=128)
 K7L_SHAPE = dict(K7_SHAPE, L=32, D=128,
                  cases=tuple(c for c in K7_SHAPE["cases"] if c[0] == 64))
 # speculative serving (m): the JAX bench's serving_spec_bench point
-# (bench.py:1123-1169) at 16 slots and spec_k 4 — OPT-1.3B bf16, 32 greedy
+# (bench.py:1123-1169) at 16 slots and spec_k 4 — OPT-1.3B bf16, 16 greedy
 # requests (numpy seed 0; prompts and new tokens drawn from these sets),
 # slot lanes of 384, chunk 128, budget 256, block 8 — served plain, with
 # a self-draft on lanes and over a worst-case page pool (page 64), and
 # with a seeded random opt-125m draft (the accept rate's floor); the
 # first 8 requests again on an fp32 copy of the weights, where every
 # speculative server must equal the plain one token for token
-RUN_M = dict(requests=32, seed=0, prompts=(64, 96, 128, 192),
+RUN_M = dict(requests=16, seed=0, prompts=(64, 96, 128, 192),
              new=(64, 96, 128), fp32_requests=8, draft="opt-125m")
 SERVE_M = dict(max_cache_len=384, prefill_chunk=128,
                prefill_token_budget=256, decode_block=8, num_slots=16)
@@ -502,10 +530,10 @@ SERVE_E = dict(paged=True, page_size=64, max_cache_len=768,
 # (bench.py:968-972).  Run (g): generation at run (a)'s and run (b)'s
 # shapes, and run (a)'s with decode_int8_matmuls; run (h): run (d)'s
 # requests and server on the int8 engine, with its monolithic twin; run
-# (h-i8mm): run (d)'s first 24 requests with decode_int8_matmuls, paged
+# (h-i8mm): run (d)'s first 16 requests with decode_int8_matmuls, paged
 QUANT = {"enabled": True, "bits": 8, "per_channel": True, "kv_cache": True}
-RUN_H = dict(requests=96)
-RUN_H_I8MM = dict(requests=24)
+RUN_H = dict(requests=48)
+RUN_H_I8MM = dict(requests=16)
 INT8_LIBRARY_NOTE = ("F.scaled_dot_product_attention over the int8 cache "
                      "dequantized to bf16 beforehand (dequantization "
                      "excluded)")
@@ -532,13 +560,14 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": RUN_C["micro"],
                 "gradient_clipping": 1.0,
                 "zero_optimization": {"stage": 0},
                 "seed": 0}
-# run (c-ckpt): run (c)'s model, config and batch shape with the fault
+# run (c-ckpt): run (c)'s model cut to 12 layers (the save's depth; its
+# widths, config and batch shape), with the fault
 # block on (sha256 manifests, retention of 1 tag): 2 steps, save, 2 more
 # steps; then a fresh engine from another seed resumes from the newest
 # valid tag and takes the same 2 steps, bitwise; then the tag, the resumed
 # weights (set_params) and a safetensors export serve run (a)'s shape
-RUN_CKPT = dict(before=2, after=2, seed=7, fresh_seed=1,
-                min_free_bytes=32e9)
+RUN_CKPT = dict(layers=12, before=2, after=2, seed=7, fresh_seed=1,
+                min_free_bytes=20e9)
 TRAIN_CKPT_CONFIG = {**TRAIN_CONFIG,
                      "fault": {"enabled": True, "keep_last_n": 1}}
 CKPT_DIR = os.path.join(ROOT, "build", "ckpt")
@@ -592,7 +621,7 @@ SPARSE_GRAD_CHECK = dict(layers=2, batch=2, seq=2048, loss_rel=1e-2,
 # with the config under OPTConfig's attribute names (the card has no
 # transformers) and the HF-named state dict, HF's init drawn from a seeded
 # generator — through module_inject's convert_hf_model and init_inference:
-# generation at run (a)'s shape (K1, K2), run (d)'s first 32 requests on
+# generation at run (a)'s shape (K1, K2), run (d)'s first 16 requests on
 # 32 slots at run (d)'s knobs on a pool (K7, K6) and on lanes (K3, K2),
 # the same requests on an fp32 copy each equal to a solo generate(), and
 # an HF-named export converted back
@@ -601,7 +630,7 @@ OPT_350M_HF = dict(model_type="opt", vocab_size=50272, hidden_size=1024,
                    word_embed_proj_dim=512, do_layer_norm_before=False,
                    max_position_embeddings=2048, activation_function="relu",
                    tie_word_embeddings=True)
-RUN_O = dict(seed=17, requests=32, solo=4)
+RUN_O = dict(seed=17, requests=16, solo=2)
 SERVE_O = dict(SERVE_D, num_slots=32, num_pages=int(0.75 * 32 * 6) + 1)
 # run (c-remat): the JAX bench's long-context point (bench.py:1260-1283:
 # OPT-1.3B, seq 8192, micro 1, loss in 32 chunks) without ZeRO-3 at world
@@ -646,7 +675,7 @@ KLT_SHAPE = dict(B=1, S=2048, H=32, D=128)
 # grad_partition_groups 2 against groups 1 (the gradients, bitwise where
 # it holds, else within 2^-8 of max|g| a tensor)
 RUN_C_OFFLOAD = dict(layers=4, micro=1, gas=2, seq=2048, loss_chunks=8,
-                     steps=3, seed=22, policy="flash_only_saveable",
+                     steps=2, seed=22, policy="flash_only_saveable",
                      plain_rtol=1e-6, plain_atol=1e-7, groups_rel=2.0 ** -8)
 TRAIN_OFFLOAD_CONFIG = {
     "train_micro_batch_size_per_gpu": 1,
@@ -659,10 +688,10 @@ TRAIN_OFFLOAD_CONFIG = {
     "seed": 0}
 # run (c-nvme): the disk tier at 1 layer (464.5 M: 5.6 GB of swapped
 # state), swap files under the run's temporary directory, pipeline_read /
-# pipeline_write; 2 steps, masters bitwise the same steps' under
+# pipeline_write; 1 step, masters bitwise the same step's under
 # device: cpu; save_checkpoint -> a fresh engine -> load_checkpoint takes
 # the next step bitwise
-RUN_C_NVME = dict(layers=1, micro=1, seq=2048, loss_chunks=8, steps=2,
+RUN_C_NVME = dict(layers=1, micro=1, seq=2048, loss_chunks=8, steps=1,
                   seed=23, policy="flash_only_saveable",
                   min_free_bytes=24e9)
 TRAIN_NVME_CONFIG = {
@@ -727,6 +756,29 @@ KR_SHAPES = (dict(KB_SHAPE, H=16), dict(KB_SHAPE, H=8))
 K2R_SHAPES = (dict(K2_SHAPE, H=16), dict(K2_SHAPE, H=8))
 K3R_SHAPES = (dict(K3_SHAPE, H=16), dict(K3_SHAPE, H=8))
 R_TIMEOUT_S = 900
+# run (s): Megatron-LM's 345M GPT (examples/pretrain_gpt.sh: 24 layers,
+# hidden 1024, 16 heads, seq 1024; the GPT-2 vocabulary of 50,257 padded
+# to a multiple of 128), a seeded init saved as a v2 checkpoint in 2 TP
+# shard files (fp16, as Megatron saves), generated at run (a)'s shape;
+# (s-universal) its first 6 layers (the depth cut) trained 2 steps, a
+# universal round trip; (s-serve) run (d)'s first 32 requests through
+# tensor_parallel={"tp_size": 1}.  On more cards (--only s): OPT-1.3B
+# serve() at tp 2 and 4 over run (d)'s first 96 requests, serve_http at
+# tp 2 over 8, the universal directory at tp 2 and tp 2 x dp 2 (ZeRO-3),
+# the Megatron checkpoint at tp 4
+MEGATRON_345M = dict(padded_vocab_size=50304, hidden_size=1024,
+                     num_layers=24, num_attention_heads=16,
+                     ffn_hidden_size=4096, max_position_embeddings=1024)
+RUN_S = dict(seed=31, shards=2, split=4, uni_layers=6, uni_micro=2,
+             uni_steps=2, uni_lr=3e-4, serve_requests=32, tp_requests=96,
+             http_requests=8, min_cards=2, wide_min_cards=4)
+S_DIR = os.path.join(ROOT, "build", "megatron")
+S_TIMEOUT_S = 900
+# K6 / K7 at a tp rank's kv heads of OPT-1.3B's 32 (16 at tp 2, 8 at tp
+# 4): run (d)'s pool, K7 at its admission shape over that pool's bytes
+K6S_SHAPES = (dict(K6_SHAPE, H=16), dict(K6_SHAPE, H=8))
+K7S_SHAPES = tuple(dict(K7_SHAPE, H=h, cases=tuple(
+    c for c in K7_SHAPE["cases"] if c[0] == 64)) for h in (16, 8))
 
 
 def fail(msg):
@@ -2901,10 +2953,9 @@ def eager_twin(eng, **config):
 # Continuous-batching serving: engine.serve -> submit / drain, (d) and (e)
 # --------------------------------------------------------------------- #
 def serving_traffic(V, n=RUN_D["requests"]):
-    """Run (d)'s requests (the first ``n``: runs (l), (o) take 32, (h)
-    96): numpy seed
-    0, prompt lengths and new tokens drawn from RUN_D's sets, prompt ids
-    uniform over the vocabulary."""
+    """Run (d)'s requests (the first ``n``: runs (l), (o) take 16, (h) 48,
+    (s-serve) 32): numpy seed 0, prompt lengths and new tokens drawn from
+    RUN_D's sets, prompt ids uniform over the vocabulary."""
     import numpy as np
     rng = np.random.default_rng(RUN_D["seed"])
     reqs = []
@@ -2968,6 +3019,26 @@ def check_outputs(tag, outs, reqs, V):
             fail(f"{tag}: an output is not [prompt, {n} new tokens]")
         if int(out.min()) < 0 or int(out.max()) >= V:
             fail(f"{tag}: token ids outside the vocabulary")
+
+
+def token_differences(outs, outs_b, reqs, limit=4):
+    """Where two runs' outputs of ``reqs`` part (both checked to be
+    [prompt, new tokens]), for a failing gate's message: the first
+    ``limit`` differing requests, each with its index, prompt length, new
+    tokens, the first differing new token's index and the two tokens
+    there."""
+    import numpy as np
+    diffs = []
+    for i, (a, b) in enumerate(zip(outs, outs_b)):
+        if len(diffs) == limit:
+            break
+        if np.array_equal(a, b):
+            continue
+        k = int(np.flatnonzero(a != b)[0])
+        P = len(reqs[i][0])
+        diffs.append(f"request {i} (prompt {P}, {reqs[i][1]} new): new "
+                     f"token {k - P} is {int(a[k])} against {int(b[k])}")
+    return "; ".join(diffs)
 
 
 def serve_record(run, srv, secs, peak, counts, reqs):
@@ -3181,8 +3252,19 @@ def serving_path(eng, eng_e):
     runs["d_mono"]["requests_differing_from_paged"] = differ
     emit(runs["d_mono"])
     if differ:
+        # the two designs are bitwise equal by construction: serve the
+        # lanes once more, so that the message tells a difference that
+        # repeats from one that does not (the gate fails either way)
+        again = serve_counted(eng, reqs, "run (d) monolithic, again",
+                              **{**SERVE_D, "paged": False})[1]
         fail(f"run (d): {differ} of {len(reqs)} requests' tokens differ "
-             f"between the paged pool and the monolithic lanes")
+             f"between the paged pool and the monolithic lanes "
+             f"({token_differences(outs, outs_m, reqs)}); served on the "
+             f"lanes again, "
+             f"{sum(not np.array_equal(a, b) for a, b in zip(outs, again))}"
+             f" differ from the pool and "
+             f"{sum(not np.array_equal(a, b) for a, b in zip(outs_m, again))}"
+             f" from the first lanes' run")
     runs["d_profile"] = profile_serving(eng_e, reqs)
     runs["d_graph_profile"] = profile_serving(eng, reqs, "d_graph",
                                               "serving_graph_trace.json")
@@ -4323,7 +4405,7 @@ def int8_serving_path(eng_g, eng_ge, eng_m, outs_d, runs):
     admission, K6-int8 decode) with the captured decode block, again on
     the eager engine ``eng_ge`` (every request equal), a decode-window
     profile each way, its monolithic twin (K3-int8, K2-int8) with every
-    request's tokens equal, and (h-i8mm): run (d)'s first 24 requests
+    request's tokens equal, and (h-i8mm): run (d)'s first 16 requests
     with decode_int8_matmuls on the pool (K7-int8, K6-i8mm)."""
     import numpy as np
     import torch
@@ -4353,10 +4435,12 @@ def int8_serving_path(eng_g, eng_ge, eng_m, outs_d, runs):
     runs["h"] = rec
     emit(rec)
     runs["h_eager"] = eager_serving("h_eager", eng_ge, reqs, outs, SERVE_D)
-    runs["h_profile"] = profile_serving(eng_ge, reqs, "h",
+    # the profile windows fill all 96 slots from run (d)'s prompts
+    window = serving_traffic(V)
+    runs["h_profile"] = profile_serving(eng_ge, window, "h",
                                         "int8_serving_trace.json")
     runs["h_graph_profile"] = profile_serving(
-        eng_g, reqs, "h_graph", "int8_serving_graph_trace.json")
+        eng_g, window, "h_graph", "int8_serving_graph_trace.json")
     mono, outs_m, secs_m, peak_m, counts_m = serve_counted(
         eng_g, reqs, "run (h) monolithic", **{**SERVE_D, "paged": False})
     differ = sum(not np.array_equal(a, b) for a, b in zip(outs, outs_m))
@@ -4366,7 +4450,8 @@ def int8_serving_path(eng_g, eng_ge, eng_m, outs_d, runs):
     emit(runs["h_mono"])
     if differ:
         fail(f"run (h): {differ} of {len(reqs)} requests' tokens differ "
-             f"between the int8 pool and the int8 monolithic lanes")
+             f"between the int8 pool and the int8 monolithic lanes "
+             f"({token_differences(outs, outs_m, reqs)})")
     few = reqs[:RUN_H_I8MM["requests"]]
     srv, outs_i, secs_i, peak_i, counts_i = serve_counted(
         eng_m, few, "run (h-i8mm)", **SERVE_D)
@@ -4567,7 +4652,8 @@ def gpt_neo_serving_path(eng, m32):
     emit(rec_m)
     if differ:
         fail(f"run (j): {differ} of {len(reqs)} requests' tokens differ "
-             f"between the paged pool and the monolithic lanes")
+             f"between the paged pool and the monolithic lanes "
+             f"({token_differences(outs, outs_m, reqs)})")
     return {"j": rec, "j_mono": rec_m, "j_outputs": outs}
 
 
@@ -4630,7 +4716,8 @@ def llama_path():
     """Run (k): Llama-7B generation at its full widths and depth, one
     pass at run (a)'s shape (K1, K2) on the captured decode graphs after
     ``warmup()``, the same on an eager engine (tokens bitwise), profile
-    lines "k" (eager) and "k_graph", the device ms of rope / RMSNorm /
+    lines "k" (eager) and "k_graph" over ``RUN_K["profile_new"]`` new
+    tokens, the device ms of rope / RMSNorm /
     SwiGLU, then chunked at run (b)'s (K3, K2), each with exact launches;
     run (l); then, on an fp32 copy of the same weights, the checks that
     bf16 rounding on a 32-layer random model would blur
@@ -4671,11 +4758,13 @@ def llama_path():
     if not runs["k_eager"]["tokens_equal_to_graphs"]:
         fail("run (k): the eager engine's tokens differ from the captured "
              "decode graphs'")
-    runs["k_profile"] = profile_run(eng_e, ids, new, "k",
+    prof_new = RUN_K["profile_new"]
+    eng.warmup(P, prof_new, batch_sizes=(B,))    # its graphs, untraced
+    runs["k_profile"] = profile_run(eng_e, ids, prof_new, "k",
                                     "llama_generate_trace.json")
-    runs["k_graph_profile"] = profile_run(eng, ids, new, "k_graph",
+    runs["k_graph_profile"] = profile_run(eng, ids, prof_new, "k_graph",
                                           "llama_generate_graph_trace.json")
-    elem = llama_elementwise(m, B, P, new)
+    elem = llama_elementwise(m, B, P, prof_new)
     for prof in ("k_profile", "k_graph_profile"):
         elem[f"share_of_{prof[:-8]}_busy"] = \
             elem["generate_total_ms"] / runs[prof]["device_busy_ms"]
@@ -4710,7 +4799,7 @@ def llama_path():
 
 
 def llama_serving_path(eng, eng_e):
-    """Run (l): run (d)'s first 32 requests on a 32-slot page pool (K7
+    """Run (l): run (d)'s first 16 requests on a 32-slot page pool (K7
     admission, K6 decode) on the captured decode block, again on the
     eager engine ``eng_e`` (every request equal), a decode-window profile
     each way, then the same requests on monolithic lanes (K3, K2: every
@@ -4733,10 +4822,13 @@ def llama_serving_path(eng, eng_e):
     emit(rec)
     runs = {"l": rec}
     runs["l_eager"] = eager_serving("l_eager", eng_e, reqs, outs, SERVE_L)
-    runs["l_profile"] = profile_serving(eng_e, reqs, "l",
+    # the profile windows fill all 32 slots from run (d)'s prompts
+    window = serving_traffic(eng.module.config.vocab_size,
+                             SERVE_L["num_slots"])
+    runs["l_profile"] = profile_serving(eng_e, window, "l",
                                         "llama_serving_trace.json", SERVE_L)
     runs["l_graph_profile"] = profile_serving(
-        eng, reqs, "l_graph", "llama_serving_graph_trace.json", SERVE_L)
+        eng, window, "l_graph", "llama_serving_graph_trace.json", SERVE_L)
     mono, outs_m, secs_m, peak_m, counts_m = serve_counted(
         eng, reqs, "run (l) monolithic", **{**SERVE_L, "paged": False})
     differ = sum(not np.array_equal(a, b) for a, b in zip(outs, outs_m))
@@ -4761,7 +4853,8 @@ def llama_serving_path(eng, eng_e):
     runs["l_mono"] = rec_m
     if differ:
         fail(f"run (l): {differ} of {len(reqs)} requests' tokens differ "
-             f"between the paged pool and the monolithic lanes")
+             f"between the paged pool and the monolithic lanes "
+             f"({token_differences(outs, outs_m, reqs)})")
     torch.cuda.empty_cache()
     return runs, reqs
 
@@ -5088,7 +5181,8 @@ def ckpt_engine(seed):
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.opt import opt_model
     model = opt_model(MODEL, max_seq_len=RUN_C["seq"], loss_seq_chunks=RUN_C[
-        "loss_chunks"], remat=False, dtype="bfloat16")
+        "loss_chunks"], remat=False, dtype="bfloat16",
+        num_layers=RUN_CKPT["layers"])
     engine, *_ = initialize(model=model,
                             config={**TRAIN_CKPT_CONFIG, "seed": seed},
                             device=DEV)
@@ -5138,13 +5232,15 @@ def ckpt_serve(engine, d, rec):
     expect = {"flash_attention": L, "decode_attention": L * (new - 1)}
     serve = {}
     t0 = time.perf_counter()
-    eng = init_inference(opt_model(MODEL, max_seq_len=RUN_C["seq"]), device=DEV,
+    model = functools.partial(opt_model, MODEL, max_seq_len=RUN_C["seq"],
+                              num_layers=L)
+    eng = init_inference(model(), device=DEV,
                          config={"dtype": "bfloat16", "checkpoint": d})
     torch.cuda.synchronize()
     serve["tag_load_seconds"] = time.perf_counter() - t0
     want, serve["from_tag"] = served_tokens("tag", eng, ids, new, expect)
     del eng
-    eng = init_inference(opt_model(MODEL, max_seq_len=RUN_C["seq"]), dtype="bfloat16", device=DEV)
+    eng = init_inference(model(), dtype="bfloat16", device=DEV)
     eng.set_params(engine.module.state_dict())
     got, serve["from_set_params"] = served_tokens("set_params", eng, ids,
                                                   new, expect)
@@ -5157,7 +5253,7 @@ def ckpt_serve(engine, d, rec):
     serve["export_seconds"] = time.perf_counter() - t0
     serve["export_bytes"] = os.path.getsize(os.path.join(d, name))
     t0 = time.perf_counter()
-    eng = init_inference(opt_model(MODEL, max_seq_len=RUN_C["seq"]), dtype="bfloat16", device=DEV)
+    eng = init_inference(model(), dtype="bfloat16", device=DEV)
     eng.load_checkpoint(os.path.join(d, name))
     torch.cuda.synchronize()
     serve["export_load_seconds"] = time.perf_counter() - t0
@@ -5486,7 +5582,7 @@ def opt350m_path():
     """Run (o): OPT-350m's published layout from an HF-named state dict,
     converted by ``init_inference``: its kernel-path logits against the
     plain path, generate() at run (a)'s shape on the decode graphs and
-    eager (tokens bitwise), run (d)'s first 32 requests on a 32-slot pool
+    eager (tokens bitwise), run (d)'s first 16 requests on a 32-slot pool
     and on lanes (every request equal), the same on an fp32 copy each
     equal to its solo generate(), and ``save_16bit_model(hf_policy=
     "opt")``: HF's key names and shapes, converted back to the same
@@ -5584,7 +5680,8 @@ def opt350m_path():
     if rec["requests_differing_from_paged"]:
         fail(f"run (o): {rec['requests_differing_from_paged']} of "
              f"{len(reqs)} requests' tokens differ between the paged pool "
-             f"and the monolithic lanes")
+             f"and the monolithic lanes "
+             f"({token_differences(outs, outs_m, reqs)})")
     runs["o_fp32"] = opt350m_fp32_solo(eng32, reqs)
 
     # the HF-named export from a training engine over the fp32 copy's
@@ -6072,7 +6169,7 @@ def nvme_engine(config, seed_cfg):
 
 
 def nvme_path():
-    """Run (c-nvme): the disk tier at 1 layer.  2 steps whose masters
+    """Run (c-nvme): the disk tier at 1 layer.  1 step whose masters
     equal the same steps under device: cpu bitwise; the swap's read and
     write rates; save_checkpoint -> a fresh engine -> load_checkpoint, the
     next step bitwise the uninterrupted engine's."""
@@ -6789,15 +6886,8 @@ def only_r(card):
                                  "count": torch.cuda.device_count()}})
 
 
-def r_kernel_rows(checks, base=None, rec=None):
-    """K1 / K4 / K5 / K2 / K3 rows with their local-head shapes (``tp2`` /
-    ``tp4`` columns); ``base`` the full rows to add them to, else new rows
-    with the tp-2 shape's numbers and the launches of run (r)'s multi-card
-    runs (``rec``; a row with no such run has no ``launches``)."""
-    csrc = "deepspeed_tpu_torch/ops/csrc/"
-    pallas = "deepspeed_tpu/ops/transformer/"
-    names = {"K1": ("flash_attention", "flash_attention.cu",
-                    "flash_attention.py:175"),
+R_KERNELS = {"K1": ("flash_attention", "flash_attention.cu",
+                     "flash_attention.py:175"),
              "K4": ("flash_attention_dq", "flash_attention_bwd.cu",
                     "flash_attention.py:388"),
              "K5": ("flash_attention_dkv", "flash_attention_bwd.cu",
@@ -6806,6 +6896,28 @@ def r_kernel_rows(checks, base=None, rec=None):
                     "decode_attention.py:630"),
              "K3": ("chunk_prefill_attention", "flash_attention.cu",
                     "decode_attention.py:448")}
+S_KERNELS = {"K6": ("paged_decode_attention", "decode_attention.cu",
+                    "paged_attention.py:206"),
+             "K7": ("paged_chunk_prefill_attention", "flash_attention.cu",
+                    "paged_attention.py:293")}
+
+
+def r_kernel_rows(checks, base=None, rec=None):
+    """K1 / K4 / K5 / K2 / K3 rows with their local-head shapes, the
+    launches of run (r)'s multi-card runs (``rec``)."""
+    return local_head_rows(checks, R_KERNELS, base,
+                           lambda name: r_launches(rec or {}, name))
+
+
+def local_head_rows(checks, names, base=None, launches=None):
+    """Rows of the kernels ``names`` (``{key: (name, source, site)}``)
+    with their local-head shapes (``tp2_local_heads`` / ``tp4_local_heads``
+    columns, from ``checks[("<key> tp<n>", "bfloat16")]``); ``base`` the
+    full rows to add them to, else new rows with the tp-2 shape's numbers
+    and ``launches(name)`` (a row without multi-card launches has no
+    ``launches``)."""
+    csrc = "deepspeed_tpu_torch/ops/csrc/"
+    pallas = "deepspeed_tpu/ops/transformer/"
     rows = {r["name"]: r for r in (base or [])}
     out = []
     for key, (name, src, site) in names.items():
@@ -6813,7 +6925,8 @@ def r_kernel_rows(checks, base=None, rec=None):
         for tp in (2, 4):
             c = checks[(f"{key} tp{tp}", "bfloat16")]
             cols[f"tp{tp}_local_heads"] = {
-                "shape": c.get("shape") or c.get("cache") or c.get("q"),
+                "shape": c.get("shape") or c.get("cache") or c.get("q")
+                or c.get("timed_shape") or c.get("pool"),
                 "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
@@ -6823,7 +6936,7 @@ def r_kernel_rows(checks, base=None, rec=None):
         t2 = cols["tp2_local_heads"]
         row = {"name": name, "route": "cuda", "source": csrc + src,
                "replaces": pallas + site}
-        n = r_launches(rec or {}, name)
+        n = launches(name) if launches else None
         if n is not None:
             row["launches"] = n
         out.append({**row, **{k: t2[k] for k in (
@@ -7309,6 +7422,725 @@ def tp_path(q, tokens_a, checks):
     return rec
 
 
+# --------------------------------------------------------------------- #
+# run (s): Megatron-LM checkpoints across tensor-parallel degrees, the
+# universal checkpoint, serving through the tensor-parallel path
+# --------------------------------------------------------------------- #
+def s_megatron_config(**over):
+    """Megatron-LM's 345M GPT (``MEGATRON_345M``) as
+    ``MegatronGPTPolicy`` builds it (pre-LN GPT-2, learned positions,
+    gelu, tied embeddings), per-layer flax paths."""
+    import types
+    from deepspeed_tpu_torch.module_inject import MegatronGPTPolicy
+    return MegatronGPTPolicy().build_config(
+        types.SimpleNamespace(**MEGATRON_345M),
+        **{"scan_layers": False, **over})
+
+
+def megatron_state(sd, cfg):
+    """The port's ``state_dict`` → a merged Megatron-LM GPT state dict
+    (numpy fp16, as Megatron saves its weights; fused QKV in the v2 row
+    order ``[H, 3, D]``): the inverse of ``MegatronGPTPolicy``."""
+    import numpy as np
+    from deepspeed_tpu_torch.models.transformer import params_to_flax
+    flat = {k: v.float().numpy() for k, v in params_to_flax(sd, cfg).items()}
+    H, D, h = cfg.num_heads, cfg.head_dim, cfg.hidden_size
+    out = {"word_embeddings.weight": flat["embed_tokens/embedding"],
+           "position_embeddings.weight": flat["embed_positions/embedding"],
+           "transformer.final_layernorm.weight": flat["final_norm/scale"],
+           "transformer.final_layernorm.bias": flat["final_norm/bias"]}
+    for i in range(cfg.num_layers):
+        def f(k):
+            return flat[f"layers_{i}/{k}"]
+        p = f"transformer.layers.{i}."
+        qkv = ("q_proj", "k_proj", "v_proj")
+        out[p + "attention.query_key_value.weight"] = np.stack(
+            [f(f"attn/{x}/kernel").transpose(1, 2, 0) for x in qkv],
+            axis=1).reshape(3 * H * D, h)
+        out[p + "attention.query_key_value.bias"] = np.stack(
+            [f(f"attn/{x}/bias") for x in qkv], axis=1).reshape(-1)
+        out[p + "attention.dense.weight"] = \
+            f("attn/o_proj/kernel").reshape(H * D, h).T
+        out[p + "attention.dense.bias"] = f("attn/o_proj/bias")
+        for norm, meg in (("input_norm", "input_layernorm"),
+                          ("post_attn_norm", "post_attention_layernorm")):
+            out[p + meg + ".weight"] = f(f"{norm}/scale")
+            out[p + meg + ".bias"] = f(f"{norm}/bias")
+        out[p + "mlp.dense_h_to_4h.weight"] = f("mlp/up_proj/kernel").T
+        out[p + "mlp.dense_h_to_4h.bias"] = f("mlp/up_proj/bias")
+        out[p + "mlp.dense_4h_to_h.weight"] = f("mlp/down_proj/kernel").T
+        out[p + "mlp.dense_4h_to_h.bias"] = f("mlp/down_proj/bias")
+    return {k: np.ascontiguousarray(v, dtype=np.float16)
+            for k, v in out.items()}
+
+
+def save_megatron(path, state):
+    """One Megatron shard file: ``{"module": {name: tensor}}``."""
+    import numpy as np
+    import torch
+    torch.save({"module": {k: torch.from_numpy(np.ascontiguousarray(v))
+                           for k, v in state.items()}}, path)
+    return os.path.basename(path)
+
+
+def megatron_path():
+    """Run (s-megatron): a seeded init of Megatron-LM's 345M GPT written as
+    a v2 checkpoint in ``RUN_S["shards"]`` TP shard files with a
+    description json, merged by ``MegatronSDLoader`` and loaded through
+    ``load_megatron_model``: its weights the init's (fp16) bitwise, the
+    shards split into ``RUN_S["split"]`` files and merged back bitwise the
+    unsharded dict, fp32 greedy tokens at run (a)'s shape equal the model
+    built from the unsharded dict, then the bf16 run's tokens/s; K1 / K2
+    launches exact."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer import Transformer
+    from deepspeed_tpu_torch.module_inject import load_megatron_model
+    from deepspeed_tpu_torch.runtime.state_dict_factory import (
+        MegatronSDLoader)
+    t0 = time.perf_counter()
+    cfg = s_megatron_config(dtype="float32")
+    model = Transformer(cfg, device=DEV)
+    model.init_weights(torch.Generator(device=DEV).manual_seed(RUN_S["seed"]))
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    full = megatron_state(sd, cfg)
+    unsharded = os.path.join(S_DIR, "unsharded.pt")
+    save_megatron(unsharded, full)
+    n = RUN_S["shards"]
+    shards = [save_megatron(
+        os.path.join(S_DIR, f"mp_rank_{r:02d}_model_states.pt"),
+        MegatronSDLoader([unsharded], 2.0).load(n, r)) for r in range(n)]
+    desc = os.path.join(S_DIR, "megatron_345m.json")
+    with open(desc, "w") as f:
+        json.dump({"type": "Megatron", "version": 2.0, "base_dir": S_DIR,
+                   "checkpoints": shards}, f)
+    rec = {"run": "s_megatron", "config": MEGATRON_345M, "shards": n,
+           "checkpoint_bytes": sum(os.path.getsize(os.path.join(S_DIR, s))
+                                   for s in shards),
+           "write_seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    heads = MEGATRON_345M["num_attention_heads"]
+    m_shards, sd_shards = load_megatron_model(desc, num_heads=heads,
+                                              dtype="float32",
+                                              scan_layers=False)
+    rec["load_megatron_model_seconds"] = time.perf_counter() - t0
+    m_full, sd_full = load_megatron_model(full, num_heads=heads,
+                                          dtype="float32", scan_layers=False)
+    init16 = {k: v.half().float() for k, v in sd.items()}
+    for k, want in init16.items():
+        if not (torch.equal(sd_shards[k], want)
+                and torch.equal(sd_full[k], want)):
+            fail(f"run (s-megatron): {k} from the shards is not the "
+                 f"seeded init's fp16 value bitwise")
+    # the 2 shard files split into 4, then merged back into one dict
+    t0 = time.perf_counter()
+    m = RUN_S["split"]
+    paths = [os.path.join(S_DIR, s) for s in shards]
+    split = [os.path.join(S_DIR, save_megatron(
+        os.path.join(S_DIR, f"split{m}_mp_rank_{r:02d}_model_states.pt"),
+        MegatronSDLoader(paths, 2.0).load(m, r))) for r in range(m)]
+    merged = MegatronSDLoader(split, 2.0).merge_state_dict()
+    if sorted(merged) != sorted(full) or not all(
+            merged[k].dtype == full[k].dtype
+            and np.array_equal(merged[k], full[k]) for k in full):
+        fail(f"run (s-megatron): {n} → {m} → 1 shard files do not give "
+             f"the unsharded dict back bitwise")
+    rec["split_merge_seconds"] = time.perf_counter() - t0
+    for p in split + [unsharded]:
+        os.remove(p)
+    L, V = cfg.num_layers, cfg.vocab_size
+    B, P, new = RUN_A["batch"], RUN_A["prompt"], RUN_A["new"]
+    g = torch.Generator(device=DEV).manual_seed(4)
+    ids = torch.randint(0, V, (B, P), generator=g, device=DEV)
+    expect = {"flash_attention": L, "decode_attention": L * (new - 1)}
+    tokens = {}
+    for tag, mdl in (("shards", m_shards), ("unsharded", m_full)):
+        eng = init_inference(mdl, dtype="float32", device=DEV)
+        eng.warmup(P, new, batch_sizes=(B,))
+        tokens[tag], dt, _, _ = run_generate(eng, ids, new, expect)
+        rec[f"fp32_{tag}_tokens_per_s"] = B * new / dt
+        del eng
+    del m_shards, m_full
+    rec["fp32_tokens_equal"] = bool(torch.equal(tokens["shards"],
+                                                tokens["unsharded"]))
+    if not rec["fp32_tokens_equal"]:
+        fail("run (s-megatron): the shards' fp32 greedy tokens differ from "
+             "the unsharded dict's")
+    eng = init_inference(Transformer(s_megatron_config(dtype="bfloat16")),
+                         dtype="bfloat16", device=DEV)
+    eng.set_params(sd_shards)
+    warm = eng.warmup(P, new, batch_sizes=(B,))
+    out, dt, counts, peak = run_generate(eng, ids, new, expect)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(bf16_seconds=dt, bf16_tokens_per_s=B * new / dt,
+               warmup_seconds=warm, peak_device_bytes=peak,
+               bf16_agreement_with_fp32=float(
+                   (out[:, P:] == tokens["shards"][:, P:]).float().mean()),
+               launches={k: v for k, v in counts.items() if v})
+    emit(rec)
+    rec["description"] = desc
+    rec["ids"], rec["fp32_tokens"] = ids.cpu(), tokens["shards"].cpu()
+    return rec
+
+
+def s_train_config(dtype, tp=1, stage=0, dp=1):
+    config = {"train_micro_batch_size_per_gpu": RUN_S["uni_micro"] // dp,
+              "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {
+                  "lr": RUN_S["uni_lr"], "weight_decay": 0.01}},
+              "gradient_clipping": 1.0,
+              "zero_optimization": {"stage": stage},
+              "tensor_parallel": {"tp_size": tp}, "seed": 1}
+    if dtype == "bfloat16":
+        config["bf16"] = {"enabled": True}
+    return config
+
+
+def s_batches(V, n):
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(RUN_S["seed"] + 1)
+    return [{"input_ids": torch.randint(
+        0, V, (1, RUN_S["uni_micro"], MEGATRON_345M["max_position_embeddings"]),
+        generator=g, device=DEV)} for _ in range(n)]
+
+
+def universal_path(desc, refs):
+    """Run (s-universal): the Megatron checkpoint's first
+    ``RUN_S["uni_layers"]`` layers (the depth cut) trained
+    ``RUN_S["uni_steps"]`` steps (bf16, fp32 masters, AdamW; K1 / K4 / K5
+    once a layer a step), saved, converted to a universal directory and
+    loaded into a fresh engine from another seed: parameters and both
+    moments bitwise, and one more step on both bitwise.  ``refs``: also an
+    fp32 engine loaded from the directory, its parameters and the loss of
+    one step (the multi-card loads' reference)."""
+    import dataclasses
+    import shutil
+    import torch
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.checkpoint import (convert_to_universal,
+                                                load_universal_into_engine)
+    from deepspeed_tpu_torch.models.transformer import Transformer
+    from deepspeed_tpu_torch.module_inject import load_megatron_model
+    L = RUN_S["uni_layers"]
+    model, _ = load_megatron_model(
+        desc, num_heads=MEGATRON_345M["num_attention_heads"], num_layers=L,
+        dtype="bfloat16", scan_layers=False, remat=False)
+    cfg = model.config
+    a, *_ = initialize(model=model, config=s_train_config("bfloat16"),
+                       device=DEV)
+    V = cfg.vocab_size
+    batches = s_batches(V, RUN_S["uni_steps"] + 1)
+    reset_counts()
+    losses = [float(a.train_batch(batch=b)) for b in batches[:-1]]
+    counts = read_counts()
+    want = expect_only({k: L * RUN_S["uni_steps"] for k in (
+        "flash_attention", "flash_attention_dq", "flash_attention_dkv")})
+    if counts != want:
+        fail(f"run (s-universal): launches {counts}, the path needs {want}")
+    ckpt, uni = os.path.join(S_DIR, "ckpt"), os.path.join(S_DIR, "uni")
+    t0 = time.perf_counter()
+    a.save_checkpoint(ckpt, tag="s")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_to_universal(ckpt, uni, tag="s")
+    convert_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt)
+    b, *_ = initialize(model=Transformer(cfg),
+                       config={**s_train_config("bfloat16"), "seed": 2},
+                       device=DEV)
+    t0 = time.perf_counter()
+    load_universal_into_engine(b, uni)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    def same(x, y):
+        sx, sy = x.module_state_dict(), y.module_state_dict()
+        return all(torch.equal(sx[k], sy[k]) for k in sx) and all(
+            torch.equal(p, q) for f in ("exp_avg", "exp_avg_sq")
+            for p, q in zip(getattr(x._opt_state, f),
+                            getattr(y._opt_state, f)))
+
+    if not same(a, b) or b.global_steps != RUN_S["uni_steps"]:
+        fail("run (s-universal): the loaded engine's parameters / moments "
+             "are not the saved engine's bitwise")
+    la = float(a.train_batch(batch=batches[-1]))
+    lb = float(b.train_batch(batch=batches[-1]))
+    if la != lb or not same(a, b):
+        fail(f"run (s-universal): the next step differs after the load "
+             f"({la} vs {lb})")
+    nbytes, nfiles = tree_bytes(uni)
+    rec = {"run": "s_universal", "layers": L, "losses": losses,
+           "next_loss": la, "bitwise": True, "save_seconds": save_s,
+           "convert_seconds": convert_s, "load_seconds": load_s,
+           "universal_bytes": nbytes, "universal_files": nfiles,
+           "launches": {k: v for k, v in counts.items() if v}}
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    if refs is not None:
+        c, *_ = initialize(model=Transformer(dataclasses.replace(
+            cfg, dtype="float32")), config=s_train_config("float32"),
+            device=DEV)
+        load_universal_into_engine(c, uni)
+        refs["uni_sd"] = {k: v.to("cpu", copy=True) for k, v in
+                          c.module_state_dict().items()}
+        refs["uni_batch"] = {k: v.cpu() for k, v in batches[-1].items()}
+        refs["uni_loss"] = float(c.train_batch(batch=batches[-1]))
+        rec["fp32_next_loss"] = refs["uni_loss"]
+        del c
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def tp1_serving_path(outs_d):
+    """Run (s-serve): ``serve()`` of an engine built through
+    ``tensor_parallel={"tp_size": 1}`` on run (d)'s configuration and
+    weights, run (d)'s first ``RUN_S["serve_requests"]`` requests: every
+    output bitwise run (d)'s, K7 / K6 launches exact."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import opt_model
+    eng = init_inference(opt_model(MODEL), dtype="bfloat16", device=DEV,
+                         tensor_parallel={"tp_size": 1})
+    eng.init_params(seed=0)
+    reqs = serving_traffic(eng.module.config.vocab_size,
+                           RUN_S["serve_requests"])
+    srv, outs, secs, peak, counts = serve_counted(eng, reqs, "run (s-serve)",
+                                                  **SERVE_D)
+    rec = serve_record("s_serve", srv, secs, peak, counts, reqs)
+    differ = sum(not np.array_equal(a, b) for a, b in zip(outs, outs_d))
+    rec["requests_differing_from_run_d"] = differ
+    emit(rec)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if differ:
+        fail(f"run (s-serve): {differ} of {len(reqs)} requests' tokens "
+             f"differ from run (d)'s")
+    return rec
+
+
+def s_kernel_checks(checks):
+    """K6 / K7 at a tp rank's kv heads of OPT-1.3B (16 at tp 2, 8 at tp
+    4): run (d)'s pool and admission shape, against their plain versions
+    and bitwise K2 / K3 over the gathered view, timed beside SDPA over
+    that view."""
+    import torch
+    for k6, k7, tp in zip(K6S_SHAPES, K7S_SHAPES, (2, 4)):
+        checks[(f"K6 tp{tp}", "bfloat16")] = check_paged_decode(
+            "bfloat16", True, k6)
+        checks[(f"K7 tp{tp}", "bfloat16")] = check_paged_chunk(
+            "bfloat16", True, k7, pool=k6, extra=())
+        torch.cuda.empty_cache()
+
+
+def s_serve_reference():
+    """One card's fp32 ``serve()`` of run (d)'s first
+    ``RUN_S["tp_requests"]`` requests on run (d)'s pool (the tp runs'
+    reference)."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import opt_model
+    eng = init_inference(opt_model(MODEL, dtype="float32"), dtype="float32",
+                         device=DEV)
+    eng.init_params(seed=0)
+    reqs = serving_traffic(eng.module.config.vocab_size,
+                           RUN_S["tp_requests"])
+    srv = eng.serve(**SERVE_D)
+    outs, _, _ = drive(srv, reqs)
+    srv.close()
+    del eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return outs
+
+
+def s_path(outs_d, checks, world=1, serve_only=False):
+    """Run (s).  ``outs_d``: run (d)'s outputs (None: (s-serve) is not
+    run); with ``world`` > 1 cards, also the tp runs on them (``--only
+    s``), and one card's bf16 ``serve()`` of their requests, measured as
+    they are.  ``serve_only`` (``--only s-serve``): the K6 / K7 rows and
+    the tp ``serve()`` runs alone."""
+    import shutil
+    import torch
+    start = time.perf_counter()
+    shutil.rmtree(S_DIR, ignore_errors=True)
+    os.makedirs(S_DIR)
+    rec, refs = {}, ({} if world > 1 else None)
+    try:
+        if not serve_only:
+            meg = megatron_path()
+            rec["megatron"] = {k: v for k, v in meg.items()
+                               if k not in ("ids", "fp32_tokens")}
+            rec["universal"] = universal_path(meg["description"], refs)
+            if refs is not None:
+                refs.update(ids=meg["ids"], fp32_tokens=meg["fp32_tokens"],
+                            description=meg["description"])
+        if outs_d is not None:
+            rec["serve"] = tp1_serving_path(outs_d)
+        s_kernel_checks(checks)
+        if world > 1:
+            refs["serve_fp32"] = s_serve_reference()
+            one = {"gates": []}
+            s_serve_tp(0, 1, one, refs, dtypes=("bfloat16",))
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["serve_one_card_bf16"] = one["serve"]["bfloat16"]
+            emit({"run": "s_one_card_bf16", **rec["serve_one_card_bf16"]})
+            torch.save(refs, os.path.join(S_DIR, "refs.pt"))
+            rec["tp"] = {}
+            job = "serve" if serve_only else "world"
+            if world >= RUN_S["min_cards"]:
+                rec["tp"]["world2"] = s_launch(2, f"{job}2")
+            if world >= RUN_S["wide_min_cards"]:
+                rec["tp"]["world4"] = s_launch(4, f"{job}4")
+    finally:
+        shutil.rmtree(S_DIR, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - start
+    emit({"run_s_seconds": rec["seconds"]})
+    return rec
+
+
+def s_launch(world, job):
+    """The launcher over ``world`` cards running this script's
+    ``--s-rank`` mode; returns every rank's record."""
+    import signal
+    out_dir = os.path.join(S_DIR, "ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner",
+           "--num_gpus", str(world), "--master_port", str(free_port()),
+           os.path.abspath(__file__), "--s-rank", out_dir, "--s-job", job]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=S_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail(f"run (s): the ranks outlived {S_TIMEOUT_S} s:\n{out[-3000:]}")
+    recs = []
+    for r in range(world):
+        path = os.path.join(out_dir, f"{job}.rank{r}.json")
+        recs.append(json.load(open(path)) if os.path.exists(path) else None)
+    if proc.returncode != 0 or any(r is None or "error" in r for r in recs):
+        errs = [r.get("error") if r else "no record" for r in recs]
+        fail(f"run (s) {job}: the ranks failed (rc {proc.returncode}): "
+             f"{errs}\n{out[-3000:]}")
+    for r in recs[0].get("gates", []):
+        if not r["held"]:
+            fail(f"run (s) {job}: {r['gate']}")
+    emit({"run": f"s_{job}", **recs[0],
+          "followers_serve": [r.get("serve") for r in recs[1:]]})
+    return recs[0]
+
+
+def s_rank_main(out_dir, job):
+    """``--s-rank`` mode: one rank of run (s)'s tp runs, its record in
+    ``out_dir/<job>.rank<r>.json``."""
+    import traceback
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if DEV == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    rec = {"rank": rank, "world": world, "gates": []}
+    code = 0
+    try:
+        s_rank(rank, world, rec, job)
+    except BaseException as e:       # recorded for the parent, then exit 1
+        rec["error"] = f"{type(e).__name__}: {e}"[:2000]
+        rec["traceback"] = traceback.format_exc()[-4000:]
+        code = 1
+    with open(os.path.join(out_dir, f"{job}.rank{rank}.json"), "w") as f:
+        json.dump(rec, f, default=str)
+    sys.stdout.flush()
+    os._exit(code)
+
+
+def s_gate(rec, gate, held):
+    rec["gates"].append({"gate": gate, "held": bool(held)})
+
+
+def s_rank(rank, world, rec, job):
+    """One rank of run (s) on ``world`` cards: OPT-1.3B ``serve()`` at tp
+    ``world``; in the ``world<n>`` jobs also, at 2 cards, ``serve_http``
+    and the universal directory at tp 2, at 4 the universal directory at
+    tp 2 x dp 2 under ZeRO-3 and the Megatron checkpoint served at tp 4
+    (the ``serve<n>`` jobs of ``--only s-serve`` stop after ``serve()``)."""
+    import torch
+    from deepspeed_tpu_torch import comm
+    refs = torch.load(os.path.join(S_DIR, "refs.pt"), weights_only=False)
+    comm.init_distributed(timeout=600, device=q_rank_device())
+    s_serve_tp(rank, world, rec, refs)
+    if job.startswith("world") and world == 2:
+        s_http_tp(rank, rec)
+        s_universal_tp(rank, rec, refs, tp=2, stage=0)
+    elif job.startswith("world"):
+        s_universal_tp(rank, rec, refs, tp=2, stage=3)
+        s_megatron_tp(rank, world, rec, refs)
+    comm.destroy_process_group()
+
+
+def s_engine(dtype, tp, **config):
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.opt import opt_model
+    from deepspeed_tpu_torch.parallel import topology as topo_mod
+    topo_mod.reset_topology()
+    eng = init_inference(opt_model(MODEL, dtype=dtype), dtype=dtype,
+                         device=q_rank_device(),
+                         tensor_parallel={"tp_size": tp}, **config)
+    eng.init_params(seed=0)
+    return eng
+
+
+def s_serve(srv, reqs, stamps=None):
+    """Rank 0 drives ``reqs`` (``drive``); a follower follows.  Returns
+    rank 0's outputs and seconds (None on a follower)."""
+    if srv.tp_follower:
+        srv.follow()
+        return None, None
+    outs, secs, _ = drive(srv, reqs, stamps)
+    srv.close()
+    return outs, secs
+
+
+def s_serve_tp(rank, world, rec, refs, dtypes=("float32", "bfloat16")):
+    """``serve()`` at tp ``world`` over run (d)'s first
+    ``RUN_S["tp_requests"]`` requests on run (d)'s pool: fp32 greedy
+    tokens against one card's; bf16 useful tokens/s, TTFT p50 / p99, the
+    host seconds inside ``step()`` and in the plan link (rank 0 sending,
+    a follower receiving, its wait for rank 0 included) and, on a
+    profiled window of decode blocks with every slot live, rank 0's wall
+    ms, device busy ms, idle share and NCCL device ms a block."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.profiling.trace import breakdown, kernel_events
+    out = {}
+    for dtype in dtypes:
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = s_engine(dtype, world)
+        reqs = serving_traffic(eng.module.config.vocab_size,
+                               RUN_S["tp_requests"])
+        srv = eng.serve(**SERVE_D)
+        if not srv.tp_follower:
+            srv.warmup()
+        reset_counts()
+        outs, secs = s_serve(srv, reqs)
+        counts = {k: v for k, v in read_counts().items() if v}
+        host = {"steps": srv.stats["iterations"],
+                "decode_blocks": srv.stats["decode_calls"],
+                "step_seconds": srv.stats["wall_secs"],
+                "sync_seconds": srv.stats["sync_secs"]}
+        if srv._plans is not None:
+            host.update(plan_seconds=srv._plans.seconds,
+                        plan_calls=srv._plans.calls)
+        window_cfg = {**SERVE_D, "prefill_token_budget": 0, "num_pages": 0}
+        if rank != 0:
+            out[dtype] = {"launches": counts, **host}
+            if dtype == "bfloat16":
+                srv = eng.serve(**window_cfg)
+                srv.follow()
+            del eng, srv
+            continue
+        ttft = [srv.result(r).ttft_s for r in range(len(reqs))]
+        rec_d = {"seconds": secs, "launches": counts, **host,
+                 "useful_tokens_per_s": sum(n for _, n in reqs) / secs,
+                 "ttft_p50_s": float(np.percentile(ttft, 50)),
+                 "ttft_p99_s": float(np.percentile(ttft, 99))}
+        if dtype == "float32":
+            differ = sum(not np.array_equal(a, b)
+                         for a, b in zip(outs, refs["serve_fp32"]))
+            rec_d["requests_differing_from_one_card"] = differ
+            s_gate(rec, f"serve() at tp {world}: {differ} fp32 requests "
+                   f"differ from one card's", differ == 0)
+        else:
+            # a decode window with every slot live: rank 0's NCCL time
+            srv = eng.serve(**window_cfg)
+            for p, _ in reqs[:srv.num_slots]:
+                srv.submit(p, max_new_tokens=max(RUN_D["new"]))
+            srv.step()
+            srv.step()
+            win = {}
+
+            def window():
+                # the last attempt's (kernel_events may trace again)
+                plans = srv._plans
+                torch.cuda.synchronize()
+                calls, p0 = srv.stats["decode_calls"], \
+                    plans.seconds if plans else 0.0
+                t = time.perf_counter()
+                for _ in range(PROFILE_D_STEPS):
+                    srv.step()
+                torch.cuda.synchronize()
+                win.update(wall=time.perf_counter() - t,
+                           blocks=srv.stats["decode_calls"] - calls,
+                           plan=(plans.seconds if plans else 0.0) - p0)
+
+            ks = kernel_events(window, os.path.join(
+                ROOT, "build", "profiles", f"s_tp{world}_trace.json"))
+            blocks = win["blocks"]
+            nccl = sum(e["dur"] for e in ks if "nccl" in e["name"].lower())
+            bd = breakdown(ks, win["wall"])
+            rec_d.update(profiled_steps=PROFILE_D_STEPS,
+                         profiled_decode_blocks=blocks,
+                         nccl_ms_per_decode_block=nccl / 1e3 / blocks,
+                         device_ms_per_decode_block=sum(
+                             e["dur"] for e in ks) / 1e3 / blocks,
+                         wall_ms_per_decode_block=bd["wall_ms"] / blocks,
+                         device_busy_ms_per_decode_block=bd[
+                             "device_busy_ms"] / blocks,
+                         device_idle_share=bd["device_idle_share"],
+                         device_gap_ms=bd["device_gap_ms"],
+                         window_plan_ms=win["plan"] * 1e3)
+            srv.close()
+        out[dtype] = rec_d
+        del eng, srv
+    rec["serve"] = out
+
+
+def s_http_tp(rank, rec):
+    """``serve_http`` at tp 2 (bf16): rank 0 listens, rank 1 follows; the
+    first ``RUN_S["http_requests"]`` requests over HTTP against the same
+    requests submitted directly."""
+    import http.client
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.serving import serve_http
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = s_engine("bfloat16", 2)
+    reqs = serving_traffic(eng.module.config.vocab_size,
+                           RUN_S["http_requests"])
+    srv = eng.serve(**SERVE_D)
+    if srv.tp_follower:
+        serve_http(srv)
+        srv = eng.serve(**SERVE_D)
+        srv.follow()
+        return
+    fe = serve_http(srv, port=0)
+    got = []
+    t0 = time.perf_counter()
+    for p, n in reqs:
+        conn = http.client.HTTPConnection("127.0.0.1", fe.port, timeout=300)
+        conn.request("POST", "/v1/generate", json.dumps(
+            {"input_ids": [int(t) for t in p], "max_new_tokens": n}))
+        got.append(np.asarray(json.loads(conn.getresponse().read())
+                              ["output"], np.int32))
+        conn.close()
+    secs = time.perf_counter() - t0
+    fe.shutdown(close_engine=True)
+    want, _ = s_serve(eng.serve(**SERVE_D), reqs)
+    differ = sum(not np.array_equal(a, b) for a, b in zip(got, want))
+    rec["http"] = {"requests": len(reqs), "seconds": secs,
+                   "requests_differing_from_submit": differ}
+    s_gate(rec, f"serve_http at tp 2: {differ} requests differ from "
+           f"direct submits", differ == 0)
+
+
+def s_universal_tp(rank, rec, refs, tp, stage):
+    """The 6-layer universal directory loaded into an fp32 engine at tp
+    ``tp`` (x dp = world / tp) under ZeRO ``stage``: every parameter the
+    one-card fp32 load's bitwise, and one step's loss within fp32
+    roundoff (1e-5 relative) of one card's."""
+    import torch
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.checkpoint import load_universal_into_engine
+    from deepspeed_tpu_torch.models.transformer import Transformer
+    from deepspeed_tpu_torch.parallel import topology as topo_mod
+    topo_mod.reset_topology()
+    dp = comm.get_world_size() // tp
+    cfg = s_megatron_config(dtype="float32", num_layers=RUN_S["uni_layers"],
+                            remat=False)
+    eng, *_ = initialize(model=Transformer(cfg),
+                         config=s_train_config("float32", tp, stage, dp),
+                         device=q_rank_device())
+    load_universal_into_engine(eng, os.path.join(S_DIR, "uni"))
+    sd = eng.module_state_dict()
+    differ = sorted(k for k, v in refs["uni_sd"].items()
+                    if not torch.equal(sd[k].cpu(), v))
+    equal = not differ
+    loss = float(eng.train_batch(batch={k: v.to(eng.device) for k, v in
+                                        refs["uni_batch"].items()}))
+    key = f"tp{tp}" + (f"_dp{dp}_zero{stage}" if dp > 1 else "")
+    rec["universal"] = {"engine": key, "params_bitwise_one_card": equal,
+                        "loss": loss, "one_card_loss": refs["uni_loss"]}
+    if rank == 0:
+        s_gate(rec, f"universal load at {key}: parameters {differ} not "
+               f"one card's bitwise", equal)
+        s_gate(rec, f"universal load at {key}: loss {loss} not one card's "
+               f"{refs['uni_loss']} within 1e-5",
+               abs(loss - refs["uni_loss"]) <= 1e-5 * abs(refs["uni_loss"]))
+    del eng
+
+
+def s_megatron_tp(rank, world, rec, refs):
+    """The 2-shard Megatron checkpoint (its description json) loaded by an
+    fp32 inference engine at tp ``world`` (each rank merges the shard
+    files and keeps its slice) and generating at run (a)'s shape: greedy
+    tokens one card's."""
+    import torch
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models.transformer import Transformer
+    from deepspeed_tpu_torch.parallel import topology as topo_mod
+    topo_mod.reset_topology()
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = init_inference(Transformer(s_megatron_config(dtype="float32")),
+                         device=q_rank_device(),
+                         config={"dtype": "float32",
+                                 "checkpoint": refs["description"],
+                                 "tensor_parallel": {"tp_size": world}})
+    got = eng.generate(refs["ids"].to(eng.device),
+                       max_new_tokens=RUN_A["new"]).cpu()
+    equal = bool(torch.equal(got, refs["fp32_tokens"]))
+    rec["megatron"] = {"tp": world, "fp32_tokens_equal_one_card": equal}
+    if rank == 0:
+        s_gate(rec, f"the Megatron checkpoint at tp {world}: fp32 tokens "
+               f"differ from one card's", equal)
+    del eng
+
+
+def s_launches(rec, name):
+    """A kernel's launches on rank 0 in run (s)'s tp serving runs (None
+    without one)."""
+    runs = [run for world in rec.get("tp", {}).values()
+            for run in world["serve"].values()]
+    return sum(run["launches"].get(name, 0) for run in runs) \
+        if runs else None
+
+
+def only_s(card, serve_only=False):
+    """``--only s``: run (s) alone on every visible card — its one-card
+    runs but (s-serve) (which needs run (d)), then the tp runs — the K6 /
+    K7 local-head rows with the tp runs' launches, the card and the
+    result line.  ``--only s-serve``: the K6 / K7 rows, one card's
+    ``serve()`` and the tp ``serve()`` runs alone."""
+    import torch
+    checks = {}
+    with phase("s"):
+        rec = s_path(None, checks, world=torch.cuda.device_count(),
+                     serve_only=serve_only)
+    emit({"phase_seconds": PHASES})
+    print(card, flush=True)
+    emit({"kernels": local_head_rows(
+        checks, S_KERNELS, launches=lambda name: s_launches(rec, name))})
+    disarm_watchdog()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
 def kernel_checks(checks):
     """Every kernel against its plain version in fp32 and bf16 (timed in
     bf16) at the main path's shapes, and K1 / K2 / K3 / K6 / K7 at
@@ -7363,10 +8195,14 @@ def kernel_checks(checks):
 def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["q", "r"],
+    parser.add_argument("--only", choices=["q", "r", "s", "s-serve"],
                         help="run one phase alone (q: data-parallel "
                              "training on every visible card; r: tensor "
-                             "parallelism on every visible card)")
+                             "parallelism on every visible card; s: "
+                             "Megatron checkpoints, the universal "
+                             "checkpoint and serving at tp > 1 on every "
+                             "visible card; s-serve: of s, serving at tp "
+                             "> 1 and one card's alone)")
     parser.add_argument("--q-rank", metavar="DIR",
                         help=argparse.SUPPRESS)   # a rank of run (q)
     parser.add_argument("--q-llama", action="store_true",
@@ -7374,6 +8210,9 @@ def main():
     parser.add_argument("--r-rank", metavar="DIR",
                         help=argparse.SUPPRESS)   # a rank of run (r)
     parser.add_argument("--r-job", help=argparse.SUPPRESS)
+    parser.add_argument("--s-rank", metavar="DIR",
+                        help=argparse.SUPPRESS)   # a rank of run (s)
+    parser.add_argument("--s-job", help=argparse.SUPPRESS)
     args = parser.parse_args()
     try:
         import torch
@@ -7389,6 +8228,8 @@ def main():
         q_rank_main(args.q_rank, args.q_llama)
     if args.r_rank:
         r_rank_main(args.r_rank, args.r_job)
+    if args.s_rank:
+        s_rank_main(args.s_rank, args.s_job)
     global T_START
     T_START = time.perf_counter()
     arm_watchdog()
@@ -7477,6 +8318,8 @@ def main():
         return only_q(card)
     if args.only == "r":
         return only_r(card)
+    if args.only in ("s", "s-serve"):
+        return only_s(card, serve_only=args.only == "s-serve")
 
     PHASES["build"] = build_s
     checks = {}
@@ -7545,6 +8388,8 @@ def main():
         torch.cuda.empty_cache()
     with phase("r"):
         runs["r"] = tp_path(runs["q"], tokens["a"], checks)
+    with phase("s"):
+        runs["s"] = s_path(outs_d, checks)
 
     def timing(c):
         return {"max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
@@ -7771,6 +8616,19 @@ def main():
     # run (r): the same kernels at a tp rank's local heads (16 and 8 of
     # OPT-1.3B's 32), and the launches of the world-size-1 checks
     r_kernel_rows(checks, base=kernels)
+    # run (s): K6 / K7 at a tp rank's kv heads, and the launches of the
+    # Megatron checkpoint's generation, the universal round trip's steps
+    # and serving through the tp-aware path
+    local_head_rows(checks, S_KERNELS, base=kernels)
+    s = runs["s"]
+    for k, run, sub in ((kernels[0], "megatron", "s_megatron"),
+                        (kernels[1], "megatron", "s_megatron"),
+                        (kernels[0], "universal", "s_universal"),
+                        (kernels[3], "universal", "s_universal"),
+                        (kernels[4], "universal", "s_universal"),
+                        (kernels[5], "serve", "s_serve"),
+                        (kernels[6], "serve", "s_serve")):
+        k[f"launches_run_{sub}"] = s[run]["launches"][k["name"]]
     one = runs["r"].get("world1")
     for k in (kernels[0], kernels[3], kernels[4]):
         k["launches_per_step_run_r_tp1"] = one and \

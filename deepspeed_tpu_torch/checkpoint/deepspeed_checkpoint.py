@@ -7,9 +7,12 @@ host.
 
 The port's tags hold one file per tensor (``runtime/checkpoint_engine``),
 so parameter names and shapes come from the tag's index without reading
-any tensor.
+any tensor.  A tag holds global tensors at any tensor- and data-parallel
+size and ZeRO stage (the engine gathers every sharded tensor on save), so
+:class:`ZeROCheckpoint` reads the moments of any of them the same way.
 """
 
+import functools
 import math
 import os
 import pickle
@@ -110,3 +113,56 @@ class DeepSpeedCheckpoint:
 
     def num_parameters(self):
         return sum(math.prod(s) for s in self.parameter_shapes().values())
+
+
+class ZeROCheckpoint(DeepSpeedCheckpoint):
+    """Optimizer-state-centric view (reference ``zero_checkpoint.py:17``):
+    the parameters and the optimizer's moments under the JAX model's flax
+    paths and layouts, the names and layouts of the JAX package's
+    ``ZeROCheckpoint`` (``params/layers_0/attn/q_proj/kernel`` ``[h, H,
+    D]``, moment fields ``exp_avg`` / ``exp_avg_sq``), so that a universal
+    directory means the same on both sides.  The model comes from the
+    tag's ``model_config`` (the port's own ``meta.pkl`` key)."""
+
+    @functools.cached_property
+    def _model(self):
+        """The tag's model on ``meta``: its names, flax paths, layouts."""
+        from deepspeed_tpu_torch.models.transformer import (
+            Transformer, TransformerConfig)
+        cfg = self.meta.get("model_config")
+        if cfg is None:
+            raise ValueError(f"tag {self.tag!r} records no model_config: its "
+                             f"flax paths are unknown")
+        return Transformer(TransformerConfig(**cfg), device="meta")
+
+    def _to_flax(self, named):
+        """``{port name: tensor}`` → ``{flax path: np.ndarray}`` (the JAX
+        layouts, the dtype as saved)."""
+        model = self._model
+        paths, lay = model.flax_paths(), model.jax_layouts()
+        out = {}
+        for name, t in named.items():
+            if name in lay:
+                t = lay[name][0](t)
+            out[paths[name]] = t.detach().contiguous().numpy()
+        return out
+
+    def flax_parameters(self):
+        """``{flax path: np.ndarray}`` over the module's parameters."""
+        names = dict(self._model.named_parameters())
+        return self._to_flax({k: v for k, v in self.module_state().items()
+                              if k in names})
+
+    def flat_optimizer_moments(self):
+        """``{field: {flax path: np.ndarray}}`` for each optimizer-state
+        field that holds one tensor per parameter (Adam's ``exp_avg`` /
+        ``exp_avg_sq``); empty when the tag saved no optimizer state (an
+        offloaded optimizer's host state is not read)."""
+        opt = self.optimizer_state()
+        if not opt:
+            return {}
+        names = [n for n, p in self._model.named_parameters()
+                 if p.requires_grad]
+        return {field: self._to_flax(dict(zip(names, per_param)))
+                for field, per_param in opt.items()
+                if isinstance(per_param, list) and len(per_param) == len(names)}

@@ -37,7 +37,8 @@ draws the same tokens from its identically seeded generator.  ``set_params``
 / ``load_checkpoint`` take global weights and keep each rank's slices;
 ``init_params`` draws the world-size-1 init and cuts it.  Quantized weights
 at tp > 1 stay whole on every rank, as in JAX (a warning).  The captured
-decode graphs capture the collectives; ``serve()`` at tp > 1 raises.
+decode graphs capture the collectives; ``serve()`` at tp > 1 runs one
+schedule on every rank, rank 0's (``inference/serving/tp_schedule.py``).
 
 What has no counterpart here: the JAX engine's persistent executable
 cache, its compiled-program memory guard and the ``_run_guarded``
@@ -184,8 +185,15 @@ class InferenceEngine:
           other objects — loads only with
           ``DSTPU_ALLOW_PICKLE_CHECKPOINTS=1``, as in the JAX package.
           HF-named exports (``hf_policy``) raise, as in JAX: they load
-          through ``module_inject.convert_hf_model``."""
+          through ``module_inject.convert_hf_model``.
+        * A Megatron-LM GPT checkpoint: a DeepSpeed checkpoint-description
+          json (a ``.json`` path, or its dict with ``checkpoints``), read
+          with this model's config (:meth:`_megatron_params`).  At tp > 1
+          every rank merges the shard files and keeps its slice."""
         import os
+        if isinstance(path, Mapping) or str(path).endswith(".json"):
+            self.set_params(self._megatron_params(path))
+            return
         path = str(path)
         if os.path.isfile(path):
             self.set_params(self._params_from_file(path))
@@ -203,6 +211,24 @@ class InferenceEngine:
             raise CheckpointCorrupt(f"{state_path}: no 'module' arrays to "
                                     "load")
         self.set_params(arrays["module"])
+
+    def _megatron_params(self, description):
+        """The global ``state_dict`` of a Megatron-LM GPT checkpoint named
+        by a description json, mapped by ``MegatronGPTPolicy`` onto this
+        engine's model config (the fused QKV's layout by the
+        description's ``version``, v2 when it names none)."""
+        from deepspeed_tpu_torch.models.transformer import params_from_flax
+        from deepspeed_tpu_torch.module_inject.containers import (
+            MegatronGPTPolicy)
+        from deepspeed_tpu_torch.module_inject.replace_module import (
+            merged_megatron_state)
+        sd, version = merged_megatron_state(
+            dict(description) if isinstance(description, Mapping)
+            else description)
+        policy = MegatronGPTPolicy()
+        policy.megatron_v2 = float(version) >= 2.0
+        cfg = self.module.config
+        return params_from_flax(policy.convert(sd, cfg), cfg)
 
     def _params_from_file(self, path):
         """A ``state_dict`` of this model from an export file (flax-path
@@ -545,14 +571,13 @@ class InferenceEngine:
         the ``Serving/*`` events every scheduler iteration and is flushed at
         ``close()`` / ``preempt()``.  Runs on this engine's device; put an
         HTTP front end on it with
-        :func:`~deepspeed_tpu_torch.inference.serving.serve_http`."""
+        :func:`~deepspeed_tpu_torch.inference.serving.serve_http`.
+
+        At tensor-parallel size > 1 every rank of the group calls
+        ``serve()``: tp rank 0 takes the requests and drives the server,
+        the other ranks run ``follow()`` (:mod:`~deepspeed_tpu_torch.
+        inference.serving.tp_schedule`)."""
         from deepspeed_tpu_torch.inference.serving.engine import ServingEngine
-        if self.topology is not None and self.topology.tp > 1:
-            raise NotImplementedError(
-                "serving (InferenceEngine.serve) at tensor-parallel size > 1 "
-                "is not ported to deepspeed_tpu_torch yet: every rank would "
-                "have to take the same scheduling decisions (see ROADMAP.md, "
-                "queue A)")
         return ServingEngine(self, monitor=monitor, draft_module=draft_module,
                              draft_params=draft_params, **overrides)
 

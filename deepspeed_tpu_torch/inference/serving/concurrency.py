@@ -83,6 +83,11 @@ GUARDED_FIELDS = {
         # cadence and last sample change at the same seams
         "_tracer": "_lock",
         "_memwatch": "_lock",
+        # tensor parallelism: the plan link, the leader's next plan, the
+        # plan's clock during a step
+        "_plans": "_lock",
+        "_plan_out": "_lock",
+        "_step_now": "_lock",
     },
 }
 

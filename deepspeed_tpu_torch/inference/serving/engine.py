@@ -97,6 +97,21 @@ the owner lets go of the lock while it waits on a device event, so the
 other threads' lock wait does not grow with the decode time.  A CUDA
 graph capture therefore never meets a CUDA call of another thread.
 
+**Tensor parallelism** (``tensor_parallel.tp_size`` > 1): every rank of
+the tp group runs a server over its slice of the model, and every device
+program carries the group's collectives, so all ranks must run the same
+programs in the same order.  Rank 0 of the group (the leader) owns the
+queue and the clock: ``submit`` / ``cancel`` / ``step`` / ``drain`` /
+``warmup`` / ``close`` run there, and each step first sends the other
+ranks a plan (the new requests, the cancels and the deadline sheds,
+:mod:`.tp_schedule`); they run :meth:`ServingEngine.follow`, which applies
+each plan and runs the same step.  (At tp 1 a step makes the same plan
+and applies it.)  At tp > 1 a cancel takes effect at the leader's next
+step, and a failed dispatch closes the server on its rank and raises (the
+process should end).  Speculative serving, the circuit breaker and
+``preempt`` / ``snapshot`` / ``restore`` raise ``NotImplementedError``
+there (ROADMAP.md).
+
 **The front end** (``frontend/``): priority lanes with aging
 (``priority_lanes``, ``priority_aging_s``), per-client fairness
 (``fairness_tokens_per_s``: an over-budget client's ``submit`` raises
@@ -131,6 +146,8 @@ from deepspeed_tpu_torch.inference.serving.paging import (PagePool,
                                                           PrefixIndex,
                                                           compact_page_str,
                                                           pages_for)
+from deepspeed_tpu_torch.inference.serving.tp_schedule import (Plan,
+                                                               PlanChannel)
 from deepspeed_tpu_torch.inference.serving.slo import (CircuitBreaker,
                                                        DrainTimeout,
                                                        QueueFull,
@@ -288,6 +305,21 @@ class ServingEngine:
         self.speculative = bool(cfg.speculative)
         self.spec_k = int(cfg.spec_k)
         self.draft_module = None
+        topo = engine.topology
+        tp = topo.tp if topo is not None else 1
+        if tp > 1 and self.speculative:
+            raise NotImplementedError(
+                f"speculative serving at tensor-parallel size {tp} is not "
+                f"ported to deepspeed_tpu_torch yet (see ROADMAP.md, queue "
+                f"A): serve with speculative=False, or at tp 1")
+        if tp > 1 and cfg.breaker_threshold:
+            raise NotImplementedError(
+                f"serving.breaker_threshold={cfg.breaker_threshold} at "
+                f"tensor-parallel size {tp} is not ported to "
+                f"deepspeed_tpu_torch yet (see ROADMAP.md, queue A): a "
+                f"failure absorbed on one rank takes it out of the group's "
+                f"schedule; serve with breaker_threshold=0 (a failed "
+                f"dispatch then ends the server), or at tp 1")
         if self.speculative:
             if cfg.do_sample:
                 raise ValueError(
@@ -408,6 +440,12 @@ class ServingEngine:
         self._close_report = []          # the ids undrained at close
         self._snap_seq = 0               # snapshot lineage
         self._slot_last_dispatch = {}    # slot -> monotonic time
+        # tensor parallelism: the plan link of the tp group (the leader
+        # sends, the others follow), the leader's next plan, and the
+        # plan's clock while a step runs (the priority lanes' aging)
+        self._plans = PlanChannel(topo) if tp > 1 else None
+        self._plan_out = Plan()
+        self._step_now = None
         self.stats = {"iterations": 0, "decode_calls": 0,
                       "decode_tokens": 0, "prefill_tokens": 0,
                       "completed": 0, "admitted": 0, "shed": 0,
@@ -752,6 +790,7 @@ class ServingEngine:
 
     def _submit_locked(self, input_ids, max_new_tokens, eos_token_id,
                        deadline_s, client_id, priority):
+        self._check_leader("submit()")
         if self._closed:
             raise RuntimeError("submit() on a closed ServingEngine; create "
                                "a fresh server with engine.serve()")
@@ -815,9 +854,14 @@ class ServingEngine:
                            submitted_it=self._it, deadline=deadline,
                            client_id=client_id, submit_t=time.monotonic(),
                            priority=priority)
-        self._next_rid += 1
-        self._queue.append(req)
-        self._requests[req.rid] = req
+        self._enqueue(req)
+        if self._plans is not None:
+            # the followers queue it from the next plan; a deadline stays
+            # the leader's (its sheds are decisions in the plans)
+            self._plan_out.submits.append(dict(
+                rid=req.rid, ids=ids, max_new=max_new, eos=req.eos,
+                client_id=client_id, priority=priority,
+                submit_t=req.submit_t))
         if self._tracer is not None:
             # the span tree's root; submissions come from client threads,
             # so the instant lands on the handler track
@@ -833,6 +877,11 @@ class ServingEngine:
                 priority=priority,
                 client_id=None if client_id is None else str(client_id))
         return req.rid
+
+    def _enqueue(self, req):
+        self._next_rid += 1
+        self._queue.append(req)
+        self._requests[req.rid] = req
 
     @property
     def _spec_tail(self):
@@ -919,25 +968,34 @@ class ServingEngine:
             if req.status in TERMINAL_STATUSES \
                     or req.status == RequestStatus.PREEMPTED:
                 return False
-            self.stats["cancelled"] += 1
-            if req in self._queue:
-                self._queue.remove(req)
-                self._record_terminal(req, RequestStatus.CANCELLED,
-                                      "cancelled while queued")
-                self._cond.notify_all()  # a queue spot freed
+            if self._plans is not None:
+                # every rank retires it at the leader's next step
+                self._check_leader("cancel()")
+                if rid not in self._plan_out.cancels:
+                    self._plan_out.cancels.append(rid)
                 return True
-            if self._pending is not None and self._pending.req is req:
-                self._give_back_lanes(self._pending)
-                self._free.append(int(self._pending.slot))
-                self._release_slot_pages(self._pending.slot)
-                self._pending = None
-                self._record_terminal(req, RequestStatus.CANCELLED,
-                                      "cancelled during admission prefill")
-                return True
+            return self._cancel_locked(req)
+
+    def _cancel_locked(self, req):
+        self.stats["cancelled"] += 1
+        if req in self._queue:
+            self._queue.remove(req)
             self._record_terminal(req, RequestStatus.CANCELLED,
-                                  f"cancelled in slot {req.slot}")
-            self._retire_in_slot(req)
+                                  "cancelled while queued")
+            self._cond.notify_all()  # a queue spot freed
             return True
+        if self._pending is not None and self._pending.req is req:
+            self._give_back_lanes(self._pending)
+            self._free.append(int(self._pending.slot))
+            self._release_slot_pages(self._pending.slot)
+            self._pending = None
+            self._record_terminal(req, RequestStatus.CANCELLED,
+                                  "cancelled during admission prefill")
+            return True
+        self._record_terminal(req, RequestStatus.CANCELLED,
+                              f"cancelled in slot {req.slot}")
+        self._retire_in_slot(req)
+        return True
 
     def _retire_in_slot(self, req):
         """Retire a request that holds a slot (cancelled, or shed at its
@@ -1086,11 +1144,15 @@ class ServingEngine:
         :meth:`result`).  Owner-bound (the first thread to drive the
         engine becomes its owner; any other thread's call raises)."""
         self._check_owner("step()")
+        self._check_leader("step()")
         inject.fire("serving.pre_step_lock")
         with self._lock:
             return self._step_locked()
 
-    def _step_locked(self):
+    def _step_locked(self, plan=None):
+        """One iteration; ``plan``: the leader's, on a follower of a
+        tensor-parallel group (elsewhere the step makes its own,
+        :meth:`_make_plan`)."""
         if self._closed:
             raise RuntimeError("step() on a closed ServingEngine")
         t0 = time.perf_counter()
@@ -1098,7 +1160,8 @@ class ServingEngine:
         inject.fire("serving.sigterm_at_iter")
         self._ensure_workspace()
         finished = {}
-        self._shed_expired()
+        plan = self._make_plan() if plan is None else plan
+        self._apply_plan(plan)
         if self._breaker.enabled:
             # a failed dispatch is absorbed (the failing call already
             # aborted the requests in flight and dropped the workspace)
@@ -1107,7 +1170,7 @@ class ServingEngine:
             was_open = self._breaker.open
             dispatched = False
             try:
-                if self._breaker.allow_dispatch():
+                if plan.dispatch:
                     self._admit()
                     dispatched = self._dispatch_decode()
             except Exception as e:
@@ -1136,8 +1199,13 @@ class ServingEngine:
                 self._flightrec.record("breaker_close",
                                        trips=self._breaker.trips)
         else:
-            self._admit()
-            dispatched = self._dispatch_decode()
+            try:
+                self._admit()
+                dispatched = self._dispatch_decode()
+            except Exception as e:
+                if self._plans is not None:
+                    self._tp_dispatch_failed(e)
+                raise
         # lag-one: with fresh work in flight, leave the newest event unread
         # so the device keeps running while the host does bookkeeping; once
         # nothing new was dispatched, flush fully
@@ -1166,41 +1234,148 @@ class ServingEngine:
         return finished
 
     def _shed_expired(self):
-        """Deadlines at the scheduling point: expired queued requests are
-        shed before admission (they never take a slot); an expired
-        admission in progress gives back its slot, pages and lanes; an
-        expired request in a slot is retired there (:meth:`_retire_in_slot`:
-        its lane stops on the device too)."""
-        now = time.monotonic()
-        expired = [r for r in self._queue
-                   if r.deadline is not None and now >= r.deadline]
-        for req in expired:
-            self._queue.remove(req)
-            self.stats["shed"] += 1
-            self._record_terminal(
-                req, RequestStatus.SHED_DEADLINE,
-                f"deadline expired {now - req.deadline:.3f}s ago while "
-                f"queued (never occupied a slot)")
+        """The deadlines now, carried out at once (a step makes them a
+        decision of its plan instead)."""
+        self._shed(self._expired(time.monotonic()))
+
+    def _expired(self, now):
+        """The deadline decisions at ``now``, ``[(rid, detail)]``: the
+        queued requests, then the admission in progress, then the slots
+        (:meth:`_shed` carries them out)."""
+        out = [(r.rid, f"deadline expired {now - r.deadline:.3f}s ago "
+                       f"while queued (never occupied a slot)")
+               for r in self._queue
+               if r.deadline is not None and now >= r.deadline]
         p = self._pending
         if p is not None and p.req.deadline is not None \
                 and now >= p.req.deadline:
-            self._give_back_lanes(p)
-            self._free.append(int(p.slot))
-            self._release_slot_pages(p.slot)
-            self._pending = None
-            self.stats["shed"] += 1
-            self._record_terminal(p.req, RequestStatus.SHED_DEADLINE,
-                                  "deadline expired during admission "
-                                  "prefill")
-        for req in list(self._slots):
+            out.append((p.req.rid, "deadline expired during admission "
+                                   "prefill"))
+        for req in self._slots:
             if req is None or req.deadline is None or now < req.deadline \
                     or req.status in TERMINAL_STATUSES:
                 continue
+            out.append((req.rid, f"deadline expired in slot {req.slot} "
+                                 f"after {len(req.tokens)} token(s)"))
+        return out
+
+    def _shed(self, decisions):
+        """Shed each ``(rid, detail)`` of :meth:`_expired` wherever its
+        request is now (one already ended is skipped): a queued request
+        never takes a slot; an admission in progress gives back its slot,
+        pages and lanes; a request in a slot is retired there
+        (:meth:`_retire_in_slot`: its lane stops on the device too)."""
+        for rid, detail in decisions:
+            req = self._requests[rid]
+            if req.status in TERMINAL_STATUSES:
+                continue
             self.stats["shed"] += 1
-            self._record_terminal(req, RequestStatus.SHED_DEADLINE,
-                                  f"deadline expired in slot {req.slot} "
-                                  f"after {len(req.tokens)} token(s)")
-            self._retire_in_slot(req)
+            p = self._pending
+            if req in self._queue:
+                self._queue.remove(req)
+            elif p is not None and p.req is req:
+                self._give_back_lanes(p)
+                self._free.append(int(p.slot))
+                self._release_slot_pages(p.slot)
+                self._pending = None
+            self._record_terminal(req, RequestStatus.SHED_DEADLINE, detail)
+            if req.slot is not None and self._slots[req.slot] is req:
+                self._retire_in_slot(req)
+
+    # ------------------------------------------------------------------ #
+    # Tensor parallelism: one schedule on every rank (tp_schedule.py)
+    # ------------------------------------------------------------------ #
+    @property
+    def tp_follower(self):
+        """True on a follower rank (tp rank > 0) of a tensor-parallel
+        server, which runs :meth:`follow`."""
+        with self._lock:
+            return self._plans is not None and not self._plans.is_leader
+
+    def _check_leader(self, what):
+        """Refuse a scheduling call on a follower rank of a tensor-parallel
+        group: the leader makes every decision."""
+        if self.tp_follower:
+            raise RuntimeError(
+                f"{what} on a follower rank of a tensor-parallel server: tp "
+                f"rank 0 owns the queue and the clock; this rank runs "
+                f"follow() (serve_http runs it) and applies rank 0's plans")
+
+    def _make_plan(self):
+        """This step's plan, made on the leader of a tensor-parallel group
+        (which sends it to the followers) or on a server at tp 1: the
+        submits and cancels since the last one (tp > 1), the deadline
+        sheds and the breaker's decision now."""
+        plan, self._plan_out = self._plan_out, Plan()
+        plan.now = time.monotonic()
+        plan.shed = self._expired(plan.now)
+        plan.dispatch = not self._breaker.enabled \
+            or self._breaker.allow_dispatch()
+        if self._plans is not None:
+            self._plans.send(plan)
+        return plan
+
+    def _apply_plan(self, plan):
+        """A step plan, on every rank alike: a follower queues the new
+        requests (the leader did at submit); then the cancels and the
+        sheds; the plan's clock ages the priority lanes."""
+        self._step_now = plan.now
+        if self.tp_follower:
+            for sub in plan.submits:
+                if sub["rid"] != self._next_rid:
+                    raise RuntimeError(
+                        f"tensor-parallel serving out of step: rank 0 "
+                        f"submitted request {sub['rid']}, this rank expected"
+                        f" {self._next_rid}")
+                self._enqueue(ServeRequest(
+                    sub["rid"], sub["ids"], sub["max_new"], sub["eos"],
+                    submitted_it=self._it, client_id=sub["client_id"],
+                    submit_t=sub["submit_t"], priority=sub["priority"]))
+        for rid in plan.cancels:
+            req = self._requests[rid]
+            if req.status not in TERMINAL_STATUSES:
+                self._cancel_locked(req)
+        self._shed(plan.shed)
+
+    def _tp_dispatch_failed(self, e):
+        """A failed dispatch at tp > 1: this rank can no longer run the
+        group's schedule, so the server closes here (every request it
+        holds ends ``ABORTED``; nothing in flight is read, since it may
+        wait on the other ranks) and the error is raised.  The process
+        should end: the other ranks then fail in their next collective."""
+        self._abort_in_flight("tensor-parallel dispatch failed")
+        self._close_locked()
+        raise RuntimeError(
+            f"tensor-parallel serving: a dispatch failed on this rank "
+            f"({type(e).__name__}: {e}); the group's ranks no longer run "
+            f"one schedule, so the server is closed and every request it "
+            f"held is ABORTED — end the process (the group's other ranks "
+            f"fail in their next collective)") from e
+
+    def follow(self):
+        """A follower rank's scheduler (tp rank > 0 of a tensor-parallel
+        server): receive each of rank 0's plans and run the same step (or
+        warmup) until rank 0 closes the server, then close here.  Returns
+        ``{rid: output}`` for every request that ended during the call, as
+        :meth:`drain` does on rank 0 (``None`` for the non-``COMPLETED``).
+        Owner-bound."""
+        with self._lock:
+            plans = self._plans
+        if plans is None or plans.is_leader:
+            raise RuntimeError("follow() runs on a follower rank (tp rank > "
+                               "0) of a tensor-parallel server")
+        self._check_owner("follow()")
+        results = {}
+        while True:
+            plan = plans.recv()
+            with self._lock:
+                if plan.kind == "close":
+                    self._close_locked()
+                    return results
+                if plan.kind == "warmup":
+                    self._warmup_locked()
+                else:
+                    results.update(self._step_locked(plan))
 
     def work_pending(self):
         """True while anything submitted has not finished: queued,
@@ -1223,6 +1398,7 @@ class ServingEngine:
         :class:`~.slo.DrainTimeout` is raised with per-slot diagnostics
         (slot, request, age of its last dispatch).  Owner-bound."""
         self._check_owner("drain()")
+        self._check_leader("drain()")
         if timeout_s is None:
             timeout = self.config.drain_timeout_s or None
         else:
@@ -1293,6 +1469,10 @@ class ServingEngine:
         undrained at the first call — the same list on every call (after
         :meth:`preempt`, the snapshotted ids).  Any thread."""
         with self._lock:
+            if self._plans is not None and not self._closed:
+                # the followers close at the leader's word
+                self._check_leader("close()")
+                self._plans.send(Plan(kind="close"))
             return self._close_locked()
 
     def _close_locked(self):
@@ -1409,6 +1589,7 @@ class ServingEngine:
         ``finished`` holding the requests that ended during the drain.  A
         fresh server resumes the snapshot with :meth:`restore`.
         Owner-bound."""
+        self._not_at_tp("preempt()")
         self._check_owner("preempt()")
         with self._lock:
             return self._preempt_locked(checkpoint_dir, drain_budget_s, tag)
@@ -1500,8 +1681,17 @@ class ServingEngine:
         to a ``torch.Generator``, and the JAX engine reads only ``rng``,
         so the files stay interchangeable for greedy requests.  The
         fairness balances ride along.  Any thread."""
+        self._not_at_tp("snapshot()")
         with self._lock:
             return self._snapshot_locked(checkpoint_dir, tag)
+
+    def _not_at_tp(self, what):
+        with self._lock:
+            tp = self._plans is not None
+        if tp:
+            raise NotImplementedError(
+                f"{what} of a tensor-parallel server is not ported to "
+                f"deepspeed_tpu_torch yet (see ROADMAP.md, queue A)")
 
     def _snapshot_locked(self, checkpoint_dir, tag):
         from deepspeed_tpu_torch.inference.serving.snapshot import \
@@ -1566,6 +1756,7 @@ class ServingEngine:
         ``priority_lanes``) and fairness balances are restored too.
         Returns the ids queued (empty when there is nothing to resume).
         Any thread."""
+        self._not_at_tp("restore()")
         from deepspeed_tpu_torch.inference.serving.snapshot import \
             load_newest_snapshot
         tag, state = load_newest_snapshot(checkpoint_dir)
@@ -1869,8 +2060,9 @@ class ServingEngine:
         fcfs, prompt length for shortest_first).  Effective lane =
         ``priority - floor(waited / priority_aging_s)``, at least 0, so a
         lane-k request reaches lane 0 within ``k * priority_aging_s``
-        seconds queued (0: strict lanes)."""
-        now = time.monotonic()
+        seconds queued (0: strict lanes); waits are read on the clock of
+        this step's plan (at tp > 1, the leader's)."""
+        now = self._step_now
         aging = float(self.config.priority_aging_s)
 
         def lane(r):
@@ -2203,14 +2395,21 @@ class ServingEngine:
         requests are in flight."""
         self._check_driver("warmup()")
         with self._lock:
+            if self._plans is not None:
+                self._check_leader("warmup()")
+                self._check_idle("warmup()")
+                self._plans.send(Plan(kind="warmup"))
             return self._warmup_locked()
 
-    def _warmup_locked(self):
+    def _check_idle(self, what):
         if self._closed:
-            raise RuntimeError("warmup() on a closed ServingEngine")
+            raise RuntimeError(f"{what} on a closed ServingEngine")
         if self.work_pending():
-            raise RuntimeError("warmup() needs an idle server: call it "
+            raise RuntimeError(f"{what} needs an idle server: call it "
                                "before submit()")
+
+    def _warmup_locked(self):
+        self._check_idle("warmup()")
         self._ensure_workspace()
         names = self._warmup_names()
         if self.speculative:

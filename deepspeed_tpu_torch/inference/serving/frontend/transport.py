@@ -889,7 +889,14 @@ class ServingHTTPFrontend:
 
 def serve_http(srv, **kwargs):
     """``ServingHTTPFrontend(srv, **kwargs).start()``: the front end,
-    listening (``.port``) with its scheduler thread driving ``srv``."""
+    listening (``.port``) with its scheduler thread driving ``srv``.
+
+    At tensor-parallel size > 1 only tp rank 0 listens.  On the other
+    ranks this binds no port and decides nothing: it runs
+    ``srv.follow()``, applying rank 0's plans until rank 0 closes the
+    server, and returns its ``{rid: output}``."""
+    if srv.tp_follower:
+        return srv.follow()
     return ServingHTTPFrontend(srv, **kwargs).start()
 
 

@@ -2,7 +2,8 @@
 ``deepspeed_tpu/module_inject/containers.py``): one policy class per HF
 decoder family whose every knob the port's ``Transformer`` has — OPT
 (with opt-350m's post-LN and ``embed_proj_dim`` layout, and an HF-named
-export), GPT-2, Llama / Mistral and GPT-Neo.  The JAX package's other
+export), GPT-2, Llama / Mistral, GPT-Neo and Megatron-LM GPT.  The JAX
+package's other
 families raise ``NotImplementedError`` naming what the port still lacks
 (:data:`UNPORTED_FAMILIES`, ROADMAP.md).
 """
@@ -12,7 +13,8 @@ import numpy as np
 from deepspeed_tpu_torch.models.transformer import TransformerConfig
 from deepspeed_tpu_torch.module_inject.policy import (
     ACT_MAP, HFPolicy, _np, inv_linear_kernel, inv_o_kernel, inv_qkv_bias,
-    inv_qkv_kernel, linear_kernel, split_fused_qkv_columns)
+    inv_qkv_kernel, linear_kernel, o_kernel, split_fused_qkv_columns,
+    split_fused_qkv_headwise)
 
 
 class OPTPolicy(HFPolicy):
@@ -271,7 +273,92 @@ class GPTNeoPolicy(HFPolicy):
 
 
 
-ALL_POLICIES = [OPTPolicy, GPT2Policy, LlamaPolicy, GPTNeoPolicy]
+class MegatronGPTPolicy(HFPolicy):
+    """Megatron-LM GPT checkpoints (reference ``containers/megatron_gpt.py``
+    + ``replace_policy.py`` MegatronLayerPolicy): pre-LN GPT-2 architecture
+    with fused query_key_value, dense_h_to_4h/dense_4h_to_h MLP naming, and
+    two fused-QKV row layouts — Megatron v2 interleaves per head ([H, 3, D]),
+    v1 chunks per projection ([3, H·D]).  Consumes a *merged* state dict (use
+    ``runtime/state_dict_factory.py`` MegatronSDLoader to fold TP shards
+    first); see ``replace_module.load_megatron_model`` for the end-to-end
+    path."""
+
+    model_types = ("megatron-gpt",)
+    PREFIXES = ("model.language_model.", "language_model.", "module.", "")
+    megatron_v2 = True
+
+    @staticmethod
+    def normalize(sd):
+        """Strip megatron wrapper prefixes; unify encoder/transformer."""
+        out = {}
+        for k, v in sd.items():
+            for p in MegatronGPTPolicy.PREFIXES:
+                if p and k.startswith(p):
+                    k = k[len(p):]
+                    break
+            k = k.replace("encoder.layers.", "transformer.layers.")
+            out[k] = v
+        return out
+
+    def build_config(self, hf, **over):
+        # hf here is a plain namespace carrying megatron args
+        def get(n, d=None):
+            return getattr(hf, n, d)
+        base = dict(
+            vocab_size=get("padded_vocab_size") or get("vocab_size"),
+            hidden_size=get("hidden_size"),
+            num_layers=get("num_layers"),
+            num_heads=get("num_attention_heads") or get("num_heads"),
+            ffn_hidden_size=get("ffn_hidden_size") or 4 * get("hidden_size"),
+            max_seq_len=get("max_position_embeddings", 1024),
+            activation="gelu",
+            position_embedding="learned",
+            tie_word_embeddings=True,
+            layernorm_epsilon=get("layernorm_epsilon", 1e-5),
+        )
+        base.update(over)
+        return TransformerConfig(**base)
+
+    def top_params(self, sd, cfg):
+        emb = "embedding.word_embeddings.weight"
+        pos = "embedding.position_embeddings.weight"
+        out = {"embed_tokens/embedding":
+               _np(sd[emb] if emb in sd
+                   else sd["word_embeddings.weight"])[:cfg.vocab_size],
+               "embed_positions/embedding":
+               _np(sd[pos] if pos in sd
+                   else sd["position_embeddings.weight"])}
+        out.update(self.norm(sd, "transformer.final_layernorm", "final_norm"))
+        return out
+
+    def layer_params(self, sd, i, cfg):
+        p = f"transformer.layers.{i}"
+        H, D = cfg.num_heads, cfg.head_dim
+        w = sd[f"{p}.attention.query_key_value.weight"]
+        b = sd.get(f"{p}.attention.query_key_value.bias")
+        if self.megatron_v2:
+            out = split_fused_qkv_headwise(w, H, D, bias=b)
+        else:
+            out = split_fused_qkv_columns(_np(w).T, H, D,
+                                          bias=None if b is None else _np(b))
+        out["attn/o_proj/kernel"] = o_kernel(
+            sd[f"{p}.attention.dense.weight"], H, D)
+        out["attn/o_proj/bias"] = _np(sd[f"{p}.attention.dense.bias"])
+        out.update(self.norm(sd, f"{p}.input_layernorm", "input_norm"))
+        out.update(self.norm(sd, f"{p}.post_attention_layernorm",
+                             "post_attn_norm"))
+        out["mlp/up_proj/kernel"] = linear_kernel(
+            sd[f"{p}.mlp.dense_h_to_4h.weight"])
+        out["mlp/up_proj/bias"] = _np(sd[f"{p}.mlp.dense_h_to_4h.bias"])
+        out["mlp/down_proj/kernel"] = linear_kernel(
+            sd[f"{p}.mlp.dense_4h_to_h.weight"])
+        out["mlp/down_proj/bias"] = _np(sd[f"{p}.mlp.dense_4h_to_h.bias"])
+        return out
+
+
+
+ALL_POLICIES = [OPTPolicy, GPT2Policy, LlamaPolicy, GPTNeoPolicy,
+                MegatronGPTPolicy]
 
 # the JAX package's other families: model_type -> what the port lacks
 UNPORTED_FAMILIES = {
@@ -282,7 +369,5 @@ UNPORTED_FAMILIES = {
     "distilbert": "the encoder models (models/bert.py)",
     "clip_text_model": "the encoder models (models/bert.py)",
     "clip": "the encoder models (models/bert.py)",
-    "megatron-gpt": "tensor-parallel shard merging "
-                    "(runtime/state_dict_factory.py)",
-    "megatron-gpt-moe": "MoE and tensor-parallel shard merging",
+    "megatron-gpt-moe": "MoE (mlp.deepspeed_moe experts)",
 }

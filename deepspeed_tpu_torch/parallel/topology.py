@@ -11,7 +11,10 @@ a device's is in the JAX mesh, and the group of an axis (or a tuple of
 axes) is every rank that differs from this one only along those axes.
 Each group becomes a ``torch.distributed`` ``ProcessGroup`` (the world's
 group when it spans the world).  The data-parallel group is the compound
-``DP_AXES = (mdp, edp, ep)``, as in JAX.
+``DP_AXES = (mdp, edp, ep)``, as in JAX.  At ``tp`` > 1 each tp group
+also gets a gloo twin for host messages between its ranks (the serving
+plans of ``inference/serving/tp_schedule.py``), beside the model's
+collectives and never interleaved with them.
 
 The port accepts data parallelism, split by MiCS (``mics`` > 0) into
 ``mdp`` replica groups of ``mics`` sharding ranks each, as JAX's
@@ -24,6 +27,7 @@ Every tp rank of one data-parallel index takes the same batch rows.
 queue A).  The rank algebra covers every axis already.
 """
 
+import datetime
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -48,6 +52,10 @@ EXPERT_GRAD_AXES = (MDP_AXIS, EDP_AXIS, SP_AXIS)
 GROUP_AXES = tuple((a,) for a in AXIS_ORDER) + (
     DP_AXES, DENSE_GRAD_AXES, EXPERT_GRAD_AXES, (MDP_AXIS, EDP_AXIS))
 
+# a receive on the tp groups' gloo twins waits this long (an idle server
+# sends its followers nothing) before it times out
+CPU_GROUP_TIMEOUT = datetime.timedelta(hours=24)
+
 
 def _not_ported(what):
     raise NotImplementedError(
@@ -62,7 +70,8 @@ class ParallelTopology:
     ``runtime/pipe/topology.py:244``).  ``ranks`` (default ``0 ..
     world_size - 1``) are the world ranks laid out in the grid;
     ``groups`` holds the ``ProcessGroup`` of each axis tuple in
-    ``GROUP_AXES`` for this rank once :meth:`build_groups` ran."""
+    ``GROUP_AXES`` for this rank once :meth:`build_groups` ran, and
+    ``tp_cpu_group`` the gloo twin of its tp group (None at tp 1)."""
 
     dp: int = 1
     tp: int = 1
@@ -72,6 +81,7 @@ class ParallelTopology:
     mdp: int = 1
     ranks: Optional[list] = field(default=None, repr=False)
     groups: dict = field(default=None, repr=False)
+    tp_cpu_group: object = field(default=None, repr=False)
 
     def __post_init__(self):
         if self.dp % (self.ep * self.mdp) != 0:
@@ -144,7 +154,8 @@ class ParallelTopology:
         """Create the ``ProcessGroup`` of every axis tuple of
         ``GROUP_AXES`` (every rank of the world calls this, as torch's
         ``new_group`` requires); a group spanning the world is the world's
-        group.  Returns ``self``."""
+        group; at tp > 1 also the tp groups' gloo twins.  Returns
+        ``self``."""
         import torch.distributed as dist
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError("build_groups needs a live process group "
@@ -165,6 +176,10 @@ class ParallelTopology:
                     made[key] = mine
             groups[axes] = made[key]
         self.groups = groups
+        if self.tp > 1:
+            self.tp_cpu_group, _ = dist.new_subgroups_by_enumeration(
+                self.group_ranks((TP_AXIS,)), timeout=CPU_GROUP_TIMEOUT,
+                backend="gloo")
         self.rank = me
         return self
 
@@ -231,6 +246,13 @@ class ParallelTopology:
 
     def get_model_parallel_group(self):
         return self.group_for((TP_AXIS,))
+
+    def get_model_parallel_cpu_group(self):
+        """The gloo twin of this rank's tp group (host messages; tp > 1)."""
+        if self.tp_cpu_group is None:
+            raise RuntimeError("the topology has no tp gloo group: it is "
+                               "built at tp > 1 by build_groups()")
+        return self.tp_cpu_group
 
     def get_model_parallel_rank(self, rank=None):
         return self.index_in((TP_AXIS,), self._me(rank))

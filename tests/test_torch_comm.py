@@ -305,6 +305,7 @@ def _run(dtype, stage=None, steps=3):
 def world_one(tmp_path_factory):
     """A gloo group of one in this process: stages 0, 1, 2 and the engine
     without a group, fp32 and bf16 (bf16 accumulation)."""
+    threads = torch.get_num_threads()
     torch.set_num_threads(1)
     want = {d: _run(d) for d in ("float32", "bfloat16")}
     os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
@@ -315,6 +316,7 @@ def world_one(tmp_path_factory):
                for s in (0, 1, 2)}
         assert comm.get_world_size() == 1
     finally:
+        torch.set_num_threads(threads)
         comm.destroy_process_group()
         for var in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR",
                     "MASTER_PORT"):

@@ -211,7 +211,7 @@ def test_bf16_greedy_identical_to_jax(tiny, tmp_path):
     subprocess.run([sys.executable, "-c", JAX_BF16_GENERATE,
                     str(tmp_path / "tree.npz"), str(cfg.kv_heads),
                     str(tmp_path / "ids.npy"), str(tmp_path / "want.npy"),
-                    str(NEW)], env=env, check=True, timeout=300,
+                    str(NEW)], env=env, check=True, timeout=900,
                    capture_output=True)
     want = np.load(tmp_path / "want.npy")
     teng = deepspeed_tpu_torch.init_inference(

@@ -52,6 +52,17 @@ POLICIES = ("nothing_saveable", "flash_only_saveable",
             "everything_saveable")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread in this process, whatever an earlier module of
+    the same worker left set: the in-process engines sum in one order
+    under any load, as the launched ranks (one thread each) do."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def overrides(twin, dtype):
     return dict(TWINS[twin], num_layers=2, vocab_size=VOCAB, dtype=dtype,
                 scan_layers=False, remat=False)

@@ -23,7 +23,8 @@ the flax init of tiny models converted with ``params_from_flax``:
   gradient norm with clipping active equals JAX's, and counting the
   replicated leaves twice would not;
 - greedy ``generate`` at tp 2 equals JAX's tp-2 tokens and the port's tp 1
-  (fp32); ``serve()`` at tp 2 raises naming ROADMAP.md;
+  (fp32); speculative ``serve()`` at tp 2 raises naming ROADMAP.md
+  (``tests/test_torch_serving_tp.py`` serves at tp 2);
 - ``initialize(mpu=)`` with Megatron's legacy and Megatron-Core names, an
   explicit ``topology`` winning over an mpu, the config's tp otherwise;
 - ``init_inference`` at tp 2 of an HF model (converted, then cut) and of

@@ -19,6 +19,7 @@ is checked), and the checkpoints of a partitioned model:
 
 import numpy as np
 import pytest
+import torch
 
 import torch_zero3_common as common
 
@@ -26,6 +27,17 @@ DP = 4
 STAGE3 = [k for k in common.RUNS[DP] if k[0] == 3]
 FP32 = [k for k in STAGE3 if k[1] == "float32"]
 MICS = (3, "float32", 1, 2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread in this process, whatever an earlier module of
+    the same worker left set: the in-process engines sum in one order
+    under any load, as the launched ranks (one thread each) do."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

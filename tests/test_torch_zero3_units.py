@@ -86,6 +86,7 @@ def _run(variant, stage=None, steps=3):
 
 @pytest.fixture(scope="module")
 def world_one():
+    threads = torch.get_num_threads()
     torch.set_num_threads(1)
     want = {v: _run(v) for v in VARIANTS}
     os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
@@ -96,6 +97,7 @@ def world_one():
         # zero.Init over one rank: the whole tensors come back
         init = Init().materialize(lambda: {"w": torch.ones(4, 6)})
     finally:
+        torch.set_num_threads(threads)
         comm.destroy_process_group()
         for var in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR",
                     "MASTER_PORT"):

@@ -8,6 +8,7 @@ the resumed step gives dp 2's next step (loss rtol 1e-4, JAX's
 
 import numpy as np
 import pytest
+import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import transformer as pt
@@ -15,6 +16,17 @@ from deepspeed_tpu_torch.models import transformer as pt
 import torch_zero_dp_common as common
 
 DP = 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread in this process, whatever an earlier module of
+    the same worker left set: the in-process engines sum in one order
+    under any load, as the launched ranks (one thread each) do."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -51,7 +51,7 @@ RUNS = {2: [("opt96", 0, "float32", 2), ("opt96", 0, "bfloat16", 2),
             ("opt97", 0, "float32", 2)],
         4: [("opt96", 1, "float32", 2), ("opt96", 2, "float32", 2),
             ("opt96", 3, "float32", 2), ("llama", 0, "float32", 4)]}
-JOIN_TIMEOUT = 240
+JOIN_TIMEOUT = 900
 
 
 def jax_model(variant, dtype="float32"):

@@ -7,11 +7,14 @@ JAX: the tests start it through the port's launcher,
 and each rank writes ``OUT_DIR/SUITE.rank<r>.pt``, which the tests hold
 against the JAX engine at the same mesh (``tests/torch_tp_common.py``).
 
-Suites: ``tp`` (world 2, tp 2: training runs from INPUT, each rank's
+Suites: ``serve`` (world 2: serving at tp 2), ``uni4`` / ``uni2``
+(world 4 / 2: a universal checkpoint written at tp 2 × dp 2 under ZeRO-3
+and loaded at tp 2 and at dp 2), ``tp`` (world 2, tp 2: training runs from INPUT, each rank's
 slices, gradients of one micro step with and without copy-to-TP's
 all-reduce, the gradient norm, greedy ``generate`` of the port's model, of
 an HF model and of int8 weights, ``initialize(mpu= / topology=)``, a
 module each rank drew from its own seed),
+``serve_cuda`` (on the cards: serving at tp 2 against one card's),
 ``tp4`` (world 4:
 tp 2 × dp 2 under ZeRO-1/2/3 with each rank's moments, tp 4 with kv heads
 that do not divide by tp, the order of the collectives, and a tag saved
@@ -22,6 +25,7 @@ greedy generate at tp 2 with and without the captured decode graphs).
 
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -131,7 +135,7 @@ def _generate(inp, variant):
     eng.set_params(inp["weights"][variant])
     out = {"one_pass": eng.generate(inp["gen_ids"], max_new_tokens=8)}
     try:
-        eng.serve()
+        eng.serve(speculative=True, spec_draft_model="self")
         out["serve_raises"] = False
     except NotImplementedError as e:
         out["serve_raises"] = "ROADMAP" in str(e)
@@ -327,6 +331,215 @@ def tp4_suite(rank, inp):
     return rec
 
 
+# --------------------------------------------------------------------- #
+# universal checkpoints (tests/test_torch_universal_checkpoint.py)
+# --------------------------------------------------------------------- #
+def uni4_suite(rank, inp):
+    """tp 2 × dp 2 under ZeRO-3 from the converted weights: the steps, a
+    tag, its universal directory (rank 0), then the next step."""
+    from deepspeed_tpu_torch.checkpoint import convert_to_universal
+    uni = inp["uni"]
+    eng = _engine(inp, "opt96", 3, "float32", 2)
+    losses = [float(eng.train_batch(batch=b)) for b in inp["batches"]]
+    eng.save_checkpoint(uni["ckpt_dir"], tag="tp2dp2")
+    if rank == 0:
+        convert_to_universal(uni["ckpt_dir"], uni["dir"], tag="tp2dp2")
+        open(uni["dir"] + ".done", "w").close()
+    return {"losses": losses,
+            "loss_next": float(eng.train_batch(batch=uni["next"]))}
+
+
+def uni2_suite(rank, inp):
+    """Once the universal directory is there: load it at tp 2 (ZeRO-1) and
+    at dp 2 (ZeRO-3), save each engine's tag, take the next step."""
+    from deepspeed_tpu_torch.checkpoint import load_universal_into_engine
+    uni = inp["uni"]
+    deadline = time.monotonic() + 600
+    while not os.path.exists(uni["dir"] + ".done"):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{uni['dir']} never appeared")
+        time.sleep(0.2)
+    rec = {}
+    for tag, stage, tp in (("tp2", 1, 2), ("dp2", 3, 1)):
+        topo_mod.reset_topology()
+        eng = _engine(inp, "opt96", stage, "float32", tp, weights=False)
+        load_universal_into_engine(eng, uni["dir"])
+        eng.save_checkpoint(uni["ckpt_dir"], tag=tag)
+        rec[tag] = {"steps": eng.global_steps,
+                    "loss_next": float(eng.train_batch(batch=uni["next"]))}
+    return rec
+
+
+# --------------------------------------------------------------------- #
+# serving at tp 2 (tests/test_torch_serving_tp.py)
+# --------------------------------------------------------------------- #
+def _serve_engine(inp):
+    eng = ds.init_inference(
+        pt.Transformer(pt.TransformerConfig(**inp["cfg"])),
+        config={"dtype": "float32", "prefill_chunk_size": 8,
+                "serving": dict(inp["serving"]),
+                "tensor_parallel": {"tp_size": 2}}, device=DEV)
+    eng.set_params(inp["sd"])
+    return eng
+
+
+def _served(srv, submit):
+    """Rank 0 submits and drains; a follower follows.  Each request's
+    output, status and replayed stream, and the ids the call returned."""
+    if srv.tp_follower:
+        returned = srv.follow()
+    else:
+        submit(srv)
+        returned = srv.drain()
+        srv.close()
+    rids = sorted(srv._requests)
+    return {"returned": sorted(returned),
+            "outs": {r: srv.result(r).output for r in rids},
+            "status": {r: srv.status(r) for r in rids},
+            "detail": {r: srv.result(r).detail for r in rids},
+            "streams": {r: list(srv.token_events(r).events(timeout=5))
+                        for r in rids}}
+
+
+def _lifecycle(srv, inp):
+    """Rank 0's decisions: a request shed from the queue (deadline 0), one
+    whose deadline passes in its slot, a cancel of a queued and of a
+    running request; then drain."""
+    reqs = inp["requests"]
+    shed_q = srv.submit(reqs[0][0], max_new_tokens=8, deadline_s=0.0)
+    late = srv.submit(reqs[1][0], max_new_tokens=12, deadline_s=0.5)
+    rest = [srv.submit(p, max_new_tokens=n, eos_token_id=e)
+            for p, n, e in reqs[2:]]
+    running = []
+    while not running:
+        srv.step()
+        running = [r for r in rest if srv.status(r) == "RUNNING"]
+    srv.cancel(rest[-1])                 # still queued (3 slots)
+    srv.cancel(running[0])
+    time.sleep(0.6)                      # `late` expires in its slot
+    return shed_q, late
+
+
+def _dispatch_failure(eng, rank, submit_all):
+    """A fault injected into rank 1's second decode dispatch: each rank's
+    error (the wall-clock instant it came), whether its server closed, and
+    every request's status there.  The ranks' collectives are out of step
+    after it, so this runs last and the process ends without a barrier."""
+    from deepspeed_tpu_torch.runtime.fault import inject
+    srv = eng.serve()
+    if rank == 1:
+        inject.configure_injection({"point": "serving.pre_decode_dispatch",
+                                    "at": 2})
+    out = {"error": None}
+    try:
+        _served(srv, submit_all)
+    except RuntimeError as e:
+        out.update(error=str(e), at=time.time())
+    finally:
+        inject.reset_injection()
+    out["closed"] = srv._closed
+    out["status"] = sorted({srv.status(r) for r in srv._requests})
+    srv.close()
+    return out
+
+
+def serve_suite(rank, inp):
+    """tp 2 serving on lanes, on a pool, sampled; a lifecycle with rank
+    1's clock skewed; ``serve_http`` on rank 0 against direct submits; the
+    circuit breaker refused; a dispatch failure on rank 1 alone."""
+    from types import SimpleNamespace
+    from deepspeed_tpu_torch.inference.serving import engine as seng
+    from deepspeed_tpu_torch.inference.serving import serve_http
+    eng = _serve_engine(inp)
+    reqs = inp["requests"]
+
+    def submit_all(srv):
+        return [srv.submit(p, max_new_tokens=n, eos_token_id=e)
+                for p, n, e in reqs]
+
+    rec = {}
+    for route, kw in inp["routes"].items():
+        srv = eng.serve(**kw)
+        if not srv.tp_follower and route == "paged":
+            srv.warmup()                 # the followers capture alike
+        rec[route] = _served(srv, submit_all)
+    # a clock a day ahead on rank 1: a follower takes no time decision
+    real = time.monotonic
+    if rank == 1:
+        seng.time = SimpleNamespace(monotonic=lambda: real() + 86400.0,
+                                    perf_counter=time.perf_counter,
+                                    sleep=time.sleep, time=time.time)
+    try:
+        srv = eng.serve(paged=True, page_size=16)
+        rec["lifecycle"] = _served(srv, lambda s: _lifecycle(s, inp))
+    finally:
+        seng.time = time
+    # the HTTP front end listens on rank 0 only
+    srv = eng.serve()
+    if srv.tp_follower:
+        rec["http"] = {"follower_result": type(serve_http(srv)).__name__}
+    else:
+        import http.client
+        import json
+        fe = serve_http(srv, port=0)
+        outs = []
+        for p, n, e in reqs:
+            conn = http.client.HTTPConnection("127.0.0.1", fe.port,
+                                              timeout=120)
+            conn.request("POST", "/v1/generate", json.dumps(
+                {"input_ids": [int(t) for t in p], "max_new_tokens": n,
+                 "eos_token_id": e}))
+            outs.append(json.loads(conn.getresponse().read())["output"])
+            conn.close()
+        fe.shutdown(close_engine=True)
+        rec["http"] = {"outputs": outs}
+    try:
+        eng.serve(breaker_threshold=2)
+        rec["breaker"] = None
+    except NotImplementedError as e:
+        rec["breaker"] = str(e)
+    rec["failure"] = _dispatch_failure(eng, rank, submit_all)
+    return rec
+
+
+def serve_cuda_suite(rank, inp):
+    """On the cards: one card's fp32 ``serve()`` of the requests on rank 0
+    before the group exists, then ``serve()`` at tp 2 over NCCL (captured
+    decode block) on a pool and on lanes: rank 0's outputs."""
+    import torch.distributed as dist
+    reqs = inp["requests"]
+
+    def serve_all(eng, **kw):
+        srv = eng.serve(**kw)
+        if srv.tp_follower:
+            srv.follow()
+            return None
+        srv.warmup()
+        rids = [srv.submit(p, max_new_tokens=n, eos_token_id=e)
+                for p, n, e in reqs]
+        outs = srv.drain()
+        srv.close()
+        return [outs[r] for r in rids]
+
+    ref = None
+    if rank == 0:
+        one = ds.init_inference(
+            pt.Transformer(pt.TransformerConfig(**inp["cfg"])),
+            config={"dtype": "float32", "prefill_chunk_size": 8,
+                    "serving": dict(inp["serving"])}, device="cuda")
+        one.set_params(inp["sd"])
+        ref = {route: serve_all(one, **kw)
+               for route, kw in inp["routes"].items()}
+        del one
+    os.environ.setdefault("LOCAL_RANK", str(rank))
+    ds.init_distributed(device=DEV, timeout=240)
+    box = [ref]
+    dist.broadcast_object_list(box, src=0)
+    eng = _serve_engine(inp)
+    return {"ref": box[0], "tp2": {route: serve_all(eng, **kw)
+                                   for route, kw in inp["routes"].items()}}
+
+
 def tp_cuda_suite(rank, inp):
     """On the cards: the one-card references on rank 0 before the group
     exists, then tp 2 (bf16 training, fp32 greedy generate with the decode
@@ -377,8 +590,9 @@ def main():
     rank = int(os.environ["RANK"])
     torch.set_num_threads(1)
     inp = torch.load(sys.argv[3], weights_only=False)
-    if suite == "tp_cuda":
-        rec = tp_cuda_suite(rank, inp)
+    if suite in ("tp_cuda", "serve_cuda"):
+        rec = (tp_cuda_suite if suite == "tp_cuda" else serve_cuda_suite)(
+            rank, inp)
         _save(out_dir, suite, rank, rec)
         comm.barrier()
         comm.destroy_process_group()
@@ -388,6 +602,15 @@ def main():
         rec = tp_suite(rank, inp)
     elif suite == "tp4":
         rec = tp4_suite(rank, inp)
+    elif suite == "serve":
+        # its last phase leaves the group out of step: no barrier after it
+        _save(out_dir, suite, rank, serve_suite(rank, inp))
+        sys.stdout.flush()
+        os._exit(0)
+    elif suite == "uni4":
+        rec = uni4_suite(rank, inp)
+    elif suite == "uni2":
+        rec = uni2_suite(rank, inp)
     else:
         raise SystemExit(f"unknown suite {suite!r}")
     _save(out_dir, suite, rank, rec)

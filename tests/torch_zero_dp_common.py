@@ -41,7 +41,7 @@ CFG = dict(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4,
 S, GM, STEPS, LR = 16, 4, 3, 3e-3
 RUNS = {2: [(s, d, 2) for d in ("float32", "bfloat16") for s in (0, 1, 2)],
         4: [(s, d, 1) for d in ("float32", "bfloat16") for s in (0, 1, 2)]}
-JOIN_TIMEOUT = 240
+JOIN_TIMEOUT = 900
 
 
 def free_port():
